@@ -1,0 +1,8 @@
+"""Llama3-8B (paper simulator baseline)."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3-8b", family="dense", n_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, head_dim=128, d_ff=14336,
+    vocab_size=128256, vocab_pad_multiple=512, rope_theta=500000.0,
+)

@@ -1,0 +1,58 @@
+"""Public op wrappers for paged decode attention (counterpart of
+``repro/kernels/decode_attention/ops.py``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention.paged_kernel import (
+    paged_decode_attention,
+)
+from repro_torch.kernels.decode_attention.ref import (
+    QUANT_SLICE, gather_pages, paged_decode_attention_ref,
+)
+from repro_torch.models.common import blocked_attention
+
+
+def paged_gqa_multi_attention(q, k_pages, v_pages, page_table, start, *,
+                              causal=True, window=None):
+    """Multi-token paged attention for chunked prefill: q (B, C, H, D) at
+    per-row absolute offsets ``start`` (B,); query j of row b sits at
+    ``start[b] + j`` and attends causally up to itself.  Gathers the pages
+    and runs ``blocked_attention``'s ragged ``q_offset`` online softmax
+    (the reference's ``impl="blocked"``; its ``"reference"`` impl serves
+    speculative verify, which the port has not reached yet)."""
+    k_d = gather_pages(k_pages, page_table)
+    v_d = gather_pages(v_pages, page_table)
+    return blocked_attention(q, k_d, v_d, causal=causal, window=window,
+                             q_offset=start)
+
+
+def paged_gqa_decode_attention(q, k_pages, v_pages, page_table, pos, *,
+                               k_scales=None, v_scales=None,
+                               window=None, impl: str = "auto"):
+    """Paged single-token decode attention behind one of two impls:
+
+      * ``"fused"``     — the hand-written CUDA kernel (``paged_kernel``):
+        the page table drives the walk, each live K/V page streams from
+        device memory straight into the on-chip flash-decode state;
+      * ``"reference"`` — the gather-then-dense plain PyTorch version.
+
+    ``"auto"`` takes the plain version for tensors on the CPU and the
+    kernel for CUDA tensors — only the kernel: a build or launch failure
+    raises.  ``"fused"`` on a CPU tensor raises (CUDA has no interpret
+    mode)."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(QUANT_SLICE)
+    if impl == "auto":
+        impl = "reference" if q.device.type == "cpu" else "fused"
+    if impl == "reference":
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                          pos, window=window)
+    if impl != "fused":
+        raise ValueError(f"impl={impl!r} (want 'auto', 'fused' or 'reference')")
+    if not q.is_cuda:
+        raise ValueError("impl='fused' runs the CUDA kernel and needs CUDA "
+                         f"tensors; q is on {q.device}")
+    return paged_decode_attention(q, k_pages, v_pages,
+                                  page_table.to(torch.int32),
+                                  pos.to(torch.int32), window=window)

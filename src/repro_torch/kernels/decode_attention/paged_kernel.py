@@ -1,0 +1,128 @@
+"""Paged single-token GQA decode attention: the CUDA kernel's wrapper.
+
+The Hopper counterpart of the Pallas kernel
+``repro/kernels/decode_attention/paged_kernel.py::paged_decode_attention``
+(its online accumulator over dense pools).  The kernel itself is
+``csrc/paged_decode.cu``: CTAs per (kv head, slot, split) walk their share
+of the slot's live pages through the page table, double-buffered in shared
+memory, with q and the f32 online-softmax state on chip; a second kernel
+folds the splits.  The source's header says what bounds it and why it is
+built so.
+
+The library is compiled from the repo's sources by ``nvcc`` at first use
+(``kernels/_build.py``) and called through ``ctypes`` on PyTorch's current
+stream.  This wrapper checks every tensor before the launch and raises on a
+refused launch; it never falls back to the plain version (``ref.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels._build import build
+
+NAME = "paged_decode_attention"
+SOURCE = Path(__file__).parent / "csrc" / "paged_decode.cu"
+HEAD_DIMS = (64, 128, 256)
+MAX_REP = 16                      # kMaxRep in the source
+SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build("paged_decode", [SOURCE])
+    fn = lib.paged_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.paged_decode_error_string.argtypes = [ctypes.c_int]
+    lib.paged_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def num_splits(b: int, kvh: int, n_blocks: int, sms: int) -> int:
+    """CTAs per (kv head, slot): enough for about four per SM across the
+    batch, with at least two pages per split."""
+    want = -(-4 * sms // (b * kvh))
+    return max(1, min(want, -(-n_blocks // 2)))
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{NAME}: {msg}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           window: int | None = None) -> torch.Tensor:
+    """Single-token paged GQA decode attention; returns (B, H, D) in q.dtype.
+
+    q (B, H, D); k_pages / v_pages (P, page, KVH, D), bf16 or f32;
+    page_table (B, n_blocks) int32; pos (B,) int32, each >= 0.  Every entry
+    of the table's live blocks (block ``pos // page`` and below) must name a
+    page of the pool: the kernel reads through it unchecked."""
+    _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("pos", pos)):
+        _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("pos", pos)):
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    _check(q.dtype in _DTYPE_CODES, f"q dtype {q.dtype} (want f32/bf16)")
+    _check(k_pages.dtype in _DTYPE_CODES and v_pages.dtype == k_pages.dtype,
+           f"pool dtypes {k_pages.dtype}/{v_pages.dtype} (want one of f32/bf16)")
+    _check(page_table.dtype == torch.int32 and pos.dtype == torch.int32,
+           "page_table and pos must be int32")
+    _check(q.ndim == 3 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
+           f"shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
+           f"v {tuple(v_pages.shape)}")
+    b, h, d = q.shape
+    _, page, kvh, dk = k_pages.shape
+    _check(dk == d and d in HEAD_DIMS, f"head dim {d} / pool {dk} "
+           f"(supported: {HEAD_DIMS})")
+    _check(h % kvh == 0 and h // kvh <= MAX_REP,
+           f"{h} heads over {kvh} kv heads (at most {MAX_REP} per kv head)")
+    _check(page_table.ndim == 2 and page_table.shape[0] == b
+           and page_table.shape[1] >= 1, f"page_table {tuple(page_table.shape)}")
+    _check(pos.shape == (b,), f"pos {tuple(pos.shape)}, want ({b},)")
+    _check(window is None or window >= 1, f"window={window}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+    rep = h // kvh       # shared memory: q, scores, state, 2 K/V page buffers
+    smem = 4 * (rep * d + rep * page + 3 * rep + 3) + 4 * page * d * \
+        k_pages.element_size()
+    _check(smem <= SMEM_LIMIT, f"page {page} x head dim {d} needs {smem} B of "
+           f"shared memory (limit {SMEM_LIMIT})")
+
+    n_blocks = page_table.shape[1]
+    n_split = num_splits(b, kvh, n_blocks, _num_sms(dev.index))
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    ws_acc = torch.empty((b, h, n_split, d), dtype=torch.float32, device=dev)
+    ws_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            ws_acc.data_ptr(), ws_ml.data_ptr(), b, kvh, rep, d, page,
+            n_blocks, n_split, window or 0, 1.0 / math.sqrt(d),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], stream)
+    if err != 0:
+        msg = lib.paged_decode_error_string(err).decode()
+        raise RuntimeError(f"{NAME} launch failed: {msg} (cudaError {err})")
+    LAUNCHES[NAME] += 1
+    return out

@@ -1,0 +1,52 @@
+"""Plain PyTorch versions of paged single-token decode attention — what the
+CUDA kernel in ``csrc/paged_decode.cu`` is held against.  Counterpart of
+``repro/kernels/decode_attention/ref.py``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import decode_attention_ref
+
+QUANT_SLICE = ("fp8/int8 KV pools (k_scales/v_scales) arrive with the port's "
+               "quantization slice (ROADMAP Queue 1, 'Quantization')")
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """(P, page, ...) pool + (B, n_blocks) table -> (B, n_blocks*page, ...)
+    position-ordered dense view (block i of row b = physical page
+    ``page_table[b, i]``)."""
+    g = pages[page_table.long()]               # (B, n_blocks, page, ...)
+    b, nb, ps = g.shape[:3]
+    return g.reshape((b, nb * ps) + tuple(g.shape[3:]))
+
+
+def paged_valid_mask(page_table: torch.Tensor, page_size: int,
+                     pos: torch.Tensor, *, window=None) -> torch.Tensor:
+    """(B, n_blocks*page) bool mask of logical positions visible to the
+    token being decoded at per-row position ``pos`` (inclusive: the new
+    token's own k/v has already been scattered at ``pos``)."""
+    s = page_table.shape[1] * page_size
+    idx = torch.arange(s, device=pos.device)[None, :]
+    valid = idx <= pos[:, None]
+    if window is not None:
+        valid = valid & (idx > pos[:, None] - window)
+    return valid
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, pos, *,
+                               k_scales=None, v_scales=None,
+                               window=None, scale=None):
+    """Paged single-token decode attention, gather-then-dense.
+
+    q:          (B, H, D) — one new token per slot
+    k_pages:    (P, page, KVH, D) physical page pool
+    v_pages:    (P, page, KVH, Dv)
+    page_table: (B, n_blocks) int — logical block -> physical page
+    pos:        (B,) int — per-slot position of the new token
+    """
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(QUANT_SLICE)
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    valid = paged_valid_mask(page_table, k_pages.shape[1], pos, window=window)
+    return decode_attention_ref(q, k, v, None, valid=valid, scale=scale)

@@ -1,0 +1,489 @@
+"""Continuous-batching serve engine over a block-paged KV cache.
+
+The port of ``repro/runtime/engine.py``'s ``ContinuousServeEngine`` for one
+device and full-KV layouts.  Requests arrive raggedly; iteration-level
+batching admits each one into a freed decode slot the moment both a slot
+and KV pages are available.  Admission runs **chunked prefill straight into
+the page pools** (one fixed-size chunk per prefilling request per
+iteration, batched across slots at ragged offsets, power-of-two row
+buckets), interleaved with one decode step over every decoding slot, so a
+long prompt never stalls the running batch.  Prefix caching shares a
+matching prompt's leading pages read-only; copy-on-write, preemption and
+defrag are host bookkeeping between steps (``kv_cache.py`` and
+``scheduler.py`` are verbatim copies of the reference's).
+
+Where the reference jits ``_step_impl``/``_chunk_impl`` and donates the
+pools, here they are plain methods and the pools are updated in place.
+On CUDA the decode attention of every layer is the hand-written paged
+decode kernel; on the CPU it is its plain version.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``spec=`` (DeploymentSpec sizing), ``mesh=`` (tensor parallelism),
+``speculative=``, ``weight_format=`` and quantized ``cache_dtype``,
+``phase != "colocated"`` (disaggregation), sliding-window / stateful
+layouts, and prompt scoring (``SamplingParams.prompt_logprobs``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.runtime import sampling
+from repro_torch.runtime.kv_cache import PagedKVCache
+from repro_torch.runtime.sampling import SamplingParams
+from repro_torch.runtime.scheduler import RUNNING, Request, Scheduler
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, '{item}')")
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    """One structured progress/result record for a request.
+
+    Streaming emits one per request per engine iteration that produced
+    tokens (``new_token_ids`` is the delta — across a preemption-restart
+    the re-derived tokens are NOT re-emitted); the final record has
+    ``finished=True`` with a ``finish_reason`` of "stop" or "length".  The
+    cumulative fields (``token_ids``, ``logprobs``) are populated on
+    finished records only."""
+    rid: int
+    new_token_ids: list[int]
+    token_ids: list[int]               # cumulative; finished records only
+    finished: bool = False
+    finish_reason: str | None = None
+    logprobs: list[float] | None = None    # cumulative, iff requested
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ContinuousStats:
+    """Outcome of one serving session (``run`` or ``stats``)."""
+    results: dict                 # rid -> np.ndarray (n_new,) int32
+    steps: int                    # decode iterations executed
+    occupancy: float              # mean fraction of decoding slots per step
+    wall: float                   # seconds since the session started
+    preemptions: int
+    chunks: int = 0               # prefill chunk rows executed
+    prefill_tokens: int = 0       # prompt tokens actually computed
+    prompt_tokens: int = 0        # prompt tokens across all admissions
+    prefix_hit_tokens: int = 0    # prompt tokens served from shared pages
+    cow_events: int = 0
+    per_request: dict = dataclasses.field(default_factory=dict)
+    # per_request[rid] = {"preemptions", "chunks", "shared_tokens", "ttft",
+    #                     "tpot", "finish_time"}
+    outputs: dict = dataclasses.field(default_factory=dict)
+    # outputs[rid] = final RequestOutput (finish_reason, logprobs, timing)
+
+    @property
+    def total_tokens(self) -> int:
+        return int(sum(t.shape[0] for t in self.results.values()))
+
+    def latency_quantiles(self, metric: str = "ttft") -> dict | None:
+        """p50/p95/p99/mean of a per-request latency metric ("ttft" or
+        "tpot"), or None; requests where it is unset are skipped."""
+        ts = sorted(r[metric] for r in self.per_request.values()
+                    if r.get(metric) is not None)
+        if not ts:
+            return None
+
+        def pct(q: float) -> float:
+            return ts[min(len(ts) - 1, int(len(ts) * q))]
+        return {"p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99),
+                "mean": sum(ts) / len(ts)}
+
+
+class ContinuousServeEngine:
+    """Iteration-level continuous batching over a block-paged KV cache.
+
+    The decode step has a fixed slot batch; per-slot page tables and ragged
+    positions route each slot's K/V stream through the physical page pools
+    (``Model.decode_step_paged``), and the per-slot sampler draws each
+    slot's next token in the same step.  Drive it incrementally
+    (``add_request`` then ``step`` until ``has_unfinished()`` is False) or
+    in batch via ``run(requests, on_output=...)``.
+    """
+
+    def __init__(self, model: Model, *, device: str | torch.device = "cuda",
+                 num_slots: int | None = None, page_size: int | None = None,
+                 num_pages: int | None = None, max_len: int | None = None,
+                 spec=None, sampling_params: SamplingParams | None = None,
+                 cache_dtype=None, weight_format: str | None = None,
+                 prefill_chunk: int | None = None,
+                 enable_prefix_cache: bool = True,
+                 max_top_k: int = sampling.MAX_TOP_K,
+                 mesh=None, speculative=None, phase: str = "colocated"):
+        dev = resolve_device(device)
+        wdev = next(model.parameters()).device
+        if wdev.type != dev.type or dev.index not in (None, wdev.index):
+            raise ValueError(f"model weights are on {wdev}, the engine was "
+                             f"asked to run on {dev}")
+        self.device = wdev
+        if spec is not None:
+            raise _unported("DeploymentSpec sizing (spec=)",
+                            "DeploymentSpec")
+        if mesh is not None:
+            raise _unported("tensor-parallel serving (mesh=)",
+                            "Tensor parallelism")
+        if speculative is not None:
+            raise _unported("speculative decoding (speculative=)",
+                            "Speculative decoding")
+        if weight_format is not None:
+            raise _unported(f"weight_format={weight_format!r}", "Quantization")
+        if isinstance(cache_dtype, str):
+            raise _unported(f"cache_dtype={cache_dtype!r}", "Quantization")
+        if phase != "colocated":
+            raise _unported(f"phase={phase!r} (disaggregated serving)",
+                            "Disaggregation")
+        if any(seg.window is not None for seg in model.plan):
+            raise _unported(f"{model.cfg.name}: sliding-window ring pages",
+                            "Stateful layouts")
+        missing = [k for k, v in (("num_slots", num_slots),
+                                  ("page_size", page_size),
+                                  ("num_pages", num_pages),
+                                  ("max_len", max_len)) if v is None]
+        if missing:
+            raise ValueError(f"pass the explicit knobs {missing}")
+        prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
+        self.model = model
+        self.num_slots = num_slots
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_len = max_len
+        self.max_blocks = -(-max_len // page_size)
+        if num_pages - 1 < self.max_blocks:   # page 0 is scratch
+            raise ValueError(
+                f"num_pages={num_pages} cannot back even one max-length "
+                f"request ({self.max_blocks} blocks + scratch)")
+        self.default_sampling = sampling_params or sampling.GREEDY
+        self.max_top_k = int(max_top_k)
+        self.cache_dtype = cache_dtype
+        if int(prefill_chunk) < 1:
+            raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
+        self.prefill_chunk = int(prefill_chunk)
+        self.enable_prefix_cache = enable_prefix_cache
+        self.defrag_every = 0
+        self._vocab = model.cfg.padded_vocab
+        self._sched: Scheduler | None = None
+
+    # -- device pieces (the reference's jitted functions) -------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    def _step_impl(self, tokens, pos, page_table, temp, topk, topp, minp,
+                   seed, rep, bias_ids, bias_vals):
+        logits = self.model.decode_step_paged(tokens, self._pools, page_table,
+                                              pos)
+        # the incoming token sits at index pos; the one being generated at
+        # pos + 1 — its PRNG key is fold_in(seed, pos + 1)
+        nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp, seed,
+                                        pos + 1, max_top_k=self.max_top_k,
+                                        rep_penalty=rep, bias_ids=bias_ids,
+                                        bias_vals=bias_vals,
+                                        presence=self._presence)
+        # the sampled token joins its slot's presence row for the next
+        # step's repetition penalty (rows of inactive slots accumulate
+        # garbage harmlessly — admission re-uploads the host mirror)
+        self._presence[torch.arange(nxt.shape[0], device=self.device),
+                       nxt.long()] = True
+        return nxt, lp
+
+    def _chunk_impl(self, presence, tokens, page_table, start, valid, temp,
+                    topk, topp, minp, seed, rep, bias_ids, bias_vals):
+        logits = self.model.prefill_chunk_paged(tokens, self._pools,
+                                                page_table, start, valid)
+        # a request's first token is generated at index prompt_len ==
+        # start + valid of its final chunk (other rows' draws are ignored)
+        return sampling.sample_slots(logits, temp, topk, topp, minp, seed,
+                                     start + valid, max_top_k=self.max_top_k,
+                                     rep_penalty=rep, bias_ids=bias_ids,
+                                     bias_vals=bias_vals, presence=presence)
+
+    def _copy_page(self, dst: int, src: int) -> None:
+        """pools[dst] = pools[src] on every layer's leaves (copy-on-write)."""
+        for pool in self._pools:
+            for leaf in pool.values():
+                leaf[dst] = leaf[src]
+
+    def _permute_pools(self, gather: np.ndarray) -> None:
+        """Apply a defrag page permutation: new_pool[i] = old_pool[g[i]]."""
+        g = self._tensor(gather).long()
+        for pool in self._pools:
+            for leaf in pool.values():
+                leaf.copy_(leaf.index_select(0, g))
+
+    # -- serving state ------------------------------------------------------
+    def reset(self) -> None:
+        """Drop all serving state and start an empty session."""
+        self.cache = PagedKVCache(num_slots=self.num_slots,
+                                  num_pages=self.num_pages,
+                                  page_size=self.page_size,
+                                  max_blocks=self.max_blocks,
+                                  enable_prefix_cache=self.enable_prefix_cache)
+        self._sched = Scheduler(self.cache, on_release=self._on_release)
+        self._slots = sampling.SlotSampling(self.num_slots, self.device)
+        # token-presence rows (repetition penalty): host mirror + device copy
+        self._presence_np = np.zeros((self.num_slots, self._vocab), np.bool_)
+        self._presence = self._tensor(self._presence_np)
+        self._presence_dirty = False
+        self._pools = None            # free the old pools before allocating
+        self._pools = self.model.init_paged_cache(
+            self.num_pages, self.page_size, dtype=self.cache_dtype)
+        self._t0 = time.monotonic()
+        self._steps, self._occ_sum = 0, 0.0
+        self._n_chunks, self._prefill_tokens = 0, 0
+        self._requests: list[Request] = []
+        self.defrag_every = 0      # run-scoped; run() re-applies its arg
+
+    def _on_release(self, slot: int) -> None:
+        self._slots.clear(slot)
+        self._presence_np[slot] = False
+        self._presence_dirty = True
+
+    def _now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def has_unfinished(self) -> bool:
+        return self._sched is not None and self._sched.has_work()
+
+    def add_request(self, req: Request,
+                    sampling_params: SamplingParams | None = None) -> None:
+        """Submit one request; it enters the slot batch on a later
+        ``step()`` once a slot and pages free up (honoring arrival_time)."""
+        if self._sched is None:
+            self.reset()
+        if req.sampling is None:
+            req.sampling = sampling_params or self.default_sampling
+        if req.sampling.prompt_logprobs:
+            raise _unported("prompt scoring (SamplingParams.prompt_logprobs)",
+                            "Prompt scoring")
+        if req.sampling.max_tokens is not None:
+            req.max_new_tokens = min(req.max_new_tokens,
+                                     req.sampling.max_tokens)
+        if req.sampling.top_k > self.max_top_k:
+            raise ValueError(f"request {req.rid}: top_k={req.sampling.top_k} "
+                             f"exceeds the engine's static "
+                             f"max_top_k={self.max_top_k}")
+        if req.prompt_len + req.max_new_tokens > self.max_blocks * self.page_size:
+            raise ValueError(
+                f"request {req.rid}: prompt {req.prompt_len} + "
+                f"{req.max_new_tokens} new tokens exceeds max_len "
+                f"{self.max_blocks * self.page_size}")
+        self._requests.append(req)
+        self._sched.submit([req])
+
+    # -- host loop ----------------------------------------------------------
+    @staticmethod
+    def _bucket(n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _make_output(self, req: Request, new: list[int],
+                     finished: bool) -> RequestOutput:
+        metrics = {"ttft": req.ttft, "preemptions": req.preemptions,
+                   "chunks": req.chunks, "shared_tokens": req.shared_tokens}
+        if finished:
+            metrics["finish_time"] = req.finish_time
+            metrics["tpot"] = req.tpot
+        return RequestOutput(
+            rid=req.rid, new_token_ids=list(new),
+            token_ids=list(req.tokens) if finished else [],
+            finished=finished,
+            finish_reason=req.finish_reason if finished else None,
+            logprobs=(list(req.logprobs)
+                      if finished and req.sampling.logprobs else None),
+            metrics=metrics)
+
+    def _progress(self, req: Request, outs: list[RequestOutput]) -> None:
+        """Apply finish reasons on-host and emit the unstreamed delta."""
+        reason = req.check_finish()
+        if reason is not None:
+            req.finish_reason = reason
+            self._sched.finish(req, self._now())
+        if len(req.tokens) > req.emitted or reason is not None:
+            new = req.tokens[req.emitted:]
+            req.emitted = len(req.tokens)
+            outs.append(self._make_output(req, new,
+                                          finished=reason is not None))
+
+    def _run_prefill_chunks(self, outs: list[RequestOutput]) -> None:
+        """Advance every PREFILL request by one chunk (one batched call at
+        ragged offsets).  Rows pad to a power-of-two bucket, and the page
+        table view is sliced to the power-of-two cover of the blocks
+        resident after this chunk, so a short prompt's chunk never gathers
+        the full ``max_blocks`` view."""
+        pre = self._sched.prefilling()
+        c = self.prefill_chunk
+        bucket = self._bucket(len(pre))
+        need = max(-(-(r.pos + min(c, r.prompt_len - r.pos)) // self.page_size)
+                   for r in pre)
+        nb = min(self._bucket(need), self.max_blocks)
+        tokens = np.zeros((bucket, c), np.int32)
+        tables = np.zeros((bucket, nb), np.int32)      # pad rows -> scratch
+        start = np.zeros((bucket,), np.int32)
+        valid = np.zeros((bucket,), np.int32)
+        table = self.cache.table()
+        for i, r in enumerate(pre):
+            n = min(c, r.prompt_len - r.pos)
+            tokens[i, :n] = r.prompt[r.pos:r.pos + n]
+            tables[i] = table[r.slot, :nb]
+            start[i] = r.pos
+            valid[i] = n
+        samp = sampling.stack_params([r.sampling for r in pre], bucket)
+        extras = sampling.stack_extras([r.sampling for r in pre], bucket)
+        pres = np.zeros((bucket, self._vocab), np.bool_)
+        for i, r in enumerate(pre):
+            pres[i] = self._presence_np[r.slot]
+        first, lp = self._chunk_impl(
+            *(self._tensor(a) for a in (pres, tokens, tables, start, valid)),
+            *(self._tensor(a) for a in samp + extras))
+        first = first.cpu().numpy()                    # device sync
+        lp = lp.cpu().numpy()
+        for i, r in enumerate(pre):
+            r.chunks += 1
+            self._n_chunks += 1
+            self._prefill_tokens += int(valid[i])
+            r.pos += int(valid[i])
+            if r.pos == r.prompt_len:                  # prefill complete
+                r.state = RUNNING
+                r.tokens.append(int(first[i]))
+                self._presence_np[r.slot, int(first[i])] = True
+                self._presence_dirty = True
+                if r.sampling.logprobs:
+                    r.logprobs.append(float(lp[i]))
+                if r.first_token_time is None:
+                    # a restart re-emits the tokens the client already has
+                    # (seeded streams), so a preempted request keeps its
+                    # original TTFT
+                    r.first_token_time = self._now()
+                self.cache.index_prompt(r.slot, r.prompt)
+                self._progress(r, outs)
+
+    def step(self) -> list[RequestOutput]:
+        """One scheduler iteration: admit arrived requests, advance every
+        prefilling request by one chunk, run one decode step over the
+        decoding slots.  Returns the ``RequestOutput`` deltas produced this
+        iteration (may be empty).  Never sleeps."""
+        if self._sched is None:
+            return []
+        sched = self._sched
+        outs: list[RequestOutput] = []
+        for r in sched.admit(self._now()):
+            self._slots.set(r.slot, r.sampling)
+            self._presence_np[r.slot] = False
+            self._presence_np[r.slot][np.asarray(r.prompt)] = True
+            self._presence_dirty = True
+        # -- chunked prefill, interleaved with the decode iterations --
+        if sched.prefilling():
+            self._run_prefill_chunks(outs)
+        if not sched.decoding():
+            return outs
+        # -- capacity + copy-on-write barrier for this step's KV writes --
+        for req in sched.decoding():
+            if sched.running.get(req.slot) is req:  # not yet preempted
+                if sched.ensure_capacity(req):
+                    moved = self.cache.cow(req.slot, req.pos // self.page_size)
+                    if moved is not None:
+                        self._copy_page(moved[1], moved[0])
+        decoding = sched.decoding()
+        if not decoding:
+            return outs
+        if self.defrag_every and (self._steps + 1) % self.defrag_every == 0:
+            gather = self.cache.defrag()
+            if gather is not None:
+                self._permute_pools(gather)
+
+        tokens = np.zeros((self.num_slots,), np.int32)
+        pos = np.zeros((self.num_slots,), np.int32)
+        # slots still prefilling (or free) must not touch live pages: their
+        # rows are routed to the scratch page for this step
+        step_table = np.zeros_like(self.cache.table())
+        for req in decoding:
+            tokens[req.slot] = req.tokens[-1]
+            pos[req.slot] = req.pos
+            step_table[req.slot] = self.cache.table()[req.slot]
+        if self._presence_dirty:       # admissions/releases since last step
+            self._presence = self._tensor(self._presence_np)
+            self._presence_dirty = False
+        nxt, lp = self._step_impl(self._tensor(tokens), self._tensor(pos),
+                                  self._tensor(step_table),
+                                  *self._slots.arrays())
+        nxt = nxt.cpu().numpy()                        # device sync
+        lp = lp.cpu().numpy()
+        self._occ_sum += len(decoding) / self.num_slots
+        self._steps += 1
+        for req in decoding:
+            if sched.running.get(req.slot) is not req:
+                continue
+            req.tokens.append(int(nxt[req.slot]))
+            # mirror the in-step presence update (device already has it)
+            self._presence_np[req.slot, int(nxt[req.slot])] = True
+            if req.sampling.logprobs:
+                req.logprobs.append(float(lp[req.slot]))
+            req.pos += 1
+            self._progress(req, outs)
+        return outs
+
+    def stats(self) -> ContinuousStats:
+        """The current session's outcome: every request added since the
+        last ``reset`` (``run`` returns this once they all finished)."""
+        requests = self._requests
+        results = {r.rid: np.asarray(r.tokens[:r.max_new_tokens], np.int32)
+                   for r in requests}
+        per_request = {r.rid: {"preemptions": r.preemptions,
+                               "chunks": r.chunks,
+                               "shared_tokens": r.shared_tokens,
+                               "ttft": r.ttft,
+                               "tpot": r.tpot,
+                               "finish_time": r.finish_time}
+                       for r in requests}
+        outputs = {r.rid: self._make_output(r, [], finished=True)
+                   for r in requests}
+        return ContinuousStats(
+            results=results, steps=self._steps,
+            occupancy=self._occ_sum / max(self._steps, 1),
+            wall=self._now(),
+            preemptions=sum(r.preemptions for r in requests),
+            chunks=self._n_chunks,
+            prefill_tokens=self._prefill_tokens,
+            prompt_tokens=self.cache.lookup_tokens,
+            prefix_hit_tokens=self.cache.hit_tokens,
+            cow_events=self.cache.cow_events,
+            per_request=per_request,
+            outputs=outputs)
+
+    def run(self, requests: Iterable[Request], *, defrag_every: int = 0,
+            on_output: Callable[[RequestOutput], None] | None = None
+            ) -> ContinuousStats:
+        """Serve ``requests`` to completion; honors ``arrival_time``.
+        ``on_output`` streams every ``RequestOutput`` delta as it is
+        produced."""
+        if self._sched is not None and self._sched.has_work():
+            raise RuntimeError(
+                "run() would reset the engine while incrementally-submitted "
+                "requests are unfinished; drive step() to completion first")
+        self.reset()
+        self.defrag_every = defrag_every
+        for r in requests:
+            self.add_request(r)
+        sched = self._sched
+        while sched.has_work():
+            if not sched.running:
+                nxt_t = sched.next_arrival()
+                if nxt_t is None:
+                    break
+                time.sleep(max(nxt_t - self._now(), 0.0))
+            for o in self.step():
+                if on_output is not None:
+                    on_output(o)
+        return self.stats()
