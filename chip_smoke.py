@@ -3,19 +3,28 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card (it exits
-non-zero, printing no result, without one).  Phases, each of which fails
-the run if it fails:
+non-zero, printing no result, without one).  Both CUDA sources are built
+first, in parallel (``nvcc`` into ``.torch_ext/``).  Phases, each of which
+fails the run if it fails:
 
-1. kernel — build every CUDA kernel of the serve path from the repo's
-   sources (``nvcc`` into ``.torch_ext/``) and hold it against its plain
-   PyTorch version on the card at llama3-8b decode shapes (H 32, KVH 8,
-   D 128, page 16; bf16 and f32 pools; B 1 and 8; ragged positions up to
-   4096, dead pages on a poisoned scratch page, a sliding window).  Then
-   time kernel, plain version and ``F.scaled_dot_product_attention`` on the
-   gathered dense view (a yardstick the port never calls) at B 8 with 1024
-   and 4096 context, with CUDA events and the L2 cache flushed between
-   launches.
-2. serve — llama3-8b at full width and depth (random bf16 weights from a
+1. kernel — hold the paged decode kernel against its plain PyTorch version
+   on the card at llama3-8b decode shapes (H 32, KVH 8, D 128, page 16;
+   bf16 and f32 pools; B 1 and 8; ragged positions up to 4096, dead pages
+   on a poisoned scratch page, a sliding window).  Then time kernel, plain
+   version and ``F.scaled_dot_product_attention`` on the gathered dense
+   view (a yardstick the port never calls) at B 8 with 1024 and 4096
+   context, with CUDA events and the L2 cache flushed between launches.
+2. kernel_scaled — the same kernel over fp8 and int8 code pools with f32
+   per-token scale pools (poisoned scratch page and scales, a window),
+   held against its plain version and timed at B 8, ctx 1024 and 4096.
+3. kernel_mxfp4 — the MXFP4 VMM kernel against its plain version at the
+   four llama3-8b projection shapes for M 1, 8 and 256 plus a ragged M
+   and N, timed beside its bound and beside ``torch.matmul`` of x with the
+   pre-dequantized bf16 weight (a different function: it streams 3.76x the
+   bytes).
+4. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
+   same bits on the card as on the CPU for one llama3-8b projection.
+5. serve — llama3-8b at full width and depth (random bf16 weights from a
    seeded generator, ~16 GB) behind ``LLMEngine(backend="continuous")``
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
@@ -23,10 +32,20 @@ the run if it fails:
    once per layer per decode step, and a second identical session must
    reproduce every stream, greedy and sampled.  Eight decode-only steps of
    that second session are traced with ``torch.profiler``: device busy
-   time per step, the device's idle share, time by kernel.
-3. check — a narrow 2-layer llama-shaped model in f32 served on the card
+   time per step, the device's idle share, time by kernel, and the host
+   ops that take most host time.
+6. serve_quantized — the same model and requests with
+   ``weight_format="mxfp4"`` and ``cache_dtype="fp8"``: the same checks,
+   and the MXFP4 kernel must have run 7 x layers x (decode steps + prefill
+   chunk calls) times and the scale-pool decode kernel once per layer per
+   decode step.
+7. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
-   emit the same token streams.
+   emit the same token streams: dense (greedy and sampled), and greedy
+   with mxfp4 weights over f32, int8 and fp8 pools.  For the mxfp4 cases a
+   first divergence is allowed only at a near-tie: a step whose top-2
+   logit gap on the CPU is below ``NEAR_TIE`` (the bf16 activation cast
+   turns last-bit f32 differences into bf16 steps now and then).
 
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
@@ -44,10 +63,14 @@ from pathlib import Path
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,   # dense, no sparsity
+                  "fp8": 1979e12, "int8": 1979e12}
 KERNEL_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu"
 REPLACES = "src/repro/kernels/decode_attention/paged_kernel.py:150"
+VMM_SOURCE = "src/repro_torch/kernels/mxfp4_vmm/csrc/mxfp4_vmm.cu"
+VMM_REPLACES = "src/repro/kernels/mxfp4_vmm/kernel.py:80"
 H, KVH, D, PAGE = 32, 8, 128, 16           # llama3-8b decode geometry
+NEAR_TIE = 0.02       # top-2 logit gap below which card and CPU may differ
 
 
 def card_line() -> str:
@@ -98,39 +121,62 @@ def time_ms(torch, fn, flush, iters=30) -> float:
     return float(np.median(times))
 
 
-def bound(pos, window, B, dtype_name, itemsize) -> tuple[float, str]:
-    """Least time for the work: each live K/V token read once, q read and
-    out written once, plus the live table entries and positions; ops are
-    q.k and p.v (2 flops per multiply-add) at the inputs' peak rate."""
+def roofline(nbytes: int, ops: int, ops_type: str) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and ops over the peak rate
+    of their type, in ms, and which of the two it is."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(pos, window, B, dtype_name, itemsize, q_itemsize=None,
+          scale_itemsize=0) -> tuple[float, str]:
+    """Least time for the work: each live K/V token read once (codes and,
+    for code pools, their per-token scales), q read and out written once,
+    plus the live table entries and positions; ops are q.k and p.v (2 flops
+    per multiply-add) at the pools' peak rate."""
+    q_itemsize = itemsize if q_itemsize is None else q_itemsize
     lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
     tokens = int(np.sum(pos - lo + 1))
     pages = int(np.sum(pos // PAGE - lo // PAGE + 1))
-    nbytes = (2 * tokens * KVH * D * itemsize + 2 * B * H * D * itemsize
-              + 4 * pages + 4 * B)
-    ops = 4 * tokens * H * D
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    nbytes = (2 * tokens * KVH * (D * itemsize + scale_itemsize)
+              + 2 * B * H * D * q_itemsize + 4 * pages + 4 * B)
+    return roofline(nbytes, 4 * tokens * H * D, dtype_name)
+
+
+def build_phase() -> None:
+    """Build every CUDA source of the port at once (one ``nvcc`` each, in
+    parallel) and print each compiler report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels._build import library_path
+    from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
+
+    libs = {"paged_decode": paged_kernel, "mxfp4_vmm": vmm_kernel}
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        for fut in [ex.submit(mod._lib) for mod in libs.values()]:
+            fut.result()
+    print(f"kernel build: {time.monotonic() - t0:.1f} s for {len(libs)} "
+          f"sources in parallel")
+    for name, mod in libs.items():
+        log = library_path(name, [mod.SOURCE]).parent / "build.log"
+        print(f"  {name}: -Xptxas -v report in {log}")
+        for line in log.read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
 
 def kernel_phase(torch) -> dict:
     import torch.nn.functional as F
 
-    from repro_torch.kernels._build import library_path
     from repro_torch.kernels.decode_attention import paged_kernel
     from repro_torch.kernels.decode_attention.ref import (
         gather_pages, paged_decode_attention_ref, paged_valid_mask,
     )
 
     dev = torch.device("cuda")
-    t0 = time.monotonic()
-    paged_kernel._lib()
-    log = library_path("paged_decode", [paged_kernel.SOURCE]).parent / "build.log"
-    print(f"kernel build: {time.monotonic() - t0:.1f} s "
-          f"(-Xptxas -v report in {log})")
-    for line in log.read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
 
     rng = np.random.default_rng(0)
     tol = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -195,7 +241,222 @@ def kernel_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 2. serve phase
+# 2. scale-pool decode kernel phase (fp8 / int8 code pools)
+# ---------------------------------------------------------------------------
+
+
+def quantized_case(torch, rng, B, n_blocks, cache_dtype, pos, dev):
+    """``paged_case`` pools written through ``kv_quantize``; the scratch
+    page's codes and scales poisoned."""
+    from repro_torch.quant import kv as kvq
+
+    q, kp, vp, table, p = paged_case(torch, rng, B, n_blocks, torch.float32,
+                                     pos, dev)
+    kc, ks = kvq.kv_quantize(kp, cache_dtype)
+    vc, vs = kvq.kv_quantize(vp, cache_dtype)
+    ks[0], vs[0] = 1e4, -1e4
+    return q.to(torch.bfloat16), kc, vc, ks, vs, table, p
+
+
+def kernel_scaled_phase(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_decode_attention_ref, paged_valid_mask,
+    )
+    from repro_torch.quant import kv as kvq
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    tol = 2e-2           # bf16 output; the f32 accumulations differ in order
+    err_max = 0.0
+    n_blocks = 4096 // PAGE + 4
+    for cache_dtype in ("fp8", "int8"):
+        for B, window in ((1, None), (8, None), (8, 1000), (8, 1)):
+            pos = rng.integers(0, 4096, B)
+            pos[0] = 4095 if B == 1 else PAGE + PAGE // 2
+            q, kc, vc, ks, vs, table, p = quantized_case(
+                torch, rng, B, n_blocks, cache_dtype, pos, dev)
+            for q_in in (q, q.float()):
+                out = paged_kernel.paged_decode_attention(
+                    q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
+                    window=window)
+                ref = paged_decode_attention_ref(
+                    q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
+                    window=window)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                limit = tol if q_in.dtype == torch.bfloat16 else 1e-5
+                print(f"  scaled kernel vs plain: {cache_dtype} pools, q "
+                      f"{str(q_in.dtype)[6:]} B={B} window={window}: max abs "
+                      f"err {err:.3g} (tolerance {limit})")
+                if not err <= limit:
+                    raise AssertionError(f"scale-pool decode kernel disagrees "
+                                         f"with its plain version: {err}")
+                if q_in.dtype == torch.bfloat16:
+                    err_max = max(err_max, err)
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings = []
+    for cache_dtype in ("fp8", "int8"):
+        for ctx in (1024, 4096):
+            B = 8
+            pos = np.full(B, ctx - 1)
+            q, kc, vc, ks, vs, table, p = quantized_case(
+                torch, rng, B, ctx // PAGE, cache_dtype, pos, dev)
+            # SDPA on the pre-dequantized bf16 view: another function (it
+            # reads bf16 K/V, twice the bytes), timed as a yardstick only
+            k_d = kvq.kv_dequantize(gather_pages(kc, table),
+                                    gather_pages(ks, table), torch.bfloat16)
+            v_d = kvq.kv_dequantize(gather_pages(vc, table),
+                                    gather_pages(vs, table), torch.bfloat16)
+            k_d = torch.repeat_interleave(k_d.transpose(1, 2), H // KVH,
+                                          dim=1).contiguous()
+            v_d = torch.repeat_interleave(v_d.transpose(1, 2), H // KVH,
+                                          dim=1).contiguous()
+            mask = paged_valid_mask(table, PAGE, p)[:, None, None, :]
+            q4 = q[:, :, None, :]
+            row = {"ctx": ctx, "B": B, "pools": cache_dtype,
+                   "ms": time_ms(torch, lambda: paged_kernel.paged_decode_attention(
+                       q, kc, vc, table, p, k_scales=ks, v_scales=vs), flush),
+                   "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
+                       q, kc, vc, table, p, k_scales=ks, v_scales=vs), flush),
+                   "sdpa_on_dequantized_bf16_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           q4, k_d, v_d, attn_mask=mask), flush)}
+            row["bound_ms"], row["bound_by"] = bound(
+                pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4)
+            timings.append(row)
+            print("  timing:", json.dumps(row))
+    del flush
+    head = timings[0]                       # fp8 pools, B 8, ctx 1024
+    return {"name": paged_kernel.NAME_SCALED, "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES + " (k_scales/"
+            "v_scales branch, paged_kernel.py:94-98, :202-207)",
+            "launches": None, "max_abs_err": err_max,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 3. MXFP4 VMM kernel phase
+# ---------------------------------------------------------------------------
+
+# llama3-8b projections (K, N), each with its count in one decoder layer
+PROJECTIONS = {"wq/wo": ((4096, 4096), 2), "wk/wv": ((4096, 1024), 2),
+               "w_gate/w_up": ((4096, 14336), 2), "w_down": ((14336, 4096), 1)}
+
+
+def vmm_bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """Codes (K/2 x N) and scales (K/32 x N) read once, bf16 x read once, bf16
+    out written once (the serve path's output); 2 M K N operations on bf16
+    tensor cores."""
+    nbytes = k * n // 2 + k * n // 32 + 2 * m * k + 2 * m * n
+    return roofline(nbytes, 2 * m * k * n, "bfloat16")
+
+
+def kernel_mxfp4_phase(torch) -> dict:
+    from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
+    from repro_torch.kernels.mxfp4_vmm.ref import mxfp4_vmm_ref
+    from repro_torch.quant import formats
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tol = 1e-5          # relative to max |out|: f32 sums in another order
+    shapes = [(m, k, n) for (k, n), _ in PROJECTIONS.values()
+              for m in (1, 8, 256)] + [(37, 544, 1000)]     # ragged M, N
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings, err_max = [], 0.0
+    for m, k, n in shapes:
+        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        p = formats.quantize_mxfp4(w)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        out = vmm_kernel.mxfp4_vmm(x, p.codes, p.scales)
+        out16 = vmm_kernel.mxfp4_vmm(x, p.codes, p.scales, torch.bfloat16)
+        ref = mxfp4_vmm_ref(x, p.codes, p.scales)
+        torch.cuda.synchronize()
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        print(f"  mxfp4_vmm vs plain: M={m} K={k} N={n}: max rel err "
+              f"{err:.3g} (tolerance {tol})")
+        if not err <= tol:
+            raise AssertionError(f"mxfp4_vmm disagrees with its plain "
+                                 f"version at {(m, k, n)}: {err}")
+        if not torch.equal(out16, out.to(torch.bfloat16)):  # same sums
+            raise AssertionError(f"mxfp4_vmm's bf16 output is not its f32 "
+                                 f"output rounded at {(m, k, n)}")
+        err_max = max(err_max, err)
+        w_bf16 = formats.dequantize_mxfp4(p, torch.bfloat16)
+        # timed as the serve path calls it: bf16 output
+        row = {"M": m, "K": k, "N": n,
+               "ms": time_ms(torch, lambda: vmm_kernel.mxfp4_vmm(
+                   x, p.codes, p.scales, torch.bfloat16), flush),
+               "plain_ms": time_ms(torch, lambda: mxfp4_vmm_ref(
+                   x, p.codes, p.scales).to(torch.bfloat16), flush),
+               "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
+                   x, w_bf16), flush)}
+        row["bound_ms"], row["bound_by"] = vmm_bound(m, k, n)
+        timings.append(row)
+        print("  timing:", json.dumps(row))
+        del w, w_bf16, p
+    del flush
+    # headline: one decoder layer's seven projections at decode (M = 8)
+    per_layer = {key: sum(r[key] * cnt for r in timings
+                          for (kn, cnt) in PROJECTIONS.values()
+                          if r["M"] == 8 and (r["K"], r["N"]) == kn)
+                 for key in ("ms", "plain_ms", "bound_ms", "bf16_matmul_ms")}
+    return {"name": vmm_kernel.NAME, "route": "cuda", "source": VMM_SOURCE,
+            "replaces": VMM_REPLACES, "launches": None,
+            "max_abs_err": err_max, "max_abs_err_is": "relative to max |out|",
+            "headline": "sum over one llama3-8b layer's 7 projections "
+                        "(7 launches) at M 8",
+            "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
+            "bound_ms": per_layer["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "bf16_matmul_ms_note": "torch.matmul on the pre-dequantized bf16 "
+                                   "weight: another function, 3.76x the bytes",
+            "bf16_matmul_ms": per_layer["bf16_matmul_ms"], "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 4. quantize phase: the card's bits are the CPU's
+# ---------------------------------------------------------------------------
+
+
+def quantize_phase(torch) -> dict:
+    from repro_torch.quant import formats
+    from repro_torch.quant import kv as kvq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w = (torch.randn((4096, 14336), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)                          # one llama3-8b w_gate
+    w[:32, 0] = 0.0                              # a zero block
+    w[32:64, 1] *= 0.0
+    w[40, 1] = 2.0 ** -13                        # amax an exact power of two
+    on_card, on_cpu = formats.quantize_mxfp4(w), formats.quantize_mxfp4(w.cpu())
+    same_w = (torch.equal(on_card.codes.cpu(), on_cpu.codes)
+              and torch.equal(on_card.scales.cpu(), on_cpu.scales))
+    kvals = w[:, :1024].reshape(4096, KVH, D)    # 4096 tokens' K of a layer
+    kv_diff = {}
+    for cache_dtype in ("fp8", "int8"):
+        c1, s1 = kvq.kv_quantize(kvals, cache_dtype)
+        c2, s2 = kvq.kv_quantize(kvals.cpu(), cache_dtype)
+        kv_diff[cache_dtype] = {
+            "codes": int((kvq.raw_view(c1).cpu() != kvq.raw_view(c2)).sum()),
+            "scales": int((s1.cpu() != s2).sum())}
+    same_kv = not any(n for d in kv_diff.values() for n in d.values())
+    if not (same_w and same_kv):
+        raise AssertionError(f"quantization differs between card and CPU: "
+                             f"mxfp4 equal {same_w}, kv differences {kv_diff}")
+    return {"phase": "quantize", "mxfp4_bits_equal": same_w,
+            "kv_bits_equal": same_kv, "weight": "(4096, 14336) bf16"}
+
+
+# ---------------------------------------------------------------------------
+# 5. serve phases
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = [128, 1024, 300, 612, 777, 200, 450, 712]
@@ -256,15 +517,23 @@ PROFILE = dict(wait=4, warmup=2, active=8, repeat=1)   # decode-only steps
 
 
 def device_breakdown(prof, step_s: float) -> dict:
-    """Device time per profiled decode-only step by kernel name, and the
-    device's idle share of a step.  One stream, so kernel times add up to
-    busy time; the step's wall time ``step_s`` is the median of the same
-    session's steps outside the profiler's window (tracing slows the host
-    side, so the traced steps' own wall time would overstate idleness)."""
-    times = {}
+    """Device time per profiled decode-only step by kernel name, the
+    device's idle share of a step, and the host ops that take most host
+    time under the tracer.  One stream, so kernel times add up to busy
+    time; the step's wall time ``step_s`` is the median decode step of the
+    untraced first session (host tracing slows every step of the traced
+    one, so its own wall times would overstate idleness)."""
+    from torch.autograd import DeviceType
+
+    times, host = {}, {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0) or 0     # microseconds
-        if t > 0:
+        host[evt.key] = getattr(evt, "self_cpu_time_total", 0) or 0
+        # device activity only (kernels, copies, memsets): the host ops
+        # carry the device time of what they launched, and each profiler
+        # step is also recorded as a device-side range spanning its kernels
+        if (t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA
+                and not evt.key.startswith("ProfilerStep")):
             times[evt.key] = times.get(evt.key, 0) + t
     n = PROFILE["active"]
     busy = sum(times.values()) / 1e6
@@ -273,35 +542,60 @@ def device_breakdown(prof, step_s: float) -> dict:
                                "activity)", "step_ms": 1e3 * step_s}
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     decode = sum(t for k, t in times.items() if "paged_decode" in k) / 1e6
+    vmm = sum(t for k, t in times.items() if "mxfp4_vmm" in k) / 1e6
     return {"steps": n, "step_ms": 1e3 * step_s,
             "device_busy_ms_per_step": 1e3 * busy / n,
             "device_idle_share": 1 - busy / n / step_s,
             "decode_attention_ms_per_step": 1e3 * decode / n,
+            "mxfp4_vmm_ms_per_step": 1e3 * vmm / n,
+            # host time under the tracer (it slows the host): where the
+            # host's share goes, not how long a step takes
+            "top_host_ops_ms_per_step_traced": {
+                k[:50]: t / 1e3 / n for k, t in
+                sorted(host.items(), key=lambda kv: -kv[1])[:10]},
             "top_kernels_ms_per_step": {k[:70]: t / 1e3 / n for k, t in top}}
 
 
-def serve_phase(torch) -> dict:
+def build_llama(torch):
+    """Full-size llama3-8b (32 layers, random bf16 weights from a seed)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.models.model import Model
-    from repro_torch.runtime.llm import LLMEngine
-    from repro_torch.runtime.sampling import SamplingParams
 
     cfg = get_config("llama3-8b")
     t0 = time.monotonic()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
-    n_params = model.param_count()
-    print(f"serve: llama3-8b {cfg.n_layers} layers, {n_params / 1e9:.2f} B "
-          f"params bf16, random init {time.monotonic() - t0:.1f} s")
+    print(f"serve: llama3-8b {cfg.n_layers} layers, "
+          f"{model.param_count() / 1e9:.2f} B params bf16, random init "
+          f"{time.monotonic() - t0:.1f} s")
+    return model
+
+
+def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
+    """Serve the request mix twice through ``LLMEngine`` (``engine_kw``:
+    ``weight_format``, ``cache_dtype``) and check streams and launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_SCALED,
+    )
+    from repro_torch.kernels.mxfp4_vmm.kernel import NAME as VMM
+    from repro_torch.quant.linear import serve_weight_bytes
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
     llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
-                    page_size=16, max_len=2048, prefill_chunk=256)
+                    page_size=16, max_len=2048, prefill_chunk=256, **engine_kw)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
     prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
 
     LAUNCHES.clear()
     streams, finished, stats, decode_steps = serve_session(llm, prompts, sps)
-    launches = LAUNCHES["paged_decode_attention"]
     torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
 
     for i in range(len(prompts)):
         o = finished.get(i)
@@ -315,27 +609,32 @@ def serve_phase(torch) -> dict:
             raise AssertionError(f"request {i}: token outside the vocabulary")
     if stats.prefix_hit_tokens < 512 - PAGE:
         raise AssertionError(f"prefix index not hit: {stats.prefix_hit_tokens}")
-    if launches != cfg.n_layers * stats.steps or launches == 0:
-        raise AssertionError(f"paged_decode_attention ran {launches} times in "
-                             f"{stats.steps} decode steps x {cfg.n_layers} "
-                             f"layers")
+    decode_kernel = (NAME_SCALED if engine_kw.get("cache_dtype") in
+                     ("fp8", "int8") else NAME)
+    want = {decode_kernel: cfg.n_layers * stats.steps}
+    if engine_kw.get("weight_format") == "mxfp4":   # 7 projections a layer
+        want[VMM] = 7 * cfg.n_layers * (stats.steps + stats.prefill_calls)
+    if launches != want or 0 in want.values():
+        raise AssertionError(f"kernel launches {launches}, want {want} "
+                             f"({stats.steps} decode steps, "
+                             f"{stats.prefill_calls} prefill chunk calls, "
+                             f"{cfg.n_layers} layers)")
 
     # the re-run doubles as the profiled window: 8 decode-only steps
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(**PROFILE)) as prof:
-        again, _, stats2, steps2 = serve_session(llm, prompts, sps,
-                                                 on_decode_step=prof.step)
-    last = PROFILE["wait"] + PROFILE["warmup"] + PROFILE["active"]
-    breakdown = device_breakdown(
-        prof, float(np.median(steps2[:PROFILE["wait"]] + steps2[last:])))
+        again, _, stats2, _ = serve_session(llm, prompts, sps,
+                                            on_decode_step=prof.step)
+    breakdown = device_breakdown(prof, float(np.median(decode_steps)))
     for i in range(len(prompts)):
         if again[i] != streams[i]:
             kind = "greedy" if sps[i].is_greedy else "sampled"
             raise AssertionError(f"{kind} request {i} did not reproduce "
                                  f"its stream on the re-run")
     ttft = stats.latency_quantiles("ttft")
-    result = {"phase": "serve", "requests": len(prompts),
+    result = {"phase": phase, **{k: str(v) for k, v in engine_kw.items()},
+              "requests": len(prompts),
               "new_tokens": stats.total_tokens,
               "tokens_per_s": stats.total_tokens / stats.wall,
               "wall_s": stats.wall, "ttft_p50_s": ttft["p50"],
@@ -343,25 +642,48 @@ def serve_phase(torch) -> dict:
               "decode_step_ms_mean": 1e3 * float(np.mean(decode_steps)),
               "decode_only_steps": len(decode_steps),
               "decode_steps": stats.steps, "prefill_chunks": stats.chunks,
+              "prefill_calls": stats.prefill_calls,
               "prefix_hit_tokens": stats.prefix_hit_tokens,
-              "kernel_launches": launches,
+              "kernel_launches": launches, "engine_setup_s": setup_s,
+              "served_weight_gb": serve_weight_bytes(
+                  model, engine_kw.get("weight_format")) / 1e9,
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "profiled_decode_steps": breakdown}
-    del llm, model
+    del llm
     torch.cuda.empty_cache()
     return result
 
 
 # ---------------------------------------------------------------------------
-# 3. check phase: kernel path on the card == plain path on the CPU
+# 7. check phase: kernel path on the card == plain path on the CPU
 # ---------------------------------------------------------------------------
+
+
+def cpu_top2_gap(torch, model, prompt, tokens, cache_dtype) -> float:
+    """Gap between the two largest logits the CPU model gives after
+    ``prompt + tokens`` (one prefill chunk into fresh pools)."""
+    toks = torch.as_tensor(np.concatenate([prompt, tokens]), dtype=torch.int64)
+    n = len(toks)
+    n_blocks = -(-n // PAGE)
+    pools = model.init_paged_cache(n_blocks + 1, PAGE, dtype=cache_dtype)
+    table = torch.arange(1, n_blocks + 1, dtype=torch.int32)[None]
+    logits = model.prefill_chunk_paged(toks[None], pools, table,
+                                       torch.zeros(1, dtype=torch.int32),
+                                       torch.full((1,), n, dtype=torch.int32))
+    top = logits[0].topk(2).values
+    return float(top[0] - top[1])
 
 
 def check_phase(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_SCALED,
+    )
+    from repro_torch.kernels.mxfp4_vmm.kernel import NAME as VMM
     from repro_torch.models.model import Model
+    from repro_torch.quant.linear import quantize_params
     from repro_torch.runtime.llm import LLMEngine
     from repro_torch.runtime.sampling import SamplingParams
 
@@ -378,21 +700,62 @@ def check_phase(torch) -> dict:
            SamplingParams(max_tokens=16, temperature=0.9, top_k=20, seed=4),
            SamplingParams(max_tokens=16),
            SamplingParams(max_tokens=16, temperature=0.7, top_p=0.9, seed=8)]
+    greedy = [SamplingParams(max_tokens=16)] * len(prompts)
     kw = dict(backend="continuous", num_slots=4, page_size=16, max_len=256,
-              prefill_chunk=32, cache_dtype=torch.float32)
-    LAUNCHES.clear()
-    on_gpu = LLMEngine(gpu, device="cuda", **kw).generate(prompts, sps)
-    launches = LAUNCHES["paged_decode_attention"]
-    on_cpu = LLMEngine(cpu, device="cpu", **kw).generate(prompts, sps)
-    for g, c in zip(on_gpu, on_cpu):
-        if g.token_ids != c.token_ids:
-            raise AssertionError(f"request {g.rid}: card {g.token_ids} vs "
-                                 f"CPU {c.token_ids}")
-    if launches == 0:
-        raise AssertionError("the card run did not launch the decode kernel")
+              prefill_chunk=32)
+    # dense: greedy and sampled streams identical.  mxfp4: the op rounds
+    # the f32 activations to bf16, which turns the card's last-bit f32
+    # differences (other sum orders) into whole bf16 steps of an input now
+    # and then, so logits differ at ~1e-4; greedy streams may then part at
+    # a near-tie, and nowhere else
+    cases = [  # (label, engine options, requests, near-ties allowed)
+        ("dense f32", dict(cache_dtype=torch.float32), sps, False),
+        ("mxfp4, f32 pools", dict(cache_dtype=torch.float32,
+                                  weight_format="mxfp4"), greedy, True),
+        ("mxfp4, int8 pools", dict(cache_dtype="int8",
+                                   weight_format="mxfp4"), greedy, True),
+        ("mxfp4, fp8 pools", dict(cache_dtype="fp8",
+                                  weight_format="mxfp4"), greedy, True)]
+    results = []
+    for label, opts, reqs, ties_ok in cases:
+        LAUNCHES.clear()
+        on_gpu = LLMEngine(gpu, device="cuda", **kw, **opts).generate(
+            prompts, reqs)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        on_cpu = LLMEngine(cpu, device="cpu", **kw, **opts).generate(
+            prompts, reqs)
+        want = {NAME_SCALED if isinstance(opts["cache_dtype"], str) else NAME}
+        if "weight_format" in opts:
+            want.add(VMM)
+        if set(launches) != want:
+            raise AssertionError(f"{label}: the card run launched {launches}, "
+                                 f"want each of {sorted(want)}")
+        near_ties = []
+        for g, c, prompt in zip(on_gpu, on_cpu, prompts):
+            if g.token_ids == c.token_ids:
+                continue
+            t = next(i for i, (a, b) in enumerate(zip(g.token_ids,
+                                                      c.token_ids)) if a != b)
+            gap = None
+            if ties_ok:
+                view = quantize_params(cpu, opts["weight_format"])
+                gap = cpu_top2_gap(torch, view, prompt,
+                                   np.asarray(c.token_ids[:t]),
+                                   opts["cache_dtype"])
+            if gap is None or gap >= NEAR_TIE:
+                raise AssertionError(
+                    f"{label}, request {g.rid}: card {g.token_ids} vs CPU "
+                    f"{c.token_ids} (first difference at token {t}, CPU "
+                    f"top-2 gap {gap}, near-tie below {NEAR_TIE})")
+            near_ties.append({"request": g.rid, "token": t, "cpu_gap": gap})
+            print(f"  check {label}: request {g.rid} diverges at token {t} "
+                  f"at a near-tie (CPU top-2 logit gap {gap:.3g} < "
+                  f"{NEAR_TIE})")
+        results.append({"case": label, "identical": not near_ties,
+                        "near_ties": near_ties, "kernel_launches": launches})
     return {"phase": "check", "model": "llama3-8b widths cut to d_model 512, "
-            "2 layers, f32", "requests": len(prompts), "identical": True,
-            "kernel_launches": launches}
+            "2 layers, f32", "requests": len(prompts),
+            "near_tie_gap": NEAR_TIE, "cases": results}
 
 
 def main() -> int:
@@ -411,18 +774,37 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.monotonic()
-    kernel = kernel_phase(torch)
-    print(json.dumps({"phase": "kernel", "seconds": time.monotonic() - t0}))
-    t1 = time.monotonic()
-    serve = serve_phase(torch)
-    kernel["launches"] = serve["kernel_launches"]
-    print(json.dumps({**serve, "seconds": time.monotonic() - t1}))
-    t2 = time.monotonic()
-    check = check_phase(torch)
-    print(json.dumps({**check, "seconds": time.monotonic() - t2}))
-    if not all(math.isfinite(kernel[k]) for k in ("ms", "plain_ms", "bound_ms")):
-        raise AssertionError(f"non-finite kernel timing: {kernel}")
-    print(json.dumps({"kernels": [kernel]}))
+    build_phase()
+
+    def timed(name, fn, *args, **kw):
+        t = time.monotonic()
+        out = fn(torch, *args, **kw)
+        line = out if "phase" in out else {"phase": name}
+        print(json.dumps({**line, "seconds": time.monotonic() - t}))
+        return out
+
+    kernel = timed("kernel", kernel_phase)
+    scaled = timed("kernel_scaled", kernel_scaled_phase)
+    vmm = timed("kernel_mxfp4", kernel_mxfp4_phase)
+    timed("quantize", quantize_phase)
+    model = build_llama(torch)
+    serve = timed("serve", serve_phase, model)
+    serve_q = timed("serve_quantized", serve_phase, model,
+                    phase="serve_quantized", weight_format="mxfp4",
+                    cache_dtype="fp8")
+    del model
+    torch.cuda.empty_cache()
+    timed("check", check_phase)
+    kernel["launches"] = serve["kernel_launches"][kernel["name"]]
+    scaled["launches"] = serve_q["kernel_launches"][scaled["name"]]
+    vmm["launches"] = serve_q["kernel_launches"][vmm["name"]]
+    kernels = [kernel, scaled, vmm]
+    for k in kernels:
+        if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
+                                                     "bound_ms")):
+            raise AssertionError(f"non-finite kernel timing: {k}")
+    print(f"total {time.monotonic() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

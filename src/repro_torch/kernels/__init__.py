@@ -1,13 +1,19 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version:
 
-   decode_attention — paged single-token GQA flash-decode (CUDA C++,
+   decode_attention — paged single-token GQA flash-decode over dense or
+                      fp8/int8 code pools (CUDA C++,
                       ``csrc/paged_decode.cu``), replacing the Pallas
                       ``repro/kernels/decode_attention/paged_kernel.py``
+   mxfp4_vmm        — MXFP4 weight-streaming matmul (CUDA C++,
+                      ``csrc/mxfp4_vmm.cu``), replacing the Pallas
+                      ``repro/kernels/mxfp4_vmm/kernel.py``
 
 Every wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches its
-kernel and nowhere else, so a run can show that its path went through the
-kernel (``chip_smoke.py`` clears the counts before the serve phase).
+kernel and nowhere else (the decode kernel counts its launches on code
+pools as ``paged_decode_attention_scaled``), so a run can show that its
+path went through the kernel (``chip_smoke.py`` clears the counts before
+each serve phase).
 """
 from collections import Counter
 

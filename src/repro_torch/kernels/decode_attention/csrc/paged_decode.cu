@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/paged_kernel.py::paged_decode_attention
-// (online accumulator, dense bf16/f32 pools, optional sliding window).
+// (online accumulator, optional sliding window): dense bf16/f32 pools, and
+// fp8 (e4m3) / int8 code pools with (P, page, KVH) f32 per-token scale
+// pools (its k_scales/v_scales branch).
 //
 // out[b, g*rep + r, :] = softmax_t(q[b, g*rep + r] . K[t] * scale) @ V
 // over the positions t visible from pos[b] (t <= pos, and t > pos - window
@@ -22,7 +24,13 @@
 //     several CTAs on every SM, and a second small kernel folds the
 //     n_split partial states;
 //   * double-buffers pages in shared memory with cp.async, so the next
-//     page's K/V stream in while the current page is folded.
+//     page's K/V stream in while the current page is folded;
+//   * for code pools, stages the page's K and V scales beside its codes
+//     (4-byte cp.async: a head's scales are strided by KVH, so they are not
+//     one 16-byte row) and dequantizes right after the page lands,
+//     float(code) * scale[token], the plain version's op sequence.  A code
+//     pool moves a quarter (f32) or half (bf16) of the bytes, so the
+//     kernel's byte bound falls by as much.
 //
 // Partial kernel: one CTA per (kv head g, slot b, split s), D threads.  Per
 // live page of its share:
@@ -37,6 +45,7 @@
 // writes in q's dtype.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +59,15 @@ template <> __device__ __forceinline__ float to_float<float>(float x) { return x
 template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_float<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_float<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// 1-byte pools hold codes with per-token scales
+template <typename KT> constexpr bool kQuantized = sizeof(KT) == 1;
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -83,14 +101,19 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Shared memory layout (floats first, then two staged K/V pages):
+// Shared memory layout (floats first, then two staged K/V pages, then for
+// code pools their staged scales):
 //   q_s[rep][D] f32 | s_s[rep][page] f32 | m_s, l_s, c_s [rep] f32 | pad16 |
-//   kv_s[2 buffers][K, V][page][D] KT
+//   kv_s[2 buffers][K, V][page][D] KT | sc_s[2 buffers][K, V][page] f32
 __host__ __device__ inline size_t float_words(int rep, int D, int page) {
   size_t n = (size_t)rep * D + (size_t)rep * page + 3 * (size_t)rep;
   return (n + 3) & ~(size_t)3;     // 16-byte align the K/V staging area
@@ -98,7 +121,8 @@ __host__ __device__ inline size_t float_words(int rep, int D, int page) {
 
 template <typename KT>
 __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
-  return float_words(rep, D, page) * sizeof(float) + 4 * (size_t)page * D * sizeof(KT);
+  return float_words(rep, D, page) * sizeof(float) + 4 * (size_t)page * D * sizeof(KT) +
+         (kQuantized<KT> ? 4 * (size_t)page * sizeof(float) : 0);
 }
 
 template <typename QT, typename KT, int D>
@@ -106,6 +130,8 @@ __global__ void __launch_bounds__(D)
 paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
                      const KT* __restrict__ k_pages,     // (P, page, KVH, D)
                      const KT* __restrict__ v_pages,     // (P, page, KVH, D)
+                     const float* __restrict__ k_scales, // (P, page, KVH) or null
+                     const float* __restrict__ v_scales, // (P, page, KVH) or null
                      const int* __restrict__ page_table, // (B, n_blocks)
                      const int* __restrict__ pos_arr,    // (B,)
                      float* __restrict__ ws_acc,         // (B, H, n_split, D)
@@ -133,6 +159,7 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
   float* c_s = l_s + rep;
   KT* kv_s = reinterpret_cast<KT*>(q_s + float_words(rep, D, page));
   const int page_elems = page * D;              // one K or V page of head g
+  float* sc_s = reinterpret_cast<float*>(kv_s + 4 * (size_t)page_elems);
 
   // this CTA's share of the row's live pages [lo, hi]
   const int p = pos_arr[b];
@@ -160,6 +187,14 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
       const int e = (c % kChunksPerRow) * kChunk;
       cp_async16(ks + t * D + e, kg + t * tok_stride + e);
       cp_async16(vs + t * D + e, vg + t * tok_stride + e);
+    }
+    if constexpr (kQuantized<KT>) {
+      float* kss = sc_s + (size_t)buf * 2 * page;
+      const size_t s0 = (size_t)phys * page * kvh + g;
+      for (int t = tid; t < page; t += D) {
+        cp_async4(kss + t, k_scales + s0 + (size_t)t * kvh);
+        cp_async4(kss + page + t, v_scales + s0 + (size_t)t * kvh);
+      }
     }
     cp_async_commit();
   };
@@ -192,6 +227,8 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
     __syncthreads();
     const KT* k_s = kv_s + (size_t)buf * 2 * page_elems;
     const KT* v_s = k_s + page_elems;
+    const float* ksc = sc_s + (size_t)buf * 2 * page;   // code pools only
+    const float* vsc = ksc + page;
 
     // 2. scores s[r][t] = q_r . k_t * scale (masked to NEG_INF)
     for (int t = warp; t < page; t += kWarps) {
@@ -200,6 +237,11 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
       float kf[kLane];
 #pragma unroll
       for (int i = 0; i < kLane; ++i) kf[i] = to_float(kv.v[i]);
+      if constexpr (kQuantized<KT>) {
+        const float sk = ksc[t];
+#pragma unroll
+        for (int i = 0; i < kLane; ++i) kf[i] *= sk;
+      }
       const int idx = j * page + t;
       const bool ok = idx <= p && (window <= 0 || idx > p - window);
 #pragma unroll
@@ -246,7 +288,8 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
     for (int r = 0; r < kMaxRep; ++r)
       if (r < rep) acc[r] *= c_s[r];
     for (int t = 0; t < page; ++t) {
-      const float vv = to_float(v_s[t * D + tid]);
+      float vv = to_float(v_s[t * D + tid]);
+      if constexpr (kQuantized<KT>) vv *= vsc[t];
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r)
         if (r < rep) acc[r] += s_s[r * page + t] * vv;
@@ -289,45 +332,55 @@ paged_decode_combine(const float* __restrict__ ws_acc, const float* __restrict__
   out[bh * D + d] = from_float<QT>(a / fmaxf(l, 1e-30f));
 }
 
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *table, *pos;
+  void* out;
+  float *ws_acc, *ws_ml;
+  int B, kvh, rep, page, n_blocks, n_split, window;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename QT, typename KT, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* table,
-                   const int* pos, void* out, float* ws_acc, float* ws_ml, int B,
-                   int kvh, int rep, int page, int n_blocks, int n_split, int window,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   auto partial = paged_decode_partial<QT, KT, D>;
-  const size_t smem = smem_bytes<KT>(rep, D, page);
+  const size_t smem = smem_bytes<KT>(a.rep, D, a.page);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  partial<<<dim3(kvh, B, n_split), D, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      table, pos, ws_acc, ws_ml, kvh, rep, page, n_blocks, n_split, window, scale);
+  partial<<<dim3(a.kvh, a.B, a.n_split), D, smem, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), a.ks, a.vs, a.table, a.pos, a.ws_acc, a.ws_ml,
+      a.kvh, a.rep, a.page, a.n_blocks, a.n_split, a.window, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  paged_decode_combine<QT, D><<<B * kvh * rep, D, 0, stream>>>(
-      ws_acc, ws_ml, static_cast<QT*>(out), n_split);
+  paged_decode_combine<QT, D><<<a.B * a.kvh * a.rep, D, 0, a.stream>>>(
+      a.ws_acc, a.ws_ml, static_cast<QT*>(a.out), a.n_split);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KT>
-cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
-                         const int* table, const int* pos, void* out, float* ws_acc,
-                         float* ws_ml, int B, int kvh, int rep, int page, int n_blocks,
-                         int n_split, int window, float scale, cudaStream_t s) {
+cudaError_t dispatch_dim(int D, const Args& a) {
   switch (D) {
-    case 64:
-      return launch<QT, KT, 64>(q, k, v, table, pos, out, ws_acc, ws_ml, B, kvh, rep,
-                                page, n_blocks, n_split, window, scale, s);
-    case 128:
-      return launch<QT, KT, 128>(q, k, v, table, pos, out, ws_acc, ws_ml, B, kvh, rep,
-                                 page, n_blocks, n_split, window, scale, s);
-    case 256:
-      return launch<QT, KT, 256>(q, k, v, table, pos, out, ws_acc, ws_ml, B, kvh, rep,
-                                 page, n_blocks, n_split, window, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 64: return launch<QT, KT, 64>(a);
+    case 128: return launch<QT, KT, 128>(a);
+    case 256: return launch<QT, KT, 256>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename QT>
+cudaError_t dispatch_kv(int kv_dtype, int D, const Args& a) {
+  switch (kv_dtype) {
+    case 0: return dispatch_dim<QT, float>(D, a);
+    case 1: return dispatch_dim<QT, __nv_bfloat16>(D, a);
+    case 2: return dispatch_dim<QT, __nv_fp8_e4m3>(D, a);
+    case 3: return dispatch_dim<QT, int8_t>(D, a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -335,9 +388,12 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16.  ws_acc: (B, H, n_split, D) f32 and
-// ws_ml: (B, H, n_split, 2) f32 scratch.  Returns a cudaError_t (0 = ok).
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8 (pools
+// only; q is 0 or 1).  Code pools (2, 3) need k_scales/v_scales (P, page,
+// KVH) f32; dense pools take null there.  ws_acc: (B, H, n_split, D) f32
+// and ws_ml: (B, H, n_split, 2) f32 scratch.  Returns a cudaError_t (0 = ok).
 int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
+                           const void* k_scales, const void* v_scales,
                            const void* page_table, const void* pos, void* out,
                            void* ws_acc, void* ws_ml, int B, int kvh, int rep, int D,
                            int page, int n_blocks, int n_split, int window, float scale,
@@ -345,27 +401,17 @@ int paged_decode_attention(const void* q, const void* k_pages, const void* v_pag
   if (rep < 1 || rep > kMaxRep || page < 1 || n_blocks < 1 || B < 1 || kvh < 1 ||
       n_split < 1)
     return (int)cudaErrorInvalidValue;
-  const int* tab = static_cast<const int*>(page_table);
-  const int* ps = static_cast<const int*>(pos);
-  float* wa = static_cast<float*>(ws_acc);
-  float* wm = static_cast<float*>(ws_ml);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return (int)dispatch_dim<__nv_bfloat16, __nv_bfloat16>(
-        D, q, k_pages, v_pages, tab, ps, out, wa, wm, B, kvh, rep, page, n_blocks,
-        n_split, window, scale, s);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return (int)dispatch_dim<float, float>(D, q, k_pages, v_pages, tab, ps, out, wa, wm, B,
-                                           kvh, rep, page, n_blocks, n_split, window,
-                                           scale, s);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return (int)dispatch_dim<__nv_bfloat16, float>(
-        D, q, k_pages, v_pages, tab, ps, out, wa, wm, B, kvh, rep, page, n_blocks,
-        n_split, window, scale, s);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return (int)dispatch_dim<float, __nv_bfloat16>(
-        D, q, k_pages, v_pages, tab, ps, out, wa, wm, B, kvh, rep, page, n_blocks,
-        n_split, window, scale, s);
+  const bool quantized = kv_dtype == 2 || kv_dtype == 3;
+  if (quantized != (k_scales != nullptr && v_scales != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pages, v_pages,
+               static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+               static_cast<const int*>(page_table), static_cast<const int*>(pos), out,
+               static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
+               B, kvh, rep, page, n_blocks, n_split, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0) return (int)dispatch_kv<float>(kv_dtype, D, a);
+  if (q_dtype == 1) return (int)dispatch_kv<__nv_bfloat16>(kv_dtype, D, a);
   return (int)cudaErrorInvalidValue;
 }
 

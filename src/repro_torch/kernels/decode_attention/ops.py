@@ -8,21 +8,27 @@ from repro_torch.kernels.decode_attention.paged_kernel import (
     paged_decode_attention,
 )
 from repro_torch.kernels.decode_attention.ref import (
-    QUANT_SLICE, gather_pages, paged_decode_attention_ref,
+    gather_pages, paged_decode_attention_ref,
 )
 from repro_torch.models.common import blocked_attention
+from repro_torch.quant.kv import kv_dequantize
 
 
 def paged_gqa_multi_attention(q, k_pages, v_pages, page_table, start, *,
-                              causal=True, window=None):
+                              k_scales=None, v_scales=None, causal=True,
+                              window=None):
     """Multi-token paged attention for chunked prefill: q (B, C, H, D) at
     per-row absolute offsets ``start`` (B,); query j of row b sits at
     ``start[b] + j`` and attends causally up to itself.  Gathers the pages
-    and runs ``blocked_attention``'s ragged ``q_offset`` online softmax
-    (the reference's ``impl="blocked"``; its ``"reference"`` impl serves
+    (dequantized to q's dtype for fp8/int8 pools) and runs
+    ``blocked_attention``'s ragged ``q_offset`` online softmax (the
+    reference's ``impl="blocked"``; its ``"reference"`` impl serves
     speculative verify, which the port has not reached yet)."""
     k_d = gather_pages(k_pages, page_table)
     v_d = gather_pages(v_pages, page_table)
+    if k_scales is not None:
+        k_d = kv_dequantize(k_d, gather_pages(k_scales, page_table), q.dtype)
+        v_d = kv_dequantize(v_d, gather_pages(v_scales, page_table), q.dtype)
     return blocked_attention(q, k_d, v_d, causal=causal, window=window,
                              q_offset=start)
 
@@ -40,14 +46,14 @@ def paged_gqa_decode_attention(q, k_pages, v_pages, page_table, pos, *,
     ``"auto"`` takes the plain version for tensors on the CPU and the
     kernel for CUDA tensors — only the kernel: a build or launch failure
     raises.  ``"fused"`` on a CPU tensor raises (CUDA has no interpret
-    mode)."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(QUANT_SLICE)
+    mode).  fp8/int8 code pools come with their ``(P, page, KVH)`` f32
+    ``k_scales``/``v_scales``."""
     if impl == "auto":
         impl = "reference" if q.device.type == "cpu" else "fused"
     if impl == "reference":
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
-                                          pos, window=window)
+                                          pos, k_scales=k_scales,
+                                          v_scales=v_scales, window=window)
     if impl != "fused":
         raise ValueError(f"impl={impl!r} (want 'auto', 'fused' or 'reference')")
     if not q.is_cuda:
@@ -55,4 +61,5 @@ def paged_gqa_decode_attention(q, k_pages, v_pages, page_table, pos, *,
                          f"tensors; q is on {q.device}")
     return paged_decode_attention(q, k_pages, v_pages,
                                   page_table.to(torch.int32),
-                                  pos.to(torch.int32), window=window)
+                                  pos.to(torch.int32), k_scales=k_scales,
+                                  v_scales=v_scales, window=window)

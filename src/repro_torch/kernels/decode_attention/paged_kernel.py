@@ -2,7 +2,8 @@
 
 The Hopper counterpart of the Pallas kernel
 ``repro/kernels/decode_attention/paged_kernel.py::paged_decode_attention``
-(its online accumulator over dense pools).  The kernel itself is
+(its online accumulator, over dense bf16/f32 pools and over fp8/int8 code
+pools with per-token f32 scale pools).  The kernel itself is
 ``csrc/paged_decode.cu``: CTAs per (kv head, slot, split) walk their share
 of the slot's live pages through the page table, double-buffered in shared
 memory, with q and the f32 online-softmax state on chip; a second kernel
@@ -27,18 +28,21 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import build
 
 NAME = "paged_decode_attention"
+NAME_SCALED = "paged_decode_attention_scaled"   # launches on code pools
 SOURCE = Path(__file__).parent / "csrc" / "paged_decode.cu"
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 16                      # kMaxRep in the source
 SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CODE_DTYPES = {torch.float8_e4m3fn: 2, torch.int8: 3}   # need scale pools
+_POOL_DTYPE_CODES = {**_DTYPE_CODES, **_CODE_DTYPES}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build("paged_decode", [SOURCE])
     fn = lib.paged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
@@ -66,13 +70,16 @@ def _check(cond: bool, msg: str) -> None:
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor, *,
+                           k_scales: torch.Tensor | None = None,
+                           v_scales: torch.Tensor | None = None,
                            window: int | None = None) -> torch.Tensor:
     """Single-token paged GQA decode attention; returns (B, H, D) in q.dtype.
 
-    q (B, H, D); k_pages / v_pages (P, page, KVH, D), bf16 or f32;
-    page_table (B, n_blocks) int32; pos (B,) int32, each >= 0.  Every entry
-    of the table's live blocks (block ``pos // page`` and below) must name a
-    page of the pool: the kernel reads through it unchecked."""
+    q (B, H, D) bf16 or f32; k_pages / v_pages (P, page, KVH, D), bf16 or
+    f32, or fp8 e4m3 / int8 codes with k_scales / v_scales (P, page, KVH)
+    f32; page_table (B, n_blocks) int32; pos (B,) int32, each >= 0.  Every
+    entry of the table's live blocks (block ``pos // page`` and below) must
+    name a page of the pool: the kernel reads through it unchecked."""
     _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -82,8 +89,23 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     ("page_table", page_table), ("pos", pos)):
         _check(t.is_contiguous(), f"{name} must be contiguous")
     _check(q.dtype in _DTYPE_CODES, f"q dtype {q.dtype} (want f32/bf16)")
-    _check(k_pages.dtype in _DTYPE_CODES and v_pages.dtype == k_pages.dtype,
-           f"pool dtypes {k_pages.dtype}/{v_pages.dtype} (want one of f32/bf16)")
+    quantized = k_pages.dtype in _CODE_DTYPES
+    _check((k_pages.dtype in _DTYPE_CODES or quantized)
+           and v_pages.dtype == k_pages.dtype,
+           f"pool dtypes {k_pages.dtype}/{v_pages.dtype} (want one of "
+           f"f32/bf16/fp8 e4m3/int8)")
+    _check(quantized == (k_scales is not None) == (v_scales is not None),
+           f"{k_pages.dtype} pools with k_scales "
+           f"{'given' if k_scales is not None else 'None'}: code pools "
+           f"(fp8/int8) need both scale pools, dense pools take none")
+    if quantized:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check(t.device == dev and t.dtype == torch.float32
+                   and t.is_contiguous()
+                   and tuple(t.shape) == tuple(k_pages.shape[:3]),
+                   f"{name} must be a contiguous f32 {tuple(k_pages.shape[:3])}"
+                   f" tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                   f"{t.device}")
     _check(page_table.dtype == torch.int32 and pos.dtype == torch.int32,
            "page_table and pos must be int32")
     _check(q.ndim == 3 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
@@ -103,7 +125,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     rep = h // kvh       # shared memory: q, scores, state, 2 K/V page buffers
     smem = 4 * (rep * d + rep * page + 3 * rep + 3) + 4 * page * d * \
-        k_pages.element_size()
+        k_pages.element_size() + (4 * page * 4 if quantized else 0)
     _check(smem <= SMEM_LIMIT, f"page {page} x head dim {d} needs {smem} B of "
            f"shared memory (limit {SMEM_LIMIT})")
 
@@ -117,12 +139,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             ws_acc.data_ptr(), ws_ml.data_ptr(), b, kvh, rep, d, page,
             n_blocks, n_split, window or 0, 1.0 / math.sqrt(d),
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], stream)
+            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype], stream)
     if err != 0:
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f"{NAME} launch failed: {msg} (cudaError {err})")
-    LAUNCHES[NAME] += 1
+    LAUNCHES[NAME_SCALED if quantized else NAME] += 1
     return out

@@ -6,18 +6,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import decode_attention_ref
-
-QUANT_SLICE = ("fp8/int8 KV pools (k_scales/v_scales) arrive with the port's "
-               "quantization slice (ROADMAP Queue 1, 'Quantization')")
+from repro_torch.quant.kv import raw_view
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """(P, page, ...) pool + (B, n_blocks) table -> (B, n_blocks*page, ...)
     position-ordered dense view (block i of row b = physical page
     ``page_table[b, i]``)."""
-    g = pages[page_table.long()]               # (B, n_blocks, page, ...)
+    g = raw_view(pages)[page_table.long()]     # (B, n_blocks, page, ...)
     b, nb, ps = g.shape[:3]
-    return g.reshape((b, nb * ps) + tuple(g.shape[3:]))
+    return g.reshape((b, nb * ps) + tuple(g.shape[3:])).view(pages.dtype)
 
 
 def paged_valid_mask(page_table: torch.Tensor, page_size: int,
@@ -43,10 +41,16 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, pos, *,
     v_pages:    (P, page, KVH, Dv)
     page_table: (B, n_blocks) int — logical block -> physical page
     pos:        (B,) int — per-slot position of the new token
+    k_scales/v_scales: (P, page, KVH) f32 per-token dequant scales for
+                fp8/int8 code pools (None = dense pools)
+
+    The dequant (f32 cast, then one multiply per element) is the one the
+    CUDA kernel applies to each page it loads.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(QUANT_SLICE)
     k = gather_pages(k_pages, page_table)
     v = gather_pages(v_pages, page_table)
+    if k_scales is not None:
+        k = k.float() * gather_pages(k_scales, page_table)[..., None]
+        v = v.float() * gather_pages(v_scales, page_table)[..., None]
     valid = paged_valid_mask(page_table, k_pages.shape[1], pos, window=window)
     return decode_attention_ref(q, k, v, None, valid=valid, scale=scale)

@@ -2,13 +2,16 @@
 
 The GQA part of ``repro/models/attention_backends.py``.  One difference in
 kind: the reference returns new pool arrays (``.at[].set``); here every
-scatter writes the pool **in place** (``index_put_``).  At llama3-8b size a
+scatter writes the pool **in place** (``index_put_``), with the page
+indices computed once per layer for all of the pool's leaves.  At llama3-8b size a
 32-layer pool copied on every step would cost more than the step itself.
 
 The decode attention goes through ``ops.paged_gqa_decode_attention``
 (``impl="auto"``): the plain version for CPU tensors, the CUDA kernel for
 CUDA tensors.  Chunked prefill gathers the pages and runs
-``blocked_attention``, as the reference does.
+``blocked_attention``, as the reference does.  fp8/int8 pools quantize on
+write (codes plus per-token scales, ``quant/kv.py``) and hand their scale
+leaves to the attention; the o projection goes through ``qdot``.
 """
 from __future__ import annotations
 
@@ -19,54 +22,69 @@ from repro_torch.kernels.decode_attention.ops import (
 )
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig
+from repro_torch.quant import kv as kvq
+from repro_torch.quant.linear import qdot
 
-QUANT_POOLS = ("fp8", "int8")
 
-
-def scatter_token(pool_leaf: torch.Tensor, vals: torch.Tensor, page_table,
-                  pos) -> None:
-    """Scatter one token per slot, in place: vals (B, ...) at per-slot
-    position pos."""
-    b = vals.shape[0]
-    page = pool_leaf.shape[1]
+def token_slots(page_table, pos, page: int):
+    """(physical page, offset) of each slot's position ``pos`` (B,)."""
     pos = pos.long()
-    blk, off = pos // page, pos % page
-    phys = page_table[torch.arange(b, device=pos.device), blk].long()
-    pool_leaf.index_put_((phys, off), vals.to(pool_leaf.dtype))
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return page_table[rows, pos // page].long(), pos % page
 
 
-def scatter_chunk(pool_leaf: torch.Tensor, vals: torch.Tensor, page_table,
-                  positions, ok) -> None:
-    """Scatter a chunk of tokens per slot through the page table, in place.
+def chunk_slots(page_table, positions, ok, page: int):
+    """(physical page, offset) of each chunk token, flattened to (B*C,).
 
-    vals: (B, C, ...); positions: (B, C) absolute; ok: (B, C) — entries with
-    ``ok=False`` (padding rows / the tail of a short last chunk) are
-    redirected to the scratch page so live pages are never corrupted."""
+    positions: (B, C) absolute; ok: (B, C) — entries with ``ok=False``
+    (padding rows / the tail of a short last chunk) are redirected to the
+    scratch page so live pages are never corrupted."""
     b, c = positions.shape
-    page = pool_leaf.shape[1]
     okf = ok.reshape(-1)
     pos_f = torch.where(okf, positions.reshape(-1).long(), 0)
     bidx = torch.arange(b, device=positions.device).repeat_interleave(c)
     phys = torch.where(okf, page_table[bidx, pos_f // page].long(), 0)
-    off = torch.where(okf, pos_f % page, 0)
-    flat = vals.reshape((b * c,) + tuple(vals.shape[2:])).to(pool_leaf.dtype)
-    pool_leaf.index_put_((phys, off), flat)
+    return phys, torch.where(okf, pos_f % page, 0)
+
+
+def _put(pool_leaf: torch.Tensor, slots, vals: torch.Tensor) -> None:
+    """pool_leaf[slots] = vals, in place (fp8 codes as their bytes)."""
+    kvq.raw_view(pool_leaf).index_put_(
+        slots, kvq.raw_view(vals.to(pool_leaf.dtype)))
 
 
 def init_attn_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                         dtype=torch.bfloat16, *, device) -> dict:
     """Physical K/V page pool for one layer: ``(P, page, KVH, HD)``.
 
-    bf16 on the card; f32 for CPU parity runs.  The reference's quantized
-    ``"fp8"``/``"int8"`` pools (codes plus per-token scale leaves) are not
-    ported yet."""
-    if isinstance(dtype, str) and dtype in QUANT_POOLS:
-        raise NotImplementedError(
-            f"cache_dtype={dtype!r}: quantized KV pools arrive with the "
-            "port's quantization slice (ROADMAP Queue 1, 'Quantization')")
+    bf16 on the card; f32 for CPU parity runs.  The string dtypes
+    ``"fp8"`` / ``"int8"`` build quantized pools: narrow code leaves plus
+    per-token f32 ``k_scale``/``v_scale`` leaves of shape ``(P, page,
+    KVH)``."""
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    if kvq.is_quantized_cache_dtype(dtype):
+        store = kvq.cache_storage_dtype(dtype)
+        ones = dict(dtype=kvq.SCALE_DTYPE, device=device)
+        return {"k": torch.zeros(shape, dtype=store, device=device),
+                "v": torch.zeros(shape, dtype=store, device=device),
+                "k_scale": torch.ones(shape[:3], **ones),
+                "v_scale": torch.ones(shape[:3], **ones)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _scatter_kv(pool: dict, k, v, slots) -> None:
+    """Write k/v (N, KVH, HD) at ``slots`` into every leaf of the pool,
+    quantizing on write for fp8/int8 pools (scale = amax of the token's
+    head vector, fixed at write time)."""
+    fmt = kvq.pool_cache_format(pool)
+    if fmt is not None:
+        k, k_scale = kvq.kv_quantize(k, fmt)
+        v, v_scale = kvq.kv_quantize(v, fmt)
+        _put(pool["k_scale"], slots, k_scale)
+        _put(pool["v_scale"], slots, v_scale)
+    _put(pool["k"], slots, k)
+    _put(pool["v"], slots, v)
 
 
 def attn_decode_paged(p: layers.Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -80,11 +98,13 @@ def attn_decode_paged(p: layers.Attention, x: torch.Tensor, cfg: ModelConfig,
     b, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     q, k, v = layers._qkv(p, x[:, None, :], cfg, pos[:, None])
-    scatter_token(pool["k"], k[:, 0], page_table, pos)
-    scatter_token(pool["v"], v[:, 0], page_table, pos)
-    out = paged_gqa_decode_attention(q[:, 0], pool["k"], pool["v"],
-                                     page_table, pos, window=window)
-    return out.reshape(b, h * hd) @ p.wo
+    page = pool["k"].shape[1]
+    _scatter_kv(pool, k[:, 0], v[:, 0], token_slots(page_table, pos, page))
+    out = paged_gqa_decode_attention(
+        q[:, 0], pool["k"], pool["v"], page_table, pos,
+        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+        window=window)
+    return qdot(out.reshape(b, h * hd), p.wo)
 
 
 def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
@@ -103,8 +123,10 @@ def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
     positions = start[:, None].long() + ar[None, :]
     q, k, v = layers._qkv(p, x, cfg, positions)
     ok = ar[None, :] < valid[:, None]
-    scatter_chunk(pool["k"], k, page_table, positions, ok)
-    scatter_chunk(pool["v"], v, page_table, positions, ok)
-    out = paged_gqa_multi_attention(q, pool["k"], pool["v"], page_table,
-                                    start, causal=cfg.causal, window=window)
-    return out.reshape(b, c, h * hd) @ p.wo
+    slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
+    _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots)
+    out = paged_gqa_multi_attention(
+        q, pool["k"], pool["v"], page_table, start,
+        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+        causal=cfg.causal, window=window)
+    return qdot(out.reshape(b, c, h * hd), p.wo)

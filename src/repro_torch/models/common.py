@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.quant.linear import qdot
+
 # ---------------------------------------------------------------------------
 # Config
 # ---------------------------------------------------------------------------
@@ -130,9 +132,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g.float()).to(x.dtype) * u) @ w_down
+    """SwiGLU MLP; each weight may be packed (``quant.linear.qdot``)."""
+    g = qdot(x, w_gate)
+    u = qdot(x, w_up)
+    return qdot(F.silu(g.float()).to(x.dtype) * u, w_down)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,11 @@
 
 Parameters live in ``nn.Module``s whose attribute names are the reference
 pytree's keys (``wq``, ``bk``, ``q_norm``, ``w_gate`` ...), with the same
-shapes and dtypes, so the weight bridge is a rename-free copy.  The
-paged serve paths that use ``_qkv`` live in ``attention_backends.py``.
+shapes and dtypes, so the weight bridge is a rename-free copy.  In a
+quantized view (``quant.linear.quantize_params``) the projection
+attributes hold packed tensors instead, and every projection goes through
+``qdot``.  The paged serve paths that use ``_qkv`` live in
+``attention_backends.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, apply_rope, dense_init, rmsnorm,
     swiglu,
 )
+from repro_torch.quant.linear import qdot
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -66,9 +70,9 @@ def init_attn(p: Attention, gen: torch.Generator, cfg: ModelConfig) -> None:
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = qdot(x, p.wq)
+    k = qdot(x, p.wk)
+    v = qdot(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, s, h, hd)

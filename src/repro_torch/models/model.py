@@ -19,6 +19,7 @@ raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -29,6 +30,7 @@ from repro_torch.models import layers
 from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, embed_init, rmsnorm,
 )
+from repro_torch.quant.linear import packed_leaves
 
 ITEM_MOE_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
 ITEM_STATEFUL = "ROADMAP Queue 1, 'Stateful layouts'"
@@ -159,7 +161,10 @@ class Model(nn.Module):
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None, *,
                          ring_pages: int | None = None) -> list[dict]:
         """One physical K/V page pool per layer (``(P, page, KVH, HD)``
-        leaves); all layers share one logical page-id space."""
+        leaves); all layers share one logical page-id space.  ``dtype`` is
+        a torch dtype or ``"fp8"``/``"int8"`` (code leaves plus per-token
+        ``k_scale``/``v_scale`` leaves); another string raises
+        ``ValueError``."""
         if ring_pages is not None:
             raise NotImplementedError(f"ring page spaces — {ITEM_STATEFUL}")
         dtype = torch.bfloat16 if dtype is None else dtype
@@ -211,4 +216,7 @@ class Model(nn.Module):
         return self._head(x[:, None, :])[:, 0]
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        """Weights of the model; a packed weight of a quantized view counts
+        by its logical shape."""
+        return (sum(p.numel() for p in self.parameters())
+                + sum(math.prod(w.shape) for _, w in packed_leaves(self)))

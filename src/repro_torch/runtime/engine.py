@@ -17,11 +17,19 @@ pools, here they are plain methods and the pools are updated in place.
 On CUDA the decode attention of every layer is the hand-written paged
 decode kernel; on the CPU it is its plain version.
 
+Quantized serving: ``weight_format=`` ("mxfp4", "mxfp8", "bfp", "nxfp4")
+serves a quantized view of the model (``quant.linear.quantize_params``;
+the caller's model is left as it was), whose mxfp4 projections run the
+hand-written MXFP4 VMM kernel on CUDA; ``cache_dtype="fp8"|"int8"``
+builds code pools with per-token scale leaves, which the decode kernel
+dequantizes in its page loop and which move with their pages through
+copy-on-write and defrag like every other leaf.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``spec=`` (DeploymentSpec sizing), ``mesh=`` (tensor parallelism),
-``speculative=``, ``weight_format=`` and quantized ``cache_dtype``,
-``phase != "colocated"`` (disaggregation), sliding-window / stateful
-layouts, and prompt scoring (``SamplingParams.prompt_logprobs``).
+``speculative=``, ``phase != "colocated"`` (disaggregation),
+sliding-window / stateful layouts, and prompt scoring
+(``SamplingParams.prompt_logprobs``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.quant import kv as kvq
+from repro_torch.quant.linear import quantize_params
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.sampling import SamplingParams
@@ -73,6 +83,7 @@ class ContinuousStats:
     wall: float                   # seconds since the session started
     preemptions: int
     chunks: int = 0               # prefill chunk rows executed
+    prefill_calls: int = 0        # batched prefill-chunk model calls
     prefill_tokens: int = 0       # prompt tokens actually computed
     prompt_tokens: int = 0        # prompt tokens across all admissions
     prefix_hit_tokens: int = 0    # prompt tokens served from shared pages
@@ -136,10 +147,7 @@ class ContinuousServeEngine:
         if speculative is not None:
             raise _unported("speculative decoding (speculative=)",
                             "Speculative decoding")
-        if weight_format is not None:
-            raise _unported(f"weight_format={weight_format!r}", "Quantization")
-        if isinstance(cache_dtype, str):
-            raise _unported(f"cache_dtype={cache_dtype!r}", "Quantization")
+        kvq.validate_cache_dtype(cache_dtype)
         if phase != "colocated":
             raise _unported(f"phase={phase!r} (disaggregated serving)",
                             "Disaggregation")
@@ -153,6 +161,9 @@ class ContinuousServeEngine:
         if missing:
             raise ValueError(f"pass the explicit knobs {missing}")
         prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
+        if weight_format is not None:
+            # a view: packed projections, the caller's other tensors
+            model = quantize_params(model, weight_format)
         self.model = model
         self.num_slots = num_slots
         self.page_size = page_size
@@ -208,17 +219,20 @@ class ContinuousServeEngine:
                                      bias_vals=bias_vals, presence=presence)
 
     def _copy_page(self, dst: int, src: int) -> None:
-        """pools[dst] = pools[src] on every layer's leaves (copy-on-write)."""
+        """pools[dst] = pools[src] on every layer's leaves (copy-on-write;
+        quantized pools' scale leaves included)."""
         for pool in self._pools:
             for leaf in pool.values():
-                leaf[dst] = leaf[src]
+                raw = kvq.raw_view(leaf)
+                raw[dst] = raw[src]
 
     def _permute_pools(self, gather: np.ndarray) -> None:
         """Apply a defrag page permutation: new_pool[i] = old_pool[g[i]]."""
         g = self._tensor(gather).long()
         for pool in self._pools:
             for leaf in pool.values():
-                leaf.copy_(leaf.index_select(0, g))
+                raw = kvq.raw_view(leaf)
+                raw.copy_(raw.index_select(0, g))
 
     # -- serving state ------------------------------------------------------
     def reset(self) -> None:
@@ -240,6 +254,7 @@ class ContinuousServeEngine:
         self._t0 = time.monotonic()
         self._steps, self._occ_sum = 0, 0.0
         self._n_chunks, self._prefill_tokens = 0, 0
+        self._prefill_calls = 0
         self._requests: list[Request] = []
         self.defrag_every = 0      # run-scoped; run() re-applies its arg
 
@@ -347,6 +362,7 @@ class ContinuousServeEngine:
         first, lp = self._chunk_impl(
             *(self._tensor(a) for a in (pres, tokens, tables, start, valid)),
             *(self._tensor(a) for a in samp + extras))
+        self._prefill_calls += 1
         first = first.cpu().numpy()                    # device sync
         lp = lp.cpu().numpy()
         for i, r in enumerate(pre):
@@ -455,6 +471,7 @@ class ContinuousServeEngine:
             wall=self._now(),
             preemptions=sum(r.preemptions for r in requests),
             chunks=self._n_chunks,
+            prefill_calls=self._prefill_calls,
             prefill_tokens=self._prefill_tokens,
             prompt_tokens=self.cache.lookup_tokens,
             prefix_hit_tokens=self.cache.hit_tokens,

@@ -5,6 +5,13 @@
     outs = llm.generate(prompts, SamplingParams(temperature=0.8, top_p=0.9,
                                                 seed=7, max_tokens=64))
 
+Quantized serving (MXFP4 projections through the MXFP4 VMM kernel, fp8 or
+int8 paged KV with per-token scales; the caller's ``model`` is left as it
+was)::
+
+    llm = LLMEngine(model, backend="continuous", weight_format="mxfp4",
+                    cache_dtype="fp8", max_len=2048, num_slots=8)
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
 metrics).  Only the continuous backend is ported; ``"static"`` and

@@ -136,8 +136,6 @@ def test_generate_matches_reference(models):
     (dict(spec=object()), "DeploymentSpec"),
     (dict(mesh=object()), "Tensor parallelism"),
     (dict(speculative=object()), "Speculative decoding"),
-    (dict(weight_format="mxfp4"), "Quantization"),
-    (dict(cache_dtype="fp8"), "Quantization"),
     (dict(backend="static"), "Static ServeEngine"),
     (dict(backend="speculative"), "Speculative decoding"),
     (dict(disaggregate=True), "Disaggregation"),

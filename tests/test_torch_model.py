@@ -138,8 +138,12 @@ def test_unported_plans_and_options_raise():
         model.decode_step_paged(one, pools, tab, one, states=[{}])
     with pytest.raises(NotImplementedError, match="Speculative"):
         model.decode_step_paged(tab, pools, tab, one)
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        model.init_paged_cache(4, 4, dtype="fp8")
+    # quantized pools: fp8 builds codes + scale leaves,
+    # an unknown string still raises
+    assert set(model.init_paged_cache(4, 4, dtype="fp8")[0]) == {
+        "k", "v", "k_scale", "v_scale"}
+    with pytest.raises(ValueError, match="cache_dtype"):
+        model.init_paged_cache(4, 4, dtype="fp4")
 
 
 def test_init_is_seeded_and_cuda_default_needs_a_card():

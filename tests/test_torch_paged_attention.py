@@ -1,7 +1,9 @@
 """Paged decode attention: the port's plain version against the JAX
 reference's oracle and its Pallas kernel (online accumulator, interpret
-mode), plus the op wrapper's dispatch rules.  One test holds the CUDA
-kernel against the plain version and runs only where there is a card.
+mode), over dense pools and over fp8/int8 code pools with per-token scale
+pools, the chunked-prefill multi-token attention over code pools, plus
+the op wrapper's dispatch rules.  Two tests hold the CUDA kernel against
+the plain version and run only where there is a card.
 
 Tolerance 1e-5 absolute in f32, not bitwise: on jax 0.9 even the Pallas
 interpret paths differ from the JAX oracle by up to ~1e-6 (ROADMAP
@@ -12,9 +14,13 @@ import torch
 
 import repro.models  # noqa: F401  (import order: models before kernels.ref)
 import jax.numpy as jnp
+import ml_dtypes
 
 from repro.kernels.decode_attention.paged_kernel import (
     paged_decode_attention as jax_paged_kernel,
+)
+from repro.kernels.decode_attention.ops import (
+    paged_gqa_multi_attention as jax_multi,
 )
 from repro.kernels.decode_attention.ref import (
     paged_decode_attention_ref as jax_paged_ref,
@@ -24,6 +30,7 @@ from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ref import (
     gather_pages, paged_decode_attention_ref, paged_valid_mask,
 )
+from repro_torch.quant.kv import kv_quantize
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,9 +120,101 @@ def test_op_dispatch_on_cpu():
         ops.paged_gqa_decode_attention(q, kp, vp, table, pos, impl="fused")
     with pytest.raises(ValueError):
         ops.paged_gqa_decode_attention(q, kp, vp, table, pos, impl="nope")
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        ops.paged_gqa_decode_attention(q, kp, vp, table, pos,
-                                       k_scales=kp[..., 0], v_scales=vp[..., 0])
+    # code pools: the plain version with the scales, no kernel either
+    kc, ks = kv_quantize(kp, "int8")
+    vc, vs = kv_quantize(vp, "int8")
+    auto = ops.paged_gqa_decode_attention(q, kc, vc, table, pos,
+                                          k_scales=ks, v_scales=vs)
+    ref = paged_decode_attention_ref(q, kc, vc, table, pos, k_scales=ks,
+                                     v_scales=vs)
+    np.testing.assert_array_equal(auto.numpy(), ref.numpy())
+    assert LAUNCHES["paged_decode_attention_scaled"] == 0
+
+
+def _quantized(q, kp, vp, cache_dtype):
+    """Code pools written from the f32 pools, the scratch page's codes and
+    scales poisoned."""
+    kc, ks = kv_quantize(torch.from_numpy(kp), cache_dtype)
+    vc, vs = kv_quantize(torch.from_numpy(vp), cache_dtype)
+    ks[0], vs[0] = 1e4, -1e4
+    return kc, vc, ks, vs
+
+
+def _jax_codes(t: torch.Tensor):
+    """A torch code/scale tensor as the same bits in a jax array."""
+    if t.dtype == torch.float8_e4m3fn:
+        return jnp.asarray(t.view(torch.uint8).numpy().view(
+            ml_dtypes.float8_e4m3fn))
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("cache_dtype", ["fp8", "int8"])
+@pytest.mark.parametrize("seed,B,H,KVH,D,page,nb,tail,window", CASES[:2] + CASES[3:])
+def test_scaled_ref_matches_jax_oracle_and_pallas_kernel(
+        cache_dtype, seed, B, H, KVH, D, page, nb, tail, window):
+    """Code pools: the dequant (f32 cast, one multiply) then attention,
+    against the reference's oracle and its Pallas online kernel's scale
+    branch (interpret mode), within 1e-5."""
+    q, kp, vp, table, pos = _case(seed, B, H, KVH, D, page, nb,
+                                  scratch_tail=tail)
+    kc, vc, ks, vs = _quantized(q, kp, vp, cache_dtype)
+    got = paged_decode_attention_ref(
+        torch.from_numpy(q), kc, vc, torch.from_numpy(table),
+        torch.from_numpy(pos), k_scales=ks, v_scales=vs,
+        window=window).numpy()
+    jq, jt, jp = (jnp.asarray(a) for a in (q, table, pos))
+    jkc, jvc, jks, jvs = (_jax_codes(t) for t in (kc, vc, ks, vs))
+    oracle = np.asarray(jax_paged_ref(jq, jkc, jvc, jt, jp, k_scales=jks,
+                                      v_scales=jvs, window=window))
+    pallas = np.asarray(jax_paged_kernel(
+        jq, jkc, jvc, jt, jp, k_scales=jks, v_scales=jvs, window=window,
+        accum="online", interpret=True))
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("cache_dtype", ["fp8", "int8"])
+@pytest.mark.parametrize("window", [None, 6])
+def test_scaled_multi_attention_matches_jax(cache_dtype, window):
+    """Chunked prefill over code pools: gathered pages dequantized to q's
+    dtype, then the blocked online softmax — the reference's
+    ``impl="blocked"`` — within 1e-5."""
+    q1, kp, vp, table, pos = _case(8, 3, 8, 2, 32, 8, 5, scratch_tail=False)
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((3, 4, 8, 32)).astype(np.float32)
+    start = np.minimum(pos, 8 * 5 - 4).astype(np.int32)
+    kc, vc, ks, vs = _quantized(q1, kp, vp, cache_dtype)
+    got = ops.paged_gqa_multi_attention(
+        torch.from_numpy(q), kc, vc, torch.from_numpy(table),
+        torch.from_numpy(start), k_scales=ks, v_scales=vs,
+        window=window).numpy()
+    jkc, jvc, jks, jvs = (_jax_codes(t) for t in (kc, vc, ks, vs))
+    want = np.asarray(jax_multi(
+        jnp.asarray(q), jkc, jvc, jnp.asarray(table), jnp.asarray(start),
+        k_scales=jks, v_scales=jvs, window=window, impl="blocked"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["fp8", "int8"])
+@pytest.mark.parametrize("window", [None, 7])
+def test_cuda_scaled_kernel_matches_ref(cache_dtype, window):
+    """The kernel over code pools against its plain version on the card
+    (f32 q within 1e-5; bf16 q within 2e-2 on the bf16 output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, kp, vp, table, pos = _case(9, 4, 32, 8, 128, 16, 9, scratch_tail=True)
+    kc, vc, ks, vs = (t.cuda() for t in _quantized(q, kp, vp, cache_dtype))
+    table, pos = torch.from_numpy(table).cuda(), torch.from_numpy(pos).cuda()
+    for qd, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        qt = torch.from_numpy(q).cuda().to(qd)
+        out = ops.paged_gqa_decode_attention(qt, kc, vc, table, pos,
+                                             k_scales=ks, v_scales=vs,
+                                             window=window)
+        ref = paged_decode_attention_ref(qt, kc, vc, table, pos, k_scales=ks,
+                                         v_scales=vs, window=window)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
