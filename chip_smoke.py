@@ -3,9 +3,17 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card (it exits
-non-zero, printing no result, without one).  Both CUDA sources are built
-first, in parallel (``nvcc`` into ``.torch_ext/``).  Phases, each of which
-fails the run if it fails:
+non-zero, printing no result, without one).  All four CUDA sources are
+built first, in parallel (one ``nvcc`` each, into ``.torch_ext/``).  The
+kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
+``FLASH_REPLACES``, ``DENSE_REPLACES``):
+
+    paged_decode.cu     src/repro/kernels/decode_attention/paged_kernel.py:150
+    mxfp4_vmm.cu        src/repro/kernels/mxfp4_vmm/kernel.py:80
+    flash_attention.cu  src/repro/kernels/flash_attention/kernel.py:74
+    dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
+
+Phases, each of which fails the run if it fails:
 
 1. kernel — hold the paged decode kernel against its plain PyTorch version
    on the card at llama3-8b decode shapes (H 32, KVH 8, D 128, page 16;
@@ -22,9 +30,24 @@ fails the run if it fails:
    and N, timed beside its bound and beside ``torch.matmul`` of x with the
    pre-dequantized bf16 weight (a different function: it streams 3.76x the
    bytes).
-4. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
+4. kernel_flash — the flash-attention kernel against its plain version at
+   llama3-8b prefill geometry (H 32, KVH 8, D 128): B 1 and 8 at
+   Sq = Skv = 1024, a ragged S 1000 and an MHA (rep 1) case, causal and
+   not, bf16 and f32 (bf16: each output row, one query in one head,
+   within 2^-6 of its largest value; f32: 1e-5).  Timed at B 8 and B 1
+   (causal) and B 8 (not) beside
+   its bound and ``F.scaled_dot_product_attention(is_causal=...,
+   enable_gqa=True)`` (a yardstick the port never calls).
+5. kernel_dense_decode — the dense-cache decode kernel against its plain
+   version: B 1 and 8, caches of 2048 and 4096 tokens, ragged cur_len (one
+   full, one of a single token), the tail past cur_len poisoned with
+   +-1e4, bf16 and f32 (bf16: each output within 2^-7 of its magnitude
+   plus 1e-4; f32: 1e-5).  Timed at B 8 with cur_len 1088 of 2048 (the
+   static serve's last step) and 4096 of 4096, beside its bound and SDPA
+   on the cache sliced to cur_len.
+6. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
    same bits on the card as on the CPU for one llama3-8b projection.
-5. serve — llama3-8b at full width and depth (random bf16 weights from a
+7. serve — llama3-8b at full width and depth (random bf16 weights from a
    seeded generator, ~16 GB) behind ``LLMEngine(backend="continuous")``
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
@@ -34,21 +57,33 @@ fails the run if it fails:
    that second session are traced with ``torch.profiler``: device busy
    time per step, the device's idle share, time by kernel, and the host
    ops that take most host time.
-6. serve_quantized — the same model and requests with
-   ``weight_format="mxfp4"`` and ``cache_dtype="fp8"``: the same checks,
-   and the MXFP4 kernel must have run 7 x layers x (decode steps + prefill
-   chunk calls) times and the scale-pool decode kernel once per layer per
-   decode step.
-7. check — a narrow 2-layer llama-shaped model in f32 served on the card
+8. serve_static — the same model behind ``LLMEngine(backend="static",
+   max_len=2048)`` answers 8 prompts of 1024 tokens (4 greedy, 4 sampled,
+   64 new tokens each); every request finishes, the flash kernel runs 32
+   times (one prefill call) and the dense decode kernel 32 x 63 times, and
+   a second identical call reproduces every stream.  A call with
+   ``prompt_logprobs`` (two prompts, 4 new tokens) must launch the flash
+   kernel 32 x 2 times (prefill and ``Model.forward``) and give finite
+   scores <= 0.  Reports tokens/s, prefill s, decode step ms and peak GB,
+   and the device time of 16 decode steps (a profiled 17-token call minus
+   a 1-token one): busy ms per step, idle share, time by kernel.
+9. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
+   and ``cache_dtype="fp8"``: the same checks as serve, and the MXFP4
+   kernel must have run 7 x layers x (decode steps + prefill chunk calls)
+   times and the scale-pool decode kernel once per layer per decode step.
+10. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
-   emit the same token streams: dense (greedy and sampled), and greedy
-   with mxfp4 weights over f32, int8 and fp8 pools.  For the mxfp4 cases a
-   first divergence is allowed only at a near-tie: a step whose top-2
-   logit gap on the CPU is below ``NEAR_TIE`` (the bf16 activation cast
-   turns last-bit f32 differences into bf16 steps now and then).
+   emit the same token streams: continuous dense (greedy and sampled), and
+   greedy with mxfp4 weights over f32, int8 and fp8 pools; static (greedy
+   and sampled, prompt scores within 1e-4); and on the card static against
+   continuous (greedy).  Except for the dense continuous case, a greedy
+   stream may part only at a near-tie: a step whose top-2 logit gap on the
+   CPU is below ``NEAR_TIE`` (the bf16 activation cast of the mxfp4 op,
+   and the kernels' other orders of f32 sums, turn last-bit differences
+   into a flipped argmax now and then).
 
 Output: the card's name and power limit early, one JSON line per phase,
-the kernels line, and last ``{"ok": true, "device": {...}}``.
+the kernels line (five entries), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -69,6 +104,10 @@ KERNEL_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu"
 REPLACES = "src/repro/kernels/decode_attention/paged_kernel.py:150"
 VMM_SOURCE = "src/repro_torch/kernels/mxfp4_vmm/csrc/mxfp4_vmm.cu"
 VMM_REPLACES = "src/repro/kernels/mxfp4_vmm/kernel.py:80"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:74"
+DENSE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu"
+DENSE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:67"
 H, KVH, D, PAGE = 32, 8, 128, 16           # llama3-8b decode geometry
 NEAR_TIE = 0.02       # top-2 logit gap below which card and CPU may differ
 
@@ -150,10 +189,13 @@ def build_phase() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels._build import library_path
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
     from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
 
-    libs = {"paged_decode": paged_kernel, "mxfp4_vmm": vmm_kernel}
+    libs = {"paged_decode": paged_kernel, "mxfp4_vmm": vmm_kernel,
+            "flash_attention": flash_kernel, "dense_decode": dense_kernel}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(mod._lib) for mod in libs.values()]:
@@ -421,7 +463,241 @@ def kernel_mxfp4_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4. quantize phase: the card's bits are the CPU's
+# 4. flash-attention kernel phase (static prefill, prompt scoring)
+# ---------------------------------------------------------------------------
+
+
+def row_rel_err(out, ref) -> float:
+    """The worst row's relative error: for each output row (one query in
+    one head), max |out - ref| over the head dim / max |ref| over it."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1).clamp_min(1e-6)
+    return (diff / scale).max().item()
+
+
+def ulp_limit_share(out, ref, atol) -> float:
+    """max |out - ref| / (2^-7 |ref| + atol), element by element: at most 1
+    when each output is within one bf16 ulp (<= 2^-7 of its magnitude) of
+    its plain version's, plus ``atol`` for f32 sums in another order."""
+    ref = ref.float()
+    limit = 2.0 ** -7 * ref.abs() + atol
+    return ((out.float() - ref).abs() / limit).max().item()
+
+
+def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name):
+    """q, k, v read once and out written once; 4 flops (q.k and p.v) per
+    visible (query, key) pair and head dim, at the inputs' peak rate."""
+    if causal:
+        pairs = sum(min(i + 1, Skv) for i in range(Sq))
+    else:
+        pairs = Sq * Skv
+    nbytes = itemsize * D * B * (2 * Sq * h + 2 * Skv * kvh)
+    return roofline(nbytes, 4 * B * h * D * pairs, dtype_name)
+
+
+def kernel_flash_phase(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    # f32: absolute (the kernel's f32 FMAs sum in another order).  bf16:
+    # relative per output row (one query in one head), so that late causal
+    # rows, whose outputs are ~20x smaller than row 0's, are held to their
+    # own scale: two bf16 ulps of the row's largest output (the kernel
+    # rounds P to bf16 for the tensor cores, and both sides round the
+    # output)
+    tol = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+    def inputs(B, S, h, kvh, dtype):
+        q = torch.randn((B, S, h, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, kvh, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, kvh, D), generator=gen, device=dev).to(dtype)
+        return q, k, v
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    rel_max = 0.0
+    cases = [(1, 1024, H, KVH), (8, 1024, H, KVH), (2, 1000, H, KVH),
+             (1, 1024, H, H)]                # ragged S; MHA (rep 1)
+    for dtype_name in ("bfloat16", "float32"):
+        for B, S, h, kvh in cases:
+            for causal in (True, False):
+                q, k, v = inputs(B, S, h, kvh, getattr(torch, dtype_name))
+                out = flash_kernel.flash_attention(q, k, v, causal=causal)
+                ref = gqa_flash_attention(q, k, v, causal=causal,
+                                          impl="reference")
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                measure = (err if dtype_name == "float32"
+                           else row_rel_err(out, ref))
+                print(f"  flash vs plain: {dtype_name} B={B} S={S} H={h} "
+                      f"KVH={kvh} causal={causal}: max abs err {err:.3g}"
+                      + ("" if dtype_name == "float32" else
+                         f", worst row's rel err {measure:.3g}")
+                      + f" (tolerance {tol[dtype_name]:.3g}"
+                      + ("" if dtype_name == "float32" else " per row") + ")")
+                if not measure <= tol[dtype_name]:
+                    raise AssertionError(f"flash_attention disagrees with its "
+                                         f"plain version: {measure} > "
+                                         f"{tol[dtype_name]}")
+                errs[dtype_name] = max(errs[dtype_name], err)
+                if dtype_name == "bfloat16":
+                    rel_max = max(rel_max, measure)
+                del q, k, v, out, ref
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings = []
+    for B, causal in ((8, True), (1, True), (8, False)):
+        S = 1024
+        q, k, v = inputs(B, S, H, KVH, torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row = {"B": B, "S": S, "causal": causal, "dtype": "bfloat16",
+               "ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+                   q, k, v, causal=causal), flush),
+               "plain_ms": time_ms(torch, lambda: gqa_flash_attention(
+                   q, k, v, causal=causal, impl="reference"), flush,
+                   iters=10),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            B, S, S, H, KVH, causal, 2, "bfloat16")
+        timings.append(row)
+        print("  timing:", json.dumps(row))
+        del q, k, v, qt, kt, vt
+    qf, kf, vf = (t.float() for t in inputs(8, 1024, H, KVH, torch.bfloat16))
+    f32 = {"B": 8, "S": 1024, "causal": True, "dtype": "float32",
+           "ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+               qf, kf, vf, causal=True), flush)}
+    f32["bound_ms"], f32["bound_by"] = flash_bound(8, 1024, 1024, H, KVH,
+                                                   True, 4, "float32")
+    timings.append(f32)
+    print("  timing:", json.dumps(f32))
+    del flush, qf, kf, vf
+    head = timings[0]                       # B 8, S 1024, causal, bf16
+    return {"name": flash_kernel.NAME, "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": None, "max_abs_err": errs["bfloat16"],
+            "max_row_rel_err": rel_max, "max_abs_err_f32": errs["float32"],
+            "headline": "B 8, Sq = Skv = 1024, causal, bf16 (the static "
+                        "prefill of one layer)",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)", "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 5. dense decode kernel phase (static decode step)
+# ---------------------------------------------------------------------------
+
+
+def dense_case(torch, gen, B, S, dtype, cur_len, dev):
+    """A random dense cache whose tail at and past each row's cur_len is
+    poisoned (K 1e4, V -1e4): a read of it would show."""
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+    cl = torch.as_tensor(np.asarray(cur_len, np.int32), device=dev)
+    dead = (torch.arange(S, device=dev)[None, :] >= cl[:, None].long())
+    k[dead] = 1e4
+    v[dead] = -1e4
+    return q, k, v, cl
+
+
+def dense_bound(cur_len, B, itemsize, dtype_name):
+    """Each valid K/V token read once, q read and out written once, cur_len
+    read; 4 flops per valid token, head and head dim."""
+    tokens = int(np.sum(cur_len))
+    nbytes = 2 * tokens * KVH * D * itemsize + 2 * B * H * D * itemsize + 4 * B
+    return roofline(nbytes, 4 * tokens * H * D, dtype_name)
+
+
+def kernel_dense_decode_phase(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.models.common import decode_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(4)
+    # f32: absolute.  bf16: element by element, one bf16 ulp of each
+    # output (both sides sum in f32 and round once, to bf16) plus 1e-4
+    # for the f32 sums' other order; the limit's share is reported
+    tol_f32, atol_bf16 = 1e-5, 1e-4
+    errs, shares = {}, []
+    for dtype_name in ("bfloat16", "float32"):
+        for B in (1, 8):
+            for S in (2048, 4096):
+                cur_len = rng.integers(1, S + 1, B)
+                cur_len[0] = S if B == 1 else 1          # full; one token
+                q, k, v, cl = dense_case(torch, gen, B, S,
+                                         getattr(torch, dtype_name), cur_len,
+                                         dev)
+                out = dense_kernel.decode_attention(q, k, v, cl)
+                ref = decode_attention_ref(q, k, v, cl)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                if dtype_name == "float32":
+                    ok, limit = err <= tol_f32, f"{tol_f32}"
+                else:
+                    share = ulp_limit_share(out, ref, atol_bf16)
+                    shares.append(share)
+                    ok = share <= 1.0
+                    limit = (f"2^-7 |ref| + {atol_bf16} per element; "
+                             f"worst element at {share:.3g} of it")
+                print(f"  dense decode vs plain: {dtype_name} B={B} S={S} "
+                      f"cur_len {cur_len.tolist()[:4]}...: max abs err "
+                      f"{err:.3g} (tolerance {limit})")
+                if not ok:
+                    raise AssertionError(f"decode_attention disagrees with "
+                                         f"its plain version: {err} "
+                                         f"({limit})")
+                errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings = []
+    # the static serve's last decode step (8 prompts of 1024 + 64 new
+    # tokens in a 2048-token cache), then a full 4096-token cache
+    for S, ctx in ((2048, 1088), (4096, 4096)):
+        B = 8
+        cur_len = np.full(B, ctx)
+        q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
+                                 dev)
+        q4 = q[:, :, None, :]
+        ks = k[:, :ctx].transpose(1, 2)            # the valid prefix
+        vs = v[:, :ctx].transpose(1, 2)
+        row = {"B": B, "S": S, "cur_len": ctx, "cache": "bfloat16",
+               "ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+                   q, k, v, cl), flush),
+               "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                   q, k, v, cl), flush),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, ks, vs, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
+                                                       "bfloat16")
+        timings.append(row)
+        print("  timing:", json.dumps(row))
+    del flush
+    head = timings[0]
+    return {"name": dense_kernel.NAME, "route": "cuda",
+            "source": DENSE_SOURCE, "replaces": DENSE_REPLACES,
+            "launches": None, "max_abs_err": errs["bfloat16"],
+            "max_abs_err_f32": errs["float32"],
+            "max_bf16_limit_share": max(shares),
+            "headline": "B 8, cur_len 1088 of a 2048-token bf16 cache",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "F.scaled_dot_product_attention(enable_gqa=True) on "
+                       "the cache sliced to cur_len", "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 6. quantize phase: the card's bits are the CPU's
 # ---------------------------------------------------------------------------
 
 
@@ -456,7 +732,7 @@ def quantize_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. serve phases
+# 7, 9. continuous serve phases (bf16; mxfp4 + fp8)
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = [128, 1024, 300, 612, 777, 200, 450, 712]
@@ -656,7 +932,133 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7. check phase: kernel path on the card == plain path on the CPU
+# 8. static serve phase
+# ---------------------------------------------------------------------------
+
+STATIC_PROMPT, STATIC_NEW = 1024, 64
+
+
+def device_time_by_kernel(torch, fn) -> dict:
+    """Device time (ms) of everything ``fn`` ran on the card, by kernel
+    name, from one ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0) or 0     # microseconds
+        if t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA:
+            times[evt.key] = times.get(evt.key, 0) + t / 1e3
+    return times
+
+
+def serve_static_phase(torch, model) -> dict:
+    """``LLMEngine(backend="static")`` answers 8 prompts of 1024 tokens (4
+    greedy, 4 sampled) with 64 new tokens each, twice (the re-run must
+    reproduce every stream), then scores two prompts
+    (``prompt_logprobs``).  The flash kernel must run once per layer per
+    prefill or forward call and the dense decode kernel once per layer per
+    decode step.  A profiled call of 17 new tokens minus one of 1 gives the
+    device time of 16 decode steps."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, STATIC_PROMPT) for _ in range(8)]
+    sps = [SamplingParams(max_tokens=STATIC_NEW) if i % 2 == 0 else
+           SamplingParams(max_tokens=STATIC_NEW, temperature=0.8, top_p=0.9,
+                          top_k=40, seed=2000 + i) for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLMEngine(model, backend="static", device="cuda", max_len=2048)
+    cache_gb = 2 * cfg.n_layers * 8 * 2048 * cfg.n_kv_heads * cfg.hd * 2 / 1e9
+
+    def want_launches(calls, steps):
+        return {FLASH: cfg.n_layers * calls, DENSE: cfg.n_layers * steps}
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    for i, o in enumerate(outs):
+        if (not o.finished or o.finish_reason != "length"
+                or len(o.token_ids) != STATIC_NEW
+                or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
+            raise AssertionError(f"static request {i}: {o}")
+    want = want_launches(1, STATIC_NEW - 1)
+    if launches != want:
+        raise AssertionError(f"static serve launched {launches}, want {want} "
+                             f"(1 prefill call, {STATIC_NEW - 1} decode "
+                             f"steps, {cfg.n_layers} layers)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    again = llm.generate(prompts, sps)
+    for i, (a, o) in enumerate(zip(again, outs)):
+        if a.token_ids != o.token_ids:
+            kind = "greedy" if sps[i].is_greedy else "sampled"
+            raise AssertionError(f"static {kind} request {i} did not "
+                                 f"reproduce its stream on the re-run")
+
+    LAUNCHES.clear()
+    scored = llm.generate(prompts[:2], SamplingParams(max_tokens=4,
+                                                      prompt_logprobs=True))
+    torch.cuda.synchronize()
+    launches_scored = {k: v for k, v in LAUNCHES.items() if v}
+    want = want_launches(2, 3)              # prefill + forward; 3 steps
+    if launches_scored != want:
+        raise AssertionError(f"scored static call launched "
+                             f"{launches_scored}, want {want}")
+    for o in scored:
+        plp = np.asarray(o.prompt_logprobs)
+        if plp.shape != (STATIC_PROMPT - 1,) or not (
+                np.isfinite(plp).all() and (plp <= 0).all()):
+            raise AssertionError(f"prompt_logprobs of request {o.rid}: shape "
+                                 f"{plp.shape}, finite {np.isfinite(plp).all()}")
+
+    # device time of 16 decode steps: a 17-token call minus a 1-token one
+    one = [dataclasses.replace(sp, max_tokens=1) for sp in sps]
+    many = [dataclasses.replace(sp, max_tokens=17) for sp in sps]
+    t_one = device_time_by_kernel(torch, lambda: llm.generate(prompts, one))
+    t_many = device_time_by_kernel(torch, lambda: llm.generate(prompts, many))
+    per_step = {k: (t_many.get(k, 0.0) - t_one.get(k, 0.0)) / 16
+                for k in set(t_many) | set(t_one)}
+    busy = sum(per_step.values())
+    step_ms = 1e3 * outs[0].metrics["tpot"]
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    result = {"phase": "serve_static", "requests": len(prompts),
+              "prompt_tokens": STATIC_PROMPT, "new_tokens": 8 * STATIC_NEW,
+              "tokens_per_s": 8 * STATIC_NEW / wall, "wall_s": wall,
+              "prefill_s": outs[0].metrics["ttft"],
+              "decode_step_ms": step_ms,
+              "kernel_launches": launches,
+              "kernel_launches_scored_call": launches_scored,
+              "rerun_identical": True, "dense_cache_gb": cache_gb,
+              "peak_mem_gb": peak_gb,
+              "profiled_decode_steps": {
+                  "steps": 16, "device_busy_ms_per_step": busy,
+                  "device_idle_share": 1 - busy / step_ms,
+                  "decode_attention_ms_per_step": sum(
+                      t for k, t in per_step.items() if "dense_decode" in k),
+                  "prefill_flash_ms": t_one.get(next(
+                      (k for k in t_one if "flash_fwd" in k), ""), 0.0),
+                  "prefill_device_ms": sum(t_one.values()),
+                  "top_kernels_ms_per_step": {k[:70]: t for k, t in top}}}
+    del llm
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# 10. check phase: kernel path on the card == plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -675,12 +1077,40 @@ def cpu_top2_gap(torch, model, prompt, tokens, cache_dtype) -> float:
     return float(top[0] - top[1])
 
 
+def divergences(torch, label, got, want, prompts, reqs, gap_model,
+                cache_dtype, ties_ok) -> list[dict]:
+    """Where two runs' streams part.  A greedy stream may part only at a
+    near-tie (``ties_ok``): a step whose top-2 logit gap on the CPU model
+    ``gap_model`` is below ``NEAR_TIE``; any other difference fails."""
+    near_ties = []
+    for g, c, prompt, sp in zip(got, want, prompts, reqs):
+        if g.token_ids == c.token_ids:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(g.token_ids, c.token_ids))
+                 if a != b)
+        gap = None
+        if ties_ok and sp.is_greedy:
+            gap = cpu_top2_gap(torch, gap_model, prompt,
+                               np.asarray(c.token_ids[:t]), cache_dtype)
+        if gap is None or gap >= NEAR_TIE:
+            raise AssertionError(
+                f"{label}, request {g.rid}: {g.token_ids} vs {c.token_ids} "
+                f"(first difference at token {t}, CPU top-2 gap {gap}, "
+                f"near-tie below {NEAR_TIE})")
+        near_ties.append({"request": g.rid, "token": t, "cpu_gap": gap})
+        print(f"  check {label}: request {g.rid} diverges at token {t} at a "
+              f"near-tie (CPU top-2 logit gap {gap:.3g} < {NEAR_TIE})")
+    return near_ties
+
+
 def check_phase(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
     from repro_torch.kernels.decode_attention.paged_kernel import (
         NAME, NAME_SCALED,
     )
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
     from repro_torch.kernels.mxfp4_vmm.kernel import NAME as VMM
     from repro_torch.models.model import Model
     from repro_torch.quant.linear import quantize_params
@@ -730,29 +1160,52 @@ def check_phase(torch) -> dict:
         if set(launches) != want:
             raise AssertionError(f"{label}: the card run launched {launches}, "
                                  f"want each of {sorted(want)}")
-        near_ties = []
-        for g, c, prompt in zip(on_gpu, on_cpu, prompts):
-            if g.token_ids == c.token_ids:
-                continue
-            t = next(i for i, (a, b) in enumerate(zip(g.token_ids,
-                                                      c.token_ids)) if a != b)
-            gap = None
-            if ties_ok:
-                view = quantize_params(cpu, opts["weight_format"])
-                gap = cpu_top2_gap(torch, view, prompt,
-                                   np.asarray(c.token_ids[:t]),
-                                   opts["cache_dtype"])
-            if gap is None or gap >= NEAR_TIE:
-                raise AssertionError(
-                    f"{label}, request {g.rid}: card {g.token_ids} vs CPU "
-                    f"{c.token_ids} (first difference at token {t}, CPU "
-                    f"top-2 gap {gap}, near-tie below {NEAR_TIE})")
-            near_ties.append({"request": g.rid, "token": t, "cpu_gap": gap})
-            print(f"  check {label}: request {g.rid} diverges at token {t} "
-                  f"at a near-tie (CPU top-2 logit gap {gap:.3g} < "
-                  f"{NEAR_TIE})")
+        view = (quantize_params(cpu, opts["weight_format"])
+                if "weight_format" in opts else cpu)
+        near_ties = divergences(torch, label, on_gpu, on_cpu, prompts, reqs,
+                                view, opts["cache_dtype"], ties_ok)
         results.append({"case": label, "identical": not near_ties,
                         "near_ties": near_ties, "kernel_launches": launches})
+
+    # static (f32 dense cache): card against CPU, greedy and sampled, and
+    # prompt scores; then static against continuous on the card, greedy.
+    # The flash and dense decode kernels sum in other orders than
+    # blocked_attention and the paged kernel, so a greedy stream may part
+    # at a near-tie, and nowhere else
+    s_prompts = [rng.integers(0, cfg.vocab_size, 48) for _ in range(4)]
+    s_sps = [SamplingParams(max_tokens=16, prompt_logprobs=True)] + sps[1:]
+    s_greedy = [SamplingParams(max_tokens=16)] * len(s_prompts)
+    static_kw = dict(backend="static", max_len=128, cache_dtype=torch.float32)
+    LAUNCHES.clear()
+    st_gpu = LLMEngine(gpu, device="cuda", **static_kw).generate(s_prompts,
+                                                                 s_sps)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    st_cpu = LLMEngine(cpu, device="cpu", **static_kw).generate(s_prompts,
+                                                                s_sps)
+    want = {FLASH: 2 * cfg.n_layers, DENSE: 15 * cfg.n_layers}
+    if launches != want:                 # prefill + forward; 15 steps
+        raise AssertionError(f"static card run launched {launches}, want "
+                             f"{want}")
+    near_ties = divergences(torch, "static f32", st_gpu, st_cpu, s_prompts,
+                            s_sps, cpu, torch.float32, True)
+    plp_err = float(np.abs(np.asarray(st_gpu[0].prompt_logprobs)
+                           - np.asarray(st_cpu[0].prompt_logprobs)).max())
+    if not plp_err <= 1e-4:
+        raise AssertionError(f"static prompt_logprobs card vs CPU differ by "
+                             f"{plp_err} (tolerance 1e-4)")
+    results.append({"case": "static f32, card vs CPU",
+                    "identical": not near_ties, "near_ties": near_ties,
+                    "prompt_logprobs_max_abs_err": plp_err,
+                    "kernel_launches": launches})
+    st_greedy = LLMEngine(gpu, device="cuda", **static_kw).generate(
+        s_prompts, s_greedy)
+    cont_greedy = LLMEngine(gpu, device="cuda", cache_dtype=torch.float32,
+                            **kw).generate(s_prompts, s_greedy)
+    near_ties = divergences(torch, "static vs continuous, card", st_greedy,
+                            cont_greedy, s_prompts, s_greedy, cpu,
+                            torch.float32, True)
+    results.append({"case": "static vs continuous f32, card, greedy",
+                    "identical": not near_ties, "near_ties": near_ties})
     return {"phase": "check", "model": "llama3-8b widths cut to d_model 512, "
             "2 layers, f32", "requests": len(prompts),
             "near_tie_gap": NEAR_TIE, "cases": results}
@@ -786,9 +1239,12 @@ def main() -> int:
     kernel = timed("kernel", kernel_phase)
     scaled = timed("kernel_scaled", kernel_scaled_phase)
     vmm = timed("kernel_mxfp4", kernel_mxfp4_phase)
+    flash = timed("kernel_flash", kernel_flash_phase)
+    dense = timed("kernel_dense_decode", kernel_dense_decode_phase)
     timed("quantize", quantize_phase)
     model = build_llama(torch)
     serve = timed("serve", serve_phase, model)
+    static = timed("serve_static", serve_static_phase, model)
     serve_q = timed("serve_quantized", serve_phase, model,
                     phase="serve_quantized", weight_format="mxfp4",
                     cache_dtype="fp8")
@@ -798,7 +1254,9 @@ def main() -> int:
     kernel["launches"] = serve["kernel_launches"][kernel["name"]]
     scaled["launches"] = serve_q["kernel_launches"][scaled["name"]]
     vmm["launches"] = serve_q["kernel_launches"][vmm["name"]]
-    kernels = [kernel, scaled, vmm]
+    flash["launches"] = static["kernel_launches"][flash["name"]]
+    dense["launches"] = static["kernel_launches"][dense["name"]]
+    kernels = [kernel, scaled, vmm, flash, dense]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

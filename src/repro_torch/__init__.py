@@ -7,8 +7,9 @@ framework-neutral modules is copied here.  The Pallas TPU kernels on the
 ported path are hand-written Hopper kernels under ``kernels/*/csrc``, each
 with a plain PyTorch version beside it.
 
-Entry points (``Model``, ``ContinuousServeEngine``, ``LLMEngine``) run on
-``device="cuda"`` unless the caller asks for ``device="cpu"``.
+Entry points (``Model``, ``ContinuousServeEngine``, ``ServeEngine``,
+``LLMEngine``) run on ``device="cuda"`` unless the caller asks for
+``device="cpu"``.
 """
 from repro_torch.device import resolve_device
 

@@ -4,14 +4,22 @@ version:
    decode_attention — paged single-token GQA flash-decode over dense or
                       fp8/int8 code pools (CUDA C++,
                       ``csrc/paged_decode.cu``), replacing the Pallas
-                      ``repro/kernels/decode_attention/paged_kernel.py``
+                      ``repro/kernels/decode_attention/paged_kernel.py``;
+                      and the dense-cache flash-decode of the static
+                      engine (``csrc/dense_decode.cu``), replacing
+                      ``repro/kernels/decode_attention/kernel.py``
+   flash_attention  — GQA flash-attention forward of the static prefill
+                      and prompt scoring (CUDA C++,
+                      ``csrc/flash_attention.cu``), replacing
+                      ``repro/kernels/flash_attention/kernel.py``
    mxfp4_vmm        — MXFP4 weight-streaming matmul (CUDA C++,
                       ``csrc/mxfp4_vmm.cu``), replacing the Pallas
                       ``repro/kernels/mxfp4_vmm/kernel.py``
 
 Every wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches its
-kernel and nowhere else (the decode kernel counts its launches on code
-pools as ``paged_decode_attention_scaled``), so a run can show that its
+kernel and nowhere else (the paged decode kernel counts its launches on
+code pools as ``paged_decode_attention_scaled``; the dense one counts as
+``decode_attention``), so a run can show that its
 path went through the kernel (``chip_smoke.py`` clears the counts before
 each serve phase).
 """

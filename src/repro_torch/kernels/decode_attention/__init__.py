@@ -1,2 +1,3 @@
-"""Paged GQA flash-decode: CUDA kernel (``paged_kernel``), plain version
-(``ref``), dispatch (``ops``)."""
+"""GQA flash-decode: the paged CUDA kernel (``paged_kernel``) and the
+dense-cache one (``kernel``), their plain versions (``ref``), dispatch
+(``ops``)."""

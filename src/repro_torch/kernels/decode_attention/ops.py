@@ -1,17 +1,42 @@
-"""Public op wrappers for paged decode attention (counterpart of
+"""Public op wrappers for decode attention, dense and paged (counterpart of
 ``repro/kernels/decode_attention/ops.py``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention.kernel import decode_attention
 from repro_torch.kernels.decode_attention.paged_kernel import (
     paged_decode_attention,
 )
 from repro_torch.kernels.decode_attention.ref import (
     gather_pages, paged_decode_attention_ref,
 )
-from repro_torch.models.common import blocked_attention
+from repro_torch.models.common import blocked_attention, decode_attention_ref
 from repro_torch.quant.kv import kv_dequantize
+
+
+def gqa_decode_attention(q, k_cache, v_cache, cur_len, *,
+                         impl: str = "auto") -> torch.Tensor:
+    """(B, H, D) x (B, S, KVH, D) dense cache -> (B, H, D): row b attends
+    its valid prefix, positions 0 .. cur_len[b] - 1 (each cur_len >= 1).
+
+    ``impl``: "fused" runs the CUDA kernel (``kernel.py``; CUDA tensors
+    only), "reference" the plain ``decode_attention_ref``, "auto" the plain
+    version for CPU tensors and the kernel for CUDA tensors.  The kernel
+    takes every S (the reference op's oracle fallback for a ragged S has
+    no counterpart): a build or launch failure raises.  The static decode
+    step does not go through this op: ``models.layers`` picks the kernel
+    or the plain path itself and calls the kernel's wrapper directly."""
+    if impl not in ("auto", "fused", "reference"):
+        raise ValueError(f"impl must be auto|fused|reference, got {impl!r}")
+    if impl == "auto":
+        impl = "reference" if q.device.type == "cpu" else "fused"
+    if impl == "reference":
+        return decode_attention_ref(q, k_cache, v_cache, cur_len)
+    if not q.is_cuda:
+        raise ValueError("impl='fused' runs the CUDA kernel and needs CUDA "
+                         f"tensors; q is on {q.device}")
+    return decode_attention(q, k_cache, v_cache, cur_len.to(torch.int32))
 
 
 def paged_gqa_multi_attention(q, k_pages, v_pages, page_table, start, *,

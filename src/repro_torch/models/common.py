@@ -13,6 +13,7 @@ over KV blocks, so chunked prefill never builds an (Sq x Skv) score matrix.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -144,10 +145,21 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """(head_dim / 2,) f32 inverse frequencies, computed once per
+    (head_dim, theta, device) on the CPU and kept: building ``theta`` as a
+    tensor on a CUDA device copies it from host memory, which waits for
+    every queued kernel, and RoPE runs twice per layer per step.  Callers
+    must not write to the result."""
+    return _rope_freqs(int(head_dim), float(theta),
+                       torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    return freqs.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -250,6 +262,19 @@ def blocked_attention(
         outs.append(out.transpose(1, 2))                   # (B, qb, H, Dv)
     out = torch.cat(outs, dim=1)[:, :sq]
     return out.to(q.dtype)
+
+
+def cache_update_at(cache_arr: torch.Tensor, new: torch.Tensor,
+                    slot: int) -> torch.Tensor:
+    """Write one token's entry at position ``slot`` along axis 1, in place,
+    and return the cache.
+
+    ``new``: (B, 1, ...) matching ``cache_arr`` (B, S, ...).  The reference
+    writes through an elementwise select over the whole cache, which only
+    GSPMD's sharded caches need; a preallocated torch cache takes the one
+    indexed write."""
+    cache_arr[:, slot] = new[:, 0].to(cache_arr.dtype)
+    return cache_arr
 
 
 def decode_attention_ref(

@@ -1,4 +1,4 @@
-"""Model assembly for the paged serve path (the ``attn_dense`` plan of
+"""Model assembly for the serve paths (the ``attn_dense`` plan of
 ``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` that owns its weights: an embedding table, an
@@ -7,10 +7,15 @@ MLP), the final norm and the head.  The reference stacks layer weights
 along a leading axis and scans; eager PyTorch loops over the list instead
 (``bridge.py`` converts between the two layouts).
 
-Serve entry points mirror the reference's: ``init_paged_cache`` builds one
-K/V page pool per layer, ``prefill_chunk_paged`` runs one chunk of prompt
-tokens per slot into the pools, ``decode_step_paged`` one token per slot.
-Pools are written in place, so both return only the logits.
+Serve entry points mirror the reference's.  Continuous (paged):
+``init_paged_cache`` builds one K/V page pool per layer,
+``prefill_chunk_paged`` runs one chunk of prompt tokens per slot into the
+pools, ``decode_step_paged`` one token per slot.  Static (dense cache):
+``init_cache`` builds one ``(B, max_len, KVH, HD)`` cache per layer,
+``prefill`` runs the whole prompt into it, ``decode_step`` one token per
+row at a shared position.  ``forward`` scores a whole sequence without a
+cache.  Caches and pools are written in place, so these return only the
+logits.
 
 Only the ``attn_dense`` block kind is ported; MoE, MLA, SSM and hybrid
 plans, ring tables (sliding-window page spaces) and per-slot state pools
@@ -33,7 +38,7 @@ from repro_torch.models.common import (
 from repro_torch.quant.linear import packed_leaves
 
 ITEM_MOE_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
-ITEM_STATEFUL = "ROADMAP Queue 1, 'Stateful layouts'"
+ITEM_STATEFUL = layers.ITEM_STATEFUL
 ITEM_SPEC = "ROADMAP Queue 1, 'Speculative decoding'"
 
 
@@ -69,6 +74,31 @@ class Block(nn.Module):
         self.mlp = layers.MLP(cfg, device)
 
 
+def _block_forward(p: Block, x, cfg: ModelConfig, window):
+    """x: (B, S, D), no cache."""
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    x = x + layers.attn_forward(p.attn, h, cfg, window=window)
+    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+
+
+def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
+    """x: (B, S, D) prompt representations; cache written in place."""
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    x = x + layers.attn_prefill(p.attn, h, cfg, cache, window=window)
+    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+
+
+def _block_decode(p: Block, x, cfg: ModelConfig, window, cache, cur_pos,
+                  positions, cur_len):
+    """x: (B, D) single-token representations; cache written in place."""
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    x = x + layers.attn_decode(p.attn, h, cfg, cache, cur_pos, window=window,
+                               positions=positions, cur_len=cur_len)
+    f = layers.mlp_forward(p.mlp, rmsnorm(x[:, None, :], p.ln2,
+                                          cfg.norm_eps))[:, 0]
+    return x + f
+
+
 def _block_decode_paged(p: Block, x, cfg: ModelConfig, window, pool,
                         page_table, pos):
     """x: (B, D) single-token representations; pool written in place."""
@@ -98,6 +128,17 @@ def _no_state(states, ring_table) -> None:
         raise NotImplementedError(f"per-slot state pools — {ITEM_STATEFUL}")
     if ring_table is not None:
         raise NotImplementedError(f"ring page tables — {ITEM_STATEFUL}")
+
+
+def dense_cache_dtype(dtype) -> torch.dtype:
+    """The dense cache's dtype: a torch dtype, bf16 for None.  The
+    quantized ``"fp8"``/``"int8"`` caches exist only as the continuous
+    engine's page pools, and are refused."""
+    if isinstance(dtype, str):
+        raise NotImplementedError(
+            f"cache dtype {dtype!r}: quantized KV caches are the paged pools "
+            f"of the continuous engine; the dense cache stays a plain dtype")
+    return torch.bfloat16 if dtype is None else dtype
 
 
 class Model(nn.Module):
@@ -156,6 +197,57 @@ class Model(nn.Module):
             pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
             logits = logits.masked_fill(pad, -1e30)
         return logits
+
+    # ----- forward (full-sequence scoring, no cache) -----
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) -> (B, S, V) logits; every layer attends causally
+        over the whole sequence (the flash kernel on CUDA)."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()]                       # (B, S, D)
+        for win, blk in zip(self.windows, self.layers):
+            x = _block_forward(blk, x, cfg, win)
+        return self._head(x)
+
+    # ----- dense cache (static-batch serve) -----
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
+        """One dense K/V cache per layer (``(B, w, KVH, HD)`` leaves and a
+        ``slot_pos`` table; w = max_len, or the layer's window if
+        shorter).  ``dtype``: see ``dense_cache_dtype``."""
+        dtype = dense_cache_dtype(dtype)
+        return [layers.init_attn_cache(self.cfg, batch, max_len, win, dtype,
+                                       device=self.device)
+                for win in self.windows]
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache: list) -> torch.Tensor:
+        """Run the full prompt (B, S), fill the cache in place; returns the
+        (B, V) logits at the last prompt position."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()]                       # (B, S, D)
+        for win, blk, c in zip(self.windows, self.layers, cache):
+            x = _block_prefill(blk, x, cfg, win, c)
+        return self._head(x[:, -1:, :])[:, 0]
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: list,
+                    cur_pos: int) -> torch.Tensor:
+        """One static decode step: tokens (B,) sit at position ``cur_pos``
+        (an int, shared by every row); the cache is written in place.
+        Returns (B, V) logits."""
+        cfg = self.cfg
+        cur_pos = int(cur_pos)
+        b = tokens.shape[0]
+        dev = self.device
+        positions = torch.full((b, 1), cur_pos, device=dev)
+        # the dense kernel's per-row valid prefix: positions 0 .. cur_pos
+        cur_len = (torch.full((b,), cur_pos + 1, dtype=torch.int32,
+                              device=dev) if dev.type == "cuda" else None)
+        x = self.embed[tokens.long()]                       # (B, D)
+        for win, blk, c in zip(self.windows, self.layers, cache):
+            x = _block_decode(blk, x, cfg, win, c, cur_pos, positions,
+                              cur_len)
+        return self._head(x[:, None, :])[:, 0]
 
     # ----- paged cache (continuous-batching serve) -----
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None, *,

@@ -1,13 +1,22 @@
-"""Continuous-batching serve engine over a block-paged KV cache.
+"""Serving engines: static batch over a dense KV cache, and continuous
+batching over a block-paged one.
 
-The port of ``repro/runtime/engine.py``'s ``ContinuousServeEngine`` for one
-device and full-KV layouts.  Requests arrive raggedly; iteration-level
-batching admits each one into a freed decode slot the moment both a slot
-and KV pages are available.  Admission runs **chunked prefill straight into
-the page pools** (one fixed-size chunk per prefilling request per
-iteration, batched across slots at ragged offsets, power-of-two row
-buckets), interleaved with one decode step over every decoding slot, so a
-long prompt never stalls the running batch.  Prefix caching shares a
+``ServeEngine`` is the port of the reference's static-batch engine:
+prefill and decode are separate entry points, the whole batch shares one
+prompt length and one position, and the reference's one jitted
+``lax.scan`` over decode steps is a Python loop of ``Model.decode_step``
+and the per-row sampler here (same ``pos + 1`` sampling positions, same
+presence rows).  On CUDA every prefill attention is the hand-written flash
+kernel and every decode attention the dense decode kernel.
+
+``ContinuousServeEngine`` is the port of the reference's continuous engine
+for one device and full-KV layouts.  Requests arrive raggedly;
+iteration-level batching admits each one into a freed decode slot the
+moment both a slot and KV pages are available.  Admission runs **chunked
+prefill straight into the page pools** (one fixed-size chunk per prefilling
+request per iteration, batched across slots at ragged offsets, power-of-two
+row buckets), interleaved with one decode step over every decoding slot, so
+a long prompt never stalls the running batch.  Prefix caching shares a
 matching prompt's leading pages read-only; copy-on-write, preemption and
 defrag are host bookkeeping between steps (``kv_cache.py`` and
 ``scheduler.py`` are verbatim copies of the reference's).
@@ -29,7 +38,8 @@ Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``spec=`` (DeploymentSpec sizing), ``mesh=`` (tensor parallelism),
 ``speculative=``, ``phase != "colocated"`` (disaggregation),
 sliding-window / stateful layouts, and prompt scoring
-(``SamplingParams.prompt_logprobs``).
+(``SamplingParams.prompt_logprobs``) in the continuous engine (the static
+backend of ``LLMEngine`` scores prompts through ``Model.forward``).
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, dense_cache_dtype
 from repro_torch.quant import kv as kvq
 from repro_torch.quant.linear import quantize_params
 from repro_torch.runtime import sampling
@@ -71,7 +81,156 @@ class RequestOutput:
     finished: bool = False
     finish_reason: str | None = None
     logprobs: list[float] | None = None    # cumulative, iff requested
+    prompt_logprobs: list[float] | None = None   # finished records, iff asked
     metrics: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: torch.Tensor              # (B, n_new) int32
+    logprobs: torch.Tensor | None     # (B, n_new) f32, iff any row asked
+    steps: int
+    prefill_s: float = 0.0            # prompt in -> first tokens drawn
+    decode_s: float = 0.0             # the decode loop (n_new - 1 steps)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Batched request serving for one model (static batch).
+
+    ``prefill`` runs the prompt batch into a fresh dense cache of
+    ``max_len`` positions; ``generate`` then decodes ``max_new_tokens - 1``
+    steps at the shared position.  ``weight_format=`` serves a quantized
+    view of the model (``quant.linear.quantize_params``; the caller's model
+    is left as it was).  A quantized ``cache_dtype`` raises, as in the
+    reference: the dense cache stays a plain dtype."""
+
+    def __init__(self, model: Model, *, device: str | torch.device = "cuda",
+                 max_len: int | None = None, spec=None,
+                 sampling_params: SamplingParams | None = None,
+                 cache_dtype=None, weight_format: str | None = None,
+                 max_top_k: int = sampling.MAX_TOP_K):
+        dev = resolve_device(device)
+        wdev = next(model.parameters()).device
+        if wdev.type != dev.type or dev.index not in (None, wdev.index):
+            raise ValueError(f"model weights are on {wdev}, the engine was "
+                             f"asked to run on {dev}")
+        self.device = wdev
+        if spec is not None:
+            raise _unported("DeploymentSpec sizing (spec=)",
+                            "DeploymentSpec")
+        if max_len is None:
+            raise ValueError("pass max_len=")
+        cache_dtype = dense_cache_dtype(cache_dtype)     # refuses fp8/int8
+        self.weight_format = weight_format
+        if weight_format is not None:
+            model = quantize_params(model, weight_format)
+        self.model = model
+        self.max_len = int(max_len)
+        self.default_sampling = sampling_params or sampling.GREEDY
+        self.max_top_k = int(max_top_k)
+        self.cache_dtype = cache_dtype
+
+    # -- phase 1: prefill ---------------------------------------------------
+    def prefill(self, batch: dict):
+        """Run the prompt; returns (first_token_logits, cache, prompt_len)."""
+        return self._prefill(self._tokens(batch))
+
+    def _prefill(self, tokens: torch.Tensor):
+        cache = self.model.init_cache(tokens.shape[0], self.max_len,
+                                      dtype=self.cache_dtype)
+        logits = self.model.prefill(tokens, cache)
+        return logits, cache, tokens.shape[1]
+
+    def _tokens(self, batch: dict) -> torch.Tensor:
+        """The (B, S) prompt tokens of ``batch`` on the engine's device."""
+        if set(batch) != {"tokens"}:
+            raise NotImplementedError(
+                f"batch keys {sorted(batch)}: the port serves token "
+                f"prompts only (modality frontends are not ported)")
+        toks = batch["tokens"]
+        if not torch.is_tensor(toks):
+            toks = torch.as_tensor(np.asarray(toks))
+        return toks.to(self.device)
+
+    def _resolve_params(self, b: int, sampling_params) -> list[SamplingParams]:
+        if sampling_params is None:
+            sps = [self.default_sampling] * b
+        elif isinstance(sampling_params, SamplingParams):
+            sps = [sampling_params] * b
+        else:
+            sps = list(sampling_params)
+            if len(sps) != b:
+                raise ValueError(f"{len(sps)} SamplingParams for batch {b}")
+        for sp in sps:
+            if sp.top_k > self.max_top_k:
+                raise ValueError(f"top_k={sp.top_k} exceeds the engine's "
+                                 f"static max_top_k={self.max_top_k}")
+        return sps
+
+    # -- phase 2: decode loop -----------------------------------------------
+    def generate(self, batch: dict, *, max_new_tokens: int,
+                 sampling_params=None) -> GenerationResult:
+        """prefill + decode ``max_new_tokens``; returns every generated
+        token.  ``sampling_params``: one ``SamplingParams`` for the batch
+        or a per-row list.  Stop-token truncation is the caller's concern
+        (the loop has a fixed trip count); ``LLMEngine`` applies it."""
+        tokens = self._tokens(batch)
+        b, plen = tokens.shape
+        if plen + max_new_tokens > self.max_len:
+            raise ValueError(f"{plen}-token prompts + {max_new_tokens} new "
+                             f"tokens exceed max_len={self.max_len}")
+        sps = self._resolve_params(b, sampling_params)
+        dev = self.device
+        temp, topk, topp, minp, seed = (
+            torch.as_tensor(a, device=dev)
+            for a in sampling.stack_params(sps))
+        rep, bias_ids, bias_vals = (
+            torch.as_tensor(a, device=dev)
+            for a in sampling.stack_extras(sps))
+        # the loop hands the device nothing from host memory (every value
+        # is a kernel argument or already on the device), so the host
+        # enqueues ahead of the device and never waits for it
+        true = torch.ones((), dtype=torch.bool, device=dev)
+        # token-presence rows seed the repetition penalty with the prompt
+        pres = torch.zeros((b, self.model.cfg.padded_vocab), dtype=torch.bool,
+                           device=dev)
+        rows = torch.arange(b, device=dev)
+        pres.index_put_((rows[:, None], tokens.long()), true)
+        kw = dict(max_top_k=self.max_top_k, rep_penalty=rep,
+                  bias_ids=bias_ids, bias_vals=bias_vals, presence=pres)
+        t0 = time.monotonic()
+        logits, cache, plen = self._prefill(tokens)
+        # the first new token sits at sequence index plen
+        draw_pos = torch.full((b,), plen, dtype=torch.int32, device=dev)
+        nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp, seed,
+                                        draw_pos, **kw)
+        _sync(dev)
+        t1 = time.monotonic()
+        toks, lps = [nxt], [lp]
+        for pos in range(plen, plen + max_new_tokens - 1):
+            # the incoming token joins the stream before the next draw —
+            # the repetition penalty sees prompt + every generated token
+            pres.index_put_((rows, nxt.long()), true)
+            logits = self.model.decode_step(nxt, cache, pos)
+            # the token being generated sits at sequence index pos + 1
+            draw_pos.add_(1)
+            nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp,
+                                            seed, draw_pos, **kw)
+            toks.append(nxt)
+            lps.append(lp)
+        all_toks = torch.stack(toks, dim=1)
+        _sync(dev)
+        return GenerationResult(
+            tokens=all_toks,
+            logprobs=(torch.stack(lps, dim=1)
+                      if any(sp.logprobs for sp in sps) else None),
+            steps=max_new_tokens, prefill_s=t1 - t0,
+            decode_s=time.monotonic() - t1)
 
 
 @dataclasses.dataclass

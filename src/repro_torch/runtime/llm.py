@@ -12,10 +12,18 @@ was)::
     llm = LLMEngine(model, backend="continuous", weight_format="mxfp4",
                     cache_dtype="fp8", max_len=2048, num_slots=8)
 
+Static-batch serving over a dense KV cache (one prompt length per call;
+on the card the flash-attention kernel runs every prefill layer and the
+dense decode kernel every decode layer)::
+
+    llm = LLMEngine(model, backend="static", max_len=2048)
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
-metrics).  Only the continuous backend is ported; ``"static"`` and
-``"speculative"`` raise ``NotImplementedError`` naming their ROADMAP items.
+metrics).  The continuous and static backends are ported; the static one
+also scores prompts (``SamplingParams.prompt_logprobs``, through
+``Model.forward``).  ``"speculative"`` raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,20 +35,31 @@ import torch
 from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.engine import (
-    ContinuousServeEngine, ContinuousStats, RequestOutput,
+    ContinuousServeEngine, ContinuousStats, RequestOutput, ServeEngine,
 )
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Request
 
 BACKENDS = ("static", "continuous", "speculative")
-_UNPORTED_BACKENDS = {"static": "Static ServeEngine",
-                      "speculative": "Speculative decoding"}
+_UNPORTED_BACKENDS = {"speculative": "Speculative decoding"}
+
+
+def _truncate(tokens: list[int], sp: SamplingParams,
+              budget: int) -> tuple[list[int], str]:
+    """Apply stop-token / budget finish semantics to a pre-generated
+    stream (the static loop has a fixed trip count; the host applies the
+    finish reason afterwards)."""
+    tokens = tokens[:budget]
+    for j, t in enumerate(tokens):
+        if t in sp.stop_token_ids:
+            return tokens[:j + 1], "stop"
+    return tokens, "length"
 
 
 class LLMEngine:
-    """One ``generate(prompts, sampling_params)`` API over continuous
-    batching (the incremental ``add_request()`` / ``step()`` interface
-    streams deltas)."""
+    """One ``generate(prompts, sampling_params)`` API over continuous and
+    static execution (the continuous backend's incremental
+    ``add_request()`` / ``step()`` interface streams deltas)."""
 
     def __init__(self, model: Model, *, backend: str = "continuous",
                  device: str | torch.device = "cuda", spec=None,
@@ -59,19 +78,39 @@ class LLMEngine:
             raise NotImplementedError(
                 f"backend={backend!r} is not ported to PyTorch yet (ROADMAP "
                 f"Queue 1, '{_UNPORTED_BACKENDS[backend]}')")
+        if disaggregate and backend != "continuous":
+            raise ValueError("disaggregate=True splits the continuous "
+                             "backend into phase engines; other backends "
+                             "have no prefill/decode split to make")
+        if mesh is not None and backend != "continuous":
+            raise ValueError("mesh= shards the continuous paged serve path "
+                             "only")
+        if speculative is not None and backend != "continuous":
+            raise ValueError(
+                "speculative= configures scheduler-integrated speculation "
+                "in the continuous engine")
         if disaggregate:
             raise NotImplementedError(
                 "disaggregate=True is not ported to PyTorch yet (ROADMAP "
                 "Queue 1, 'Disaggregation')")
         max_len = 256 if max_len is None else max_len
+        self.model = model
+        self.backend = backend
+        self.max_len = max_len
+        self.default_sampling = default_sampling or sampling.GREEDY
+        self.last_stats: ContinuousStats | None = None
+        if backend == "static":
+            self._eng = ServeEngine(
+                model, device=device, max_len=max_len, spec=spec,
+                sampling_params=self.default_sampling,
+                cache_dtype=cache_dtype, weight_format=weight_format,
+                max_top_k=max_top_k)
+            return
         num_slots = 8 if num_slots is None else num_slots
         page_size = 16 if page_size is None else page_size
         prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
         if num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
-        self.model = model
-        self.default_sampling = default_sampling or sampling.GREEDY
-        self.last_stats: ContinuousStats | None = None
         self._eng = ContinuousServeEngine(
             model, device=device, num_slots=num_slots, page_size=page_size,
             num_pages=num_pages, max_len=max_len, spec=spec,
@@ -94,21 +133,33 @@ class LLMEngine:
                 raise ValueError(f"{len(sps)} SamplingParams for "
                                  f"{n} prompts")
         budgets = []
-        for sp in sps:
+        for p, sp in zip(prompts, sps):
             budget = sp.max_tokens if sp.max_tokens is not None \
                 else max_new_tokens
             if budget is None:
                 raise ValueError("set SamplingParams.max_tokens or pass "
                                  "max_new_tokens")
+            # the continuous engine enforces its own (page-rounded)
+            # capacity in add_request; static caches are exactly max_len
+            if (self.backend != "continuous"
+                    and p.shape[0] + budget > self.max_len):
+                raise ValueError(f"max_tokens={budget} exceeds max_len="
+                                 f"{self.max_len} for a {p.shape[0]}-token "
+                                 f"prompt")
             budgets.append(int(budget))
         return prompts, sps, budgets
+
+    def _continuous(self, what: str) -> None:
+        if self.backend != "continuous":
+            raise ValueError(f"{what} needs backend='continuous'")
 
     # -- incremental interface ----------------------------------------------
     def add_request(self, prompt, sampling_params: SamplingParams | None = None,
                     *, rid: int | None = None, max_new_tokens: int | None = None,
                     arrival_time: float = 0.0) -> int:
         """Submit one request; returns its rid.  Drive with ``step()`` until
-        ``has_unfinished()`` is False."""
+        ``has_unfinished()`` is False (continuous backend)."""
+        self._continuous("add_request()/step()")
         (prompt,), (sp,), (budget,) = self._resolve(
             [prompt], sampling_params, max_new_tokens)
         if rid is None:
@@ -122,17 +173,20 @@ class LLMEngine:
         return rid
 
     def step(self) -> list[RequestOutput]:
+        self._continuous("add_request()/step()")
         return self._eng.step()
 
     def reset(self) -> None:
         """Start a new session: drop every request, page and prefix entry."""
+        self._continuous("reset()")
         self._eng.reset()
 
     def has_unfinished(self) -> bool:
-        return self._eng.has_unfinished()
+        return self.backend == "continuous" and self._eng.has_unfinished()
 
     def stats(self) -> ContinuousStats:
         """Outcome of the current session (see ``ContinuousServeEngine``)."""
+        self._continuous("stats()")
         return self._eng.stats()
 
     # -- one-shot interface -------------------------------------------------
@@ -144,9 +198,14 @@ class LLMEngine:
         """Generate for ``prompts`` (sequences of token ids); returns one
         final ``RequestOutput`` per prompt, in order.  ``sampling_params``:
         one ``SamplingParams`` or a per-prompt list; ``arrival_times``
-        replays a ragged arrival trace; ``on_output`` streams deltas."""
+        (continuous only) replays a ragged arrival trace; ``on_output``
+        streams deltas (continuous) or final outputs (static)."""
         prompts, sps, budgets = self._resolve(prompts, sampling_params,
                                               max_new_tokens)
+        if arrival_times is not None and self.backend != "continuous":
+            raise ValueError("arrival_times needs backend='continuous'")
+        if self.backend == "static":
+            return self._generate_static(prompts, sps, budgets, on_output)
         reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=budgets[i],
                         sampling=sps[i],
                         arrival_time=(float(arrival_times[i])
@@ -155,3 +214,43 @@ class LLMEngine:
         stats = self._eng.run(reqs, on_output=on_output)
         self.last_stats = stats
         return [stats.outputs[i] for i in range(len(prompts))]
+
+    def _generate_static(self, prompts, sps, budgets, on_output):
+        lens = {p.shape[0] for p in prompts}
+        if len(lens) != 1:
+            raise ValueError(
+                "backend='static' batches one prompt length per call "
+                f"(got {sorted(lens)}); use backend='continuous' for "
+                "ragged prompts")
+        eng = self._eng
+        batch = torch.as_tensor(np.stack(prompts), device=eng.device)
+        res = eng.generate({"tokens": batch}, max_new_tokens=max(budgets),
+                           sampling_params=sps)
+        plps = None
+        if any(sp.prompt_logprobs for sp in sps):
+            # score the prompt with one forward: position k's log-softmax
+            # row scores prompt token k+1 (raw model scores — the
+            # generation-side processors don't apply to the prompt)
+            logits = eng.model.forward(batch)
+            ls = torch.log_softmax(logits.float(), dim=-1)
+            plps = torch.gather(ls[:, :-1], -1,
+                                batch[:, 1:, None].long())[..., 0].cpu()
+        toks = res.tokens.cpu().numpy()
+        lps_all = res.logprobs.cpu().numpy() if res.logprobs is not None \
+            else None
+        tpot = res.decode_s / max(res.steps - 1, 1)
+        outs = []
+        for i, sp in enumerate(sps):
+            ids, reason = _truncate([int(t) for t in toks[i]], sp, budgets[i])
+            out = RequestOutput(
+                rid=i, new_token_ids=list(ids), token_ids=list(ids),
+                finished=True, finish_reason=reason,
+                logprobs=([float(v) for v in lps_all[i, :len(ids)]]
+                          if sp.logprobs else None),
+                prompt_logprobs=([float(v) for v in plps[i]]
+                                 if sp.prompt_logprobs else None),
+                metrics={"ttft": res.prefill_s, "tpot": tpot})
+            outs.append(out)
+            if on_output is not None:
+                on_output(out)
+        return outs

@@ -136,7 +136,6 @@ def test_generate_matches_reference(models):
     (dict(spec=object()), "DeploymentSpec"),
     (dict(mesh=object()), "Tensor parallelism"),
     (dict(speculative=object()), "Speculative decoding"),
-    (dict(backend="static"), "Static ServeEngine"),
     (dict(backend="speculative"), "Speculative decoding"),
     (dict(disaggregate=True), "Disaggregation"),
 ])
