@@ -3,28 +3,35 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card (it exits
-non-zero, printing no result, without one).  All four CUDA sources are
+non-zero, printing no result, without one).  All five CUDA sources are
 built first, in parallel (one ``nvcc`` each, into ``.torch_ext/``).  The
 kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
-``FLASH_REPLACES``, ``DENSE_REPLACES``):
+``FLASH_REPLACES``, ``DENSE_REPLACES``, ``EXACT_REPLACES``):
 
     paged_decode.cu     src/repro/kernels/decode_attention/paged_kernel.py:150
+    paged_exact.cu      src/repro/kernels/decode_attention/paged_kernel.py:116
     mxfp4_vmm.cu        src/repro/kernels/mxfp4_vmm/kernel.py:80
     flash_attention.cu  src/repro/kernels/flash_attention/kernel.py:74
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
+
+``--only kernel_exact,check`` (any of the kernel phases, quantize, check)
+builds and runs just those phases and prints no result line: for quick
+checks of one kernel.
 
 Phases, each of which fails the run if it fails:
 
 1. kernel — hold the paged decode kernel against its plain PyTorch version
    on the card at llama3-8b decode shapes (H 32, KVH 8, D 128, page 16;
    bf16 and f32 pools; B 1 and 8; ragged positions up to 4096, dead pages
-   on a poisoned scratch page, a sliding window).  Then time kernel, plain
+   on a poisoned scratch page, a sliding window; bf16 each output within
+   one bf16 ulp of its magnitude plus 1e-4, f32 1e-5).  Then time kernel, plain
    version and ``F.scaled_dot_product_attention`` on the gathered dense
    view (a yardstick the port never calls) at B 8 with 1024 and 4096
    context, with CUDA events and the L2 cache flushed between launches.
 2. kernel_scaled — the same kernel over fp8 and int8 code pools with f32
    per-token scale pools (poisoned scratch page and scales, a window),
-   held against its plain version and timed at B 8, ctx 1024 and 4096.
+   held against its plain version (bf16 q: one bf16 ulp + 1e-4 per
+   element; f32 q: 1e-5) and timed at B 8, ctx 1024 and 4096.
 3. kernel_mxfp4 — the MXFP4 VMM kernel against its plain version at the
    four llama3-8b projection shapes for M 1, 8 and 256 plus a ragged M
    and N, timed beside its bound and beside ``torch.matmul`` of x with the
@@ -45,9 +52,22 @@ Phases, each of which fails the run if it fails:
    plus 1e-4; f32: 1e-5).  Timed at B 8 with cur_len 1088 of 2048 (the
    static serve's last step) and 4096 of 4096, beside its bound and SDPA
    on the cache sliced to cur_len.
-6. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
+6. kernel_exact — the exact-accumulator paged kernel (the speculative
+   verify step's attention) against its plain multi-query version: B 1 and
+   8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
+   0, bf16, f32, fp8 and int8 pools (code pools also with an f32 q), a
+   sliding window; dead table entries on a poisoned scratch page and every
+   pool position after a row's last query filled with +-1e4 (bf16 output
+   within one bf16 ulp + 1e-4 per element, f32 1e-5).  Its contract, bit
+   for bit: query j of a C-query launch equals a one-query launch at
+   start + j, and a row of a batch equals the row launched alone with a
+   wider page table.  Timed at B 8, C 5, context 1024 and 4096 beside its
+   bound, its plain version and ``F.scaled_dot_product_attention`` with
+   the per-row causal mask (``enable_gqa=True``, a yardstick the port never
+   calls).
+7. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
    same bits on the card as on the CPU for one llama3-8b projection.
-7. serve — llama3-8b at full width and depth (random bf16 weights from a
+8. serve — llama3-8b at full width and depth (random bf16 weights from a
    seeded generator, ~16 GB) behind ``LLMEngine(backend="continuous")``
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
@@ -57,7 +77,7 @@ Phases, each of which fails the run if it fails:
    that second session are traced with ``torch.profiler``: device busy
    time per step, the device's idle share, time by kernel, and the host
    ops that take most host time.
-8. serve_static — the same model behind ``LLMEngine(backend="static",
+9. serve_static — the same model behind ``LLMEngine(backend="static",
    max_len=2048)`` answers 8 prompts of 1024 tokens (4 greedy, 4 sampled,
    64 new tokens each); every request finishes, the flash kernel runs 32
    times (one prefill call) and the dense decode kernel 32 x 63 times, and
@@ -67,23 +87,44 @@ Phases, each of which fails the run if it fails:
    scores <= 0.  Reports tokens/s, prefill s, decode step ms and peak GB,
    and the device time of 16 decode steps (a profiled 17-token call minus
    a 1-token one): busy ms per step, idle share, time by kernel.
-9. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
+10. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
    and ``cache_dtype="fp8"``: the same checks as serve, and the MXFP4
    kernel must have run 7 x layers x (decode steps + prefill chunk calls)
    times and the scale-pool decode kernel once per layer per decode step.
-10. check — a narrow 2-layer llama-shaped model in f32 served on the card
+11. serve_spec — the serve phase's requests behind
+   ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
+   gamma=4))``, a self-draft: every request finishes, a second session
+   reproduces every stream (greedy and sampled), the exact kernel runs 32
+   times a window (the verify step) and the paged decode kernel 32 x 5
+   (four draft steps and the backfill).  Reports tokens/s, ms and tokens
+   per window, accepted proposals per window, the host's waits per window
+   and, over 8 traced decode-only windows, device busy time and idle share;
+   and, as a reading, how far each greedy stream agrees with the serve
+   phase's (the exact and online kernels round apart, so a bf16 near-tie
+   may flip).  Then ``LLMEngine(backend="speculative")`` with the model as
+   its own draft, one greedy 256-token prompt, 32 new tokens: the dense
+   decode kernel must run 32 x 2 (gamma + 1) x the windows the engine
+   counts (draft steps with the backfill, and target steps) and the flash
+   kernel 32 x 2 (the two prompt prefills), and a
+   second call reproduces the stream (phase serve_spec_legacy).
+12. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
    emit the same token streams: continuous dense (greedy and sampled), and
    greedy with mxfp4 weights over f32, int8 and fp8 pools; static (greedy
    and sampled, prompt scores within 1e-4); and on the card static against
-   continuous (greedy).  Except for the dense continuous case, a greedy
+   continuous (greedy).  Speculative (gamma 4, self-draft, greedy): the
+   continuous engine's on the card against the CPU and against the plain
+   engine on the card; every window accepts all gamma proposals unless the
+   request's stream holds a near-tie (on the CPU: every window); the legacy
+   backend on the card against the CPU.  Except for the dense continuous case, a greedy
    stream may part only at a near-tie: a step whose top-2 logit gap on the
    CPU is below ``NEAR_TIE`` (the bf16 activation cast of the mxfp4 op,
    and the kernels' other orders of f32 sums, turn last-bit differences
    into a flipped argmax now and then).
 
 Output: the card's name and power limit early, one JSON line per phase,
-the kernels line (five entries), and last ``{"ok": true, "device": {...}}``.
+the kernels line (six entries; ``launches`` from the serve phase that runs
+each kernel), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -108,6 +149,10 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:74"
 DENSE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu"
 DENSE_REPLACES = "src/repro/kernels/decode_attention/kernel.py:67"
+EXACT_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/paged_exact.cu"
+EXACT_REPLACES = ("src/repro/kernels/decode_attention/paged_kernel.py:116 "
+                  "(_exact_kernel, via paged_decode_attention(accum=\"exact\")"
+                  " at :150)")
 H, KVH, D, PAGE = 32, 8, 128, 16           # llama3-8b decode geometry
 NEAR_TIE = 0.02       # top-2 logit gap below which card and CPU may differ
 
@@ -194,16 +239,19 @@ def build_phase() -> None:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
 
-    libs = {"paged_decode": paged_kernel, "mxfp4_vmm": vmm_kernel,
-            "flash_attention": flash_kernel, "dense_decode": dense_kernel}
+    libs = {"paged_decode": (paged_kernel._lib, paged_kernel.SOURCE),
+            "paged_exact": (paged_kernel._exact_lib, paged_kernel.EXACT_SOURCE),
+            "mxfp4_vmm": (vmm_kernel._lib, vmm_kernel.SOURCE),
+            "flash_attention": (flash_kernel._lib, flash_kernel.SOURCE),
+            "dense_decode": (dense_kernel._lib, dense_kernel.SOURCE)}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs)) as ex:
-        for fut in [ex.submit(mod._lib) for mod in libs.values()]:
+        for fut in [ex.submit(load) for load, _ in libs.values()]:
             fut.result()
     print(f"kernel build: {time.monotonic() - t0:.1f} s for {len(libs)} "
           f"sources in parallel")
-    for name, mod in libs.items():
-        log = library_path(name, [mod.SOURCE]).parent / "build.log"
+    for name, (_, source) in libs.items():
+        log = library_path(name, [source]).parent / "build.log"
         print(f"  {name}: -Xptxas -v report in {log}")
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line:
@@ -221,8 +269,10 @@ def kernel_phase(torch) -> dict:
     dev = torch.device("cuda")
 
     rng = np.random.default_rng(0)
-    tol = {"float32": 1e-5, "bfloat16": 2e-2}
-    errs = {}
+    # f32: absolute (f32 sums in another order).  bf16: element by element,
+    # one bf16 ulp of each output plus 1e-4, the dense decode's rule
+    tol_f32, atol_bf16 = 1e-5, 1e-4
+    errs, shares = {}, []
     n_blocks = 4096 // PAGE + 4
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
@@ -237,13 +287,20 @@ def kernel_phase(torch) -> dict:
                                              window=window)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
+            if dtype_name == "float32":
+                ok, limit = err <= tol_f32, f"{tol_f32}"
+            else:
+                share = ulp_limit_share(out, ref, atol_bf16)
+                shares.append(share)
+                ok = share <= 1.0
+                limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                         f"element at {share:.3g} of it")
             print(f"  kernel vs plain: {dtype_name} pools B={B} "
                   f"window={window}: max abs err {err:.3g} "
-                  f"(tolerance {tol[dtype_name]})")
-            if not err <= tol[dtype_name]:
+                  f"(tolerance {limit})")
+            if not ok:
                 raise AssertionError(f"paged_decode_attention disagrees with "
-                                     f"its plain version: {err} > "
-                                     f"{tol[dtype_name]}")
+                                     f"its plain version: {err} ({limit})")
             errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
 
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -275,6 +332,7 @@ def kernel_phase(torch) -> dict:
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": None, "max_abs_err": errs["bfloat16"],
             "max_abs_err_f32": errs["float32"],
+            "max_bf16_limit_share": max(shares),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
@@ -311,8 +369,10 @@ def kernel_scaled_phase(torch) -> dict:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    tol = 2e-2           # bf16 output; the f32 accumulations differ in order
-    err_max = 0.0
+    # bf16 output: one bf16 ulp of each output plus 1e-4 (the f32 sums run
+    # in another order), element by element; f32 output: 1e-5 absolute
+    atol_bf16 = 1e-4
+    err_max, shares = 0.0, []
     n_blocks = 4096 // PAGE + 4
     for cache_dtype in ("fp8", "int8"):
         for B, window in ((1, None), (8, None), (8, 1000), (8, 1)):
@@ -329,13 +389,21 @@ def kernel_scaled_phase(torch) -> dict:
                     window=window)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
-                limit = tol if q_in.dtype == torch.bfloat16 else 1e-5
+                if q_in.dtype == torch.bfloat16:
+                    share = ulp_limit_share(out, ref, atol_bf16)
+                    shares.append(share)
+                    ok = share <= 1.0
+                    limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                             f"element at {share:.3g} of it")
+                else:
+                    ok, limit = err <= 1e-5, "1e-05"
                 print(f"  scaled kernel vs plain: {cache_dtype} pools, q "
                       f"{str(q_in.dtype)[6:]} B={B} window={window}: max abs "
                       f"err {err:.3g} (tolerance {limit})")
-                if not err <= limit:
+                if not ok:
                     raise AssertionError(f"scale-pool decode kernel disagrees "
-                                         f"with its plain version: {err}")
+                                         f"with its plain version: {err} "
+                                         f"({limit})")
                 if q_in.dtype == torch.bfloat16:
                     err_max = max(err_max, err)
 
@@ -377,6 +445,7 @@ def kernel_scaled_phase(torch) -> dict:
             "source": KERNEL_SOURCE, "replaces": REPLACES + " (k_scales/"
             "v_scales branch, paged_kernel.py:94-98, :202-207)",
             "launches": None, "max_abs_err": err_max,
+            "max_bf16_limit_share": max(shares),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "timings": timings}
@@ -697,7 +766,198 @@ def kernel_dense_decode_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. quantize phase: the card's bits are the CPU's
+# 6. exact-accumulator paged decode (the speculative verify step)
+# ---------------------------------------------------------------------------
+
+GAMMA = 4                  # speculative lookahead of serve_spec and check
+VERIFY_C = GAMMA + 1       # queries per slot in one verify step
+
+
+def exact_case(torch, rng, B, C, n_blocks, pools, start, dev):
+    """Random pools (f32, bf16, or fp8/int8 codes written through
+    ``kv_quantize``) with a poisoned scratch page 0 (codes and scales),
+    per-row permuted page tables whose entries past each row's last query
+    (start + C - 1) point at page 0, and every pool position after a row's
+    last query in its live pages filled with K 1e4, V -1e4: the causal mask
+    must give all of them zero weight."""
+    from repro_torch.quant import kv as kvq
+
+    P = 1 + B * n_blocks
+    table = rng.permutation(np.arange(1, P)).reshape(B, n_blocks)
+    last = start + C - 1
+    live = np.arange(n_blocks)[None, :] <= (last // PAGE)[:, None]
+    table = np.where(live, table, 0).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    kp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev)
+    vp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev)
+    kp[0], vp[0] = 1e4, -1e4
+    pages, offs = [], []
+    for b in range(B):
+        for t in range(last[b] + 1, (last[b] // PAGE + 1) * PAGE):
+            pages.append(table[b, t // PAGE])
+            offs.append(t % PAGE)
+    if pages:
+        idx = (torch.as_tensor(pages, device=dev),
+               torch.as_tensor(offs, device=dev))
+        kp[idx], vp[idx] = 1e4, -1e4
+    q = torch.randn((B, C, H, D), generator=gen, device=dev)
+    scales = {}
+    if pools in ("fp8", "int8"):
+        kp, ks = kvq.kv_quantize(kp, pools)
+        vp, vs = kvq.kv_quantize(vp, pools)
+        ks[0], vs[0] = 1e4, -1e4
+        scales = dict(k_scales=ks, v_scales=vs)
+        q = q.to(torch.bfloat16)
+    else:
+        dt = getattr(torch, pools)
+        kp, vp, q = kp.to(dt), vp.to(dt), q.to(dt)
+    return (q, kp, vp, torch.as_tensor(table, device=dev),
+            torch.as_tensor(start.astype(np.int32), device=dev), scales)
+
+
+def exact_bound(start, C, B, window, itemsize, q_itemsize, dtype_name,
+                scale_itemsize=0):
+    """Least time for the work: the live K/V tokens of each slot read once
+    for all C queries (codes and their scales for code pools), q read and
+    out written once, the live table entries and the starts; ops are q.k
+    and p.v, 4 flops per visible (query, key) pair, head and head dim."""
+    last = start + C - 1
+    lo = (np.zeros_like(start) if window is None
+          else np.maximum(start - window + 1, 0))
+    tokens = int(np.sum(last - lo + 1))
+    pages = int(np.sum(last // PAGE - lo // PAGE + 1))
+    visible = 0
+    for j in range(C):
+        p = start + j
+        first = np.zeros_like(p) if window is None else np.maximum(p - window + 1, 0)
+        visible += int(np.sum(p - first + 1))
+    nbytes = (2 * tokens * KVH * (D * itemsize + scale_itemsize)
+              + 2 * B * C * H * D * q_itemsize + 4 * pages + 4 * B)
+    return roofline(nbytes, 4 * visible * H * D, dtype_name)
+
+
+def exact_invariance(torch, paged_kernel, q, kp, vp, table, st, out, kw,
+                     name) -> None:
+    """The exact kernel's contract, bit for bit: query j of a C-query
+    launch is a one-query launch at start + j; row b of a batch is that row
+    launched alone, with a wider page table."""
+    B, C = q.shape[:2]
+    for j in range(C if C > 1 else 0):
+        one = paged_kernel.paged_decode_multi_attention(
+            q[:, j:j + 1].contiguous(), kp, vp, table, st + j, **kw)
+        if not torch.equal(one[:, 0], out[:, j]):
+            raise AssertionError(f"exact kernel: query {j} of a C={C} launch "
+                                 f"differs from a C=1 launch ({name})")
+    wide = torch.cat([table, torch.zeros_like(table[:, :64])], dim=1)
+    for b in range(B if B > 1 else 0):
+        alone = paged_kernel.paged_decode_multi_attention(
+            q[b:b + 1].contiguous(), kp, vp, wide[b:b + 1].contiguous(),
+            st[b:b + 1].contiguous(), **kw)
+        if not torch.equal(alone[0], out[b]):
+            raise AssertionError(f"exact kernel: row {b} of a B={B} launch "
+                                 f"differs from the row alone ({name})")
+
+
+def kernel_exact_phase(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_decode_multi_attention_ref,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    # f32 q and pools: absolute 1e-5 (f32 sums in another order).  bf16
+    # output: element by element, one bf16 ulp of each output plus 1e-4
+    tol_f32, atol_bf16 = 1e-5, 1e-4
+    n_blocks = 4096 // PAGE + 4
+    errs, shares, cases = {}, [], 0
+    for pools in ("bfloat16", "float32", "fp8", "int8"):
+        for B, C, window in ((1, 1, None), (1, VERIFY_C, None),
+                             (8, 1, None), (8, VERIFY_C, None),
+                             (8, VERIFY_C, 1000)):
+            start = rng.integers(0, 4096 - C + 1, B)
+            start[0] = 0 if B > 1 else 4096 - C          # one row at 0
+            q, kp, vp, table, st, scales = exact_case(
+                torch, rng, B, C, n_blocks, pools, start, dev)
+            kw = dict(window=window, **scales)
+            for q_in in ((q, q.float()) if scales else (q,)):
+                out = paged_kernel.paged_decode_multi_attention(
+                    q_in, kp, vp, table, st, **kw)
+                ref = paged_decode_multi_attention_ref(q_in, kp, vp, table,
+                                                       st, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                if q_in.dtype == torch.float32:
+                    ok, limit = err <= tol_f32, f"{tol_f32}"
+                else:
+                    share = ulp_limit_share(out, ref, atol_bf16)
+                    shares.append(share)
+                    ok = share <= 1.0
+                    limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                             f"element at {share:.3g} of it")
+                name = f"{pools} pools, q {str(q_in.dtype)[6:]}"
+                print(f"  exact kernel vs plain: {name} B={B} C={C} "
+                      f"window={window}: max abs err {err:.3g} "
+                      f"(tolerance {limit})")
+                if not ok:
+                    raise AssertionError(f"paged_decode_multi_attention "
+                                         f"disagrees with its plain version "
+                                         f"({name}, B={B}, C={C}): {err}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                cases += 1
+                exact_invariance(torch, paged_kernel, q_in, kp, vp, table,
+                                 st, out, kw, name)
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings = []
+    B, C = 8, VERIFY_C
+    for ctx in (1024, 4096):
+        start = np.full(B, ctx - C)                  # last query at ctx - 1
+        q, kp, vp, table, st, _ = exact_case(torch, rng, B, C, ctx // PAGE,
+                                             "bfloat16", start, dev)
+        # SDPA on the gathered dense view with each row's causal mask: a
+        # yardstick the port never calls
+        k_d = gather_pages(kp, table).transpose(1, 2)   # (B, KVH, S, D)
+        v_d = gather_pages(vp, table).transpose(1, 2)
+        pos = st[:, None].long() + torch.arange(C, device=dev)[None, :]
+        mask = (torch.arange(ctx, device=dev)[None, None, :]
+                <= pos[:, :, None])[:, None]            # (B, 1, C, S)
+        q_s = q.transpose(1, 2)                          # (B, H, C, D)
+        row = {"ctx": ctx, "B": B, "C": C, "pools": "bfloat16",
+               "ms": time_ms(torch, lambda: paged_kernel.paged_decode_multi_attention(
+                   q, kp, vp, table, st), flush),
+               "plain_ms": time_ms(torch, lambda: paged_decode_multi_attention_ref(
+                   q, kp, vp, table, st), flush),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = exact_bound(start, C, B, None, 2,
+                                                       2, "bfloat16")
+        timings.append(row)
+        print("  timing:", json.dumps(row))
+    del flush
+    head = timings[0]
+    return {"name": paged_kernel.NAME_EXACT, "route": "cuda",
+            "source": EXACT_SOURCE, "replaces": EXACT_REPLACES,
+            "launches": None, "cases": cases,
+            "max_abs_err": max(v for k, v in errs.items() if "q bfloat16" in k),
+            "max_abs_err_f32": max(v for k, v in errs.items()
+                                   if "q float32" in k),
+            "max_bf16_limit_share": max(shares),
+            "bitwise_invariance": "query j of C=5 == C=1 at start+j; row b "
+                                  "of B=8 == the row alone, wider table",
+            "headline": f"B 8, C {C}, context 1024, bf16 pools",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "F.scaled_dot_product_attention(attn_mask=<per-row "
+                       "causal mask>, enable_gqa=True) on the gathered view",
+            "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 7. quantize phase: the card's bits are the CPU's
 # ---------------------------------------------------------------------------
 
 
@@ -732,7 +992,7 @@ def quantize_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 7, 9. continuous serve phases (bf16; mxfp4 + fp8)
+# 8, 10, 11. continuous serve phases (bf16; mxfp4 + fp8; speculative)
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = [128, 1024, 300, 612, 777, 200, 450, 712]
@@ -790,6 +1050,10 @@ def serve_session(llm, prompts, sps, on_decode_step=None):
 
 
 PROFILE = dict(wait=4, warmup=2, active=8, repeat=1)   # decode-only steps
+# the host's waits for the device (as scripts/host_syncs.py counts them): a
+# synchronize, or a host-to-device copy from pageable memory
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "Memcpy HtoD (Pageable -> Device)")
 
 
 def device_breakdown(prof, step_s: float) -> dict:
@@ -812,17 +1076,22 @@ def device_breakdown(prof, step_s: float) -> dict:
                 and not evt.key.startswith("ProfilerStep")):
             times[evt.key] = times.get(evt.key, 0) + t
     n = PROFILE["active"]
+    waits = sum(evt.count for evt in prof.key_averages()
+                if evt.key in HOST_WAITS)
     busy = sum(times.values()) / 1e6
     if busy == 0:
         return {"device_time": "not measured (the profiler saw no device "
                                "activity)", "step_ms": 1e3 * step_s}
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     decode = sum(t for k, t in times.items() if "paged_decode" in k) / 1e6
+    exact = sum(t for k, t in times.items() if "exact_" in k) / 1e6
     vmm = sum(t for k, t in times.items() if "mxfp4_vmm" in k) / 1e6
     return {"steps": n, "step_ms": 1e3 * step_s,
             "device_busy_ms_per_step": 1e3 * busy / n,
             "device_idle_share": 1 - busy / n / step_s,
             "decode_attention_ms_per_step": 1e3 * decode / n,
+            "exact_attention_ms_per_step": 1e3 * exact / n,
+            "host_waits_per_step": waits / n,
             "mxfp4_vmm_ms_per_step": 1e3 * vmm / n,
             # host time under the tracer (it slows the host): where the
             # host's share goes, not how long a step takes
@@ -925,14 +1194,158 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
                   model, engine_kw.get("weight_format")) / 1e9,
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "profiled_decode_steps": breakdown}
+              "profiled_decode_steps": breakdown, "_streams": streams}
     del llm
     torch.cuda.empty_cache()
     return result
 
 
+def serve_spec_phase(torch, model, plain_streams) -> dict:
+    """The ``serve`` phase's requests behind ``LLMEngine(backend=
+    "continuous", speculative=SpeculativeConfig(gamma=GAMMA))``, a
+    self-draft, twice (the re-run must reproduce every stream, greedy and
+    sampled, and is traced over 8 decode-only windows).  Every window runs
+    the paged decode kernel once per layer for each of its gamma draft
+    steps and the backfill step, and the exact kernel once per layer for
+    the verify step.  The greedy streams' agreement with the plain serve's
+    (``plain_streams``) is a reading: the exact and online kernels round
+    apart, so a bf16 near-tie may flip."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_EXACT,
+    )
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
+                    page_size=16, max_len=2048, prefill_chunk=256,
+                    speculative=SpeculativeConfig(gamma=GAMMA))
+    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    LAUNCHES.clear()
+    streams, finished, stats, windows_s = serve_session(llm, prompts, sps)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    for i in range(len(prompts)):
+        o = finished.get(i)
+        if o is None or o.finish_reason != "length" or len(o.token_ids) != 64:
+            raise AssertionError(f"spec request {i} did not finish with 64 "
+                                 f"tokens: {o}")
+        if o.token_ids != streams[i] or not all(
+                0 <= t < cfg.vocab_size for t in o.token_ids):
+            raise AssertionError(f"spec request {i}: streamed deltas differ "
+                                 f"from token_ids, or a token is outside "
+                                 f"the vocabulary")
+    want = {NAME_EXACT: cfg.n_layers * stats.steps,
+            NAME: cfg.n_layers * (GAMMA + 1) * stats.steps}
+    if launches != want or stats.spec_windows == 0:
+        raise AssertionError(f"serve_spec launched {launches}, want {want} "
+                             f"({stats.steps} windows, {cfg.n_layers} "
+                             f"layers)")
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(**PROFILE)) as prof:
+        again, _, stats2, _ = serve_session(llm, prompts, sps,
+                                            on_decode_step=prof.step)
+    breakdown = device_breakdown(prof, float(np.median(windows_s)))
+    for i in range(len(prompts)):
+        if again[i] != streams[i]:
+            kind = "greedy" if sps[i].is_greedy else "sampled"
+            raise AssertionError(f"spec {kind} request {i} did not "
+                                 f"reproduce its stream on the re-run")
+    agree = {}
+    for i, sp in enumerate(sps):
+        if sp.is_greedy:
+            a, b = streams[i], plain_streams[i]
+            agree[i] = (64 if a == b else
+                        next(t for t, (x, y) in enumerate(zip(a, b))
+                             if x != y))
+    ttft = stats.latency_quantiles("ttft")
+    slot_windows = stats.spec_windows
+    result = {"phase": "serve_spec", "gamma": GAMMA, "draft": "self",
+              "requests": len(prompts), "new_tokens": stats.total_tokens,
+              "tokens_per_s": stats.total_tokens / stats.wall,
+              "wall_s": stats.wall, "ttft_p50_s": ttft["p50"],
+              "windows": stats.steps,
+              "ms_per_window_decode_only": 1e3 * float(np.mean(windows_s)),
+              "decode_only_windows": len(windows_s),
+              "decode_only_tokens_per_s": 8 * (stats.accepted_per_window + 1)
+              / float(np.mean(windows_s)),
+              "slot_windows": slot_windows,
+              "tokens_per_slot_window": (stats.spec_accepted + slot_windows)
+              / max(slot_windows, 1),
+              "accepted_per_window": stats.accepted_per_window,
+              "spec_drafted": stats.spec_drafted,
+              "spec_accepted": stats.spec_accepted,
+              "spec_wasted": stats.spec_wasted,
+              "host_waits_per_window": breakdown.get("host_waits_per_step"),
+              "kernel_launches": launches, "rerun_identical": True,
+              "rerun_wall_s": stats2.wall,
+              "greedy_agreement_with_serve": {
+                  "reading": "tokens equal before the first difference "
+                             "(64 = the whole stream)", **{
+                      str(k): v for k, v in agree.items()}},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "profiled_windows": breakdown}
+    del llm
+    torch.cuda.empty_cache()
+    return result
+
+
+LEGACY_PROMPT, LEGACY_NEW = 256, 32
+
+
+def serve_spec_legacy_phase(torch, model) -> dict:
+    """``LLMEngine(backend="speculative")`` with the model as its own
+    draft: one greedy prompt of 256 tokens, 32 new.  The dense decode
+    kernel must run once per layer for every draft and target step the
+    engine counts, the flash kernel once per layer for each of the two
+    prompt prefills; a second call reproduces the stream."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                               LEGACY_PROMPT)
+    llm = LLMEngine(model, backend="speculative", device="cuda", gamma=GAMMA,
+                    max_len=512)
+    sp = SamplingParams(max_tokens=LEGACY_NEW)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = llm.generate([prompt], sp)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    m = out.metrics
+    if (out.finish_reason != "length" or len(out.token_ids) != LEGACY_NEW
+            or not all(0 <= t < cfg.vocab_size for t in out.token_ids)):
+        raise AssertionError(f"legacy speculative request: {out}")
+    # a window: gamma draft steps + the backfill, gamma + 1 target steps
+    steps = 2 * (GAMMA + 1) * m["windows"]
+    want = {FLASH: 2 * cfg.n_layers, DENSE: cfg.n_layers * steps}
+    if launches != want:
+        raise AssertionError(f"legacy speculative launched {launches}, want "
+                             f"{want} ({m})")
+    again = llm.generate([prompt], sp)[0]
+    if again.token_ids != out.token_ids:
+        raise AssertionError("legacy speculative stream did not reproduce")
+    return {"phase": "serve_spec_legacy", "gamma": GAMMA, "draft": "self",
+            "prompt_tokens": LEGACY_PROMPT, "new_tokens": LEGACY_NEW,
+            "wall_s": wall, "tokens_per_s": LEGACY_NEW / wall,
+            "windows": m["windows"],
+            "accepted_per_window": m["accepted_per_window"],
+            "single_token_steps": steps, "kernel_launches": launches,
+            "rerun_identical": True}
+
+
 # ---------------------------------------------------------------------------
-# 8. static serve phase
+# 9. static serve phase
 # ---------------------------------------------------------------------------
 
 STATIC_PROMPT, STATIC_NEW = 1024, 64
@@ -1058,7 +1471,7 @@ def serve_static_phase(torch, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 10. check phase: kernel path on the card == plain path on the CPU
+# 12. check phase: kernel path on the card == plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1101,6 +1514,103 @@ def divergences(torch, label, got, want, prompts, reqs, gap_model,
         print(f"  check {label}: request {g.rid} diverges at token {t} at a "
               f"near-tie (CPU top-2 logit gap {gap:.3g} < {NEAR_TIE})")
     return near_ties
+
+
+def stream_min_gap(torch, model, prompt, tokens) -> float:
+    """The smallest top-2 logit gap the CPU model gives at the positions
+    that chose ``tokens`` after ``prompt`` (one ``Model.forward``)."""
+    toks = torch.as_tensor(np.concatenate([prompt, tokens]),
+                           dtype=torch.int64)[None]
+    logits = model.forward(toks)[0, len(prompt) - 1:-1]
+    top = logits.topk(2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def spec_checks(torch, cpu, gpu, prompts, greedy, s_prompts, kw) -> list:
+    """Speculative decoding on the narrow f32 model, greedy: the
+    continuous engine's self-draft speculation on the card against the
+    same on the CPU and against the plain engine on the card, acceptance
+    gamma in every window of a request unless its stream holds a near-tie,
+    and the legacy backend on the card against the CPU."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_EXACT,
+    )
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    f32 = torch.float32
+    results = []
+    spec_kw = dict(kw, cache_dtype=f32,
+                   speculative=SpeculativeConfig(gamma=GAMMA))
+    LAUNCHES.clear()
+    llm_gpu = LLMEngine(gpu, device="cuda", **spec_kw)
+    sp_gpu = llm_gpu.generate(prompts, greedy)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    windows = llm_gpu.last_stats.steps
+    want = {NAME_EXACT: gpu.cfg.n_layers * windows,
+            NAME: gpu.cfg.n_layers * (GAMMA + 1) * windows}
+    if launches != want:
+        raise AssertionError(f"spec card run launched {launches}, want "
+                             f"{want}")
+    llm_cpu = LLMEngine(cpu, device="cpu", **spec_kw)
+    sp_cpu = llm_cpu.generate(prompts, greedy)
+    plain_gpu = LLMEngine(gpu, device="cuda", cache_dtype=f32,
+                          **kw).generate(prompts, greedy)
+    near = divergences(torch, "spec f32, card vs CPU", sp_gpu, sp_cpu,
+                       prompts, greedy, cpu, f32, True)
+    results.append({"case": "continuous spec f32 (self-draft, gamma "
+                    f"{GAMMA}), card vs CPU, greedy",
+                    "identical": not near, "near_ties": near,
+                    "kernel_launches": launches})
+    near = divergences(torch, "spec vs plain, card", sp_gpu, plain_gpu,
+                       prompts, greedy, cpu, f32, True)
+    results.append({"case": "continuous spec vs plain f32, card, greedy",
+                    "identical": not near, "near_ties": near})
+    # acceptance: gamma in every window on the CPU (virtual slots are the
+    # plain decode step bit for bit); on the card a request may lose a
+    # proposal only where its stream holds a near-tie
+    accept = {}
+    for label, llm, outs in (("cpu", llm_cpu, sp_cpu),
+                             ("card", llm_gpu, sp_gpu)):
+        for rid, rec in llm.last_stats.per_request.items():
+            full = GAMMA * rec["spec_windows"]
+            accept[f"{label} request {rid}"] = (rec["spec_accepted"], full)
+            if rec["spec_accepted"] == full:
+                continue
+            gap = stream_min_gap(torch, cpu, prompts[rid],
+                                 np.asarray(outs[rid].token_ids))
+            if label == "cpu" or gap >= NEAR_TIE:
+                raise AssertionError(
+                    f"self-draft spec on the {label}, request {rid}: "
+                    f"accepted {rec['spec_accepted']} of {full} proposals "
+                    f"(smallest CPU top-2 gap of its stream {gap})")
+    results.append({"case": "self-draft acceptance (accepted, drafted)",
+                    "per_request": accept})
+    # the legacy backend (dense caches; the flash and dense decode kernels)
+    leg_kw = dict(backend="speculative", gamma=GAMMA, max_len=128,
+                  cache_dtype=f32)
+    leg_prompts, leg_greedy = s_prompts[:2], greedy[:2]
+    LAUNCHES.clear()
+    leg_gpu = LLMEngine(gpu, device="cuda", **leg_kw).generate(leg_prompts,
+                                                               leg_greedy)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    steps = sum(2 * (GAMMA + 1) * o.metrics["windows"] for o in leg_gpu)
+    want = {FLASH: 2 * len(leg_prompts) * gpu.cfg.n_layers,
+            DENSE: steps * gpu.cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"legacy spec card run launched {launches}, "
+                             f"want {want}")
+    leg_cpu = LLMEngine(cpu, device="cpu", **leg_kw).generate(leg_prompts,
+                                                              leg_greedy)
+    near = divergences(torch, "legacy spec f32, card vs CPU", leg_gpu,
+                       leg_cpu, leg_prompts, leg_greedy, cpu, f32, True)
+    results.append({"case": "legacy speculative f32, card vs CPU, greedy",
+                    "identical": not near, "near_ties": near,
+                    "kernel_launches": launches})
+    return results
 
 
 def check_phase(torch) -> dict:
@@ -1206,14 +1716,27 @@ def check_phase(torch) -> dict:
                             torch.float32, True)
     results.append({"case": "static vs continuous f32, card, greedy",
                     "identical": not near_ties, "near_ties": near_ties})
+    results += spec_checks(torch, cpu, gpu, prompts, greedy, s_prompts, kw)
     return {"phase": "check", "model": "llama3-8b widths cut to d_model 512, "
             "2 layers, f32", "requests": len(prompts),
             "near_tie_gap": NEAR_TIE, "cases": results}
 
 
+KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
+                 "kernel_dense_decode", "kernel_exact", "quantize")
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel phases to run after the "
+                         f"build ({', '.join(KERNEL_PHASES)}) or 'check'; "
+                         "a partial run prints no result line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke test needs an NVIDIA GPU", file=sys.stderr)
@@ -1233,14 +1756,29 @@ def main() -> int:
         t = time.monotonic()
         out = fn(torch, *args, **kw)
         line = out if "phase" in out else {"phase": name}
-        print(json.dumps({**line, "seconds": time.monotonic() - t}))
+        print(json.dumps({**{k: v for k, v in line.items()
+                             if not k.startswith("_")},
+                          "seconds": time.monotonic() - t}))
         return out
 
+    phases = {"kernel": kernel_phase, "kernel_scaled": kernel_scaled_phase,
+              "kernel_mxfp4": kernel_mxfp4_phase,
+              "kernel_flash": kernel_flash_phase,
+              "kernel_dense_decode": kernel_dense_decode_phase,
+              "kernel_exact": kernel_exact_phase,
+              "quantize": quantize_phase, "check": check_phase}
+    if args.only is not None:
+        for name in args.only.split(","):
+            timed(name, phases[name])
+        print(f"partial run ({args.only}): {time.monotonic() - t0:.1f} s, "
+              f"no result line")
+        return 0
     kernel = timed("kernel", kernel_phase)
     scaled = timed("kernel_scaled", kernel_scaled_phase)
     vmm = timed("kernel_mxfp4", kernel_mxfp4_phase)
     flash = timed("kernel_flash", kernel_flash_phase)
     dense = timed("kernel_dense_decode", kernel_dense_decode_phase)
+    exact = timed("kernel_exact", kernel_exact_phase)
     timed("quantize", quantize_phase)
     model = build_llama(torch)
     serve = timed("serve", serve_phase, model)
@@ -1248,6 +1786,8 @@ def main() -> int:
     serve_q = timed("serve_quantized", serve_phase, model,
                     phase="serve_quantized", weight_format="mxfp4",
                     cache_dtype="fp8")
+    spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
+    timed("serve_spec_legacy", serve_spec_legacy_phase, model)
     del model
     torch.cuda.empty_cache()
     timed("check", check_phase)
@@ -1256,7 +1796,8 @@ def main() -> int:
     vmm["launches"] = serve_q["kernel_launches"][vmm["name"]]
     flash["launches"] = static["kernel_launches"][flash["name"]]
     dense["launches"] = static["kernel_launches"][dense["name"]]
-    kernels = [kernel, scaled, vmm, flash, dense]
+    exact["launches"] = spec["kernel_launches"][exact["name"]]
+    kernels = [kernel, scaled, vmm, flash, dense, exact]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

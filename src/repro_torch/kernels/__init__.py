@@ -4,8 +4,12 @@ version:
    decode_attention — paged single-token GQA flash-decode over dense or
                       fp8/int8 code pools (CUDA C++,
                       ``csrc/paged_decode.cu``), replacing the Pallas
-                      ``repro/kernels/decode_attention/paged_kernel.py``;
-                      and the dense-cache flash-decode of the static
+                      ``repro/kernels/decode_attention/paged_kernel.py``
+                      (its online accumulator); its exact accumulator,
+                      multi-query, which carries the speculative verify
+                      step (``csrc/paged_exact.cu``, replacing the same
+                      file's ``_exact_kernel``); and the dense-cache
+                      flash-decode of the static
                       engine (``csrc/dense_decode.cu``), replacing
                       ``repro/kernels/decode_attention/kernel.py``
    flash_attention  — GQA flash-attention forward of the static prefill
@@ -18,7 +22,8 @@ version:
 
 Every wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches its
 kernel and nowhere else (the paged decode kernel counts its launches on
-code pools as ``paged_decode_attention_scaled``; the dense one counts as
+code pools as ``paged_decode_attention_scaled``, the exact one as
+``paged_decode_attention_exact``; the dense one counts as
 ``decode_attention``), so a run can show that its
 path went through the kernel (``chip_smoke.py`` clears the counts before
 each serve phase).

@@ -6,10 +6,10 @@ import torch
 
 from repro_torch.kernels.decode_attention.kernel import decode_attention
 from repro_torch.kernels.decode_attention.paged_kernel import (
-    paged_decode_attention,
+    paged_decode_attention, paged_decode_multi_attention,
 )
 from repro_torch.kernels.decode_attention.ref import (
-    gather_pages, paged_decode_attention_ref,
+    gather_pages, paged_decode_attention_ref, paged_decode_multi_attention_ref,
 )
 from repro_torch.models.common import blocked_attention, decode_attention_ref
 from repro_torch.quant.kv import kv_dequantize
@@ -41,14 +41,47 @@ def gqa_decode_attention(q, k_cache, v_cache, cur_len, *,
 
 def paged_gqa_multi_attention(q, k_pages, v_pages, page_table, start, *,
                               k_scales=None, v_scales=None, causal=True,
-                              window=None):
-    """Multi-token paged attention for chunked prefill: q (B, C, H, D) at
-    per-row absolute offsets ``start`` (B,); query j of row b sits at
-    ``start[b] + j`` and attends causally up to itself.  Gathers the pages
-    (dequantized to q's dtype for fp8/int8 pools) and runs
-    ``blocked_attention``'s ragged ``q_offset`` online softmax (the
-    reference's ``impl="blocked"``; its ``"reference"`` impl serves
-    speculative verify, which the port has not reached yet)."""
+                              window=None, impl: str = "auto"):
+    """Multi-token paged attention: q (B, C, H, D) at per-row absolute
+    offsets ``start`` (B,); query j of row b sits at ``start[b] + j`` and
+    attends causally up to itself.  Used by chunked prefill and by the
+    speculative verify step (C = gamma + 1).  Impls:
+
+      * ``"blocked"``   — gather the pages (dequantized to q's dtype for
+        fp8/int8 pools) and run ``blocked_attention``'s ragged ``q_offset``
+        online softmax; what chunked prefill uses (its call site asks for
+        it by name, as the reference's does).
+      * ``"reference"`` — ``paged_decode_multi_attention_ref``: op for op
+        the single-token decode oracle per query, so on CPU each verify
+        position's logits are the ones the single-token decode step gives.
+      * ``"fused"``     — the exact-accumulator CUDA kernel
+        (``paged_decode_multi_attention``, ``csrc/paged_exact.cu``): each
+        slot's live pages stream once for all C queries, every sum's order
+        is fixed by the query's position.  CUDA tensors only; on a CPU
+        tensor it raises.
+      * ``"auto"``      — the plain ``"reference"`` for CPU tensors, the
+        kernel for CUDA tensors (no fallback: a build or launch failure
+        raises)."""
+    if impl == "auto":
+        impl = "reference" if q.device.type == "cpu" else "fused"
+    if impl in ("reference", "fused") and not causal:
+        raise ValueError(f"impl={impl!r} is the causal multi-token decode; "
+                         f"causal=False takes impl='blocked'")
+    if impl == "reference":
+        return paged_decode_multi_attention_ref(
+            q, k_pages, v_pages, page_table, start, k_scales=k_scales,
+            v_scales=v_scales, window=window)
+    if impl == "fused":
+        if not q.is_cuda:
+            raise ValueError("impl='fused' runs the CUDA kernel and needs "
+                             f"CUDA tensors; q is on {q.device}")
+        return paged_decode_multi_attention(
+            q, k_pages, v_pages, page_table.to(torch.int32),
+            start.to(torch.int32), k_scales=k_scales, v_scales=v_scales,
+            window=window)
+    if impl != "blocked":
+        raise ValueError(f"impl={impl!r} (want 'auto', 'blocked', 'fused' "
+                         f"or 'reference')")
     k_d = gather_pages(k_pages, page_table)
     v_d = gather_pages(v_pages, page_table)
     if k_scales is not None:

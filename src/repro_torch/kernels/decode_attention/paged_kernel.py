@@ -1,19 +1,27 @@
-"""Paged single-token GQA decode attention: the CUDA kernel's wrapper.
+"""Paged GQA decode attention: the CUDA kernels' wrappers.
 
-The Hopper counterpart of the Pallas kernel
-``repro/kernels/decode_attention/paged_kernel.py::paged_decode_attention``
-(its online accumulator, over dense bf16/f32 pools and over fp8/int8 code
-pools with per-token f32 scale pools).  The kernel itself is
-``csrc/paged_decode.cu``: CTAs per (kv head, slot, split) walk their share
-of the slot's live pages through the page table, double-buffered in shared
-memory, with q and the f32 online-softmax state on chip; a second kernel
-folds the splits.  The source's header says what bounds it and why it is
-built so.
+The Hopper counterparts of the Pallas kernel
+``repro/kernels/decode_attention/paged_kernel.py::paged_decode_attention``,
+over dense bf16/f32 pools and over fp8/int8 code pools with per-token f32
+scale pools, one per accumulator mode:
 
-The library is compiled from the repo's sources by ``nvcc`` at first use
+  * ``accum="online"`` (``csrc/paged_decode.cu``): CTAs per (kv head,
+    slot, split) walk their share of the slot's live pages through the page
+    table, double-buffered in shared memory, with q and the f32
+    online-softmax state on chip; a second kernel folds the splits.  The
+    split count follows the batch, so a row's bits depend on its batch.
+  * ``accum="exact"`` (``csrc/paged_exact.cu``, the reference's
+    ``_exact_kernel``): scores staged in position order, one softmax over
+    the whole row, P.V over fixed position chunks folded in order — every
+    sum's order is fixed by the query's position alone.  Its multi-query
+    entry ``paged_decode_multi_attention`` (C queries per slot) carries the
+    speculative verify step.
+
+Each source's header says what bounds it and why it is built so.  The
+libraries are compiled from the repo's sources by ``nvcc`` at first use
 (``kernels/_build.py``) and called through ``ctypes`` on PyTorch's current
-stream.  This wrapper checks every tensor before the launch and raises on a
-refused launch; it never falls back to the plain version (``ref.py``).
+stream.  The wrappers check every tensor before the launch and raise on a
+refused launch; they never fall back to the plain versions (``ref.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +37,12 @@ from repro_torch.kernels._build import build
 
 NAME = "paged_decode_attention"
 NAME_SCALED = "paged_decode_attention_scaled"   # launches on code pools
+NAME_EXACT = "paged_decode_attention_exact"     # the exact accumulator
 SOURCE = Path(__file__).parent / "csrc" / "paged_decode.cu"
+EXACT_SOURCE = Path(__file__).parent / "csrc" / "paged_exact.cu"
+EXACT_MAX_ROWS = 64               # kMaxRows: C * rep per (slot, kv head)
+EXACT_CHUNK = 128                 # kChunkPos: positions per P.V chunk
+EXACT_SCORE_CHUNK = 64            # kScoreChunkPos: the page size divides it
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 16                      # kMaxRep in the source
 SMEM_LIMIT = 232448               # bytes of shared memory a block may use
@@ -51,6 +64,18 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _exact_lib() -> ctypes.CDLL:
+    lib = build("paged_exact", [EXACT_SOURCE])
+    fn = lib.paged_exact_attention
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.paged_exact_error_string.argtypes = [ctypes.c_int]
+    lib.paged_exact_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
 def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -67,19 +92,10 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"{NAME}: {msg}")
 
 
-def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, page_table: torch.Tensor,
-                           pos: torch.Tensor, *,
-                           k_scales: torch.Tensor | None = None,
-                           v_scales: torch.Tensor | None = None,
-                           window: int | None = None) -> torch.Tensor:
-    """Single-token paged GQA decode attention; returns (B, H, D) in q.dtype.
-
-    q (B, H, D) bf16 or f32; k_pages / v_pages (P, page, KVH, D), bf16 or
-    f32, or fp8 e4m3 / int8 codes with k_scales / v_scales (P, page, KVH)
-    f32; page_table (B, n_blocks) int32; pos (B,) int32, each >= 0.  Every
-    entry of the table's live blocks (block ``pos // page`` and below) must
-    name a page of the pool: the kernel reads through it unchecked."""
+def _check_inputs(q, k_pages, v_pages, page_table, pos, k_scales, v_scales,
+                  window, q_ndim: int) -> bool:
+    """Device, dtype, shape and contiguity checks shared by both wrappers;
+    returns whether the pools hold codes (fp8/int8)."""
     _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -107,22 +123,55 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    f" tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
                    f"{t.device}")
     _check(page_table.dtype == torch.int32 and pos.dtype == torch.int32,
-           "page_table and pos must be int32")
-    _check(q.ndim == 3 and k_pages.ndim == 4 and k_pages.shape == v_pages.shape,
+           "page_table and positions must be int32")
+    _check(q.ndim == q_ndim and k_pages.ndim == 4
+           and k_pages.shape == v_pages.shape,
            f"shapes q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
            f"v {tuple(v_pages.shape)}")
-    b, h, d = q.shape
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     _, page, kvh, dk = k_pages.shape
     _check(dk == d and d in HEAD_DIMS, f"head dim {d} / pool {dk} "
            f"(supported: {HEAD_DIMS})")
-    _check(h % kvh == 0 and h // kvh <= MAX_REP,
-           f"{h} heads over {kvh} kv heads (at most {MAX_REP} per kv head)")
+    _check(h % kvh == 0, f"{h} heads over {kvh} kv heads")
     _check(page_table.ndim == 2 and page_table.shape[0] == b
            and page_table.shape[1] >= 1, f"page_table {tuple(page_table.shape)}")
-    _check(pos.shape == (b,), f"pos {tuple(pos.shape)}, want ({b},)")
+    _check(pos.shape == (b,), f"positions {tuple(pos.shape)}, want ({b},)")
     _check(window is None or window >= 1, f"window={window}")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+    return quantized
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           k_scales: torch.Tensor | None = None,
+                           v_scales: torch.Tensor | None = None,
+                           window: int | None = None,
+                           accum: str = "online") -> torch.Tensor:
+    """Single-token paged GQA decode attention; returns (B, H, D) in q.dtype.
+
+    q (B, H, D) bf16 or f32; k_pages / v_pages (P, page, KVH, D), bf16 or
+    f32, or fp8 e4m3 / int8 codes with k_scales / v_scales (P, page, KVH)
+    f32; page_table (B, n_blocks) int32; pos (B,) int32, each >= 0.  Every
+    entry of the table's live blocks (block ``pos // page`` and below) must
+    name a page of the pool: the kernel reads through it unchecked.
+    ``accum``: "online" (``paged_decode.cu``) or "exact" (``paged_exact.cu``
+    with one query per slot: each sum's order fixed by the position
+    alone)."""
+    if accum == "exact":
+        return paged_decode_multi_attention(
+            q[:, None], k_pages, v_pages, page_table, pos, k_scales=k_scales,
+            v_scales=v_scales, window=window)[:, 0]
+    if accum != "online":
+        raise ValueError(f"accum={accum!r} (want 'online' or 'exact')")
+    quantized = _check_inputs(q, k_pages, v_pages, page_table, pos, k_scales,
+                              v_scales, window, 3)
+    dev = q.device
+    b, h, d = q.shape
+    _, page, kvh, _ = k_pages.shape
+    _check(h // kvh <= MAX_REP,
+           f"{h} heads over {kvh} kv heads (at most {MAX_REP} per kv head)")
     rep = h // kvh       # shared memory: q, scores, state, 2 K/V page buffers
     smem = 4 * (rep * d + rep * page + 3 * rep + 3) + 4 * page * d * \
         k_pages.element_size() + (4 * page * 4 if quantized else 0)
@@ -149,4 +198,65 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f"{NAME} launch failed: {msg} (cudaError {err})")
     LAUNCHES[NAME_SCALED if quantized else NAME] += 1
+    return out
+
+
+def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 page_table: torch.Tensor, start: torch.Tensor,
+                                 *, k_scales: torch.Tensor | None = None,
+                                 v_scales: torch.Tensor | None = None,
+                                 window: int | None = None) -> torch.Tensor:
+    """Multi-query paged GQA decode attention with the exact accumulator
+    (``csrc/paged_exact.cu``); returns (B, C, H, D) in q.dtype.
+
+    q (B, C, H, D): query j of row b sits at position start[b] + j and sees
+    the positions up to its own (and past position - window with a
+    window); start (B,) int32; pools, scales and table as in
+    ``paged_decode_attention``, whose ``accum="exact"`` is this entry with
+    C = 1.  C * rep must be at most ``EXACT_MAX_ROWS`` and the page size
+    must divide ``EXACT_SCORE_CHUNK``.  The table's blocks through
+    ``(start + C - 1) // page`` must name pages of the pool."""
+    quantized = _check_inputs(q, k_pages, v_pages, page_table, start,
+                              k_scales, v_scales, window, 4)
+    dev = q.device
+    b, c, h, d = q.shape
+    _, page, kvh, _ = k_pages.shape
+    rep = h // kvh
+    _check(c * rep <= EXACT_MAX_ROWS,
+           f"{c} queries x {rep} heads per kv head = {c * rep} rows (at most "
+           f"{EXACT_MAX_ROWS})")
+    _check(EXACT_SCORE_CHUNK % page == 0,
+           f"page {page} does not divide {EXACT_SCORE_CHUNK}")
+    n_blocks = page_table.shape[1]
+    s_len = n_blocks * page
+    n_chunks = -(-s_len // EXACT_CHUNK)
+    rows = next(r for r in (8, 16, 32, 64) if c * rep <= r)   # kRows
+    stage = 2 * page * d * k_pages.element_size() + (8 * page if quantized
+                                                      else 0)
+    smem = max(4 * (c * rep * d + 3) + stage,
+               4 * EXACT_CHUNK * (rows + 4) + stage)
+    _check(smem <= SMEM_LIMIT, f"{c * rep} rows x head dim {d} need {smem} B "
+           f"of shared memory (limit {SMEM_LIMIT})")
+    out = torch.empty((b, c, h, d), dtype=q.dtype, device=dev)
+    ws_s = torch.empty((b, kvh, c * rep, s_len), dtype=torch.float32,
+                       device=dev)
+    ws_pv = torch.empty((b, kvh, n_chunks, c * rep, d), dtype=torch.float32,
+                        device=dev)
+    lib = _exact_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_exact_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            page_table.data_ptr(), start.data_ptr(), out.data_ptr(),
+            ws_s.data_ptr(), ws_pv.data_ptr(), b, c, kvh, rep, d, page,
+            n_blocks, window or 0, 1.0 / math.sqrt(d),
+            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype], stream)
+    if err != 0:
+        msg = lib.paged_exact_error_string(err).decode()
+        raise RuntimeError(f"{NAME_EXACT} launch failed: {msg} "
+                           f"(cudaError {err})")
+    LAUNCHES[NAME_EXACT] += 1
     return out

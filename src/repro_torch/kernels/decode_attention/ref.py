@@ -1,11 +1,14 @@
-"""Plain PyTorch versions of paged single-token decode attention — what the
-CUDA kernel in ``csrc/paged_decode.cu`` is held against.  Counterpart of
-``repro/kernels/decode_attention/ref.py``."""
+"""Plain PyTorch versions of paged decode attention — what the CUDA kernels
+in ``csrc/paged_decode.cu`` (single token, online softmax) and
+``csrc/paged_exact.cu`` (C queries per slot, one softmax per row) are held
+against.  Counterpart of ``repro/kernels/decode_attention/ref.py``."""
 from __future__ import annotations
+
+import math
 
 import torch
 
-from repro_torch.models.common import decode_attention_ref
+from repro_torch.models.common import NEG_INF, decode_attention_ref
 from repro_torch.quant.kv import raw_view
 
 
@@ -54,3 +57,40 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, pos, *,
         v = v.float() * gather_pages(v_scales, page_table)[..., None]
     valid = paged_valid_mask(page_table, k_pages.shape[1], pos, window=window)
     return decode_attention_ref(q, k, v, None, valid=valid, scale=scale)
+
+
+def paged_decode_multi_attention_ref(q, k_pages, v_pages, page_table, start,
+                                     *, k_scales=None, v_scales=None,
+                                     window=None, scale=None):
+    """Multi-token paged decode attention: C queries per slot at per-row
+    offsets (the speculative verify step, C = gamma + 1).
+
+    q: (B, C, H, D); start: (B,) absolute position of q[:, 0]; query j of
+    row b sits at position start[b] + j and sees keys <= its own position
+    (and > position - window when a window is set).
+
+    Op for op the reference's oracle, and per query the single-token
+    ``paged_decode_attention_ref``: gather, dequantize (f32 cast, then one
+    multiply by the per-token scale), f32 scores, mask with NEG_INF, one
+    softmax over the row, P·V."""
+    b, c, h, d = q.shape
+    kvh = k_pages.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rep = h // kvh
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    if k_scales is not None:
+        k = k.float() * gather_pages(k_scales, page_table)[..., None]
+        v = v.float() * gather_pages(v_scales, page_table)[..., None]
+    s_len = k.shape[1]
+    pos = start.long()[:, None] + torch.arange(c, device=q.device)[None, :]
+    idx = torch.arange(s_len, device=q.device)
+    valid = idx[None, None, :] <= pos[:, :, None]            # (B, C, S)
+    if window is not None:
+        valid = valid & (idx[None, None, :] > pos[:, :, None] - window)
+    qf = q.float().reshape(b, c, kvh, rep, d)
+    s = torch.einsum("bcgrd,bsgd->bcgrs", qf, k.float()) * scale
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bcgrs,bsgd->bcgrd", p, v.float())
+    return out.reshape(b, c, h, v.shape[-1]).to(q.dtype)

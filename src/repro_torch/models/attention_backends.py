@@ -9,7 +9,12 @@ indices computed once per layer for all of the pool's leaves.  At llama3-8b size
 The decode attention goes through ``ops.paged_gqa_decode_attention``
 (``impl="auto"``): the plain version for CPU tensors, the CUDA kernel for
 CUDA tensors.  Chunked prefill gathers the pages and runs
-``blocked_attention``, as the reference does.  fp8/int8 pools quantize on
+``blocked_attention`` (``impl="blocked"``), as the reference does.  The
+multi-token decode of the speculative verify step
+(``attn_decode_multi_paged``) goes through
+``ops.paged_gqa_multi_attention`` with ``impl="auto"``: the plain
+multi-query oracle for CPU tensors, the exact-accumulator CUDA kernel for
+CUDA tensors.  fp8/int8 pools quantize on
 write (codes plus per-token scales, ``quant/kv.py``) and hand their scale
 leaves to the attention; the o projection goes through ``qdot``.
 """
@@ -128,5 +133,29 @@ def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
     out = paged_gqa_multi_attention(
         q, pool["k"], pool["v"], page_table, start,
         k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
-        causal=cfg.causal, window=window)
+        causal=cfg.causal, window=window, impl="blocked")
+    return qdot(out.reshape(b, c, h * hd), p.wo)
+
+
+def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
+                            cfg: ModelConfig, pool: dict, page_table, start,
+                            valid, *, window=None) -> torch.Tensor:
+    """C-token decode step (speculative verify): x (B, C, D) holds tokens
+    already chosen, at per-slot offsets ``start`` with ``valid`` (B,) real
+    rows (the rest scatter to the scratch page).  Chunk-shaped
+    scatter-then-attend, through the multi-query decode dispatch
+    (``impl="auto"``): the plain oracle on CPU, the exact kernel on CUDA,
+    which reads each slot's pages once for all C queries."""
+    b, c, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    ar = torch.arange(c, device=x.device)
+    positions = start[:, None].long() + ar[None, :]
+    q, k, v = layers._qkv(p, x, cfg, positions)
+    ok = ar[None, :] < valid[:, None]
+    slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
+    _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots)
+    out = paged_gqa_multi_attention(
+        q, pool["k"], pool["v"], page_table, start,
+        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+        window=window)
     return qdot(out.reshape(b, c, h * hd), p.wo)

@@ -10,7 +10,9 @@ along a leading axis and scans; eager PyTorch loops over the list instead
 Serve entry points mirror the reference's.  Continuous (paged):
 ``init_paged_cache`` builds one K/V page pool per layer,
 ``prefill_chunk_paged`` runs one chunk of prompt tokens per slot into the
-pools, ``decode_step_paged`` one token per slot.  Static (dense cache):
+pools, ``decode_step_paged`` one token per slot (or, in its 2-D form, the
+C already-chosen tokens of a speculative verify step, with logits at every
+position).  Static (dense cache):
 ``init_cache`` builds one ``(B, max_len, KVH, HD)`` cache per layer,
 ``prefill`` runs the whole prompt into it, ``decode_step`` one token per
 row at a shared position.  ``forward`` scores a whole sequence without a
@@ -39,7 +41,6 @@ from repro_torch.quant.linear import packed_leaves
 
 ITEM_MOE_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
 ITEM_STATEFUL = layers.ITEM_STATEFUL
-ITEM_SPEC = "ROADMAP Queue 1, 'Speculative decoding'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +119,20 @@ def _block_prefill_chunk_paged(p: Block, x, cfg: ModelConfig, window, pool,
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     a = ab.attn_prefill_chunk_paged(p.attn, h, cfg, pool, page_table, start,
                                     valid, window=window)
+    x = x + a.to(x.dtype)
+    f = layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+    return x + f.to(x.dtype)
+
+
+def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
+                              page_table, start, valid):
+    """Multi-token paged decode (speculative verify): x (B, C, D) chosen
+    tokens at per-slot offsets ``start`` with ``valid`` real rows; the
+    block of ``_block_prefill_chunk_paged`` with the multi-query decode
+    attention; pool written in place."""
+    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    a = ab.attn_decode_multi_paged(p.attn, h, cfg, pool, page_table, start,
+                                   valid, window=window)
     x = x + a.to(x.dtype)
     f = layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
     return x + f.to(x.dtype)
@@ -296,16 +311,66 @@ class Model(nn.Module):
 
         tokens: (B,) (one per slot); pos: (B,) per-slot ragged positions;
         page_table: (B, n_blocks) int32.  Inactive slots point at the
-        scratch page.  Returns (B, V) logits."""
+        scratch page.  Returns (B, V) logits.
+
+        Multi-token form (speculative verify): tokens (B, C) of C already
+        chosen tokens per slot starting at position ``pos`` with ``valid``
+        (B,) real rows (default C; the rest scatter to the scratch page)
+        returns (B, C, V) logits, one next-token distribution per fed
+        position (``_decode_multi_paged``)."""
         _no_state(states, ring_table)
         if tokens.ndim == 2:
-            raise NotImplementedError(
-                f"multi-token decode (speculative verify) — {ITEM_SPEC}")
+            return self._decode_multi_paged(tokens, pools, page_table, pos,
+                                            valid)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, D)
         for win, blk, pool in zip(self.windows, self.layers, pools):
             x = _block_decode_paged(blk, x, cfg, win, pool, page_table, pos)
         return self._head(x[:, None, :])[:, 0]
+
+    def _decode_multi_paged(self, tokens: torch.Tensor, pools: list,
+                            page_table: torch.Tensor, pos: torch.Tensor,
+                            valid) -> torch.Tensor:
+        """(B, C) tokens at per-slot offsets -> (B, C, V) logits; the head
+        keeps every position (the verify step scores all gamma + 1).
+
+        On CPU tensors the window is flattened into B*C virtual slots and
+        run through the single-token decode step itself: each window token
+        becomes its own decode row with its own position and a copy of its
+        slot's page-table row, so every position's logits — and every KV
+        write — are those of the non-speculative step (the greedy
+        byte-identity contract).  Later window positions are already
+        written when an earlier query reads the pool, but the causal mask
+        gives them exactly zero weight.  On CUDA tensors the chunk-shaped
+        path runs instead: each layer scatters the chunk and the exact
+        multi-query kernel streams each slot's pages once per window."""
+        b, c = tokens.shape
+        dev = tokens.device
+        ar = torch.arange(c, device=dev)
+        if valid is None:
+            valid = torch.full((b,), c, dtype=torch.int32, device=dev)
+        if dev.type == "cpu":
+            ok = (ar[None, :] < valid[:, None]).reshape(b * c)
+            vpt = torch.where(ok[:, None],
+                              page_table.repeat_interleave(c, dim=0), 0)
+            vpos = pos.repeat_interleave(c) + ar.to(pos.dtype).repeat(b)
+            vpos = torch.where(ok, vpos, 0)
+            logits = self.decode_step_paged(tokens.reshape(b * c), pools,
+                                            vpt.to(page_table.dtype), vpos)
+            return logits.reshape(b, c, -1)
+        return self._decode_multi_chunked(tokens, pools, page_table, pos,
+                                          valid)
+
+    def _decode_multi_chunked(self, tokens, pools, page_table, pos, valid):
+        """The chunk-shaped multi-token decode: (B, C, D) through every
+        layer, the multi-query decode attention (``impl="auto"``) on the
+        scattered pools, the head at every position."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()]                       # (B, C, D)
+        for win, blk, pool in zip(self.windows, self.layers, pools):
+            x = _block_decode_multi_paged(blk, x, cfg, win, pool, page_table,
+                                          pos, valid)
+        return self._head(x)
 
     def param_count(self) -> int:
         """Weights of the model; a packed weight of a quantized view counts

@@ -34,9 +34,20 @@ builds code pools with per-token scale leaves, which the decode kernel
 dequantizes in its page loop and which move with their pages through
 copy-on-write and defrag like every other leaf.
 
+Speculative decoding: ``speculative=SpeculativeConfig(gamma=...,
+draft_model=...)`` runs draft/verify windows over the decoding slots.  The
+draft keeps its own pool leaves over the target's page tables (a
+self-draft too), so prefix sharing, copy-on-write, preemption and defrag
+move both pool sets in lockstep.  A window is gamma single-token draft
+steps (the paged decode kernel on CUDA) plus a backfill step, then one
+multi-token verify step through ``Model.decode_step_paged``'s 2-D form
+(the exact-accumulator kernel on CUDA), then the acceptance rule per slot;
+the emitted tokens come to the host once a window.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``spec=`` (DeploymentSpec sizing), ``mesh=`` (tensor parallelism),
-``speculative=``, ``phase != "colocated"`` (disaggregation),
+item): ``spec=`` (DeploymentSpec sizing, also of a draft),
+``mesh=`` (tensor parallelism), ``phase != "colocated"`` (disaggregation,
+also of draft pages),
 sliding-window / stateful layouts, and prompt scoring
 (``SamplingParams.prompt_logprobs``) in the continuous engine (the static
 backend of ``LLMEngine`` scores prompts through ``Model.forward``).
@@ -58,6 +69,7 @@ from repro_torch.runtime import sampling
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import RUNNING, Request, Scheduler
+from repro_torch.runtime.speculative import SpeculativeConfig, _check_rewindable
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -247,15 +259,31 @@ class ContinuousStats:
     prompt_tokens: int = 0        # prompt tokens across all admissions
     prefix_hit_tokens: int = 0    # prompt tokens served from shared pages
     cow_events: int = 0
+    # -- speculative decoding (all zero when speculation is off) --
+    spec_windows: int = 0         # draft/verify windows across all requests
+    spec_drafted: int = 0         # draft proposals made (gamma per window)
+    spec_accepted: int = 0        # draft proposals accepted
     per_request: dict = dataclasses.field(default_factory=dict)
     # per_request[rid] = {"preemptions", "chunks", "shared_tokens", "ttft",
-    #                     "tpot", "finish_time"}
+    #                     "tpot", "finish_time", "spec_windows",
+    #                     "spec_accepted"}
     outputs: dict = dataclasses.field(default_factory=dict)
     # outputs[rid] = final RequestOutput (finish_reason, logprobs, timing)
 
     @property
     def total_tokens(self) -> int:
         return int(sum(t.shape[0] for t in self.results.values()))
+
+    @property
+    def accepted_per_window(self) -> float:
+        """Mean draft proposals accepted per window (0..gamma); each window
+        also emits one corrected or bonus token on top."""
+        return self.spec_accepted / max(self.spec_windows, 1)
+
+    @property
+    def spec_wasted(self) -> int:
+        """Draft tokens proposed but rejected: the speculation overhead."""
+        return self.spec_drafted - self.spec_accepted
 
     def latency_quantiles(self, metric: str = "ttft") -> dict | None:
         """p50/p95/p99/mean of a per-request latency metric ("ttft" or
@@ -279,7 +307,8 @@ class ContinuousServeEngine:
     (``Model.decode_step_paged``), and the per-slot sampler draws each
     slot's next token in the same step.  Drive it incrementally
     (``add_request`` then ``step`` until ``has_unfinished()`` is False) or
-    in batch via ``run(requests, on_output=...)``.
+    in batch via ``run(requests, on_output=...)``.  With ``speculative=``
+    each step over the decoding slots is one draft/verify window instead.
     """
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
@@ -290,7 +319,8 @@ class ContinuousServeEngine:
                  prefill_chunk: int | None = None,
                  enable_prefix_cache: bool = True,
                  max_top_k: int = sampling.MAX_TOP_K,
-                 mesh=None, speculative=None, phase: str = "colocated"):
+                 mesh=None, speculative: SpeculativeConfig | None = None,
+                 phase: str = "colocated"):
         dev = resolve_device(device)
         wdev = next(model.parameters()).device
         if wdev.type != dev.type or dev.index not in (None, wdev.index):
@@ -303,9 +333,6 @@ class ContinuousServeEngine:
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh=)",
                             "Tensor parallelism")
-        if speculative is not None:
-            raise _unported("speculative decoding (speculative=)",
-                            "Speculative decoding")
         kvq.validate_cache_dtype(cache_dtype)
         if phase != "colocated":
             raise _unported(f"phase={phase!r} (disaggregated serving)",
@@ -342,6 +369,32 @@ class ContinuousServeEngine:
         self.enable_prefix_cache = enable_prefix_cache
         self.defrag_every = 0
         self._vocab = model.cfg.padded_vocab
+        # -- speculative decoding: the draft keeps a second set of pool
+        # leaves over the same page-id space (one allocator, one set of
+        # page tables) --
+        self.spec = speculative
+        self._gamma = int(speculative.gamma) if speculative is not None else 0
+        if speculative is not None:
+            _check_rewindable(model)
+            dm = speculative.draft_model
+            if dm is None:
+                # self-draft: the target's weights propose and verify; the
+                # draft still writes its own pools, so its look-ahead never
+                # clobbers the target's verified entries
+                dm = model
+            else:
+                if dm.cfg.padded_vocab != model.cfg.padded_vocab:
+                    raise ValueError(
+                        "draft and target must share a vocabulary: "
+                        f"{dm.cfg.padded_vocab} vs {model.cfg.padded_vocab}")
+                ddev = next(dm.parameters()).device
+                if ddev != self.device:
+                    raise ValueError(f"draft weights are on {ddev}, the "
+                                     f"target's on {self.device}")
+                if weight_format is not None:
+                    dm = quantize_params(dm, weight_format)
+            self._draft_model = dm
+        self._true = torch.ones((), dtype=torch.bool, device=self.device)
         self._sched: Scheduler | None = None
 
     # -- device pieces (the reference's jitted functions) -------------------
@@ -377,21 +430,133 @@ class ContinuousServeEngine:
                                      rep_penalty=rep, bias_ids=bias_ids,
                                      bias_vals=bias_vals, presence=presence)
 
+    def _pool_leaves(self):
+        """Every pool leaf of the target and, when speculating, the draft
+        (scale leaves of quantized pools included)."""
+        sets = [self._pools] + ([self._draft_pools] if self.spec else [])
+        for pools in sets:
+            for pool in pools:
+                for leaf in pool.values():
+                    yield kvq.raw_view(leaf)
+
     def _copy_page(self, dst: int, src: int) -> None:
-        """pools[dst] = pools[src] on every layer's leaves (copy-on-write;
-        quantized pools' scale leaves included)."""
-        for pool in self._pools:
-            for leaf in pool.values():
-                raw = kvq.raw_view(leaf)
-                raw[dst] = raw[src]
+        """pools[dst] = pools[src] on every leaf (copy-on-write)."""
+        for raw in self._pool_leaves():
+            raw[dst] = raw[src]
 
     def _permute_pools(self, gather: np.ndarray) -> None:
         """Apply a defrag page permutation: new_pool[i] = old_pool[g[i]]."""
         g = self._tensor(gather).long()
-        for pool in self._pools:
-            for leaf in pool.values():
-                raw = kvq.raw_view(leaf)
-                raw.copy_(raw.index_select(0, g))
+        for raw in self._pool_leaves():
+            raw.copy_(raw.index_select(0, g))
+
+    # -- speculative window (the reference's _spec_draft_impl /
+    # _spec_verify_impl) -----------------------------------------------------
+    def _spec_draft_impl(self, tokens, pos, page_table, temp, topk, topp,
+                         minp, seed, rep, bias_ids, bias_vals):
+        """One draft pass: gamma chained single-token decode steps through
+        the draft pools, each drawing its proposal from the same processed
+        and filtered distribution the target verifies against (recorded as
+        q), from the request's TAG_PROPOSE stream at the proposal's own
+        sequence index — a preemption restart replays identical windows.
+        The trailing step backfills the draft pools for the last proposal
+        (position pos + gamma): on a full accept the next window's draft
+        must see the whole history.  Presence updates stay on a
+        draft-local copy: proposals are not emissions until verified.
+
+        Returns (prop (B, gamma) int32, q_dists (gamma, B, V) f32)."""
+        g = self._gamma
+        rows = torch.arange(tokens.shape[0], device=self.device)
+        pres = self._presence.clone()
+        tok, props, q_dists = tokens, [], []
+        for j in range(g):
+            pres.index_put_((rows, tok.long()), self._true)
+            logits = self._draft_model.decode_step_paged(
+                tok, self._draft_pools, page_table, pos + j)
+            lg = sampling.apply_processors(logits, rep, bias_ids, bias_vals,
+                                           pres)
+            q = sampling.slot_dist(lg, temp, topk, topp, minp,
+                                   max_top_k=self.max_top_k)
+            u = sampling.spec_uniform(seed, pos + j + 1, sampling.TAG_PROPOSE)
+            tok = sampling.slot_draw(q, u)
+            props.append(tok)
+            q_dists.append(q)
+        self._draft_model.decode_step_paged(tok, self._draft_pools,
+                                            page_table, pos + g)
+        return torch.stack(props, dim=1), torch.stack(q_dists)
+
+    def _spec_verify_impl(self, tokens, prop, q_dists, pos, page_table, temp,
+                          topk, topp, minp, seed, rep, bias_ids, bias_vals):
+        """One verify pass: the target scores [last emitted, prop_1..g] in
+        one multi-token paged decode (``decode_step_paged``'s 2-D form),
+        then the acceptance rule per slot: accept prop_j while u_j <
+        min(1, p(prop_j) / q(prop_j)); at the first rejection draw from
+        max(p - q, 0) normalized; on a full accept draw the bonus token
+        from p at the extra position.  p and q both come from
+        ``apply_processors`` + ``slot_dist`` with the running presence
+        threaded position by position.  Greedy slots score exact one-hots
+        on both sides: the emitted stream is the plain engine's.  Rejected
+        positions need no KV rollback: their pool entries sit past the new
+        position and are masked, then overwritten, by the next window.
+
+        Returns (tokens (B, gamma+1), n_emit (B,), logprobs (B, gamma+1));
+        entries past n_emit are padding.  The target's presence rows gain
+        the emitted tokens."""
+        g = self._gamma
+        b = tokens.shape[0]
+        dev = self.device
+        rows = torch.arange(b, device=dev)
+        t_in = torch.cat([tokens[:, None], prop], dim=1)        # (B, g+1)
+        logits = self.model.decode_step_paged(
+            t_in, self._pools, page_table, pos,
+            torch.full((b,), g + 1, dtype=torch.int32, device=dev))
+        pres = self._presence.clone()
+        p_dists, glps = [], []
+        for j in range(g + 1):
+            # token j joins the stream before position j's draw
+            pres.index_put_((rows, t_in[:, j].long()), self._true)
+            lg = sampling.apply_processors(logits[:, j], rep, bias_ids,
+                                           bias_vals, pres)
+            p_dists.append(sampling.slot_dist(lg, temp, topk, topp, minp,
+                                              max_top_k=self.max_top_k))
+            glps.append(lg.amax(-1) - torch.logsumexp(lg, dim=-1))
+        p_dists = torch.stack(p_dists)                          # (g+1, B, V)
+        jdx = torch.arange(g, device=dev)
+        cols = prop.T.long()                                    # (g, B)
+        p_prop = p_dists[jdx[:, None], rows[None, :], cols]
+        q_prop = q_dists[jdx[:, None], rows[None, :], cols]
+        u = sampling.spec_uniform(seed[None, :], pos[None, :] + jdx[:, None] + 1,
+                                  sampling.TAG_ACCEPT)
+        accept = u < torch.clamp_max(p_prop / torch.clamp_min(q_prop, 1e-20),
+                                     1.0)
+        rejected = ~accept
+        n_acc = torch.where(rejected.any(0),
+                            rejected.to(torch.uint8).argmax(0), g)  # (B,)
+        # correction (first rejection) / bonus (full accept) distribution
+        q_pad = torch.cat([q_dists, torch.zeros_like(q_dists[:1])])
+        p_at = p_dists[n_acc, rows]                             # (B, V)
+        resid = torch.clamp_min(p_at - q_pad[n_acc, rows], 0.0)
+        rs = resid.sum(-1, keepdim=True)
+        corr = torch.where((n_acc[:, None] == g) | (rs <= 1e-20), p_at,
+                           resid / torch.clamp_min(rs, 1e-20))
+        uc = sampling.spec_uniform(seed, pos + n_acc + 1, sampling.TAG_CORRECT)
+        corrected = sampling.slot_draw(corr, uc)
+        jcols = torch.arange(g + 1, device=dev)[None, :]
+        out = torch.where(jcols < n_acc[:, None],
+                          torch.cat([prop, prop[:, :1]], dim=1), 0)
+        out = torch.where(jcols == n_acc[:, None], corrected[:, None], out)
+        # logprobs under the target's per-position distribution; greedy
+        # rows report the max-logit logprob ``sample_slots`` would
+        chosen = torch.gather(p_dists.transpose(0, 1), 2,
+                              out[..., None].long())[..., 0]
+        lp = torch.where((temp <= 0.0)[:, None], torch.stack(glps, dim=1),
+                         torch.log(torch.clamp_min(chosen, 1e-38)))
+        # presence gains the emitted tokens only; masked columns re-mark
+        # the first emitted token (a harmless duplicate)
+        scat = torch.where(jcols <= n_acc[:, None], out, out[:, :1])
+        self._presence.index_put_((rows[:, None].expand_as(scat),
+                                   scat.long()), self._true)
+        return out, n_acc + 1, lp
 
     # -- serving state ------------------------------------------------------
     def reset(self) -> None:
@@ -405,17 +570,29 @@ class ContinuousServeEngine:
         self._slots = sampling.SlotSampling(self.num_slots, self.device)
         # token-presence rows (repetition penalty): host mirror + device copy
         self._presence_np = np.zeros((self.num_slots, self._vocab), np.bool_)
-        self._presence = self._tensor(self._presence_np)
+        self._presence = self._presence_copy()
         self._presence_dirty = False
-        self._pools = None            # free the old pools before allocating
+        self._pools = self._draft_pools = None   # free the old pools first
         self._pools = self.model.init_paged_cache(
             self.num_pages, self.page_size, dtype=self.cache_dtype)
+        if self.spec is not None:
+            self._draft_pools = self._draft_model.init_paged_cache(
+                self.num_pages, self.page_size, dtype=self.cache_dtype)
         self._t0 = time.monotonic()
         self._steps, self._occ_sum = 0, 0.0
         self._n_chunks, self._prefill_tokens = 0, 0
         self._prefill_calls = 0
+        self._spec_windows, self._spec_drafted, self._spec_accepted = 0, 0, 0
         self._requests: list[Request] = []
         self.defrag_every = 0      # run-scoped; run() re-applies its arg
+
+    def _presence_copy(self) -> torch.Tensor:
+        """The device copy of the host presence mirror.  A copy on the CPU
+        too: the decode step marks every row's sampled token in place,
+        rows of slots still prefilling included (harmless garbage the next
+        upload replaces), which must not reach the host mirror that
+        prefill chunks read."""
+        return torch.tensor(self._presence_np, device=self.device)
 
     def _on_release(self, slot: int) -> None:
         self._slots.clear(slot)
@@ -446,11 +623,15 @@ class ContinuousServeEngine:
             raise ValueError(f"request {req.rid}: top_k={req.sampling.top_k} "
                              f"exceeds the engine's static "
                              f"max_top_k={self.max_top_k}")
-        if req.prompt_len + req.max_new_tokens > self.max_blocks * self.page_size:
+        # speculative windows write KV up to gamma positions past the last
+        # emitted token, so a request needs that much page slack on top
+        if (req.prompt_len + req.max_new_tokens + self._gamma
+                > self.max_blocks * self.page_size):
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + "
-                f"{req.max_new_tokens} new tokens exceeds max_len "
-                f"{self.max_blocks * self.page_size}")
+                f"{req.max_new_tokens} new tokens"
+                + (f" + gamma {self._gamma}" if self._gamma else "")
+                + f" exceeds max_len {self.max_blocks * self.page_size}")
         self._requests.append(req)
         self._sched.submit([req])
 
@@ -469,6 +650,9 @@ class ContinuousServeEngine:
         if finished:
             metrics["finish_time"] = req.finish_time
             metrics["tpot"] = req.tpot
+        if self.spec is not None:
+            metrics["spec_windows"] = req.spec_windows
+            metrics["spec_accepted"] = req.spec_accepted
         return RequestOutput(
             rid=req.rid, new_token_ids=list(new),
             token_ids=list(req.tokens) if finished else [],
@@ -518,9 +702,15 @@ class ContinuousServeEngine:
         pres = np.zeros((bucket, self._vocab), np.bool_)
         for i, r in enumerate(pre):
             pres[i] = self._presence_np[r.slot]
-        first, lp = self._chunk_impl(
-            *(self._tensor(a) for a in (pres, tokens, tables, start, valid)),
-            *(self._tensor(a) for a in samp + extras))
+        pres_t, tok_t, tab_t, start_t, valid_t = (
+            self._tensor(a) for a in (pres, tokens, tables, start, valid))
+        first, lp = self._chunk_impl(pres_t, tok_t, tab_t, start_t, valid_t,
+                                     *(self._tensor(a) for a in samp + extras))
+        if self.spec is not None:
+            # the draft pools take the same chunk (logits dropped), so the
+            # first draft window attends over the whole prompt
+            self._draft_model.prefill_chunk_paged(tok_t, self._draft_pools,
+                                                  tab_t, start_t, valid_t)
         self._prefill_calls += 1
         first = first.cpu().numpy()                    # device sync
         lp = lp.cpu().numpy()
@@ -563,13 +753,18 @@ class ContinuousServeEngine:
             self._run_prefill_chunks(outs)
         if not sched.decoding():
             return outs
-        # -- capacity + copy-on-write barrier for this step's KV writes --
+        # -- capacity + copy-on-write barrier for this step's KV writes; a
+        # speculative window writes KV at pos..pos+gamma, so the whole
+        # window's pages are backed (and un-shared) before it starts --
+        g = self._gamma
         for req in sched.decoding():
             if sched.running.get(req.slot) is req:  # not yet preempted
-                if sched.ensure_capacity(req):
-                    moved = self.cache.cow(req.slot, req.pos // self.page_size)
-                    if moved is not None:
-                        self._copy_page(moved[1], moved[0])
+                if sched.ensure_capacity(req, upto=req.pos + g if g else None):
+                    for blk in range(req.pos // self.page_size,
+                                     (req.pos + g) // self.page_size + 1):
+                        moved = self.cache.cow(req.slot, blk)
+                        if moved is not None:
+                            self._copy_page(moved[1], moved[0])
         decoding = sched.decoding()
         if not decoding:
             return outs
@@ -588,8 +783,10 @@ class ContinuousServeEngine:
             pos[req.slot] = req.pos
             step_table[req.slot] = self.cache.table()[req.slot]
         if self._presence_dirty:       # admissions/releases since last step
-            self._presence = self._tensor(self._presence_np)
+            self._presence = self._presence_copy()
             self._presence_dirty = False
+        if self.spec is not None:
+            return self._spec_window(decoding, tokens, pos, step_table, outs)
         nxt, lp = self._step_impl(self._tensor(tokens), self._tensor(pos),
                                   self._tensor(step_table),
                                   *self._slots.arrays())
@@ -609,6 +806,51 @@ class ContinuousServeEngine:
             self._progress(req, outs)
         return outs
 
+    def _spec_window(self, decoding, tokens, pos, step_table,
+                     outs: list[RequestOutput]) -> list[RequestOutput]:
+        """One draft/verify window over the decoding slots, emitting
+        1..gamma+1 tokens per slot; the emitted tokens and their counts
+        come to the host in one copy."""
+        sched = self._sched
+        tok_t, pos_t, tab_t = (self._tensor(a)
+                               for a in (tokens, pos, step_table))
+        sargs = self._slots.arrays()
+        prop, q_dists = self._spec_draft_impl(tok_t, pos_t, tab_t, *sargs)
+        out, n_emit, lp = self._spec_verify_impl(tok_t, prop, q_dists, pos_t,
+                                                 tab_t, *sargs)
+        host = torch.cat([out, n_emit[:, None].to(out.dtype)], dim=1)
+        host = host.cpu().numpy()                       # device sync
+        out, n_emit = host[:, :-1], host[:, -1]
+        if any(r.sampling.logprobs for r in decoding):
+            lp = lp.cpu().numpy()
+        self._occ_sum += len(decoding) / self.num_slots
+        self._steps += 1
+        for req in decoding:
+            if sched.running.get(req.slot) is not req:
+                continue
+            n = int(n_emit[req.slot])
+            req.spec_windows += 1
+            req.spec_accepted += n - 1
+            self._spec_windows += 1
+            self._spec_drafted += self._gamma
+            self._spec_accepted += n - 1
+            took = 0
+            for j in range(n):
+                t = int(out[req.slot, j])
+                req.tokens.append(t)
+                self._presence_np[req.slot, t] = True
+                if req.sampling.logprobs:
+                    req.logprobs.append(float(lp[req.slot, j]))
+                took += 1
+                # stop/length can land mid-window: the tail tokens are never
+                # emitted, and the finished slot's presence row resets on
+                # release, so the device copy stays consistent
+                if req.check_finish() is not None:
+                    break
+            req.pos += took
+            self._progress(req, outs)
+        return outs
+
     def stats(self) -> ContinuousStats:
         """The current session's outcome: every request added since the
         last ``reset`` (``run`` returns this once they all finished)."""
@@ -620,7 +862,9 @@ class ContinuousServeEngine:
                                "shared_tokens": r.shared_tokens,
                                "ttft": r.ttft,
                                "tpot": r.tpot,
-                               "finish_time": r.finish_time}
+                               "finish_time": r.finish_time,
+                               "spec_windows": r.spec_windows,
+                               "spec_accepted": r.spec_accepted}
                        for r in requests}
         outputs = {r.rid: self._make_output(r, [], finished=True)
                    for r in requests}
@@ -635,6 +879,9 @@ class ContinuousServeEngine:
             prompt_tokens=self.cache.lookup_tokens,
             prefix_hit_tokens=self.cache.hit_tokens,
             cow_events=self.cache.cow_events,
+            spec_windows=self._spec_windows,
+            spec_drafted=self._spec_drafted,
+            spec_accepted=self._spec_accepted,
             per_request=per_request,
             outputs=outputs)
 

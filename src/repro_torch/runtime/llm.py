@@ -18,12 +18,23 @@ dense decode kernel every decode layer)::
 
     llm = LLMEngine(model, backend="static", max_len=2048)
 
+Speculative decoding, two ways.  Scheduler-integrated in the continuous
+engine (draft/verify windows over the paged pools; on the card the verify
+step runs the exact-accumulator paged kernel)::
+
+    llm = LLMEngine(model, backend="continuous", max_len=2048,
+                    speculative=SpeculativeConfig(gamma=4))   # self-draft
+
+and the legacy batch-1 backend over the dense caches, one prompt at a time
+(``draft_model=None`` drafts with the target itself)::
+
+    llm = LLMEngine(model, backend="speculative", draft_model=draft,
+                    gamma=8, max_len=2048)
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
-metrics).  The continuous and static backends are ported; the static one
-also scores prompts (``SamplingParams.prompt_logprobs``, through
-``Model.forward``).  ``"speculative"`` raises ``NotImplementedError``
-naming its ROADMAP item.
+metrics).  All three backends are ported; the static one also scores
+prompts (``SamplingParams.prompt_logprobs``, through ``Model.forward``).
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.engine import (
@@ -39,16 +51,16 @@ from repro_torch.runtime.engine import (
 )
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Request
+from repro_torch.runtime.speculative import SpeculativeEngine
 
 BACKENDS = ("static", "continuous", "speculative")
-_UNPORTED_BACKENDS = {"speculative": "Speculative decoding"}
 
 
 def _truncate(tokens: list[int], sp: SamplingParams,
               budget: int) -> tuple[list[int], str]:
     """Apply stop-token / budget finish semantics to a pre-generated
-    stream (the static loop has a fixed trip count; the host applies the
-    finish reason afterwards)."""
+    stream (the static loop and speculative windows have fixed trip
+    counts; the host applies the finish reason afterwards)."""
     tokens = tokens[:budget]
     for j, t in enumerate(tokens):
         if t in sp.stop_token_ids:
@@ -57,8 +69,8 @@ def _truncate(tokens: list[int], sp: SamplingParams,
 
 
 class LLMEngine:
-    """One ``generate(prompts, sampling_params)`` API over continuous and
-    static execution (the continuous backend's incremental
+    """One ``generate(prompts, sampling_params)`` API over continuous,
+    static and speculative execution (the continuous backend's incremental
     ``add_request()`` / ``step()`` interface streams deltas)."""
 
     def __init__(self, model: Model, *, backend: str = "continuous",
@@ -68,16 +80,14 @@ class LLMEngine:
                  prefill_chunk: int | None = None,
                  enable_prefix_cache: bool = True, cache_dtype=None,
                  weight_format: str | None = None,
-                 max_top_k: int = sampling.MAX_TOP_K, speculative=None,
+                 max_top_k: int = sampling.MAX_TOP_K,
+                 draft_model: Model | None = None, gamma: int = 8,
+                 speculative=None,
                  default_sampling: SamplingParams | None = None, mesh=None,
                  disaggregate: bool = False):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
-        if backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported to PyTorch yet (ROADMAP "
-                f"Queue 1, '{_UNPORTED_BACKENDS[backend]}')")
         if disaggregate and backend != "continuous":
             raise ValueError("disaggregate=True splits the continuous "
                              "backend into phase engines; other backends "
@@ -88,7 +98,8 @@ class LLMEngine:
         if speculative is not None and backend != "continuous":
             raise ValueError(
                 "speculative= configures scheduler-integrated speculation "
-                "in the continuous engine")
+                "in the continuous engine; the legacy 'speculative' "
+                "backend takes draft_model=/gamma= directly")
         if disaggregate:
             raise NotImplementedError(
                 "disaggregate=True is not ported to PyTorch yet (ROADMAP "
@@ -99,6 +110,28 @@ class LLMEngine:
         self.max_len = max_len
         self.default_sampling = default_sampling or sampling.GREEDY
         self.last_stats: ContinuousStats | None = None
+        if backend == "speculative":
+            # with no draft the target drafts for itself: every window
+            # accepts, and the output is the target-only stream
+            if spec is not None:
+                raise NotImplementedError(
+                    "DeploymentSpec sizing (spec=) is not ported to PyTorch "
+                    "yet (ROADMAP Queue 1, 'DeploymentSpec')")
+            if weight_format is not None:
+                raise ValueError("weight_format= serves the continuous and "
+                                 "static backends")
+            dev = resolve_device(device)
+            wdev = next(model.parameters()).device
+            if wdev.type != dev.type or dev.index not in (None, wdev.index):
+                raise ValueError(f"model weights are on {wdev}, the engine "
+                                 f"was asked to run on {dev}")
+            self.draft_model = draft_model or model
+            self.gamma = gamma
+            self._spec = SpeculativeEngine(self.draft_model, model,
+                                           gamma=gamma,
+                                           cache_dtype=cache_dtype)
+            self._eng = None
+            return
         if backend == "static":
             self._eng = ServeEngine(
                 model, device=device, max_len=max_len, spec=spec,
@@ -206,6 +239,9 @@ class LLMEngine:
             raise ValueError("arrival_times needs backend='continuous'")
         if self.backend == "static":
             return self._generate_static(prompts, sps, budgets, on_output)
+        if self.backend == "speculative":
+            return self._generate_speculative(prompts, sps, budgets,
+                                              on_output)
         reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=budgets[i],
                         sampling=sps[i],
                         arrival_time=(float(arrival_times[i])
@@ -250,6 +286,35 @@ class LLMEngine:
                 prompt_logprobs=([float(v) for v in plps[i]]
                                  if sp.prompt_logprobs else None),
                 metrics={"ttft": res.prefill_s, "tpot": tpot})
+            outs.append(out)
+            if on_output is not None:
+                on_output(out)
+        return outs
+
+    def _generate_speculative(self, prompts, sps, budgets, on_output):
+        for sp in sps:
+            if sp.repetition_penalty != 1.0 or sp.logit_bias:
+                raise ValueError(
+                    "backend='speculative' does not support "
+                    "repetition_penalty/logit_bias (the continuous "
+                    "engine's speculative= mode does — its verify step "
+                    "threads the running presence through p and q)")
+            if sp.prompt_logprobs:
+                raise ValueError(
+                    "backend='speculative' does not score prompts; use "
+                    "backend='static' for prompt_logprobs")
+        outs = []
+        for i, (p, sp, budget) in enumerate(zip(prompts, sps, budgets)):
+            stats = self._spec.generate(
+                torch.as_tensor(p)[None], max_new_tokens=budget,
+                sampling_params=sp)
+            ids, reason = _truncate([int(t) for t in stats.tokens[:budget]],
+                                    sp, budget)
+            out = RequestOutput(
+                rid=i, new_token_ids=list(ids), token_ids=list(ids),
+                finished=True, finish_reason=reason, logprobs=None,
+                metrics={"windows": stats.windows,
+                         "accepted_per_window": stats.mean_accepted})
             outs.append(out)
             if on_output is not None:
                 on_output(out)

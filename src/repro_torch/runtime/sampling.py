@@ -1,9 +1,13 @@
 """Request-level sampling for the serve path (fp32 internals).
 
-The port of ``repro/runtime/sampling.py``'s serve-path half:
-``SamplingParams`` (the per-request generation contract), the per-slot
-logit processors, the fused per-slot sampler ``sample_slots`` and the
-per-slot tensors the engine keeps (``SlotSampling``).  Per-slot
+The port of ``repro/runtime/sampling.py``: ``SamplingParams`` (the
+per-request generation contract), the per-slot logit processors, the fused
+per-slot sampler ``sample_slots``, the per-slot tensors the engine keeps
+(``SlotSampling``), and speculative decoding's helpers: the per-slot
+filtered distribution ``slot_dist``, its inverse-CDF draw ``slot_draw``
+and the tagged uniforms ``spec_uniform`` of the continuous engine's
+draft/verify window, and the single-distribution ``dist`` / ``draw`` of
+the legacy speculative backend.  Per-slot
 temperature / top-k / top-p / min-p / seed are ``(num_slots,)`` tensors, so
 any mix of greedy and sampled requests shares one decode step.
 
@@ -35,6 +39,17 @@ SLOT_CANDIDATES = 128
 
 # Static per-slot budget for token-level logit biases.
 MAX_LOGIT_BIAS = 8
+
+# Budget of ``dist``'s top-p nucleus scan: cumulative mass over the
+# descending top-``TOP_P_BUDGET`` prefix; a nucleus that spills past it
+# keeps everything.
+TOP_P_BUDGET = 512
+
+# Speculative-decoding PRNG stream tags: every draw inside a draft/verify
+# window folds one of these into ``token_key(seed, pos)``, where ``pos`` is
+# the sequence index of the token being decided, so a preemption restart
+# replays the same proposals, coin flips and correction draws.
+TAG_PROPOSE, TAG_ACCEPT, TAG_CORRECT = 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +146,118 @@ def apply_processors(logits: torch.Tensor, rep_penalty=None, bias_ids=None,
         pen = rep_penalty[:, None]
         lg = torch.where(presence, torch.where(lg > 0, lg / pen, lg * pen), lg)
     return lg
+
+
+def _topp_threshold(probs: torch.Tensor, top_p,
+                    budget: int = TOP_P_BUDGET) -> torch.Tensor:
+    """Smallest kept probability of the top-p nucleus, per row: an entry is
+    in the nucleus iff the mass of strictly larger entries is < top_p.  The
+    scan runs over the descending top-``budget`` prefix; a nucleus that
+    spills past it keeps everything (threshold 0)."""
+    v = probs.shape[-1]
+    budget = min(budget, v)
+    tops = torch.topk(probs, budget, dim=-1).values       # descending
+    cum = torch.cumsum(tops, dim=-1)
+    top_p = torch.as_tensor(top_p, dtype=probs.dtype, device=probs.device)
+    keep = (cum - tops) < top_p[..., None]
+    thresh = torch.where(keep, tops, torch.inf).amin(dim=-1)
+    if budget == v:
+        return thresh
+    return torch.where(cum[..., -1] < top_p, 0.0, thresh)
+
+
+def dist(logits: torch.Tensor, params: SamplingParams) -> torch.Tensor:
+    """The full filtered distribution one request samples from: (..., V)
+    probabilities.  Greedy requests get an exact one-hot at the argmax, so
+    draft/target acceptance ratios are defined at temperature 0; a draft
+    proposal must be drawn from this same distribution (``draw``)."""
+    lg = logits.float()
+    v = lg.shape[-1]
+    if params.is_greedy:
+        return torch.nn.functional.one_hot(lg.argmax(-1), v).float()
+    lg = lg / params.temperature
+    if params.top_k:
+        kth = torch.topk(lg, min(params.top_k, v), dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, -torch.inf, lg)
+    p = torch.softmax(lg, dim=-1)
+    if params.top_p < 1.0 or params.min_p > 0.0:
+        keep = p >= _topp_threshold(p, params.top_p)[..., None]
+        if params.min_p > 0.0:
+            keep = keep & (p >= params.min_p * p.amax(-1, keepdim=True))
+        p = torch.where(keep, p, 0.0)
+        p = p / p.sum(-1, keepdim=True)
+    return p
+
+
+def draw(key: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """Token ids drawn from an explicit distribution (..., V) -> (...)
+    int32 with one ``prng`` key: the Gumbel-max draw of
+    ``jax.random.categorical`` over log(max(p, 1e-20))."""
+    return prng.categorical(key, torch.log(torch.clamp_min(probs, 1e-20))
+                            ).to(torch.int32)
+
+
+def _stable_top(lg: torch.Tensor, k: int):
+    """The top ``k`` values of each row, descending, and their indices,
+    with equal values in index order (lower index first, as
+    ``jax.lax.top_k``; ``torch.topk`` leaves the order of ties open)."""
+    vals, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def slot_dist(lg: torch.Tensor, temperature, top_k, top_p, min_p, *,
+              max_top_k: int = MAX_TOP_K) -> torch.Tensor:
+    """The full per-slot filtered distribution ``sample_slots`` draws from.
+
+    lg: (B, V) processed logits (``apply_processors`` applied);
+    temperature/top_p/min_p (B,) f32, top_k (B,) int.  Returns (B, V)
+    probabilities: greedy rows are exact one-hots at the argmax; sampled
+    rows carry ``sample_slots``'s candidate-subspace distribution (per-slot
+    top-k rank cut, top-p nucleus, min-p, renormalized over the
+    ``SLOT_CANDIDATES`` subspace), scattered back to token ids.  The
+    speculative window draws proposals from it and scores them with it."""
+    b, v = lg.shape
+    is_greedy = temperature <= 0.0
+    kmax = min(int(max_top_k), v)
+    budget = min(max(kmax, SLOT_CANDIDATES), v)
+    tops, idxs = _stable_top(lg, budget)
+    s = tops / torch.where(is_greedy, 1.0, temperature)[:, None]
+    k = torch.clamp(top_k, 0, kmax)
+    ranks = torch.arange(budget, device=lg.device)[None, :]
+    keep = (k == 0)[:, None] | (ranks < k[:, None])
+    z = torch.logsumexp(torch.where(keep, s, -torch.inf), dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - z), 0.0)
+    cum = torch.cumsum(p, dim=-1)
+    keep = keep & ((cum - p) < top_p[:, None])
+    keep = keep & (p >= min_p[:, None] * p[:, :1])
+    w = torch.where(keep, p, 0.0)
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-38)
+    out = torch.zeros((b, v), dtype=torch.float32, device=lg.device)
+    out.scatter_(1, idxs, w)
+    one_hot = torch.nn.functional.one_hot(lg.argmax(-1), v).float()
+    return torch.where(is_greedy[:, None], one_hot, out)
+
+
+def slot_draw(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Invert per-slot uniforms through a distribution's CDF: probs (B, V),
+    u (B,) in [0, 1) -> (B,) int32 token ids.  One-hot rows return their
+    argmax for every u."""
+    cum = torch.cumsum(probs, dim=-1)
+    total = cum[:, -1]
+    r = torch.sum(cum <= (u * total)[:, None], dim=-1)
+    return torch.clamp_max(r, probs.shape[-1] - 1).to(torch.int32)
+
+
+def spec_uniform(seed, pos, tag: int) -> torch.Tensor:
+    """One uniform per (seed, pos) pair from the tagged speculative stream
+    ``fold_in(token_key(seed, pos), tag)`` (``TAG_PROPOSE``/``ACCEPT``/
+    ``CORRECT``); ``seed`` and ``pos`` broadcast against each other."""
+    dev = next((t.device for t in (seed, pos) if torch.is_tensor(t)), None)
+    seed, pos = torch.broadcast_tensors(torch.as_tensor(seed, device=dev),
+                                        torch.as_tensor(pos, device=dev))
+    key = prng.fold_in(prng.token_key(seed, pos),
+                       torch.full_like(seed, tag, dtype=torch.int64))
+    return prng.uniform(key)
 
 
 def sample_slots(logits: torch.Tensor, temperature, top_k, top_p, min_p,

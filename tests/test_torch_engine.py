@@ -25,6 +25,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.runtime.llm import LLMEngine
 from repro_torch.runtime.sampling import SamplingParams
+from repro_torch.runtime.speculative import SpeculativeConfig
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,8 +136,12 @@ def test_generate_matches_reference(models):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(spec=object()), "DeploymentSpec"),
     (dict(mesh=object()), "Tensor parallelism"),
-    (dict(speculative=object()), "Speculative decoding"),
-    (dict(backend="speculative"), "Speculative decoding"),
+    # speculation is ported; its DeploymentSpec pricing and sharded draft
+    # are not
+    (dict(speculative=SpeculativeConfig(gamma=2), spec=object()),
+     "DeploymentSpec"),
+    (dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
+     "Tensor parallelism"),
     (dict(disaggregate=True), "Disaggregation"),
 ])
 def test_unported_options_name_their_roadmap_item(models, kwargs, item):

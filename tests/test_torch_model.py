@@ -136,8 +136,9 @@ def test_unported_plans_and_options_raise():
     one = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="Stateful"):
         model.decode_step_paged(one, pools, tab, one, states=[{}])
-    with pytest.raises(NotImplementedError, match="Speculative"):
-        model.decode_step_paged(tab, pools, tab, one)
+    # the 2-D (speculative verify) form is ported: logits at every position
+    assert model.decode_step_paged(tab, pools, tab, one).shape == (
+        1, 1, moe.padded_vocab)
     # quantized pools: fp8 builds codes + scale leaves,
     # an unknown string still raises
     assert set(model.init_paged_cache(4, 4, dtype="fp8")[0]) == {
