@@ -39,19 +39,27 @@ Phases, each of which fails the run if it fails:
    bytes).
 4. kernel_flash — the flash-attention kernel against its plain version at
    llama3-8b prefill geometry (H 32, KVH 8, D 128): B 1 and 8 at
-   Sq = Skv = 1024, a ragged S 1000 and an MHA (rep 1) case, causal and
-   not, bf16 and f32 (bf16: each output row, one query in one head,
-   within 2^-6 of its largest value; f32: 1e-5).  Timed at B 8 and B 1
+   Sq = Skv = 1024, a ragged S 1000, an MHA (rep 1) case, a D 64 case
+   (H 16, KVH 4, S 1000) and a rep 5 case (H 40, KVH 8, S 1000: the
+   14B models' heads), causal and not, bf16 and f32 (bf16: each output
+   row, one query in one head, within 2^-6 of its largest value, the worst
+   row's share of that printed; f32: 1e-5).  Timed at B 8 and B 1
    (causal) and B 8 (not) beside
    its bound and ``F.scaled_dot_product_attention(is_causal=...,
    enable_gqa=True)`` (a yardstick the port never calls).
 5. kernel_dense_decode — the dense-cache decode kernel against its plain
    version: B 1 and 8, caches of 2048 and 4096 tokens, ragged cur_len (one
-   full, one of a single token), the tail past cur_len poisoned with
-   +-1e4, bf16 and f32 (bf16: each output within 2^-7 of its magnitude
-   plus 1e-4; f32: 1e-5).  Timed at B 8 with cur_len 1088 of 2048 (the
-   static serve's last step) and 4096 of 4096, beside its bound and SDPA
-   on the cache sliced to cur_len.
+   full, one of a single token), the legacy speculative engine's B 1 step
+   (cur_len 288 of 512) and a D 64 case (H 16, KVH 4, B 8), the tail past
+   cur_len poisoned with +-1e4, bf16 and f32 (bf16: each output within
+   2^-7 of its magnitude plus 1e-4; f32: 1e-5).  Timed at B 8 with cur_len
+   1088 of 2048 (the static serve's last step) and 4096 of 4096, and at
+   B 1 with 288 of 512, beside its bound, SDPA on the cache sliced to
+   cur_len, and a plain contiguous read of the same K/V bytes
+   (``stream_read_ms``, a torch sum: the card's practical read rate under
+   this timer).  Every timing line of the kernel phases carries
+   ``kernel_over_library`` (its time over SDPA's, where there is one) and
+   ``bound_over_kernel`` (its share of the roofline).
 6. kernel_exact — the exact-accumulator paged kernel (the speculative
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
@@ -213,6 +221,16 @@ def roofline(nbytes: int, ops: int, ops_type: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ratios(row: dict) -> dict:
+    """The timing line's yardsticks that survive a change of card: the
+    kernel's time over the library call's, and the bound over the
+    kernel's time (its share of the roofline)."""
+    if row.get("library_ms"):
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
+    row["bound_over_kernel"] = row["bound_ms"] / row["ms"]
+    return row
+
+
 def bound(pos, window, B, dtype_name, itemsize, q_itemsize=None,
           scale_itemsize=0) -> tuple[float, str]:
     """Least time for the work: each live K/V token read once (codes and,
@@ -324,7 +342,7 @@ def kernel_phase(torch) -> dict:
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q4, k_d, v_d, attn_mask=mask), flush)}
         row["bound_ms"], row["bound_by"] = bound(pos, None, B, "bfloat16", 2)
-        timings.append(row)
+        timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
     head = timings[0]
@@ -437,7 +455,7 @@ def kernel_scaled_phase(torch) -> dict:
                            q4, k_d, v_d, attn_mask=mask), flush)}
             row["bound_ms"], row["bound_by"] = bound(
                 pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4)
-            timings.append(row)
+            timings.append(ratios(row))
             print("  timing:", json.dumps(row))
     del flush
     head = timings[0]                       # fp8 pools, B 8, ctx 1024
@@ -509,7 +527,7 @@ def kernel_mxfp4_phase(torch) -> dict:
                "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
                    x, w_bf16), flush)}
         row["bound_ms"], row["bound_by"] = vmm_bound(m, k, n)
-        timings.append(row)
+        timings.append(ratios(row))
         print("  timing:", json.dumps(row))
         del w, w_bf16, p
     del flush
@@ -553,15 +571,16 @@ def ulp_limit_share(out, ref, atol) -> float:
     return ((out.float() - ref).abs() / limit).max().item()
 
 
-def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name):
+def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d=D):
     """q, k, v read once and out written once; 4 flops (q.k and p.v) per
     visible (query, key) pair and head dim, at the inputs' peak rate."""
     if causal:
         pairs = sum(min(i + 1, Skv) for i in range(Sq))
     else:
         pairs = Sq * Skv
-    nbytes = itemsize * D * B * (2 * Sq * h + 2 * Skv * kvh)
-    return roofline(nbytes, 4 * B * h * D * pairs, dtype_name)
+    nbytes = itemsize * d * B * (2 * Sq * h + 2 * Skv * kvh)
+    return roofline(nbytes, 4 * B * h * d * pairs, dtype_name)
+
 
 
 def kernel_flash_phase(torch) -> dict:
@@ -580,20 +599,26 @@ def kernel_flash_phase(torch) -> dict:
     # output)
     tol = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 
-    def inputs(B, S, h, kvh, dtype):
-        q = torch.randn((B, S, h, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, kvh, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, kvh, D), generator=gen, device=dev).to(dtype)
+    def inputs(B, S, h, kvh, dtype, d=D):
+        q = torch.randn((B, S, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, kvh, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, kvh, d), generator=gen, device=dev).to(dtype)
         return q, k, v
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
     rel_max = 0.0
-    cases = [(1, 1024, H, KVH), (8, 1024, H, KVH), (2, 1000, H, KVH),
-             (1, 1024, H, H)]                # ragged S; MHA (rep 1)
+    cases = [(1, 1024, H, KVH, D), (8, 1024, H, KVH, D),
+             (2, 1000, H, KVH, D),        # ragged S
+             (1, 1024, H, H, D),          # MHA (rep 1)
+             (2, 1000, 16, 4, 64),        # D 64 (GQA 4:1, ragged)
+             # rep 5 (qwen2.5-14b / qwen3-14b heads): an item is 25
+             # positions x 5 heads, 125 of its 128 rows, and a position
+             # straddles the two consumer warpgroups
+             (2, 1000, 40, 8, D)]
     for dtype_name in ("bfloat16", "float32"):
-        for B, S, h, kvh in cases:
+        for B, S, h, kvh, d in cases:
             for causal in (True, False):
-                q, k, v = inputs(B, S, h, kvh, getattr(torch, dtype_name))
+                q, k, v = inputs(B, S, h, kvh, getattr(torch, dtype_name), d)
                 out = flash_kernel.flash_attention(q, k, v, causal=causal)
                 ref = gqa_flash_attention(q, k, v, causal=causal,
                                           impl="reference")
@@ -602,11 +627,14 @@ def kernel_flash_phase(torch) -> dict:
                 measure = (err if dtype_name == "float32"
                            else row_rel_err(out, ref))
                 print(f"  flash vs plain: {dtype_name} B={B} S={S} H={h} "
-                      f"KVH={kvh} causal={causal}: max abs err {err:.3g}"
+                      f"KVH={kvh} D={d} causal={causal}: max abs err "
+                      f"{err:.3g}"
                       + ("" if dtype_name == "float32" else
                          f", worst row's rel err {measure:.3g}")
                       + f" (tolerance {tol[dtype_name]:.3g}"
-                      + ("" if dtype_name == "float32" else " per row") + ")")
+                      + ("" if dtype_name == "float32" else " per row")
+                      + f"; worst at {measure / tol[dtype_name]:.3g} of "
+                        "it)")
                 if not measure <= tol[dtype_name]:
                     raise AssertionError(f"flash_attention disagrees with its "
                                          f"plain version: {measure} > "
@@ -632,7 +660,7 @@ def kernel_flash_phase(torch) -> dict:
                    qt, kt, vt, is_causal=causal, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = flash_bound(
             B, S, S, H, KVH, causal, 2, "bfloat16")
-        timings.append(row)
+        timings.append(ratios(row))
         print("  timing:", json.dumps(row))
         del q, k, v, qt, kt, vt
     qf, kf, vf = (t.float() for t in inputs(8, 1024, H, KVH, torch.bfloat16))
@@ -641,14 +669,16 @@ def kernel_flash_phase(torch) -> dict:
                qf, kf, vf, causal=True), flush)}
     f32["bound_ms"], f32["bound_by"] = flash_bound(8, 1024, 1024, H, KVH,
                                                    True, 4, "float32")
-    timings.append(f32)
+    timings.append(ratios(f32))
     print("  timing:", json.dumps(f32))
     del flush, qf, kf, vf
     head = timings[0]                       # B 8, S 1024, causal, bf16
     return {"name": flash_kernel.NAME, "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": None, "max_abs_err": errs["bfloat16"],
-            "max_row_rel_err": rel_max, "max_abs_err_f32": errs["float32"],
+            "max_row_rel_err": rel_max,
+            "max_bf16_limit_share": rel_max / tol["bfloat16"],
+            "max_abs_err_f32": errs["float32"],
             "headline": "B 8, Sq = Skv = 1024, causal, bf16 (the static "
                         "prefill of one layer)",
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -663,12 +693,12 @@ def kernel_flash_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dense_case(torch, gen, B, S, dtype, cur_len, dev):
+def dense_case(torch, gen, B, S, dtype, cur_len, dev, h=H, kvh=KVH, d=D):
     """A random dense cache whose tail at and past each row's cur_len is
     poisoned (K 1e4, V -1e4): a read of it would show."""
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, kvh, d), generator=gen, device=dev).to(dtype)
     cl = torch.as_tensor(np.asarray(cur_len, np.int32), device=dev)
     dead = (torch.arange(S, device=dev)[None, :] >= cl[:, None].long())
     k[dead] = 1e4
@@ -699,40 +729,48 @@ def kernel_dense_decode_phase(torch) -> dict:
     tol_f32, atol_bf16 = 1e-5, 1e-4
     errs, shares = {}, []
     for dtype_name in ("bfloat16", "float32"):
+        cases = []
         for B in (1, 8):
             for S in (2048, 4096):
                 cur_len = rng.integers(1, S + 1, B)
                 cur_len[0] = S if B == 1 else 1          # full; one token
-                q, k, v, cl = dense_case(torch, gen, B, S,
-                                         getattr(torch, dtype_name), cur_len,
-                                         dev)
-                out = dense_kernel.decode_attention(q, k, v, cl)
-                ref = decode_attention_ref(q, k, v, cl)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                if dtype_name == "float32":
-                    ok, limit = err <= tol_f32, f"{tol_f32}"
-                else:
-                    share = ulp_limit_share(out, ref, atol_bf16)
-                    shares.append(share)
-                    ok = share <= 1.0
-                    limit = (f"2^-7 |ref| + {atol_bf16} per element; "
-                             f"worst element at {share:.3g} of it")
-                print(f"  dense decode vs plain: {dtype_name} B={B} S={S} "
-                      f"cur_len {cur_len.tolist()[:4]}...: max abs err "
-                      f"{err:.3g} (tolerance {limit})")
-                if not ok:
-                    raise AssertionError(f"decode_attention disagrees with "
-                                         f"its plain version: {err} "
-                                         f"({limit})")
-                errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
+                cases.append((B, S, cur_len, H, KVH, D))
+        # the legacy speculative engine's step (B 1, max_len 512), and
+        # D 64 (GQA 4:1)
+        cases += [(1, 512, np.array([288]), H, KVH, D),
+                  (8, 2048, rng.integers(1, 2049, 8), 16, 4, 64)]
+        for B, S, cur_len, h, kvh, d in cases:
+            q, k, v, cl = dense_case(torch, gen, B, S,
+                                     getattr(torch, dtype_name), cur_len,
+                                     dev, h, kvh, d)
+            out = dense_kernel.decode_attention(q, k, v, cl)
+            ref = decode_attention_ref(q, k, v, cl)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype_name == "float32":
+                ok, limit = err <= tol_f32, f"{tol_f32}"
+            else:
+                share = ulp_limit_share(out, ref, atol_bf16)
+                shares.append(share)
+                ok = share <= 1.0
+                limit = (f"2^-7 |ref| + {atol_bf16} per element; "
+                         f"worst element at {share:.3g} of it")
+            print(f"  dense decode vs plain: {dtype_name} B={B} S={S} "
+                  f"H={h} KVH={kvh} D={d} cur_len {cur_len.tolist()[:4]}"
+                  f"...: max abs err "
+                  f"{err:.3g} (tolerance {limit})")
+            if not ok:
+                raise AssertionError(f"decode_attention disagrees with "
+                                     f"its plain version: {err} "
+                                     f"({limit})")
+            errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
 
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = []
     # the static serve's last decode step (8 prompts of 1024 + 64 new
-    # tokens in a 2048-token cache), then a full 4096-token cache
-    for S, ctx in ((2048, 1088), (4096, 4096)):
-        B = 8
+    # tokens in a 2048-token cache), a full 4096-token cache, and the
+    # legacy speculative engine's B 1 step at 288 of 512
+    for B, S, ctx in ((8, 2048, 1088), (8, 4096, 4096), (1, 512, 288)):
         cur_len = np.full(B, ctx)
         q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
                                  dev)
@@ -748,7 +786,13 @@ def kernel_dense_decode_phase(torch) -> dict:
                    q4, ks, vs, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
                                                        "bfloat16")
-        timings.append(row)
+        # the card's practical read rate under this timer: one contiguous
+        # read (a sum) of the K/V bytes the kernel must read
+        stream = torch.empty(2 * B * ctx * KVH * D, dtype=torch.bfloat16,
+                             device=dev)
+        row["stream_read_ms"] = time_ms(torch, lambda: stream.sum(), flush)
+        del stream
+        timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
     head = timings[0]
@@ -934,7 +978,7 @@ def kernel_exact_phase(torch) -> dict:
                    q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = exact_bound(start, C, B, None, 2,
                                                        2, "bfloat16")
-        timings.append(row)
+        timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
     head = timings[0]

@@ -24,6 +24,7 @@ from repro.kernels.flash_attention.ops import (
 )
 from repro.models.common import blocked_attention as jax_blocked
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.common import blocked_attention
@@ -128,9 +129,33 @@ def test_op_dispatch_on_cpu():
         ops.gqa_flash_attention(q, k, v, impl="nope")
 
 
+def test_variant_choice():
+    """The wrapper picks the kernel by dtype and head dim before the
+    launch, and raises for what no kernel takes."""
+    v = flash_kernel.variant
+    assert v(torch.bfloat16, 128) == "wgmma"
+    assert v(torch.bfloat16, 64) == "wgmma"
+    assert v(torch.bfloat16, 32) == "mma"
+    assert [v(torch.float32, d) for d in (32, 64, 128)] == ["fma"] * 3
+    # GQA: an item packs up to MAX_REP query heads of one kv head
+    assert v(torch.bfloat16, 128, 5) == "wgmma"
+    assert v(torch.bfloat16, 64, flash_kernel.MAX_REP) == "wgmma"
+    assert v(torch.bfloat16, 128, flash_kernel.MAX_REP + 1) == "mma"
+    assert v(torch.float32, 128, 256) == "fma"
+    with pytest.raises(ValueError, match="dtype"):
+        v(torch.float16, 128)
+    for d in (16, 96, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            v(torch.bfloat16, d)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kvh,d,bq,bk,causal", CASES + [
-    (2, 1000, 32, 8, 128, 64, 64, True)])    # llama3-8b heads, ragged S
+    (2, 1000, 32, 8, 128, 64, 64, True),     # llama3-8b heads, ragged S
+    (1, 1024, 32, 8, 128, 128, 128, True),   # B 1, one prompt
+    (2, 1000, 16, 4, 64, 64, 64, True),      # D 64, GQA 4:1, ragged
+    (1, 777, 40, 8, 128, 64, 64, False),     # rep 5: 125-row items
+    (2, 1000, 40, 8, 128, 64, 64, True)])    # ... causal, ragged
 def test_cuda_kernel_matches_ref(b, s, h, kvh, d, bq, bk, causal):
     """The kernel against its plain version on the card (f32 within 1e-5;
     bf16 within two bf16 ulps, 2^-6, of each output row's largest value:
