@@ -23,15 +23,21 @@ Phases, each of which fails the run if it fails:
 1. kernel — hold the paged decode kernel against its plain PyTorch version
    on the card at llama3-8b decode shapes (H 32, KVH 8, D 128, page 16;
    bf16 and f32 pools; B 1 and 8; ragged positions up to 4096, dead pages
-   on a poisoned scratch page, a sliding window; bf16 each output within
-   one bf16 ulp of its magnitude plus 1e-4, f32 1e-5).  Then time kernel, plain
-   version and ``F.scaled_dot_product_attention`` on the gathered dense
-   view (a yardstick the port never calls) at B 8 with 1024 and 4096
-   context, with CUDA events and the L2 cache flushed between launches.
+   on a poisoned scratch page, a sliding window), and its tensor-core
+   variant also at D 64, rep 5, rep 8 and page 32 (``TC_GEOMS``; bf16 each
+   output within one bf16 ulp of its magnitude plus 1e-4, f32 1e-5).  Then
+   time kernel, plain version, ``F.scaled_dot_product_attention`` on the
+   gathered view (with ``enable_gqa`` and on K/V repeated to H heads; the
+   faster is ``library_ms``, a yardstick the port never calls) and a plain
+   read of the same K/V bytes (``stream_read_ms``) at B 8 with 1024 and
+   4096 context, with CUDA events and the L2 cache flushed between
+   launches.
 2. kernel_scaled — the same kernel over fp8 and int8 code pools with f32
-   per-token scale pools (poisoned scratch page and scales, a window),
-   held against its plain version (bf16 q: one bf16 ulp + 1e-4 per
-   element; f32 q: 1e-5) and timed at B 8, ctx 1024 and 4096.
+   per-token scale pools (poisoned scratch page and scales, a window; the
+   ``TC_GEOMS`` too), held against its plain version (bf16 q: one bf16
+   ulp + 1e-4 per element; f32 q: 1e-5) and timed at B 8, ctx 1024 and
+   4096 beside SDPA on the dequantized bf16 view and a plain read of the
+   codes and scales.
 3. kernel_mxfp4 — the MXFP4 VMM kernel against its plain version at the
    four llama3-8b projection shapes for M 1, 8 and 256 plus a ragged M
    and N, timed beside its bound and beside ``torch.matmul`` of x with the
@@ -64,15 +70,18 @@ Phases, each of which fails the run if it fails:
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
    0, bf16, f32, fp8 and int8 pools (code pools also with an f32 q), a
-   sliding window; dead table entries on a poisoned scratch page and every
+   sliding window, the ``TC_GEOMS``; dead table entries on a poisoned
+   scratch page and every
    pool position after a row's last query filled with +-1e4 (bf16 output
    within one bf16 ulp + 1e-4 per element, f32 1e-5).  Its contract, bit
    for bit: query j of a C-query launch equals a one-query launch at
    start + j, and a row of a batch equals the row launched alone with a
    wider page table.  Timed at B 8, C 5, context 1024 and 4096 beside its
-   bound, its plain version and ``F.scaled_dot_product_attention`` with
+   bound, its plain version, ``F.scaled_dot_product_attention`` with
    the per-row causal mask (``enable_gqa=True``, a yardstick the port never
-   calls).
+   calls) and a plain read of each slot's live K/V bytes.  Every kernel
+   phase prints which variant (``tensor_core`` or ``cuda_core``,
+   ``paged_kernel.variant``) each case ran.
 7. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
    same bits on the card as on the CPU for one llama3-8b projection.
 8. serve — llama3-8b at full width and depth (random bf16 weights from a
@@ -80,7 +89,8 @@ Phases, each of which fails the run if it fails:
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
    finish, the prefix index must be hit, the decode kernel must have run
-   once per layer per decode step, and a second identical session must
+   once per layer per decode step (bf16 and fp8: its tensor-core variant,
+   ``kernels.VARIANT_LAUNCHES``), and a second identical session must
    reproduce every stream, greedy and sampled.  Eight decode-only steps of
    that second session are traced with ``torch.profiler``: device busy
    time per step, the device's idle share, time by kernel, and the host
@@ -104,7 +114,10 @@ Phases, each of which fails the run if it fails:
    gamma=4))``, a self-draft: every request finishes, a second session
    reproduces every stream (greedy and sampled), the exact kernel runs 32
    times a window (the verify step) and the paged decode kernel 32 x 5
-   (four draft steps and the backfill).  Reports tokens/s, ms and tokens
+   (four draft steps and the backfill), both as tensor-core variants; then
+   a short session over fp8 pools (4 requests, 32 new tokens) with the
+   same launch checks on the scale-pool kernels reports its accepted
+   proposals per window.  Reports tokens/s, ms and tokens
    per window, accepted proposals per window, the host's waits per window
    and, over 8 traced decode-only windows, device busy time and idle share;
    and, as a reading, how far each greedy stream agrees with the serve
@@ -162,6 +175,12 @@ EXACT_REPLACES = ("src/repro/kernels/decode_attention/paged_kernel.py:116 "
                   "(_exact_kernel, via paged_decode_attention(accum=\"exact\")"
                   " at :150)")
 H, KVH, D, PAGE = 32, 8, 128, 16           # llama3-8b decode geometry
+GEOM = (H, KVH, D, PAGE)
+# more geometries of the bf16 / code-pool tensor-core kernels: D 64 (GQA
+# 4:1), rep 5 (qwen2.5-14b / qwen3-14b: 40 heads over 8), a page of 32, and
+# rep 8 (the exact kernel's 64-row M tile at C 5)
+TC_GEOMS = ((16, 4, 64, 16), (40, 8, 128, 16), (32, 8, 128, 32),
+            (64, 8, 128, 16))
 NEAR_TIE = 0.02       # top-2 logit gap below which card and CPU may differ
 
 
@@ -178,18 +197,20 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def paged_case(torch, rng, B, n_blocks, dtype, pos, dev):
+def paged_case(torch, rng, B, n_blocks, dtype, pos, dev, geom=GEOM):
     """Random pools with a poisoned scratch page 0, per-row permuted page
-    tables whose entries past each row's position point at page 0."""
+    tables whose entries past each row's position point at page 0;
+    ``geom`` is (H, KVH, D, page)."""
+    h, kvh, d, page = geom
     P = 1 + B * n_blocks
     table = rng.permutation(np.arange(1, P)).reshape(B, n_blocks)
-    live = np.arange(n_blocks)[None, :] <= (pos // PAGE)[:, None]
+    live = np.arange(n_blocks)[None, :] <= (pos // page)[:, None]
     table = np.where(live, table, 0).astype(np.int32)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    kp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, page, kvh, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, page, kvh, d), generator=gen, device=dev).to(dtype)
     kp[0], vp[0] = 1e4, -1e4
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, h, d), generator=gen, device=dev).to(dtype)
     return (q, kp, vp, torch.as_tensor(table, device=dev),
             torch.as_tensor(pos.astype(np.int32), device=dev))
 
@@ -211,6 +232,15 @@ def time_ms(torch, fn, flush, iters=30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def stream_read_ms(torch, nbytes: int, flush) -> float:
+    """The card's practical read rate under ``time_ms``: one contiguous
+    read (a bf16 sum) of ``nbytes``, the bytes a kernel must read."""
+    stream = torch.empty(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+    ms = time_ms(torch, lambda: stream.sum(), flush)
+    del stream
+    return ms
 
 
 def roofline(nbytes: int, ops: int, ops_type: str) -> tuple[float, str]:
@@ -276,6 +306,21 @@ def build_phase() -> None:
                 print("    ptxas:", line.strip())
 
 
+def sdpa_ms(torch, F, q, k_d, v_d, mask, flush) -> dict:
+    """SDPA on the gathered (B, KVH, S, D) view, timed two ways: with
+    ``enable_gqa=True`` on the KVH heads, and on K/V repeated to the H
+    query heads (which reads rep x the bytes).  A yardstick only."""
+    q4 = q[:, :, None, :]
+    rep = q.shape[1] // k_d.shape[1]
+    k_r = torch.repeat_interleave(k_d, rep, dim=1).contiguous()
+    v_r = torch.repeat_interleave(v_d, rep, dim=1).contiguous()
+    k_g, v_g = k_d.contiguous(), v_d.contiguous()
+    return {"sdpa_gqa_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k_g, v_g, attn_mask=mask, enable_gqa=True), flush),
+            "sdpa_repeat_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k_r, v_r, attn_mask=mask), flush)}
+
+
 def kernel_phase(torch) -> dict:
     import torch.nn.functional as F
 
@@ -291,35 +336,41 @@ def kernel_phase(torch) -> dict:
     # one bf16 ulp of each output plus 1e-4, the dense decode's rule
     tol_f32, atol_bf16 = 1e-5, 1e-4
     errs, shares = {}, []
-    n_blocks = 4096 // PAGE + 4
-    for dtype_name in ("bfloat16", "float32"):
+    cases = [(dtype_name, B, window, GEOM)
+             for dtype_name in ("bfloat16", "float32")
+             for B, window in ((1, None), (8, None), (8, 1000), (8, 1))]
+    cases += [("bfloat16", 8, window, geom) for geom in TC_GEOMS
+              for window in (None, 1000)]
+    for dtype_name, B, window, geom in cases:
         dtype = getattr(torch, dtype_name)
-        for B, window in ((1, None), (8, None), (8, 1000), (8, 1)):
-            pos = rng.integers(0, 4096, B)
-            pos[0] = 4095 if B == 1 else PAGE + PAGE // 2    # mid-page
-            q, kp, vp, table, p = paged_case(torch, rng, B, n_blocks, dtype,
-                                             pos, dev)
-            out = paged_kernel.paged_decode_attention(q, kp, vp, table, p,
-                                                      window=window)
-            ref = paged_decode_attention_ref(q, kp, vp, table, p,
-                                             window=window)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            if dtype_name == "float32":
-                ok, limit = err <= tol_f32, f"{tol_f32}"
-            else:
-                share = ulp_limit_share(out, ref, atol_bf16)
-                shares.append(share)
-                ok = share <= 1.0
-                limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
-                         f"element at {share:.3g} of it")
-            print(f"  kernel vs plain: {dtype_name} pools B={B} "
-                  f"window={window}: max abs err {err:.3g} "
-                  f"(tolerance {limit})")
-            if not ok:
-                raise AssertionError(f"paged_decode_attention disagrees with "
-                                     f"its plain version: {err} ({limit})")
-            errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
+        page = geom[3]
+        n_blocks = 4096 // page + 4
+        pos = rng.integers(0, 4096, B)
+        pos[0] = 4095 if B == 1 else page + page // 2    # mid-page
+        q, kp, vp, table, p = paged_case(torch, rng, B, n_blocks, dtype,
+                                         pos, dev, geom)
+        kind = paged_kernel.variant(q.dtype, kp.dtype, geom[2], page)
+        out = paged_kernel.paged_decode_attention(q, kp, vp, table, p,
+                                                  window=window)
+        ref = paged_decode_attention_ref(q, kp, vp, table, p,
+                                         window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if dtype_name == "float32":
+            ok, limit = err <= tol_f32, f"{tol_f32}"
+        else:
+            share = ulp_limit_share(out, ref, atol_bf16)
+            shares.append(share)
+            ok = share <= 1.0
+            limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                     f"element at {share:.3g} of it")
+        print(f"  kernel vs plain ({kind}): {dtype_name} pools B={B} "
+              f"H, KVH, D, page={geom} window={window}: max abs err "
+              f"{err:.3g} (tolerance {limit})")
+        if not ok:
+            raise AssertionError(f"paged_decode_attention disagrees with "
+                                 f"its plain version: {err} ({limit})")
+        errs[dtype_name] = max(errs.get(dtype_name, 0.0), err)
 
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = []
@@ -330,18 +381,17 @@ def kernel_phase(torch) -> dict:
                                          torch.bfloat16, pos, dev)
         k_d = gather_pages(kp, table).transpose(1, 2)       # (B, KVH, S, D)
         v_d = gather_pages(vp, table).transpose(1, 2)
-        k_d = torch.repeat_interleave(k_d, H // KVH, dim=1).contiguous()
-        v_d = torch.repeat_interleave(v_d, H // KVH, dim=1).contiguous()
         mask = paged_valid_mask(table, PAGE, p)[:, None, None, :]
-        q4 = q[:, :, None, :]
         row = {"ctx": ctx, "B": B, "pools": "bfloat16",
                "ms": time_ms(torch, lambda: paged_kernel.paged_decode_attention(
                    q, kp, vp, table, p), flush),
                "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
                    q, kp, vp, table, p), flush),
-               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                   q4, k_d, v_d, attn_mask=mask), flush)}
+               **sdpa_ms(torch, F, q, k_d, v_d, mask, flush)}
+        row["library_ms"] = min(row["sdpa_gqa_ms"], row["sdpa_repeat_ms"])
         row["bound_ms"], row["bound_by"] = bound(pos, None, B, "bfloat16", 2)
+        row["stream_read_ms"] = stream_read_ms(
+            torch, 2 * B * ctx * KVH * D * 2, flush)
         timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
@@ -354,8 +404,12 @@ def kernel_phase(torch) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "library": "the faster of F.scaled_dot_product_attention("
+                       "enable_gqa=True) on the gathered KVH-head view and "
+                       "SDPA on K/V repeated to H heads",
             "us": head["ms"] * 1e3, "ref_us": head["plain_ms"] * 1e3,
-            "sdpa_us": head["library_ms"] * 1e3, "timings": timings}
+            "sdpa_us": head["library_ms"] * 1e3,
+            "stream_read_ms": head["stream_read_ms"], "timings": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -363,13 +417,14 @@ def kernel_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def quantized_case(torch, rng, B, n_blocks, cache_dtype, pos, dev):
+def quantized_case(torch, rng, B, n_blocks, cache_dtype, pos, dev,
+                   geom=GEOM):
     """``paged_case`` pools written through ``kv_quantize``; the scratch
     page's codes and scales poisoned."""
     from repro_torch.quant import kv as kvq
 
     q, kp, vp, table, p = paged_case(torch, rng, B, n_blocks, torch.float32,
-                                     pos, dev)
+                                     pos, dev, geom)
     kc, ks = kvq.kv_quantize(kp, cache_dtype)
     vc, vs = kvq.kv_quantize(vp, cache_dtype)
     ks[0], vs[0] = 1e4, -1e4
@@ -391,39 +446,46 @@ def kernel_scaled_phase(torch) -> dict:
     # in another order), element by element; f32 output: 1e-5 absolute
     atol_bf16 = 1e-4
     err_max, shares = 0.0, []
-    n_blocks = 4096 // PAGE + 4
-    for cache_dtype in ("fp8", "int8"):
-        for B, window in ((1, None), (8, None), (8, 1000), (8, 1)):
-            pos = rng.integers(0, 4096, B)
-            pos[0] = 4095 if B == 1 else PAGE + PAGE // 2
-            q, kc, vc, ks, vs, table, p = quantized_case(
-                torch, rng, B, n_blocks, cache_dtype, pos, dev)
-            for q_in in (q, q.float()):
-                out = paged_kernel.paged_decode_attention(
-                    q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
-                    window=window)
-                ref = paged_decode_attention_ref(
-                    q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
-                    window=window)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                if q_in.dtype == torch.bfloat16:
-                    share = ulp_limit_share(out, ref, atol_bf16)
-                    shares.append(share)
-                    ok = share <= 1.0
-                    limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
-                             f"element at {share:.3g} of it")
-                else:
-                    ok, limit = err <= 1e-5, "1e-05"
-                print(f"  scaled kernel vs plain: {cache_dtype} pools, q "
-                      f"{str(q_in.dtype)[6:]} B={B} window={window}: max abs "
-                      f"err {err:.3g} (tolerance {limit})")
-                if not ok:
-                    raise AssertionError(f"scale-pool decode kernel disagrees "
-                                         f"with its plain version: {err} "
-                                         f"({limit})")
-                if q_in.dtype == torch.bfloat16:
-                    err_max = max(err_max, err)
+    cases = [(cache_dtype, B, window, GEOM) for cache_dtype in ("fp8", "int8")
+             for B, window in ((1, None), (8, None), (8, 1000), (8, 1))]
+    cases += [(cache_dtype, 8, 1000, geom) for cache_dtype in ("fp8", "int8")
+              for geom in TC_GEOMS]
+    for cache_dtype, B, window, geom in cases:
+        page = geom[3]
+        n_blocks = 4096 // page + 4
+        pos = rng.integers(0, 4096, B)
+        pos[0] = 4095 if B == 1 else page + page // 2
+        q, kc, vc, ks, vs, table, p = quantized_case(
+            torch, rng, B, n_blocks, cache_dtype, pos, dev, geom)
+        for q_in in (q, q.float()):
+            kind = paged_kernel.variant(q_in.dtype, kc.dtype, geom[2],
+                                        page)
+            out = paged_kernel.paged_decode_attention(
+                q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
+                window=window)
+            ref = paged_decode_attention_ref(
+                q_in, kc, vc, table, p, k_scales=ks, v_scales=vs,
+                window=window)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if q_in.dtype == torch.bfloat16:
+                share = ulp_limit_share(out, ref, atol_bf16)
+                shares.append(share)
+                ok = share <= 1.0
+                limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                         f"element at {share:.3g} of it")
+            else:
+                ok, limit = err <= 1e-5, "1e-05"
+            print(f"  scaled kernel vs plain ({kind}): {cache_dtype} "
+                  f"pools, q {str(q_in.dtype)[6:]} B={B} H, KVH, D, "
+                  f"page={geom} window={window}: max abs err {err:.3g} "
+                  f"(tolerance {limit})")
+            if not ok:
+                raise AssertionError(f"scale-pool decode kernel disagrees "
+                                     f"with its plain version: {err} "
+                                     f"({limit})")
+            if q_in.dtype == torch.bfloat16:
+                err_max = max(err_max, err)
 
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = []
@@ -439,22 +501,21 @@ def kernel_scaled_phase(torch) -> dict:
                                     gather_pages(ks, table), torch.bfloat16)
             v_d = kvq.kv_dequantize(gather_pages(vc, table),
                                     gather_pages(vs, table), torch.bfloat16)
-            k_d = torch.repeat_interleave(k_d.transpose(1, 2), H // KVH,
-                                          dim=1).contiguous()
-            v_d = torch.repeat_interleave(v_d.transpose(1, 2), H // KVH,
-                                          dim=1).contiguous()
             mask = paged_valid_mask(table, PAGE, p)[:, None, None, :]
-            q4 = q[:, :, None, :]
             row = {"ctx": ctx, "B": B, "pools": cache_dtype,
                    "ms": time_ms(torch, lambda: paged_kernel.paged_decode_attention(
                        q, kc, vc, table, p, k_scales=ks, v_scales=vs), flush),
                    "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
                        q, kc, vc, table, p, k_scales=ks, v_scales=vs), flush),
-                   "sdpa_on_dequantized_bf16_ms": time_ms(
-                       torch, lambda: F.scaled_dot_product_attention(
-                           q4, k_d, v_d, attn_mask=mask), flush)}
+                   **sdpa_ms(torch, F, q, k_d.transpose(1, 2),
+                             v_d.transpose(1, 2), mask, flush)}
+            row["sdpa_on_dequantized_bf16_ms"] = min(row["sdpa_gqa_ms"],
+                                                     row["sdpa_repeat_ms"])
             row["bound_ms"], row["bound_by"] = bound(
                 pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4)
+            # 1-byte codes and a 4-byte scale per token and kv head, K and V
+            row["stream_read_ms"] = stream_read_ms(
+                torch, 2 * B * ctx * KVH * (D + 4), flush)
             timings.append(ratios(row))
             print("  timing:", json.dumps(row))
     del flush
@@ -466,7 +527,9 @@ def kernel_scaled_phase(torch) -> dict:
             "max_bf16_limit_share": max(shares),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "timings": timings}
+            "library_ms": None, "stream_read_ms": head["stream_read_ms"],
+            "sdpa_on_dequantized_bf16_ms": head["sdpa_on_dequantized_bf16_ms"],
+            "timings": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -788,10 +851,8 @@ def kernel_dense_decode_phase(torch) -> dict:
                                                        "bfloat16")
         # the card's practical read rate under this timer: one contiguous
         # read (a sum) of the K/V bytes the kernel must read
-        stream = torch.empty(2 * B * ctx * KVH * D, dtype=torch.bfloat16,
-                             device=dev)
-        row["stream_read_ms"] = time_ms(torch, lambda: stream.sum(), flush)
-        del stream
+        row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * KVH * D * 2,
+                                               flush)
         timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
@@ -817,34 +878,35 @@ GAMMA = 4                  # speculative lookahead of serve_spec and check
 VERIFY_C = GAMMA + 1       # queries per slot in one verify step
 
 
-def exact_case(torch, rng, B, C, n_blocks, pools, start, dev):
+def exact_case(torch, rng, B, C, n_blocks, pools, start, dev, geom=GEOM):
     """Random pools (f32, bf16, or fp8/int8 codes written through
     ``kv_quantize``) with a poisoned scratch page 0 (codes and scales),
     per-row permuted page tables whose entries past each row's last query
     (start + C - 1) point at page 0, and every pool position after a row's
     last query in its live pages filled with K 1e4, V -1e4: the causal mask
-    must give all of them zero weight."""
+    must give all of them zero weight.  ``geom`` is (H, KVH, D, page)."""
     from repro_torch.quant import kv as kvq
 
+    h, kvh, d, page = geom
     P = 1 + B * n_blocks
     table = rng.permutation(np.arange(1, P)).reshape(B, n_blocks)
     last = start + C - 1
-    live = np.arange(n_blocks)[None, :] <= (last // PAGE)[:, None]
+    live = np.arange(n_blocks)[None, :] <= (last // page)[:, None]
     table = np.where(live, table, 0).astype(np.int32)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    kp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev)
-    vp = torch.randn((P, PAGE, KVH, D), generator=gen, device=dev)
+    kp = torch.randn((P, page, kvh, d), generator=gen, device=dev)
+    vp = torch.randn((P, page, kvh, d), generator=gen, device=dev)
     kp[0], vp[0] = 1e4, -1e4
     pages, offs = [], []
     for b in range(B):
-        for t in range(last[b] + 1, (last[b] // PAGE + 1) * PAGE):
-            pages.append(table[b, t // PAGE])
-            offs.append(t % PAGE)
+        for t in range(last[b] + 1, (last[b] // page + 1) * page):
+            pages.append(table[b, t // page])
+            offs.append(t % page)
     if pages:
         idx = (torch.as_tensor(pages, device=dev),
                torch.as_tensor(offs, device=dev))
         kp[idx], vp[idx] = 1e4, -1e4
-    q = torch.randn((B, C, H, D), generator=gen, device=dev)
+    q = torch.randn((B, C, h, d), generator=gen, device=dev)
     scales = {}
     if pools in ("fp8", "int8"):
         kp, ks = kvq.kv_quantize(kp, pools)
@@ -915,44 +977,51 @@ def kernel_exact_phase(torch) -> dict:
     # f32 q and pools: absolute 1e-5 (f32 sums in another order).  bf16
     # output: element by element, one bf16 ulp of each output plus 1e-4
     tol_f32, atol_bf16 = 1e-5, 1e-4
-    n_blocks = 4096 // PAGE + 4
     errs, shares, cases = {}, [], 0
-    for pools in ("bfloat16", "float32", "fp8", "int8"):
-        for B, C, window in ((1, 1, None), (1, VERIFY_C, None),
-                             (8, 1, None), (8, VERIFY_C, None),
-                             (8, VERIFY_C, 1000)):
-            start = rng.integers(0, 4096 - C + 1, B)
-            start[0] = 0 if B > 1 else 4096 - C          # one row at 0
-            q, kp, vp, table, st, scales = exact_case(
-                torch, rng, B, C, n_blocks, pools, start, dev)
-            kw = dict(window=window, **scales)
-            for q_in in ((q, q.float()) if scales else (q,)):
-                out = paged_kernel.paged_decode_multi_attention(
-                    q_in, kp, vp, table, st, **kw)
-                ref = paged_decode_multi_attention_ref(q_in, kp, vp, table,
-                                                       st, **kw)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                if q_in.dtype == torch.float32:
-                    ok, limit = err <= tol_f32, f"{tol_f32}"
-                else:
-                    share = ulp_limit_share(out, ref, atol_bf16)
-                    shares.append(share)
-                    ok = share <= 1.0
-                    limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
-                             f"element at {share:.3g} of it")
-                name = f"{pools} pools, q {str(q_in.dtype)[6:]}"
-                print(f"  exact kernel vs plain: {name} B={B} C={C} "
-                      f"window={window}: max abs err {err:.3g} "
-                      f"(tolerance {limit})")
-                if not ok:
-                    raise AssertionError(f"paged_decode_multi_attention "
-                                         f"disagrees with its plain version "
-                                         f"({name}, B={B}, C={C}): {err}")
-                errs[name] = max(errs.get(name, 0.0), err)
-                cases += 1
-                exact_invariance(torch, paged_kernel, q_in, kp, vp, table,
-                                 st, out, kw, name)
+    grid = [(pools, B, C, window, GEOM)
+            for pools in ("bfloat16", "float32", "fp8", "int8")
+            for B, C, window in ((1, 1, None), (1, VERIFY_C, None),
+                                 (8, 1, None), (8, VERIFY_C, None),
+                                 (8, VERIFY_C, 1000))]
+    grid += [(pools, 8, VERIFY_C, 1000, geom) for pools in ("bfloat16", "fp8")
+             for geom in TC_GEOMS]
+    for pools, B, C, window, geom in grid:
+        page = geom[3]
+        n_blocks = 4096 // page + 4
+        start = rng.integers(0, 4096 - C + 1, B)
+        start[0] = 0 if B > 1 else 4096 - C          # one row at 0
+        q, kp, vp, table, st, scales = exact_case(
+            torch, rng, B, C, n_blocks, pools, start, dev, geom)
+        kw = dict(window=window, **scales)
+        for q_in in ((q, q.float()) if scales else (q,)):
+            kind = paged_kernel.variant(q_in.dtype, kp.dtype, geom[2],
+                                        page)
+            out = paged_kernel.paged_decode_multi_attention(
+                q_in, kp, vp, table, st, **kw)
+            ref = paged_decode_multi_attention_ref(q_in, kp, vp, table,
+                                                   st, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if q_in.dtype == torch.float32:
+                ok, limit = err <= tol_f32, f"{tol_f32}"
+            else:
+                share = ulp_limit_share(out, ref, atol_bf16)
+                shares.append(share)
+                ok = share <= 1.0
+                limit = (f"2^-7 |ref| + {atol_bf16} per element; worst "
+                         f"element at {share:.3g} of it")
+            name = f"{pools} pools, q {str(q_in.dtype)[6:]}"
+            print(f"  exact kernel vs plain ({kind}): {name} B={B} "
+                  f"C={C} H, KVH, D, page={geom} window={window}: max "
+                  f"abs err {err:.3g} (tolerance {limit})")
+            if not ok:
+                raise AssertionError(f"paged_decode_multi_attention "
+                                     f"disagrees with its plain version "
+                                     f"({name}, B={B}, C={C}): {err}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            cases += 1
+            exact_invariance(torch, paged_kernel, q_in, kp, vp, table,
+                             st, out, kw, name)
 
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = []
@@ -978,6 +1047,9 @@ def kernel_exact_phase(torch) -> dict:
                    q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = exact_bound(start, C, B, None, 2,
                                                        2, "bfloat16")
+        # each slot's live tokens once, for all C queries
+        row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * KVH * D * 2,
+                                               flush)
         timings.append(ratios(row))
         print("  timing:", json.dumps(row))
     del flush
@@ -997,7 +1069,7 @@ def kernel_exact_phase(torch) -> dict:
             "library_ms": head["library_ms"],
             "library": "F.scaled_dot_product_attention(attn_mask=<per-row "
                        "causal mask>, enable_gqa=True) on the gathered view",
-            "timings": timings}
+            "stream_read_ms": head["stream_read_ms"], "timings": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -1163,7 +1235,7 @@ def build_llama(torch):
 def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     """Serve the request mix twice through ``LLMEngine`` (``engine_kw``:
     ``weight_format``, ``cache_dtype``) and check streams and launches."""
-    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
     from repro_torch.kernels.decode_attention.paged_kernel import (
         NAME, NAME_SCALED,
     )
@@ -1182,9 +1254,11 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
 
     LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
     streams, finished, stats, decode_steps = serve_session(llm, prompts, sps)
     torch.cuda.synchronize()
     launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
 
     for i in range(len(prompts)):
         o = finished.get(i)
@@ -1208,6 +1282,11 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
                              f"({stats.steps} decode steps, "
                              f"{stats.prefill_calls} prefill chunk calls, "
                              f"{cfg.n_layers} layers)")
+    # bf16 activations over bf16 or fp8 pools: the tensor-core kernel
+    want_variants = {f"{decode_kernel}:tensor_core": want[decode_kernel]}
+    if variants != want_variants:
+        raise AssertionError(f"paged decode variants {variants}, want "
+                             f"{want_variants}")
 
     # the re-run doubles as the profiled window: 8 decode-only steps
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1233,7 +1312,8 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
               "decode_steps": stats.steps, "prefill_chunks": stats.chunks,
               "prefill_calls": stats.prefill_calls,
               "prefix_hit_tokens": stats.prefix_hit_tokens,
-              "kernel_launches": launches, "engine_setup_s": setup_s,
+              "kernel_launches": launches, "kernel_variants": variants,
+              "engine_setup_s": setup_s,
               "served_weight_gb": serve_weight_bytes(
                   model, engine_kw.get("weight_format")) / 1e9,
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
@@ -1254,7 +1334,7 @@ def serve_spec_phase(torch, model, plain_streams) -> dict:
     the verify step.  The greedy streams' agreement with the plain serve's
     (``plain_streams``) is a reading: the exact and online kernels round
     apart, so a bf16 near-tie may flip."""
-    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
     from repro_torch.kernels.decode_attention.paged_kernel import (
         NAME, NAME_EXACT,
     )
@@ -1269,9 +1349,11 @@ def serve_spec_phase(torch, model, plain_streams) -> dict:
                     speculative=SpeculativeConfig(gamma=GAMMA))
     prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
     LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
     streams, finished, stats, windows_s = serve_session(llm, prompts, sps)
     torch.cuda.synchronize()
     launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
     for i in range(len(prompts)):
         o = finished.get(i)
         if o is None or o.finish_reason != "length" or len(o.token_ids) != 64:
@@ -1284,8 +1366,11 @@ def serve_spec_phase(torch, model, plain_streams) -> dict:
                                  f"the vocabulary")
     want = {NAME_EXACT: cfg.n_layers * stats.steps,
             NAME: cfg.n_layers * (GAMMA + 1) * stats.steps}
-    if launches != want or stats.spec_windows == 0:
-        raise AssertionError(f"serve_spec launched {launches}, want {want} "
+    want_variants = {f"{k}:tensor_core": v for k, v in want.items()}
+    if (launches != want or variants != want_variants
+            or stats.spec_windows == 0):
+        raise AssertionError(f"serve_spec launched {launches} ({variants}), "
+                             f"want {want} on the tensor-core kernels "
                              f"({stats.steps} windows, {cfg.n_layers} "
                              f"layers)")
 
@@ -1326,8 +1411,8 @@ def serve_spec_phase(torch, model, plain_streams) -> dict:
               "spec_accepted": stats.spec_accepted,
               "spec_wasted": stats.spec_wasted,
               "host_waits_per_window": breakdown.get("host_waits_per_step"),
-              "kernel_launches": launches, "rerun_identical": True,
-              "rerun_wall_s": stats2.wall,
+              "kernel_launches": launches, "kernel_variants": variants,
+              "rerun_identical": True, "rerun_wall_s": stats2.wall,
               "greedy_agreement_with_serve": {
                   "reading": "tokens equal before the first difference "
                              "(64 = the whole stream)", **{
@@ -1336,7 +1421,64 @@ def serve_spec_phase(torch, model, plain_streams) -> dict:
               "profiled_windows": breakdown}
     del llm
     torch.cuda.empty_cache()
+    result["fp8_session"] = serve_spec_fp8(torch, model, prompts, sps)
     return result
+
+
+SPEC_FP8_REQUESTS, SPEC_FP8_NEW = 4, 32
+
+
+def serve_spec_fp8(torch, model, prompts, sps) -> dict:
+    """Speculation over fp8 code pools, the one place the scale-pool online
+    kernel (draft steps) and the exact kernel's code-pool path (verify)
+    meet on a serve path: the serve phase's first 4 requests (2 greedy, 2
+    sampled), 32 new tokens each, gamma 4.  Every request finishes, both
+    kernels launch as the tensor-core variant, once per layer per draft or
+    backfill step and once per layer per window."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME_EXACT, NAME_SCALED,
+    )
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    cfg = model.cfg
+    llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
+                    page_size=16, max_len=2048, prefill_chunk=256,
+                    cache_dtype="fp8",
+                    speculative=SpeculativeConfig(gamma=GAMMA))
+    reqs = [dataclasses.replace(sp, max_tokens=SPEC_FP8_NEW)
+            for sp in sps[:SPEC_FP8_REQUESTS]]
+    LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts[:SPEC_FP8_REQUESTS], reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = llm.last_stats
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
+    for o in outs:
+        if (o.finish_reason != "length" or len(o.token_ids) != SPEC_FP8_NEW
+                or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
+            raise AssertionError(f"spec fp8 request {o.rid}: {o}")
+    want = {NAME_EXACT: cfg.n_layers * stats.steps,
+            NAME_SCALED: cfg.n_layers * (GAMMA + 1) * stats.steps}
+    want_variants = {f"{k}:tensor_core": v for k, v in want.items()}
+    if (launches != want or variants != want_variants
+            or stats.spec_windows == 0):
+        raise AssertionError(f"spec fp8 launched {launches} ({variants}), "
+                             f"want {want} on the tensor-core kernels "
+                             f"({stats.steps} windows)")
+    del llm
+    torch.cuda.empty_cache()
+    return {"cache_dtype": "fp8", "requests": SPEC_FP8_REQUESTS,
+            "new_tokens": stats.total_tokens, "wall_s": wall,
+            "windows": stats.steps, "slot_windows": stats.spec_windows,
+            "accepted_per_window": stats.accepted_per_window,
+            "spec_drafted": stats.spec_drafted,
+            "spec_accepted": stats.spec_accepted,
+            "kernel_launches": launches, "kernel_variants": variants}
 
 
 LEGACY_PROMPT, LEGACY_NEW = 256, 32

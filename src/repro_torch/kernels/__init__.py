@@ -26,8 +26,11 @@ code pools as ``paged_decode_attention_scaled``, the exact one as
 ``paged_decode_attention_exact``; the dense one counts as
 ``decode_attention``), so a run can show that its
 path went through the kernel (``chip_smoke.py`` clears the counts before
-each serve phase).
+each serve phase).  The paged decode kernels also add one to
+``VARIANT_LAUNCHES["<kernel name>:<variant>"]`` ("tensor_core" or
+"cuda_core"), so a run can show which of a source's kernels served it.
 """
 from collections import Counter
 
 LAUNCHES: Counter = Counter()
+VARIANT_LAUNCHES: Counter = Counter()

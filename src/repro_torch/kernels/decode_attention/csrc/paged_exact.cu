@@ -16,56 +16,88 @@
 // over the visible positions t in [lo, p] (lo = max(0, p - window + 1)
 // with a window, else 0), token t of slot b living at
 // pool[page_table[b, t / page], t % page, g, :]; fp8 e4m3 / int8 code pools
-// are dequantized per token as float(code) * scale[t] (the plain version's
-// op sequence).
+// carry per-token scales.
 //
 // The contract that makes it "exact": the order of every sum taken for one
 // (slot row, query position, head) is fixed by that position alone -- not
 // by B, C, n_blocks, the grid or the number of SMs.  So a verify launch of
 // C = gamma + 1 queries gives, bit for bit, what C launches of one query
-// would, and a row gives the same bits in any batch:
-//   * a score is a D-long dot product: each lane sums its D/32 elements in
-//     order, then a fixed butterfly over the warp;
-//   * the row's maximum is exact in any order; its sum of exponentials is
-//     taken by thread i of a fixed 128-thread block over the positions
-//     t == i (mod 128) in increasing order, then a fixed tree;
-//   * P.V for one output element is summed over fixed chunks of 128
-//     absolute positions, each chunk in position order, and the chunks'
-//     partial sums are then folded in chunk order;
-//   * no atomics.  Positions outside a row's range are never read into its
-//     sums (the masked tail of a rejected speculative window, dead table
-//     entries on the scratch page).
+// would, and a row gives the same bits in any batch.  No atomics touch a
+// float; positions outside a row's range never enter its sums (the masked
+// tail of a rejected speculative window, dead table entries).
 //
 // What bounds it: it reads every live K/V byte of a slot once for all C
-// queries and does ~4 * C * rep flops per K/V element pair it reads, still
-// far below the card's ~295 flop/byte ridge for C * rep <= 64, so device
-// memory bytes bound it.  The f32 scores (B, KVH, C * rep, n_blocks * page)
-// do not fit on chip for long rows (C 5 x rep 4 x 4096 x 4 B = 320 KB per
-// (slot, kv head) > 227 KB), so they go through a device workspace the
-// wrapper allocates: ~2 x 4 B per (query row, position) written and read,
-// against 2 x 2 x D B of bf16 K/V per (kv head, position) -- at C * rep 20
-// and D 128 that is about a third more bytes than the K/V stream.
+// queries and does ~4 * C * rep flops per K/V element pair it reads, far
+// below the card's ~295 flop/byte ridge for C * rep <= 64, so device memory
+// bytes bound it.
 //
-// Four kernels:
+// bf16 q over bf16, fp8 or int8 pools at D 64 / 128 with a page of 16 or a
+// multiple of 16 (exact_tc, the verify step) -- one launch, the online paged
+// kernel's design (paged_decode.cu) with every choice tied to absolute
+// position:
+//   * one CTA of 4 warps per (absolute 256-position split, kv head, slot)
+//     that the slot's range meets; warp w owns positions 16w..16w+15 of
+//     each 64-token tile of the split (one page's worth), reads the page's
+//     table entry itself and streams the tokens through its own 3-stage
+//     cp.async ring (4 for code pools), so the loop has no block barrier;
+//   * scores on the tensor cores: the C * rep query rows, padded to 16, 32
+//     or 64, are the M dimension of mma.m16n8k16 (code pools: codes
+//     converted to bf16 as the fragments form, exact; the K scale times
+//     the score after the product); P.V likewise with P = hi + lo (the V
+//     scale folded into P first);
+//   * each warp keeps an f32 online softmax per query row over its slices
+//     in position order; the warps are folded in warp order, the split
+//     writes its (m, l, acc) per row, and the last CTA of each (slot, kv
+//     head) -- an integer counter per (slot, kv head) that it resets --
+//     folds each row's splits in split order (the max first, then l and acc
+//     rescaled and summed left to right), divides and writes;
+//   * a slice where a row sees no position gives that row NEG_INF scores,
+//     so its running max, l and acc stay bit for bit as they were (the
+//     rescale is exp2(0) = 1 and P is 0): a row's sums are the same whatever
+//     other queries (C) or slots (B) share the launch.  The row's place in
+//     the padded M tile is assumed not to change an mma's bits for that row
+//     (the card check holds it: query j of C = 5 equals C = 1, bit for bit);
+//   * at C * rep > 32 two CTAs share a split, each with half of the output
+//     columns (each reads all of K and its half of V), so that a warp's
+//     accumulators fit in registers.
+// There is no score workspace and no softmax kernel: a split writes and
+// reads ~10 KB of partials (C * rep 20, D 128) against 128 KB of K/V.  The
+// first version (four kernels: scores into an f32 (B, KVH, C * rep, S)
+// workspace, a softmax over it in place, P.V from it, a combine; every dot
+// product a lane-wise sum and a fixed butterfly) read 0.1167 / 0.3895 ms at
+// B 8, C 5, ctx 1024 / 4096: 4.3x / 6.1x a plain read of the same bytes
+// and 1.8x / 2.1x SDPA with the per-row mask (NVIDIA H100 80GB HBM3, 700 W).
+// A design with one CTA per 128-position chunk (a per-chunk softmax across
+// the 4 warps, block barriers between scores, softmax and P.V) came to
+// 0.057 / 0.22 ms: its warps stalled issuing the next chunk's copies, and
+// a producer warp issuing them alone was no faster.
+//
+// Every other pairing (f32 q or pools -- the parity checks, the card's f32
+// speculative streams; D 256; a page that is not a multiple of 16) keeps
+// that first version, chosen before the launch (paged_kernel.py:
+// variant()):
 //   1. exact_scores: one CTA per (64-position chunk, kv head, slot) walks
 //      the chunk's live pages, double-buffered in shared memory with
 //      cp.async, and writes the scaled scores of all C * rep query rows.
 //      Warps take tokens; each lane holds D/32 elements of the K row and of
-//      8 query rows at a time, whose 8 butterflies interleave (a row's
-//      reduction alone is a chain of 5 dependent shuffles);
+//      8 query rows at a time, whose 8 butterflies interleave; code pools
+//      dequantize per token as float(code) * scale[t], the plain version's
+//      op sequence;
 //   2. exact_softmax: one CTA per (query row, kv head, slot) takes the
-//      row's max and sum of exp(s - max) and overwrites the scores with the
-//      probabilities exp(s - max) / sum;
+//      row's max and sum of exp(s - max) -- thread i of 128 over the
+//      positions t == i (mod 128) in order, then a fixed tree -- and
+//      overwrites the scores with the probabilities exp(s - max) / sum;
 //   3. exact_pv: one CTA per (128-position chunk, kv head, slot) stages
-//      the chunk's probabilities position-major (one float4 load serves 4
-//      rows) and walks its V pages; thread d accumulates column d of every
-//      row in position order and writes the chunk's partial sums;
+//      the chunk's probabilities position-major and walks its V pages;
+//      thread d accumulates column d of every row in position order and
+//      writes the chunk's partial sums;
 //   4. exact_combine: folds each row's chunk partials in chunk order and
 //      writes the output in q's dtype.
 // The scores' chunk only sets the grid; the P.V chunk is part of the sum
 // order, fixed at 128 absolute positions.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -501,6 +533,606 @@ cudaError_t dispatch_kv(int kv_dtype, int D, const Args& a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 q over bf16, fp8 or int8 pools: tensor cores, one launch
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kTile = 64;          // positions per tile: 16 per warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSplitPos = 256;     // positions per split (a partial of the sum order)
+constexpr unsigned kFull = 0xffffffffu;
+
+// kMT: 16-row M tiles of the C * rep query rows (1, 2 or 4); kDS: CTAs that
+// share a split's output columns (2 at kMT 4, so a warp's accumulators fit
+// in registers; each of them reads all of K and its half of V)
+template <typename KT, int D, int kMT, int kDS>
+struct Cfg {
+  static constexpr bool kCodes = sizeof(KT) == 1;
+  static constexpr int kRows = 16 * kMT;
+  static constexpr int kDV = D / kDS;                     // output columns of a CTA
+  static constexpr int kStages = kCodes ? 4 : 3;          // cp.async ring depth
+  static constexpr int kQRow = 2 * D + 16;                // padded bf16 q row, bytes
+  // a warp's K and V rows, bytes: bf16 rows padded for ldmatrix; code rows
+  // padded so that the direct 16-byte (K) and kDV/8-byte (V) loads of a
+  // warp fall on distinct banks
+  static constexpr int kKRow = kCodes ? (D == 128 ? 192 : 64) : 2 * D + 16;
+  static constexpr int kVRow = kCodes ? (kDV <= 64 ? 80 : 144) : 2 * kDV + 16;
+  static constexpr int kKSlice = 16 * kKRow;
+  static constexpr int kVSlice = 16 * kVRow;
+  static constexpr int kScBytes = kCodes ? 2 * 16 * 4 : 0;  // K, V scales of 16 tokens
+  static constexpr int kWarpStage = kKSlice + kVSlice + kScBytes;
+  static constexpr int kStageBytes = kWarps * kWarpStage;
+  static constexpr int kQBytes = kRows * kQRow;
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes;
+  static constexpr int kAccRow = kDV + 8;                 // fold rows, floats
+  // the warps' (m, l, acc) for the in-CTA fold, over q and the idle ring
+  static_assert(kWarps * kRows * (2 + kAccRow) * 4 <= kSmem, "fold area");
+  static_assert(kWarpStage % 16 == 0 && kQBytes % 16 == 0, "16-byte aligned stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// cp-size bytes, or zeros when src_bytes is 0 (nothing is read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
+                                                int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x = hi + lo with hi = bf16(x), lo = bf16(x - hi): 16 bits of x's mantissa
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+// two floats that are bf16 values -> bf16x2 (their high halves: exact)
+__device__ __forceinline__ uint32_t pack_exact(float x0, float x1) {
+  return __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+}
+// the two codes in the low 16 bits of `pair` (first in the low byte) as
+// bf16x2: exact, every e4m3 and int8 value is a bf16 value
+template <typename KT> __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t pair);
+template <> __device__ __forceinline__ uint32_t codes_bf16x2<int8_t>(uint32_t pair) {
+  // 2^23 + (code + 128) as f32 bits, minus 2^23 + 128
+  const uint32_t u = pair ^ 0x8080u;
+  const float x0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float x1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  return pack_exact(x0, x1);
+}
+template <> __device__ __forceinline__ uint32_t codes_bf16x2<__nv_fp8_e4m3>(uint32_t pair) {
+  const __half2_raw h2 =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+  return pack_exact(f.x, f.y);
+}
+// N 32-bit words from shared memory in one 4-, 8- or 16-byte load
+template <int N>
+struct Words {
+  uint32_t w[N];
+  __device__ __forceinline__ void load(const unsigned char* p) {
+    static_assert(N == 1 || N == 2 || N == 4, "4, 8 or 16 bytes");
+    if constexpr (N == 4) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p);
+      w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+    } else if constexpr (N == 2) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x, w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+  }
+};
+// byte k of a and byte k of b, as the low 16 bits
+__device__ __forceinline__ uint32_t byte_pair(uint32_t a, uint32_t b, int k) {
+  return __byte_perm(a, b, k | ((4 + k) << 4));
+}
+// Code pools: the physical head-dim index of logical column L of the score
+// product (a thread's 16-byte K load at byte 64h + 16quad serves k-steps
+// 4h .. 4h+3); q is stored in shared memory in this order.
+__device__ __forceinline__ int code_dim(int L) {
+  const int kk = L >> 4, half = (L >> 3) & 1, qd = (L >> 1) & 3;
+  return 64 * (kk >> 2) + 16 * qd + 4 * (kk & 3) + 2 * half + (L & 1);
+}
+
+// One CTA per (256-position split, column share, kv head g, slot b): 4
+// warps walk the split's live 64-token tiles, warp w owning positions
+// 16w..16w+15 of each tile (one page's worth: it reads the table entry,
+// loads, scores and folds them itself, no block barrier in the loop), each
+// warp an f32 online softmax per query row.  Every choice is fixed by
+// absolute position: the split, the warp, the slice order; a slice where a
+// row sees nothing leaves that row's state bit for bit as it was (its
+// scores are NEG_INF, so the rescale is exp2(0) = 1 and P is 0), so a row
+// gets the same bits whatever other rows (C) or slots (B) share the launch.
+template <typename KT, int D, int kMT, int kDS>
+__global__ void __launch_bounds__(kThreads, 2)
+exact_tc(const __nv_bfloat16* __restrict__ q,      // (B, C, H, D)
+         const KT* __restrict__ k_pages,           // (P, page, KVH, D)
+         const KT* __restrict__ v_pages,
+         const float* __restrict__ k_scales,       // (P, page, KVH) or null
+         const float* __restrict__ v_scales,
+         const int* __restrict__ page_table,       // (B, n_blocks)
+         const int* __restrict__ start_arr,        // (B,)
+         __nv_bfloat16* __restrict__ out,          // (B, C, H, D)
+         float* __restrict__ ws_pv,                // (B, KVH, n_splits, R, D)
+         float* __restrict__ ws_ml,                // (B, KVH, n_splits, R, 2)
+         int* __restrict__ counters,               // (>= B * KVH,), zero between calls
+         int C, int kvh, int rep, int page, int n_blocks, int window, float scale_log2) {
+  using G = Cfg<KT, D, kMT, kDS>;
+  constexpr bool kCodes = G::kCodes;
+  constexpr int kRows = G::kRows;
+  constexpr int kDV = G::kDV;
+  constexpr int kTilesPerSplit = kSplitPos / kTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t ring = q_s + G::kQBytes;
+
+  const int split = blockIdx.x / kDS, dh = blockIdx.x % kDS;
+  const int n_splits = gridDim.x / kDS;
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int bg = b * kvh + g;
+  const int R = C * rep;
+  const int d0 = dh * kDV;                         // this CTA's output columns
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, quad = lane & 3;
+
+  // the slot's range [lo_min, hi_max] (the first query's window start, the
+  // last query, clipped to the table) and this split's live tiles [j0, j1)
+  const int st = start_arr[b];
+  const int cap = n_blocks * page - 1;
+  const int hi_max = min(st + C - 1, cap);
+  const int lo_min = row_lo(st, window);
+  const int j0 = max(split * kTilesPerSplit, lo_min / kTile);
+  const int j1 = min((split + 1) * kTilesPerSplit, hi_max / kTile + 1);
+  if (j0 >= j1) return;                            // no tile: not counted in the fold
+  // every row sees [lo_last, p_first] (the last query's window start, the
+  // first query): a slice inside it needs no mask
+  const int p_first = min(st, cap), lo_last = row_lo(st + C - 1, window);
+
+  // my rows 16 mt + gq + 8 hh: the last and first positions they see
+  int row_p[kMT][2], row_lo_[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * mt + gq + 8 * hh;
+      row_p[mt][hh] = r < R ? min(st + r / rep, cap) : -1;
+      row_lo_[mt][hh] = r < R ? row_lo(st + r / rep, window) : 0;
+    }
+
+  const int* row_table = page_table + (size_t)b * n_blocks;
+  const uint32_t my_k = ring + warp * G::kWarpStage;     // + stage * kStageBytes
+  const uint32_t my_v = my_k + G::kKSlice;
+  const uint32_t my_sc = my_v + G::kVSlice;               // code pools: K, V scales
+  auto live_slice = [&](int t0) { return t0 <= hi_max && t0 + 15 >= lo_min; };
+  // lane i holds the table entry of this warp's slice of tile j0 + i (a
+  // split has at most kTilesPerSplit <= 32 tiles)
+  int tbl = 0;
+  {
+    const int t0 = (j0 + lane) * kTile + warp * 16;
+    if (j0 + lane < j1 && live_slice(t0)) tbl = __ldg(row_table + t0 / page);
+  }
+  auto issue = [&](int j, int stage) {   // always one commit group
+    if (j < j1) {
+      const int phys = __shfl_sync(kFull, tbl, j - j0);
+      const int t0 = j * kTile + warp * 16;
+      if (live_slice(t0)) {
+        // token row (slot token t0 + r, kv head g) of the pools: base + r * kvh
+        const size_t base = ((size_t)phys * page + t0 % page) * kvh + g;
+        const uint32_t ks = my_k + stage * G::kStageBytes;
+        const uint32_t vs = my_v + stage * G::kStageBytes;
+        constexpr int kPer = 16 / sizeof(KT);           // elements per 16 bytes
+        constexpr int kKChunks = D / kPer;              // 16-byte pieces of a K row
+        constexpr int kVChunks = kDV / kPer;            // ... of my share of a V row
+#pragma unroll
+        for (int c = lane; c < 16 * kKChunks; c += 32) {
+          const int r = c / kKChunks, e = (c % kKChunks) * kPer;
+          const bool live = t0 + r >= lo_min && t0 + r <= hi_max;
+          const size_t off = live ? (base + (size_t)r * kvh) * D + e : 0;
+          cp_async16_zfill(ks + r * G::kKRow + e * sizeof(KT), k_pages + off, live ? 16 : 0);
+        }
+#pragma unroll
+        for (int c = lane; c < 16 * kVChunks; c += 32) {
+          const int r = c / kVChunks, e = (c % kVChunks) * kPer;
+          const bool live = t0 + r >= lo_min && t0 + r <= hi_max;
+          const size_t off = live ? (base + (size_t)r * kvh) * D + d0 + e : 0;
+          cp_async16_zfill(vs + r * G::kVRow + e * sizeof(KT), v_pages + off, live ? 16 : 0);
+        }
+        if constexpr (kCodes) {          // lanes 0-15: K scales, 16-31: V scales
+          const int r = lane & 15;
+          const bool live = t0 + r >= lo_min && t0 + r <= hi_max;
+          const float* src = (lane < 16 ? k_scales : v_scales) + (live ? base + (size_t)r * kvh : 0);
+          cp_async4_zfill(my_sc + stage * G::kStageBytes + lane * 4, src, live ? 4 : 0);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+#pragma unroll
+  for (int s = 0; s < G::kStages - 1; ++s) issue(j0 + s, s);
+  // while they land: q rows r = c * rep + i of kv head g, zero-padded to
+  // kRows, 8 columns a load (code pools: in code_dim order, 4 pairs)
+  for (int i = tid; i < kRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), col = (i % (D / 8)) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < R) {
+      const __nv_bfloat16* qr =
+          q + (((size_t)b * C + r / rep) * kvh * rep + (size_t)g * rep + r % rep) * D;
+      if constexpr (!kCodes) {
+        val = *reinterpret_cast<const uint4*>(qr + col);
+      } else {
+        const uint32_t* pr = reinterpret_cast<const uint32_t*>(qr + code_dim(col));
+        val = make_uint4(pr[0], pr[8], pr[16], pr[24]);   // head dims +0, +16, +32, +48
+      }
+    }
+    *reinterpret_cast<uint4*>(smem + r * G::kQRow + 2 * col) = val;
+  }
+  __syncthreads();                   // q is in shared memory
+
+  float o[kMT][kDV / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int dt = 0; dt < kDV / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][dt][e] = 0.f;
+  float m_r[kMT][2], l_r[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) m_r[mt][hh] = kNegInf, l_r[mt][hh] = 0.f;
+  // ldmatrix row addresses: A (q) matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15);
+  // bf16 K's B matrices (tokens 0-7 | 8-15) x (d 0-7 | 8-15); V's, transposed
+  const int mi = lane >> 3;
+  const uint32_t qa_addr = q_s + ((lane & 7) + (mi & 1) * 8) * G::kQRow + (mi >> 1) * 16;
+  const uint32_t kb_off = ((lane & 7) + (mi >> 1) * 8) * G::kKRow + (mi & 1) * 16;
+  const uint32_t vb_off = ((lane & 7) + (mi & 1) * 8) * G::kVRow + (mi >> 1) * 16;
+
+  for (int j = j0; j < j1; ++j) {
+    const int stage = (j - j0) % G::kStages;
+    issue(j + G::kStages - 1, (j - j0 + G::kStages - 1) % G::kStages);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(G::kStages - 1));
+    __syncwarp();
+    const int t0 = j * kTile + warp * 16;
+    if (live_slice(t0)) {              // warp-uniform
+      const uint32_t ks = my_k + stage * G::kStageBytes;
+      const uint32_t vs = my_v + stage * G::kStageBytes;
+      const unsigned char* ks_p = smem + (ks - q_s);
+      const unsigned char* vs_p = smem + (vs - q_s);
+      const float* sc_p =
+          reinterpret_cast<const float*>(smem + (my_sc + stage * G::kStageBytes - q_s));
+
+      // scores of kRows query rows x this warp's 16 tokens (column n of
+      // block nb is token 8nb + n), exact products of bf16 in f32
+      float sc[kMT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mt][0][e] = sc[mt][1][e] = 0.f;
+      if constexpr (!kCodes) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + kb_off + kk * 32);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            uint32_t a[4];
+            ldmatrix_x4(a, qa_addr + mt * 16 * G::kQRow + kk * 32);
+            mma_bf16(sc[mt][0], a, kb[0], kb[1]);
+            mma_bf16(sc[mt][1], a, kb[2], kb[3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          const uint4 w0 = *reinterpret_cast<const uint4*>(ks_p + gq * G::kKRow + 64 * h + 16 * quad);
+          const uint4 w1 =
+              *reinterpret_cast<const uint4*>(ks_p + (8 + gq) * G::kKRow + 64 * h + 16 * quad);
+          const uint32_t x0[4] = {w0.x, w0.y, w0.z, w0.w};
+          const uint32_t x1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const uint32_t b00 = codes_bf16x2<KT>(x0[s]), b01 = codes_bf16x2<KT>(x0[s] >> 16);
+            const uint32_t b10 = codes_bf16x2<KT>(x1[s]), b11 = codes_bf16x2<KT>(x1[s] >> 16);
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              uint32_t a[4];
+              ldmatrix_x4(a, qa_addr + mt * 16 * G::kQRow + (4 * h + s) * 32);
+              mma_bf16(sc[mt][0], a, b00, b01);
+              mma_bf16(sc[mt][1], a, b10, b11);
+            }
+          }
+        }
+      }
+      // scaled to the log2 domain (code pools: times the token's K scale);
+      // NEG_INF where the row does not see the token
+      const bool edge = t0 < lo_last || t0 + 15 > p_first;
+      float f[2][2], vsc[2][2];        // my tokens' factors and V scales
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        f[nb][0] = f[nb][1] = scale_log2;
+        if constexpr (kCodes) {
+          const float2 k2 = *reinterpret_cast<const float2*>(sc_p + nb * 8 + 2 * quad);
+          const float2 v2 = *reinterpret_cast<const float2*>(sc_p + 16 + nb * 8 + 2 * quad);
+          f[nb][0] *= k2.x;
+          f[nb][1] *= k2.y;
+          vsc[nb][0] = v2.x;
+          vsc[nb][1] = v2.y;
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = sc[mt][nb][e];
+            x *= f[nb][e & 1];
+            if (edge) {
+              const int t = t0 + nb * 8 + 2 * quad + (e & 1);
+              if (t < row_lo_[mt][e >> 1] || t > row_p[mt][e >> 1]) x = kNegInf;
+            }
+          }
+      // online softmax per row
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float mx = fmaxf(fmaxf(sc[mt][0][2 * hh], sc[mt][0][2 * hh + 1]),
+                           fmaxf(sc[mt][1][2 * hh], sc[mt][1][2 * hh + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+          const float m_new = fmaxf(m_r[mt][hh], mx);
+          const float corr = exp2f(m_r[mt][hh] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[mt][nb][2 * hh + e];
+              x = x == kNegInf ? 0.f : exp2f(x - m_new);
+              sum += x;
+            }
+          sum += __shfl_xor_sync(kFull, sum, 1);
+          sum += __shfl_xor_sync(kFull, sum, 2);
+          l_r[mt][hh] = l_r[mt][hh] * corr + sum;
+          m_r[mt][hh] = m_new;
+#pragma unroll
+          for (int dt = 0; dt < kDV / 8; ++dt) {
+            o[mt][dt][2 * hh] *= corr;
+            o[mt][dt][2 * hh + 1] *= corr;
+          }
+        }
+      // O += P V with P = hi + lo (two bf16 mma; code pools: P times the
+      // token's V scale first): the score accumulators are the A fragment
+      uint32_t ph[kMT][4], pl[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (kCodes) {
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mt][nb][e] *= vsc[nb][e & 1];
+        }
+        split_bf16x2(sc[mt][0][0], sc[mt][0][1], ph[mt][0], pl[mt][0]);
+        split_bf16x2(sc[mt][0][2], sc[mt][0][3], ph[mt][1], pl[mt][1]);
+        split_bf16x2(sc[mt][1][0], sc[mt][1][1], ph[mt][2], pl[mt][2]);
+        split_bf16x2(sc[mt][1][2], sc[mt][1][3], ph[mt][3], pl[mt][3]);
+      }
+      if constexpr (!kCodes) {
+#pragma unroll
+        for (int dt = 0; dt < kDV / 8; dt += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + vb_off + dt * 16);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(o[mt][dt], ph[mt], vb[0], vb[1]);
+            mma_bf16(o[mt][dt], pl[mt], vb[0], vb[1]);
+            mma_bf16(o[mt][dt + 1], ph[mt], vb[2], vb[3]);
+            mma_bf16(o[mt][dt + 1], pl[mt], vb[2], vb[3]);
+          }
+        }
+      } else {
+        // V's B fragments straight from the codes: tokens 2quad, 2quad + 1
+        // (b0) and 2quad + 8, 2quad + 9 (b1); output column n of block dt is
+        // head dim d0 + (kDV / 8) n + dt, so thread gq's codes are the
+        // kDV/8 bytes of each of its 4 tokens at byte (kDV / 8) gq
+        const unsigned char* vrow = vs_p + (kDV / 8) * gq;
+        Words<kDV / 32> va, vb2, vc, vd;
+        va.load(vrow + (2 * quad) * G::kVRow);
+        vb2.load(vrow + (2 * quad + 1) * G::kVRow);
+        vc.load(vrow + (2 * quad + 8) * G::kVRow);
+        vd.load(vrow + (2 * quad + 9) * G::kVRow);
+#pragma unroll
+        for (int dt = 0; dt < kDV / 8; ++dt) {
+          const int w = dt >> 2, k = dt & 3;
+          const uint32_t b0 = codes_bf16x2<KT>(byte_pair(va.w[w], vb2.w[w], k));
+          const uint32_t b1 = codes_bf16x2<KT>(byte_pair(vc.w[w], vd.w[w], k));
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_bf16(o[mt][dt], ph[mt], b0, b1);
+            mma_bf16(o[mt][dt], pl[mt], b0, b1);
+          }
+        }
+      }
+    }
+    __syncwarp();                    // the stage is refilled next iteration
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();                   // q and the ring are idle: fold area
+
+  // fold the 4 warps in warp order: (m, l) per row, then acc
+  float* ml_s = reinterpret_cast<float*>(smem);                // [warp][kRows][2]
+  float* acc_s = ml_s + kWarps * kRows * 2;                    // [warp][kRows][kAccRow]
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * mt + gq + 8 * hh;
+      if (quad == 0) {
+        ml_s[(warp * kRows + r) * 2] = m_r[mt][hh];
+        ml_s[(warp * kRows + r) * 2 + 1] = l_r[mt][hh];
+      }
+      float* row = acc_s + (warp * kRows + r) * G::kAccRow;
+#pragma unroll
+      for (int dt = 0; dt < kDV / 8; ++dt) {
+        if constexpr (!kCodes) {
+          *reinterpret_cast<float2*>(row + dt * 8 + 2 * quad) =
+              make_float2(o[mt][dt][2 * hh], o[mt][dt][2 * hh + 1]);
+        } else {
+          row[(kDV / 8) * (2 * quad) + dt] = o[mt][dt][2 * hh];
+          row[(kDV / 8) * (2 * quad + 1) + dt] = o[mt][dt][2 * hh + 1];
+        }
+      }
+    }
+  __syncthreads();
+  const size_t part = (size_t)bg * n_splits + split;
+  for (int i = tid; i < R * kDV; i += kThreads) {
+    const int r = i / kDV, d = i % kDV;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml_s[(w * kRows + r) * 2]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(ml_s[(w * kRows + r) * 2] - mx);
+      l += ml_s[(w * kRows + r) * 2 + 1] * wt;
+      a += acc_s[(w * kRows + r) * G::kAccRow + d] * wt;
+    }
+    ws_pv[(part * R + r) * D + d0 + d] = a;
+    if (d == 0) {                      // the kDS CTAs of a split write the same
+      ws_ml[(part * R + r) * 2] = mx;
+      ws_ml[(part * R + r) * 2 + 1] = l;
+    }
+  }
+
+  // the last CTA of (b, g) to finish folds each row's splits in split order
+  __threadfence();
+  __syncthreads();
+  __shared__ int is_last;
+  const int s_first = lo_min / kSplitPos, s_last = hi_max / kSplitPos;
+  if (tid == 0)                        // one arrival per CTA with a tile
+    is_last = atomicAdd(counters + bg, 1) == (s_last - s_first + 1) * kDS - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // per row: its max over its splits, then l and each split's weight
+  // exp2(m_s - m) (kept in shared memory, idle now, when it fits), in order
+  const size_t part0 = (size_t)bg * n_splits;
+  const int ns = s_last - s_first + 1;
+  float* m_s = reinterpret_cast<float*>(smem);
+  float* l_s = m_s + kRows;
+  float* w_s = l_s + kRows;                        // [R][ns]
+  const bool w_fits = (2 * kRows + R * ns) * 4 <= G::kSmem;
+  for (int r = tid; r < R; r += kThreads) {
+    const int c = r / rep;
+    const int s0 = row_lo(st + c, window) / kSplitPos, s1 = min(st + c, cap) / kSplitPos;
+    const float* ml = ws_ml + (part0 * R + r) * 2;
+    float mx = kNegInf;
+#pragma unroll 8
+    for (int sp = s0; sp <= s1; ++sp) mx = fmaxf(mx, __ldcg(ml + (size_t)sp * R * 2));
+    float l = 0.f;
+#pragma unroll 8
+    for (int sp = s0; sp <= s1; ++sp) {
+      const float2 x = __ldcg(reinterpret_cast<const float2*>(ml + (size_t)sp * R * 2));
+      const float wt = exp2f(x.x - mx);
+      l += x.y * wt;
+      if (w_fits) w_s[r * ns + sp - s_first] = wt;
+    }
+    m_s[r] = mx;
+    l_s[r] = l;
+  }
+  __syncthreads();
+  // acc: 4 adjacent columns a thread, the row's splits left to right
+  for (int i = tid; i < R * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+    const int c = r / rep;
+    const int s0 = row_lo(st + c, window) / kSplitPos, s1 = min(st + c, cap) / kSplitPos;
+    const float* src = ws_pv + (part0 * R + r) * D + d;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 8
+    for (int sp = s0; sp <= s1; ++sp) {
+      const float wt = w_fits ? w_s[r * ns + sp - s_first]
+                              : exp2f(__ldcg(ws_ml + ((part0 + sp) * R + r) * 2) - m_s[r]);
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(src + (size_t)sp * R * D));
+      a0 += x.x * wt;
+      a1 += x.y * wt;
+      a2 += x.z * wt;
+      a3 += x.w * wt;
+    }
+    const float l = fmaxf(l_s[r], 1e-30f);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a0 / l, a1 / l);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(a2 / l, a3 / l);
+    uint2 v;
+    v.x = *reinterpret_cast<const uint32_t*>(&lo);
+    v.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + (((size_t)b * C + c) * kvh * rep + (size_t)g * rep +
+                                     r % rep) * D + d) = v;
+  }
+  if (tid == 0) counters[bg] = 0;    // ready for the next call
+}
+
+}  // namespace tc
+
+template <typename KT, int D, int kMT, int kDS>
+cudaError_t launch_tc_rows(const Args& a, int* counters) {
+  using G = tc::Cfg<KT, D, kMT, kDS>;
+  auto kernel = tc::exact_tc<KT, D, kMT, kDS>;
+  cudaError_t e = set_smem(kernel, G::kSmem);
+  if (e != cudaSuccess) return e;
+  const int n_splits = (a.n_blocks * a.page + tc::kSplitPos - 1) / tc::kSplitPos;
+  kernel<<<dim3(n_splits * kDS, a.kvh, a.B), tc::kThreads, G::kSmem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), a.ks, a.vs, a.table, a.start,
+      static_cast<__nv_bfloat16*>(a.out), a.ws_pv, a.ws_s, counters, a.C, a.kvh, a.rep,
+      a.page, a.n_blocks, a.window, a.scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <typename KT, int D>
+cudaError_t launch_tc(const Args& a, int* counters) {
+  const int R = a.C * a.rep;
+  return R <= 16 ? launch_tc_rows<KT, D, 1, 1>(a, counters)
+         : R <= 32 ? launch_tc_rows<KT, D, 2, 1>(a, counters)
+                   : launch_tc_rows<KT, D, 4, 2>(a, counters);
+}
+
+template <typename KT>
+cudaError_t dispatch_tc(int D, const Args& a, int* counters) {
+  switch (D) {
+    case 64: return launch_tc<KT, 64>(a, counters);
+    case 128: return launch_tc<KT, 128>(a, counters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -508,17 +1140,24 @@ extern "C" {
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8 (pools
 // only; q is 0 or 1).  Code pools (2, 3) need k_scales/v_scales (P, page,
 // KVH) f32; dense pools take null there.  q and out are (B, C, H, D);
-// ws_s: (B, KVH, C * rep, n_blocks * page) f32 and ws_pv: (B, KVH,
-// n_chunks, C * rep, D) f32 scratch, n_chunks = ceil(n_blocks * page /
-// 128).  page must divide 64.  Returns a cudaError_t (0 = ok).
+// n_chunks = ceil(n_blocks * page / 128).  variant (chosen by the host):
+//   0  CUDA cores, four launches; ws_s: (B, KVH, C * rep, n_blocks * page)
+//      f32 and ws_pv: (B, KVH, n_chunks, C * rep, D) f32 scratch; page
+//      must divide 64;
+//   1  tensor cores, one launch, bf16 q over bf16/fp8/int8 pools, D 64/128,
+//      page a multiple of 16; ws_pv: (B, KVH, n_splits, C * rep, D) f32 and
+//      ws_s: (B, KVH, n_splits, C * rep, 2) f32 scratch, n_splits =
+//      ceil(n_blocks * page / 256); counters: B KVH int32, zero before the
+//      call and zero again after it.
+// Returns a cudaError_t (0 = ok).
 int paged_exact_attention(const void* q, const void* k_pages, const void* v_pages,
                           const void* k_scales, const void* v_scales,
                           const void* page_table, const void* start, void* out,
-                          void* ws_s, void* ws_pv, int B, int C, int kvh, int rep, int D,
-                          int page, int n_blocks, int window, float scale, int q_dtype,
-                          int kv_dtype, void* stream) {
+                          void* ws_s, void* ws_pv, void* counters, int B, int C, int kvh,
+                          int rep, int D, int page, int n_blocks, int window, float scale,
+                          int q_dtype, int kv_dtype, int variant, void* stream) {
   if (B < 1 || C < 1 || kvh < 1 || rep < 1 || C * rep > kMaxRows || page < 1 ||
-      kScoreChunkPos % page != 0 || n_blocks < 1)
+      n_blocks < 1 || B > 65535 || kvh > 65535)
     return (int)cudaErrorInvalidValue;
   const bool quantized = kv_dtype == 2 || kv_dtype == 3;
   if (quantized != (k_scales != nullptr && v_scales != nullptr))
@@ -531,6 +1170,18 @@ int paged_exact_attention(const void* q, const void* k_pages, const void* v_page
                static_cast<float*>(ws_s), static_cast<float*>(ws_pv),
                B, C, kvh, rep, page, n_blocks, n_chunks, n_score_chunks, window, scale,
                static_cast<cudaStream_t>(stream)};
+  if (variant == 1) {
+    if (q_dtype != 1 || page % 16 != 0 || counters == nullptr)
+      return (int)cudaErrorInvalidValue;
+    int* cnt = static_cast<int*>(counters);
+    switch (kv_dtype) {
+      case 1: return (int)dispatch_tc<__nv_bfloat16>(D, a, cnt);
+      case 2: return (int)dispatch_tc<__nv_fp8_e4m3>(D, a, cnt);
+      case 3: return (int)dispatch_tc<int8_t>(D, a, cnt);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (variant != 0 || kScoreChunkPos % page != 0) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0) return (int)dispatch_kv<float>(kv_dtype, D, a);
   if (q_dtype == 1) return (int)dispatch_kv<__nv_bfloat16>(kv_dtype, D, a);
   return (int)cudaErrorInvalidValue;

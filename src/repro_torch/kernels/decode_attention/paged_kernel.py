@@ -5,23 +5,39 @@ The Hopper counterparts of the Pallas kernel
 over dense bf16/f32 pools and over fp8/int8 code pools with per-token f32
 scale pools, one per accumulator mode:
 
-  * ``accum="online"`` (``csrc/paged_decode.cu``): CTAs per (kv head,
-    slot, split) walk their share of the slot's live pages through the page
-    table, double-buffered in shared memory, with q and the f32
-    online-softmax state on chip; a second kernel folds the splits.  The
-    split count follows the batch, so a row's bits depend on its batch.
+  * ``accum="online"`` (``csrc/paged_decode.cu``): CTAs per (split, kv
+    head, slot) walk their share of the slot's live pages through the page
+    table with q and the f32 online-softmax state on chip.  The split count
+    follows the batch, so a row's bits depend on its batch.
   * ``accum="exact"`` (``csrc/paged_exact.cu``, the reference's
-    ``_exact_kernel``): scores staged in position order, one softmax over
-    the whole row, P.V over fixed position chunks folded in order — every
-    sum's order is fixed by the query's position alone.  Its multi-query
+    ``_exact_kernel``): every sum's order is fixed by the query's position
+    alone (fixed 128-position chunks folded in order).  Its multi-query
     entry ``paged_decode_multi_attention`` (C queries per slot) carries the
     speculative verify step.
 
-Each source's header says what bounds it and why it is built so.  The
-libraries are compiled from the repo's sources by ``nvcc`` at first use
-(``kernels/_build.py``) and called through ``ctypes`` on PyTorch's current
-stream.  The wrappers check every tensor before the launch and raise on a
-refused launch; they never fall back to the plain versions (``ref.py``).
+Each source holds two kernels, picked by ``variant`` before the launch by
+dtype, head dim and page size, never on failure:
+
+  * ``"tensor_core"`` — bf16 q over bf16, fp8 or int8 pools at D 64/128
+    with a page that is a multiple of 16 (the serve paths): one launch,
+    scores and P.V on ``mma.sync`` (fp8/int8 codes converted to bf16 as the
+    fragments form), and the last CTA of each (slot, kv head) folds the
+    partial states, found through a per-kernel, per-device integer counter
+    array (``_counters``) that it leaves at zero;
+  * ``"cuda_core"`` — f32 q or pools (the parity checks), D 256, other
+    pages: the first versions' CUDA-core kernels (two launches online, four
+    exact).
+
+Calls on one device share its counters, so tensor-core launches on two
+streams of one device at once are not supported (the port issues every
+launch on the current stream).  Each source's header says what bounds it
+and why it is built so.  The libraries are compiled from the repo's
+sources by ``nvcc`` at first use (``kernels/_build.py``) and called through
+``ctypes`` on PyTorch's current stream.  The wrappers check every tensor
+before the launch and raise on a refused launch; they never fall back to
+the plain versions (``ref.py``).  Each launch adds one to
+``kernels.LAUNCHES`` under the kernel's name and to
+``kernels.VARIANT_LAUNCHES`` under ``"<name>:<variant>"``.
 """
 from __future__ import annotations
 
@@ -32,7 +48,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
 from repro_torch.kernels._build import build
 
 NAME = "paged_decode_attention"
@@ -43,20 +59,26 @@ EXACT_SOURCE = Path(__file__).parent / "csrc" / "paged_exact.cu"
 EXACT_MAX_ROWS = 64               # kMaxRows: C * rep per (slot, kv head)
 EXACT_CHUNK = 128                 # kChunkPos: positions per P.V chunk
 EXACT_SCORE_CHUNK = 64            # kScoreChunkPos: the page size divides it
+EXACT_SPLIT = 256                 # tc::kSplitPos: positions per partial, tensor cores
 HEAD_DIMS = (64, 128, 256)
 MAX_REP = 16                      # kMaxRep in the source
 SMEM_LIMIT = 232448               # bytes of shared memory a block may use
+TILE = 64                         # tc::kTile: tokens per tile, online kernel
+TC_HEAD_DIMS = (64, 128)          # head dims of the tensor-core kernels
+TC_PAGE_MULTIPLE = 16             # their page: a multiple of 16 tokens
+VARIANTS = {"cuda_core": 0, "tensor_core": 1}   # codes of the C entry points
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CODE_DTYPES = {torch.float8_e4m3fn: 2, torch.int8: 3}   # need scale pools
 _POOL_DTYPE_CODES = {**_DTYPE_CODES, **_CODE_DTYPES}
+_COUNTERS: dict[tuple[str, int], torch.Tensor] = {}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build("paged_decode", [SOURCE])
     fn = lib.paged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
@@ -67,8 +89,8 @@ def _lib() -> ctypes.CDLL:
 def _exact_lib() -> ctypes.CDLL:
     lib = build("paged_exact", [EXACT_SOURCE])
     fn = lib.paged_exact_attention
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.paged_exact_error_string.argtypes = [ctypes.c_int]
     lib.paged_exact_error_string.restype = ctypes.c_char_p
@@ -81,10 +103,45 @@ def _num_sms(device_index: int) -> int:
 
 
 def num_splits(b: int, kvh: int, n_blocks: int, sms: int) -> int:
-    """CTAs per (kv head, slot): enough for about four per SM across the
-    batch, with at least two pages per split."""
+    """CUDA-core kernel's CTAs per (kv head, slot): enough for about four
+    per SM across the batch, with at least two pages per split."""
     want = -(-4 * sms // (b * kvh))
     return max(1, min(want, -(-n_blocks // 2)))
+
+
+def split_count(kind: str, b: int, kvh: int, n_blocks: int, page: int,
+                sms: int) -> int:
+    """The online launch's split count, from the table's width.  Tensor
+    cores: as many as one wave holds (two CTAs an SM, by their shared
+    memory; rounded down, so no CTA waits for a second wave), at most one
+    per 64-token tile of the table.  CUDA cores: the first version's rule."""
+    if kind == "tensor_core":
+        return max(1, min(2 * sms // (b * kvh), -(-n_blocks * page // TILE)))
+    return num_splits(b, kvh, n_blocks, sms)
+
+
+def variant(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
+            page: int) -> str:
+    """The kernel a call launches, online or exact: "tensor_core" for bf16
+    q over bf16, fp8 or int8 pools at D 64/128 with a page that is a
+    multiple of 16; "cuda_core" for every other pairing and shape the
+    wrappers take."""
+    if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
+            and d in TC_HEAD_DIMS and page % TC_PAGE_MULTIPLE == 0):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _counters(kernel: str, dev: torch.device, n: int) -> torch.Tensor:
+    """The (slot, kv head) arrival counters of a tensor-core kernel
+    (``kernel``: "online" or "exact") on ``dev``: one array per kernel and
+    device, at least ``n`` = B x KVH long, zeroed here when it is made and
+    left at zero by every launch."""
+    cnt = _COUNTERS.get((kernel, dev.index))
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+        _COUNTERS[(kernel, dev.index)] = cnt
+    return cnt
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -172,17 +229,21 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _, page, kvh, _ = k_pages.shape
     _check(h // kvh <= MAX_REP,
            f"{h} heads over {kvh} kv heads (at most {MAX_REP} per kv head)")
-    rep = h // kvh       # shared memory: q, scores, state, 2 K/V page buffers
-    smem = 4 * (rep * d + rep * page + 3 * rep + 3) + 4 * page * d * \
-        k_pages.element_size() + (4 * page * 4 if quantized else 0)
-    _check(smem <= SMEM_LIMIT, f"page {page} x head dim {d} needs {smem} B of "
-           f"shared memory (limit {SMEM_LIMIT})")
+    rep = h // kvh
+    kind = variant(q.dtype, k_pages.dtype, d, page)
+    if kind == "cuda_core":   # shared memory: q, scores, state, 2 pages
+        smem = 4 * (rep * d + rep * page + 3 * rep + 3) + 4 * page * d * \
+            k_pages.element_size() + (4 * page * 4 if quantized else 0)
+        _check(smem <= SMEM_LIMIT, f"page {page} x head dim {d} needs {smem} "
+               f"B of shared memory (limit {SMEM_LIMIT})")
 
     n_blocks = page_table.shape[1]
-    n_split = num_splits(b, kvh, n_blocks, _num_sms(dev.index))
+    n_split = split_count(kind, b, kvh, n_blocks, page, _num_sms(dev.index))
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     ws_acc = torch.empty((b, h, n_split, d), dtype=torch.float32, device=dev)
     ws_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32, device=dev)
+    counters = (_counters("online", dev, b * kvh).data_ptr()
+                if kind == "tensor_core" else None)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -191,13 +252,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            ws_acc.data_ptr(), ws_ml.data_ptr(), b, kvh, rep, d, page,
-            n_blocks, n_split, window or 0, 1.0 / math.sqrt(d),
-            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype], stream)
+            ws_acc.data_ptr(), ws_ml.data_ptr(), counters, b, kvh, rep, d,
+            page, n_blocks, n_split, window or 0, 1.0 / math.sqrt(d),
+            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype],
+            VARIANTS[kind], stream)
     if err != 0:
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f"{NAME} launch failed: {msg} (cudaError {err})")
-    LAUNCHES[NAME_SCALED if quantized else NAME] += 1
+    name = NAME_SCALED if quantized else NAME
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[f"{name}:{kind}"] += 1
     return out
 
 
@@ -215,7 +279,8 @@ def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
     window); start (B,) int32; pools, scales and table as in
     ``paged_decode_attention``, whose ``accum="exact"`` is this entry with
     C = 1.  C * rep must be at most ``EXACT_MAX_ROWS`` and the page size
-    must divide ``EXACT_SCORE_CHUNK``.  The table's blocks through
+    must be a multiple of 16 (the tensor-core kernel) or divide
+    ``EXACT_SCORE_CHUNK`` (the CUDA-core one).  The table's blocks through
     ``(start + C - 1) // page`` must name pages of the pool."""
     quantized = _check_inputs(q, k_pages, v_pages, page_table, start,
                               k_scales, v_scales, window, 4)
@@ -226,22 +291,32 @@ def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check(c * rep <= EXACT_MAX_ROWS,
            f"{c} queries x {rep} heads per kv head = {c * rep} rows (at most "
            f"{EXACT_MAX_ROWS})")
-    _check(EXACT_SCORE_CHUNK % page == 0,
-           f"page {page} does not divide {EXACT_SCORE_CHUNK}")
+    kind = variant(q.dtype, k_pages.dtype, d, page)
     n_blocks = page_table.shape[1]
     s_len = n_blocks * page
-    n_chunks = -(-s_len // EXACT_CHUNK)
-    rows = next(r for r in (8, 16, 32, 64) if c * rep <= r)   # kRows
-    stage = 2 * page * d * k_pages.element_size() + (8 * page if quantized
-                                                      else 0)
-    smem = max(4 * (c * rep * d + 3) + stage,
-               4 * EXACT_CHUNK * (rows + 4) + stage)
-    _check(smem <= SMEM_LIMIT, f"{c * rep} rows x head dim {d} need {smem} B "
-           f"of shared memory (limit {SMEM_LIMIT})")
+    if kind == "cuda_core":
+        n_parts = -(-s_len // EXACT_CHUNK)
+        _check(EXACT_SCORE_CHUNK % page == 0,
+               f"page {page} does not divide {EXACT_SCORE_CHUNK}")
+        rows = next(r for r in (8, 16, 32, 64) if c * rep <= r)   # kRows
+        stage = 2 * page * d * k_pages.element_size() + (8 * page if quantized
+                                                          else 0)
+        smem = max(4 * (c * rep * d + 3) + stage,
+                   4 * EXACT_CHUNK * (rows + 4) + stage)
+        _check(smem <= SMEM_LIMIT, f"{c * rep} rows x head dim {d} need "
+               f"{smem} B of shared memory (limit {SMEM_LIMIT})")
+        # the f32 scores of every (query row, position)
+        ws_s = torch.empty((b, kvh, c * rep, s_len), dtype=torch.float32,
+                           device=dev)
+        counters = None
+    else:                 # each split's (m, l) of every query row
+        n_parts = -(-s_len // EXACT_SPLIT)
+        ws_s = torch.empty((b, kvh, n_parts, c * rep, 2),
+                           dtype=torch.float32, device=dev)
+        counters = _counters("exact", dev, b * kvh).data_ptr()
     out = torch.empty((b, c, h, d), dtype=q.dtype, device=dev)
-    ws_s = torch.empty((b, kvh, c * rep, s_len), dtype=torch.float32,
-                       device=dev)
-    ws_pv = torch.empty((b, kvh, n_chunks, c * rep, d), dtype=torch.float32,
+    # each chunk's (CUDA cores) or split's (tensor cores) partial P.V
+    ws_pv = torch.empty((b, kvh, n_parts, c * rep, d), dtype=torch.float32,
                         device=dev)
     lib = _exact_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -251,12 +326,14 @@ def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
             page_table.data_ptr(), start.data_ptr(), out.data_ptr(),
-            ws_s.data_ptr(), ws_pv.data_ptr(), b, c, kvh, rep, d, page,
-            n_blocks, window or 0, 1.0 / math.sqrt(d),
-            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype], stream)
+            ws_s.data_ptr(), ws_pv.data_ptr(), counters, b, c, kvh, rep, d,
+            page, n_blocks, window or 0, 1.0 / math.sqrt(d),
+            _DTYPE_CODES[q.dtype], _POOL_DTYPE_CODES[k_pages.dtype],
+            VARIANTS[kind], stream)
     if err != 0:
         msg = lib.paged_exact_error_string(err).decode()
         raise RuntimeError(f"{NAME_EXACT} launch failed: {msg} "
                            f"(cudaError {err})")
     LAUNCHES[NAME_EXACT] += 1
+    VARIANT_LAUNCHES[f"{NAME_EXACT}:{kind}"] += 1
     return out

@@ -21,6 +21,7 @@ from repro.configs import get_config, reduced_config
 from repro.models.model import build_model
 from repro.runtime.llm import LLMEngine as RefLLM
 from repro.runtime.sampling import SamplingParams as RefSP
+from repro.runtime.speculative import SpeculativeConfig as RefSpecConfig
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.runtime.llm import LLMEngine
@@ -131,6 +132,38 @@ def test_generate_matches_reference(models):
                                  for kw in sps])
     assert [o.token_ids for o in got] == [o.token_ids for o in want]
     assert llm.last_stats.steps > 0
+
+
+@pytest.mark.parametrize("gamma", [None, 3])
+def test_stop_token_ids_match_reference(models, gamma):
+    """Continuous ``stop_token_ids``, greedy and sampled, plain and under
+    ``speculative=`` (self-draft, gamma 3, where a stop token may land
+    inside an accepted window): each request's stop token is the fourth
+    token of the reference's unstopped stream (an id that is never emitted
+    rides along), and the finish reasons and streams equal the
+    reference's."""
+    cfg, ref, ref_params, port = models
+    prompts = _prompts(cfg.vocab_size)[:4]
+    kws = [dict(), dict(temperature=0.9, top_k=8, seed=7)] * 2
+    ref_kw = dict(speculative=RefSpecConfig(gamma=gamma)) if gamma else {}
+    kw = dict(speculative=SpeculativeConfig(gamma=gamma)) if gamma else {}
+    free = RefLLM(ref, ref_params, cache_dtype=jnp.float32, **ref_kw,
+                  **ENGINE).generate(prompts, [RefSP(max_tokens=10, **k)
+                                               for k in kws])
+    stops = [(int(o.token_ids[3]), cfg.vocab_size + 7) for o in free]
+    want = RefLLM(ref, ref_params, cache_dtype=jnp.float32, **ref_kw,
+                  **ENGINE).generate(prompts, [
+                      RefSP(max_tokens=10, stop_token_ids=st, **k)
+                      for k, st in zip(kws, stops)])
+    got = LLMEngine(port, device="cpu", cache_dtype=torch.float32, **kw,
+                    **ENGINE).generate(prompts, [
+                        SamplingParams(max_tokens=10, stop_token_ids=st, **k)
+                        for k, st in zip(kws, stops)])
+    assert all(o.finish_reason == "stop" for o in want)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert (g.token_ids, g.finish_reason) == (w.token_ids,
+                                                   w.finish_reason), i
+        assert g.token_ids[-1] == stops[i][0]
 
 
 @pytest.mark.parametrize("kwargs,item", [

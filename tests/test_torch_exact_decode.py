@@ -3,8 +3,11 @@ attention): the port's plain multi-query oracle against the JAX
 reference's oracle (C = 1 and 5 queries per slot, sliding window, fp8 and
 int8 code pools, a poisoned tail) and, at C = 1, against the reference's
 Pallas ``accum="exact"`` kernel in interpret mode; the op's ``impl``
-dispatch; and, where there is a card, the CUDA kernel against its plain
-version with its bitwise invariance contract.
+dispatch; the kernel wrapper's pure-Python routing (variant, counter
+arrays) and the tensor-core kernel's arithmetic (per-chunk softmax, P as
+bf16 hi + lo, chunks folded in order) emulated in torch; and, where there
+is a card, the CUDA kernels against their plain version with the bitwise
+invariance contract.
 
 Tolerance 1e-6 absolute in f32, not bitwise: on jax 0.9 the reference's own
 bitwise exact-mode tests fail (its interpret kernel is 2e-7 to 1e-6 off its
@@ -23,7 +26,7 @@ from repro.kernels.decode_attention.paged_kernel import (
 from repro.kernels.decode_attention.ref import (
     paged_decode_multi_attention_ref as jax_multi_ref,
 )
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
 from repro_torch.kernels.decode_attention import ops, paged_kernel
 from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref, paged_decode_multi_attention_ref,
@@ -249,3 +252,146 @@ def test_cuda_exact_kernel_matches_ref_and_is_invariant(pools, window):
             q[b:b + 1].contiguous(), kt, vt, wide[b:b + 1].contiguous(),
             start[b:b + 1].contiguous(), **kw)
         assert torch.equal(alone[0], out[b])
+
+
+def test_variant_choice():
+    """The exact entry routes as the online one: bf16 q over bf16, fp8 or
+    int8 pools at D 64/128 with a page that is a multiple of 16 (also one
+    the CUDA-core kernel refuses, such as 48) takes the one-launch
+    tensor-core kernel; f32 q or pools (the parity checks, the card's f32
+    speculative streams), D 256 and pages of 8 or fewer keep the
+    four-launch kernel."""
+    v = paged_kernel.variant
+    bf, f32 = torch.bfloat16, torch.float32
+    for pool in (bf, torch.float8_e4m3fn, torch.int8):
+        assert [v(bf, pool, 128, p) for p in (16, 32, 48)] == \
+            ["tensor_core"] * 3
+        assert v(bf, pool, 64, 16) == "tensor_core"
+        assert v(f32, pool, 128, 16) == "cuda_core"
+        assert v(bf, pool, 256, 16) == "cuda_core"
+        assert v(bf, pool, 128, 8) == "cuda_core"
+    assert v(bf, f32, 128, 16) == v(f32, f32, 128, 16) == "cuda_core"
+
+
+def test_exact_counter_array_is_its_own(monkeypatch):
+    """The exact kernel's arrival counters are not the online kernel's:
+    the verify step's launch and the draft steps' never share an array."""
+    monkeypatch.setattr(paged_kernel, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    exact = paged_kernel._counters("exact", dev, 4 * 8)
+    online = paged_kernel._counters("online", dev, 4 * 8)
+    assert exact is not online
+    assert exact.numel() == 32 and exact.dtype == torch.int32
+    assert int(exact.abs().sum()) == 0
+    assert paged_kernel._counters("exact", dev, 32) is exact
+
+
+def _emulate_exact_tensor_core(q, k, v, table, start, page, window=None):
+    """The tensor-core exact kernel's arithmetic in torch (bf16 pools):
+    per query row, each absolute 128-position chunk it sees gets its own
+    max m_c, p = exp2(s - m_c) and l_c; P as bf16 hi + lo times V; the
+    chunks' (m_c, l_c, acc_c) are folded in chunk order (max first, then
+    rescaled sums left to right) and divided."""
+    b_, c_, h, d = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    cl2 = 1.0 / np.sqrt(d) * np.log2(np.e)
+    bf = torch.bfloat16
+    out = torch.empty((b_, c_, h, d), dtype=torch.float32)
+    for bi in range(b_):
+        for c in range(c_):
+            p = int(start[bi]) + c
+            lo = 0 if window is None else max(0, p - window + 1)
+            toks = torch.arange(lo, p + 1)
+            phys = table[bi, toks // page].long()
+            for g in range(kvh):
+                kk = k[phys, toks % page, g].float()
+                vv = v[phys, toks % page, g].float()
+                for i in range(rep):
+                    s = (q[bi, c, g * rep + i].float() @ kk.T) * cl2
+                    parts = []
+                    for ch in range(lo // 128, p // 128 + 1):
+                        sel = (toks >= ch * 128) & (toks < ch * 128 + 128)
+                        m_c = s[sel].max()
+                        pc = torch.exp2(s[sel] - m_c)
+                        hi = pc.to(bf).float()
+                        lo_ = (pc - hi).to(bf).float()
+                        parts.append((m_c, pc.sum(),
+                                      hi @ vv[sel] + lo_ @ vv[sel]))
+                    m = max(x[0] for x in parts)
+                    l = sum(x[1] * torch.exp2(x[0] - m) for x in parts)
+                    a = sum(x[2] * torch.exp2(x[0] - m) for x in parts)
+                    out[bi, c, g * rep + i] = a / l
+    return out
+
+
+def test_tensor_core_exact_arithmetic():
+    """The per-chunk softmax with P as bf16 hi + lo and the chunks folded
+    in order keeps f32 precision (within 1e-5 of the plain version before
+    the output's rounding) and, rounded to bf16, the card check's limit of
+    2^-7 |ref| + 1e-4 per element; rows span several 128-position chunks
+    and a window cuts one mid-chunk."""
+    q, kp, vp, table, start = _case(14, 2, 3, 8, 2, 64, 16, 20)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp))
+    tt, st = torch.from_numpy(table), torch.from_numpy(start)
+    for window in (None, 150):
+        got = _emulate_exact_tensor_core(qb, kb, vb, tt, st, 16, window)
+        ref32 = paged_decode_multi_attention_ref(
+            qb.float(), kb.float(), vb.float(), tt, st, window=window)
+        assert (got - ref32).abs().max().item() < 1e-5
+        ref = paged_decode_multi_attention_ref(qb, kb, vb, tt, st,
+                                               window=window)
+        assert _ulp_share(got.to(torch.bfloat16), ref) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pools", ["bfloat16", "fp8", "int8"])
+@pytest.mark.parametrize("h,kvh,d,page", [
+    (32, 8, 128, 16),          # llama3-8b
+    (40, 8, 128, 16),          # rep 5: C 5 x rep 5 = 25 rows
+    (16, 4, 64, 16),           # D 64
+    (32, 8, 128, 32),          # page 32
+    (64, 8, 128, 16),          # rep 8: 40 rows, the 64-row M tile
+])
+@pytest.mark.parametrize("window", [None, 1, 1000])
+def test_cuda_tensor_core_exact_matches_ref_and_is_invariant(pools, h, kvh,
+                                                             d, page, window):
+    """The one-launch tensor-core exact kernel against its plain version on
+    the card (each bf16 output within one bf16 ulp + 1e-4), launched as the
+    tensor-core variant, leaving its counters at zero, and its contract bit
+    for bit: query j of a C = 5 launch equals a C = 1 launch at start + j,
+    and row b of a B = 8 launch equals the row alone with a wider table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, kp, vp, table, start = _case(15, 8, 5, h, kvh, d, page,
+                                    4096 // page + 2)
+    q = torch.from_numpy(q).cuda().to(torch.bfloat16)
+    table, start = torch.from_numpy(table).cuda(), torch.from_numpy(start).cuda()
+    scales = {}
+    if pools == "bfloat16":
+        kt, vt = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+                  for a in (kp, vp))
+    else:
+        kt, vt, ks, vs = (t.cuda() for t in _code_pools(kp, vp, pools))
+        scales = dict(k_scales=ks, v_scales=vs)
+    kw = dict(window=window, **scales)
+    key = f"{paged_kernel.NAME_EXACT}:tensor_core"
+    before = VARIANT_LAUNCHES[key]
+    out = paged_kernel.paged_decode_multi_attention(q, kt, vt, table, start,
+                                                    **kw)
+    ref = paged_decode_multi_attention_ref(q, kt, vt, table, start, **kw)
+    torch.cuda.synchronize()
+    assert VARIANT_LAUNCHES[key] == before + 1
+    assert _ulp_share(out, ref) <= 1.0
+    for j in range(5):
+        one = paged_kernel.paged_decode_multi_attention(
+            q[:, j:j + 1].contiguous(), kt, vt, table, start + j, **kw)
+        assert torch.equal(one[:, 0], out[:, j])
+    wide = torch.cat([table, torch.zeros_like(table)], dim=1)
+    for b in range(8):
+        alone = paged_kernel.paged_decode_multi_attention(
+            q[b:b + 1].contiguous(), kt, vt, wide[b:b + 1].contiguous(),
+            start[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], out[b])
+    cnt = paged_kernel._COUNTERS[("exact", q.device.index)]
+    assert int(cnt.abs().sum()) == 0

@@ -3,8 +3,10 @@ the sampling helpers of the draft/verify window (bit-equal uniforms, a
 tied-logit row), the acceptance rule's statistics, the continuous engine's
 ``speculative=`` mode (greedy and sampled streams and per-request
 acceptance counts, self-draft and a separate 1-layer draft, through forced
-preemption and a prefix hit), the multi-token decode's chunk-shaped layer
-path, the legacy ``LLMEngine(backend="speculative")``, and the refusals.
+preemption and a prefix hit; also over int8 and fp8 code pools, with and
+without mxfp4 weights, on reduced qwen3-14b), the multi-token decode's
+chunk-shaped layer path, the legacy ``LLMEngine(backend="speculative")``,
+and the refusals.
 
 Weights are cast to f32 on both sides and the page pools are f32 (see
 test_torch_engine.py: in bf16 a near-tied argmax of a random-weight model
@@ -22,6 +24,8 @@ import jax.numpy as jnp
 
 from repro.configs import get_config, reduced_config
 from repro.models.model import build_model
+from repro.quant import formats as jformats
+from repro.quant.linear import quantizable_leaf
 from repro.runtime import sampling as ref_sampling
 from repro.runtime.engine import ContinuousServeEngine as RefEngine
 from repro.runtime.llm import LLMEngine as RefLLM
@@ -289,6 +293,69 @@ def test_spec_greedy_equals_plain_engine_and_counters(models):
             assert o.metrics["spec_windows"] == \
                 got.per_request[o.rid]["spec_windows"]
     assert plain.spec_windows == 0
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    """Reduced qwen3-14b (qk-norm) with its projection weights round-tripped
+    through mxfp4, so that quantizing them again is idempotent (the
+    reference's ``served`` fixture), in f32 on both sides."""
+    cfg = reduced_config(get_config("qwen3-14b"))
+    ref = build_model(cfg)
+    params = ref.init(jax.random.PRNGKey(5))
+
+    def rt(path, leaf):
+        if quantizable_leaf(path, leaf, "mxfp4"):
+            p = jformats.quantize(leaf, "mxfp4")
+            return jformats.dequantize(p, "mxfp4").astype(leaf.dtype)
+        return leaf
+
+    params = jax.tree_util.tree_map_with_path(rt, params)
+    port = _bridge(params, tconfigs.reduced_config(
+        tconfigs.get_config("qwen3-14b")))
+    return cfg, ref, _f32(params), port
+
+
+CODE_ENGINE = dict(num_slots=3, page_size=4, max_len=48, prefill_chunk=8)
+
+
+@pytest.mark.parametrize("weight_format", [None, "mxfp4"])
+@pytest.mark.parametrize("cache", ["int8", "fp8"])
+def test_spec_code_pools_match_reference(qwen, cache, weight_format):
+    """Speculation (self-draft, gamma 3) over int8 and fp8 code pools, with
+    and without mxfp4 weights: a pool of 20 pages forces a preemption,
+    requests 2 and 4 repeat earlier requests' leading pages (prefix hits);
+    greedy and sampled streams, every request's windows and accepted
+    proposals, and the session's totals equal the reference's."""
+    cfg, ref, params, port = qwen
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, cfg.vocab_size, (3, 20))
+    prompts = [base[0], base[1], base[0][:18], base[2], base[1][:13]]
+    kws = [dict(), dict(temperature=0.9, top_k=8, top_p=0.95, seed=101),
+           dict(), dict(temperature=0.7, min_p=0.05, seed=5), dict()]
+    want = RefEngine(ref, params, num_pages=20, cache_dtype=cache,
+                     weight_format=weight_format,
+                     speculative=RefSpecConfig(gamma=GAMMA),
+                     **CODE_ENGINE).run([
+                         RefRequest(rid=i, prompt=p, max_new_tokens=8,
+                                    sampling=RefSP(**kw))
+                         for i, (p, kw) in enumerate(zip(prompts, kws))])
+    got = ContinuousServeEngine(
+        port, device="cpu", num_pages=20, cache_dtype=cache,
+        weight_format=weight_format, speculative=SpeculativeConfig(
+            gamma=GAMMA), **CODE_ENGINE).run([
+                Request(rid=i, prompt=p, max_new_tokens=8,
+                        sampling=SamplingParams(**kw))
+                for i, (p, kw) in enumerate(zip(prompts, kws))])
+    assert got.preemptions > 0, "the pool no longer forces a preemption"
+    assert got.prefix_hit_tokens > 0, "no prefix-cache hit"
+    assert got.spec_windows > 0
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(got.results[i], want.results[i])
+        for key in ("spec_windows", "spec_accepted"):
+            assert got.per_request[i][key] == want.per_request[i][key], key
+    assert (got.spec_windows, got.spec_drafted, got.spec_accepted) == (
+        want.spec_windows, want.spec_drafted, want.spec_accepted)
 
 
 def _prefix_session(eng, request_cls, sp, prompt):
