@@ -38,11 +38,19 @@ Phases, each of which fails the run if it fails:
    ulp + 1e-4 per element; f32 q: 1e-5) and timed at B 8, ctx 1024 and
    4096 beside SDPA on the dequantized bf16 view and a plain read of the
    codes and scales.
-3. kernel_mxfp4 — the MXFP4 VMM kernel against its plain version at the
-   four llama3-8b projection shapes for M 1, 8 and 256 plus a ragged M
-   and N, timed beside its bound and beside ``torch.matmul`` of x with the
-   pre-dequantized bf16 weight (a different function: it streams 3.76x the
-   bytes).
+3. kernel_mxfp4 — the MXFP4 VMM kernel against its plain version (f32
+   output within 1e-5 of max |out|; bf16 output == the f32 output rounded)
+   at the four llama3-8b projection shapes for M 1, 8, 16, 64, 256 and
+   2048 (both schedules: ``decode`` up to M 16, ``wgmma`` above; M 8 and
+   16 also forced onto ``wgmma``), the serve path's grouped launches (q/k/v
+   and gate/up, M 8 and 256), ragged M and N (the byte-copy path, single
+   and grouped) and E8M0 scales >= 128.  Each shape is timed beside its
+   bound, a plain read of its bytes (``stream_read_ms``) and
+   ``torch.matmul`` of x with the pre-dequantized bf16 weight (a different
+   function: it streams 3.76x the bytes); both schedules are timed at M 8
+   and 16 (the crossover); the headline is one llama3-8b layer at M 8 in
+   the serve path's four launches, and the same layer at M 256 is printed
+   beside the seven ``torch.matmul`` calls.
 4. kernel_flash — the flash-attention kernel against its plain version at
    llama3-8b prefill geometry (H 32, KVH 8, D 128): B 1 and 8 at
    Sq = Skv = 1024, a ragged S 1000, an MHA (rep 1) case, a D 64 case
@@ -107,8 +115,10 @@ Phases, each of which fails the run if it fails:
    a 1-token one): busy ms per step, idle share, time by kernel.
 10. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
    and ``cache_dtype="fp8"``: the same checks as serve, and the MXFP4
-   kernel must have run 7 x layers x (decode steps + prefill chunk calls)
-   times and the scale-pool decode kernel once per layer per decode step.
+   kernel must have run 4 x layers x (decode steps + prefill chunk calls)
+   times (q/k/v and gate/up grouped; the decode schedule on decode steps,
+   wgmma on prefill calls, ``kernels.VARIANT_LAUNCHES``) and the
+   scale-pool decode kernel once per layer per decode step.
 11. serve_spec — the serve phase's requests behind
    ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
    gamma=4))``, a self-draft: every request finishes, a second session
@@ -539,14 +549,22 @@ def kernel_scaled_phase(torch) -> dict:
 # llama3-8b projections (K, N), each with its count in one decoder layer
 PROJECTIONS = {"wq/wo": ((4096, 4096), 2), "wk/wv": ((4096, 1024), 2),
                "w_gate/w_up": ((4096, 14336), 2), "w_down": ((14336, 4096), 1)}
+# the serve path's four launches a layer: q/k/v and gate/up grouped
+LAYER_LAUNCHES = {"qkv": (4096, (4096, 1024, 1024)), "wo": (4096, (4096,)),
+                  "gate/up": (4096, (14336, 14336)), "w_down": (14336, (4096,))}
+VMM_ROWS = (1, 8, 16, 64, 256, 2048)   # decode steps to prefill chunk batches
+VMM_CROSSOVER_ROWS = (8, 16)           # both schedules timed
 
 
-def vmm_bound(m: int, k: int, n: int) -> tuple[float, str]:
-    """Codes (K/2 x N) and scales (K/32 x N) read once, bf16 x read once, bf16
-    out written once (the serve path's output); 2 M K N operations on bf16
-    tensor cores."""
-    nbytes = k * n // 2 + k * n // 32 + 2 * m * k + 2 * m * n
-    return roofline(nbytes, 2 * m * k * n, "bfloat16")
+def vmm_bytes(m: int, k: int, ns) -> int:
+    """Codes (K/2 x N) and scales (K/32 x N) of each weight and bf16 x read
+    once, bf16 outputs written once (the serve path's output)."""
+    return sum(k * n // 2 + k * n // 32 + 2 * m * n for n in ns) + 2 * m * k
+
+
+def vmm_bound(m: int, k: int, ns) -> tuple[float, str]:
+    """``vmm_bytes`` against 2 M K N operations on bf16 tensor cores."""
+    return roofline(vmm_bytes(m, k, ns), 2 * m * k * sum(ns), "bfloat16")
 
 
 def kernel_mxfp4_phase(torch) -> dict:
@@ -557,59 +575,139 @@ def kernel_mxfp4_phase(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     tol = 1e-5          # relative to max |out|: f32 sums in another order
-    shapes = [(m, k, n) for (k, n), _ in PROJECTIONS.values()
-              for m in (1, 8, 256)] + [(37, 544, 1000)]     # ragged M, N
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
-    timings, err_max = [], 0.0
-    for m, k, n in shapes:
-        w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(
-            torch.bfloat16)
-        p = formats.quantize_mxfp4(w)
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        out = vmm_kernel.mxfp4_vmm(x, p.codes, p.scales)
-        out16 = vmm_kernel.mxfp4_vmm(x, p.codes, p.scales, torch.bfloat16)
-        ref = mxfp4_vmm_ref(x, p.codes, p.scales)
-        torch.cuda.synchronize()
-        err = ((out - ref).abs().max() / ref.abs().max()).item()
-        print(f"  mxfp4_vmm vs plain: M={m} K={k} N={n}: max rel err "
-              f"{err:.3g} (tolerance {tol})")
-        if not err <= tol:
-            raise AssertionError(f"mxfp4_vmm disagrees with its plain "
-                                 f"version at {(m, k, n)}: {err}")
-        if not torch.equal(out16, out.to(torch.bfloat16)):  # same sums
-            raise AssertionError(f"mxfp4_vmm's bf16 output is not its f32 "
-                                 f"output rounded at {(m, k, n)}")
-        err_max = max(err_max, err)
+    weights = {}
+
+    def weight(k, n, scale=0.02):
+        if (k, n, scale) not in weights:
+            w = (torch.randn((k, n), generator=gen, device=dev) * scale)
+            weights[(k, n, scale)] = formats.quantize_mxfp4(w.to(torch.bfloat16))
+        return weights[(k, n, scale)]
+
+    def rows(m, k):
+        return torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+
+    err_max, checked = 0.0, []
+
+    def check(m, k, ns, variant=None, scale=0.02):
+        """Hold one launch (single or grouped) against the plain version
+        per weight: f32 out within ``tol`` of max |out|, bf16 out == f32
+        out rounded."""
+        nonlocal err_max
+        ps = [weight(k, n, scale) for n in ns]
+        x = rows(m, k)
+        ws = [(p.codes, p.scales) for p in ps]
+        out = vmm_kernel.mxfp4_vmm_group(x, ws, variant=variant)
+        out16 = vmm_kernel.mxfp4_vmm_group(x, ws, torch.bfloat16, variant)
+        sched = vmm_kernel.schedule(m, k, ns, vmm_kernel._num_sms(0), variant)
+        worst = 0.0
+        for o, o16, p in zip(out, out16, ps):
+            ref = mxfp4_vmm_ref(x, p.codes, p.scales)
+            torch.cuda.synchronize()
+            err = ((o - ref).abs().max() / ref.abs().max()).item()
+            if not err <= tol:
+                raise AssertionError(f"mxfp4_vmm ({sched.variant}) disagrees "
+                                     f"with its plain version at M={m} K={k} "
+                                     f"N={ns}: {err}")
+            if not torch.equal(o16, o.to(torch.bfloat16)):    # same sums
+                raise AssertionError(f"mxfp4_vmm's bf16 output is not its "
+                                     f"f32 output rounded at {(m, k, ns)}")
+            worst = max(worst, err)
+        err_max = max(err_max, worst)
+        checked.append({"M": m, "K": k, "N": list(ns),
+                        "schedule": sched.variant, "grid": sched.grid,
+                        "max_rel_err": worst})
+        print(f"  mxfp4_vmm vs plain: M={m} K={k} N={list(ns)} "
+              f"({sched.variant}, grid {sched.grid}"
+              f"{', E8M0 scales >= 128' if scale > 1 else ''}): max rel err "
+              f"{worst:.3g} (tolerance {tol})")
+
+    for (k, n), _ in PROJECTIONS.values():
+        for m in VMM_ROWS:
+            check(m, k, (n,))
+        for m in VMM_CROSSOVER_ROWS:
+            check(m, k, (n,), "wgmma")
+    for k, ns in LAYER_LAUNCHES.values():
+        for m in (8, 256):
+            check(m, k, ns)
+    check(37, 544, (1000,))                     # ragged M, N: byte copies
+    check(5, 544, (1000, 5))
+    check(300, 544, (1000, 5))
+    for m in (8, 256):                          # E8M0 scales >= 128
+        check(m, 4096, (1024,), scale=2.0 ** 20)
+
+    def timed(m, k, ns, variant=None):
+        ws = [(weight(k, n).codes, weight(k, n).scales) for n in ns]
+        x = rows(m, k)
+        return time_ms(torch, lambda: vmm_kernel.mxfp4_vmm_group(
+            x, ws, torch.bfloat16, variant), flush)
+
+    timings = []
+    for (k, n), _ in PROJECTIONS.values():
+        p = weight(k, n)
         w_bf16 = formats.dequantize_mxfp4(p, torch.bfloat16)
-        # timed as the serve path calls it: bf16 output
-        row = {"M": m, "K": k, "N": n,
-               "ms": time_ms(torch, lambda: vmm_kernel.mxfp4_vmm(
-                   x, p.codes, p.scales, torch.bfloat16), flush),
-               "plain_ms": time_ms(torch, lambda: mxfp4_vmm_ref(
-                   x, p.codes, p.scales).to(torch.bfloat16), flush),
-               "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
-                   x, w_bf16), flush)}
-        row["bound_ms"], row["bound_by"] = vmm_bound(m, k, n)
-        timings.append(ratios(row))
-        print("  timing:", json.dumps(row))
-        del w, w_bf16, p
-    del flush
-    # headline: one decoder layer's seven projections at decode (M = 8)
-    per_layer = {key: sum(r[key] * cnt for r in timings
-                          for (kn, cnt) in PROJECTIONS.values()
-                          if r["M"] == 8 and (r["K"], r["N"]) == kn)
-                 for key in ("ms", "plain_ms", "bound_ms", "bf16_matmul_ms")}
+        for m in VMM_ROWS:
+            x = rows(m, k)
+            # timed as the serve path calls it: bf16 output
+            row = {"M": m, "K": k, "N": n,
+                   "schedule": vmm_kernel.schedule(
+                       m, k, (n,), vmm_kernel._num_sms(0)).variant,
+                   "ms": timed(m, k, (n,)),
+                   "plain_ms": time_ms(torch, lambda: mxfp4_vmm_ref(
+                       x, p.codes, p.scales).to(torch.bfloat16), flush,
+                       iters=10),
+                   "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
+                       x, w_bf16), flush),
+                   "stream_read_ms": stream_read_ms(
+                       torch, vmm_bytes(m, k, (n,)), flush)}
+            row["bound_ms"], row["bound_by"] = vmm_bound(m, k, (n,))
+            row["kernel_over_bf16_matmul"] = row["ms"] / row["bf16_matmul_ms"]
+            timings.append(ratios(row))
+            print("  timing:", json.dumps(row))
+        del w_bf16
+    crossover = []
+    for (k, n), _ in PROJECTIONS.values():
+        for m in VMM_CROSSOVER_ROWS:
+            row = {"M": m, "K": k, "N": n,
+                   "decode_ms": timed(m, k, (n,), "decode"),
+                   "wgmma_ms": timed(m, k, (n,), "wgmma")}
+            crossover.append(row)
+            print("  crossover:", json.dumps(row))
+
+    # headline: one decoder layer at decode (M = 8) in the serve path's
+    # four launches; per-layer sums of the per-weight yardsticks
+    def layer(m):
+        launches = {name: timed(m, k, ns) for name, (k, ns) in
+                    LAYER_LAUNCHES.items()}
+        bounds = [vmm_bound(m, k, ns)[0] for k, ns in LAYER_LAUNCHES.values()]
+        per_weight = {key: sum(r[key] * cnt for r in timings
+                               for (kn, cnt) in PROJECTIONS.values()
+                               if r["M"] == m and (r["K"], r["N"]) == kn)
+                      for key in ("plain_ms", "bf16_matmul_ms")}
+        reads = {name: stream_read_ms(torch, vmm_bytes(m, k, ns), flush)
+                 for name, (k, ns) in LAYER_LAUNCHES.items()}
+        return {"M": m, "launches_ms": launches,
+                "ms": sum(launches.values()), "bound_ms": sum(bounds),
+                "launches_stream_read_ms": reads,
+                "stream_read_ms": sum(reads.values()), **per_weight}
+    head, prefill = layer(8), layer(256)
+    print("  layer M 8:", json.dumps(head))
+    print("  layer M 256:", json.dumps(prefill))
+    del flush, weights
     return {"name": vmm_kernel.NAME, "route": "cuda", "source": VMM_SOURCE,
             "replaces": VMM_REPLACES, "launches": None,
             "max_abs_err": err_max, "max_abs_err_is": "relative to max |out|",
-            "headline": "sum over one llama3-8b layer's 7 projections "
-                        "(7 launches) at M 8",
-            "ms": per_layer["ms"], "plain_ms": per_layer["plain_ms"],
-            "bound_ms": per_layer["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "headline": "one llama3-8b layer at M 8 in the serve path's 4 "
+                        "launches (q/k/v grouped, o, gate/up grouped, down)",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "stream_read_ms": head["stream_read_ms"],
+            "launches_ms": head["launches_ms"],
             "bf16_matmul_ms_note": "torch.matmul on the pre-dequantized bf16 "
                                    "weight: another function, 3.76x the bytes",
-            "bf16_matmul_ms": per_layer["bf16_matmul_ms"], "timings": timings}
+            "bf16_matmul_ms": head["bf16_matmul_ms"],
+            "layer_m256": prefill, "crossover": crossover,
+            "checked": checked, "timings": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -734,8 +832,11 @@ def kernel_flash_phase(torch) -> dict:
                                                    True, 4, "float32")
     timings.append(ratios(f32))
     print("  timing:", json.dumps(f32))
-    del flush, qf, kf, vf
+    # a plain read of the bytes the headline must read: q, k and v
     head = timings[0]                       # B 8, S 1024, causal, bf16
+    head["stream_read_ms"] = stream_read_ms(
+        torch, 2 * D * 8 * 1024 * (H + 2 * KVH), flush)
+    del flush, qf, kf, vf
     return {"name": flash_kernel.NAME, "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": None, "max_abs_err": errs["bfloat16"],
@@ -747,6 +848,7 @@ def kernel_flash_phase(torch) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "stream_read_ms": head["stream_read_ms"],
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True)", "timings": timings}
 
@@ -1201,14 +1303,16 @@ def device_breakdown(prof, step_s: float) -> dict:
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
     decode = sum(t for k, t in times.items() if "paged_decode" in k) / 1e6
     exact = sum(t for k, t in times.items() if "exact_" in k) / 1e6
-    vmm = sum(t for k, t in times.items() if "mxfp4_vmm" in k) / 1e6
+    vmm = {k: t for k, t in times.items() if "mxfp4" in k}
     return {"steps": n, "step_ms": 1e3 * step_s,
             "device_busy_ms_per_step": 1e3 * busy / n,
             "device_idle_share": 1 - busy / n / step_s,
             "decode_attention_ms_per_step": 1e3 * decode / n,
             "exact_attention_ms_per_step": 1e3 * exact / n,
             "host_waits_per_step": waits / n,
-            "mxfp4_vmm_ms_per_step": 1e3 * vmm / n,
+            "mxfp4_vmm_ms_per_step": sum(vmm.values()) / 1e3 / n,
+            "mxfp4_kernels_ms_per_step": {k[:70]: t / 1e3 / n
+                                          for k, t in vmm.items()},
             # host time under the tracer (it slows the host): where the
             # host's share goes, not how long a step takes
             "top_host_ops_ms_per_step_traced": {
@@ -1275,17 +1379,22 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     decode_kernel = (NAME_SCALED if engine_kw.get("cache_dtype") in
                      ("fp8", "int8") else NAME)
     want = {decode_kernel: cfg.n_layers * stats.steps}
-    if engine_kw.get("weight_format") == "mxfp4":   # 7 projections a layer
-        want[VMM] = 7 * cfg.n_layers * (stats.steps + stats.prefill_calls)
+    # bf16 activations over bf16 or fp8 pools: the tensor-core kernel
+    want_variants = {f"{decode_kernel}:tensor_core": want[decode_kernel]}
+    if engine_kw.get("weight_format") == "mxfp4":
+        # 4 launches a layer (q/k/v grouped, o, gate/up grouped, down):
+        # decode steps (M = the slots) on the decode schedule, prefill
+        # chunk calls (M = rows x 256) on wgmma
+        want[VMM] = 4 * cfg.n_layers * (stats.steps + stats.prefill_calls)
+        want_variants[f"{VMM}:decode"] = 4 * cfg.n_layers * stats.steps
+        want_variants[f"{VMM}:wgmma"] = 4 * cfg.n_layers * stats.prefill_calls
     if launches != want or 0 in want.values():
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({stats.steps} decode steps, "
                              f"{stats.prefill_calls} prefill chunk calls, "
                              f"{cfg.n_layers} layers)")
-    # bf16 activations over bf16 or fp8 pools: the tensor-core kernel
-    want_variants = {f"{decode_kernel}:tensor_core": want[decode_kernel]}
     if variants != want_variants:
-        raise AssertionError(f"paged decode variants {variants}, want "
+        raise AssertionError(f"kernel variants {variants}, want "
                              f"{want_variants}")
 
     # the re-run doubles as the profiled window: 8 decode-only steps

@@ -5,8 +5,8 @@
 Runs ``<tree>``'s own ``chip_smoke.py`` build, MXFP4 kernel phase and
 quantized serve phase (llama3-8b, mxfp4 weights, fp8 KV) and prints one
 line ``AB {json}``: the MXFP4 kernel's ms per shape at M 8 and M 256, one
-layer's 7 projections at M 8, and the serve's tokens/s, TTFT p50, decode
-step and kernel launches.  Compare two trees only within one call, in
+layer at M 8 (the serve path's launches), and the serve's tokens/s, TTFT
+p50, decode step and kernel launches.  Compare two trees only within one call, in
 turns (A B B A), e.g. an untracked ``git archive`` of the parent beside
 the working tree.
 """

@@ -16,7 +16,8 @@ version:
                       and prompt scoring (CUDA C++,
                       ``csrc/flash_attention.cu``), replacing
                       ``repro/kernels/flash_attention/kernel.py``
-   mxfp4_vmm        — MXFP4 weight-streaming matmul (CUDA C++,
+   mxfp4_vmm        — MXFP4 weight-streaming matmul, one launch for up
+                      to three weights that read the same x (CUDA C++,
                       ``csrc/mxfp4_vmm.cu``), replacing the Pallas
                       ``repro/kernels/mxfp4_vmm/kernel.py``
 
@@ -28,7 +29,9 @@ code pools as ``paged_decode_attention_scaled``, the exact one as
 path went through the kernel (``chip_smoke.py`` clears the counts before
 each serve phase).  The paged decode kernels also add one to
 ``VARIANT_LAUNCHES["<kernel name>:<variant>"]`` ("tensor_core" or
-"cuda_core"), so a run can show which of a source's kernels served it.
+"cuda_core"), and the MXFP4 kernel to ``VARIANT_LAUNCHES["mxfp4_vmm:<schedule>"]``
+("decode" or "wgmma"), so a run can show which of a source's kernels
+served it.
 """
 from collections import Counter
 

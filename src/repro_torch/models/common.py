@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.quant.linear import qdot
+from repro_torch.quant.linear import qdot, qdot_group
 
 # ---------------------------------------------------------------------------
 # Config
@@ -133,9 +133,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """SwiGLU MLP; each weight may be packed (``quant.linear.qdot``)."""
-    g = qdot(x, w_gate)
-    u = qdot(x, w_up)
+    """SwiGLU MLP; each weight may be packed (``quant.linear.qdot``; gate
+    and up read x together through ``qdot_group``)."""
+    g, u = qdot_group(x, (w_gate, w_up))
     return qdot(F.silu(g.float()).to(x.dtype) * u, w_down)
 
 

@@ -17,7 +17,7 @@ pytree's keys (``wq``, ``bk``, ``q_norm``, ``w_gate`` ...), with the same
 shapes and dtypes, so the weight bridge is a rename-free copy.  In a
 quantized view (``quant.linear.quantize_params``) the projection
 attributes hold packed tensors instead, and every projection goes through
-``qdot``.  The paged serve paths that use ``_qkv`` live in
+``qdot`` (q/k/v together through ``qdot_group``).  The paged serve paths that use ``_qkv`` live in
 ``attention_backends.py``.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, apply_rope, blocked_attention,
     cache_update_at, decode_attention_ref, dense_init, rmsnorm, swiglu,
 )
-from repro_torch.quant.linear import qdot
+from repro_torch.quant.linear import qdot, qdot_group
 
 ITEM_STATEFUL = "ROADMAP Queue 1, 'Stateful layouts'"
 
@@ -85,9 +85,7 @@ def init_attn(p: Attention, gen: torch.Generator, cfg: ModelConfig) -> None:
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = qdot(x, p.wq)
-    k = qdot(x, p.wk)
-    v = qdot(x, p.wv)
+    q, k, v = qdot_group(x, (p.wq, p.wk, p.wv))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, s, h, hd)

@@ -14,6 +14,8 @@ version and inside the CUDA decode kernel's page loop.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # name -> (storage dtype, max representable magnitude)
@@ -61,6 +63,16 @@ def raw_view(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(cache_dtype: str, device: torch.device):
+    """(qmax, 1.0) as f32 scalar tensors on ``device``, made once per
+    format and device: building them on a CUDA device on every call copies
+    from pageable host memory, which makes the host wait."""
+    _, qmax = KV_FORMATS[cache_dtype]
+    return (torch.tensor(qmax, dtype=torch.float32, device=device),
+            torch.tensor(1.0, dtype=torch.float32, device=device))
+
+
 def kv_quantize(vals: torch.Tensor, cache_dtype: str):
     """Quantize K or V vectors (..., KVH, HD) -> (codes, scales (..., KVH)).
 
@@ -71,7 +83,8 @@ def kv_quantize(vals: torch.Tensor, cache_dtype: str):
     amax = v.abs().amax(dim=-1)
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its rounded reciprocal, which is not always amax / qmax
-    scale = torch.where(amax > 0, amax / amax.new_tensor(qmax), 1.0)
+    qmax_t, one = _constants(cache_dtype, amax.device)
+    scale = torch.where(amax > 0, amax / qmax_t, one)
     scaled = v / scale[..., None]
     if store == torch.int8:
         codes = torch.clamp(torch.round(scaled), -qmax, qmax).to(store)

@@ -6,7 +6,9 @@ returns a *view* of a ``Model`` in which every eligible projection weight
 block-quantized form from ``quant/formats.py``; the model code routes
 those matmuls through ``qdot`` — the CUDA MXFP4 VMM kernel for ``mxfp4``
 (its plain version on the CPU), dequantize-then-matmul for every other
-format.  The view shares every unquantized tensor with the caller's model
+format — and projections that read the same activations through
+``qdot_group`` (one kernel launch for q/k/v or gate/up when all are
+``mxfp4``).  The view shares every unquantized tensor with the caller's model
 and leaves the caller's model as it was (the reference's engine never
 alters the params it is given either).
 
@@ -21,7 +23,7 @@ import copy
 import torch
 from torch import nn
 
-from repro_torch.kernels.mxfp4_vmm.ops import mxfp4_matmul
+from repro_torch.kernels.mxfp4_vmm.ops import mxfp4_matmul, mxfp4_matmul_group
 from repro_torch.quant import formats
 
 # projection leaves the serve path streams through the software stream
@@ -109,3 +111,13 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, formats.PACKED_TYPES):
         return x @ formats.dequantize_any(w, x.dtype)
     return x @ w
+
+
+def qdot_group(x: torch.Tensor, ws) -> list[torch.Tensor]:
+    """``[qdot(x, w) for w in ws]``; when every weight is MXFP4 (and they
+    share K) one ``mxfp4_matmul_group`` call: a single kernel launch on
+    the card for the projections that read ``x``."""
+    if (all(isinstance(w, formats.PackedMXFP4) for w in ws)
+            and len({w.shape[-2] for w in ws}) == 1):
+        return mxfp4_matmul_group(x, ws, out_dtype=x.dtype)
+    return [qdot(x, w) for w in ws]

@@ -25,12 +25,14 @@ import jax.numpy as jnp
 from repro.configs import get_config, reduced_config
 from repro.models.model import build_model
 from repro.quant import formats as jformats
+from repro.quant import kv as jkv
 from repro.quant.linear import quantizable_leaf
 from repro.runtime.llm import LLMEngine as RefLLM
 from repro.runtime.sampling import SamplingParams as RefSP
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.quant import formats
+from repro_torch.quant import kv, linear
 from repro_torch.quant.kv import raw_view
 from repro_torch.quant.linear import packed_leaves
 from repro_torch.runtime.engine import ContinuousServeEngine
@@ -220,3 +222,49 @@ def test_unknown_cache_dtype_rejected(served):
         port.init_paged_cache(4, 2, dtype="fp16")
     with pytest.raises(KeyError, match="format"):
         LLMEngine(port, device="cpu", weight_format="fp4", **ENGINE)
+
+
+def test_projections_that_read_one_x_share_a_launch(served, monkeypatch):
+    """Each quantized model call groups q/k/v and gate/up: per layer one
+    group op of three weights and one of two (one kernel launch each on a
+    card) beside the o and down projections -- four launches a layer."""
+    cfg, _, _, port, _ = served
+    calls = []
+    group, one = linear.mxfp4_matmul_group, linear.mxfp4_matmul
+
+    def spy_group(x, ws, **kw):
+        calls.append(len(ws))
+        return group(x, ws, **kw)
+
+    def spy_one(x, w, **kw):
+        calls.append(1)
+        return one(x, w, **kw)
+
+    monkeypatch.setattr(linear, "mxfp4_matmul_group", spy_group)
+    monkeypatch.setattr(linear, "mxfp4_matmul", spy_one)
+    _port_run(port, _prompts(cfg.vocab_size)[:2], "f32",
+              sampling=[dict(), dict()], max_tokens=3)
+    n_layers = port.cfg.n_layers
+    assert calls and set(calls) == {1, 2, 3}
+    assert calls.count(3) == calls.count(2) == calls.count(1) // 2
+    assert calls.count(3) % n_layers == 0
+
+
+@pytest.mark.parametrize("cache", ["fp8", "int8"])
+def test_kv_quantize_divisor_made_once(cache):
+    """``kv_quantize`` builds its qmax divisor (and the 1.0 of all-zero
+    vectors) once per format and device, and still gives the reference's
+    bits on every call."""
+    rng = np.random.default_rng(3)
+    cpu = torch.device("cpu")
+    consts = kv._constants(cache, cpu)
+    for _ in range(2):
+        x = (rng.standard_normal((4, 3, 2, 16)) * 5.0).astype(np.float32)
+        x[0, 1] = 0.0
+        codes, scales = kv.kv_quantize(torch.from_numpy(x), cache)
+        assert kv._constants(cache, cpu) is consts
+        jcodes, jscales = jkv.kv_quantize(jnp.asarray(x), cache)
+        np.testing.assert_array_equal(raw_view(codes).numpy().view(np.uint8),
+                                      np.asarray(jcodes).view(np.uint8))
+        np.testing.assert_array_equal(scales.numpy().view(np.uint32),
+                                      np.asarray(jscales).view(np.uint32))
