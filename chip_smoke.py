@@ -14,9 +14,10 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     flash_attention.cu  src/repro/kernels/flash_attention/kernel.py:74
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
-``--only kernel_exact,check`` (any of the kernel phases, quantize, check)
+``--only kernel_exact,check`` (any of the kernel phases, quantize,
+deployment, check; serve and serve_spec_draft on a llama3-8b built first)
 builds and runs just those phases and prints no result line: for quick
-checks of one kernel.
+checks of one kernel or path.
 
 Phases, each of which fails the run if it fails:
 
@@ -44,8 +45,9 @@ Phases, each of which fails the run if it fails:
    2048 (both schedules: ``decode`` up to M 16, ``wgmma`` above; M 8 and
    16 also forced onto ``wgmma``), the serve path's grouped launches (q/k/v
    and gate/up, M 8 and 256), ragged M and N (the byte-copy path, single
-   and grouped) and E8M0 scales >= 128.  Each shape is timed beside its
-   bound, a plain read of its bytes (``stream_read_ms``) and
+   and grouped), E8M0 scales >= 128, and llama3-70b's four projection
+   shapes (K 8192 to N 8192, 1024, 28672; K 28672 to N 8192) at M 8 and
+   256.  Each shape is timed beside its bound, a plain read of its bytes (``stream_read_ms``) and
    ``torch.matmul`` of x with the pre-dequantized bf16 weight (a different
    function: it streams 3.76x the bytes); both schedules are timed at M 8
    and 16 (the crossover); the headline is one llama3-8b layer at M 8 in
@@ -54,8 +56,9 @@ Phases, each of which fails the run if it fails:
 4. kernel_flash — the flash-attention kernel against its plain version at
    llama3-8b prefill geometry (H 32, KVH 8, D 128): B 1 and 8 at
    Sq = Skv = 1024, a ragged S 1000, an MHA (rep 1) case, a D 64 case
-   (H 16, KVH 4, S 1000) and a rep 5 case (H 40, KVH 8, S 1000: the
-   14B models' heads), causal and not, bf16 and f32 (bf16: each output
+   (H 16, KVH 4, S 1000), a rep 5 case (H 40, KVH 8, S 1000: the
+   14B models' heads) and a rep 8 case (H 64, KVH 8: llama3-70b's heads),
+   causal and not, bf16 and f32 (bf16: each output
    row, one query in one head, within 2^-6 of its largest value, the worst
    row's share of that printed; f32: 1e-5).  Timed at B 8 and B 1
    (causal) and B 8 (not) beside
@@ -92,7 +95,13 @@ Phases, each of which fails the run if it fails:
    ``paged_kernel.variant``) each case ran.
 7. quantize — the port's ``quantize_mxfp4`` and ``kv_quantize`` give the
    same bits on the card as on the CPU for one llama3-8b projection.
-8. serve — llama3-8b at full width and depth (random bf16 weights from a
+8. deployment — ``DeploymentSpec(sku="h100")`` and ``sku="rpu-cu"`` (one
+   RPU compute unit over the default HBM-CO candidate) resolved for
+   llama3-8b in bf16, and llama3-8b, llama3-70b and llama3-405b with mxfp4
+   weights and fp8 KV, from ``meta``-device models (no weights allocated:
+   checked): each budget printed beside ``torch.cuda.mem_get_info()``'s
+   total; llama3-405b must raise ``DeploymentError`` on one H100.
+9. serve — llama3-8b at full width and depth (random bf16 weights from a
    seeded generator, ~16 GB) behind ``LLMEngine(backend="continuous")``
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
@@ -102,8 +111,13 @@ Phases, each of which fails the run if it fails:
    reproduce every stream, greedy and sampled.  Eight decode-only steps of
    that second session are traced with ``torch.profiler``: device busy
    time per step, the device's idle share, time by kernel, and the host
-   ops that take most host time.
-9. serve_static — the same model behind ``LLMEngine(backend="static",
+   ops that take most host time.  Then prompt scoring: the 1024-token
+   prompt twice in one session, one request with ``prompt_logprobs``; its
+   first token must equal the unscored one's, its scores agree with
+   ``Model.forward``'s on the card within ``SCORE_REL_TOL`` of each
+   position's largest |logit|, and its chunk calls are timed beside an
+   unscored session's.
+10. serve_static — the same model behind ``LLMEngine(backend="static",
    max_len=2048)`` answers 8 prompts of 1024 tokens (4 greedy, 4 sampled,
    64 new tokens each); every request finishes, the flash kernel runs 32
    times (one prefill call) and the dense decode kernel 32 x 63 times, and
@@ -113,13 +127,13 @@ Phases, each of which fails the run if it fails:
    scores <= 0.  Reports tokens/s, prefill s, decode step ms and peak GB,
    and the device time of 16 decode steps (a profiled 17-token call minus
    a 1-token one): busy ms per step, idle share, time by kernel.
-10. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
+11. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
    and ``cache_dtype="fp8"``: the same checks as serve, and the MXFP4
    kernel must have run 4 x layers x (decode steps + prefill chunk calls)
    times (q/k/v and gate/up grouped; the decode schedule on decode steps,
    wgmma on prefill calls, ``kernels.VARIANT_LAUNCHES``) and the
    scale-pool decode kernel once per layer per decode step.
-11. serve_spec — the serve phase's requests behind
+12. serve_spec — the serve phase's requests behind
    ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
    gamma=4))``, a self-draft: every request finishes, a second session
    reproduces every stream (greedy and sampled), the exact kernel runs 32
@@ -138,7 +152,26 @@ Phases, each of which fails the run if it fails:
    counts (draft steps with the backfill, and target steps) and the flash
    kernel 32 x 2 (the two prompt prefills), and a
    second call reproduces the stream (phase serve_spec_legacy).
-12. check — a narrow 2-layer llama-shaped model in f32 served on the card
+13. serve_spec_draft — speculation with a cheap draft: the draft is the
+   model's first 4 of 32 layers (``runtime/spec_pair.build_pair``: shared
+   tensors; the deeper ``wo``/``w_down`` damped by 0.005 in place, so this
+   runs last on the model).  Plain and speculative (gamma 4) engines, both
+   sized by ``DeploymentSpec(sku="h100", max_len=512, page_size=16,
+   max_slots=8)``, serve 8 greedy requests (256-token prompts, 128 new)
+   twice each, in turns and before any trace, the faster rep kept:
+   tokens/s and the speedup (and, as a reading, one more plain session
+   after the traces); accepted per
+   window against the model at the measured per-token acceptance; the
+   median window and step against ``spec_window_seconds`` and
+   ``step_seconds``, and the device busy time of 8 traced ones; the pools'
+   bytes (``memory_allocated`` growth at set-up, the pool leaves) against
+   ``pool_bytes_per_device`` (the leaves less the scratch page must equal
+   it).  The paged kernel must launch once per layer per plain step and
+   once per draft layer per draft or backfill step, the exact kernel once
+   per target layer per window; greedy speculative streams must equal the
+   plain ones or part where the plain stream's top-2 gap is at most
+   ``NEAR_TIE_BF16_ULPS`` bf16 ulps of the top logit.
+14. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
    emit the same token streams: continuous dense (greedy and sampled), and
    greedy with mxfp4 weights over f32, int8 and fp8 pools; static (greedy
@@ -192,6 +225,10 @@ GEOM = (H, KVH, D, PAGE)
 TC_GEOMS = ((16, 4, 64, 16), (40, 8, 128, 16), (32, 8, 128, 32),
             (64, 8, 128, 16))
 NEAR_TIE = 0.02       # top-2 logit gap below which card and CPU may differ
+# bf16 logits of the full-size model: a near-tie is a top-2 gap of at most
+# this many bf16 ulps of the top logit (the head's output is bf16, so gaps
+# come in ulps)
+NEAR_TIE_BF16_ULPS = 2
 
 
 def card_line() -> str:
@@ -554,6 +591,10 @@ LAYER_LAUNCHES = {"qkv": (4096, (4096, 1024, 1024)), "wo": (4096, (4096,)),
                   "gate/up": (4096, (14336, 14336)), "w_down": (14336, (4096,))}
 VMM_ROWS = (1, 8, 16, 64, 256, 2048)   # decode steps to prefill chunk batches
 VMM_CROSSOVER_ROWS = (8, 16)           # both schedules timed
+# llama3-70b projections (K, N): the widths a 70B deployment streams
+PROJECTIONS_70B = {"wq/wo": (8192, 8192), "wk/wv": (8192, 1024),
+                   "w_gate/w_up": (8192, 28672), "w_down": (28672, 8192)}
+VMM_70B_ROWS = (8, 256)
 
 
 def vmm_bytes(m: int, k: int, ns) -> int:
@@ -635,6 +676,9 @@ def kernel_mxfp4_phase(torch) -> dict:
     check(300, 544, (1000, 5))
     for m in (8, 256):                          # E8M0 scales >= 128
         check(m, 4096, (1024,), scale=2.0 ** 20)
+    for k, n in PROJECTIONS_70B.values():
+        for m in VMM_70B_ROWS:
+            check(m, k, (n,))
 
     def timed(m, k, ns, variant=None):
         ws = [(weight(k, n).codes, weight(k, n).scales) for n in ns]
@@ -642,29 +686,36 @@ def kernel_mxfp4_phase(torch) -> dict:
         return time_ms(torch, lambda: vmm_kernel.mxfp4_vmm_group(
             x, ws, torch.bfloat16, variant), flush)
 
-    timings = []
-    for (k, n), _ in PROJECTIONS.values():
-        p = weight(k, n)
-        w_bf16 = formats.dequantize_mxfp4(p, torch.bfloat16)
-        for m in VMM_ROWS:
-            x = rows(m, k)
-            # timed as the serve path calls it: bf16 output
-            row = {"M": m, "K": k, "N": n,
-                   "schedule": vmm_kernel.schedule(
-                       m, k, (n,), vmm_kernel._num_sms(0)).variant,
-                   "ms": timed(m, k, (n,)),
-                   "plain_ms": time_ms(torch, lambda: mxfp4_vmm_ref(
-                       x, p.codes, p.scales).to(torch.bfloat16), flush,
-                       iters=10),
-                   "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
-                       x, w_bf16), flush),
-                   "stream_read_ms": stream_read_ms(
-                       torch, vmm_bytes(m, k, (n,)), flush)}
-            row["bound_ms"], row["bound_by"] = vmm_bound(m, k, (n,))
-            row["kernel_over_bf16_matmul"] = row["ms"] / row["bf16_matmul_ms"]
-            timings.append(ratios(row))
-            print("  timing:", json.dumps(row))
-        del w_bf16
+    def timing_rows(shapes, ms, label=""):
+        out = []
+        for k, n in shapes:
+            p = weight(k, n)
+            w_bf16 = formats.dequantize_mxfp4(p, torch.bfloat16)
+            for m in ms:
+                x = rows(m, k)
+                # timed as the serve path calls it: bf16 output
+                row = {"M": m, "K": k, "N": n,
+                       "schedule": vmm_kernel.schedule(
+                           m, k, (n,), vmm_kernel._num_sms(0)).variant,
+                       "ms": timed(m, k, (n,)),
+                       "plain_ms": time_ms(torch, lambda: mxfp4_vmm_ref(
+                           x, p.codes, p.scales).to(torch.bfloat16), flush,
+                           iters=10),
+                       "bf16_matmul_ms": time_ms(torch, lambda: torch.matmul(
+                           x, w_bf16), flush),
+                       "stream_read_ms": stream_read_ms(
+                           torch, vmm_bytes(m, k, (n,)), flush)}
+                row["bound_ms"], row["bound_by"] = vmm_bound(m, k, (n,))
+                row["kernel_over_bf16_matmul"] = (row["ms"]
+                                                  / row["bf16_matmul_ms"])
+                out.append(ratios(row))
+                print(f"  timing{label}:", json.dumps(row))
+            del w_bf16
+        return out
+
+    timings = timing_rows([kn for kn, _ in PROJECTIONS.values()], VMM_ROWS)
+    timings_70b = timing_rows(PROJECTIONS_70B.values(), VMM_70B_ROWS,
+                              " llama3-70b")
     crossover = []
     for (k, n), _ in PROJECTIONS.values():
         for m in VMM_CROSSOVER_ROWS:
@@ -707,7 +758,8 @@ def kernel_mxfp4_phase(torch) -> dict:
                                    "weight: another function, 3.76x the bytes",
             "bf16_matmul_ms": head["bf16_matmul_ms"],
             "layer_m256": prefill, "crossover": crossover,
-            "checked": checked, "timings": timings}
+            "checked": checked, "timings": timings,
+            "timings_llama3_70b": timings_70b}
 
 
 # ---------------------------------------------------------------------------
@@ -775,7 +827,8 @@ def kernel_flash_phase(torch) -> dict:
              # rep 5 (qwen2.5-14b / qwen3-14b heads): an item is 25
              # positions x 5 heads, 125 of its 128 rows, and a position
              # straddles the two consumer warpgroups
-             (2, 1000, 40, 8, D)]
+             (2, 1000, 40, 8, D),
+             (2, 1000, 64, 8, D)]         # llama3-70b heads (rep 8)
     for dtype_name in ("bfloat16", "float32"):
         for B, S, h, kvh, d in cases:
             for causal in (True, False):
@@ -1210,7 +1263,70 @@ def quantize_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8, 10, 11. continuous serve phases (bf16; mxfp4 + fp8; speculative)
+# 8. deployment phase: DeploymentSpec pricing, no weights allocated
+# ---------------------------------------------------------------------------
+
+# (config, weight_format, cache_dtype); llama3-405b cannot fit one H100
+DEPLOYMENTS = (("llama3-8b", None, None), ("llama3-8b", "mxfp4", "fp8"),
+               ("llama3-70b", "mxfp4", "fp8"), ("llama3-405b", "mxfp4", "fp8"))
+DEPLOY_MAX_LEN = 2048
+
+
+def deployment_phase(torch) -> dict:
+    """Resolve ``DeploymentSpec(sku="h100")`` and ``sku="rpu-cu"`` (one
+    RPU compute unit over the default HBM-CO candidate) for each of
+    ``DEPLOYMENTS``, pricing the weights exactly from a ``meta``-device
+    model (shapes only).  llama3-405b must raise ``DeploymentError`` on one
+    H100; nothing may be allocated on the card.  Each resolved budget is
+    printed beside the card's ``torch.cuda.mem_get_info()`` total."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.deployment import DeploymentError, DeploymentSpec
+
+    free, total = torch.cuda.mem_get_info()
+    allocated = torch.cuda.memory_allocated()
+    rows = []
+    for sku in ("h100", "rpu-cu"):
+        for name, fmt, cache in DEPLOYMENTS:
+            model = Model(get_config(name), device="meta")
+            spec = DeploymentSpec(sku=sku, weight_format=fmt,
+                                  cache_dtype=cache, max_len=DEPLOY_MAX_LEN)
+            row = {"sku": sku, "model": name, "weight_format": fmt,
+                   "cache_dtype": cache, "max_len": DEPLOY_MAX_LEN}
+            try:
+                dep = spec.resolve(model, params=model)
+            except DeploymentError as e:
+                row["deployment_error"] = str(e)
+            else:
+                row.update(dep.as_dict(),
+                           pool_bytes_per_device=dep.pool_bytes_per_device)
+                print(f"  {name} {fmt or 'bf16'} {cache or 'bf16'} on {sku}"
+                      f" (card total {total / 2 ** 30:.2f} GiB):")
+                for line in dep.describe().splitlines():
+                    print("    " + line)
+            print("  deployment:", json.dumps(row))
+            rows.append(row)
+    refused = {(r["sku"], r["model"]) for r in rows
+               if "deployment_error" in r}
+    if ("h100", "llama3-405b") not in refused:
+        raise AssertionError("llama3-405b resolved on one H100; it must "
+                             "raise DeploymentError")
+    for name, _, _ in DEPLOYMENTS[:3]:
+        if ("h100", name) in refused:
+            raise AssertionError(f"{name} did not resolve on one H100")
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError("pricing allocated memory on the card")
+    return {"phase": "deployment", "card_mem_total_bytes": total,
+            "card_mem_free_bytes": free,
+            "h100_capacity_bytes_modeled": next(
+                r["capacity_bytes"] for r in rows if r["sku"] == "h100"
+                and "capacity_bytes" in r),
+            "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# 9, 11-13. continuous serve phases (bf16 with prompt scoring; mxfp4 + fp8;
+# speculative: self-draft, legacy, truncated draft)
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = [128, 1024, 300, 612, 777, 200, 450, 712]
@@ -1409,6 +1525,8 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
             kind = "greedy" if sps[i].is_greedy else "sampled"
             raise AssertionError(f"{kind} request {i} did not reproduce "
                                  f"its stream on the re-run")
+    scoring = (serve_scoring(torch, llm, model, prompts[1])
+               if phase == "serve" else None)
     ttft = stats.latency_quantiles("ttft")
     result = {"phase": phase, **{k: str(v) for k, v in engine_kw.items()},
               "requests": len(prompts),
@@ -1428,9 +1546,99 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "profiled_decode_steps": breakdown, "_streams": streams}
+    if scoring is not None:
+        result["prompt_scoring"] = scoring
     del llm
     torch.cuda.empty_cache()
     return result
+
+
+SCORED_NEW = 4
+# |continuous score - Model.forward score| per prompt position, over the
+# largest |logit| of that position: four bf16 ulps.  Each side rounds its
+# logits to bf16 (half an ulp), and the hidden states reach the head
+# through other attention arithmetic (flash: P rounded to bf16; chunked
+# prefill: f32 over gathered pages)
+SCORE_REL_TOL = 2.0 ** -5
+
+
+def serve_scoring(torch, llm, model, prompt) -> dict:
+    """Prompt scoring in the continuous engine (``prompt_logprobs``): the
+    serve phase's 1024-token prompt twice in one session (greedy,
+    ``SCORED_NEW`` new tokens), once scored and once not, so both ride the
+    same four 256-token chunk calls.  The scored request's first token
+    must equal the other's; its 1023 scores are held against
+    ``Model.forward``'s on the card (the static backend's scores: the flash
+    kernel), each within ``SCORE_REL_TOL`` of its position's largest
+    |logit|; the scored chunk calls are timed beside the same calls of a
+    session with no scoring."""
+    from repro_torch.runtime.sampling import SamplingParams
+
+    eng = llm._eng
+    times = {"_chunk_impl": [], "_chunk_scored_impl": []}
+
+    def timed_calls(name):
+        fn = getattr(eng, name)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            return out
+        setattr(eng, name, run)
+
+    for name in times:
+        timed_calls(name)
+    plain = SamplingParams(max_tokens=SCORED_NEW)
+    scored = SamplingParams(max_tokens=SCORED_NEW, prompt_logprobs=True)
+    try:
+        unscored_run = llm.generate([prompt, prompt], [plain, plain])
+        scored_run = llm.generate([prompt, prompt], [plain, scored])
+    finally:
+        for name in times:
+            delattr(eng, name)                  # the class's methods again
+    first = {unscored_run[0].token_ids[0], scored_run[0].token_ids[0],
+             scored_run[1].token_ids[0]}
+    if len(first) != 1:
+        raise AssertionError(f"scoring changed the first token: unscored "
+                             f"{unscored_run[0].token_ids}, scored session "
+                             f"{scored_run[0].token_ids} / "
+                             f"{scored_run[1].token_ids}")
+    got = np.asarray(scored_run[1].prompt_logprobs)
+    toks = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
+    logits = model.forward(toks)[0, :-1, :model.cfg.vocab_size].float()
+    ls = torch.log_softmax(logits, dim=-1)
+    want = torch.gather(ls, -1, toks[0, 1:, None])[:, 0].cpu().numpy()
+    scale = logits.abs().amax(-1).cpu().numpy()
+    diff = np.abs(got - want)
+    share = float((diff / (SCORE_REL_TOL * scale)).max())
+    if (got.shape != want.shape or not np.isfinite(got).all()
+            or not share <= 1.0):
+        raise AssertionError(f"continuous prompt scores vs Model.forward: "
+                             f"shape {got.shape} vs {want.shape}, max |diff| "
+                             f"{diff.max()}, at {share} of the limit "
+                             f"{SCORE_REL_TOL} x max |logit|")
+    if scored_run[0].prompt_logprobs is not None:
+        raise AssertionError("an unscored request came back with scores")
+    res = {"prompt_tokens": len(prompt), "new_tokens": SCORED_NEW,
+           "first_token_equal": True,
+           "stream_equal": (scored_run[1].token_ids
+                            == unscored_run[0].token_ids),
+           "scores_max_abs_diff_vs_forward": float(diff.max()),
+           "scores_mean_abs_diff_vs_forward": float(diff.mean()),
+           "score_rel_tolerance": SCORE_REL_TOL,
+           "score_limit_share": share,
+           "max_abs_logit_median": float(np.median(scale)),
+           "mean_score": float(got.mean()),
+           "chunk_calls": len(times["_chunk_impl"]),
+           "unscored_chunk_call_ms": [1e3 * t for t in
+                                      times["_chunk_impl"]],
+           "scored_chunk_call_ms": [1e3 * t for t in
+                                    times["_chunk_scored_impl"]]}
+    print("  prompt scoring:", json.dumps(res))
+    return res
 
 
 def serve_spec_phase(torch, model, plain_streams) -> dict:
@@ -1639,8 +1847,242 @@ def serve_spec_legacy_phase(torch, model) -> dict:
             "rerun_identical": True}
 
 
+# serve_spec_draft: a truncated draft (the target's first layers, deeper
+# blocks damped; ``runtime/spec_pair.py``) against plain decoding, both
+# sized by a DeploymentSpec
+DRAFT_LAYERS, DRAFT_DAMP = 4, 0.005
+DRAFT_REQUESTS, DRAFT_PROMPT, DRAFT_NEW = 8, 256, 128
+DRAFT_ORDER = ("plain", "spec", "spec", "plain")     # two reps each
+
+
+def spec_draft_session(torch, llm, prompts, sp, on_step=None,
+                       steady_limit=None):
+    """One session through the incremental interface: every request added
+    at once.  Returns (streams, stats, seconds of each step taken while
+    every request is decoding and none has finished); ``on_step`` runs
+    after each such step, and the session stops after ``steady_limit`` of
+    them (its requests left unfinished)."""
+    llm.reset()
+    for i, p in enumerate(prompts):
+        llm.add_request(p, sp, rid=i)
+    streams = {i: [] for i in range(len(prompts))}
+    steady, done = [], set()
+    while llm.has_unfinished():
+        all_started = all(streams.values()) and not done
+        t = time.perf_counter()
+        outs = llm.step()                   # ends in a device -> host copy
+        if all_started:
+            steady.append(time.perf_counter() - t)
+            if on_step is not None:
+                on_step()
+            if steady_limit is not None and len(steady) >= steady_limit:
+                break
+        for o in outs:
+            streams[o.rid].extend(o.new_token_ids)
+            if o.finished:
+                done.add(o.rid)
+    return streams, llm.stats(), steady
+
+
+def serve_spec_draft_phase(torch, model) -> dict:
+    """Speculative decoding with a cheap draft: the target is the full
+    llama3-8b, the draft its first ``DRAFT_LAYERS`` layers (``build_pair``:
+    shared tensors; the target's deeper ``wo``/``w_down`` scaled by
+    ``DRAFT_DAMP`` in place, so this phase runs after every other serve
+    phase).  Two engines, both ``LLMEngine(backend="continuous",
+    spec=DeploymentSpec(sku="h100", max_len=512, page_size=16,
+    max_slots=8))``, one plain and one with
+    ``speculative=SpeculativeConfig(draft_model=draft, gamma=GAMMA)``, serve
+    8 greedy requests (distinct 256-token prompts, 128 new tokens)
+    twice each, in turns (``DRAFT_ORDER``) and before any trace; the faster rep of each gives tokens/s and the
+    speedup.  Then one traced session of each (device busy time) and, as
+    a reading, one more plain session after the traces.  The plain engine must launch the paged kernel once per
+    layer per step; the speculative one the paged kernel once per draft
+    layer per draft or backfill step and the exact kernel once per target
+    layer per window.  Greedy speculative streams must equal the plain
+    ones, or part at a near-tie: where they part, the plain stream's top-2
+    logit gap (by ``Model.forward`` on the card) is at most
+    ``NEAR_TIE_BF16_ULPS`` bf16 ulps of the top logit.  The measured
+    per-token acceptance is priced back through ``resolve(...,
+    spec_accept_rate=alpha)``: measured accepted per window, window and
+    step time against the modeled ones; the pools each engine allocates
+    (``torch.cuda.memory_allocated`` growth at set-up) against
+    ``pool_bytes_per_device``."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_EXACT,
+    )
+    from repro_torch.runtime.deployment import DeploymentSpec
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.spec_pair import build_pair
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    target, draft = build_pair(model, DRAFT_LAYERS, DRAFT_DAMP)
+    cfg = target.cfg
+    spec = DeploymentSpec(sku="h100", max_len=512, page_size=16, max_slots=8)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, DRAFT_PROMPT)
+               for _ in range(DRAFT_REQUESTS)]
+    sp = SamplingParams(max_tokens=DRAFT_NEW)
+    engines, runs = {}, {}
+    for name, sc in (("plain", None),
+                     ("spec", SpeculativeConfig(draft_model=draft,
+                                                gamma=GAMMA))):
+        free, total = torch.cuda.mem_get_info()
+        llm = LLMEngine(target, backend="continuous", device="cuda",
+                        spec=spec, speculative=sc)
+        dep = llm.deployment
+        if dep.num_slots < DRAFT_REQUESTS:
+            raise AssertionError(f"{name}: the spec gives {dep.num_slots} "
+                                 f"slots for {DRAFT_REQUESTS} requests")
+        if dep.pool_bytes_per_device >= free:
+            raise AssertionError(f"{name}: the spec's pools "
+                                 f"({dep.pool_bytes_per_device} B) do not "
+                                 f"fit the card's free {free} B")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        llm.reset()                          # allocates the pools
+        torch.cuda.synchronize()
+        growth = torch.cuda.memory_allocated() - before
+        leaves = sum(leaf.nbytes for leaf in llm._eng._pool_leaves())
+        scratch = dep.kv_token_bytes * dep.page_size
+        if leaves - scratch != dep.pool_bytes_per_device:
+            raise AssertionError(f"{name}: pools take {leaves} B, "
+                                 f"{leaves - scratch} without the scratch "
+                                 f"page, budget {dep.pool_bytes_per_device}")
+        engines[name] = llm
+        runs[name] = dict(
+            num_slots=dep.num_slots, num_pages=dep.num_pages,
+            prefill_chunk=dep.prefill_chunk,
+            max_decode_slots=dep.max_decode_slots,
+            pool_bytes_per_device=dep.pool_bytes_per_device,
+            pool_leaf_bytes=leaves, pool_alloc_growth_bytes=growth,
+            card_mem_total_bytes=total, card_mem_free_bytes_before=free)
+
+    def rep(name):
+        """One checked session of engine ``name``."""
+        LAUNCHES.clear()
+        VARIANT_LAUNCHES.clear()
+        streams, stats, steady = spec_draft_session(torch, engines[name],
+                                                    prompts, sp)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
+        for i, st in streams.items():
+            out = stats.outputs[i]
+            if (out.finish_reason != "length" or st != out.token_ids
+                    or len(st) != DRAFT_NEW
+                    or not all(0 <= t < cfg.vocab_size for t in st)):
+                raise AssertionError(f"{name} request {i}: {out}")
+        if name == "plain":
+            want = {NAME: cfg.n_layers * stats.steps}
+        else:
+            want = {NAME: DRAFT_LAYERS * (GAMMA + 1) * stats.steps,
+                    NAME_EXACT: cfg.n_layers * stats.steps}
+        want_variants = {f"{k}:tensor_core": v for k, v in want.items()}
+        if launches != want or variants != want_variants:
+            raise AssertionError(f"{name} launched {launches} ({variants}), "
+                                 f"want {want} on the tensor-core kernels "
+                                 f"({stats.steps} steps)")
+        return stats.wall, streams, stats, steady, launches
+
+    # the reps in turns (plain, spec, spec, plain), all before any trace
+    reps = {"plain": [], "spec": []}
+    for name in DRAFT_ORDER:
+        reps[name].append(rep(name))
+    for name, llm in engines.items():
+        wall, streams, stats, steady, launches = min(reps[name],
+                                                     key=lambda r: r[0])
+        if any(r[1] != streams for r in reps[name]):
+            raise AssertionError(f"{name}: a rep did not reproduce the "
+                                 f"streams")
+        # one more session, traced over 8 steady steps (windows) and cut
+        # there: device busy time against the untraced median
+        from torch.profiler import ProfilerActivity, profile, schedule
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(**PROFILE)) as prof:
+            spec_draft_session(torch, llm, prompts, sp, on_step=prof.step,
+                               steady_limit=sum(PROFILE.values()))
+        runs[name].update(
+            wall_s=wall, rep_walls_s=[r[0] for r in reps[name]],
+            tokens_per_s=stats.total_tokens / wall,
+            new_tokens=stats.total_tokens, steps=stats.steps,
+            steady_steps=len(steady),
+            steady_step_ms=1e3 * float(np.median(steady)),
+            ttft_p50_s=stats.ttft_quantiles()[0],
+            kernel_launches=launches,
+            profiled_steady_steps=device_breakdown(
+                prof, float(np.median(steady))),
+            _streams=streams, _stats=stats)
+    # a reading: the plain engine once more, after the traces
+    after = rep("plain")
+    runs["plain"]["steady_step_ms_after_tracing"] = \
+        1e3 * float(np.median(after[3]))
+    del engines, llm
+    torch.cuda.empty_cache()
+    plain, spec_run = runs["plain"], runs["spec"]
+    st = spec_run.pop("_stats")
+    plain.pop("_stats")
+    alpha = st.spec_accepted / max(st.spec_drafted, 1)
+    near_ties, bad = [], []
+    pstreams = plain.pop("_streams")
+    sstreams = spec_run.pop("_streams")
+    for i in range(DRAFT_REQUESTS):
+        a, b = sstreams[i], pstreams[i]
+        if a == b:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        toks = torch.as_tensor(np.concatenate([prompts[i], b[:t]]),
+                               device="cuda")[None].long()
+        top = target.forward(toks)[0, -1, :cfg.vocab_size].float().topk(
+            2).values
+        gap = float(top[0] - top[1])
+        ulp = 2.0 ** (math.floor(math.log2(abs(float(top[0])))) - 7)
+        near_ties.append({"request": i, "token": t, "gap": gap,
+                          "gap_bf16_ulps": gap / ulp})
+        if not gap <= NEAR_TIE_BF16_ULPS * ulp:
+            bad.append(near_ties[-1])
+    modeled = spec.resolve(target, params=target, draft=draft,
+                           draft_params=draft, gamma=GAMMA,
+                           spec_accept_rate=alpha)
+    plain_dep = spec.resolve(target, params=target)
+    window_ms = spec_run["steady_step_ms"]
+    step_ms = plain["steady_step_ms"]
+    busy = {k: r["profiled_steady_steps"].get("device_busy_ms_per_step")
+            for k, r in runs.items()}
+    result = {"phase": "serve_spec_draft", "gamma": GAMMA,
+            "draft": f"first {DRAFT_LAYERS} of {cfg.n_layers} layers, "
+                     f"deeper wo/w_down x {DRAFT_DAMP}",
+            "requests": DRAFT_REQUESTS, "prompt_tokens": DRAFT_PROMPT,
+            "new_tokens_each": DRAFT_NEW, "rep_order": DRAFT_ORDER,
+            "plain": plain, "spec": spec_run,
+            "speedup": spec_run["tokens_per_s"] / plain["tokens_per_s"],
+            "accepted_per_window": st.accepted_per_window,
+            "per_token_acceptance": alpha,
+            "accepted_per_window_modeled": modeled.spec_expected_accepted,
+            "window_ms_measured": window_ms,
+            "window_ms_modeled": 1e3 * modeled.spec_window_seconds,
+            "step_ms_measured": step_ms,
+            "step_ms_modeled": 1e3 * plain_dep.step_seconds,
+            "device_busy_ms_per_step": busy["plain"],
+            "device_busy_ms_per_window": busy["spec"],
+            "tokens_per_s_ceiling_modeled": {
+                "plain": plain_dep.tokens_per_s_ceiling,
+                "spec": modeled.spec_tokens_per_s_ceiling},
+            "greedy_near_ties": near_ties,
+            "greedy_streams_equal": DRAFT_REQUESTS - len(near_ties)}
+    if bad:
+        print("  serve_spec_draft:", json.dumps(result))
+        raise AssertionError(f"greedy speculative streams part from plain "
+                             f"decoding at gaps above "
+                             f"{NEAR_TIE_BF16_ULPS} bf16 ulps: {bad}")
+    return result
+
+
 # ---------------------------------------------------------------------------
-# 9. static serve phase
+# 10. static serve phase
 # ---------------------------------------------------------------------------
 
 STATIC_PROMPT, STATIC_NEW = 1024, 64
@@ -1766,7 +2208,7 @@ def serve_static_phase(torch, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 12. check phase: kernel path on the card == plain path on the CPU
+# 14. check phase: kernel path on the card == plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -2028,9 +2470,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernel phases to run after the "
-                         f"build ({', '.join(KERNEL_PHASES)}) or 'check'; "
-                         "a partial run prints no result line")
+                    help="comma-separated phases to run after the build "
+                         f"({', '.join(KERNEL_PHASES)}, deployment, check, "
+                         "or, on a llama3-8b built first, serve and "
+                         "serve_spec_draft); a partial run prints no result "
+                         "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2061,10 +2505,20 @@ def main() -> int:
               "kernel_flash": kernel_flash_phase,
               "kernel_dense_decode": kernel_dense_decode_phase,
               "kernel_exact": kernel_exact_phase,
-              "quantize": quantize_phase, "check": check_phase}
+              "quantize": quantize_phase, "deployment": deployment_phase,
+              "check": check_phase}
+    # the model phases that run alone: llama3-8b is built for them first
+    model_phases = {"serve": serve_phase,
+                    "serve_spec_draft": serve_spec_draft_phase}
     if args.only is not None:
-        for name in args.only.split(","):
-            timed(name, phases[name])
+        names = args.only.split(",")
+        model = (build_llama(torch) if set(names) & set(model_phases)
+                 else None)
+        for name in names:
+            if name in model_phases:
+                timed(name, model_phases[name], model)
+            else:
+                timed(name, phases[name])
         print(f"partial run ({args.only}): {time.monotonic() - t0:.1f} s, "
               f"no result line")
         return 0
@@ -2075,6 +2529,7 @@ def main() -> int:
     dense = timed("kernel_dense_decode", kernel_dense_decode_phase)
     exact = timed("kernel_exact", kernel_exact_phase)
     timed("quantize", quantize_phase)
+    timed("deployment", deployment_phase)
     model = build_llama(torch)
     serve = timed("serve", serve_phase, model)
     static = timed("serve_static", serve_static_phase, model)
@@ -2083,6 +2538,8 @@ def main() -> int:
                     cache_dtype="fp8")
     spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
     timed("serve_spec_legacy", serve_spec_legacy_phase, model)
+    # damps the model's deeper blocks in place: the last phase to use it
+    timed("serve_spec_draft", serve_spec_draft_phase, model)
     del model
     torch.cuda.empty_cache()
     timed("check", check_phase)

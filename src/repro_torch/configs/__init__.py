@@ -1,7 +1,8 @@
 """Architecture config registry of the port.
 
 A copy of ``repro.configs`` for the architectures the port serves so far:
-the ``attn_dense`` family (plain GQA, qk-norm, qkv bias).  ``get_config``
+the ``attn_dense`` family (plain GQA, qk-norm, qkv bias): llama3-8b,
+-70b and -405b, qwen3-14b, qwen2.5-14b.  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -15,6 +16,8 @@ from repro_torch.models.common import ModelConfig
 
 _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
+    "llama3-70b": "llama3_70b",
+    "llama3-405b": "llama3_405b",
     "qwen3-14b": "qwen3_14b",
     "qwen2.5-14b": "qwen2_5_14b",
 }

@@ -1,6 +1,15 @@
-"""Paged GQA serve paths: page pools, scatters, decode and chunked prefill.
+"""Attention-backend registry and the paged GQA serve paths.
 
-The GQA part of ``repro/models/attention_backends.py``.  One difference in
+The port of ``repro/models/attention_backends.py``.  The registry
+(``AttentionBackend``, ``register_backend``, ``backend_for_kind``) and the
+per-kind cache layouts (``CacheLayout``, ``layout_for_kind``) are the
+reference's; ``Model.init_paged_cache``, ``runtime.state_cache
+.model_cache_layout`` and the pool pricing of ``parallel/plan.py`` walk
+them.  Only the ``gqa`` backend is registered: MLA kinds raise naming
+their ROADMAP item, and the SSM state layouts of ``ssm``/``hybrid`` kinds
+are declared but their pools are not ported.
+
+The GQA serve paths follow.  One difference in
 kind: the reference returns new pool arrays (``.at[].set``); here every
 scatter writes the pool **in place** (``index_put_``), with the page
 indices computed once per layer for all of the pool's leaves.  At llama3-8b size a
@@ -19,6 +28,9 @@ write (codes plus per-token scales, ``quant/kv.py``) and hand their scale
 leaves to the attention; the o projection goes through ``qdot``.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
 
 import torch
 
@@ -159,3 +171,144 @@ def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
         k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
         window=window)
     return qdot(out.reshape(b, c, h * hd), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Backend descriptor + registry
+# ---------------------------------------------------------------------------
+
+ITEM_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionBackend:
+    """One attention family's implementations and cache layout."""
+    name: str
+    paged_leaf_keys: tuple[str, ...]        # pool leaves with a token axis
+    mask_families: tuple[str, ...]          # dense paths
+    paged_mask_families: tuple[str, ...]    # paged paths
+    init: Callable[..., Any]
+    init_cache: Callable[..., dict]
+    forward: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    init_page_pool: Callable[..., dict] | None = None
+    decode_paged: Callable[..., Any] | None = None
+    prefill_chunk_paged: Callable[..., Any] | None = None
+    # multi-token decode (speculative verify): C queries per slot at
+    # per-row offsets over the paged pools
+    decode_multi_paged: Callable[..., Any] | None = None
+    # leaf key -> the unstacked pool-leaf dim that shards over a tensor-
+    # parallel mesh's model axis (None = replicated); read by the pool
+    # pricing (``parallel.plan.paged_kv_token_bytes``)
+    paged_partition_spec: dict[str, int | None] | None = None
+
+    @property
+    def supports_paged(self) -> bool:
+        return self.init_page_pool is not None
+
+
+_REGISTRY: dict[str, AttentionBackend] = {}
+
+# block kind -> backend name; kinds without attention (ssm) map to None
+KIND_BACKEND: dict[str, str | None] = {
+    "attn_dense": "gqa",
+    "attn_moe": "gqa",
+    "hybrid": "gqa",          # the attention half; SSM state is separate
+    "mla_dense": "mla",
+    "mla_moe": "mla",
+    "ssm": None,
+}
+
+
+def register_backend(backend: AttentionBackend) -> AttentionBackend:
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> AttentionBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name == "mla":
+            raise NotImplementedError(
+                f"the MLA attention backend — {ITEM_MLA}") from None
+        raise KeyError(f"unknown attention backend {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}") from None
+
+
+def backend_for_kind(kind: str) -> AttentionBackend | None:
+    try:
+        name = KIND_BACKEND[kind]
+    except KeyError:
+        raise ValueError(f"unknown block kind {kind!r}") from None
+    return get_backend(name) if name else None
+
+
+# ---------------------------------------------------------------------------
+# Cache layouts: what a block kind keeps resident per serving slot
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """Per-slot cache residency contract for one block kind: ``kv`` (the
+    kind writes token-indexed pages; full-context or ring is a property of
+    the segment's window, ``runtime.state_cache.SegmentCacheLayout``),
+    ``state`` (constant-size recurrent state pooled per slot),
+    ``init_state_pool`` (``(cfg, num_slots) -> pools``) and
+    ``state_partition_spec`` (leaf key -> sharded dim, or None)."""
+    kv: bool
+    state: bool
+    init_state_pool: Callable[..., dict] | None = None
+    state_partition_spec: dict[str, int | None] | None = None
+
+
+def _unported_state_pool(cfg, num_slots):
+    raise NotImplementedError(
+        f"{cfg.name}: SSM state pools — {layers.ITEM_STATEFUL}")
+
+
+_SSM_STATE_LAYOUT = dict(
+    state=True,
+    init_state_pool=_unported_state_pool,
+    state_partition_spec={"conv": None, "ssm": None},
+)
+
+# block kind -> residency layout.  Attention kinds are pure-KV; ssm is
+# pure-state; hybrid blocks own both a KV half and a state half in the
+# same slot.
+KIND_LAYOUT: dict[str, CacheLayout] = {
+    "attn_dense": CacheLayout(kv=True, state=False),
+    "attn_moe": CacheLayout(kv=True, state=False),
+    "mla_dense": CacheLayout(kv=True, state=False),
+    "mla_moe": CacheLayout(kv=True, state=False),
+    "hybrid": CacheLayout(kv=True, **_SSM_STATE_LAYOUT),
+    "ssm": CacheLayout(kv=False, **_SSM_STATE_LAYOUT),
+}
+
+
+def layout_for_kind(kind: str) -> CacheLayout:
+    try:
+        return KIND_LAYOUT[kind]
+    except KeyError:
+        raise ValueError(f"unknown block kind {kind!r}") from None
+
+
+GQA = register_backend(AttentionBackend(
+    name="gqa",
+    paged_leaf_keys=("k", "v"),
+    mask_families=("prefix", "sliding"),
+    paged_mask_families=("prefix", "sliding"),
+    init=layers.init_attn,
+    init_cache=layers.init_attn_cache,
+    forward=layers.attn_forward,
+    prefill=layers.attn_prefill,
+    decode=layers.attn_decode,
+    init_page_pool=init_attn_page_pool,
+    decode_paged=attn_decode_paged,
+    prefill_chunk_paged=attn_prefill_chunk_paged,
+    decode_multi_paged=attn_decode_multi_paged,
+    # (P, page, KVH, HD) codes + (P, page, KVH) scale metadata: KV heads
+    paged_partition_spec={"k": 2, "v": 2, "k_scale": 2, "v_scale": 2},
+))

@@ -10,9 +10,10 @@ along a leading axis and scans; eager PyTorch loops over the list instead
 Serve entry points mirror the reference's.  Continuous (paged):
 ``init_paged_cache`` builds one K/V page pool per layer,
 ``prefill_chunk_paged`` runs one chunk of prompt tokens per slot into the
-pools, ``decode_step_paged`` one token per slot (or, in its 2-D form, the
-C already-chosen tokens of a speculative verify step, with logits at every
-position).  Static (dense cache):
+pools (``prefill_chunk_scored_paged`` also keeps every position's logits,
+for prompt scoring), ``decode_step_paged`` one token per slot (or, in its
+2-D form, the C already-chosen tokens of a speculative verify step, with
+logits at every position).  Static (dense cache):
 ``init_cache`` builds one ``(B, max_len, KVH, HD)`` cache per layer,
 ``prefill`` runs the whole prompt into it, ``decode_step`` one token per
 row at a shared position.  ``forward`` scores a whole sequence without a
@@ -275,9 +276,10 @@ class Model(nn.Module):
         if ring_pages is not None:
             raise NotImplementedError(f"ring page spaces — {ITEM_STATEFUL}")
         dtype = torch.bfloat16 if dtype is None else dtype
-        return [ab.init_attn_page_pool(self.cfg, num_pages, page_size, dtype,
-                                       device=self.device)
-                for _ in self.layers]
+        return [ab.backend_for_kind(kind).init_page_pool(
+                    self.cfg, num_pages, page_size, dtype, device=self.device)
+                for seg in self.plan for _ in range(seg.reps)
+                for kind in seg.kinds]
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens: torch.Tensor, pools: list,
@@ -291,13 +293,38 @@ class Model(nn.Module):
         (B,) absolute position of tokens[:, 0]; valid: (B,) real tokens per
         row (0 for padding rows, whose table rows point at the scratch
         page).  Returns (B, V) logits at each row's last valid position."""
+        x = self._prefill_chunk_body(tokens, pools, page_table, start, valid,
+                                     states, ring_table)
+        return self._last_logits(x, valid)
+
+    @torch.no_grad()
+    def prefill_chunk_scored_paged(self, tokens: torch.Tensor, pools: list,
+                                   page_table: torch.Tensor,
+                                   start: torch.Tensor, valid: torch.Tensor,
+                                   *, states=None, ring_table=None,
+                                   slot_idx=None):
+        """``prefill_chunk_paged`` that also scores the chunk (prompt
+        logprobs): returns (last_logits (B, V), full_logits (B, C, V)).
+        ``last_logits`` come through exactly the head call of
+        ``prefill_chunk_paged``, so a scored admission samples the same
+        first token; ``full_logits`` feed the raw prompt-token scores."""
+        x = self._prefill_chunk_body(tokens, pools, page_table, start, valid,
+                                     states, ring_table)
+        return self._last_logits(x, valid), self._head(x)
+
+    def _prefill_chunk_body(self, tokens, pools, page_table, start, valid,
+                            states, ring_table) -> torch.Tensor:
         _no_state(states, ring_table)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, C, D)
         for win, blk, pool in zip(self.windows, self.layers, pools):
             x = _block_prefill_chunk_paged(blk, x, cfg, win, pool, page_table,
                                            start, valid)
-        b, c = tokens.shape
+        return x
+
+    def _last_logits(self, x: torch.Tensor, valid) -> torch.Tensor:
+        """(B, V) head logits at each row's last valid chunk position."""
+        b, c = x.shape[:2]
         last = torch.clamp(valid.long() - 1, 0, c - 1)
         x_last = x[torch.arange(b, device=x.device), last]
         return self._head(x_last[:, None, :])[:, 0]

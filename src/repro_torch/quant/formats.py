@@ -326,6 +326,7 @@ _CANONICAL = {
                         MX_BLOCK, 4 + 8.0 / MX_BLOCK + 8.0 / NX_SUB / 8),
 }
 _ALIASES = {"bfp16": "bfp"}      # alias: 16-elem BFP blocks
+FORMAT_NAMES = frozenset([*_CANONICAL, *_ALIASES])
 
 PACKED_TYPES = tuple(s.packed_cls for s in _CANONICAL.values())
 _FORMAT_BY_TYPE = {s.packed_cls: name for name, s in _CANONICAL.items()}

@@ -44,13 +44,24 @@ multi-token verify step through ``Model.decode_step_paged``'s 2-D form
 (the exact-accumulator kernel on CUDA), then the acceptance rule per slot;
 the emitted tokens come to the host once a window.
 
+Sizing: ``spec=DeploymentSpec(...)`` (``runtime/deployment.py``) derives
+the pool and slot knobs of both engines from a hardware point's memory
+budget and bandwidth roofline (the draft's weights and pool bytes priced
+in under ``speculative=``); explicit kwargs override single values, and
+the resolved budget is kept on ``self.deployment``.  The continuous
+engine's ``max_decode_slots`` (the spec's bandwidth-knee admission hint)
+caps how many requests hold a slot at once.
+
+Prompt scoring: a request with ``SamplingParams.prompt_logprobs`` admits
+through ``Model.prefill_chunk_scored_paged``, which keeps every chunk
+position's logits on the device until each row's prompt-token scores are
+taken; the first token comes from the same head call as an unscored
+admission's.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``spec=`` (DeploymentSpec sizing, also of a draft),
-``mesh=`` (tensor parallelism), ``phase != "colocated"`` (disaggregation,
-also of draft pages),
-sliding-window / stateful layouts, and prompt scoring
-(``SamplingParams.prompt_logprobs``) in the continuous engine (the static
-backend of ``LLMEngine`` scores prompts through ``Model.forward``).
+item): ``mesh=`` (tensor parallelism, also in a spec), ``phase !=
+"colocated"`` (disaggregation, also of draft pages) and sliding-window /
+stateful layouts.
 """
 from __future__ import annotations
 
@@ -119,7 +130,9 @@ class ServeEngine:
     steps at the shared position.  ``weight_format=`` serves a quantized
     view of the model (``quant.linear.quantize_params``; the caller's model
     is left as it was).  A quantized ``cache_dtype`` raises, as in the
-    reference: the dense cache stays a plain dtype."""
+    reference: the dense cache stays a plain dtype.  ``spec=`` (a
+    ``DeploymentSpec``) supplies ``max_len``, ``cache_dtype`` and
+    ``weight_format`` where they are not passed."""
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
                  max_len: int | None = None, spec=None,
@@ -132,11 +145,17 @@ class ServeEngine:
             raise ValueError(f"model weights are on {wdev}, the engine was "
                              f"asked to run on {dev}")
         self.device = wdev
-        if spec is not None:
-            raise _unported("DeploymentSpec sizing (spec=)",
-                            "DeploymentSpec")
+        self.deployment = None
+        if spec is not None:        # DeploymentSpec (runtime.deployment)
+            dep = spec.resolve(model, params=model)
+            self.deployment = dep
+            max_len = dep.max_len if max_len is None else max_len
+            cache_dtype = dep.cache_dtype if cache_dtype is None \
+                else cache_dtype
+            weight_format = spec.weight_format if weight_format is None \
+                else weight_format
         if max_len is None:
-            raise ValueError("pass max_len=")
+            raise ValueError("pass max_len= or a DeploymentSpec via spec=")
         cache_dtype = dense_cache_dtype(cache_dtype)     # refuses fp8/int8
         self.weight_format = weight_format
         if weight_format is not None:
@@ -275,6 +294,10 @@ class ContinuousStats:
         return int(sum(t.shape[0] for t in self.results.values()))
 
     @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hit_tokens / max(self.prompt_tokens, 1)
+
+    @property
     def accepted_per_window(self) -> float:
         """Mean draft proposals accepted per window (0..gamma); each window
         also emits one corrected or bonus token on top."""
@@ -298,6 +321,13 @@ class ContinuousStats:
         return {"p50": pct(0.50), "p95": pct(0.95), "p99": pct(0.99),
                 "mean": sum(ts) / len(ts)}
 
+    def ttft_quantiles(self) -> tuple[float, float, float] | None:
+        """(p50, p99, mean) time-to-first-token in seconds, or None."""
+        q = self.latency_quantiles("ttft")
+        if q is None:
+            return None
+        return q["p50"], q["p99"], q["mean"]
+
 
 class ContinuousServeEngine:
     """Iteration-level continuous batching over a block-paged KV cache.
@@ -309,6 +339,13 @@ class ContinuousServeEngine:
     (``add_request`` then ``step`` until ``has_unfinished()`` is False) or
     in batch via ``run(requests, on_output=...)``.  With ``speculative=``
     each step over the decoding slots is one draft/verify window instead.
+
+    Sizing: pass a ``DeploymentSpec`` via ``spec=`` and the pool and slot
+    knobs (``num_pages``, ``num_slots``, ``page_size``, ``max_len``,
+    ``prefill_chunk``, ``cache_dtype``, ``weight_format`` and the
+    scheduler's ``max_decode_slots``) derive from its hardware point;
+    explicit kwargs override single values.  The resolved budget is kept
+    on ``self.deployment``.
     """
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
@@ -319,7 +356,8 @@ class ContinuousServeEngine:
                  prefill_chunk: int | None = None,
                  enable_prefix_cache: bool = True,
                  max_top_k: int = sampling.MAX_TOP_K,
-                 mesh=None, speculative: SpeculativeConfig | None = None,
+                 mesh=None, max_decode_slots: int | None = None,
+                 speculative: SpeculativeConfig | None = None,
                  phase: str = "colocated"):
         dev = resolve_device(device)
         wdev = next(model.parameters()).device
@@ -327,25 +365,50 @@ class ContinuousServeEngine:
             raise ValueError(f"model weights are on {wdev}, the engine was "
                              f"asked to run on {dev}")
         self.device = wdev
-        if spec is not None:
-            raise _unported("DeploymentSpec sizing (spec=)",
-                            "DeploymentSpec")
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh=)",
                             "Tensor parallelism")
-        kvq.validate_cache_dtype(cache_dtype)
         if phase != "colocated":
             raise _unported(f"phase={phase!r} (disaggregated serving)",
                             "Disaggregation")
         if any(seg.window is not None for seg in model.plan):
             raise _unported(f"{model.cfg.name}: sliding-window ring pages",
                             "Stateful layouts")
+        # -- DeploymentSpec resolution: pool/slot knobs derived from the
+        # hardware point; explicit kwargs override individual values --
+        self.deployment = None
+        if spec is not None:
+            rkw = {}
+            if speculative is not None:
+                # the draft's weights join the capacity split, and every
+                # logical page carries both pool sets' bytes (a self-draft
+                # or a truncated draft is priced as a second set of
+                # weights, as the reference prices it)
+                draft = speculative.draft_model or model
+                rkw = dict(draft=draft, draft_params=draft,
+                           gamma=speculative.gamma)
+            dep = spec.resolve(model, params=model, **rkw)
+            self.deployment = dep
+            num_slots = dep.num_slots if num_slots is None else num_slots
+            page_size = dep.page_size if page_size is None else page_size
+            num_pages = dep.num_pages if num_pages is None else num_pages
+            max_len = dep.max_len if max_len is None else max_len
+            prefill_chunk = dep.prefill_chunk if prefill_chunk is None \
+                else prefill_chunk
+            cache_dtype = dep.cache_dtype if cache_dtype is None \
+                else cache_dtype
+            weight_format = spec.weight_format if weight_format is None \
+                else weight_format
+            max_decode_slots = dep.max_decode_slots \
+                if max_decode_slots is None else max_decode_slots
         missing = [k for k, v in (("num_slots", num_slots),
                                   ("page_size", page_size),
                                   ("num_pages", num_pages),
                                   ("max_len", max_len)) if v is None]
         if missing:
-            raise ValueError(f"pass the explicit knobs {missing}")
+            raise ValueError(
+                f"pass a DeploymentSpec via spec= or the explicit knobs "
+                f"{missing}")
         prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
         if weight_format is not None:
             # a view: packed projections, the caller's other tensors
@@ -355,6 +418,7 @@ class ContinuousServeEngine:
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_len = max_len
+        self.max_decode_slots = max_decode_slots
         self.max_blocks = -(-max_len // page_size)
         if num_pages - 1 < self.max_blocks:   # page 0 is scratch
             raise ValueError(
@@ -362,7 +426,9 @@ class ContinuousServeEngine:
                 f"request ({self.max_blocks} blocks + scratch)")
         self.default_sampling = sampling_params or sampling.GREEDY
         self.max_top_k = int(max_top_k)
+        kvq.validate_cache_dtype(cache_dtype)
         self.cache_dtype = cache_dtype
+        self.weight_format = weight_format
         if int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
         self.prefill_chunk = int(prefill_chunk)
@@ -429,6 +495,27 @@ class ContinuousServeEngine:
                                      start + valid, max_top_k=self.max_top_k,
                                      rep_penalty=rep, bias_ids=bias_ids,
                                      bias_vals=bias_vals, presence=presence)
+
+    def _chunk_scored_impl(self, presence, tokens, page_table, start, valid,
+                           tgt, temp, topk, topp, minp, seed, rep, bias_ids,
+                           bias_vals):
+        """The prompt-logprobs variant of ``_chunk_impl``: the chunk's full
+        (B, C, V) logits also score the next prompt token at every chunk
+        position (``tgt[i, j] = prompt[start + j + 1]``, host-built), on the
+        device; only the (B, C) scores leave it.  The first-token draw
+        still goes through the last-position head logits, so a scored
+        admission samples the same first token."""
+        last_logits, full = self.model.prefill_chunk_scored_paged(
+            tokens, self._pools, page_table, start, valid)
+        first, lp = sampling.sample_slots(
+            last_logits, temp, topk, topp, minp, seed, start + valid,
+            max_top_k=self.max_top_k, rep_penalty=rep, bias_ids=bias_ids,
+            bias_vals=bias_vals, presence=presence)
+        lf = full.float()
+        del full
+        plp = (torch.gather(lf, -1, tgt[..., None].long())[..., 0]
+               - torch.logsumexp(lf, dim=-1))
+        return first, lp, plp
 
     def _pool_leaves(self):
         """Every pool leaf of the target and, when speculating, the draft
@@ -566,7 +653,8 @@ class ContinuousServeEngine:
                                   page_size=self.page_size,
                                   max_blocks=self.max_blocks,
                                   enable_prefix_cache=self.enable_prefix_cache)
-        self._sched = Scheduler(self.cache, on_release=self._on_release)
+        self._sched = Scheduler(self.cache, on_release=self._on_release,
+                                max_running=self.max_decode_slots)
         self._slots = sampling.SlotSampling(self.num_slots, self.device)
         # token-presence rows (repetition penalty): host mirror + device copy
         self._presence_np = np.zeros((self.num_slots, self._vocab), np.bool_)
@@ -605,6 +693,14 @@ class ContinuousServeEngine:
     def has_unfinished(self) -> bool:
         return self._sched is not None and self._sched.has_work()
 
+    def kv_token_bytes_per_device(self) -> int:
+        """Pool bytes one cached token costs on the device, measured from
+        the pool dtype (fp8/int8 pools: codes + scale leaves)."""
+        from repro_torch.parallel.plan import paged_kv_token_bytes
+        return paged_kv_token_bytes(self.model,
+                                    cache_dtype=self.cache_dtype
+                                    or torch.bfloat16)
+
     def add_request(self, req: Request,
                     sampling_params: SamplingParams | None = None) -> None:
         """Submit one request; it enters the slot batch on a later
@@ -613,9 +709,6 @@ class ContinuousServeEngine:
             self.reset()
         if req.sampling is None:
             req.sampling = sampling_params or self.default_sampling
-        if req.sampling.prompt_logprobs:
-            raise _unported("prompt scoring (SamplingParams.prompt_logprobs)",
-                            "Prompt scoring")
         if req.sampling.max_tokens is not None:
             req.max_new_tokens = min(req.max_new_tokens,
                                      req.sampling.max_tokens)
@@ -660,6 +753,9 @@ class ContinuousServeEngine:
             finish_reason=req.finish_reason if finished else None,
             logprobs=(list(req.logprobs)
                       if finished and req.sampling.logprobs else None),
+            prompt_logprobs=(list(req.prompt_logprobs)
+                             if finished and req.sampling.prompt_logprobs
+                             else None),
             metrics=metrics)
 
     def _progress(self, req: Request, outs: list[RequestOutput]) -> None:
@@ -704,8 +800,23 @@ class ContinuousServeEngine:
             pres[i] = self._presence_np[r.slot]
         pres_t, tok_t, tab_t, start_t, valid_t = (
             self._tensor(a) for a in (pres, tokens, tables, start, valid))
-        first, lp = self._chunk_impl(pres_t, tok_t, tab_t, start_t, valid_t,
-                                     *(self._tensor(a) for a in samp + extras))
+        pargs = [self._tensor(a) for a in samp + extras]
+        plp = None
+        if any(r.sampling.prompt_logprobs for r in pre):
+            # tgt[i, j] = the prompt token position start+j predicts (0-pad
+            # past the prompt: those scores are dropped below)
+            tgt = np.zeros((bucket, c), np.int32)
+            for i, r in enumerate(pre):
+                nxt = r.prompt[int(start[i]) + 1:int(start[i]) + int(valid[i])
+                               + 1]
+                tgt[i, :len(nxt)] = nxt
+            first, lp, plp = self._chunk_scored_impl(
+                pres_t, tok_t, tab_t, start_t, valid_t, self._tensor(tgt),
+                *pargs)
+            plp = plp.cpu().numpy()
+        else:
+            first, lp = self._chunk_impl(pres_t, tok_t, tab_t, start_t,
+                                         valid_t, *pargs)
         if self.spec is not None:
             # the draft pools take the same chunk (logits dropped), so the
             # first draft window attends over the whole prompt
@@ -718,6 +829,13 @@ class ContinuousServeEngine:
             r.chunks += 1
             self._n_chunks += 1
             self._prefill_tokens += int(valid[i])
+            if plp is not None and r.sampling.prompt_logprobs:
+                # position start+j scores prompt[start+j+1]; the final
+                # chunk's last position predicts the first generated token,
+                # which is not a prompt logprob: drop it
+                n = int(valid[i])
+                keep = n - 1 if int(start[i]) + n == r.prompt_len else n
+                r.prompt_logprobs.extend(float(x) for x in plp[i, :keep])
             r.pos += int(valid[i])
             if r.pos == r.prompt_len:                  # prefill complete
                 r.state = RUNNING

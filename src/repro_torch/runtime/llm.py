@@ -31,10 +31,19 @@ and the legacy batch-1 backend over the dense caches, one prompt at a time
     llm = LLMEngine(model, backend="speculative", draft_model=draft,
                     gamma=8, max_len=2048)
 
+Every backend can be sized from a hardware point instead of hand-tuned
+knobs (``runtime/deployment.py``; explicit kwargs still win)::
+
+    spec = DeploymentSpec(sku="h100", weight_format="mxfp4",
+                          cache_dtype="fp8", max_len=4096)
+    llm = LLMEngine(model, spec=spec)
+    print(llm.deployment.describe())
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
-metrics).  All three backends are ported; the static one also scores
-prompts (``SamplingParams.prompt_logprobs``, through ``Model.forward``).
+metrics).  All three backends are ported; the static and continuous ones
+also score prompts (``SamplingParams.prompt_logprobs``: ``Model.forward``
+on the static backend, the scored prefill chunk on the continuous one).
 """
 from __future__ import annotations
 
@@ -95,6 +104,9 @@ class LLMEngine:
         if mesh is not None and backend != "continuous":
             raise ValueError("mesh= shards the continuous paged serve path "
                              "only")
+        if spec is not None and spec.mesh is not None \
+                and backend != "continuous":
+            raise ValueError("spec.mesh shards the continuous backend only")
         if speculative is not None and backend != "continuous":
             raise ValueError(
                 "speculative= configures scheduler-integrated speculation "
@@ -104,7 +116,14 @@ class LLMEngine:
             raise NotImplementedError(
                 "disaggregate=True is not ported to PyTorch yet (ROADMAP "
                 "Queue 1, 'Disaggregation')")
-        max_len = 256 if max_len is None else max_len
+        if spec is None:
+            # the hand-tuned knob defaults
+            max_len = 256 if max_len is None else max_len
+            num_slots = 8 if num_slots is None else num_slots
+            page_size = 16 if page_size is None else page_size
+            prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
+        elif max_len is None:
+            max_len = spec.max_len
         self.model = model
         self.backend = backend
         self.max_len = max_len
@@ -113,10 +132,6 @@ class LLMEngine:
         if backend == "speculative":
             # with no draft the target drafts for itself: every window
             # accepts, and the output is the target-only stream
-            if spec is not None:
-                raise NotImplementedError(
-                    "DeploymentSpec sizing (spec=) is not ported to PyTorch "
-                    "yet (ROADMAP Queue 1, 'DeploymentSpec')")
             if weight_format is not None:
                 raise ValueError("weight_format= serves the continuous and "
                                  "static backends")
@@ -127,6 +142,13 @@ class LLMEngine:
                                  f"was asked to run on {dev}")
             self.draft_model = draft_model or model
             self.gamma = gamma
+            # a DeploymentSpec sizes this backend's max_len; the budget is
+            # priced with the draft's weights and pool bytes, and kept for
+            # inspection
+            self._speculative_deployment = (
+                spec.resolve(model, params=model, draft=self.draft_model,
+                             draft_params=self.draft_model, gamma=gamma)
+                if spec is not None else None)
             self._spec = SpeculativeEngine(self.draft_model, model,
                                            gamma=gamma,
                                            cache_dtype=cache_dtype)
@@ -139,10 +161,7 @@ class LLMEngine:
                 cache_dtype=cache_dtype, weight_format=weight_format,
                 max_top_k=max_top_k)
             return
-        num_slots = 8 if num_slots is None else num_slots
-        page_size = 16 if page_size is None else page_size
-        prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
-        if num_pages is None:
+        if spec is None and num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
         self._eng = ContinuousServeEngine(
             model, device=device, num_slots=num_slots, page_size=page_size,
@@ -151,6 +170,19 @@ class LLMEngine:
             weight_format=weight_format, prefill_chunk=prefill_chunk,
             enable_prefix_cache=enable_prefix_cache, max_top_k=max_top_k,
             mesh=mesh, speculative=speculative)
+
+    @property
+    def deployment(self):
+        """The resolved ``DeploymentSpec`` budget (None without spec=)."""
+        if self._eng is None:              # legacy speculative backend
+            return self._speculative_deployment
+        return self._eng.deployment
+
+    def kv_token_bytes_per_device(self) -> int:
+        """Pool bytes one cached token costs (continuous only)."""
+        if self.backend != "continuous":
+            raise ValueError("KV accounting needs backend='continuous'")
+        return self._eng.kv_token_bytes_per_device()
 
     # -- request plumbing ---------------------------------------------------
     def _resolve(self, prompts, sampling_params, max_new_tokens):

@@ -24,6 +24,7 @@ from repro.runtime.sampling import SamplingParams as RefSP
 from repro.runtime.speculative import SpeculativeConfig as RefSpecConfig
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
+from repro_torch.runtime.deployment import DeploymentSpec
 from repro_torch.runtime.llm import LLMEngine
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.speculative import SpeculativeConfig
@@ -167,12 +168,14 @@ def test_stop_token_ids_match_reference(models, gamma):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(spec=object()), "DeploymentSpec"),
+    # DeploymentSpec sizing is ported; a spec that shards over a mesh is not
+    pytest.param(dict(spec=DeploymentSpec(sku="h100", mesh="1x2")),
+                 "Tensor parallelism", id="kwargs0-DeploymentSpec"),
     (dict(mesh=object()), "Tensor parallelism"),
-    # speculation is ported; its DeploymentSpec pricing and sharded draft
-    # are not
-    (dict(speculative=SpeculativeConfig(gamma=2), spec=object()),
-     "DeploymentSpec"),
+    # speculation and its pricing are ported; a sharded draft is not
+    pytest.param(dict(speculative=SpeculativeConfig(gamma=2),
+                      spec=DeploymentSpec(sku="h100", mesh=(1, 2))),
+                 "Tensor parallelism", id="kwargs2-DeploymentSpec"),
     (dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
      "Tensor parallelism"),
     (dict(disaggregate=True), "Disaggregation"),
@@ -184,11 +187,14 @@ def test_unported_options_name_their_roadmap_item(models, kwargs, item):
 
 
 def test_prompt_scoring_and_devices(models):
+    """Prompt scoring is served (its parity with the reference is in
+    test_torch_prompt_scoring.py); a CUDA request without a card raises."""
     port = models[3]
     llm = LLMEngine(port, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="Prompt scoring"):
-        llm.add_request([1, 2, 3], SamplingParams(max_tokens=2,
-                                                  prompt_logprobs=True))
+    (out,) = llm.generate([[1, 2, 3]], SamplingParams(max_tokens=2,
+                                                      prompt_logprobs=True))
+    assert len(out.prompt_logprobs) == 2
+    assert all(v <= 0 for v in out.prompt_logprobs)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LLMEngine(port, **ENGINE)

@@ -75,7 +75,7 @@ def test_bridge_round_trip_bit_identical(name):
 
 
 def test_port_config_registry_matches_reference():
-    for name in ARCHS:
+    for name in (*ARCHS, "llama3-70b", "llama3-405b"):
         assert tconfigs.get_config(name).__dict__ == get_config(name).__dict__
         assert (tconfigs.reduced_config(tconfigs.get_config(name)).__dict__
                 == reduced_config(get_config(name)).__dict__)

@@ -39,6 +39,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax
 from repro_torch.models import layers
 from repro_torch.models.model import Model
+from repro_torch.runtime.deployment import DeploymentSpec
 from repro_torch.runtime.engine import ServeEngine
 from repro_torch.runtime.llm import LLMEngine
 from repro_torch.runtime.sampling import SamplingParams
@@ -310,8 +311,10 @@ def test_refusals(llama):
     port = llama[3]
     with pytest.raises(NotImplementedError, match="paged pools"):
         LLMEngine(port, backend="static", device="cpu", cache_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="DeploymentSpec"):
-        LLMEngine(port, backend="static", device="cpu", spec=object())
+    # a spec sizes the static engine, but its quantized cache stays refused
+    with pytest.raises(NotImplementedError, match="paged pools"):
+        LLMEngine(port, backend="static", device="cpu",
+                  spec=DeploymentSpec(sku="h100", cache_dtype="fp8"))
     with pytest.raises(NotImplementedError, match="quantized KV"):
         port.init_cache(1, 8, dtype="int8")
     # a windowed layer takes the kernels on CUDA: refused there, not
