@@ -15,9 +15,11 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
 ``--only kernel_exact,check`` (any of the kernel phases, quantize,
-deployment, check; serve and serve_spec_draft on a llama3-8b built first)
-builds and runs just those phases and prints no result line: for quick
-checks of one kernel or path.
+deployment, check, check_mla; serve and serve_spec_draft on a llama3-8b
+built first; serve_mla, serve_mla_static, serve_mla_quantized and
+serve_mla_spec on a deepseek-v2-lite-16b built first) builds and runs just
+those phases and prints no result line: for quick checks of one kernel or
+path.
 
 Phases, each of which fails the run if it fails:
 
@@ -47,7 +49,12 @@ Phases, each of which fails the run if it fails:
    and gate/up, M 8 and 256), ragged M and N (the byte-copy path, single
    and grouped), E8M0 scales >= 128, and llama3-70b's four projection
    shapes (K 8192 to N 8192, 1024, 28672; K 28672 to N 8192) at M 8 and
-   256.  Each shape is timed beside its bound, a plain read of its bytes (``stream_read_ms``) and
+   256, and deepseek-v2-lite-16b's four launches (wq K 2048 -> N 3072, wo
+   2048 -> 2048, the dense layer's gate/up grouped 2048 -> 2 x 10944, a
+   ragged N on the byte-copy path, and w_down 10944 -> 2048) at the M its
+   serve path gives them: 8 (a decode step) and 256, 512, 1024 and 2048
+   (prefill chunk calls of 1, 2, 4 and 8 rows).  Each shape is timed
+   beside its bound, a plain read of its bytes (``stream_read_ms``) and
    ``torch.matmul`` of x with the pre-dequantized bf16 weight (a different
    function: it streams 3.76x the bytes); both schedules are timed at M 8
    and 16 (the crossover); the headline is one llama3-8b layer at M 8 in
@@ -101,8 +108,12 @@ Phases, each of which fails the run if it fails:
    weights and fp8 KV, from ``meta``-device models (no weights allocated:
    checked): each budget printed beside ``torch.cuda.mem_get_info()``'s
    total; llama3-405b must raise ``DeploymentError`` on one H100.
-9. serve — llama3-8b at full width and depth (random bf16 weights from a
-   seeded generator, ~16 GB) behind ``LLMEngine(backend="continuous")``
+   deepseek-v2-lite-16b on h100 with bf16 and with mxfp4 weights must
+   resolve, and with an fp8 cache must raise ``DeploymentError``.
+9. serve — llama3-8b at full width, its depth cut to ``LLAMA_LAYERS``
+   (16 of 32, since the deepseek phases joined the script: it keeps the
+   whole run near 600 s; random bf16 weights from a
+   seeded generator, ~9 GB) behind ``LLMEngine(backend="continuous")``
    answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
    finish, the prefix index must be hit, the decode kernel must have run
@@ -111,19 +122,23 @@ Phases, each of which fails the run if it fails:
    reproduce every stream, greedy and sampled.  Eight decode-only steps of
    that second session are traced with ``torch.profiler``: device busy
    time per step, the device's idle share, time by kernel, and the host
-   ops that take most host time.  Then prompt scoring: the 1024-token
-   prompt twice in one session, one request with ``prompt_logprobs``; its
-   first token must equal the unscored one's, its scores agree with
-   ``Model.forward``'s on the card within ``SCORE_REL_TOL`` of each
-   position's largest |logit|, and its chunk calls are timed beside an
-   unscored session's.
+   ops that take most host time.  Then prompt scoring (``serve_scoring``):
+   the 1024-token prompt alone, in a session unscored and in one with
+   ``prompt_logprobs``; the scored first token must equal the unscored
+   one, the scores agree with ``Model.forward``'s on the card within
+   ``SCORE_REL_TOL`` of each position's largest |logit|, and the scored
+   chunk calls are timed beside the unscored ones.  Then the prompt twice
+   in one batch, one copy scored (``mixed_batch_scoring``): equal first
+   tokens, no scores on the unscored copy, the scored copy's within the
+   same limit.
 10. serve_static — the same model behind ``LLMEngine(backend="static",
    max_len=2048)`` answers 8 prompts of 1024 tokens (4 greedy, 4 sampled,
-   64 new tokens each); every request finishes, the flash kernel runs 32
-   times (one prefill call) and the dense decode kernel 32 x 63 times, and
-   a second identical call reproduces every stream.  A call with
-   ``prompt_logprobs`` (two prompts, 4 new tokens) must launch the flash
-   kernel 32 x 2 times (prefill and ``Model.forward``) and give finite
+   64 new tokens each); every request finishes, the flash kernel runs once
+   per layer (one prefill call) and the dense decode kernel once per layer
+   per decode step (63), and a second identical call reproduces every
+   stream.  A call with ``prompt_logprobs`` (two prompts, 4 new tokens)
+   must launch the flash kernel twice per layer (prefill and
+   ``Model.forward``) and give finite
    scores <= 0.  Reports tokens/s, prefill s, decode step ms and peak GB,
    and the device time of 16 decode steps (a profiled 17-token call minus
    a 1-token one): busy ms per step, idle share, time by kernel.
@@ -132,13 +147,17 @@ Phases, each of which fails the run if it fails:
    kernel must have run 4 x layers x (decode steps + prefill chunk calls)
    times (q/k/v and gate/up grouped; the decode schedule on decode steps,
    wgmma on prefill calls, ``kernels.VARIANT_LAUNCHES``) and the
-   scale-pool decode kernel once per layer per decode step.
+   scale-pool decode kernel once per layer per decode step.  Each distinct
+   (M, K, Ns) the session gave the MXFP4 kernel is then held against the
+   plain version as in kernel_mxfp4, on the activations and weights of its
+   first launch (``vmm_calls``; those launches are not counted).
 12. serve_spec — the serve phase's requests behind
    ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
    gamma=4))``, a self-draft: every request finishes, a second session
-   reproduces every stream (greedy and sampled), the exact kernel runs 32
-   times a window (the verify step) and the paged decode kernel 32 x 5
-   (four draft steps and the backfill), both as tensor-core variants; then
+   reproduces every stream (greedy and sampled), the exact kernel runs once
+   per layer a window (the verify step) and the paged decode kernel 5 times
+   per layer (four draft steps and the backfill), both as tensor-core
+   variants; then
    a short session over fp8 pools (4 requests, 32 new tokens) with the
    same launch checks on the scale-pool kernels reports its accepted
    proposals per window.  Reports tokens/s, ms and tokens
@@ -148,12 +167,12 @@ Phases, each of which fails the run if it fails:
    phase's (the exact and online kernels round apart, so a bf16 near-tie
    may flip).  Then ``LLMEngine(backend="speculative")`` with the model as
    its own draft, one greedy 256-token prompt, 32 new tokens: the dense
-   decode kernel must run 32 x 2 (gamma + 1) x the windows the engine
+   decode kernel must run per layer 2 (gamma + 1) x the windows the engine
    counts (draft steps with the backfill, and target steps) and the flash
-   kernel 32 x 2 (the two prompt prefills), and a
+   kernel twice per layer (the two prompt prefills), and a
    second call reproduces the stream (phase serve_spec_legacy).
 13. serve_spec_draft — speculation with a cheap draft: the draft is the
-   model's first 4 of 32 layers (``runtime/spec_pair.build_pair``: shared
+   model's first 4 of its 16 layers (``runtime/spec_pair.build_pair``: shared
    tensors; the deeper ``wo``/``w_down`` damped by 0.005 in place, so this
    runs last on the model).  Plain and speculative (gamma 4) engines, both
    sized by ``DeploymentSpec(sku="h100", max_len=512, page_size=16,
@@ -171,7 +190,39 @@ Phases, each of which fails the run if it fails:
    per target layer per window; greedy speculative streams must equal the
    plain ones or part where the plain stream's top-2 gap is at most
    ``NEAR_TIE_BF16_ULPS`` bf16 ulps of the top logit.
-14. check — a narrow 2-layer llama-shaped model in f32 served on the card
+14. serve_mla — after ``del`` of llama3-8b, deepseek-v2-lite-16b at full
+   width and depth (27 layers: MLA attention, 1 dense layer, 26 MoE layers
+   of 64 routed experts, top 6, and 2 shared; random bf16 weights from a
+   seeded generator, ~31 GB) behind ``LLMEngine(backend="continuous")``:
+   the serve phase's requests and checks (every request finishes, the
+   prefix index is hit, a second session reproduces every stream, a
+   scored prompt's first token and scores against ``Model.forward``; the
+   prompt is scored in an engine of its own whose chunk is the prompt's
+   length, since MoE capacity counts a call's tokens, and the mixed-batch
+   check is GQA's only).  MLA
+   attention and MoE are plain torch, as the reference computes them
+   outside any Pallas kernel: no kernel may launch.  The traced steps
+   split device time by the model's named ranges (``SPANS``: MLA
+   attention, MoE dispatch, experts and combine, the head).  Reports
+   tokens/s, TTFT p50, decode step ms and peak GB.
+15. serve_mla_static — the same model behind ``LLMEngine(backend=
+   "static")``: 8 prompts of 1024 tokens, 64 new each, twice (every stream
+   reproduces), then a ``prompt_logprobs`` call (finite scores <= 0); the
+   device time of 16 decode steps by kernel and by named range.
+16. serve_mla_quantized — serve_mla with ``weight_format="mxfp4"`` over
+   bf16 pools: the same checks, and ``mxfp4_vmm`` must launch 56 times per
+   decode step and per prefill chunk call (wq and wo of 27 layers, the
+   dense layer's gate/up and down; ``vmm_launches_per_call``), on the
+   decode schedule at decode steps and wgmma at prefill calls; and each
+   shape it gave the kernel is held against the plain version, as in
+   serve_quantized.
+17. serve_mla_spec — continuous ``speculative=SpeculativeConfig(gamma=4)``
+   with a self-draft: 4 requests, 32 new tokens, twice (every stream
+   reproduces); accepted proposals per window as a reading only (a draft
+   step's and a verify step's MoE capacity count other batches).  Then
+   the legacy ``backend="speculative"`` on one greedy 256-token prompt,
+   32 new, twice.
+18. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
    emit the same token streams: continuous dense (greedy and sampled), and
    greedy with mxfp4 weights over f32, int8 and fp8 pools; static (greedy
@@ -184,7 +235,11 @@ Phases, each of which fails the run if it fails:
    stream may part only at a near-tie: a step whose top-2 logit gap on the
    CPU is below ``NEAR_TIE`` (the bf16 activation cast of the mxfp4 op,
    and the kernels' other orders of f32 sums, turn last-bit differences
-   into a flipped argmax now and then).
+   into a flipped argmax now and then).  Then a narrow 2-layer
+   deepseek-shaped model (1 mla_dense + 1 mla_moe, 8 experts, top 2, the
+   capacity path forced), f32, card against CPU: continuous, static,
+   continuous speculative and legacy speculative, greedy, under the same
+   near-tie rule (``check_mla``).
 
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line (six entries; ``launches`` from the serve phase that runs
@@ -192,7 +247,9 @@ each kernel), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -595,6 +652,67 @@ VMM_CROSSOVER_ROWS = (8, 16)           # both schedules timed
 PROJECTIONS_70B = {"wq/wo": (8192, 8192), "wk/wv": (8192, 1024),
                    "w_gate/w_up": (8192, 28672), "w_down": (28672, 8192)}
 VMM_70B_ROWS = (8, 256)
+# deepseek-v2-lite-16b's MXFP4 launches (K, Ns): MLA's wq and wo, and the
+# dense first layer's gate/up (grouped; N 10944 is not a multiple of the
+# 128-column tile, so it takes the byte-copy path) and w_down.  The MoE
+# layers' experts are not quantized (the reference skips the moe subtree)
+DS_LAUNCHES = {"wq": (2048, (3072,)), "wo": (2048, (2048,)),
+               "gate/up": (2048, (10944, 10944)), "w_down": (10944, (2048,))}
+# the rows the serve path gives them: decode steps (M 8, one per slot) and
+# prefill chunk calls of 8, 4, 2 and 1 rows of 256 tokens
+DS_ROWS = (8, 256, 512, 1024, 2048)
+VMM_TOL = 1e-5          # relative to max |out|: f32 sums in another order
+
+
+def hold_vmm(torch, x, ws, variant=None) -> tuple[float, str, int]:
+    """Hold one ``mxfp4_vmm`` launch (x (M, K) bf16; ``ws``, 1..3
+    (codes, scales) pairs sharing K) against the plain version per weight:
+    f32 out within ``VMM_TOL`` of max |out|, bf16 out == f32 out rounded
+    (the same sums).  Returns the worst error, the schedule and the grid."""
+    from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
+    from repro_torch.kernels.mxfp4_vmm.ref import mxfp4_vmm_ref
+
+    (m, k), ns = x.shape, [c.shape[-1] for c, _ in ws]
+    out = vmm_kernel.mxfp4_vmm_group(x, ws, variant=variant)
+    out16 = vmm_kernel.mxfp4_vmm_group(x, ws, torch.bfloat16, variant)
+    sched = vmm_kernel.schedule(m, k, ns, vmm_kernel._num_sms(0), variant)
+    worst = 0.0
+    for o, o16, (codes, scales) in zip(out, out16, ws):
+        ref = mxfp4_vmm_ref(x, codes, scales)
+        torch.cuda.synchronize()
+        err = ((o - ref).abs().max() / ref.abs().max()).item()
+        if not err <= VMM_TOL:
+            raise AssertionError(f"mxfp4_vmm ({sched.variant}) disagrees "
+                                 f"with its plain version at M={m} K={k} "
+                                 f"N={ns}: {err}")
+        if not torch.equal(o16, o.to(torch.bfloat16)):
+            raise AssertionError(f"mxfp4_vmm's bf16 output is not its f32 "
+                                 f"output rounded at {(m, k, ns)}")
+        worst = max(worst, err)
+    return worst, sched.variant, sched.grid
+
+
+@contextlib.contextmanager
+def vmm_calls():
+    """Record the first inputs of each distinct (M, K, Ns) launch of
+    ``mxfp4_vmm`` that the serve path makes (the activations cloned, the
+    weights by reference), so that each shape the path gave the kernel can
+    be held against the plain version after the run, outside its counts."""
+    from repro_torch.kernels.mxfp4_vmm import ops
+
+    seen, launch = {}, ops.mxfp4_vmm_group
+
+    def recording(x, weights, *args, **kw):
+        key = (*x.shape, tuple(c.shape[-1] for c, _ in weights))
+        if key not in seen:
+            seen[key] = (x.clone(), list(weights))
+        return launch(x, weights, *args, **kw)
+
+    ops.mxfp4_vmm_group = recording
+    try:
+        yield seen
+    finally:
+        ops.mxfp4_vmm_group = launch
 
 
 def vmm_bytes(m: int, k: int, ns) -> int:
@@ -615,7 +733,6 @@ def kernel_mxfp4_phase(torch) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    tol = 1e-5          # relative to max |out|: f32 sums in another order
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     weights = {}
 
@@ -632,36 +749,18 @@ def kernel_mxfp4_phase(torch) -> dict:
 
     def check(m, k, ns, variant=None, scale=0.02):
         """Hold one launch (single or grouped) against the plain version
-        per weight: f32 out within ``tol`` of max |out|, bf16 out == f32
-        out rounded."""
+        per weight (``hold_vmm``)."""
         nonlocal err_max
-        ps = [weight(k, n, scale) for n in ns]
-        x = rows(m, k)
-        ws = [(p.codes, p.scales) for p in ps]
-        out = vmm_kernel.mxfp4_vmm_group(x, ws, variant=variant)
-        out16 = vmm_kernel.mxfp4_vmm_group(x, ws, torch.bfloat16, variant)
-        sched = vmm_kernel.schedule(m, k, ns, vmm_kernel._num_sms(0), variant)
-        worst = 0.0
-        for o, o16, p in zip(out, out16, ps):
-            ref = mxfp4_vmm_ref(x, p.codes, p.scales)
-            torch.cuda.synchronize()
-            err = ((o - ref).abs().max() / ref.abs().max()).item()
-            if not err <= tol:
-                raise AssertionError(f"mxfp4_vmm ({sched.variant}) disagrees "
-                                     f"with its plain version at M={m} K={k} "
-                                     f"N={ns}: {err}")
-            if not torch.equal(o16, o.to(torch.bfloat16)):    # same sums
-                raise AssertionError(f"mxfp4_vmm's bf16 output is not its "
-                                     f"f32 output rounded at {(m, k, ns)}")
-            worst = max(worst, err)
+        ws = [(p.codes, p.scales) for p in (weight(k, n, scale) for n in ns)]
+        worst, variant, grid = hold_vmm(torch, rows(m, k), ws, variant)
         err_max = max(err_max, worst)
         checked.append({"M": m, "K": k, "N": list(ns),
-                        "schedule": sched.variant, "grid": sched.grid,
+                        "schedule": variant, "grid": grid,
                         "max_rel_err": worst})
         print(f"  mxfp4_vmm vs plain: M={m} K={k} N={list(ns)} "
-              f"({sched.variant}, grid {sched.grid}"
+              f"({variant}, grid {grid}"
               f"{', E8M0 scales >= 128' if scale > 1 else ''}): max rel err "
-              f"{worst:.3g} (tolerance {tol})")
+              f"{worst:.3g} (tolerance {VMM_TOL})")
 
     for (k, n), _ in PROJECTIONS.values():
         for m in VMM_ROWS:
@@ -679,6 +778,9 @@ def kernel_mxfp4_phase(torch) -> dict:
     for k, n in PROJECTIONS_70B.values():
         for m in VMM_70B_ROWS:
             check(m, k, (n,))
+    for k, ns in DS_LAUNCHES.values():
+        for m in DS_ROWS:
+            check(m, k, ns)
 
     def timed(m, k, ns, variant=None):
         ws = [(weight(k, n).codes, weight(k, n).scales) for n in ns]
@@ -713,9 +815,40 @@ def kernel_mxfp4_phase(torch) -> dict:
             del w_bf16
         return out
 
+    def launch_rows(launches, ms, label):
+        """Each launch as the serve path makes it (grouped weights in one
+        launch), beside the per-weight plain versions and ``torch.matmul``
+        calls summed."""
+        out = []
+        for name, (k, ns) in launches.items():
+            ps = [weight(k, n) for n in ns]
+            dq = [formats.dequantize_mxfp4(p, torch.bfloat16) for p in ps]
+            for m in ms:
+                x = rows(m, k)
+                row = {"launch": name, "M": m, "K": k, "N": list(ns),
+                       "schedule": vmm_kernel.schedule(
+                           m, k, ns, vmm_kernel._num_sms(0)).variant,
+                       "ms": timed(m, k, ns),
+                       "plain_ms": sum(time_ms(torch, lambda p=p: mxfp4_vmm_ref(
+                           x, p.codes, p.scales).to(torch.bfloat16), flush,
+                           iters=10) for p in ps),
+                       "bf16_matmul_ms": sum(time_ms(
+                           torch, lambda w=w: torch.matmul(x, w), flush)
+                           for w in dq),
+                       "stream_read_ms": stream_read_ms(
+                           torch, vmm_bytes(m, k, ns), flush)}
+                row["bound_ms"], row["bound_by"] = vmm_bound(m, k, ns)
+                row["kernel_over_bf16_matmul"] = (row["ms"]
+                                                  / row["bf16_matmul_ms"])
+                out.append(ratios(row))
+                print(f"  timing{label}:", json.dumps(row))
+            del dq
+        return out
+
     timings = timing_rows([kn for kn, _ in PROJECTIONS.values()], VMM_ROWS)
     timings_70b = timing_rows(PROJECTIONS_70B.values(), VMM_70B_ROWS,
                               " llama3-70b")
+    timings_ds = launch_rows(DS_LAUNCHES, DS_ROWS, " deepseek-v2-lite-16b")
     crossover = []
     for (k, n), _ in PROJECTIONS.values():
         for m in VMM_CROSSOVER_ROWS:
@@ -759,7 +892,8 @@ def kernel_mxfp4_phase(torch) -> dict:
             "bf16_matmul_ms": head["bf16_matmul_ms"],
             "layer_m256": prefill, "crossover": crossover,
             "checked": checked, "timings": timings,
-            "timings_llama3_70b": timings_70b}
+            "timings_llama3_70b": timings_70b,
+            "timings_deepseek_v2_lite_16b": timings_ds}
 
 
 # ---------------------------------------------------------------------------
@@ -1270,6 +1404,12 @@ def quantize_phase(torch) -> dict:
 DEPLOYMENTS = (("llama3-8b", None, None), ("llama3-8b", "mxfp4", "fp8"),
                ("llama3-70b", "mxfp4", "fp8"), ("llama3-405b", "mxfp4", "fp8"))
 DEPLOY_MAX_LEN = 2048
+# deepseek-v2-lite-16b (MLA + MoE) on one H100: bf16 and mxfp4 weights
+# over bf16 latent pools resolve; an fp8 cache must raise (MLA latent
+# pools have no quantized form)
+DEPLOYMENTS_MLA = (("deepseek-v2-lite-16b", None, None),
+                   ("deepseek-v2-lite-16b", "mxfp4", None),
+                   ("deepseek-v2-lite-16b", None, "fp8"))
 
 
 def deployment_phase(torch) -> dict:
@@ -1278,7 +1418,9 @@ def deployment_phase(torch) -> dict:
     ``DEPLOYMENTS``, pricing the weights exactly from a ``meta``-device
     model (shapes only).  llama3-405b must raise ``DeploymentError`` on one
     H100; nothing may be allocated on the card.  Each resolved budget is
-    printed beside the card's ``torch.cuda.mem_get_info()`` total."""
+    printed beside the card's ``torch.cuda.mem_get_info()`` total.  Then
+    ``DEPLOYMENTS_MLA`` on h100: deepseek-v2-lite-16b resolves with bf16
+    and with mxfp4 weights, and an fp8 cache raises."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.runtime.deployment import DeploymentError, DeploymentSpec
@@ -1286,26 +1428,27 @@ def deployment_phase(torch) -> dict:
     free, total = torch.cuda.mem_get_info()
     allocated = torch.cuda.memory_allocated()
     rows = []
-    for sku in ("h100", "rpu-cu"):
-        for name, fmt, cache in DEPLOYMENTS:
-            model = Model(get_config(name), device="meta")
-            spec = DeploymentSpec(sku=sku, weight_format=fmt,
-                                  cache_dtype=cache, max_len=DEPLOY_MAX_LEN)
-            row = {"sku": sku, "model": name, "weight_format": fmt,
-                   "cache_dtype": cache, "max_len": DEPLOY_MAX_LEN}
-            try:
-                dep = spec.resolve(model, params=model)
-            except DeploymentError as e:
-                row["deployment_error"] = str(e)
-            else:
-                row.update(dep.as_dict(),
-                           pool_bytes_per_device=dep.pool_bytes_per_device)
-                print(f"  {name} {fmt or 'bf16'} {cache or 'bf16'} on {sku}"
-                      f" (card total {total / 2 ** 30:.2f} GiB):")
-                for line in dep.describe().splitlines():
-                    print("    " + line)
-            print("  deployment:", json.dumps(row))
-            rows.append(row)
+    for sku, name, fmt, cache in (
+            [(sku, *d) for sku in ("h100", "rpu-cu") for d in DEPLOYMENTS]
+            + [("h100", *d) for d in DEPLOYMENTS_MLA]):
+        model = Model(get_config(name), device="meta")
+        spec = DeploymentSpec(sku=sku, weight_format=fmt,
+                              cache_dtype=cache, max_len=DEPLOY_MAX_LEN)
+        row = {"sku": sku, "model": name, "weight_format": fmt,
+               "cache_dtype": cache, "max_len": DEPLOY_MAX_LEN}
+        try:
+            dep = spec.resolve(model, params=model)
+        except DeploymentError as e:
+            row["deployment_error"] = str(e)
+        else:
+            row.update(dep.as_dict(),
+                       pool_bytes_per_device=dep.pool_bytes_per_device)
+            print(f"  {name} {fmt or 'bf16'} {cache or 'bf16'} on {sku}"
+                  f" (card total {total / 2 ** 30:.2f} GiB):")
+            for line in dep.describe().splitlines():
+                print("    " + line)
+        print("  deployment:", json.dumps(row))
+        rows.append(row)
     refused = {(r["sku"], r["model"]) for r in rows
                if "deployment_error" in r}
     if ("h100", "llama3-405b") not in refused:
@@ -1314,6 +1457,15 @@ def deployment_phase(torch) -> dict:
     for name, _, _ in DEPLOYMENTS[:3]:
         if ("h100", name) in refused:
             raise AssertionError(f"{name} did not resolve on one H100")
+    mla = {(r["weight_format"], r["cache_dtype"]): r for r in rows
+           if r["model"] == DEPLOYMENTS_MLA[0][0]}
+    for (fmt, cache), r in mla.items():
+        if ("deployment_error" in r) != (cache == "fp8") or (
+                cache == "fp8" and "MLA" not in r["deployment_error"]):
+            raise AssertionError(f"deepseek-v2-lite-16b {fmt} {cache} on one "
+                                 f"H100: {r.get('deployment_error', 'resolved')}"
+                                 f"; bf16 pools must resolve, fp8 must raise "
+                                 f"DeploymentError naming MLA")
     if torch.cuda.memory_allocated() != allocated:
         raise AssertionError("pricing allocated memory on the card")
     return {"phase": "deployment", "card_mem_total_bytes": total,
@@ -1390,6 +1542,32 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "Memcpy HtoD (Pageable -> Device)")
 
 
+# the model's named profiler ranges (``models.common.span``): MLA attention,
+# MoE dispatch / experts / combine, and the head
+SPANS = ("mla_attention", "moe_dispatch", "moe_experts", "moe_combine",
+         "head")
+
+
+def span_device_ms(prof) -> dict:
+    """Device time (ms) of the kernels launched inside each of the model's
+    named ranges (``SPANS``), summed over the trace: a host-side range's
+    ``device_time_total`` counts the kernels of the ops under it.  (The
+    profiler also records each range on the device's timeline, from its
+    first kernel's start to its last one's end, idle gaps included; those
+    events are not kernel time and are left out here and of the kernel
+    sums.)"""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.events():
+        if evt.name in SPANS and evt.device_type == DeviceType.CPU:
+            t = getattr(evt, "device_time_total", None)
+            if t is None:
+                t = evt.cuda_time_total
+            out[evt.name] = out.get(evt.name, 0.0) + t / 1e3
+    return out
+
+
 def device_breakdown(prof, step_s: float) -> dict:
     """Device time per profiled decode-only step by kernel name, the
     device's idle share of a step, and the host ops that take most host
@@ -1405,9 +1583,11 @@ def device_breakdown(prof, step_s: float) -> dict:
         host[evt.key] = getattr(evt, "self_cpu_time_total", 0) or 0
         # device activity only (kernels, copies, memsets): the host ops
         # carry the device time of what they launched, and each profiler
-        # step is also recorded as a device-side range spanning its kernels
+        # step and named range is also recorded as a device-side range
+        # spanning its kernels
         if (t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA
-                and not evt.key.startswith("ProfilerStep")):
+                and not evt.key.startswith("ProfilerStep")
+                and evt.key not in SPANS):
             times[evt.key] = times.get(evt.key, 0) + t
     n = PROFILE["active"]
     waits = sum(evt.count for evt in prof.key_averages()
@@ -1434,15 +1614,32 @@ def device_breakdown(prof, step_s: float) -> dict:
             "top_host_ops_ms_per_step_traced": {
                 k[:50]: t / 1e3 / n for k, t in
                 sorted(host.items(), key=lambda kv: -kv[1])[:10]},
-            "top_kernels_ms_per_step": {k[:70]: t / 1e3 / n for k, t in top}}
+            "top_kernels_ms_per_step": {k[:70]: t / 1e3 / n for k, t in top},
+            "spans_device_ms_per_step": {
+                k: t / n for k, t in span_device_ms(prof).items()}}
+
+
+def vmm_launches_per_call(model) -> int:
+    """MXFP4 launches of one decode step or prefill chunk call: per layer
+    one for the attention's input projections (GQA: q/k/v grouped; MLA:
+    wq) and one for its output projection, and for a dense MLP one for
+    gate/up (grouped) and one for down.  MoE experts are not quantized.
+    llama3-8b: 4 x 32 = 128; deepseek-v2-lite-16b: 4 + 2 x 26 = 56."""
+    return sum(2 + (0 if blk.is_moe else 2) for blk in model.layers)
+
+
+# depth of the llama3-8b serve phases (its widths stay full): 16 of 32
+# layers keep the whole script, deepseek's phases included, near 600 s
+LLAMA_LAYERS = 16
 
 
 def build_llama(torch):
-    """Full-size llama3-8b (32 layers, random bf16 weights from a seed)."""
+    """llama3-8b at full width and ``LLAMA_LAYERS`` layers (random bf16
+    weights from a seed)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=LLAMA_LAYERS)
     t0 = time.monotonic()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
@@ -1475,10 +1672,20 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
 
     LAUNCHES.clear()
     VARIANT_LAUNCHES.clear()
-    streams, finished, stats, decode_steps = serve_session(llm, prompts, sps)
+    with vmm_calls() as vmm_inputs:
+        streams, finished, stats, decode_steps = serve_session(llm, prompts,
+                                                               sps)
     torch.cuda.synchronize()
     launches = {k: v for k, v in LAUNCHES.items() if v}
     variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
+    # every shape the path gave mxfp4_vmm, on its own activations and
+    # weights, against the plain version (these launches are not counted)
+    vmm_held = []
+    for (m, k, ns), (x, ws) in sorted(vmm_inputs.items()):
+        err, variant, _ = hold_vmm(torch, x, ws)
+        vmm_held.append({"M": m, "K": k, "N": list(ns), "schedule": variant,
+                         "max_rel_err": err})
+    del vmm_inputs
 
     for i in range(len(prompts)):
         o = finished.get(i)
@@ -1494,16 +1701,20 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
         raise AssertionError(f"prefix index not hit: {stats.prefix_hit_tokens}")
     decode_kernel = (NAME_SCALED if engine_kw.get("cache_dtype") in
                      ("fp8", "int8") else NAME)
-    want = {decode_kernel: cfg.n_layers * stats.steps}
-    # bf16 activations over bf16 or fp8 pools: the tensor-core kernel
-    want_variants = {f"{decode_kernel}:tensor_core": want[decode_kernel]}
+    # GQA layers: the paged decode kernel once per layer per decode step
+    # (bf16 activations over bf16 or fp8 pools: the tensor-core variant);
+    # MLA layers decode by plain einsums, as in the reference: no kernel
+    want, want_variants = {}, {}
+    if not cfg.mla:
+        want[decode_kernel] = cfg.n_layers * stats.steps
+        want_variants[f"{decode_kernel}:tensor_core"] = want[decode_kernel]
     if engine_kw.get("weight_format") == "mxfp4":
-        # 4 launches a layer (q/k/v grouped, o, gate/up grouped, down):
         # decode steps (M = the slots) on the decode schedule, prefill
         # chunk calls (M = rows x 256) on wgmma
-        want[VMM] = 4 * cfg.n_layers * (stats.steps + stats.prefill_calls)
-        want_variants[f"{VMM}:decode"] = 4 * cfg.n_layers * stats.steps
-        want_variants[f"{VMM}:wgmma"] = 4 * cfg.n_layers * stats.prefill_calls
+        per = vmm_launches_per_call(model)
+        want[VMM] = per * (stats.steps + stats.prefill_calls)
+        want_variants[f"{VMM}:decode"] = per * stats.steps
+        want_variants[f"{VMM}:wgmma"] = per * stats.prefill_calls
     if launches != want or 0 in want.values():
         raise AssertionError(f"kernel launches {launches}, want {want} "
                              f"({stats.steps} decode steps, "
@@ -1525,8 +1736,18 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
             kind = "greedy" if sps[i].is_greedy else "sampled"
             raise AssertionError(f"{kind} request {i} did not reproduce "
                                  f"its stream on the re-run")
-    scoring = (serve_scoring(torch, llm, model, prompts[1])
-               if phase == "serve" else None)
+    scoring = None
+    if phase in ("serve", "serve_mla"):
+        # an MoE model's capacity counts the call's tokens: its prompt is
+        # scored in one call of the prompt's length, the T of Model.forward
+        score_llm = llm if not cfg.moe else LLMEngine(
+            model, backend="continuous", device="cuda", num_slots=8,
+            page_size=16, max_len=2048, prefill_chunk=len(prompts[1]))
+        scoring = serve_scoring(torch, score_llm, model, prompts[1])
+        if not cfg.moe:
+            scoring["mixed_batch"] = mixed_batch_scoring(torch, llm, model,
+                                                         prompts[1])
+        del score_llm
     ttft = stats.latency_quantiles("ttft")
     result = {"phase": phase, **{k: str(v) for k, v in engine_kw.items()},
               "requests": len(prompts),
@@ -1540,7 +1761,7 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
               "prefill_calls": stats.prefill_calls,
               "prefix_hit_tokens": stats.prefix_hit_tokens,
               "kernel_launches": launches, "kernel_variants": variants,
-              "engine_setup_s": setup_s,
+              "mxfp4_vmm_held": vmm_held, "engine_setup_s": setup_s,
               "served_weight_gb": serve_weight_bytes(
                   model, engine_kw.get("weight_format")) / 1e9,
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
@@ -1564,14 +1785,13 @@ SCORE_REL_TOL = 2.0 ** -5
 
 def serve_scoring(torch, llm, model, prompt) -> dict:
     """Prompt scoring in the continuous engine (``prompt_logprobs``): the
-    serve phase's 1024-token prompt twice in one session (greedy,
-    ``SCORED_NEW`` new tokens), once scored and once not, so both ride the
-    same four 256-token chunk calls.  The scored request's first token
-    must equal the other's; its 1023 scores are held against
-    ``Model.forward``'s on the card (the static backend's scores: the flash
-    kernel), each within ``SCORE_REL_TOL`` of its position's largest
-    |logit|; the scored chunk calls are timed beside the same calls of a
-    session with no scoring."""
+    serve phase's 1024-token prompt alone through ``llm`` (greedy,
+    ``SCORED_NEW`` new tokens), in a session unscored and then in one
+    scored.  The scored session's first token must equal the unscored
+    one's; its 1023 scores are held against ``Model.forward``'s on the card
+    (the static backend's scores), each within ``SCORE_REL_TOL`` of its
+    position's largest |logit|; the scored chunk calls are timed beside
+    the unscored session's."""
     from repro_torch.runtime.sampling import SamplingParams
 
     eng = llm._eng
@@ -1591,41 +1811,24 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
 
     for name in times:
         timed_calls(name)
-    plain = SamplingParams(max_tokens=SCORED_NEW)
-    scored = SamplingParams(max_tokens=SCORED_NEW, prompt_logprobs=True)
     try:
-        unscored_run = llm.generate([prompt, prompt], [plain, plain])
-        scored_run = llm.generate([prompt, prompt], [plain, scored])
+        unscored = llm.generate([prompt], [SamplingParams(
+            max_tokens=SCORED_NEW)])[0]
+        scored = llm.generate([prompt], [SamplingParams(
+            max_tokens=SCORED_NEW, prompt_logprobs=True)])[0]
     finally:
         for name in times:
             delattr(eng, name)                  # the class's methods again
-    first = {unscored_run[0].token_ids[0], scored_run[0].token_ids[0],
-             scored_run[1].token_ids[0]}
-    if len(first) != 1:
+    if scored.token_ids[0] != unscored.token_ids[0]:
         raise AssertionError(f"scoring changed the first token: unscored "
-                             f"{unscored_run[0].token_ids}, scored session "
-                             f"{scored_run[0].token_ids} / "
-                             f"{scored_run[1].token_ids}")
-    got = np.asarray(scored_run[1].prompt_logprobs)
-    toks = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
-    logits = model.forward(toks)[0, :-1, :model.cfg.vocab_size].float()
-    ls = torch.log_softmax(logits, dim=-1)
-    want = torch.gather(ls, -1, toks[0, 1:, None])[:, 0].cpu().numpy()
-    scale = logits.abs().amax(-1).cpu().numpy()
-    diff = np.abs(got - want)
-    share = float((diff / (SCORE_REL_TOL * scale)).max())
-    if (got.shape != want.shape or not np.isfinite(got).all()
-            or not share <= 1.0):
-        raise AssertionError(f"continuous prompt scores vs Model.forward: "
-                             f"shape {got.shape} vs {want.shape}, max |diff| "
-                             f"{diff.max()}, at {share} of the limit "
-                             f"{SCORE_REL_TOL} x max |logit|")
-    if scored_run[0].prompt_logprobs is not None:
-        raise AssertionError("an unscored request came back with scores")
+                             f"{unscored.token_ids}, scored "
+                             f"{scored.token_ids}")
+    got = np.asarray(scored.prompt_logprobs)
+    diff, share, scale = scores_vs_forward(torch, model, prompt, got)
     res = {"prompt_tokens": len(prompt), "new_tokens": SCORED_NEW,
            "first_token_equal": True,
-           "stream_equal": (scored_run[1].token_ids
-                            == unscored_run[0].token_ids),
+           "chunk": eng.prefill_chunk,
+           "stream_equal": scored.token_ids == unscored.token_ids,
            "scores_max_abs_diff_vs_forward": float(diff.max()),
            "scores_mean_abs_diff_vs_forward": float(diff.mean()),
            "score_rel_tolerance": SCORE_REL_TOL,
@@ -1639,6 +1842,51 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
                                     times["_chunk_scored_impl"]]}
     print("  prompt scoring:", json.dumps(res))
     return res
+
+
+def scores_vs_forward(torch, model, prompt, got) -> tuple:
+    """Hold prompt scores ``got`` against ``Model.forward``'s on the card,
+    each within ``SCORE_REL_TOL`` of its position's largest |logit|.
+    Returns |diff|, the worst share of the limit and the per-position
+    largest |logit|."""
+    toks = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
+    logits = model.forward(toks)[0, :-1, :model.cfg.vocab_size].float()
+    ls = torch.log_softmax(logits, dim=-1)
+    want = torch.gather(ls, -1, toks[0, 1:, None])[:, 0].cpu().numpy()
+    scale = logits.abs().amax(-1).cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"continuous prompt scores: shape {got.shape} "
+                             f"(want {want.shape}) or not finite")
+    diff = np.abs(got - want)
+    share = float((diff / (SCORE_REL_TOL * scale)).max())
+    if not share <= 1.0:
+        raise AssertionError(f"continuous prompt scores vs Model.forward: "
+                             f"max |diff| {diff.max()}, at {share} of the "
+                             f"limit {SCORE_REL_TOL} x max |logit|")
+    return diff, share, scale
+
+
+def mixed_batch_scoring(torch, llm, model, prompt) -> dict:
+    """GQA only: two copies of ``prompt`` in one batch, one scored, ride the
+    same chunk calls.  Their first tokens must be equal, the unscored copy
+    must come back without scores and the scored one's are held against
+    ``Model.forward`` as in ``serve_scoring``.  (An MoE model's copies
+    would compete for expert capacity and keep different assignments.)"""
+    from repro_torch.runtime.sampling import SamplingParams
+
+    plain = SamplingParams(max_tokens=SCORED_NEW)
+    scored = SamplingParams(max_tokens=SCORED_NEW, prompt_logprobs=True)
+    outs = llm.generate([prompt, prompt], [plain, scored])
+    if outs[0].token_ids[0] != outs[1].token_ids[0]:
+        raise AssertionError(f"scoring changed the first token in a mixed "
+                             f"batch: {[o.token_ids for o in outs]}")
+    if outs[0].prompt_logprobs is not None:
+        raise AssertionError("an unscored request came back with scores")
+    _, share, _ = scores_vs_forward(torch, model, prompt,
+                                   np.asarray(outs[1].prompt_logprobs))
+    return {"first_token_equal": True, "unscored_without_scores": True,
+            "score_limit_share": share,
+            "stream_equal": outs[0].token_ids == outs[1].token_ids}
 
 
 def serve_spec_phase(torch, model, plain_streams) -> dict:
@@ -2088,9 +2336,10 @@ def serve_spec_draft_phase(torch, model) -> dict:
 STATIC_PROMPT, STATIC_NEW = 1024, 64
 
 
-def device_time_by_kernel(torch, fn) -> dict:
+def device_time_by_kernel(torch, fn) -> tuple[dict, dict]:
     """Device time (ms) of everything ``fn`` ran on the card, by kernel
-    name, from one ``torch.profiler`` trace."""
+    name, and of the model's named ranges (``SPANS``), from one
+    ``torch.profiler`` trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2101,12 +2350,13 @@ def device_time_by_kernel(torch, fn) -> dict:
     times = {}
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0) or 0     # microseconds
-        if t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA:
+        if (t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA
+                and evt.key not in SPANS):
             times[evt.key] = times.get(evt.key, 0) + t / 1e3
-    return times
+    return times, span_device_ms(prof)
 
 
-def serve_static_phase(torch, model) -> dict:
+def serve_static_phase(torch, model, phase: str = "serve_static") -> dict:
     """``LLMEngine(backend="static")`` answers 8 prompts of 1024 tokens (4
     greedy, 4 sampled) with 64 new tokens each, twice (the re-run must
     reproduce every stream), then scores two prompts
@@ -2128,9 +2378,15 @@ def serve_static_phase(torch, model) -> dict:
                           top_k=40, seed=2000 + i) for i in range(8)]
     torch.cuda.reset_peak_memory_stats()
     llm = LLMEngine(model, backend="static", device="cuda", max_len=2048)
-    cache_gb = 2 * cfg.n_layers * 8 * 2048 * cfg.n_kv_heads * cfg.hd * 2 / 1e9
+    per_token = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.mla
+                 else 2 * cfg.n_kv_heads * cfg.hd)
+    cache_gb = cfg.n_layers * 8 * 2048 * per_token * 2 / 1e9
 
     def want_launches(calls, steps):
+        # MLA attends by plain torch (blocked_attention and the absorbed
+        # einsums), as the reference does: no kernel on its static path
+        if cfg.mla:
+            return {}
         return {FLASH: cfg.n_layers * calls, DENSE: cfg.n_layers * steps}
 
     LAUNCHES.clear()
@@ -2177,14 +2433,18 @@ def serve_static_phase(torch, model) -> dict:
     # device time of 16 decode steps: a 17-token call minus a 1-token one
     one = [dataclasses.replace(sp, max_tokens=1) for sp in sps]
     many = [dataclasses.replace(sp, max_tokens=17) for sp in sps]
-    t_one = device_time_by_kernel(torch, lambda: llm.generate(prompts, one))
-    t_many = device_time_by_kernel(torch, lambda: llm.generate(prompts, many))
+    t_one, s_one = device_time_by_kernel(
+        torch, lambda: llm.generate(prompts, one))
+    t_many, s_many = device_time_by_kernel(
+        torch, lambda: llm.generate(prompts, many))
     per_step = {k: (t_many.get(k, 0.0) - t_one.get(k, 0.0)) / 16
                 for k in set(t_many) | set(t_one)}
+    span_step = {k: (s_many.get(k, 0.0) - s_one.get(k, 0.0)) / 16
+                 for k in set(s_many) | set(s_one)}
     busy = sum(per_step.values())
     step_ms = 1e3 * outs[0].metrics["tpot"]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
-    result = {"phase": "serve_static", "requests": len(prompts),
+    result = {"phase": phase, "requests": len(prompts),
               "prompt_tokens": STATIC_PROMPT, "new_tokens": 8 * STATIC_NEW,
               "tokens_per_s": 8 * STATIC_NEW / wall, "wall_s": wall,
               "prefill_s": outs[0].metrics["ttft"],
@@ -2201,6 +2461,8 @@ def serve_static_phase(torch, model) -> dict:
                   "prefill_flash_ms": t_one.get(next(
                       (k for k in t_one if "flash_fwd" in k), ""), 0.0),
                   "prefill_device_ms": sum(t_one.values()),
+                  "prefill_spans_device_ms": s_one,
+                  "spans_device_ms_per_step": span_step,
                   "top_kernels_ms_per_step": {k[:70]: t for k, t in top}}}
     del llm
     torch.cuda.empty_cache()
@@ -2208,7 +2470,7 @@ def serve_static_phase(torch, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 14. check phase: kernel path on the card == plain path on the CPU
+# 18. check phase: kernel path on the card == plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -2454,9 +2716,199 @@ def check_phase(torch) -> dict:
     results.append({"case": "static vs continuous f32, card, greedy",
                     "identical": not near_ties, "near_ties": near_ties})
     results += spec_checks(torch, cpu, gpu, prompts, greedy, s_prompts, kw)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    results += check_mla(torch)
     return {"phase": "check", "model": "llama3-8b widths cut to d_model 512, "
-            "2 layers, f32", "requests": len(prompts),
+            "2 layers, f32; deepseek-v2-lite-16b cut to d_model 512, 2 "
+            "layers, 8 experts, f32", "requests": len(prompts),
             "near_tie_gap": NEAR_TIE, "cases": results}
+
+
+# ---------------------------------------------------------------------------
+# 14-17. deepseek-v2-lite-16b: MLA attention and MoE (plain torch on the
+# card, as the reference computes them outside any Pallas kernel), its
+# MXFP4 projections through mxfp4_vmm; and the narrow MLA + MoE check
+# ---------------------------------------------------------------------------
+
+
+def build_deepseek(torch):
+    """Full-size deepseek-v2-lite-16b (27 layers: 1 mla_dense, 26 mla_moe
+    with 64 routed experts, top 6, and 2 shared; random bf16 weights from
+    a seed, drawn on the card one expert at a time)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    print(f"serve_mla: {cfg.name} {cfg.n_layers} layers, "
+          f"{model.param_count() / 1e9:.2f} B params bf16 "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
+          f"random init {time.monotonic() - t0:.1f} s")
+    return model
+
+
+MLA_SPEC_REQUESTS, MLA_SPEC_NEW = 4, 32
+
+
+def serve_mla_spec_phase(torch, model) -> dict:
+    """deepseek-v2-lite-16b behind ``LLMEngine(backend="continuous",
+    speculative=SpeculativeConfig(gamma=GAMMA))``, a self-draft: the serve
+    phase's first 4 requests (2 greedy, 2 sampled), 32 new tokens each,
+    twice; every request finishes and the second session reproduces every
+    stream.  Accepted proposals per window are a reading only: a draft
+    step's MoE capacity counts the slots (T = 8) and a verify step's T = 8
+    x (gamma + 1), so the two may drop other assignments.  Then the legacy
+    ``backend="speculative"`` on one greedy 256-token prompt, 32 new
+    tokens, twice.  MLA and MoE launch no kernel (bf16 weights)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    cfg = model.cfg
+    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    prompts = prompts[:MLA_SPEC_REQUESTS]
+    reqs = [dataclasses.replace(sp, max_tokens=MLA_SPEC_NEW)
+            for sp in sps[:MLA_SPEC_REQUESTS]]
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
+                    page_size=16, max_len=2048, prefill_chunk=256,
+                    speculative=SpeculativeConfig(gamma=GAMMA))
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = llm.last_stats
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    for o in outs:
+        if (o.finish_reason != "length" or len(o.token_ids) != MLA_SPEC_NEW
+                or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
+            raise AssertionError(f"MLA spec request {o.rid}: {o}")
+    if launches or stats.spec_windows == 0:
+        raise AssertionError(f"MLA spec launched {launches} with "
+                             f"{stats.spec_windows} slot windows; want no "
+                             f"kernel and some windows")
+    again = llm.generate(prompts, reqs)
+    for i, (a, o) in enumerate(zip(again, outs)):
+        if a.token_ids != o.token_ids:
+            kind = "greedy" if reqs[i].is_greedy else "sampled"
+            raise AssertionError(f"MLA spec {kind} request {i} did not "
+                                 f"reproduce its stream")
+    spec = {"gamma": GAMMA, "draft": "self", "requests": len(prompts),
+            "new_tokens": stats.total_tokens, "wall_s": wall,
+            "tokens_per_s": stats.total_tokens / wall,
+            "windows": stats.steps, "slot_windows": stats.spec_windows,
+            "accepted_per_window_reading": stats.accepted_per_window,
+            "spec_drafted": stats.spec_drafted,
+            "spec_accepted": stats.spec_accepted,
+            "kernel_launches": launches, "rerun_identical": True,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del llm
+    torch.cuda.empty_cache()
+
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                               LEGACY_PROMPT)
+    llm = LLMEngine(model, backend="speculative", device="cuda", gamma=GAMMA,
+                    max_len=512)
+    sp = SamplingParams(max_tokens=LEGACY_NEW)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = llm.generate([prompt], sp)[0]
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    if (out.finish_reason != "length" or len(out.token_ids) != LEGACY_NEW
+            or not all(0 <= t < cfg.vocab_size for t in out.token_ids)
+            or launches):
+        raise AssertionError(f"MLA legacy speculative request: {out}, "
+                             f"launches {launches}")
+    again = llm.generate([prompt], sp)[0]
+    if again.token_ids != out.token_ids:
+        raise AssertionError("MLA legacy speculative stream did not "
+                             "reproduce")
+    del llm
+    torch.cuda.empty_cache()
+    return {"phase": "serve_mla_spec", "continuous": spec,
+            "legacy": {"prompt_tokens": LEGACY_PROMPT,
+                       "new_tokens": LEGACY_NEW, "wall_s": lwall,
+                       "tokens_per_s": LEGACY_NEW / lwall,
+                       "windows": out.metrics["windows"],
+                       "accepted_per_window_reading":
+                           out.metrics["accepted_per_window"],
+                       "rerun_identical": True}}
+
+
+def check_mla(torch) -> list[dict]:
+    """A narrow 2-layer deepseek-shaped model (1 mla_dense + 1 mla_moe;
+    d_model 512, 4 heads, 8 experts, top 2, the capacity path forced), f32,
+    served on the card and on the CPU from the same weights: continuous,
+    static, continuous speculative (self-draft, gamma ``GAMMA``) and the
+    legacy speculative backend, greedy.  Each pair of streams must be
+    equal or part at a near-tie (``divergences``); nothing on this path
+    launches a kernel.  Streams of two backends are not compared: their
+    MoE capacity counts other token batches (the capacity-drop rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b"), name="deepseek-narrow",
+        n_layers=2, d_model=512, n_heads=4, n_kv_heads=4, head_dim=64,
+        rope_head_dim=32, v_head_dim=64, kv_lora_rank=128, d_ff=1024,
+        n_experts=8, n_experts_per_token=2, n_shared_experts=1,
+        moe_d_ff=256, vocab_size=4000, vocab_pad_multiple=512)
+    cpu = Model(cfg, device="cpu", moe_impl="capacity").init(seed=6).float()
+    gpu = Model(cfg, device="cuda", moe_impl="capacity").float()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 75, 19, 100)]
+    s_prompts = [rng.integers(0, cfg.vocab_size, 48) for _ in range(4)]
+    greedy = [SamplingParams(max_tokens=16)] * 4
+    f32 = torch.float32
+    kw = dict(backend="continuous", num_slots=4, page_size=16, max_len=256,
+              prefill_chunk=32, cache_dtype=f32)
+    cases = [  # (label, engine options, prompts)
+        ("MLA+MoE continuous f32", kw, prompts),
+        ("MLA+MoE static f32", dict(backend="static", max_len=128,
+                                    cache_dtype=f32), s_prompts),
+        ("MLA+MoE continuous spec f32 (self-draft)",
+         dict(kw, speculative=SpeculativeConfig(gamma=GAMMA)), prompts),
+        ("MLA+MoE legacy speculative f32",
+         dict(backend="speculative", gamma=GAMMA, max_len=128,
+              cache_dtype=f32), s_prompts[:2])]
+    results = []
+    for label, opts, ps in cases:
+        reqs = greedy[:len(ps)]
+        LAUNCHES.clear()
+        on_gpu = LLMEngine(gpu, device="cuda", **opts).generate(ps, reqs)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        on_cpu = LLMEngine(cpu, device="cpu", **opts).generate(ps, reqs)
+        if launches:
+            raise AssertionError(f"{label}: the card run launched {launches}; "
+                                 f"MLA and MoE run no kernel")
+        near = divergences(torch, label + ", card vs CPU", on_gpu, on_cpu, ps,
+                           reqs, cpu, f32, True)
+        results.append({"case": label + ", card vs CPU, greedy",
+                        "identical": not near, "near_ties": near})
+    return results
+
+
+def mla_phases() -> dict:
+    """The deepseek-v2-lite-16b phases, in their order: continuous (with
+    prompt scoring), static, mxfp4 weights over bf16 pools, speculative."""
+    return {"serve_mla": lambda t, m: serve_phase(t, m, phase="serve_mla"),
+            "serve_mla_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_mla_static"),
+            "serve_mla_quantized": lambda t, m: serve_phase(
+                t, m, phase="serve_mla_quantized", weight_format="mxfp4"),
+            "serve_mla_spec": serve_mla_spec_phase}
 
 
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
@@ -2472,9 +2924,10 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
                          f"({', '.join(KERNEL_PHASES)}, deployment, check, "
-                         "or, on a llama3-8b built first, serve and "
-                         "serve_spec_draft); a partial run prints no result "
-                         "line")
+                         "check_mla, or, on a llama3-8b built first, serve "
+                         "and serve_spec_draft, on a deepseek-v2-lite-16b "
+                         f"built first, {', '.join(mla_phases())}); a "
+                         "partial run prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2494,6 +2947,11 @@ def main() -> int:
     def timed(name, fn, *args, **kw):
         t = time.monotonic()
         out = fn(torch, *args, **kw)
+        # an engine's scheduler and its callbacks form a reference cycle:
+        # collect it, so the next phase starts with only the live model on
+        # the card (and its peak reading is its own)
+        gc.collect()
+        torch.cuda.empty_cache()
         line = out if "phase" in out else {"phase": name}
         print(json.dumps({**{k: v for k, v in line.items()
                              if not k.startswith("_")},
@@ -2506,17 +2964,27 @@ def main() -> int:
               "kernel_dense_decode": kernel_dense_decode_phase,
               "kernel_exact": kernel_exact_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
-              "check": check_phase}
-    # the model phases that run alone: llama3-8b is built for them first
-    model_phases = {"serve": serve_phase,
-                    "serve_spec_draft": serve_spec_draft_phase}
+              "check": check_phase,
+              "check_mla": lambda t: {"phase": "check_mla",
+                                      "cases": check_mla(t)}}
+    # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
+    # is built for them first
+    model_phases = {"serve": (build_llama, serve_phase),
+                    "serve_spec_draft": (build_llama, serve_spec_draft_phase),
+                    **{name: (build_deepseek, fn) for name, fn in
+                       mla_phases().items()}}
     if args.only is not None:
         names = args.only.split(",")
-        model = (build_llama(torch) if set(names) & set(model_phases)
-                 else None)
+        models = {}
         for name in names:
             if name in model_phases:
-                timed(name, model_phases[name], model)
+                build, fn = model_phases[name]
+                if build not in models:
+                    models.clear()              # one model on the card
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    models[build] = build(torch)
+                timed(name, fn, models[build])
             else:
                 timed(name, phases[name])
         print(f"partial run ({args.only}): {time.monotonic() - t0:.1f} s, "
@@ -2541,6 +3009,13 @@ def main() -> int:
     # damps the model's deeper blocks in place: the last phase to use it
     timed("serve_spec_draft", serve_spec_draft_phase, model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_deepseek(torch)
+    for name, fn in mla_phases().items():
+        timed(name, fn, model)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     timed("check", check_phase)
     kernel["launches"] = serve["kernel_launches"][kernel["name"]]

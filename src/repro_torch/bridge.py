@@ -11,9 +11,11 @@ float), so the copy is exact.  A quantized pytree
 leaves (``PackedMXFP4`` and the other packed types, recognised by class
 name); they become the port's packed classes with the same codes and
 scales, in a model whose projections are packed as
-``quant.linear.quantize_params`` would pack them.  ``params_to_numpy`` is
-the reverse for dense models, for the round-trip test.  This module needs
-numpy only.
+``quant.linear.quantize_params`` would pack them.  Multi-segment,
+multi-kind plans (deepseek's ``mla_dense`` layer, then its ``mla_moe``
+stack) map segment by segment; expert leaves ``(E, D, F)`` cross whole.
+``params_to_numpy`` is the reverse for dense models, for the round-trip
+test.  This module needs numpy only.
 """
 from __future__ import annotations
 
@@ -60,21 +62,33 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _leaf(np_params: dict, name: str, stacked: bool):
+def _layer_locations(model: Model) -> list[tuple[int, int, int, bool]]:
+    """(segment, kind, rep, stacked) of each of ``model.layers``: where
+    its weights sit in the reference's ``stacks[segment][kind]``, at
+    index ``rep`` of the leading axis when the segment is stacked (has
+    more than one rep)."""
+    return [(si, ki, r, seg.reps > 1)
+            for si, seg in enumerate(model.plan) for r in range(seg.reps)
+            for ki in range(len(seg.kinds))]
+
+
+def _leaf(np_params: dict, name: str, locs):
     """The reference leaf behind a port parameter name, as a torch tensor
     or a packed tensor.
 
-    ``layers.<i>.attn.wq`` -> ``stacks[0][0]["attn"]["wq"][i]`` (the layer
-    index only when the segment is stacked, i.e. has more than one layer);
-    top-level names (``embed``, ``head``, ``final_norm``) map one to one."""
+    ``layers.<i>.attn.wq`` -> ``stacks[s][k]["attn"]["wq"][r]`` for layer
+    i at ``locs[i] == (s, k, r, stacked)`` (the rep index only when the
+    segment is stacked); expert leaves ``(E, D, F)`` come whole;
+    top-level names (``embed``, ``head``, ``final_norm``) map one to
+    one."""
     parts = name.split(".")
     if parts[0] != "layers":
         return _to_torch(np_params[name])
-    (block,) = np_params["stacks"][0]
-    node = block
+    si, ki, rep, stacked = locs[int(parts[1])]
+    node = np_params["stacks"][si][ki]
     for key in parts[2:]:
         node = node[key]
-    index = int(parts[1]) if stacked else None
+    index = rep if stacked else None
     packed = _packed(node, index)
     if packed is not None:
         return packed
@@ -84,16 +98,21 @@ def _leaf(np_params: dict, name: str, stacked: bool):
 def params_from_jax(np_params: dict, cfg: ModelConfig,
                     device: str | torch.device = "cuda") -> Model:
     """A ``Model`` on ``device`` holding exactly the reference's weights."""
-    if len(np_params["stacks"]) != 1 or len(np_params["stacks"][0]) != 1:
-        raise NotImplementedError("the bridge maps single-segment attn_dense "
-                                  "plans only")
     model = Model(cfg, device)
-    stacked = cfg.n_layers > 1
-    names = [n for n, _ in model.named_parameters()]
+    if len(np_params["stacks"]) != len(model.plan) or any(
+            len(st) != len(seg.kinds)
+            for st, seg in zip(np_params["stacks"], model.plan)):
+        raise ValueError("the reference pytree's segments and kinds differ "
+                         "from the port's plan")
+    locs = _layer_locations(model)
     modules = dict(model.named_modules())
+    mapped = set()
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
-            src = _leaf(np_params, name, stacked)
+            src = _leaf(np_params, name, locs)
+            parts = name.split(".")
+            mapped.add(name if parts[0] != "layers"
+                       else (locs[int(parts[1])][:2], *parts[2:]))
             if isinstance(src, formats.PACKED_TYPES):
                 if tuple(src.shape) != tuple(p.shape):
                     raise ValueError(f"{name}: packed reference leaf of "
@@ -110,12 +129,10 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
                                  f"{tuple(p.shape)}")
             p.copy_(src)
     # every reference leaf must have landed somewhere: one per top-level
-    # parameter, one per per-layer parameter (stacked over layers)
-    n_top = sum(1 for n in names if not n.startswith("layers."))
-    expected = n_top + (len(names) - n_top) // cfg.n_layers
-    if _count_leaves(np_params) != expected:
+    # parameter, one per (segment, kind, leaf) of the layers
+    if _count_leaves(np_params) != len(mapped):
         raise ValueError(f"reference pytree has {_count_leaves(np_params)} "
-                         f"leaves, the port maps {expected}")
+                         f"leaves, the port maps {len(mapped)}")
     return model
 
 
@@ -130,25 +147,27 @@ def _count_leaves(node) -> int:
 
 def params_to_numpy(model: Model) -> dict:
     """The reference-layout numpy pytree of a dense ``model``'s weights
-    (layer weights stacked along a leading axis when there is more than
-    one)."""
-    stacked = model.cfg.n_layers > 1
-    per_layer: dict = {}
+    (``stacks[segment][kind]``, each segment's layer weights stacked along
+    a leading axis when it has more than one rep)."""
+    locs = _layer_locations(model)
+    per_kind = [[{} for _ in seg.kinds] for seg in model.plan]
     out: dict = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] != "layers":
             out[name] = _to_numpy(p)
             continue
-        node = per_layer
+        si, ki, _, _ = locs[int(parts[1])]
+        node = per_kind[si][ki]
         for key in parts[2:-1]:
             node = node.setdefault(key, {})
         node.setdefault(parts[-1], []).append(_to_numpy(p))
 
-    def stack(node):
+    def stack(node, stacked):
         if isinstance(node, dict):
-            return {k: stack(v) for k, v in node.items()}
+            return {k: stack(v, stacked) for k, v in node.items()}
         return np.stack(node) if stacked else node[0]
 
-    out["stacks"] = [(stack(per_layer),)]
+    out["stacks"] = [tuple(stack(kind, seg.reps > 1) for kind in kinds)
+                     for seg, kinds in zip(model.plan, per_kind)]
     return out

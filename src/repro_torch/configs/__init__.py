@@ -2,7 +2,8 @@
 
 A copy of ``repro.configs`` for the architectures the port serves so far:
 the ``attn_dense`` family (plain GQA, qk-norm, qkv bias): llama3-8b,
--70b and -405b, qwen3-14b, qwen2.5-14b.  ``get_config``
+-70b and -405b, qwen3-14b, qwen2.5-14b; and deepseek-v2-lite-16b (MLA
+attention, MoE with shared experts, a first dense layer).  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -20,6 +21,7 @@ _ARCH_MODULES = {
     "llama3-405b": "llama3_405b",
     "qwen3-14b": "qwen3_14b",
     "qwen2.5-14b": "qwen2_5_14b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 

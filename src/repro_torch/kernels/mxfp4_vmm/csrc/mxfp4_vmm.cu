@@ -11,7 +11,11 @@
 // even k); scales (K/32, N) uint8 are E8M0 biased exponents.  The decoded
 // weight is exact in bf16 and every product is exact in f32, so the kernel
 // computes the plain version's function (dequantize to bf16, f32-accumulating
-// matmul) up to the order of the f32 sums.  One launch serves a group of up
+// matmul) up to the rounding of the f32 sums.  The tensor cores' own
+// accumulation drops bits rather than round to nearest, and its error grows
+// with the length of a chain: the decode schedule's chains are a quarter of
+// K (one a warp, added in f32 at the end), the prefill schedule's are four
+// products (a stage's, added into f32 accumulators).  One launch serves a group of up
 // to three weights that read the same x (q/k/v, gate/up): their column
 // stripes are walked as one list, each output written to its own tensor.
 //
@@ -61,9 +65,12 @@
 //     accumulators spill (setmaxnreg does not lift that cap).  Per stage i,
 //     every thread waits for x tile i (TMA, 256 x 64 bf16, 128-byte
 //     swizzle: wgmma's K-major A), issues its wgmma m64n128k16 products on
-//     B tile i, and while they run decodes stage i + 1's code tile into the
-//     other B tile (bf16, rows of N: an MN-major B, 128-byte swizzle; the
-//     same register decode), so a weight is decoded once per 256 rows.
+//     B tile i one m64 half at a time, each half's four into a partial that
+//     is then added into the f32 accumulators, and while they run decodes
+//     stage i + 1's code tile into the other B tile (bf16, rows of N: an
+//     MN-major B, 128-byte swizzle; the same register decode, half of it
+//     beside each half's products), so a weight is decoded once per 256
+//     rows.
 //     Thread 0 (x) and thread 128 (codes, a deeper ring) issue the next
 //     copies into slots the last barrier freed, so there are no empty
 //     barriers.  Each stage's wgmma group is waited for in the iteration
@@ -750,18 +757,19 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 
 // Consumer thread t's share of a stage's B tile: code row r = t / 8 (B rows
 // k = 2r from the low nibbles, 2r + 1 from the high ones), columns
-// 16 (t % 8) .. + 15
+// 16 (t % 8) + 8 half .. + 7 (a thread's 16 columns in two calls, so that
+// each overlaps one half's products with few registers)
 template <bool kWide>
 __device__ __forceinline__ void decode_stage(uint8_t* bt, const uint8_t* cs, const uint8_t* scl,
-                                             int t) {
+                                             int t, int half) {
   const int r = t >> 3, c16 = t & 7;
-  const uint4 sv = *reinterpret_cast<const uint4*>(scl + (r >> 4) * kBN + 16 * c16);
-  const uint4 cv = *reinterpret_cast<const uint4*>(cs + r * kBN + 16 * c16);
-  const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
-  const uint32_t cw[4] = {cv.x, cv.y, cv.z, cv.w};
-  uint32_t fa[8], fb[8];
+  const uint2 sv = *reinterpret_cast<const uint2*>(scl + (r >> 4) * kBN + 16 * c16 + 8 * half);
+  const uint2 cv = *reinterpret_cast<const uint2*>(cs + r * kBN + 16 * c16 + 8 * half);
+  const uint32_t sw[2] = {sv.x, sv.y};
+  const uint32_t cw[2] = {cv.x, cv.y};
+  uint32_t fa[4], fb[4];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {             // columns 2q, 2q + 1
+  for (int q = 0; q < 4; ++q) {             // columns 2q, 2q + 1 of the half
     const uint32_t w = sw[q >> 1];
     const int b0 = 2 * (q & 1);
     if (kWide)
@@ -771,9 +779,9 @@ __device__ __forceinline__ void decode_stage(uint8_t* bt, const uint8_t* cs, con
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    uint32_t v[8];
+    uint32_t v[4];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < 4; ++q) {
       const uint32_t src = (h ? cw[q >> 1] >> 4 : cw[q >> 1]) & 0x0F0F0F0Fu;
       const uint32_t u = prmt(src, src, (q & 1) ? 0x8382u : 0x8180u);
       uint32_t e = mul_bf16x2(e2m1x2_tiny(u), fa[q]);
@@ -782,10 +790,8 @@ __device__ __forceinline__ void decode_stage(uint8_t* bt, const uint8_t* cs, con
     }
     const int k = 2 * r + h;
     uint8_t* row = bt + (c16 >> 2) * (kStageK * 128) + k * 128;
-    const int ch = (2 * c16) & 7;
+    const int ch = (2 * c16 + half) & 7;
     *reinterpret_cast<uint4*>(row + ((ch ^ (k & 7)) << 4)) = make_uint4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (k & 7)) << 4)) =
-        make_uint4(v[4], v[5], v[6], v[7]);
   }
 }
 
@@ -877,32 +883,35 @@ mxfp4_vmm_wgmma(const __grid_constant__ Maps maps, const Params p) {
   const int lane = tid & 31;
   const int row_lo = wgi * 128 + (warp & 3) * 16 + (lane >> 2);   // and + 8, + 64, + 72
 
-  // stage i's code tile -> B tile i % 2, by all 256 threads
-  auto decode = [&](int i) {
+  // stage i's code tile -> B tile i % 2, by all 256 threads, each thread's
+  // columns in two halves (decode_stage)
+  auto decode = [&](int i, int half) {
     const int s = i % kCStages;
     uint8_t* cs = base + kCodeOff + s * kCodeBytes;
     uint8_t* scl = base + kScaleOff + s * kScaleBytes;
-    if (p.tma) {
-      mbar_wait(c_full(s), (i / kCStages) & 1);
-    } else {                                      // byte copies (TMA cannot map it)
-      const Walk w(p, lo + i, kBM);
-      const Seg& sp = seg_ref(p, w.sg);
-      const int k0 = w.stage * kStageK;
-      for (int j = tid; j < kCodeBytes + kScaleBytes; j += kThreads) {
-        const bool code = j < kCodeBytes;
-        const int jj = code ? j : j - kCodeBytes;
-        const int gr = (code ? k0 / 2 : k0 / 32) + (jj >> 7), gc = w.n0 + (jj & 127);
-        const bool ok = gr < (code ? p.K / 2 : p.K / 32) && gc < sp.n;
-        (code ? cs : scl)[jj] = ok ? (code ? sp.codes : sp.scales)[(size_t)gr * sp.n + gc] : 0;
+    if (half == 0) {                              // the stage's codes arrive
+      if (p.tma) {
+        mbar_wait(c_full(s), (i / kCStages) & 1);
+      } else {                                    // byte copies (TMA cannot map it)
+        const Walk w(p, lo + i, kBM);
+        const Seg& sp = seg_ref(p, w.sg);
+        const int k0 = w.stage * kStageK;
+        for (int j = tid; j < kCodeBytes + kScaleBytes; j += kThreads) {
+          const bool code = j < kCodeBytes;
+          const int jj = code ? j : j - kCodeBytes;
+          const int gr = (code ? k0 / 2 : k0 / 32) + (jj >> 7), gc = w.n0 + (jj & 127);
+          const bool ok = gr < (code ? p.K / 2 : p.K / 32) && gc < sp.n;
+          (code ? cs : scl)[jj] = ok ? (code ? sp.codes : sp.scales)[(size_t)gr * sp.n + gc] : 0;
+        }
+        consumer_sync();
       }
-      consumer_sync();
     }
     uint8_t* bt = base + kBOff + (i & 1) * kBBytes;
     const uint4 sv = *reinterpret_cast<const uint4*>(scl + (tid >> 7) * kBN + 16 * (tid & 7));
     if (__any_sync(0xffffffffu, ((sv.x | sv.y | sv.z | sv.w) & 0x80808080u) != 0))
-      decode_stage<true>(bt, cs, scl, tid);
+      decode_stage<true>(bt, cs, scl, tid, half);
     else
-      decode_stage<false>(bt, cs, scl, tid);
+      decode_stage<false>(bt, cs, scl, tid, half);
   };
   // the decoded tiles are generic-proxy writes, read next by wgmma (the
   // async proxy); the fence goes after the wait for this stage's products,
@@ -928,44 +937,59 @@ mxfp4_vmm_wgmma(const __grid_constant__ Maps maps, const Params p) {
     }
     for (int i = 0; i < kCStages; ++i) load_codes(i);
   }
+  // acc: the tile's sums; part: one m64 half's products of one stage,
+  // added into acc in f32 (round to nearest).  wgmma's own accumulation
+  // drops bits (it does not round to nearest): over a whole K chain of K /
+  // 16 products that bias reached 9.5e-6 of max |out| at K 14336 on
+  // SwiGLU-like x, against the f32 plain version's 1.5e-6 (both against an
+  // f64 product: scripts/mxfp4_accuracy.py); chains of 4 products keep the
+  // kernel's error under the plain version's.  It costs a second wait per
+  // stage (the two halves' products run one after the other): 1.25-1.37x
+  // the time of one chain.  acc is zeroed where a tile piece starts, so
+  // that it is only ever added to (a select there made ptxas spill)
   float acc[2][64];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-  if (n_units > 0) decode(0);
+  float part[64];
+  if (n_units > 0) {
+    decode(0, 0);
+    decode(0, 1);
+  }
   proxy_fence();
   consumer_sync();
   Cursor at(lo, p.stages);
   for (int i = 0; i < n_units; ++i, at.next(p.stages)) {
     const int s = i % kXStages;
-    const int first = (i == 0 || at.stage == 0);
+    if (i == 0 || at.stage == 0) {                // a tile piece starts
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[h][e] = 0.f;
+    }
     mbar_wait(x_full(s), (i / kXStages) & 1);
     const uint32_t xa = smem_u32(base + kXOff + s * kXBytes) + wgi * 128 * 128;
-    const uint64_t da0 = desc_sw128(xa, 16, 1024);
-    const uint64_t da1 = desc_sw128(xa + 64 * 128, 16, 1024);
     const uint64_t db = desc_sw128(smem_u32(base + kBOff + (i & 1) * kBBytes), kStageK * 128,
                                    1024);
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kStageK / 16; ++kk) {
-      wgmma_n128(acc[0], da0 + kk * 2, db + kk * 128, !(first && kk == 0));
-      wgmma_n128(acc[1], da1 + kk * 2, db + kk * 128, !(first && kk == 0));
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t da = desc_sw128(xa + h * 64 * 128, 16, 1024);
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStageK / 16; ++kk)
+        wgmma_n128(part, da + kk * 2, db + kk * 128, kk != 0);
+      wgmma_commit();
+      // while half h's products run: (h = 0) the next copies, into the x
+      // slot of stage i - 1 and the code slot of stage i (free in both
+      // warpgroups since the last barrier); half h of stage i + 1's decode
+      if (h == 0 && tid == 0) load_x(i + kXStages - 1);
+      if (h == 0 && tid == 128) load_codes(i + kCStages);
+      if (i + 1 < n_units) decode(i + 1, h);
+      // every group is waited for where it was issued: a group in flight
+      // across the loop's back edge makes ptxas serialise wgmma
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[h][e] += part[e];
     }
-    wgmma_commit();
-    // while stage i's products run: the next copies, into the x slot of
-    // stage i - 1 and the code slot of stage i (free in both warpgroups
-    // since the last barrier), then stage i + 1's decode
-    if (tid == 0) load_x(i + kXStages - 1);
-    if (tid == 128) load_codes(i + kCStages);
-    if (i + 1 < n_units) decode(i + 1);
-    // every group is waited for in the iteration that issued it: a group
-    // in flight across the loop's back edge makes ptxas serialise wgmma
-    wgmma_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
     proxy_fence();
     consumer_sync();                              // B tile i + 1 complete
     if (i + 1 != n_units && at.stage + 1 != p.stages) continue;

@@ -1,12 +1,11 @@
-"""Attention-backend registry and the paged GQA serve paths.
+"""Attention-backend registry and the paged GQA and MLA serve paths.
 
 The port of ``repro/models/attention_backends.py``.  The registry
 (``AttentionBackend``, ``register_backend``, ``backend_for_kind``) and the
 per-kind cache layouts (``CacheLayout``, ``layout_for_kind``) are the
-reference's; ``Model.init_paged_cache``, ``runtime.state_cache
-.model_cache_layout`` and the pool pricing of ``parallel/plan.py`` walk
-them.  Only the ``gqa`` backend is registered: MLA kinds raise naming
-their ROADMAP item, and the SSM state layouts of ``ssm``/``hybrid`` kinds
+reference's; ``Model``, ``runtime.state_cache.model_cache_layout`` and the
+pool pricing of ``parallel/plan.py`` walk them.  The ``gqa`` and ``mla``
+backends are registered; the SSM state layouts of ``ssm``/``hybrid`` kinds
 are declared but their pools are not ported.
 
 The GQA serve paths follow.  One difference in
@@ -26,6 +25,13 @@ multi-query oracle for CPU tensors, the exact-accumulator CUDA kernel for
 CUDA tensors.  fp8/int8 pools quantize on
 write (codes plus per-token scales, ``quant/kv.py``) and hand their scale
 leaves to the attention; the o projection goes through ``qdot``.
+
+The MLA serve paths keep one latent stream per layer (``c_kv`` and the
+shared ``k_rope``, bf16 or f32 pools only), scattered in place like the
+GQA pools.  No Pallas kernel carries them in the reference, and none
+here: decode and the speculative verify run the absorbed-matmul einsums,
+chunked prefill the per-head expansion through ``blocked_attention``, on
+every device.
 """
 from __future__ import annotations
 
@@ -37,8 +43,11 @@ import torch
 from repro_torch.kernels.decode_attention.ops import (
     paged_gqa_decode_attention, paged_gqa_multi_attention,
 )
+from repro_torch.kernels.decode_attention.ref import (
+    gather_pages, paged_valid_mask,
+)
 from repro_torch.models import layers
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, span
 from repro_torch.quant import kv as kvq
 from repro_torch.quant.linear import qdot
 
@@ -174,10 +183,132 @@ def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Backend descriptor + registry
+# MLA backend: absorbed-matmul latent decode + chunked paged prefill
 # ---------------------------------------------------------------------------
 
-ITEM_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
+
+def init_mla_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                       dtype=torch.bfloat16, *, device) -> dict:
+    """Latent page pool for one MLA layer: ``c_kv`` (P, page, r) and the
+    shared ``k_rope`` (P, page, rhd).  Quantized (fp8/int8) pools raise,
+    as the reference's do."""
+    if kvq.is_quantized_cache_dtype(dtype):
+        raise NotImplementedError(
+            f"cache_dtype={dtype!r} is not implemented for MLA latent page "
+            f"pools: the absorbed-matmul decode consumes latent pages "
+            f"directly and has no dequant seam yet.  Quantized KV "
+            f"({'/'.join(sorted(kvq.KV_FORMATS))}) is only available for "
+            f"GQA-family page pools; for MLA models use a dense cache_dtype "
+            f"(None, torch.bfloat16, torch.float32) instead.")
+    return {"c_kv": torch.zeros((num_pages, page_size, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((num_pages, page_size, cfg.rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def last_writes(slots, page: int) -> torch.Tensor:
+    """For each of N writes at ``slots`` (physical page, offset), the index
+    of the last write to the same place.  Idle and padding rows all write
+    the scratch page, so writes collide there: the CPU applies them in
+    order (the last one wins, in the reference too), CUDA in any order.
+    Taking every write's value from the last writer of its place leaves
+    the pool as the CPU does on every device and every run.  A stable sort
+    of the N places groups the writes (O(N log N), whatever the pool's
+    size, and no shape that waits on the device)."""
+    phys, off = slots
+    key, order = torch.sort(phys.long() * page + off, stable=True)
+    group = torch.ones_like(key)
+    group[0] = 0
+    group[1:] = key[1:] != key[:-1]
+    group = group.cumsum(0)                   # sorted position -> its place
+    last = torch.full_like(order, -1).scatter_reduce_(0, group, order, "amax")
+    return torch.empty_like(order).index_put_((order,), last[group])
+
+
+def _scatter_latent(pool: dict, c_kv, k_rope, slots) -> None:
+    """Write the latents (N, r) and rope keys (N, rhd) at ``slots``.  In an
+    MoE model the rows of a batch compete for expert capacity, so what an
+    idle or padding row reads back from the scratch page reaches the live
+    rows: the writes go through ``last_writes``.  (A GQA model's scratch
+    contents never reach a live row: no ported GQA kind has MoE.)"""
+    src = last_writes(slots, pool["c_kv"].shape[1])
+    _put(pool["c_kv"], slots, c_kv[src])
+    _put(pool["k_rope"], slots, k_rope[src])
+
+
+def mla_decode_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
+                     pool: dict, page_table, pos, *, window=None
+                     ) -> torch.Tensor:
+    """Absorbed-matmul MLA decode against a paged latent cache: the math
+    of ``layers.mla_decode`` with the latent and rope-key streams gathered
+    through the page table and a per-slot (ragged) position vector.
+    x: (B, D); pos: (B,)."""
+    assert window is None, "MLA layers are full-attention"
+    b, _ = x.shape
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = layers._mla_qc(
+            p, x[:, None, :], cfg, pos[:, None])
+        page = pool["c_kv"].shape[1]
+        _scatter_latent(pool, c_kv[:, 0], k_rope[:, 0],
+                        token_slots(page_table, pos, page))
+        c_d = gather_pages(pool["c_kv"], page_table)           # (B, S, r)
+        kr_d = gather_pages(pool["k_rope"], page_table)        # (B, S, rhd)
+        valid = paged_valid_mask(page_table, page, pos)        # (B, S)
+        out = layers.mla_absorbed_attention(p, q_nope, q_rope, c_d, kr_d,
+                                            valid[:, None, :], cfg)
+    return qdot(out[:, 0].to(x.dtype), p.wo)
+
+
+def mla_decode_multi_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
+                           pool: dict, page_table, start, valid, *,
+                           window=None) -> torch.Tensor:
+    """C-token absorbed-matmul MLA decode (speculative verify).  It
+    mirrors ``mla_decode_paged``'s absorbed path, not the per-head
+    expansion of ``mla_prefill_chunk_paged``: the two associate the latent
+    products differently and part at ulp scale."""
+    assert window is None, "MLA layers are full-attention"
+    b, c, _ = x.shape
+    ar = torch.arange(c, device=x.device)
+    positions = start[:, None].long() + ar[None, :]
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = layers._mla_qc(p, x, cfg, positions)
+        ok = ar[None, :] < valid[:, None]
+        slots = chunk_slots(page_table, positions, ok, pool["c_kv"].shape[1])
+        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots)
+        c_d = gather_pages(pool["c_kv"], page_table)           # (B, S, r)
+        kr_d = gather_pages(pool["k_rope"], page_table)
+        idx = torch.arange(c_d.shape[1], device=x.device)
+        vmask = idx[None, None, :] <= positions[:, :, None]    # (B, C, S)
+        out = layers.mla_absorbed_attention(p, q_nope, q_rope, c_d, kr_d,
+                                            vmask, cfg)
+    return qdot(out.to(x.dtype), p.wo)
+
+
+def mla_prefill_chunk_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
+                            pool: dict, page_table, start, valid, *,
+                            window=None) -> torch.Tensor:
+    """One MLA prefill chunk: scatter the chunk's latents, then attend by
+    per-head expansion of the gathered latent view (the prefill path of
+    ``mla_forward``, continued at per-slot offsets)."""
+    assert window is None, "MLA layers are full-attention"
+    b, c, _ = x.shape
+    ar = torch.arange(c, device=x.device)
+    positions = start[:, None].long() + ar[None, :]
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = layers._mla_qc(p, x, cfg, positions)
+        ok = ar[None, :] < valid[:, None]
+        slots = chunk_slots(page_table, positions, ok, pool["c_kv"].shape[1])
+        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots)
+        c_d = gather_pages(pool["c_kv"], page_table)
+        kr_d = gather_pages(pool["k_rope"], page_table)
+        out = layers.mla_expanded_attention(p, q_nope, q_rope, c_d, kr_d, cfg,
+                                            q_offset=start)
+    return qdot(out.reshape(b, c, cfg.n_heads * cfg.v_hd), p.wo)
+
+
+# ---------------------------------------------------------------------------
+# Backend descriptor + registry
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +323,9 @@ class AttentionBackend:
     forward: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
+    # the ``nn.Module`` holding one layer's attention weights:
+    # ``module(cfg, device)``, filled by ``init(module, gen, cfg)``
+    module: Callable[..., Any]
     init_page_pool: Callable[..., dict] | None = None
     decode_paged: Callable[..., Any] | None = None
     prefill_chunk_paged: Callable[..., Any] | None = None
@@ -230,9 +364,6 @@ def get_backend(name: str) -> AttentionBackend:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name == "mla":
-            raise NotImplementedError(
-                f"the MLA attention backend — {ITEM_MLA}") from None
         raise KeyError(f"unknown attention backend {name!r}; "
                        f"registered: {sorted(_REGISTRY)}") from None
 
@@ -305,10 +436,37 @@ GQA = register_backend(AttentionBackend(
     forward=layers.attn_forward,
     prefill=layers.attn_prefill,
     decode=layers.attn_decode,
+    module=layers.Attention,
     init_page_pool=init_attn_page_pool,
     decode_paged=attn_decode_paged,
     prefill_chunk_paged=attn_prefill_chunk_paged,
     decode_multi_paged=attn_decode_multi_paged,
     # (P, page, KVH, HD) codes + (P, page, KVH) scale metadata: KV heads
     paged_partition_spec={"k": 2, "v": 2, "k_scale": 2, "v_scale": 2},
+))
+
+MLA = register_backend(AttentionBackend(
+    name="mla",
+    paged_leaf_keys=("c_kv", "k_rope"),
+    mask_families=("prefix",),
+    paged_mask_families=("prefix",),
+    init=layers.init_mla,
+    init_cache=lambda cfg, batch, max_len, window=None, dtype=torch.bfloat16,
+    *, device: layers.init_mla_cache(cfg, batch, max_len, dtype,
+                                     device=device),
+    forward=lambda p, x, cfg, *, window=None, positions=None:
+        layers.mla_forward(p, x, cfg, positions=positions),
+    prefill=lambda p, x, cfg, cache, *, window=None:
+        layers.mla_prefill(p, x, cfg, cache),
+    decode=lambda p, x, cfg, cache, cur_pos, *, window=None, positions,
+    cur_len: layers.mla_decode(p, x, cfg, cache, cur_pos,
+                               positions=positions),
+    module=layers.MLA,
+    init_page_pool=init_mla_page_pool,
+    decode_paged=mla_decode_paged,
+    prefill_chunk_paged=mla_prefill_chunk_paged,
+    decode_multi_paged=mla_decode_multi_paged,
+    # the latent stream is shared by every head: replicated across a
+    # tensor-parallel ring
+    paged_partition_spec={"c_kv": None, "k_rope": None},
 ))

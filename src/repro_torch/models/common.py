@@ -12,6 +12,7 @@ over KV blocks, so chunked prefill never builds an (Sq x Skv) score matrix.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -130,6 +131,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * w.float()
     return out.to(x.dtype)
+
+
+def span(name: str):
+    """A named ``torch.profiler`` range around a part of the model while a
+    profiler records (the serve phases' device-time split reads them);
+    nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""GQA attention and dense MLP blocks (the ``attn_dense`` pieces of
-``repro/models/layers.py``).
+"""GQA attention, MLA attention and dense MLP blocks (the pieces of
+``repro/models/layers.py`` that the ``attn_dense``, ``mla_dense`` and
+``mla_moe`` kinds use).
 
 The static serve path's attention lives here, as in the reference (the
 ``gqa`` backend's ``forward``/``prefill``/``decode`` entries):
@@ -19,8 +20,17 @@ quantized view (``quant.linear.quantize_params``) the projection
 attributes hold packed tensors instead, and every projection goes through
 ``qdot`` (q/k/v together through ``qdot_group``).  The paged serve paths that use ``_qkv`` live in
 ``attention_backends.py``.
+
+MLA (``MLA``, the ``mla`` backend's dense entries): ``mla_forward`` and
+``mla_prefill`` expand the latent into per-head keys and values and run
+``blocked_attention`` on every device (the flash kernel takes neither head
+dim ``hd + rope_head_dim`` = 192 nor v narrower than k); ``mla_decode``
+attends in the latent space by the absorbed-matmul einsums, as the
+reference does.  No Pallas kernel carries MLA in the reference.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -28,8 +38,9 @@ from torch import nn
 from repro_torch.kernels.decode_attention.kernel import decode_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.common import (
-    NORM_DTYPE, PARAM_DTYPE, ModelConfig, apply_rope, blocked_attention,
-    cache_update_at, decode_attention_ref, dense_init, rmsnorm, swiglu,
+    NEG_INF, NORM_DTYPE, PARAM_DTYPE, ModelConfig, apply_rope,
+    blocked_attention, cache_update_at, decode_attention_ref, dense_init,
+    rmsnorm, span, swiglu,
 )
 from repro_torch.quant.linear import qdot, qdot_group
 
@@ -201,6 +212,169 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "slot_pos": torch.full((w,), -1, dtype=torch.int32,
+                                   device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """MLA projections: ``wq`` (per-head nope + rope queries), ``w_dkv``
+    (the latent plus the shared rope key), the f32 ``kv_norm`` of the
+    latent, the up-projections ``w_uk``/``w_uv`` and ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        hd, rhd, vhd, r = cfg.hd, cfg.rope_head_dim, cfg.v_hd, cfg.kv_lora_rank
+        self.wq = _param((d, h * (hd + rhd)), PARAM_DTYPE, device)
+        self.w_dkv = _param((d, r + rhd), PARAM_DTYPE, device)
+        self.kv_norm = _param((r,), NORM_DTYPE, device)
+        self.w_uk = _param((r, h * hd), PARAM_DTYPE, device)
+        self.w_uv = _param((r, h * vhd), PARAM_DTYPE, device)
+        self.wo = _param((h * vhd, d), PARAM_DTYPE, device)
+
+
+@torch.no_grad()
+def init_mla(p: MLA, gen: torch.Generator, cfg: ModelConfig) -> None:
+    """Fill ``p`` in place: scaled-normal projections, a unit latent norm
+    (the reference's ``init_mla`` distributions)."""
+    for w in (p.wq, p.w_dkv, p.w_uk, p.w_uv, p.wo):
+        w.copy_(dense_init(gen, *w.shape))
+    p.kv_norm.fill_(1.0)
+
+
+def _mla_qc(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions):
+    """Shared q / latent computation.  Returns q_nope, q_rope, c_kv,
+    k_rope."""
+    b, s, _ = x.shape
+    h, hd, rhd, r = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.kv_lora_rank
+    q = qdot(x, p.wq).reshape(b, s, h, hd + rhd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckr = x @ p.w_dkv
+    c_kv = rmsnorm(ckr[..., :r], p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(ckr[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
+                           cfg: ModelConfig, q_offset=0) -> torch.Tensor:
+    """Per-head expansion of the latent keys/values (the prefill path):
+    ``blocked_attention`` over q/k of ``hd + rhd`` and v of ``v_hd``.
+    q_*: (B, Sq, H, .); c_kv (B, Skv, r), k_rope (B, Skv, rhd).  The
+    flash kernel takes neither head dim 192 nor v narrower than k, so on
+    every device this is the plain ``blocked_attention``, as in the
+    reference."""
+    b, s_kv, _ = c_kv.shape
+    h, hd, rhd, vhd = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_hd
+    # a pool of another dtype than the weights multiplies in the wider one
+    dt = torch.promote_types(c_kv.dtype, p.w_uk.dtype)
+    c_kv = c_kv.to(dt)
+    k_nope = (c_kv @ p.w_uk.to(dt)).reshape(b, s_kv, h, hd)
+    v = (c_kv @ p.w_uv.to(dt)).reshape(b, s_kv, h, vhd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s_kv, h, rhd)],
+                  dim=-1)
+    return blocked_attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
+                             scale=1.0 / math.sqrt(hd + rhd))
+
+
+def mla_absorbed_attention(p: MLA, q_nope, q_rope, c_d, kr_d, valid,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Absorbed-matmul attention in the latent space, f32 throughout:
+
+        score_h(t) = q_nope_h . (W_uk^T)_h c_t + q_rope_h . k_rope_t
+        out_h      = (sum_t p_t c_t) @ (W_uv)_h
+
+    q_*: (B, C, H, .) queries; c_d (B, S, r), kr_d (B, S, rhd) the
+    latent stream; valid (B, C, S) the visible positions.  Returns
+    (B, C, H * v_hd) f32."""
+    b, c = q_nope.shape[:2]
+    h, hd, rhd, vhd, r = (cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_hd,
+                          cfg.kv_lora_rank)
+    w_uk = p.w_uk.reshape(r, h, hd).float()
+    q_lat = torch.einsum("bchd,rhd->bchr", q_nope.float(), w_uk)
+    q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)
+    c_f = c_d.float()
+    k_eff = torch.cat([c_f, kr_d.float()], dim=-1)                # (B,S,r+rhd)
+    s_ = torch.einsum("bchr,bsr->bchs", q_eff, k_eff) * (
+        1.0 / math.sqrt(hd + rhd))
+    s_ = torch.where(valid[:, :, None, :], s_, NEG_INF)
+    pattn = torch.softmax(s_, dim=-1)
+    ctx = torch.einsum("bchs,bsr->bchr", pattn, c_f)               # latent ctx
+    w_uv = p.w_uv.reshape(r, h, vhd).float()
+    out = torch.einsum("bchr,rhv->bchv", ctx, w_uv)
+    return out.reshape(b, c, h * vhd)
+
+
+def mla_forward(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
+                positions=None) -> torch.Tensor:
+    """Full-sequence MLA (prompt scoring); x: (B, S, D)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
+        out = mla_expanded_attention(p, q_nope, q_rope, c_kv, k_rope, cfg)
+    return qdot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
+
+
+def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                cache: dict) -> torch.Tensor:
+    """Prefill: MLA over the prompt, its latents and rope keys written
+    into the cache at [0, s) in place."""
+    b, s, _ = x.shape
+    dev = x.device
+    positions = torch.arange(s, device=dev)[None, :]
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
+        out = mla_expanded_attention(p, q_nope, q_rope, c_kv, k_rope, cfg)
+    out = qdot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
+    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
+    w = cache["c_kv"].shape[1]
+    pos = torch.arange(w, device=dev)
+    cache["slot_pos"].copy_(torch.where(pos < s, pos, -1))
+    return out
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+               cur_pos: int, *, positions: torch.Tensor) -> torch.Tensor:
+    """Absorbed-matmul decode of one token per row at the shared position
+    ``cur_pos`` (``positions`` (B, 1) holds it) over the dense latent
+    cache, written first at slot ``cur_pos`` (MLA layers attend over the
+    full context: no ring)."""
+    b, _ = x.shape
+    w = cache["c_kv"].shape[1]
+    if cur_pos >= w:
+        raise ValueError(f"position {cur_pos} is past the {w}-token cache")
+    with span("mla_attention"):
+        q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x[:, None, :], cfg,
+                                               positions)
+        cache_update_at(cache["c_kv"], c_kv, cur_pos)
+        cache_update_at(cache["k_rope"], k_rope, cur_pos)
+        cache["slot_pos"][cur_pos:cur_pos + 1].fill_(cur_pos)
+        slot_pos = cache["slot_pos"]
+        valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
+        out = mla_absorbed_attention(p, q_nope, q_rope, cache["c_kv"],
+                                     cache["k_rope"],
+                                     valid[None, None, :].expand(b, 1, -1),
+                                     cfg)
+    return qdot(out[:, 0].to(x.dtype), p.wo)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, *, device) -> dict:
+    """Dense latent cache of one MLA layer: ``c_kv`` (B, max_len, r),
+    ``k_rope`` (B, max_len, rhd) and ``slot_pos`` (max_len,) int32."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                                  dtype=dtype, device=device),
+            "slot_pos": torch.full((max_len,), -1, dtype=torch.int32,
                                    device=device)}
 
 

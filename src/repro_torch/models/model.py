@@ -1,28 +1,31 @@
-"""Model assembly for the serve paths (the ``attn_dense`` plan of
-``repro/models/model.py``).
+"""Model assembly for the serve paths (the ``attn_dense``, ``mla_dense``
+and ``mla_moe`` plans of ``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` that owns its weights: an embedding table, an
-``nn.ModuleList`` of ``Block``s (RMSNorm, GQA attention, RMSNorm, SwiGLU
-MLP), the final norm and the head.  The reference stacks layer weights
-along a leading axis and scans; eager PyTorch loops over the list instead
-(``bridge.py`` converts between the two layouts).
+``nn.ModuleList`` of ``Block``s, the final norm and the head.  A block is
+pre-norm attention through its kind's backend (GQA, or MLA's latent
+attention) and a pre-norm FFN: the SwiGLU MLP, or for ``*_moe`` kinds the
+routed and shared experts (``models/moe.py``, ``moe_impl``).  The
+reference stacks each segment's layer weights along a leading axis and
+scans; eager PyTorch loops over the list instead (``bridge.py`` converts
+between the two layouts).
 
 Serve entry points mirror the reference's.  Continuous (paged):
-``init_paged_cache`` builds one K/V page pool per layer,
-``prefill_chunk_paged`` runs one chunk of prompt tokens per slot into the
-pools (``prefill_chunk_scored_paged`` also keeps every position's logits,
-for prompt scoring), ``decode_step_paged`` one token per slot (or, in its
-2-D form, the C already-chosen tokens of a speculative verify step, with
-logits at every position).  Static (dense cache):
-``init_cache`` builds one ``(B, max_len, KVH, HD)`` cache per layer,
-``prefill`` runs the whole prompt into it, ``decode_step`` one token per
-row at a shared position.  ``forward`` scores a whole sequence without a
-cache.  Caches and pools are written in place, so these return only the
-logits.
+``init_paged_cache`` builds one page pool per layer (GQA: K/V leaves;
+MLA: latent and rope-key leaves), ``prefill_chunk_paged`` runs one chunk
+of prompt tokens per slot into the pools (``prefill_chunk_scored_paged``
+also keeps every position's logits, for prompt scoring),
+``decode_step_paged`` one token per slot (or, in its 2-D form, the C
+already-chosen tokens of a speculative verify step, with logits at every
+position).  Static (dense cache): ``init_cache`` builds one dense cache
+per layer, ``prefill`` runs the whole prompt into it, ``decode_step`` one
+token per row at a shared position.  ``forward`` scores a whole sequence
+without a cache.  Caches and pools are written in place, so these return
+only the logits.
 
-Only the ``attn_dense`` block kind is ported; MoE, MLA, SSM and hybrid
-plans, ring tables (sliding-window page spaces) and per-slot state pools
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+GQA + MoE (``attn_moe``), SSM and hybrid plans, ring tables
+(sliding-window page spaces) and per-slot state pools raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention_backends as ab
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, embed_init, rmsnorm,
+    span,
 )
 from repro_torch.quant.linear import packed_leaves
 
@@ -52,64 +57,94 @@ class Segment:
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
-    """The reference's segment plan; the port runs ``attn_dense`` only."""
+    """The reference's segment plan.  The port runs ``attn_dense``,
+    ``mla_dense`` and ``mla_moe``; ``attn_moe`` (GQA + MoE, llama4),
+    ``ssm`` and ``hybrid`` plans raise naming their ROADMAP item."""
     if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: ssm plans — {ITEM_STATEFUL}")
     if cfg.family == "hybrid":
         raise NotImplementedError(f"{cfg.name}: hybrid plans — {ITEM_STATEFUL}")
-    if cfg.mla or cfg.moe:
-        raise NotImplementedError(f"{cfg.name}: MLA/MoE plans — {ITEM_MOE_MLA}")
-    return [Segment(("attn_dense",), cfg.n_layers, cfg.sliding_window)]
+    w = cfg.sliding_window
+    if cfg.mla:
+        segs = []
+        nd = cfg.first_dense_layers
+        if nd:
+            segs.append(Segment(("mla_dense",), nd, w))
+        segs.append(Segment(("mla_moe",), cfg.n_layers - nd, w))
+        return segs
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_moe plans (GQA attention + MoE, llama4) — "
+            f"{ITEM_MOE_MLA}, the attn_moe kind")
+    return [Segment(("attn_dense",), cfg.n_layers, w)]
 
 
 class Block(nn.Module):
-    """One ``attn_dense`` layer: pre-norm GQA attention + pre-norm SwiGLU."""
+    """One layer of block kind ``kind``: pre-norm attention through the
+    kind's backend (``attn``: GQA or MLA weights), then a pre-norm FFN
+    (``mlp``: SwiGLU, of ``cfg.d_ff`` for ``mla_dense``; ``moe``: routed
+    and shared experts for ``*_moe`` kinds)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, kind: str, cfg: ModelConfig, device,
+                 moe_impl: str = "auto"):
         super().__init__()
+        self.kind = kind
         d = cfg.d_model
         self.ln1 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
                                             device=device), requires_grad=False)
-        self.attn = layers.Attention(cfg, device)
+        self.attn = ab.backend_for_kind(kind).module(cfg, device)
         self.ln2 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
                                             device=device), requires_grad=False)
-        self.mlp = layers.MLP(cfg, device)
+        if self.is_moe:
+            self.moe = moe_lib.MoE(cfg, device, impl=moe_impl)
+        else:
+            self.mlp = layers.MLP(cfg, device)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.kind.endswith("_moe")
+
+
+def _ffn(p: Block, x, cfg: ModelConfig):
+    if p.is_moe:
+        return moe_lib.moe_forward(x, p.moe, cfg, impl=p.moe.impl)
+    return layers.mlp_forward(p.mlp, x)
 
 
 def _block_forward(p: Block, x, cfg: ModelConfig, window):
     """x: (B, S, D), no cache."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + layers.attn_forward(p.attn, h, cfg, window=window)
-    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+    x = x + be.forward(p.attn, h, cfg, window=window)
+    return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
 
 def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
     """x: (B, S, D) prompt representations; cache written in place."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + layers.attn_prefill(p.attn, h, cfg, cache, window=window)
-    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+    x = x + be.prefill(p.attn, h, cfg, cache, window=window)
+    return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
 
 def _block_decode(p: Block, x, cfg: ModelConfig, window, cache, cur_pos,
                   positions, cur_len):
     """x: (B, D) single-token representations; cache written in place."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + layers.attn_decode(p.attn, h, cfg, cache, cur_pos, window=window,
-                               positions=positions, cur_len=cur_len)
-    f = layers.mlp_forward(p.mlp, rmsnorm(x[:, None, :], p.ln2,
-                                          cfg.norm_eps))[:, 0]
-    return x + f
+    x = x + be.decode(p.attn, h, cfg, cache, cur_pos, window=window,
+                      positions=positions, cur_len=cur_len)
+    return x + _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
 
 
 def _block_decode_paged(p: Block, x, cfg: ModelConfig, window, pool,
                         page_table, pos):
     """x: (B, D) single-token representations; pool written in place."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    a = ab.attn_decode_paged(p.attn, h, cfg, pool, page_table, pos,
-                             window=window)
+    a = be.decode_paged(p.attn, h, cfg, pool, page_table, pos, window=window)
     x = x + a.to(x.dtype)
-    f = layers.mlp_forward(p.mlp, rmsnorm(x[:, None, :], p.ln2,
-                                          cfg.norm_eps))[:, 0]
+    f = _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
     return x + f.to(x.dtype)
 
 
@@ -117,11 +152,12 @@ def _block_prefill_chunk_paged(p: Block, x, cfg: ModelConfig, window, pool,
                                page_table, start, valid):
     """x: (B, C, D); start/valid: (B,) per-slot chunk offset and real-token
     count; pool written in place."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    a = ab.attn_prefill_chunk_paged(p.attn, h, cfg, pool, page_table, start,
-                                    valid, window=window)
+    a = be.prefill_chunk_paged(p.attn, h, cfg, pool, page_table, start,
+                               valid, window=window)
     x = x + a.to(x.dtype)
-    f = layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+    f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
     return x + f.to(x.dtype)
 
 
@@ -129,13 +165,14 @@ def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
                               page_table, start, valid):
     """Multi-token paged decode (speculative verify): x (B, C, D) chosen
     tokens at per-slot offsets ``start`` with ``valid`` real rows; the
-    block of ``_block_prefill_chunk_paged`` with the multi-query decode
-    attention; pool written in place."""
+    block of ``_block_prefill_chunk_paged`` through the backend's
+    multi-query decode entry; pool written in place."""
+    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    a = ab.attn_decode_multi_paged(p.attn, h, cfg, pool, page_table, start,
-                                   valid, window=window)
+    a = be.decode_multi_paged(p.attn, h, cfg, pool, page_table, start,
+                              valid, window=window)
     x = x + a.to(x.dtype)
-    f = layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, cfg.norm_eps))
+    f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
     return x + f.to(x.dtype)
 
 
@@ -158,10 +195,13 @@ def dense_cache_dtype(dtype) -> torch.dtype:
 
 
 class Model(nn.Module):
-    """Executable ``attn_dense`` model for one ``ModelConfig``, holding its
-    weights on ``device`` (uninitialised until ``init`` or the bridge)."""
+    """Executable model for one ``ModelConfig``, holding its weights on
+    ``device`` (uninitialised until ``init`` or the bridge).  ``moe_impl``
+    picks the MoE strategy of ``*_moe`` layers (``moe.moe_forward``:
+    "auto", "dense" or "capacity")."""
 
-    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
+                 moe_impl: str = "auto"):
         super().__init__()
         if cfg.frontend is not None:
             raise NotImplementedError(
@@ -169,14 +209,16 @@ class Model(nn.Module):
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.device = resolve_device(device)
-        # per-layer attention window (every layer is attn_dense)
-        self.windows = [seg.window for seg in self.plan
-                        for _ in range(seg.reps)]
+        # per-layer block kind and attention window, in plan order
+        kinds = [(kind, seg.window) for seg in self.plan
+                 for _ in range(seg.reps) for kind in seg.kinds]
+        self.windows = [win for _, win in kinds]
         dev = self.device
         self.embed = nn.Parameter(torch.empty(
             (cfg.padded_vocab, cfg.d_model), dtype=PARAM_DTYPE, device=dev),
             requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, dev) for _ in self.windows)
+        self.layers = nn.ModuleList(Block(kind, cfg, dev, moe_impl)
+                                    for kind, _ in kinds)
         self.final_norm = nn.Parameter(torch.empty(
             (cfg.d_model,), dtype=NORM_DTYPE, device=dev), requires_grad=False)
         if not cfg.tie_embeddings:
@@ -195,8 +237,11 @@ class Model(nn.Module):
         for blk in self.layers:
             blk.ln1.fill_(1.0)
             blk.ln2.fill_(1.0)
-            layers.init_attn(blk.attn, gen, cfg)
-            layers.init_mlp(blk.mlp, gen)
+            ab.backend_for_kind(blk.kind).init(blk.attn, gen, cfg)
+            if blk.is_moe:
+                moe_lib.init_moe(blk.moe, gen)
+            else:
+                layers.init_mlp(blk.mlp, gen)
         self.final_norm.fill_(1.0)
         self.embed.copy_(embed_init(gen, cfg.padded_vocab, cfg.d_model))
         if not cfg.tie_embeddings:
@@ -206,12 +251,14 @@ class Model(nn.Module):
     # ----- head -----
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        w = self.embed.T if cfg.tie_embeddings else self.head
-        logits = x @ w
-        if cfg.padded_vocab != cfg.vocab_size:   # mask pad columns to -inf
-            pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, -1e30)
+        with span("head"):
+            x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+            w = self.embed.T if cfg.tie_embeddings else self.head
+            logits = x @ w
+            if cfg.padded_vocab != cfg.vocab_size:   # mask pad columns
+                pad = (torch.arange(cfg.padded_vocab, device=x.device)
+                       >= cfg.vocab_size)
+                logits = logits.masked_fill(pad, -1e30)
         return logits
 
     # ----- forward (full-sequence scoring, no cache) -----
@@ -227,13 +274,14 @@ class Model(nn.Module):
 
     # ----- dense cache (static-batch serve) -----
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
-        """One dense K/V cache per layer (``(B, w, KVH, HD)`` leaves and a
-        ``slot_pos`` table; w = max_len, or the layer's window if
-        shorter).  ``dtype``: see ``dense_cache_dtype``."""
+        """One dense cache per layer from its backend (GQA: ``(B, w, KVH,
+        HD)`` k/v leaves, w = max_len or the layer's window if shorter;
+        MLA: ``(B, max_len, .)`` latent and rope-key leaves) and a
+        ``slot_pos`` table.  ``dtype``: see ``dense_cache_dtype``."""
         dtype = dense_cache_dtype(dtype)
-        return [layers.init_attn_cache(self.cfg, batch, max_len, win, dtype,
-                                       device=self.device)
-                for win in self.windows]
+        return [ab.backend_for_kind(blk.kind).init_cache(
+                    self.cfg, batch, max_len, win, dtype, device=self.device)
+                for win, blk in zip(self.windows, self.layers)]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: list) -> torch.Tensor:
@@ -268,8 +316,10 @@ class Model(nn.Module):
     # ----- paged cache (continuous-batching serve) -----
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None, *,
                          ring_pages: int | None = None) -> list[dict]:
-        """One physical K/V page pool per layer (``(P, page, KVH, HD)``
-        leaves); all layers share one logical page-id space.  ``dtype`` is
+        """One physical page pool per layer from its backend (GQA:
+        ``(P, page, KVH, HD)`` k/v leaves; MLA: ``(P, page, r)`` latent and
+        ``(P, page, rhd)`` rope-key leaves, which refuse fp8/int8); all
+        layers share one logical page-id space.  ``dtype`` is
         a torch dtype or ``"fp8"``/``"int8"`` (code leaves plus per-token
         ``k_scale``/``v_scale`` leaves); another string raises
         ``ValueError``."""

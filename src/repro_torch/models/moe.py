@@ -1,0 +1,229 @@
+"""Mixture-of-Experts layer (DeepSeek-V2 style): the port of
+``repro/models/moe.py``.
+
+Two execution strategies, chosen by token count as the reference chooses:
+
+  * ``dense`` — every expert processes every token, combined with the
+    routing weights (tiny configs only);
+  * ``capacity`` — tokens sorted by expert id are gathered into an
+    (E, C, D) buffer (capacity C, deterministic drop policy), run through
+    one batched product per weight, and gathered back.
+
+Both are plain torch ops, as the reference's are plain ``jnp`` einsums: no
+Pallas kernel carries MoE.  Three points keep the port's choices equal to
+the reference's:
+
+  * top-k ties go to the lower expert index (``jax.lax.top_k``'s rule):
+    a stable descending sort, then the first k;
+  * the capacity drop policy is the reference's exactly: a stable argsort
+    of the token-major flat expert ids, each assignment's rank within its
+    expert from ``searchsorted(side="left")``, and ``keep = rank < cap``.
+    Padding rows count in T and compete for capacity, so which
+    assignments survive depends on the batch;
+  * the combine adds each token's kept contributions in the reference's
+    sorted order (ascending expert id), one rounding per add in the
+    activation dtype, and uses no atomics: a second identical session
+    reproduces every stream on the card.
+
+``impl="ep"`` (expert parallelism over a mesh) belongs to ROADMAP Queue 1,
+'Tensor parallelism', and raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers
+from repro_torch.models.common import (
+    PARAM_DTYPE, ModelConfig, dense_init, span, swiglu,
+)
+
+ITEM_TP = "ROADMAP Queue 1, 'Tensor parallelism'"
+
+
+class MoE(nn.Module):
+    """Routed experts ``(E, D, F)`` / ``(E, F, D)``, an f32 router and,
+    when the config has them, the shared experts under ``shared``.
+    ``impl`` is the strategy ``moe_forward`` runs them with."""
+
+    def __init__(self, cfg: ModelConfig, device, impl: str = "auto"):
+        super().__init__()
+        self.impl = impl
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+        self.router = layers._param((d, e), torch.float32, device)
+        self.w_gate = layers._param((e, d, f), PARAM_DTYPE, device)
+        self.w_up = layers._param((e, d, f), PARAM_DTYPE, device)
+        self.w_down = layers._param((e, f, d), PARAM_DTYPE, device)
+        if cfg.n_shared_experts:
+            self.shared = layers.MLP(cfg, device,
+                                     d_ff=f * cfg.n_shared_experts)
+
+
+@torch.no_grad()
+def init_moe(p: MoE, gen: torch.Generator) -> None:
+    """Fill ``p`` in place with the reference's distributions, one expert
+    at a time (no second copy of the expert stack)."""
+    d, e = p.router.shape
+    p.router.copy_(dense_init(gen, d, e, torch.float32))
+    for w in (p.w_gate, p.w_up, p.w_down):
+        for i in range(w.shape[0]):
+            w[i].copy_(dense_init(gen, w.shape[1], w.shape[2]))
+    if hasattr(p, "shared"):
+        layers.init_mlp(p.shared, gen)
+
+
+def _routing(x2d: torch.Tensor, router: torch.Tensor, k: int):
+    """Top-k softmax routing.  Returns (weights (T, k) f32, ids (T, k)
+    int64); equal probabilities go to the lower expert index first."""
+    logits = x2d.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :k], ids[:, :k]
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    return w, ids
+
+
+def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
+    """(E, C, D) -> (E, C, D) batched SwiGLU over the expert axis."""
+    g = torch.bmm(xe, p.w_gate)
+    u = torch.bmm(xe, p.w_up)
+    h = F.silu(g.float()).to(xe.dtype) * u
+    return torch.bmm(h, p.w_down)
+
+
+def moe_dense(x: torch.Tensor, p: MoE, cfg: ModelConfig) -> torch.Tensor:
+    """Reference path: all experts on all tokens (tiny configs only)."""
+    b, s, d = x.shape
+    x2d = x.reshape(-1, d)
+    w, ids = _routing(x2d, p.router, cfg.n_experts_per_token)
+    g = torch.einsum("td,edf->tef", x2d, p.w_gate)
+    u = torch.einsum("td,edf->tef", x2d, p.w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    y_all = torch.einsum("tef,efd->ted", h, p.w_down)            # (T, E, D)
+    onehot = F.one_hot(ids, cfg.n_experts).float()               # (T, k, E)
+    comb = torch.einsum("tk,tke->te", w, onehot)                 # (T, E)
+    y = torch.einsum("te,ted->td", comb.to(x.dtype), y_all)
+    return y.reshape(b, s, d)
+
+
+def _dispatch(ids: torch.Tensor, n_buckets: int, cap: int):
+    """The reference's drop policy over (T, k) expert ids: returns
+    ``order`` (the stable argsort of the token-major flat ids), and in
+    that sorted order each assignment's token ``stok``, its capacity
+    buffer row ``cell`` (expert * cap + rank, clipped) and ``keep`` (rank
+    < cap and a real expert; ids >= n_buckets are drop buckets)."""
+    t, k = ids.shape
+    dev = ids.device
+    flat_ids = ids.reshape(-1)                                   # (T*k,)
+    order = torch.argsort(flat_ids, stable=True)
+    sid = flat_ids[order]
+    stok = torch.arange(t, device=dev).repeat_interleave(k)[order]
+    # rank within expert = index among same-expert entries (sorted order)
+    first = torch.searchsorted(
+        sid, torch.arange(n_buckets, device=dev, dtype=sid.dtype),
+        side="left")
+    sid_c = sid.clamp(0, n_buckets - 1)
+    slot = torch.arange(t * k, device=dev) - first[sid_c]
+    keep = (slot < cap) & (sid < n_buckets)
+    return order, stok, sid_c * cap + slot.clamp(0, cap - 1), keep
+
+
+def _capacity_core(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+                   n_buckets: int, cap: int, wp) -> torch.Tensor:
+    """Sort-by-expert + capacity buffer + batched products over
+    ``n_buckets`` experts.  Returns (T, D).  Per expert, the
+    earliest-sorted assignments win a slot (``_dispatch``)."""
+    t, d = x2d.shape
+    k = ids.shape[1]
+    dev = x2d.device
+    with span("moe_dispatch"):
+        order, stok, cell, keep = _dispatch(ids, n_buckets, cap)
+        sw = w.reshape(-1)[order]
+        # each kept assignment owns one buffer row; the dropped ones all
+        # write a spare last row, which is discarded
+        dest = torch.where(keep, cell, n_buckets * cap)
+        buf = torch.zeros((n_buckets * cap + 1, d), dtype=x2d.dtype,
+                          device=dev)
+        buf[dest] = x2d[stok]
+        xe = buf[:-1].view(n_buckets, cap, d)
+    with span("moe_experts"):
+        ye = _expert_ffn(xe, wp)                                 # (E, C, D)
+    with span("moe_combine"):
+        y_tok = ye.reshape(-1, d)[cell]                          # (T*k, D)
+        contrib = torch.where(keep[:, None],
+                              y_tok * sw[:, None].to(y_tok.dtype), 0)
+        # each token's contributions in sorted order: ascending rank
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(t * k, device=dev)
+        parts = contrib[rank.view(t, k).sort(dim=1).values]      # (T, k, D)
+        y = torch.zeros((t, d), dtype=x2d.dtype, device=dev)
+        for j in range(k):
+            y = y + parts[:, j]
+    return y
+
+
+def moe_capacity(x: torch.Tensor, p: MoE, cfg: ModelConfig,
+                 capacity_factor: float = 1.25) -> torch.Tensor:
+    """Sort-by-expert dispatch into (E, C, D) buffers, with C =
+    ceil(T k / E x capacity_factor) and at least 1."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    t = b * s
+    x2d = x.reshape(t, d)
+    with span("moe_dispatch"):
+        w, ids = _routing(x2d, p.router, k)
+    cap = max(int(math.ceil(t * k / e * capacity_factor)), 1)
+    return _capacity_core(x2d, w, ids, e, cap, p).reshape(b, s, d)
+
+
+def moe_ep(*args, **kwargs):
+    raise NotImplementedError(
+        f"expert-parallel MoE (impl='ep') — {ITEM_TP}")
+
+
+# Token budget per dispatch chunk: bounds the (T*k, D) gather streams and
+# (E, C, D) capacity buffers at prefill scale.  Chunks re-stream expert
+# weights, so keep them large.
+MOE_CHUNK_TOKENS = 65536
+
+
+def _chunked(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``fn`` over sequence chunks of ~MOE_CHUNK_TOKENS tokens."""
+    b, s, d = x.shape
+    if b * s <= MOE_CHUNK_TOKENS:
+        return fn(x)
+    per_chunk = max(1, MOE_CHUNK_TOKENS // b)
+    n = max(1, s // per_chunk)
+    while s % n:
+        n -= 1
+    if n <= 1:
+        return fn(x)
+    cl = s // n
+    return torch.cat([fn(x[:, i * cl:(i + 1) * cl]) for i in range(n)],
+                     dim=1)
+
+
+def moe_forward(x: torch.Tensor, p: MoE, cfg: ModelConfig,
+                impl: str = "auto") -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).  ``impl="auto"``: ``dense`` at B*S <=
+    4096 tokens and at most 16 experts, ``capacity`` otherwise."""
+    b, s, _ = x.shape
+    if impl == "auto":
+        impl = ("dense" if b * s <= 4096 and cfg.n_experts <= 16
+                else "capacity")
+    if impl == "ep":
+        moe_ep()
+    if impl == "dense":
+        y = moe_dense(x, p, cfg)
+    elif impl == "capacity":
+        y = _chunked(lambda xc: moe_capacity(xc, p, cfg), x)
+    else:
+        raise ValueError(f"moe impl {impl!r}: expected 'auto', 'dense', "
+                         f"'capacity' or 'ep'")
+    if cfg.n_shared_experts:
+        sh = p.shared
+        y = y + swiglu(x, sh.w_gate, sh.w_up, sh.w_down)
+    return y
