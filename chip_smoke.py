@@ -15,9 +15,12 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
 ``--only kernel_exact,check`` (any of the kernel phases, quantize,
-deployment, check, check_mla; serve and serve_spec_draft on a llama3-8b
-built first; serve_mla, serve_mla_static, serve_mla_quantized and
-serve_mla_spec on a deepseek-v2-lite-16b built first) builds and runs just
+deployment, check, check_mla, check_moe; serve and serve_spec_draft on a
+llama3-8b built first; serve_mla, serve_mla_static, serve_mla_quantized
+and serve_mla_spec on a deepseek-v2-lite-16b built first; serve_moe,
+serve_moe_static, serve_moe_quantized and serve_moe_spec on a
+llama4-scout built first; serve_moe_maverick on a llama4-maverick built
+first; sim last, over the serve phases of that run) builds and runs just
 those phases and prints no result line: for quick checks of one kernel or
 path.
 
@@ -74,11 +77,13 @@ Phases, each of which fails the run if it fails:
 5. kernel_dense_decode — the dense-cache decode kernel against its plain
    version: B 1 and 8, caches of 2048 and 4096 tokens, ragged cur_len (one
    full, one of a single token), the legacy speculative engine's B 1 step
-   (cur_len 288 of 512) and a D 64 case (H 16, KVH 4, B 8), the tail past
+   (cur_len 288 of 512), a D 64 case (H 16, KVH 4, B 8) and
+   llama4-scout's heads (H 40, KVH 8: rep 5, B 8, S 2048), the tail past
    cur_len poisoned with +-1e4, bf16 and f32 (bf16: each output within
    2^-7 of its magnitude plus 1e-4; f32: 1e-5).  Timed at B 8 with cur_len
-   1088 of 2048 (the static serve's last step) and 4096 of 4096, and at
-   B 1 with 288 of 512, beside its bound, SDPA on the cache sliced to
+   1088 of 2048 (the static serve's last step; also at rep 5) and 4096
+   of 4096, and at B 1 with 288 of 512, beside its bound, SDPA on the
+   cache sliced to
    cur_len, and a plain contiguous read of the same K/V bytes
    (``stream_read_ms``, a torch sum: the card's practical read rate under
    this timer).  Every timing line of the kernel phases carries
@@ -221,7 +226,7 @@ Phases, each of which fails the run if it fails:
    reproduces); accepted proposals per window as a reading only (a draft
    step's and a verify step's MoE capacity count other batches).  Then
    the legacy ``backend="speculative"`` on one greedy 256-token prompt,
-   32 new, twice.
+   32 new, twice (``serve_moe_spec_phase``).
 18. check — a narrow 2-layer llama-shaped model in f32 served on the card
    (kernel path) and on the CPU (plain path) from the same weights must
    emit the same token streams: continuous dense (greedy and sampled), and
@@ -240,6 +245,31 @@ Phases, each of which fails the run if it fails:
    capacity path forced), f32, card against CPU: continuous, static,
    continuous speculative and legacy speculative, greedy, under the same
    near-tie rule (``check_mla``).
+19. serve_moe, serve_moe_static, serve_moe_quantized, serve_moe_spec —
+   after deepseek is freed, llama4-scout at full width (d_model 5120, 40
+   query heads over 8, head dim 128, 16 experts of 8192 plus a shared one,
+   vocab 202048) and ``SCOUT_LAYERS`` (8) of its 48 layers, 39.4 GB of
+   random bf16 weights: the serve phase's requests and checks (continuous
+   bf16 with a scored prompt; static 8 x 1024; mxfp4 attention
+   projections over fp8 pools, 2 ``mxfp4_vmm`` launches a layer, each
+   shape held on its own activations; self-draft ``speculative=`` and the
+   legacy backend, as serve_mla_spec).  GQA attention runs the port's
+   kernels (paged online over bf16 and fp8 pools, paged exact, flash,
+   dense decode), MoE plain torch; the traced steps split device time by
+   the named ranges (``gqa_attention``, MoE dispatch, experts, combine,
+   head).
+20. serve_moe_maverick — after scout is freed, llama4-maverick at full
+   width for one period (``attn_dense`` + ``attn_moe``, 128 experts:
+   the capacity path at every batch, 1 row an expert at 8 slots; 37.1 GB),
+   one continuous bf16 session with serve's checks.
+21. check_moe — two narrow llama4-shaped models (scout's period, dense
+   MoE; maverick's period x 2, capacity forced), f32, card against CPU:
+   continuous with a prefix hit, static, continuous and legacy
+   speculative, greedy, under the near-tie rule.
+22. sim — host only: the paper's H100 model (``sim.gpu_model``) for each
+   serve phase's config as served, beside its measured wall and
+   device-busy decode step, and ``iso_tdp_comparison`` for llama3-405b
+   and llama4-scout, printed as modeled.
 
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line (six entries; ``launches`` from the serve phase that runs
@@ -276,6 +306,7 @@ EXACT_REPLACES = ("src/repro/kernels/decode_attention/paged_kernel.py:116 "
                   " at :150)")
 H, KVH, D, PAGE = 32, 8, 128, 16           # llama3-8b decode geometry
 GEOM = (H, KVH, D, PAGE)
+SCOUT_HEADS = (40, 8)      # llama4-scout's query and KV heads (rep 5)
 # more geometries of the bf16 / code-pool tensor-core kernels: D 64 (GQA
 # 4:1), rep 5 (qwen2.5-14b / qwen3-14b: 40 heads over 8), a page of 32, and
 # rep 8 (the exact kernel's 64-row M tile at C 5)
@@ -1058,12 +1089,12 @@ def dense_case(torch, gen, B, S, dtype, cur_len, dev, h=H, kvh=KVH, d=D):
     return q, k, v, cl
 
 
-def dense_bound(cur_len, B, itemsize, dtype_name):
+def dense_bound(cur_len, B, itemsize, dtype_name, h=H, kvh=KVH, d=D):
     """Each valid K/V token read once, q read and out written once, cur_len
     read; 4 flops per valid token, head and head dim."""
     tokens = int(np.sum(cur_len))
-    nbytes = 2 * tokens * KVH * D * itemsize + 2 * B * H * D * itemsize + 4 * B
-    return roofline(nbytes, 4 * tokens * H * D, dtype_name)
+    nbytes = 2 * tokens * kvh * d * itemsize + 2 * B * h * d * itemsize + 4 * B
+    return roofline(nbytes, 4 * tokens * h * d, dtype_name)
 
 
 def kernel_dense_decode_phase(torch) -> dict:
@@ -1087,10 +1118,11 @@ def kernel_dense_decode_phase(torch) -> dict:
                 cur_len = rng.integers(1, S + 1, B)
                 cur_len[0] = S if B == 1 else 1          # full; one token
                 cases.append((B, S, cur_len, H, KVH, D))
-        # the legacy speculative engine's step (B 1, max_len 512), and
-        # D 64 (GQA 4:1)
+        # the legacy speculative engine's step (B 1, max_len 512), D 64
+        # (GQA 4:1), and llama4-scout's heads (H 40, KVH 8: rep 5)
         cases += [(1, 512, np.array([288]), H, KVH, D),
-                  (8, 2048, rng.integers(1, 2049, 8), 16, 4, 64)]
+                  (8, 2048, rng.integers(1, 2049, 8), 16, 4, 64),
+                  (8, 2048, rng.integers(1, 2049, 8), *SCOUT_HEADS, D)]
         for B, S, cur_len, h, kvh, d in cases:
             q, k, v, cl = dense_case(torch, gen, B, S,
                                      getattr(torch, dtype_name), cur_len,
@@ -1120,16 +1152,20 @@ def kernel_dense_decode_phase(torch) -> dict:
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     timings = []
     # the static serve's last decode step (8 prompts of 1024 + 64 new
-    # tokens in a 2048-token cache), a full 4096-token cache, and the
-    # legacy speculative engine's B 1 step at 288 of 512
-    for B, S, ctx in ((8, 2048, 1088), (8, 4096, 4096), (1, 512, 288)):
+    # tokens in a 2048-token cache), a full 4096-token cache, the legacy
+    # speculative engine's B 1 step at 288 of 512, and the static serve's
+    # last step at llama4-scout's heads (rep 5)
+    for B, S, ctx, h, kvh in ((8, 2048, 1088, H, KVH), (8, 4096, 4096, H, KVH),
+                              (1, 512, 288, H, KVH),
+                              (8, 2048, 1088, *SCOUT_HEADS)):
         cur_len = np.full(B, ctx)
         q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
-                                 dev)
+                                 dev, h, kvh)
         q4 = q[:, :, None, :]
         ks = k[:, :ctx].transpose(1, 2)            # the valid prefix
         vs = v[:, :ctx].transpose(1, 2)
-        row = {"B": B, "S": S, "cur_len": ctx, "cache": "bfloat16",
+        row = {"B": B, "S": S, "cur_len": ctx, "H": h, "KVH": kvh,
+               "cache": "bfloat16",
                "ms": time_ms(torch, lambda: dense_kernel.decode_attention(
                    q, k, v, cl), flush),
                "plain_ms": time_ms(torch, lambda: decode_attention_ref(
@@ -1137,10 +1173,10 @@ def kernel_dense_decode_phase(torch) -> dict:
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q4, ks, vs, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
-                                                       "bfloat16")
+                                                       "bfloat16", h, kvh)
         # the card's practical read rate under this timer: one contiguous
         # read (a sum) of the K/V bytes the kernel must read
-        row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * KVH * D * 2,
+        row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * kvh * D * 2,
                                                flush)
         timings.append(ratios(row))
         print("  timing:", json.dumps(row))
@@ -1542,10 +1578,11 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "Memcpy HtoD (Pageable -> Device)")
 
 
-# the model's named profiler ranges (``models.common.span``): MLA attention,
-# MoE dispatch / experts / combine, and the head
-SPANS = ("mla_attention", "moe_dispatch", "moe_experts", "moe_combine",
-         "head")
+# the model's named profiler ranges (``models.common.span``): GQA and MLA
+# attention (projections in, attention, no output projection), MoE
+# dispatch / experts / combine, and the head
+SPANS = ("gqa_attention", "mla_attention", "moe_dispatch", "moe_experts",
+         "moe_combine", "head")
 
 
 def span_device_ms(prof) -> dict:
@@ -1736,8 +1773,10 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
             kind = "greedy" if sps[i].is_greedy else "sampled"
             raise AssertionError(f"{kind} request {i} did not reproduce "
                                  f"its stream on the re-run")
+    write_cost = (gqa_write_cost(torch, llm, model, prompts, sps, streams)
+                  if phase == "serve" else None)
     scoring = None
-    if phase in ("serve", "serve_mla"):
+    if phase in ("serve", "serve_mla", "serve_moe"):
         # an MoE model's capacity counts the call's tokens: its prompt is
         # scored in one call of the prompt's length, the T of Model.forward
         score_llm = llm if not cfg.moe else LLMEngine(
@@ -1769,9 +1808,37 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
               "profiled_decode_steps": breakdown, "_streams": streams}
     if scoring is not None:
         result["prompt_scoring"] = scoring
+    if write_cost is not None:
+        result["gqa_write_cost"] = write_cost
     del llm
     torch.cuda.empty_cache()
     return result
+
+
+def gqa_write_cost(torch, llm, model, prompts, sps, streams) -> dict:
+    """What ``attention_backends.last_writes`` would cost a model without
+    MoE: the serve session again, its GQA pool writes plain (A, as the
+    port writes them there) and ``coupled`` (B: each write with the value
+    of the last writer of its place, as in an MoE model), in the order
+    A B B A A B B A.  Each session must reproduce ``streams``: only the
+    scratch page, which no live row reads, can tell the two apart.
+    Returns the median decode-only step of each session."""
+    steps = {"plain": [], "last_writes": []}
+    for name in ("plain", "last_writes", "last_writes", "plain") * 2:
+        for blk in model.layers:
+            blk.attn.coupled = name == "last_writes"
+        try:
+            got, _, _, decode_steps = serve_session(llm, prompts, sps)
+        finally:
+            for blk in model.layers:
+                blk.attn.coupled = model.cfg.moe
+        if got != streams:
+            raise AssertionError(f"{name} pool writes changed a stream")
+        steps[name].append(1e3 * float(np.median(decode_steps)))
+    return {"order": "A B B A A B B A", **{f"{k}_decode_step_ms": v
+                                           for k, v in steps.items()},
+            "last_writes_over_plain": (sum(steps["last_writes"])
+                                       / sum(steps["plain"]))}
 
 
 SCORED_NEW = 4
@@ -1783,6 +1850,69 @@ SCORED_NEW = 4
 SCORE_REL_TOL = 2.0 ** -5
 
 
+@contextlib.contextmanager
+def recorded_routes(tokens: int):
+    """The expert ids (T, k) of every MoE routing over ``tokens`` tokens
+    while the block runs, in call order (one per MoE layer of a call).
+    They stay on the device: recording adds no wait for it."""
+    from repro_torch.models import moe
+
+    routes, real = [], moe._routing
+
+    def routing(x2d, router, k):
+        w, ids = real(x2d, router, k)
+        if x2d.shape[0] == tokens:
+            routes.append(ids)
+        return w, ids
+    moe._routing = routing
+    try:
+        yield routes
+    finally:
+        moe._routing = real
+
+
+@contextlib.contextmanager
+def forced_routes(torch, routes):
+    """Every MoE routing over the tokens of ``routes`` takes, in call
+    order, the expert ids of ``routes``, weighted by its own router's
+    softmax over them and renormalised as ``moe._routing`` does.  Yields
+    a dict of readings: the routings replayed, the tokens whose choice
+    was forced away from its own top-k, and the largest gap, over those
+    tokens, between the router logit of its own k-th choice and the
+    lowest forced one, as a share of ``SCORE_REL_TOL`` x the token's
+    largest |router logit| (at or under 1: a near tie of four ulps)."""
+    from repro_torch.models import moe
+
+    real, todo = moe._routing, list(routes)
+    seen = {"routings": 0, "route_flips": 0, "route_flip_gap_share": 0.0}
+
+    def routing(x2d, router, k):
+        if not todo or x2d.shape[0] != todo[0].shape[0]:
+            return real(x2d, router, k)
+        ids = todo.pop(0)
+        logits = x2d.float() @ router.float()
+        _, own = real(x2d, router, k)
+        kth = logits.gather(-1, own).amin(-1)
+        gap = kth - logits.gather(-1, ids).amin(-1)
+        limit = SCORE_REL_TOL * logits.abs().amax(-1)
+        flips = (own.sort(-1).values != ids.sort(-1).values).any(-1)
+        seen["routings"] += 1
+        seen["route_flips"] += int(flips.sum())
+        seen["route_flip_gap_share"] = max(
+            seen["route_flip_gap_share"],
+            float(torch.where(flips, gap / limit, 0.0).max()))
+        w = torch.softmax(logits, dim=-1).gather(-1, ids)
+        return w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9), ids
+    moe._routing = routing
+    try:
+        yield seen
+    finally:
+        moe._routing = real
+    if todo:
+        raise AssertionError(f"{len(todo)} of {len(routes)} recorded "
+                             f"routings were not replayed")
+
+
 def serve_scoring(torch, llm, model, prompt) -> dict:
     """Prompt scoring in the continuous engine (``prompt_logprobs``): the
     serve phase's 1024-token prompt alone through ``llm`` (greedy,
@@ -1791,7 +1921,12 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
     one's; its 1023 scores are held against ``Model.forward``'s on the card
     (the static backend's scores), each within ``SCORE_REL_TOL`` of its
     position's largest |logit|; the scored chunk calls are timed beside
-    the unscored session's."""
+    the unscored session's.  In an MoE model the two calls' attention
+    rounds apart, and a routing choice near a tie may then go to another
+    expert, which moves that position and, through attention, every later
+    one by far more than rounding: ``Model.forward`` there takes the
+    scored call's expert ids (``forced_routes``), so every position is
+    held."""
     from repro_torch.runtime.sampling import SamplingParams
 
     eng = llm._eng
@@ -1814,8 +1949,9 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
     try:
         unscored = llm.generate([prompt], [SamplingParams(
             max_tokens=SCORED_NEW)])[0]
-        scored = llm.generate([prompt], [SamplingParams(
-            max_tokens=SCORED_NEW, prompt_logprobs=True)])[0]
+        with recorded_routes(len(prompt)) as routes:
+            scored = llm.generate([prompt], [SamplingParams(
+                max_tokens=SCORED_NEW, prompt_logprobs=True)])[0]
     finally:
         for name in times:
             delattr(eng, name)                  # the class's methods again
@@ -1824,8 +1960,10 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
                              f"{unscored.token_ids}, scored "
                              f"{scored.token_ids}")
     got = np.asarray(scored.prompt_logprobs)
-    diff, share, scale = scores_vs_forward(torch, model, prompt, got)
+    diff, share, scale, forced = scores_vs_forward(torch, model, prompt,
+                                                   got, routes)
     res = {"prompt_tokens": len(prompt), "new_tokens": SCORED_NEW,
+           "held_positions": len(diff), **forced,
            "first_token_equal": True,
            "chunk": eng.prefill_chunk,
            "stream_equal": scored.token_ids == unscored.token_ids,
@@ -1844,13 +1982,18 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
     return res
 
 
-def scores_vs_forward(torch, model, prompt, got) -> tuple:
+def scores_vs_forward(torch, model, prompt, got, routes=()) -> tuple:
     """Hold prompt scores ``got`` against ``Model.forward``'s on the card,
-    each within ``SCORE_REL_TOL`` of its position's largest |logit|.
-    Returns |diff|, the worst share of the limit and the per-position
-    largest |logit|."""
+    each within ``SCORE_REL_TOL`` of its position's largest |logit|, at
+    every position; in an MoE model the forward call takes the expert ids
+    ``routes`` of the scoring call (``forced_routes``).  Returns |diff|,
+    the worst share of the limit, the per-position largest |logit| and
+    what ``forced_routes`` saw (empty without ``routes``)."""
     toks = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
-    logits = model.forward(toks)[0, :-1, :model.cfg.vocab_size].float()
+    forced = {}
+    with (forced_routes(torch, routes) if routes
+          else contextlib.nullcontext(forced)) as forced:
+        logits = model.forward(toks)[0, :-1, :model.cfg.vocab_size].float()
     ls = torch.log_softmax(logits, dim=-1)
     want = torch.gather(ls, -1, toks[0, 1:, None])[:, 0].cpu().numpy()
     scale = logits.abs().amax(-1).cpu().numpy()
@@ -1861,9 +2004,10 @@ def scores_vs_forward(torch, model, prompt, got) -> tuple:
     share = float((diff / (SCORE_REL_TOL * scale)).max())
     if not share <= 1.0:
         raise AssertionError(f"continuous prompt scores vs Model.forward: "
-                             f"max |diff| {diff.max()}, at {share} of the "
-                             f"limit {SCORE_REL_TOL} x max |logit|")
-    return diff, share, scale
+                             f"max |diff| {diff.max()} over {len(diff)} "
+                             f"positions, at {share} of the limit "
+                             f"{SCORE_REL_TOL} x max |logit| ({forced})")
+    return diff, share, scale, forced
 
 
 def mixed_batch_scoring(torch, llm, model, prompt) -> dict:
@@ -1882,8 +2026,8 @@ def mixed_batch_scoring(torch, llm, model, prompt) -> dict:
                              f"batch: {[o.token_ids for o in outs]}")
     if outs[0].prompt_logprobs is not None:
         raise AssertionError("an unscored request came back with scores")
-    _, share, _ = scores_vs_forward(torch, model, prompt,
-                                   np.asarray(outs[1].prompt_logprobs))
+    _, share, _, _ = scores_vs_forward(torch, model, prompt,
+                                      np.asarray(outs[1].prompt_logprobs))
     return {"first_token_equal": True, "unscored_without_scores": True,
             "score_limit_share": share,
             "stream_equal": outs[0].token_ids == outs[1].token_ids}
@@ -2750,53 +2894,73 @@ def build_deepseek(torch):
     return model
 
 
-MLA_SPEC_REQUESTS, MLA_SPEC_NEW = 4, 32
+MOE_SPEC_REQUESTS, MOE_SPEC_NEW = 4, 32
 
 
-def serve_mla_spec_phase(torch, model) -> dict:
-    """deepseek-v2-lite-16b behind ``LLMEngine(backend="continuous",
-    speculative=SpeculativeConfig(gamma=GAMMA))``, a self-draft: the serve
-    phase's first 4 requests (2 greedy, 2 sampled), 32 new tokens each,
-    twice; every request finishes and the second session reproduces every
-    stream.  Accepted proposals per window are a reading only: a draft
-    step's MoE capacity counts the slots (T = 8) and a verify step's T = 8
-    x (gamma + 1), so the two may drop other assignments.  Then the legacy
+def serve_moe_spec_phase(torch, model, phase: str) -> dict:
+    """An MoE model (deepseek-v2-lite-16b, llama4-scout) behind
+    ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
+    gamma=GAMMA))``, a self-draft: the serve phase's first 4 requests (2
+    greedy, 2 sampled), 32 new tokens each, twice; every request finishes
+    and the second session reproduces every stream.  Accepted proposals
+    per window are a reading only: a draft step's MoE counts the slots (T
+    = 8) and a verify step's T = 8 x (gamma + 1), so under capacity the two
+    may drop other assignments, and a GQA model's draft and verify steps
+    run the online and exact kernels, which round apart.  Then the legacy
     ``backend="speculative"`` on one greedy 256-token prompt, 32 new
-    tokens, twice.  MLA and MoE launch no kernel (bf16 weights)."""
-    from repro_torch.kernels import LAUNCHES
+    tokens, twice.  MLA and MoE launch no kernel (bf16 weights); GQA
+    layers launch the paged decode kernel once per layer for each of the
+    gamma draft steps and the backfill and the exact kernel once per layer
+    a window (both tensor-core variants), and on the legacy backend the
+    flash kernel once per layer per prompt prefill and the dense decode
+    kernel once per layer per single-token step."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_EXACT,
+    )
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
     from repro_torch.runtime.llm import LLMEngine
     from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.runtime.speculative import SpeculativeConfig
 
     cfg = model.cfg
     prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
-    prompts = prompts[:MLA_SPEC_REQUESTS]
-    reqs = [dataclasses.replace(sp, max_tokens=MLA_SPEC_NEW)
-            for sp in sps[:MLA_SPEC_REQUESTS]]
+    prompts = prompts[:MOE_SPEC_REQUESTS]
+    reqs = [dataclasses.replace(sp, max_tokens=MOE_SPEC_NEW)
+            for sp in sps[:MOE_SPEC_REQUESTS]]
     torch.cuda.reset_peak_memory_stats()
     llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
                     page_size=16, max_len=2048, prefill_chunk=256,
                     speculative=SpeculativeConfig(gamma=GAMMA))
     LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
     t0 = time.perf_counter()
     outs = llm.generate(prompts, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = llm.last_stats
     launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
     for o in outs:
-        if (o.finish_reason != "length" or len(o.token_ids) != MLA_SPEC_NEW
+        if (o.finish_reason != "length" or len(o.token_ids) != MOE_SPEC_NEW
                 or not all(0 <= t < cfg.vocab_size for t in o.token_ids)):
-            raise AssertionError(f"MLA spec request {o.rid}: {o}")
-    if launches or stats.spec_windows == 0:
-        raise AssertionError(f"MLA spec launched {launches} with "
-                             f"{stats.spec_windows} slot windows; want no "
-                             f"kernel and some windows")
+            raise AssertionError(f"{phase} request {o.rid}: {o}")
+    want = {} if cfg.mla else {
+        NAME_EXACT: cfg.n_layers * stats.steps,
+        NAME: cfg.n_layers * (GAMMA + 1) * stats.steps}
+    want_variants = {f"{k}:tensor_core": v for k, v in want.items()}
+    if (launches != want or variants != want_variants
+            or stats.spec_windows == 0):
+        raise AssertionError(f"{phase} launched {launches} ({variants}) "
+                             f"with {stats.spec_windows} slot windows; want "
+                             f"{want} on the tensor-core kernels and some "
+                             f"windows")
     again = llm.generate(prompts, reqs)
     for i, (a, o) in enumerate(zip(again, outs)):
         if a.token_ids != o.token_ids:
             kind = "greedy" if reqs[i].is_greedy else "sampled"
-            raise AssertionError(f"MLA spec {kind} request {i} did not "
+            raise AssertionError(f"{phase} {kind} request {i} did not "
                                  f"reproduce its stream")
     spec = {"gamma": GAMMA, "draft": "self", "requests": len(prompts),
             "new_tokens": stats.total_tokens, "wall_s": wall,
@@ -2805,7 +2969,8 @@ def serve_mla_spec_phase(torch, model) -> dict:
             "accepted_per_window_reading": stats.accepted_per_window,
             "spec_drafted": stats.spec_drafted,
             "spec_accepted": stats.spec_accepted,
-            "kernel_launches": launches, "rerun_identical": True,
+            "kernel_launches": launches, "kernel_variants": variants,
+            "rerun_identical": True,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     del llm
     torch.cuda.empty_cache()
@@ -2821,42 +2986,38 @@ def serve_mla_spec_phase(torch, model) -> dict:
     torch.cuda.synchronize()
     lwall = time.perf_counter() - t0
     launches = {k: v for k, v in LAUNCHES.items() if v}
+    # a window: gamma draft steps + the backfill, gamma + 1 target steps
+    steps = 2 * (GAMMA + 1) * out.metrics["windows"]
+    want = {} if cfg.mla else {FLASH: 2 * cfg.n_layers,
+                               DENSE: cfg.n_layers * steps}
     if (out.finish_reason != "length" or len(out.token_ids) != LEGACY_NEW
             or not all(0 <= t < cfg.vocab_size for t in out.token_ids)
-            or launches):
-        raise AssertionError(f"MLA legacy speculative request: {out}, "
-                             f"launches {launches}")
+            or launches != want):
+        raise AssertionError(f"{phase} legacy speculative request: {out}, "
+                             f"launches {launches}, want {want}")
     again = llm.generate([prompt], sp)[0]
     if again.token_ids != out.token_ids:
-        raise AssertionError("MLA legacy speculative stream did not "
-                             "reproduce")
+        raise AssertionError(f"{phase} legacy speculative stream did not "
+                             f"reproduce")
     del llm
     torch.cuda.empty_cache()
-    return {"phase": "serve_mla_spec", "continuous": spec,
+    return {"phase": phase, "continuous": spec,
             "legacy": {"prompt_tokens": LEGACY_PROMPT,
                        "new_tokens": LEGACY_NEW, "wall_s": lwall,
                        "tokens_per_s": LEGACY_NEW / lwall,
                        "windows": out.metrics["windows"],
                        "accepted_per_window_reading":
                            out.metrics["accepted_per_window"],
+                       "kernel_launches": launches,
                        "rerun_identical": True}}
 
 
 def check_mla(torch) -> list[dict]:
     """A narrow 2-layer deepseek-shaped model (1 mla_dense + 1 mla_moe;
     d_model 512, 4 heads, 8 experts, top 2, the capacity path forced), f32,
-    served on the card and on the CPU from the same weights: continuous,
-    static, continuous speculative (self-draft, gamma ``GAMMA``) and the
-    legacy speculative backend, greedy.  Each pair of streams must be
-    equal or part at a near-tie (``divergences``); nothing on this path
-    launches a kernel.  Streams of two backends are not compared: their
-    MoE capacity counts other token batches (the capacity-drop rule)."""
+    card against CPU through ``check_narrow_moe``.  MLA and MoE launch no
+    kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.models.model import Model
-    from repro_torch.runtime.llm import LLMEngine
-    from repro_torch.runtime.sampling import SamplingParams
-    from repro_torch.runtime.speculative import SpeculativeConfig
 
     cfg = dataclasses.replace(
         get_config("deepseek-v2-lite-16b"), name="deepseek-narrow",
@@ -2864,40 +3025,7 @@ def check_mla(torch) -> list[dict]:
         rope_head_dim=32, v_head_dim=64, kv_lora_rank=128, d_ff=1024,
         n_experts=8, n_experts_per_token=2, n_shared_experts=1,
         moe_d_ff=256, vocab_size=4000, vocab_pad_multiple=512)
-    cpu = Model(cfg, device="cpu", moe_impl="capacity").init(seed=6).float()
-    gpu = Model(cfg, device="cuda", moe_impl="capacity").float()
-    gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (40, 75, 19, 100)]
-    s_prompts = [rng.integers(0, cfg.vocab_size, 48) for _ in range(4)]
-    greedy = [SamplingParams(max_tokens=16)] * 4
-    f32 = torch.float32
-    kw = dict(backend="continuous", num_slots=4, page_size=16, max_len=256,
-              prefill_chunk=32, cache_dtype=f32)
-    cases = [  # (label, engine options, prompts)
-        ("MLA+MoE continuous f32", kw, prompts),
-        ("MLA+MoE static f32", dict(backend="static", max_len=128,
-                                    cache_dtype=f32), s_prompts),
-        ("MLA+MoE continuous spec f32 (self-draft)",
-         dict(kw, speculative=SpeculativeConfig(gamma=GAMMA)), prompts),
-        ("MLA+MoE legacy speculative f32",
-         dict(backend="speculative", gamma=GAMMA, max_len=128,
-              cache_dtype=f32), s_prompts[:2])]
-    results = []
-    for label, opts, ps in cases:
-        reqs = greedy[:len(ps)]
-        LAUNCHES.clear()
-        on_gpu = LLMEngine(gpu, device="cuda", **opts).generate(ps, reqs)
-        launches = {k: v for k, v in LAUNCHES.items() if v}
-        on_cpu = LLMEngine(cpu, device="cpu", **opts).generate(ps, reqs)
-        if launches:
-            raise AssertionError(f"{label}: the card run launched {launches}; "
-                                 f"MLA and MoE run no kernel")
-        near = divergences(torch, label + ", card vs CPU", on_gpu, on_cpu, ps,
-                           reqs, cpu, f32, True)
-        results.append({"case": label + ", card vs CPU, greedy",
-                        "identical": not near, "near_ties": near})
-    return results
+    return check_narrow_moe(torch, "MLA+MoE", cfg, "capacity", seed=6)
 
 
 def mla_phases() -> dict:
@@ -2908,7 +3036,261 @@ def mla_phases() -> dict:
                 t, m, phase="serve_mla_static"),
             "serve_mla_quantized": lambda t, m: serve_phase(
                 t, m, phase="serve_mla_quantized", weight_format="mxfp4"),
-            "serve_mla_spec": serve_mla_spec_phase}
+            "serve_mla_spec": lambda t, m: serve_moe_spec_phase(
+                t, m, phase="serve_mla_spec")}
+
+
+# ---------------------------------------------------------------------------
+# 19-23. llama4 (GQA attention through the port's kernels, MoE in plain
+# torch, as the reference computes it outside any Pallas kernel); the
+# paper's H100 and RPU models beside the card's steps
+# ---------------------------------------------------------------------------
+
+SCOUT = "llama4-scout-109b-a17b"
+MAVERICK = "llama4-maverick-400b-a17b"
+# depth of llama4-scout's serve phases (widths full): 8 of its 48 layers,
+# 39.4 GB of bf16 weights; maverick runs one period (attn_dense + attn_moe)
+SCOUT_LAYERS, MAVERICK_LAYERS = 8, 2
+
+
+def build_llama4(torch, name: str, n_layers: int):
+    """A llama4 config at full width, its depth cut to ``n_layers``
+    (random bf16 weights from a seed, drawn on the card one expert at a
+    time)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    print(f"llama4: {cfg.name} {cfg.n_layers} of 48 layers, "
+          f"{model.param_count() / 1e9:.2f} B params bf16 "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
+          f"random init {time.monotonic() - t0:.1f} s")
+    return model
+
+
+def build_scout(torch):
+    return build_llama4(torch, SCOUT, SCOUT_LAYERS)
+
+
+def build_maverick(torch):
+    return build_llama4(torch, MAVERICK, MAVERICK_LAYERS)
+
+
+def moe_phases() -> dict:
+    """llama4-scout's phases, in their order: continuous bf16 (with prompt
+    scoring), static, mxfp4 attention over fp8 pools, speculative (both
+    backends)."""
+    return {"serve_moe": lambda t, m: serve_phase(t, m, phase="serve_moe"),
+            "serve_moe_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_moe_static"),
+            "serve_moe_quantized": lambda t, m: serve_phase(
+                t, m, phase="serve_moe_quantized", weight_format="mxfp4",
+                cache_dtype="fp8"),
+            "serve_moe_spec": lambda t, m: serve_moe_spec_phase(
+                t, m, phase="serve_moe_spec")}
+
+
+def maverick_phases() -> dict:
+    """llama4-maverick's one phase: continuous bf16 at one period."""
+    return {"serve_moe_maverick": lambda t, m: serve_phase(
+        t, m, phase="serve_moe_maverick")}
+
+
+def serve_late(llm, prompts, reqs, late: int):
+    """Requests through the incremental interface, the one at ``late``
+    added once request 0 has its first token (so 0's prompt pages are
+    indexed and ``late`` can share them).  Returns the finished outputs
+    in request order."""
+    for i, (p, sp) in enumerate(zip(prompts, reqs)):
+        if i != late:
+            llm.add_request(p, sp, rid=i)
+    done, started, added = {}, False, False
+    while llm.has_unfinished() or not added:
+        for o in llm.step():
+            started = started or (o.rid == 0 and bool(o.new_token_ids))
+            if o.finished:
+                done[o.rid] = o
+        if started and not added:
+            llm.add_request(prompts[late], reqs[late], rid=late)
+            added = True
+    return [done[i] for i in range(len(prompts))]
+
+
+def check_narrow_moe(torch, label, cfg, impl, seed) -> list[dict]:
+    """A narrow f32 MoE model served on the card and on the CPU from the
+    same weights: continuous (a request that shares another's prompt
+    pages, so the prefix index is hit, and one that scores its prompt),
+    static, continuous speculative (self-draft, gamma ``GAMMA``) and the
+    legacy speculative backend, greedy.  Each pair of streams must be
+    equal or part at a near-tie (``divergences``), the scores within 1e-4.
+    GQA layers in f32 run the CUDA-core kernels (the paged decode kernel
+    on continuous steps, the exact one on verify steps, flash and dense
+    decode on the static and legacy paths); MLA layers launch none.
+    Streams of two backends are not compared: under capacity their MoE
+    counts other token batches (the capacity-drop rule)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_EXACT,
+    )
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.speculative import SpeculativeConfig
+
+    cpu = Model(cfg, device="cpu", moe_impl=impl).init(seed=seed).float()
+    gpu = Model(cfg, device="cuda", moe_impl=impl).float()
+    gpu.load_state_dict(cpu.state_dict())
+    f32 = torch.float32
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (70, 40, 19, 100)]
+    prompts[3] = np.concatenate([prompts[0][:64], prompts[3][64:]])
+    s_prompts = [rng.integers(0, cfg.vocab_size, 48) for _ in range(4)]
+    greedy = [SamplingParams(max_tokens=16)] * 4
+    scored = [greedy[0], SamplingParams(max_tokens=16, prompt_logprobs=True),
+              *greedy[2:]]
+    kw = dict(backend="continuous", num_slots=4, page_size=16, max_len=256,
+              prefill_chunk=32, cache_dtype=f32)
+    gqa = not cfg.mla
+    cases = [  # (case, engine options, prompts, requests, kernels)
+        ("continuous", kw, prompts, scored, {NAME}),
+        ("static", dict(backend="static", max_len=128, cache_dtype=f32),
+         s_prompts, greedy, {FLASH, DENSE}),
+        ("continuous spec (self-draft)",
+         dict(kw, speculative=SpeculativeConfig(gamma=GAMMA)), prompts,
+         greedy, {NAME, NAME_EXACT}),
+        ("legacy speculative", dict(backend="speculative", gamma=GAMMA,
+                                    max_len=128, cache_dtype=f32),
+         s_prompts[:2], greedy[:2], {FLASH, DENSE})]
+    results = []
+    for case, opts, ps, reqs, kernels in cases:
+        runs = {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            LAUNCHES.clear()
+            llm = LLMEngine(model, device=dev, **opts)
+            if opts["backend"] == "continuous":
+                outs = serve_late(llm, ps, reqs, late=3)
+                hits = llm.stats().prefix_hit_tokens
+                if hits < 48:
+                    raise AssertionError(f"{label} {case} on {dev}: {hits} "
+                                         f"prefix-hit tokens")
+            else:
+                outs = llm.generate(ps, reqs)
+            runs[dev] = (outs, {k: v for k, v in LAUNCHES.items() if v})
+        launches = runs["cuda"][1]
+        if set(launches) != (kernels if gqa else set()) or runs["cpu"][1]:
+            raise AssertionError(f"{label} {case}: the card run launched "
+                                 f"{launches}, want each of "
+                                 f"{sorted(kernels) if gqa else 'none'}; "
+                                 f"the CPU run {runs['cpu'][1]}")
+        near = divergences(torch, f"{label} {case}, card vs CPU",
+                           runs["cuda"][0], runs["cpu"][0], ps, reqs, cpu,
+                           f32, True)
+        row = {"case": f"{label} ({cfg.n_layers} layers, {impl}) {case} "
+                       f"f32, card vs CPU, greedy",
+               "identical": not near, "near_ties": near,
+               "kernel_launches": launches}
+        if reqs is scored:
+            plp = [np.asarray(runs[d][0][1].prompt_logprobs)
+                   for d in ("cuda", "cpu")]
+            row["prompt_logprobs_max_abs_err"] = err = float(
+                np.abs(plp[0] - plp[1]).max())
+            if not err <= 1e-4:
+                raise AssertionError(f"{label} {case}: prompt_logprobs card "
+                                     f"vs CPU differ by {err} (tolerance "
+                                     f"1e-4)")
+        results.append(row)
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_moe(torch) -> dict:
+    """Two narrow llama4-shaped models through ``check_narrow_moe``:
+    scout's period (every layer ``attn_moe``; 16 experts, top 1, the dense
+    MoE path) and maverick's (``attn_dense`` + ``attn_moe`` x 2, 8
+    experts, the capacity path forced, so rows compete for capacity and
+    what idle rows write to the scratch page could reach them)."""
+    from repro_torch.configs import get_config
+
+    narrow = dict(d_model=512, n_heads=10, n_kv_heads=2, head_dim=64,
+                  d_ff=1024, moe_d_ff=512, vocab_size=4000,
+                  vocab_pad_multiple=512)
+    scout = dataclasses.replace(get_config(SCOUT), name="llama4-scout-narrow",
+                                n_layers=2, **narrow)
+    maverick = dataclasses.replace(
+        get_config(MAVERICK), name="llama4-maverick-narrow", n_layers=4,
+        n_experts=8, **narrow)
+    return {"phase": "check_moe", "near_tie_gap": NEAR_TIE,
+            "model": "llama4 widths cut to d_model 512, 10 heads over 2, "
+                     "head dim 64, f32",
+            "cases": (check_narrow_moe(torch, "scout-narrow", scout, "auto", 7)
+                      + check_narrow_moe(torch, "maverick-narrow", maverick,
+                                         "capacity", 7))}
+
+
+SIM_LABEL = "modeled (paper's H100 and RPU models), not measured"
+
+
+def sim_phase(torch, served) -> dict:
+    """The paper's H100 decode model (``sim.gpu_model.gpu_decode_latency``)
+    beside each serve phase's measured decode step: the config as served
+    (its cut depth), 1 GPU, batch 8, the phase's mean decode context, bf16
+    (16 bits) or MXFP4 (4.25) weights and bf16 (16) or fp8 (8) KV; one
+    line a phase with the measured wall and device-busy steps and their
+    ratios to the model.  Speculative windows are left out: the model has
+    no window.  Then ``iso_tdp_comparison`` for llama3-405b (the paper's
+    headline) and llama4-scout, full size, printed as modeled.  Host only;
+    no constant of the models is changed."""
+    from repro_torch.configs import get_config
+    from repro_torch.sim.gpu_model import GPUSystemConfig, gpu_decode_latency
+    from repro_torch.sim.scaling import iso_tdp_comparison
+
+    rows = []
+    for name, cfg, r in served:
+        if "profiled_decode_steps" in r:              # continuous / static
+            # None where the profiler saw no device time
+            busy = r["profiled_decode_steps"].get("device_busy_ms_per_step")
+            static = "decode_step_ms" in r
+            step = (r["decode_step_ms"] if static
+                    else r["profiled_decode_steps"]["step_ms"])
+            ctx = (STATIC_PROMPT + STATIC_NEW / 2 if static
+                   else float(np.mean(PROMPT_LENS)) + 32)
+            wfmt, cache = r.get("weight_format"), r.get("cache_dtype")
+        elif name == "serve_spec_draft":              # its plain engine
+            busy, step = r["device_busy_ms_per_step"], r["step_ms_measured"]
+            ctx, wfmt, cache = DRAFT_PROMPT + DRAFT_NEW / 2, None, None
+        else:
+            continue
+        gpu = GPUSystemConfig(n_gpus=1,
+                              weight_bits=4.25 if wfmt == "mxfp4" else 16.0,
+                              kv_bits=8.0 if cache in ("fp8", "int8") else 16.0)
+        g = gpu_decode_latency(cfg, gpu, batch=8, seq_len=int(round(ctx)))
+        row = {"phase": name, "model": cfg.name, "layers": cfg.n_layers,
+               "batch": 8, "context": ctx, "weight_bits": gpu.weight_bits,
+               "kv_bits": gpu.kv_bits, "measured_step_ms": step,
+               "measured_busy_ms": busy, "modeled_ms": 1e3 * g.total_s,
+               "modeled_mem_ms": 1e3 * g.mem_s,
+               "modeled_overhead_ms": 1e3 * g.overhead_s,
+               "modeled_bw_utilization": g.bw_utilization,
+               "step_over_modeled": step / (1e3 * g.total_s),
+               "busy_over_modeled": (None if busy is None
+                                     else busy / (1e3 * g.total_s))}
+        print("  sim:", json.dumps(row))
+        rows.append(row)
+    iso = {}
+    for arch in ("llama3-405b", SCOUT):
+        iso[arch] = iso_tdp_comparison(get_config(arch), batch=1,
+                                       seq_len=8192)
+        print("  sim:", SIM_LABEL, json.dumps(iso[arch]))
+    if not rows or not all(math.isfinite(x["modeled_ms"]) for x in rows):
+        raise AssertionError(f"sim: no serve phase to compare ({rows})")
+    return {"phase": "sim", "serve_phases": rows,
+            "iso_tdp_comparison": {"label": SIM_LABEL, **iso}}
 
 
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
@@ -2924,10 +3306,14 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
                          f"({', '.join(KERNEL_PHASES)}, deployment, check, "
-                         "check_mla, or, on a llama3-8b built first, serve "
-                         "and serve_spec_draft, on a deepseek-v2-lite-16b "
-                         f"built first, {', '.join(mla_phases())}); a "
-                         "partial run prints no result line")
+                         "check_mla, check_moe, or, on a llama3-8b built "
+                         "first, serve and serve_spec_draft, on a "
+                         "deepseek-v2-lite-16b built first, "
+                         f"{', '.join(mla_phases())}, on llama4-scout at "
+                         f"{SCOUT_LAYERS} layers, {', '.join(moe_phases())}, "
+                         "on llama4-maverick at one period, "
+                         "serve_moe_maverick; then sim over the serve "
+                         "phases run); a partial run prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2966,13 +3352,19 @@ def main() -> int:
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
-                                      "cases": check_mla(t)}}
+                                      "cases": check_mla(t)},
+              "check_moe": check_moe}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
     model_phases = {"serve": (build_llama, serve_phase),
                     "serve_spec_draft": (build_llama, serve_spec_draft_phase),
                     **{name: (build_deepseek, fn) for name, fn in
-                       mla_phases().items()}}
+                       mla_phases().items()},
+                    **{name: (build_scout, fn) for name, fn in
+                       moe_phases().items()},
+                    **{name: (build_maverick, fn) for name, fn in
+                       maverick_phases().items()}}
+    served = []             # (phase, config as served, result) for sim
     if args.only is not None:
         names = args.only.split(",")
         models = {}
@@ -2984,7 +3376,10 @@ def main() -> int:
                     gc.collect()
                     torch.cuda.empty_cache()
                     models[build] = build(torch)
-                timed(name, fn, models[build])
+                served.append((name, models[build].cfg,
+                               timed(name, fn, models[build])))
+            elif name == "sim":
+                timed(name, sim_phase, served)
             else:
                 timed(name, phases[name])
         print(f"partial run ({args.only}): {time.monotonic() - t0:.1f} s, "
@@ -3006,18 +3401,28 @@ def main() -> int:
                     cache_dtype="fp8")
     spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
     timed("serve_spec_legacy", serve_spec_legacy_phase, model)
+    served += [("serve", model.cfg, serve), ("serve_static", model.cfg, static),
+               ("serve_quantized", model.cfg, serve_q)]
     # damps the model's deeper blocks in place: the last phase to use it
-    timed("serve_spec_draft", serve_spec_draft_phase, model)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    model = build_deepseek(torch)
-    for name, fn in mla_phases().items():
-        timed(name, fn, model)
+    served.append(("serve_spec_draft", model.cfg,
+                   timed("serve_spec_draft", serve_spec_draft_phase, model)))
+    # one model on the card at a time: each is freed (and the engines'
+    # reference cycles collected) before the next is built
+    for build, model_phase_fns in (
+            (build_deepseek, mla_phases()), (build_scout, moe_phases()),
+            (build_maverick, maverick_phases())):
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build(torch)
+        for name, fn in model_phase_fns.items():
+            served.append((name, model.cfg, timed(name, fn, model)))
     del model
     gc.collect()
     torch.cuda.empty_cache()
     timed("check", check_phase)
+    timed("check_moe", check_moe)
+    timed("sim", sim_phase, served)
     kernel["launches"] = serve["kernel_launches"][kernel["name"]]
     scaled["launches"] = serve_q["kernel_launches"][scaled["name"]]
     vmm["launches"] = serve_q["kernel_launches"][vmm["name"]]
@@ -3025,6 +3430,17 @@ def main() -> int:
     dense["launches"] = static["kernel_launches"][dense["name"]]
     exact["launches"] = spec["kernel_launches"][exact["name"]]
     kernels = [kernel, scaled, vmm, flash, dense, exact]
+    # the same kernels on llama4-scout's path (its first session of each
+    # phase): every one of them launched there too
+    moe = {name: r for name, _, r in served}
+    for k, phase in ((kernel, "serve_moe"), (scaled, "serve_moe_quantized"),
+                     (vmm, "serve_moe_quantized"), (flash, "serve_moe_static"),
+                     (dense, "serve_moe_static"), (exact, "serve_moe_spec")):
+        r = moe[phase]
+        k["launches_llama4_scout"] = r.get("continuous", r)[
+            "kernel_launches"].get(k["name"], 0)
+        if not k["launches_llama4_scout"]:
+            raise AssertionError(f"{k['name']} never launched in {phase}")
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

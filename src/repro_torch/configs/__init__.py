@@ -2,8 +2,11 @@
 
 A copy of ``repro.configs`` for the architectures the port serves so far:
 the ``attn_dense`` family (plain GQA, qk-norm, qkv bias): llama3-8b,
--70b and -405b, qwen3-14b, qwen2.5-14b; and deepseek-v2-lite-16b (MLA
-attention, MoE with shared experts, a first dense layer).  ``get_config``
+-70b and -405b, qwen3-14b, qwen2.5-14b; deepseek-v2-lite-16b (MLA
+attention, MoE with shared experts, a first dense layer); and the
+``attn_moe`` family (GQA attention, top-1 MoE with one shared expert):
+llama4-scout-109b-a17b (MoE every layer; the paper's simulator baseline)
+and llama4-maverick-400b-a17b (dense and MoE layers alternating).  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -22,6 +25,8 @@ _ARCH_MODULES = {
     "qwen3-14b": "qwen3_14b",
     "qwen2.5-14b": "qwen2_5_14b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "llama4-scout-109b-a17b": "llama4_scout",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 

@@ -99,18 +99,24 @@ def init_attn_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _scatter_kv(pool: dict, k, v, slots) -> None:
+def _scatter_kv(pool: dict, k, v, slots, coupled: bool) -> None:
     """Write k/v (N, KVH, HD) at ``slots`` into every leaf of the pool,
     quantizing on write for fp8/int8 pools (scale = amax of the token's
-    head vector, fixed at write time)."""
+    head vector, fixed at write time).  When the batch's rows couple (an
+    MoE model: they compete for expert capacity), what an idle or padding
+    row reads back from the scratch page reaches the live rows, so each
+    write takes the value of the last writer of its place
+    (``last_writes``), scales included."""
+    if coupled:
+        src = last_writes(slots, pool["k"].shape[1])
+        k, v = k[src], v[src]
+    leaves = {"k": k, "v": v}
     fmt = kvq.pool_cache_format(pool)
     if fmt is not None:
-        k, k_scale = kvq.kv_quantize(k, fmt)
-        v, v_scale = kvq.kv_quantize(v, fmt)
-        _put(pool["k_scale"], slots, k_scale)
-        _put(pool["v_scale"], slots, v_scale)
-    _put(pool["k"], slots, k)
-    _put(pool["v"], slots, v)
+        leaves["k"], leaves["k_scale"] = kvq.kv_quantize(k, fmt)
+        leaves["v"], leaves["v_scale"] = kvq.kv_quantize(v, fmt)
+    for name, vals in leaves.items():
+        _put(pool[name], slots, vals)
 
 
 def attn_decode_paged(p: layers.Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -123,13 +129,15 @@ def attn_decode_paged(p: layers.Attention, x: torch.Tensor, cfg: ModelConfig,
     attention streams the live pages through the decode kernel."""
     b, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    q, k, v = layers._qkv(p, x[:, None, :], cfg, pos[:, None])
-    page = pool["k"].shape[1]
-    _scatter_kv(pool, k[:, 0], v[:, 0], token_slots(page_table, pos, page))
-    out = paged_gqa_decode_attention(
-        q[:, 0], pool["k"], pool["v"], page_table, pos,
-        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
-        window=window)
+    with span("gqa_attention"):
+        q, k, v = layers._qkv(p, x[:, None, :], cfg, pos[:, None])
+        page = pool["k"].shape[1]
+        _scatter_kv(pool, k[:, 0], v[:, 0],
+                    token_slots(page_table, pos, page), p.coupled)
+        out = paged_gqa_decode_attention(
+            q[:, 0], pool["k"], pool["v"], page_table, pos,
+            k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+            window=window)
     return qdot(out.reshape(b, h * hd), p.wo)
 
 
@@ -147,14 +155,16 @@ def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
     h, hd = cfg.n_heads, cfg.hd
     ar = torch.arange(c, device=x.device)
     positions = start[:, None].long() + ar[None, :]
-    q, k, v = layers._qkv(p, x, cfg, positions)
-    ok = ar[None, :] < valid[:, None]
-    slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
-    _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots)
-    out = paged_gqa_multi_attention(
-        q, pool["k"], pool["v"], page_table, start,
-        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
-        causal=cfg.causal, window=window, impl="blocked")
+    with span("gqa_attention"):
+        q, k, v = layers._qkv(p, x, cfg, positions)
+        ok = ar[None, :] < valid[:, None]
+        slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
+        _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots,
+                    p.coupled)
+        out = paged_gqa_multi_attention(
+            q, pool["k"], pool["v"], page_table, start,
+            k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+            causal=cfg.causal, window=window, impl="blocked")
     return qdot(out.reshape(b, c, h * hd), p.wo)
 
 
@@ -171,14 +181,16 @@ def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
     h, hd = cfg.n_heads, cfg.hd
     ar = torch.arange(c, device=x.device)
     positions = start[:, None].long() + ar[None, :]
-    q, k, v = layers._qkv(p, x, cfg, positions)
-    ok = ar[None, :] < valid[:, None]
-    slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
-    _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots)
-    out = paged_gqa_multi_attention(
-        q, pool["k"], pool["v"], page_table, start,
-        k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
-        window=window)
+    with span("gqa_attention"):
+        q, k, v = layers._qkv(p, x, cfg, positions)
+        ok = ar[None, :] < valid[:, None]
+        slots = chunk_slots(page_table, positions, ok, pool["k"].shape[1])
+        _scatter_kv(pool, k.flatten(0, 1), v.flatten(0, 1), slots,
+                    p.coupled)
+        out = paged_gqa_multi_attention(
+            q, pool["k"], pool["v"], page_table, start,
+            k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
+            window=window)
     return qdot(out.reshape(b, c, h * hd), p.wo)
 
 
@@ -225,15 +237,15 @@ def last_writes(slots, page: int) -> torch.Tensor:
     return torch.empty_like(order).index_put_((order,), last[group])
 
 
-def _scatter_latent(pool: dict, c_kv, k_rope, slots) -> None:
-    """Write the latents (N, r) and rope keys (N, rhd) at ``slots``.  In an
-    MoE model the rows of a batch compete for expert capacity, so what an
-    idle or padding row reads back from the scratch page reaches the live
-    rows: the writes go through ``last_writes``.  (A GQA model's scratch
-    contents never reach a live row: no ported GQA kind has MoE.)"""
-    src = last_writes(slots, pool["c_kv"].shape[1])
-    _put(pool["c_kv"], slots, c_kv[src])
-    _put(pool["k_rope"], slots, k_rope[src])
+def _scatter_latent(pool: dict, c_kv, k_rope, slots, coupled: bool) -> None:
+    """Write the latents (N, r) and rope keys (N, rhd) at ``slots``,
+    through ``last_writes`` when the batch's rows couple, as
+    ``_scatter_kv`` writes."""
+    if coupled:
+        src = last_writes(slots, pool["c_kv"].shape[1])
+        c_kv, k_rope = c_kv[src], k_rope[src]
+    _put(pool["c_kv"], slots, c_kv)
+    _put(pool["k_rope"], slots, k_rope)
 
 
 def mla_decode_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
@@ -250,7 +262,7 @@ def mla_decode_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
             p, x[:, None, :], cfg, pos[:, None])
         page = pool["c_kv"].shape[1]
         _scatter_latent(pool, c_kv[:, 0], k_rope[:, 0],
-                        token_slots(page_table, pos, page))
+                        token_slots(page_table, pos, page), p.coupled)
         c_d = gather_pages(pool["c_kv"], page_table)           # (B, S, r)
         kr_d = gather_pages(pool["k_rope"], page_table)        # (B, S, rhd)
         valid = paged_valid_mask(page_table, page, pos)        # (B, S)
@@ -274,7 +286,8 @@ def mla_decode_multi_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
         q_nope, q_rope, c_kv, k_rope = layers._mla_qc(p, x, cfg, positions)
         ok = ar[None, :] < valid[:, None]
         slots = chunk_slots(page_table, positions, ok, pool["c_kv"].shape[1])
-        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots)
+        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots,
+                        p.coupled)
         c_d = gather_pages(pool["c_kv"], page_table)           # (B, S, r)
         kr_d = gather_pages(pool["k_rope"], page_table)
         idx = torch.arange(c_d.shape[1], device=x.device)
@@ -298,7 +311,8 @@ def mla_prefill_chunk_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
         q_nope, q_rope, c_kv, k_rope = layers._mla_qc(p, x, cfg, positions)
         ok = ar[None, :] < valid[:, None]
         slots = chunk_slots(page_table, positions, ok, pool["c_kv"].shape[1])
-        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots)
+        _scatter_latent(pool, c_kv.flatten(0, 1), k_rope.flatten(0, 1), slots,
+                        p.coupled)
         c_d = gather_pages(pool["c_kv"], page_table)
         kr_d = gather_pages(pool["k_rope"], page_table)
         out = layers.mla_expanded_attention(p, q_nope, q_rope, c_d, kr_d, cfg,

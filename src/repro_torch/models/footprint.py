@@ -7,8 +7,9 @@ config — the same arithmetic the paper uses for "active parameters" and
 
 A copy of ``repro/models/footprint.py`` with its imports redirected to the
 port's ``ModelConfig`` and ``build_plan``; the port's plan covers the
-``attn_dense``, ``mla_dense`` and ``mla_moe`` kinds, so another family
-raises the ``NotImplementedError`` that names its ROADMAP item.
+``attn_dense``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` kinds, so an
+ssm or hybrid family raises the ``NotImplementedError`` that names its
+ROADMAP item.
 """
 from __future__ import annotations
 

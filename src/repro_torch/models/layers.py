@@ -58,10 +58,14 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Attention(nn.Module):
-    """GQA projections, optional qkv bias and per-head qk-norm weights."""
+    """GQA projections, optional qkv bias and per-head qk-norm weights.
+    ``coupled``: the rows of a batch couple (an MoE model's expert
+    capacity), so paged writes give each place its last writer's value
+    (``attention_backends.last_writes``)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, coupled: bool = False):
         super().__init__()
+        self.coupled = coupled
         d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         self.wq = _param((d, h * hd), PARAM_DTYPE, device)
         self.wk = _param((d, kvh * hd), PARAM_DTYPE, device)
@@ -135,8 +139,9 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = _full_attention(q, k, v, cfg, window)
+    with span("gqa_attention"):
+        q, k, v = _qkv(p, x, cfg, positions)
+        out = _full_attention(q, k, v, cfg, window)
     return qdot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
 
 
@@ -147,8 +152,9 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     keeps the tail in ring order)."""
     b, s, _ = x.shape
     dev = x.device
-    q, k, v = _qkv(p, x, cfg, torch.arange(s, device=dev)[None, :])
-    out = _full_attention(q, k, v, cfg, window)
+    with span("gqa_attention"):
+        q, k, v = _qkv(p, x, cfg, torch.arange(s, device=dev)[None, :])
+        out = _full_attention(q, k, v, cfg, window)
     out = qdot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
     w = cache["k"].shape[1]
     if w >= s:
@@ -182,22 +188,23 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     on_card = kernel_path(x.device, window)
     if on_card and cur_pos >= w:        # the kernel reads a prefix
         raise ValueError(f"position {cur_pos} is past the {w}-token cache")
-    q, k, v = _qkv(p, x[:, None, :], cfg, positions)
-    slot = cur_pos % w
-    cache_update_at(cache["k"], k, slot)
-    cache_update_at(cache["v"], v, slot)
-    # fill_ takes the scalar as a kernel argument; an indexed assignment
-    # would copy it from host memory and wait for the device
-    cache["slot_pos"][slot:slot + 1].fill_(cur_pos)
-    if on_card:
-        out = decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)
-    else:
-        slot_pos = cache["slot_pos"]
-        valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
-        if window is not None:
-            valid = valid & (slot_pos > cur_pos - window)
-        out = decode_attention_ref(q[:, 0], cache["k"], cache["v"], None,
-                                   valid=valid[None, :].expand(b, -1))
+    with span("gqa_attention"):
+        q, k, v = _qkv(p, x[:, None, :], cfg, positions)
+        slot = cur_pos % w
+        cache_update_at(cache["k"], k, slot)
+        cache_update_at(cache["v"], v, slot)
+        # fill_ takes the scalar as a kernel argument; an indexed
+        # assignment would copy it from host memory and wait for the device
+        cache["slot_pos"][slot:slot + 1].fill_(cur_pos)
+        if on_card:
+            out = decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)
+        else:
+            slot_pos = cache["slot_pos"]
+            valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
+            if window is not None:
+                valid = valid & (slot_pos > cur_pos - window)
+            out = decode_attention_ref(q[:, 0], cache["k"], cache["v"], None,
+                                       valid=valid[None, :].expand(b, -1))
     return qdot(out.reshape(b, h * hd), p.wo)
 
 
@@ -223,10 +230,12 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
 class MLA(nn.Module):
     """MLA projections: ``wq`` (per-head nope + rope queries), ``w_dkv``
     (the latent plus the shared rope key), the f32 ``kv_norm`` of the
-    latent, the up-projections ``w_uk``/``w_uv`` and ``wo``."""
+    latent, the up-projections ``w_uk``/``w_uv`` and ``wo``; ``coupled``
+    as for ``Attention``."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, coupled: bool = False):
         super().__init__()
+        self.coupled = coupled
         d, h = cfg.d_model, cfg.n_heads
         hd, rhd, vhd, r = cfg.hd, cfg.rope_head_dim, cfg.v_hd, cfg.kv_lora_rank
         self.wq = _param((d, h * (hd + rhd)), PARAM_DTYPE, device)

@@ -1,5 +1,5 @@
-"""Model assembly for the serve paths (the ``attn_dense``, ``mla_dense``
-and ``mla_moe`` plans of ``repro/models/model.py``).
+"""Model assembly for the serve paths (the ``attn_dense``, ``attn_moe``,
+``mla_dense`` and ``mla_moe`` plans of ``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` that owns its weights: an embedding table, an
 ``nn.ModuleList`` of ``Block``s, the final norm and the head.  A block is
@@ -23,7 +23,7 @@ token per row at a shared position.  ``forward`` scores a whole sequence
 without a cache.  Caches and pools are written in place, so these return
 only the logits.
 
-GQA + MoE (``attn_moe``), SSM and hybrid plans, ring tables
+SSM and hybrid plans, ring tables
 (sliding-window page spaces) and per-slot state pools raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -45,7 +45,6 @@ from repro_torch.models.common import (
 )
 from repro_torch.quant.linear import packed_leaves
 
-ITEM_MOE_MLA = "ROADMAP Queue 1, 'MLA backend and MoE'"
 ITEM_STATEFUL = layers.ITEM_STATEFUL
 
 
@@ -58,8 +57,10 @@ class Segment:
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
     """The reference's segment plan.  The port runs ``attn_dense``,
-    ``mla_dense`` and ``mla_moe``; ``attn_moe`` (GQA + MoE, llama4),
-    ``ssm`` and ``hybrid`` plans raise naming their ROADMAP item."""
+    ``attn_moe`` (GQA + MoE, llama4: every layer, or alternating with
+    ``attn_dense`` in one multi-kind segment), ``mla_dense`` and
+    ``mla_moe``; ``ssm`` and ``hybrid`` plans raise naming their ROADMAP
+    item."""
     if cfg.family == "ssm":
         raise NotImplementedError(f"{cfg.name}: ssm plans — {ITEM_STATEFUL}")
     if cfg.family == "hybrid":
@@ -73,9 +74,16 @@ def build_plan(cfg: ModelConfig) -> list[Segment]:
         segs.append(Segment(("mla_moe",), cfg.n_layers - nd, w))
         return segs
     if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: attn_moe plans (GQA attention + MoE, llama4) — "
-            f"{ITEM_MOE_MLA}, the attn_moe kind")
+        if cfg.moe_layer_period == 1:
+            segs = []
+            nd = cfg.first_dense_layers
+            if nd:
+                segs.append(Segment(("attn_dense",), nd, w))
+            segs.append(Segment(("attn_moe",), cfg.n_layers - nd, w))
+            return segs
+        assert cfg.n_layers % cfg.moe_layer_period == 0
+        kinds = ("attn_dense",) * (cfg.moe_layer_period - 1) + ("attn_moe",)
+        return [Segment(kinds, cfg.n_layers // cfg.moe_layer_period, w)]
     return [Segment(("attn_dense",), cfg.n_layers, w)]
 
 
@@ -92,7 +100,10 @@ class Block(nn.Module):
         d = cfg.d_model
         self.ln1 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
                                             device=device), requires_grad=False)
-        self.attn = ab.backend_for_kind(kind).module(cfg, device)
+        # every layer of an MoE model writes its pages through
+        # last_writes: the batch's rows couple through expert capacity
+        self.attn = ab.backend_for_kind(kind).module(cfg, device,
+                                                     coupled=cfg.moe)
         self.ln2 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
                                             device=device), requires_grad=False)
         if self.is_moe:

@@ -95,17 +95,24 @@ def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
 
 
 def moe_dense(x: torch.Tensor, p: MoE, cfg: ModelConfig) -> torch.Tensor:
-    """Reference path: all experts on all tokens (tiny configs only)."""
+    """Reference path: all experts on all tokens (tiny configs only; at
+    most 16 experts and 4096 tokens under ``impl="auto"``).  The expert
+    products are batched over E with x broadcast (``torch.matmul`` of
+    (T, D) by (E, D, F)): the reference's ``einsum("td,edf->tef")`` in
+    torch would first copy each (E, D, F) weight into (D, E F) order."""
     b, s, d = x.shape
     x2d = x.reshape(-1, d)
-    w, ids = _routing(x2d, p.router, cfg.n_experts_per_token)
-    g = torch.einsum("td,edf->tef", x2d, p.w_gate)
-    u = torch.einsum("td,edf->tef", x2d, p.w_up)
-    h = F.silu(g.float()).to(x.dtype) * u
-    y_all = torch.einsum("tef,efd->ted", h, p.w_down)            # (T, E, D)
-    onehot = F.one_hot(ids, cfg.n_experts).float()               # (T, k, E)
-    comb = torch.einsum("tk,tke->te", w, onehot)                 # (T, E)
-    y = torch.einsum("te,ted->td", comb.to(x.dtype), y_all)
+    with span("moe_dispatch"):
+        w, ids = _routing(x2d, p.router, cfg.n_experts_per_token)
+    with span("moe_experts"):
+        g = torch.matmul(x2d, p.w_gate)                          # (E, T, F)
+        u = torch.matmul(x2d, p.w_up)
+        h = F.silu(g.float()).to(x.dtype) * u
+        y_all = torch.bmm(h, p.w_down)                           # (E, T, D)
+    with span("moe_combine"):
+        onehot = F.one_hot(ids, cfg.n_experts).float()           # (T, k, E)
+        comb = torch.einsum("tk,tke->te", w, onehot)             # (T, E)
+        y = torch.einsum("te,etd->td", comb.to(x.dtype), y_all)
     return y.reshape(b, s, d)
 
 

@@ -334,7 +334,7 @@ class LLMEngine:
             if sp.prompt_logprobs:
                 raise ValueError(
                     "backend='speculative' does not score prompts; use "
-                    "backend='static' for prompt_logprobs")
+                    "backend='static' or 'continuous' for prompt_logprobs")
         outs = []
         for i, (p, sp, budget) in enumerate(zip(prompts, sps, budgets)):
             stats = self._spec.generate(

@@ -76,8 +76,12 @@ class SamplingParams:
     logit_bias   additive per-token logit offsets, as a ``{token_id:
                  bias}`` mapping or ``((token_id, bias), ...)`` pairs; at
                  most ``MAX_LOGIT_BIAS`` entries per request.
-    prompt_logprobs  score the prompt too (the port's engine does not yet:
-                 it raises for such requests).
+    prompt_logprobs  also score the prompt: ``RequestOutput
+                 .prompt_logprobs[k]`` is the RAW model logprob (no
+                 temperature / filtering / penalties) of prompt token
+                 ``k + 1`` given tokens ``0..k`` — ``prompt_len - 1``
+                 entries.  Continuous-engine requests with this set skip
+                 prefix-cache sharing (shared pages are never re-scored).
     """
     temperature: float = 0.0
     top_k: int = 0

@@ -35,16 +35,31 @@ def test_speculative_slice_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+@pytest.mark.parametrize("module", [
+    "sim/__init__.py", "sim/isa.py", "sim/compiler.py", "sim/engine.py",
+    "sim/gpu_model.py", "sim/scaling.py", "core/provisioning.py",
+    "core/sku.py", "configs/llama4_scout.py",
+    "configs/llama4_maverick_400b_a17b.py"])
+def test_simulator_and_llama4_modules_are_checked(module):
+    """The simulator, the cost models and the llama4 configs are among the
+    files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_speculative_entry_points_import_without_jax():
     """A fresh interpreter in which jax and repro cannot be imported still
-    imports the port's speculative entry points."""
+    imports the port's speculative entry points, the simulator and the
+    cost models."""
     import subprocess
     import sys
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "from repro_torch.runtime.speculative import SpeculativeEngine\n"
             "from repro_torch.runtime.llm import LLMEngine\n"
             "from repro_torch.kernels.decode_attention.paged_kernel import "
-            "paged_decode_multi_attention\n")
+            "paged_decode_multi_attention\n"
+            "import repro_torch.sim\n"
+            "from repro_torch.sim.scaling import iso_tdp_comparison\n"
+            "from repro_torch.core import provisioning, sku\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
                                          "PATH": "/usr/bin:/bin"})

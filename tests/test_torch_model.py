@@ -123,12 +123,17 @@ def test_paged_prefill_then_decode_matches_reference(name):
 
 
 def test_unported_plans_and_options_raise():
-    moe = tconfigs.reduced_config(tconfigs.get_config("llama3-8b"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Model(dataclasses.replace(moe, moe=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Stateful"):
-        Model(dataclasses.replace(moe, family="ssm"), device="cpu")
-    model = Model(moe, device="cpu").init(0)
+    """ssm and hybrid plans raise naming their ROADMAP item; a GQA + MoE
+    config builds the ``attn_moe`` plan since that kind is ported."""
+    base = tconfigs.reduced_config(tconfigs.get_config("llama3-8b"))
+    moe = dataclasses.replace(base, moe=True, n_experts=4,
+                              n_experts_per_token=1, moe_d_ff=64)
+    assert [blk.kind for blk in Model(moe, device="meta").layers] == \
+        ["attn_moe"] * base.n_layers
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="Stateful"):
+            Model(dataclasses.replace(base, family=family), device="cpu")
+    model = Model(base, device="cpu").init(0)
     with pytest.raises(NotImplementedError, match="Stateful"):
         model.init_paged_cache(4, 4, ring_pages=2)
     pools = model.init_paged_cache(4, 4)
@@ -138,7 +143,7 @@ def test_unported_plans_and_options_raise():
         model.decode_step_paged(one, pools, tab, one, states=[{}])
     # the 2-D (speculative verify) form is ported: logits at every position
     assert model.decode_step_paged(tab, pools, tab, one).shape == (
-        1, 1, moe.padded_vocab)
+        1, 1, base.padded_vocab)
     # quantized pools: fp8 builds codes + scale leaves,
     # an unknown string still raises
     assert set(model.init_paged_cache(4, 4, dtype="fp8")[0]) == {
