@@ -15,14 +15,17 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
 ``--only kernel_exact,check`` (any of the kernel phases, quantize,
-deployment, check, check_mla, check_moe; serve and serve_spec_draft on a
-llama3-8b built first; serve_mla, serve_mla_static, serve_mla_quantized
-and serve_mla_spec on a deepseek-v2-lite-16b built first; serve_moe,
-serve_moe_static, serve_moe_quantized and serve_moe_spec on a
-llama4-scout built first; serve_moe_maverick on a llama4-maverick built
-first; sim last, over the serve phases of that run) builds and runs just
-those phases and prints no result line: for quick checks of one kernel or
-path.
+deployment, check, check_mla, check_moe, check_window; serve and
+serve_spec_draft on a llama3-8b built first; serve_phi3,
+serve_phi3_static, serve_phi3_quantized and serve_phi3_spec on a
+phi3-mini-3.8b built first; serve_danube, serve_danube_static and
+serve_danube_quantized on an h2o-danube-1.8b built first; serve_mla,
+serve_mla_static, serve_mla_quantized and serve_mla_spec on a
+deepseek-v2-lite-16b built first; serve_moe, serve_moe_static,
+serve_moe_quantized and serve_moe_spec on a llama4-scout built first;
+serve_moe_maverick on a llama4-maverick built first; sim last, over the
+serve phases of that run) builds and runs just those phases and prints no
+result line: for quick checks of one kernel or path.
 
 Phases, each of which fails the run if it fails:
 
@@ -89,6 +92,17 @@ Phases, each of which fails the run if it fails:
    this timer).  Every timing line of the kernel phases carries
    ``kernel_over_library`` (its time over SDPA's, where there is one) and
    ``bound_over_kernel`` (its share of the roofline).
+6b. kernel_headdims — every attention kernel at phi3-mini's head dim 96
+   (full MHA, rep 1) and h2o-danube's 80 (rep 4), bf16 and f32 (and for
+   the paged kernels fp8 and int8 pools; the exact one at C 1 and 5 with
+   its bitwise invariance), and the flash kernel's sliding window (windows
+   of 1 to 1000 keys, causal and not, the mma.sync variant too), with the
+   tolerances above, the paged kernels also over a ring table whose blocks
+   behind the window are the poisoned scratch page; then each timed at
+   the two models' serve shapes beside its bound, its plain version and
+   SDPA (with an explicit window mask for the windowed flash), and
+   ``mxfp4_vmm`` held and timed at their projections (M 8 and 2048).
+   Returns one kernels-line entry per variant.
 6. kernel_exact — the exact-accumulator paged kernel (the speculative
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
@@ -195,10 +209,29 @@ Phases, each of which fails the run if it fails:
    per target layer per window; greedy speculative streams must equal the
    plain ones or part where the plain stream's top-2 gap is at most
    ``NEAR_TIE_BF16_ULPS`` bf16 ulps of the top logit.
-14. serve_mla — after ``del`` of llama3-8b, deepseek-v2-lite-16b at full
-   width and depth (27 layers: MLA attention, 1 dense layer, 26 MoE layers
-   of 64 routed experts, top 6, and 2 shared; random bf16 weights from a
-   seeded generator, ~31 GB) behind ``LLMEngine(backend="continuous")``:
+13b. serve_phi3, serve_phi3_static, serve_phi3_quantized, serve_phi3_spec
+   — after llama3-8b is freed, phi3-mini-3.8b at full size (32 layers,
+   full MHA at head dim 96, 7.6 GB of random bf16 weights): the serve,
+   serve_static and serve_quantized phases' mixes and checks (continuous
+   bf16 with a scored prompt; static 8 x 1024; mxfp4 + fp8 KV), and
+   self-draft ``speculative=`` and the legacy backend as serve_mla_spec.
+13c. serve_danube, serve_danube_static, serve_danube_quantized — after
+   phi3 is freed, h2o-danube-1.8b at full size (24 layers, GQA 32 over 8
+   at head dim 80, every layer a 4096-token window; 3.7 GB): continuous
+   bf16 over ring pages (``DANUBE_MIX``: 2 prompts of 6144 tokens, 2 of
+   4000 with 256 new, which cross the window while decoding, 4 of 512;
+   page 16, chunk 256), the ring's pool, its most live blocks a slot
+   (within ``ring_blocks_cap``), its pages in use against what the mix
+   would hold without a ring, and the pages reclaimed printed, every page
+   back at the end, a 6144-token prompt scored against ``Model.forward``
+   (windowed flash) at every position; static 2 x 6144 (windowed flash
+   prefill, dense decode over the wrapped 4096-entry ring); mxfp4 + fp8
+   KV on the mix's first 4 requests.
+14. serve_mla — after ``del`` of danube, deepseek-v2-lite-16b at full
+   width and ``DEEPSEEK_LAYERS`` (14) of its 27 layers (MLA attention, 1
+   dense layer, MoE layers of 64 routed experts, top 6, and 2 shared;
+   random bf16 weights from a seeded generator) behind
+   ``LLMEngine(backend="continuous")``:
    the serve phase's requests and checks (every request finishes, the
    prefix index is hit, a second session reproduces every stream, a
    scored prompt's first token and scores against ``Model.forward``; the
@@ -215,9 +248,9 @@ Phases, each of which fails the run if it fails:
    reproduces), then a ``prompt_logprobs`` call (finite scores <= 0); the
    device time of 16 decode steps by kernel and by named range.
 16. serve_mla_quantized — serve_mla with ``weight_format="mxfp4"`` over
-   bf16 pools: the same checks, and ``mxfp4_vmm`` must launch 56 times per
-   decode step and per prefill chunk call (wq and wo of 27 layers, the
-   dense layer's gate/up and down; ``vmm_launches_per_call``), on the
+   bf16 pools: the same checks, and ``mxfp4_vmm`` must launch 2 a layer
+   plus 2 for the dense layer's MLP per decode step and per prefill chunk
+   call (wq and wo, gate/up and down; ``vmm_launches_per_call``), on the
    decode schedule at decode steps and wgmma at prefill calls; and each
    shape it gave the kernel is held against the plain version, as in
    serve_quantized.
@@ -262,6 +295,11 @@ Phases, each of which fails the run if it fails:
    width for one period (``attn_dense`` + ``attn_moe``, 128 experts:
    the capacity path at every batch, 1 row an expert at 8 slots; 37.1 GB),
    one continuous bf16 session with serve's checks.
+20b. check_window — narrow phi3- and danube-shaped models (2 layers, D
+   96 and D 80, danube with a 64-token window and prompts past it), f32,
+   card against CPU: continuous (greedy and sampled), static, and static
+   against continuous on the card, under the near-tie rule; f32 runs the
+   kernels' CUDA-core variants at the new head dims.
 21. check_moe — two narrow llama4-shaped models (scout's period, dense
    MoE; maverick's period x 2, capacity forced), f32, card against CPU:
    continuous with a prefix hit, static, continuous and legacy
@@ -272,8 +310,10 @@ Phases, each of which fails the run if it fails:
    and llama4-scout, printed as modeled.
 
 Output: the card's name and power limit early, one JSON line per phase,
-the kernels line (six entries; ``launches`` from the serve phase that runs
-each kernel), and last ``{"ok": true, "device": {...}}``.
+the kernels line (the six kernels at llama3-8b's shapes, then their D 96
+and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections;
+``launches`` from the serve phase that runs each, on its own model), and
+last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -396,19 +436,29 @@ def ratios(row: dict) -> dict:
     return row
 
 
-def bound(pos, window, B, dtype_name, itemsize, q_itemsize=None,
-          scale_itemsize=0) -> tuple[float, str]:
-    """Least time for the work: each live K/V token read once (codes and,
-    for code pools, their per-token scales), q read and out written once,
-    plus the live table entries and positions; ops are q.k and p.v (2 flops
-    per multiply-add) at the pools' peak rate."""
+def paged_bound(pos, window, B, dtype_name, itemsize, q_itemsize=None,
+                scale_itemsize=0, C=1, geom=GEOM) -> tuple[float, str]:
+    """Least time for the work of a paged decode (C 1) or verify (C > 1)
+    launch: each slot's live K/V tokens read once for all C queries (codes
+    and, for code pools, their per-token scales), q read and out written
+    once, plus the live table entries and positions; ops are q.k and p.v,
+    4 flops per visible (query, key) pair, head and head dim, at the
+    pools' peak rate."""
+    h, kvh, d, page = geom
     q_itemsize = itemsize if q_itemsize is None else q_itemsize
+    last = pos + C - 1
     lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
-    tokens = int(np.sum(pos - lo + 1))
-    pages = int(np.sum(pos // PAGE - lo // PAGE + 1))
-    nbytes = (2 * tokens * KVH * (D * itemsize + scale_itemsize)
-              + 2 * B * H * D * q_itemsize + 4 * pages + 4 * B)
-    return roofline(nbytes, 4 * tokens * H * D, dtype_name)
+    tokens = int(np.sum(last - lo + 1))
+    pages = int(np.sum(last // page - lo // page + 1))
+    visible = 0
+    for j in range(C):
+        p = pos + j
+        first = (np.zeros_like(p) if window is None
+                 else np.maximum(p - window + 1, 0))
+        visible += int(np.sum(p - first + 1))
+    nbytes = (2 * tokens * kvh * (d * itemsize + scale_itemsize)
+              + 2 * B * C * h * d * q_itemsize + 4 * pages + 4 * B)
+    return roofline(nbytes, 4 * visible * h * d, dtype_name)
 
 
 def build_phase() -> None:
@@ -524,7 +574,8 @@ def kernel_phase(torch) -> dict:
                    q, kp, vp, table, p), flush),
                **sdpa_ms(torch, F, q, k_d, v_d, mask, flush)}
         row["library_ms"] = min(row["sdpa_gqa_ms"], row["sdpa_repeat_ms"])
-        row["bound_ms"], row["bound_by"] = bound(pos, None, B, "bfloat16", 2)
+        row["bound_ms"], row["bound_by"] = paged_bound(pos, None, B, "bfloat16",
+                                                      2)
         row["stream_read_ms"] = stream_read_ms(
             torch, 2 * B * ctx * KVH * D * 2, flush)
         timings.append(ratios(row))
@@ -646,7 +697,7 @@ def kernel_scaled_phase(torch) -> dict:
                              v_d.transpose(1, 2), mask, flush)}
             row["sdpa_on_dequantized_bf16_ms"] = min(row["sdpa_gqa_ms"],
                                                      row["sdpa_repeat_ms"])
-            row["bound_ms"], row["bound_by"] = bound(
+            row["bound_ms"], row["bound_by"] = paged_bound(
                 pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4)
             # 1-byte codes and a 4-byte scale per token and kv head, K and V
             row["stream_read_ms"] = stream_read_ms(
@@ -949,16 +1000,23 @@ def ulp_limit_share(out, ref, atol) -> float:
     return ((out.float() - ref).abs() / limit).max().item()
 
 
-def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d=D):
-    """q, k, v read once and out written once; 4 flops (q.k and p.v) per
-    visible (query, key) pair and head dim, at the inputs' peak rate."""
-    if causal:
-        pairs = sum(min(i + 1, Skv) for i in range(Sq))
-    else:
-        pairs = Sq * Skv
-    nbytes = itemsize * d * B * (2 * Sq * h + 2 * Skv * kvh)
-    return roofline(nbytes, 4 * B * h * d * pairs, dtype_name)
+def window_pairs(Sq, Skv, causal, window) -> int:
+    """Visible (query, key) pairs of one head: keys j <= i when causal,
+    j > i - window with a window."""
+    i = np.arange(Sq)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
 
+
+def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d=D,
+                window=None):
+    """q, k, v read once and out written once; 4 flops (q.k and p.v) per
+    visible (query, key) pair (``window_pairs``) and head dim, at the
+    inputs' peak rate."""
+    nbytes = itemsize * d * B * (2 * Sq * h + 2 * Skv * kvh)
+    return roofline(nbytes, 4 * B * h * d * window_pairs(Sq, Skv, causal,
+                                                         window), dtype_name)
 
 
 def kernel_flash_phase(torch) -> dict:
@@ -1246,27 +1304,6 @@ def exact_case(torch, rng, B, C, n_blocks, pools, start, dev, geom=GEOM):
             torch.as_tensor(start.astype(np.int32), device=dev), scales)
 
 
-def exact_bound(start, C, B, window, itemsize, q_itemsize, dtype_name,
-                scale_itemsize=0):
-    """Least time for the work: the live K/V tokens of each slot read once
-    for all C queries (codes and their scales for code pools), q read and
-    out written once, the live table entries and the starts; ops are q.k
-    and p.v, 4 flops per visible (query, key) pair, head and head dim."""
-    last = start + C - 1
-    lo = (np.zeros_like(start) if window is None
-          else np.maximum(start - window + 1, 0))
-    tokens = int(np.sum(last - lo + 1))
-    pages = int(np.sum(last // PAGE - lo // PAGE + 1))
-    visible = 0
-    for j in range(C):
-        p = start + j
-        first = np.zeros_like(p) if window is None else np.maximum(p - window + 1, 0)
-        visible += int(np.sum(p - first + 1))
-    nbytes = (2 * tokens * KVH * (D * itemsize + scale_itemsize)
-              + 2 * B * C * H * D * q_itemsize + 4 * pages + 4 * B)
-    return roofline(nbytes, 4 * visible * H * D, dtype_name)
-
-
 def exact_invariance(torch, paged_kernel, q, kp, vp, table, st, out, kw,
                      name) -> None:
     """The exact kernel's contract, bit for bit: query j of a C-query
@@ -1370,8 +1407,8 @@ def kernel_exact_phase(torch) -> dict:
                    q, kp, vp, table, st), flush),
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
-        row["bound_ms"], row["bound_by"] = exact_bound(start, C, B, None, 2,
-                                                       2, "bfloat16")
+        row["bound_ms"], row["bound_by"] = paged_bound(start, None, B,
+                                                       "bfloat16", 2, C=C)
         # each slot's live tokens once, for all C queries
         row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * KVH * D * 2,
                                                flush)
@@ -1395,6 +1432,408 @@ def kernel_exact_phase(torch) -> dict:
             "library": "F.scaled_dot_product_attention(attn_mask=<per-row "
                        "causal mask>, enable_gqa=True) on the gathered view",
             "stream_read_ms": head["stream_read_ms"], "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# 6b. head dims 80 and 96 and the sliding window (phi3-mini, h2o-danube)
+# ---------------------------------------------------------------------------
+
+PHI3, DANUBE = "phi3-mini-3.8b", "h2o-danube-1.8b"
+PHI3_GEOM = (32, 32, 96, 16)       # H, KVH, D, page: full MHA (rep 1)
+DANUBE_GEOM = (32, 8, 80, 16)      # GQA rep 4
+DANUBE_WINDOW = 4096
+# their MXFP4 launches (K, Ns): q/k/v grouped, o, gate/up grouped, down
+PHI3_LAUNCHES = {"qkv": (3072, (3072, 3072, 3072)), "wo": (3072, (3072,)),
+                 "gate/up": (3072, (8192, 8192)), "w_down": (8192, (3072,))}
+DANUBE_LAUNCHES = {"qkv": (2560, (2560, 640, 640)), "wo": (2560, (2560,)),
+                   "gate/up": (2560, (6912, 6912)),
+                   "w_down": (6912, (2560,))}
+HEADDIM_VMM_ROWS = (8, 2048)       # a decode step of 8 slots; 8 chunk rows
+
+
+def ring_table(table, pos, window, page):
+    """A ring space's view of ``table``: the blocks wholly behind each
+    row's window point at the (poisoned) scratch page 0, as
+    ``RingPageSpace.reclaim`` leaves them."""
+    first = np.maximum(pos - window + 1, 0) // page
+    dead = np.arange(table.shape[1])[None, :] < first[:, None]
+    return np.where(dead, 0, table).astype(np.int32)
+
+
+def kernel_headdims_phase(torch) -> dict:
+    """Every attention kernel at the head dims of phi3-mini (D 96, rep 1)
+    and h2o-danube (D 80, rep 4), and the flash kernel's sliding window,
+    held against the plain versions (the tolerances of the D 64 / 128
+    phases) and timed at the two models' serve shapes; and ``mxfp4_vmm`` at
+    their projections.  Returns one kernel line entry per new variant (its
+    ``launches`` are set from the serve phases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_decode_attention_ref,
+        paged_decode_multi_attention_ref, paged_valid_mask,
+    )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
+    from repro_torch.kernels.mxfp4_vmm.ref import mxfp4_vmm_ref
+    from repro_torch.models.common import decode_attention_ref
+    from repro_torch.quant import formats
+    from repro_torch.quant import kv as kvq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    atol_bf16, tol_f32, flash_tol = 1e-4, 1e-5, 2.0 ** -6
+    worst = {}                     # kernel -> worst measure (bf16 share / f32 err)
+    checked = []
+
+    def hold(name, label, out, ref, bf16_rel=False):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if out.dtype == torch.float32:
+            ok, measure, limit = err <= tol_f32, err, f"{tol_f32}"
+        elif bf16_rel:
+            measure = row_rel_err(out, ref)
+            ok, limit = measure <= flash_tol, f"{flash_tol:.3g} per row"
+        else:
+            measure = ulp_limit_share(out, ref, atol_bf16)
+            ok, limit = measure <= 1.0, f"2^-7 |ref| + {atol_bf16} per element"
+        print(f"  {name} vs plain: {label}: max abs err {err:.3g}, measure "
+              f"{measure:.3g} (tolerance {limit})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: {measure} ({limit})")
+        key = f"{name}:{'f32' if out.dtype == torch.float32 else 'bf16'}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        checked.append(label)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- flash: D 96 (MHA) and D 80 (GQA 4:1), windows below, at and past a
+    # key tile (96 keys), the window of a single key, causal or not; an
+    # MHA head count past an item (rep 136: the mma.sync kernel)
+    flash_cases = [(2, 1000, 32, 32, 96, None), (1, 1024, 32, 32, 96, 500),
+                   (2, 1000, 32, 8, 80, None), (1, 3000, 32, 8, 80, 1000),
+                   (2, 700, 32, 8, 80, 100), (1, 300, 32, 8, 80, 1),
+                   (1, 300, 136, 1, 80, 100), (1, 300, 136, 1, 96, None)]
+    for dtype_name in ("bfloat16", "float32"):
+        for B, S, h, kvh, d, window in flash_cases:
+            for causal in (True, False):
+                dt = getattr(torch, dtype_name)
+                q, k, v = randn(B, S, h, d, dtype=dt), randn(B, S, kvh, d, dtype=dt), \
+                    randn(B, S, kvh, d, dtype=dt)
+                kind = flash_kernel.variant(dt, d, h // kvh)
+                out = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                   window=window)
+                ref = gqa_flash_attention(q, k, v, causal=causal,
+                                          window=window, impl="reference")
+                hold("flash_attention", f"{kind} {dtype_name} B={B} S={S} "
+                     f"H={h} KVH={kvh} D={d} causal={causal} "
+                     f"window={window}", out, ref, bf16_rel=True)
+                del q, k, v, out, ref
+
+    # -- dense decode: D 96 rep 1 and D 80 rep 4, ragged cur_len, the tail
+    # poisoned; a full 4096-entry cache (danube's wrapped ring)
+    for dtype_name in ("bfloat16", "float32"):
+        for h, kvh, d in (PHI3_GEOM[:3], DANUBE_GEOM[:3]):
+            for B, S in ((1, 2048), (8, 4096)):
+                cur_len = rng.integers(1, S + 1, B)
+                cur_len[0] = S
+                q, k, v, cl = dense_case(torch, gen, B, S,
+                                         getattr(torch, dtype_name), cur_len,
+                                         dev, h, kvh, d)
+                kind = dense_kernel.variant(q.dtype, k.dtype, d)
+                hold("decode_attention", f"{kind} {dtype_name} B={B} S={S} "
+                     f"H={h} KVH={kvh} D={d}",
+                     dense_kernel.decode_attention(q, k, v, cl),
+                     decode_attention_ref(q, k, v, cl))
+
+    # -- paged online and exact, bf16 / f32 / fp8 / int8 pools, windows,
+    # and a ring table whose blocks behind the window are the scratch page
+    for geom in (PHI3_GEOM, DANUBE_GEOM):
+        h, kvh, d, page = geom
+        for pools in ("bfloat16", "float32", "fp8", "int8"):
+            for B, window, ring in ((8, None, False), (8, 1000, True),
+                                    (8, 1, False)):
+                n_blocks = 4096 // page + 4
+                pos = rng.integers(0, 4096, B)
+                pos[0] = page + page // 2
+                if pools in ("fp8", "int8"):
+                    q, kp, vp, ks, vs, table, p = quantized_case(
+                        torch, rng, B, n_blocks, pools, pos, dev, geom)
+                    scales = dict(k_scales=ks, v_scales=vs)
+                    qs = (q, q.float())
+                else:
+                    q, kp, vp, table, p = paged_case(
+                        torch, rng, B, n_blocks, getattr(torch, pools), pos,
+                        dev, geom)
+                    scales, qs = {}, (q,)
+                if ring:
+                    table = torch.as_tensor(ring_table(
+                        table.cpu().numpy(), pos, window, page), device=dev)
+                for q_in in qs:
+                    kind = paged_kernel.variant(q_in.dtype, kp.dtype, d, page)
+                    label = (f"{kind} {pools} pools q {str(q_in.dtype)[6:]} "
+                             f"B={B} H, KVH, D, page={geom} window={window}"
+                             f"{' ring table' if ring else ''}")
+                    hold(paged_kernel.NAME_SCALED if scales else
+                         paged_kernel.NAME, label,
+                         paged_kernel.paged_decode_attention(
+                             q_in, kp, vp, table, p, window=window, **scales),
+                         paged_decode_attention_ref(
+                             q_in, kp, vp, table, p, window=window, **scales))
+    for geom in (PHI3_GEOM, DANUBE_GEOM):
+        h, kvh, d, page = geom
+        for pools in ("bfloat16", "float32", "fp8", "int8"):
+            for B, C, window in ((1, 1, None), (8, VERIFY_C, None),
+                                 (8, VERIFY_C, 1000)):
+                n_blocks = 4096 // page + 4
+                start = rng.integers(0, 4096 - C + 1, B)
+                start[0] = 0
+                q, kp, vp, table, st, scales = exact_case(
+                    torch, rng, B, C, n_blocks, pools, start, dev, geom)
+                kw = dict(window=window, **scales)
+                for q_in in ((q, q.float()) if scales else (q,)):
+                    kind = paged_kernel.variant(q_in.dtype, kp.dtype, d, page)
+                    out = paged_kernel.paged_decode_multi_attention(
+                        q_in, kp, vp, table, st, **kw)
+                    name = f"{pools} pools, q {str(q_in.dtype)[6:]}"
+                    hold(paged_kernel.NAME_EXACT, f"{kind} {name} B={B} C={C} "
+                         f"H, KVH, D, page={geom} window={window}", out,
+                         paged_decode_multi_attention_ref(q_in, kp, vp, table,
+                                                          st, **kw))
+                    exact_invariance(torch, paged_kernel, q_in, kp, vp, table,
+                                     st, out, kw, name)
+
+    # -- mxfp4_vmm at phi3's and danube's launches
+    vmm_err = 0.0
+    weights = {}
+
+    def weight(k, n):
+        if (k, n) not in weights:
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            weights[(k, n)] = formats.quantize_mxfp4(w.to(torch.bfloat16))
+        return weights[(k, n)]
+
+    for launches in (PHI3_LAUNCHES, DANUBE_LAUNCHES):
+        for k, ns in launches.values():
+            for m in HEADDIM_VMM_ROWS:
+                ws = [(weight(k, n).codes, weight(k, n).scales) for n in ns]
+                err, sched, _ = hold_vmm(torch, randn(m, k), ws)
+                vmm_err = max(vmm_err, err)
+                print(f"  mxfp4_vmm vs plain: M={m} K={k} N={list(ns)} "
+                      f"({sched}): max rel err {err:.3g} (tolerance {VMM_TOL})")
+
+    # -- timings at the serve shapes, the L2 flushed
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    entries = []
+
+    def entry(name, source, replaces, row, label, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None,
+                "max_abs_err": worst[f"{name.split(':')[0]}:bf16"],
+                "max_abs_err_f32": worst.get(f"{name.split(':')[0]}:f32"),
+                "headline": label, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"), **extra}
+
+    for name, (B, S, h, kvh, d, window, label) in (
+            ("flash_attention:D96", (8, 1024, 32, 32, 96, None,
+                                     "phi3 prefill: B 8, S 1024, H = KVH = 32, "
+                                     "D 96, causal")),
+            ("flash_attention:D80:window4096",
+             (2, 6144, 32, 8, 80, DANUBE_WINDOW,
+              "danube prefill: B 2, S 6144, H 32, KVH 8, D 80, causal, "
+              "window 4096")),
+            ("flash_attention:D80", (2, 6144, 32, 8, 80, None,
+                                     "the same without the window"))):
+        q, k, v = randn(B, S, h, d), randn(B, S, kvh, d), randn(B, S, kvh, d)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            library = "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+        else:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(     # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            library = ("F.scaled_dot_product_attention(attn_mask=<causal "
+                       "window mask>, enable_gqa=True)")
+        row = {"ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+                   q, k, v, causal=True, window=window), flush),
+               "plain_ms": time_ms(torch, lambda: gqa_flash_attention(
+                   q, k, v, causal=True, window=window, impl="reference"),
+                   flush, iters=5),
+               "library_ms": time_ms(torch, lib, flush)}
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            B, S, S, h, kvh, True, 2, "bfloat16", d=d, window=window)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        if window is None and d == 80:
+            # not on danube's path (every layer windowed): a yardstick of
+            # the window's saving, kept beside the windowed entry
+            entries[-1]["without_window"] = {**row, "headline": label}
+        else:
+            entries.append(entry(name, FLASH_SOURCE, FLASH_REPLACES, row,
+                                 label, variant=flash_kernel.variant(
+                                     q.dtype, d, h // kvh), library=library))
+        del q, k, v, qt, kt, vt
+
+    for name, (B, S, ctx, geom, label) in (
+            ("decode_attention:D96", (8, 2048, 1088, PHI3_GEOM,
+                                      "phi3 static decode: B 8, rep 1, "
+                                      "cur_len 1088 of 2048")),
+            ("decode_attention:D80", (2, 4096, 4096, DANUBE_GEOM,
+                                      "danube static decode: B 2, rep 4, a "
+                                      "wrapped 4096-entry ring (cur_len 4096)"))):
+        h, kvh, d, _ = geom
+        cur_len = np.full(B, ctx)
+        q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
+                                 dev, h, kvh, d)
+        q4, ks_, vs_ = q[:, :, None, :], k[:, :ctx].transpose(1, 2), \
+            v[:, :ctx].transpose(1, 2)
+        row = {"ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+                   q, k, v, cl), flush),
+               "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                   q, k, v, cl), flush),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, ks_, vs_, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
+                                                       "bfloat16", h, kvh, d)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(name, DENSE_SOURCE, DENSE_REPLACES, row, label,
+                             variant=dense_kernel.variant(q.dtype, k.dtype, d),
+                             library="F.scaled_dot_product_attention("
+                                     "enable_gqa=True) on the cache sliced "
+                                     "to cur_len"))
+        del q, k, v, ks_, vs_
+
+    for name, (B, ctx, window, geom, pools, label) in (
+            ("paged_decode_attention:D96",
+             (8, 1024, None, PHI3_GEOM, "bfloat16",
+              "phi3 decode: B 8, rep 1, ctx 1024, bf16 pools")),
+            ("paged_decode_attention:D80:window4096",
+             (8, 6144, DANUBE_WINDOW, DANUBE_GEOM, "bfloat16",
+              "danube decode: B 8, rep 4, ctx 6144, window 4096, the blocks "
+              "behind it on the scratch page")),
+            ("paged_decode_attention_scaled:D96",
+             (8, 1024, None, PHI3_GEOM, "fp8",
+              "phi3 decode: B 8, rep 1, ctx 1024, fp8 pools")),
+            ("paged_decode_attention_scaled:D80:window4096",
+             (8, 6144, DANUBE_WINDOW, DANUBE_GEOM, "fp8",
+              "danube decode: B 8, rep 4, ctx 6144, window 4096, fp8 "
+              "pools"))):
+        h, kvh, d, page = geom
+        pos = np.full(B, ctx - 1)
+        if pools == "fp8":
+            q, kp, vp, ks, vs, table, p = quantized_case(
+                torch, rng, B, ctx // page, "fp8", pos, dev, geom)
+            scales = dict(k_scales=ks, v_scales=vs)
+            k_d = kvq.kv_dequantize(gather_pages(kp, table),
+                                    gather_pages(ks, table), torch.bfloat16)
+            v_d = kvq.kv_dequantize(gather_pages(vp, table),
+                                    gather_pages(vs, table), torch.bfloat16)
+        else:
+            q, kp, vp, table, p = paged_case(torch, rng, B, ctx // page,
+                                             torch.bfloat16, pos, dev, geom)
+            scales = {}
+            k_d, v_d = gather_pages(kp, table), gather_pages(vp, table)
+        if window is not None:
+            table = torch.as_tensor(ring_table(table.cpu().numpy(), pos,
+                                               window, page), device=dev)
+        mask = paged_valid_mask(table, page, p, window=window)[:, None, None, :]
+        sd = sdpa_ms(torch, F, q, k_d.transpose(1, 2), v_d.transpose(1, 2),
+                     mask, flush)
+        row = {"ms": time_ms(torch, lambda: paged_kernel.paged_decode_attention(
+                   q, kp, vp, table, p, window=window, **scales), flush),
+               "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
+                   q, kp, vp, table, p, window=window, **scales), flush),
+               "library_ms": min(sd.values())}
+        row["bound_ms"], row["bound_by"] = paged_bound(
+            pos, window, B, "fp8" if scales else "bfloat16",
+            1 if scales else 2, q_itemsize=2,
+            scale_itemsize=4 if scales else 0, geom=geom)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(
+            name, KERNEL_SOURCE, REPLACES + (" (k_scales/v_scales branch)"
+                                             if scales else ""), row, label,
+            variant=paged_kernel.variant(q.dtype, kp.dtype, d, page),
+            library=("the faster of SDPA(enable_gqa=True) and SDPA on K/V "
+                     "repeated to H heads, on the gathered"
+                     + (" dequantized bf16" if scales else "") + " view")))
+        del q, kp, vp, k_d, v_d
+
+    B, C, ctx = 8, VERIFY_C, 1024
+    h, kvh, d, page = PHI3_GEOM
+    start = np.full(B, ctx - C)
+    q, kp, vp, table, st, _ = exact_case(torch, rng, B, C, ctx // page,
+                                         "bfloat16", start, dev, PHI3_GEOM)
+    k_d = gather_pages(kp, table).transpose(1, 2)
+    v_d = gather_pages(vp, table).transpose(1, 2)
+    posq = st[:, None].long() + torch.arange(C, device=dev)[None, :]
+    mask = (torch.arange(ctx, device=dev)[None, None, :]
+            <= posq[:, :, None])[:, None]
+    q_s = q.transpose(1, 2)
+    row = {"ms": time_ms(torch, lambda: paged_kernel.paged_decode_multi_attention(
+               q, kp, vp, table, st), flush),
+           "plain_ms": time_ms(torch, lambda: paged_decode_multi_attention_ref(
+               q, kp, vp, table, st), flush),
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
+    row["bound_ms"], row["bound_by"] = paged_bound(start, None, B, "bfloat16",
+                                                   2, C=C, geom=PHI3_GEOM)
+    print("  timing paged_decode_attention_exact:D96:", json.dumps(ratios(row)))
+    entries.append(entry(
+        "paged_decode_attention_exact:D96", EXACT_SOURCE, EXACT_REPLACES, row,
+        "phi3 verify step: B 8, C 5, rep 1, ctx 1024, bf16 pools",
+        variant=paged_kernel.variant(q.dtype, kp.dtype, d, page),
+        library="F.scaled_dot_product_attention(attn_mask=<per-row causal "
+                "mask>, enable_gqa=True) on the gathered view"))
+    del q, kp, vp, k_d, v_d
+
+    for model_name, launches in (("phi3", PHI3_LAUNCHES),
+                                 ("danube", DANUBE_LAUNCHES)):
+        per_m = {}
+        for m in HEADDIM_VMM_ROWS:
+            ms = plain = lib = bnd = 0.0
+            for k, ns in launches.values():
+                ps = [weight(k, n) for n in ns]
+                ws = [(p.codes, p.scales) for p in ps]
+                x = randn(m, k)
+                ms += time_ms(torch, lambda: vmm_kernel.mxfp4_vmm_group(
+                    x, ws, torch.bfloat16), flush)
+                plain += sum(time_ms(torch, lambda p=p: mxfp4_vmm_ref(
+                    x, p.codes, p.scales).to(torch.bfloat16), flush, iters=10)
+                    for p in ps)
+                dq = [formats.dequantize_mxfp4(p, torch.bfloat16) for p in ps]
+                lib += sum(time_ms(torch, lambda w=w: torch.matmul(x, w), flush)
+                           for w in dq)
+                bnd += vmm_bound(m, k, ns)[0]
+                del dq
+            per_m[m] = {"ms": ms, "plain_ms": plain, "bf16_matmul_ms": lib,
+                        "bound_ms": bnd}
+            print(f"  timing mxfp4_vmm:{model_name} layer M {m}:",
+                  json.dumps(per_m[m]))
+        head = per_m[8]
+        entries.append({
+            "name": f"mxfp4_vmm:{model_name}", "route": "cuda",
+            "source": VMM_SOURCE, "replaces": VMM_REPLACES, "launches": None,
+            "max_abs_err": vmm_err, "max_abs_err_is": "relative to max |out|",
+            "headline": f"one {model_name} layer at M 8 in the serve path's 4 "
+                        f"launches (q/k/v grouped, o, gate/up grouped, down)",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "bf16_matmul_ms": head["bf16_matmul_ms"],
+            "layer_m2048": per_m[2048]})
+    del flush, weights
+    return {"phase": "kernel_headdims", "checked": len(checked),
+            "worst": worst, "mxfp4_vmm_max_rel_err": vmm_err,
+            "entries": entries}
 
 
 # ---------------------------------------------------------------------------
@@ -1538,36 +1977,48 @@ def serve_requests(sp_cls, vocab: int):
     return prompts, sps
 
 
-def serve_session(llm, prompts, sps, on_decode_step=None):
-    """One session through the incremental interface.  Request 7 is added
-    once request 3 has its first token, so 3's prompt blocks are indexed
-    and 7 shares them.  ``on_decode_step`` runs after every step taken once
-    all 8 requests have their first token (decode-only steps).  Returns
-    (streams, finished outputs, stats, decode-only step seconds)."""
+def serve_session(llm, prompts, sps, on_decode_step=None, late=SHARED,
+                  watch=None):
+    """One session through the incremental interface.  With ``late`` =
+    (first, then), request ``then`` is added once request ``first`` has its
+    first token (in the llama mix, 3 and 7: 3's prompt blocks are indexed
+    and 7 shares them); with ``late=None`` every request is added at once.
+    ``on_decode_step`` runs after every step taken once every request has
+    its first token (decode-only steps).  ``watch`` (e.g. ``RingWatch``)
+    is started after the reset, read after every step and stopped at the
+    end.  Returns (streams, finished outputs, stats, decode-only step
+    seconds)."""
     llm.reset()
-    late = SHARED[1]
+    if watch is not None:
+        watch.start(llm)
     for i, (p, sp) in enumerate(zip(prompts, sps)):
-        if i != late:
+        if late is None or i != late[1]:
             llm.add_request(p, sp, rid=i)
     streams = {i: [] for i in range(len(prompts))}
     finished = {}
     decode_steps = []
-    added_late = False
-    while llm.has_unfinished() or not added_late:
-        all_started = added_late and all(streams.values())
-        t = time.perf_counter()
-        outs = llm.step()              # ends in a device -> host copy
-        if all_started:
-            decode_steps.append(time.perf_counter() - t)
-            if on_decode_step is not None:
-                on_decode_step()
-        for o in outs:
-            streams[o.rid].extend(o.new_token_ids)
-            if o.finished:
-                finished[o.rid] = o
-        if not added_late and streams[SHARED[0]]:
-            llm.add_request(prompts[late], sps[late], rid=late)
-            added_late = True
+    added_late = late is None
+    try:
+        while llm.has_unfinished() or not added_late:
+            all_started = added_late and all(streams.values())
+            t = time.perf_counter()
+            outs = llm.step()              # ends in a device -> host copy
+            if all_started:
+                decode_steps.append(time.perf_counter() - t)
+                if on_decode_step is not None:
+                    on_decode_step()
+            for o in outs:
+                streams[o.rid].extend(o.new_token_ids)
+                if o.finished:
+                    finished[o.rid] = o
+            if watch is not None:
+                watch.step()
+            if not added_late and streams[late[0]]:
+                llm.add_request(prompts[late[1]], sps[late[1]], rid=late[1])
+                added_late = True
+    finally:
+        if watch is not None:
+            watch.stop()
     return streams, finished, llm.stats(), decode_steps
 
 
@@ -1686,9 +2137,26 @@ def build_llama(torch):
     return model
 
 
-def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
-    """Serve the request mix twice through ``LLMEngine`` (``engine_kw``:
-    ``weight_format``, ``cache_dtype``) and check streams and launches."""
+# phases whose serve session is followed by a scored prompt (the mix's
+# second; in danube's mix 6144 tokens, scored past the window)
+SCORED_PHASES = ("serve", "serve_mla", "serve_moe", "serve_phi3",
+                 "serve_danube")
+
+
+def serve_phase(torch, model, phase: str = "serve", requests=None,
+                max_len: int = 2048, late=SHARED, expect_prefix_hit=True,
+                watch=None, **engine_kw) -> dict:
+    """Serve a request mix twice through ``LLMEngine`` (``engine_kw``:
+    ``weight_format``, ``cache_dtype``) and check streams and launches:
+    every request ends with its ``max_tokens``, the re-run (traced over 8
+    decode-only steps) reproduces every stream, greedy and sampled, and
+    every kernel of the path launched as often as the steps and calls
+    say.  ``requests(sp_cls, vocab)`` gives the mix (default
+    ``serve_requests``, with request 7 added ``late`` so it hits the prefix
+    index; ``expect_prefix_hit=False``: no token may hit).  ``watch`` reads
+    the first session step by step (``serve_session``) and its ``check()``
+    adds its readings to the result.  Phases in ``SCORED_PHASES`` also
+    score the mix's second prompt (``serve_scoring``)."""
     from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
     from repro_torch.kernels.decode_attention.paged_kernel import (
         NAME, NAME_SCALED,
@@ -1702,16 +2170,18 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     llm = LLMEngine(model, backend="continuous", device="cuda", num_slots=8,
-                    page_size=16, max_len=2048, prefill_chunk=256, **engine_kw)
+                    page_size=16, max_len=max_len, prefill_chunk=256,
+                    **engine_kw)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
-    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    prompts, sps = (requests or serve_requests)(SamplingParams,
+                                                cfg.vocab_size)
 
     LAUNCHES.clear()
     VARIANT_LAUNCHES.clear()
     with vmm_calls() as vmm_inputs:
-        streams, finished, stats, decode_steps = serve_session(llm, prompts,
-                                                               sps)
+        streams, finished, stats, decode_steps = serve_session(
+            llm, prompts, sps, late=late, watch=watch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in LAUNCHES.items() if v}
     variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
@@ -1724,18 +2194,24 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
                          "max_rel_err": err})
     del vmm_inputs
 
-    for i in range(len(prompts)):
+    for i, sp in enumerate(sps):
         o = finished.get(i)
-        if o is None or o.finish_reason != "length" or len(o.token_ids) != 64:
-            raise AssertionError(f"request {i} did not finish with 64 tokens: "
-                                 f"{o}")
+        if (o is None or o.finish_reason != "length"
+                or len(o.token_ids) != sp.max_tokens):
+            raise AssertionError(f"{phase} request {i} did not finish with "
+                                 f"{sp.max_tokens} tokens: {o}")
         if o.token_ids != streams[i]:
-            raise AssertionError(f"request {i}: streamed deltas differ from "
-                                 f"the final token_ids")
+            raise AssertionError(f"{phase} request {i}: streamed deltas "
+                                 f"differ from the final token_ids")
         if not all(0 <= t < cfg.vocab_size for t in o.token_ids):
-            raise AssertionError(f"request {i}: token outside the vocabulary")
-    if stats.prefix_hit_tokens < 512 - PAGE:
-        raise AssertionError(f"prefix index not hit: {stats.prefix_hit_tokens}")
+            raise AssertionError(f"{phase} request {i}: token outside the "
+                                 f"vocabulary")
+    if (stats.prefix_hit_tokens < 512 - PAGE if expect_prefix_hit
+            else stats.prefix_hit_tokens):
+        raise AssertionError(f"{phase}: {stats.prefix_hit_tokens} prefix hit "
+                             f"tokens (want "
+                             f"{'>= 496' if expect_prefix_hit else 0})")
+    readings = watch.check() if watch is not None else {}
     decode_kernel = (NAME_SCALED if engine_kw.get("cache_dtype") in
                      ("fp8", "int8") else NAME)
     # GQA layers: the paged decode kernel once per layer per decode step
@@ -1766,22 +2242,23 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(**PROFILE)) as prof:
         again, _, stats2, _ = serve_session(llm, prompts, sps,
-                                            on_decode_step=prof.step)
+                                            on_decode_step=prof.step,
+                                            late=late)
     breakdown = device_breakdown(prof, float(np.median(decode_steps)))
     for i in range(len(prompts)):
         if again[i] != streams[i]:
             kind = "greedy" if sps[i].is_greedy else "sampled"
-            raise AssertionError(f"{kind} request {i} did not reproduce "
-                                 f"its stream on the re-run")
+            raise AssertionError(f"{phase} {kind} request {i} did not "
+                                 f"reproduce its stream on the re-run")
     write_cost = (gqa_write_cost(torch, llm, model, prompts, sps, streams)
                   if phase == "serve" else None)
     scoring = None
-    if phase in ("serve", "serve_mla", "serve_moe"):
+    if phase in SCORED_PHASES:
         # an MoE model's capacity counts the call's tokens: its prompt is
         # scored in one call of the prompt's length, the T of Model.forward
         score_llm = llm if not cfg.moe else LLMEngine(
             model, backend="continuous", device="cuda", num_slots=8,
-            page_size=16, max_len=2048, prefill_chunk=len(prompts[1]))
+            page_size=16, max_len=max_len, prefill_chunk=len(prompts[1]))
         scoring = serve_scoring(torch, score_llm, model, prompts[1])
         if not cfg.moe:
             scoring["mixed_batch"] = mixed_batch_scoring(torch, llm, model,
@@ -1790,6 +2267,7 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
     ttft = stats.latency_quantiles("ttft")
     result = {"phase": phase, **{k: str(v) for k, v in engine_kw.items()},
               "requests": len(prompts),
+              "prompt_tokens": [len(p) for p in prompts],
               "new_tokens": stats.total_tokens,
               "tokens_per_s": stats.total_tokens / stats.wall,
               "wall_s": stats.wall, "ttft_p50_s": ttft["p50"],
@@ -1805,6 +2283,9 @@ def serve_phase(torch, model, phase: str = "serve", **engine_kw) -> dict:
                   model, engine_kw.get("weight_format")) / 1e9,
               "rerun_identical": True, "rerun_wall_s": stats2.wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "sim_context": float(np.mean([len(p) + sp.max_tokens / 2
+                                            for p, sp in zip(prompts, sps)])),
+              **readings,
               "profiled_decode_steps": breakdown, "_streams": streams}
     if scoring is not None:
         result["prompt_scoring"] = scoring
@@ -2500,10 +2981,13 @@ def device_time_by_kernel(torch, fn) -> tuple[dict, dict]:
     return times, span_device_ms(prof)
 
 
-def serve_static_phase(torch, model, phase: str = "serve_static") -> dict:
-    """``LLMEngine(backend="static")`` answers 8 prompts of 1024 tokens (4
-    greedy, 4 sampled) with 64 new tokens each, twice (the re-run must
-    reproduce every stream), then scores two prompts
+def serve_static_phase(torch, model, phase: str = "serve_static",
+                       n_prompts: int = 8, prompt_len: int = STATIC_PROMPT,
+                       max_len: int = 2048) -> dict:
+    """``LLMEngine(backend="static")`` answers ``n_prompts`` prompts of
+    ``prompt_len`` tokens (greedy and sampled in turn; 8 of 1024 unless
+    the phase says otherwise) with 64 new tokens each, twice (the re-run
+    must reproduce every stream), then scores two prompts
     (``prompt_logprobs``).  The flash kernel must run once per layer per
     prefill or forward call and the dense decode kernel once per layer per
     decode step.  A profiled call of 17 new tokens minus one of 1 gives the
@@ -2516,15 +3000,18 @@ def serve_static_phase(torch, model, phase: str = "serve_static") -> dict:
 
     cfg = model.cfg
     rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, STATIC_PROMPT) for _ in range(8)]
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len)
+               for _ in range(n_prompts)]
     sps = [SamplingParams(max_tokens=STATIC_NEW) if i % 2 == 0 else
            SamplingParams(max_tokens=STATIC_NEW, temperature=0.8, top_p=0.9,
-                          top_k=40, seed=2000 + i) for i in range(8)]
+                          top_k=40, seed=2000 + i) for i in range(n_prompts)]
     torch.cuda.reset_peak_memory_stats()
-    llm = LLMEngine(model, backend="static", device="cuda", max_len=2048)
+    llm = LLMEngine(model, backend="static", device="cuda", max_len=max_len)
     per_token = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.mla
                  else 2 * cfg.n_kv_heads * cfg.hd)
-    cache_gb = cfg.n_layers * 8 * 2048 * per_token * 2 / 1e9
+    # a windowed layer's cache holds min(max_len, window) entries: a ring
+    cache_len = min(max_len, cfg.sliding_window or max_len)
+    cache_gb = cfg.n_layers * n_prompts * cache_len * per_token * 2 / 1e9
 
     def want_launches(calls, steps):
         # MLA attends by plain torch (blocked_attention and the absorbed
@@ -2569,7 +3056,7 @@ def serve_static_phase(torch, model, phase: str = "serve_static") -> dict:
                              f"{launches_scored}, want {want}")
     for o in scored:
         plp = np.asarray(o.prompt_logprobs)
-        if plp.shape != (STATIC_PROMPT - 1,) or not (
+        if plp.shape != (prompt_len - 1,) or not (
                 np.isfinite(plp).all() and (plp <= 0).all()):
             raise AssertionError(f"prompt_logprobs of request {o.rid}: shape "
                                  f"{plp.shape}, finite {np.isfinite(plp).all()}")
@@ -2589,8 +3076,11 @@ def serve_static_phase(torch, model, phase: str = "serve_static") -> dict:
     step_ms = 1e3 * outs[0].metrics["tpot"]
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
     result = {"phase": phase, "requests": len(prompts),
-              "prompt_tokens": STATIC_PROMPT, "new_tokens": 8 * STATIC_NEW,
-              "tokens_per_s": 8 * STATIC_NEW / wall, "wall_s": wall,
+              "prompt_tokens": prompt_len,
+              "new_tokens": n_prompts * STATIC_NEW,
+              "tokens_per_s": n_prompts * STATIC_NEW / wall, "wall_s": wall,
+              "sim_context": prompt_len + STATIC_NEW / 2,
+              "sim_batch": n_prompts,
               "prefill_s": outs[0].metrics["ttft"],
               "decode_step_ms": step_ms,
               "kernel_launches": launches,
@@ -2876,14 +3366,22 @@ def check_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# depth of deepseek-v2-lite-16b's serve phases (widths full): 14 of its 27
+# layers since phi3's and danube's phases joined the script, which keeps
+# the whole run well inside its 1200 s limit
+DEEPSEEK_LAYERS = 14
+
+
 def build_deepseek(torch):
-    """Full-size deepseek-v2-lite-16b (27 layers: 1 mla_dense, 26 mla_moe
-    with 64 routed experts, top 6, and 2 shared; random bf16 weights from
-    a seed, drawn on the card one expert at a time)."""
+    """deepseek-v2-lite-16b at full width and ``DEEPSEEK_LAYERS`` layers (1
+    mla_dense, the rest mla_moe with 64 routed experts, top 6, and 2
+    shared; random bf16 weights from a seed, drawn on the card one expert
+    at a time)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              n_layers=DEEPSEEK_LAYERS)
     t0 = time.monotonic()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
@@ -3233,6 +3731,240 @@ def check_moe(torch) -> dict:
                                          "capacity", 7))}
 
 
+# ---------------------------------------------------------------------------
+# 24-27. phi3-mini-3.8b (full MHA at head dim 96) and h2o-danube-1.8b
+# (GQA at head dim 80, every layer a 4096-token window over ring pages),
+# full size
+# ---------------------------------------------------------------------------
+
+# danube's continuous mix: two prompts past the window, two that cross it
+# while decoding, four short ones (prompt tokens, new tokens)
+DANUBE_MIX = ((6144, 64), (6144, 64), (4000, 256), (4000, 256),
+              (512, 64), (512, 64), (512, 64), (512, 64))
+DANUBE_MAX_LEN = 6400                  # 6144 + 256, a multiple of the page
+DANUBE_STATIC = (2, 6144)              # prompts of the static phase
+DANUBE_QUANTIZED_REQUESTS = 4
+
+
+def build_full(torch, name: str):
+    """A full-size config (every layer; random bf16 weights from a seed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(name)
+    t0 = time.monotonic()
+    model = Model(cfg, device="cuda").init(seed=0)
+    torch.cuda.synchronize()
+    print(f"{name}: {cfg.n_layers} layers, {model.param_count() / 1e9:.2f} B "
+          f"params bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card), random init {time.monotonic() - t0:.1f} s")
+    return model
+
+
+def build_phi3(torch):
+    return build_full(torch, PHI3)
+
+
+def build_danube(torch):
+    return build_full(torch, DANUBE)
+
+
+def danube_requests(sp_cls, vocab: int):
+    rng = np.random.default_rng(5)
+    prompts, sps = [], []
+    for i, (n, new) in enumerate(DANUBE_MIX):
+        prompts.append(rng.integers(0, vocab, n))
+        sps.append(sp_cls(max_tokens=new) if i % 2 == 0 else
+                   sp_cls(max_tokens=new, temperature=0.8, top_p=0.9,
+                          top_k=40, seed=3000 + i))
+    return prompts, sps
+
+
+class RingWatch:
+    """Reads a ring layout's session after every step (``serve_session``'s
+    ``watch``): the ring's invariants hold; the most live ring blocks of
+    any decoding slot, the ring pages in use, and the pages the same
+    requests would hold in one full space (each running request's written
+    positions, page by page), at their peaks; and the pages ``reclaim``
+    returned.  ``check()`` holds them (live blocks within
+    ``ring_blocks_cap``, a page reclaimed, every page back at the end),
+    prints them and returns them with the ring pool's size."""
+
+    def start(self, llm):
+        self.eng = llm._eng
+        self.cache, self.real = self.eng.cache, self.eng.cache.reclaim
+        self.readings = {"most_live_blocks": 0, "most_pages_in_use": 0,
+                         "most_pages_without_ring": 0, "pages_reclaimed": 0}
+
+        def counting(slot, pos_next):
+            n = self.real(slot, pos_next)
+            self.readings["pages_reclaimed"] += n
+            return n
+        self.cache.reclaim = counting
+
+    def step(self):
+        r, space, sched = self.readings, self.cache.ring, self.eng._sched
+        space.check()
+        r["most_live_blocks"] = max([r["most_live_blocks"]] + [
+            space.live_blocks(q.slot) for q in sched.decoding()])
+        r["most_pages_in_use"] = max(r["most_pages_in_use"],
+                                     space.allocator.num_live)
+        r["most_pages_without_ring"] = max(
+            r["most_pages_without_ring"],
+            sum(-(-q.pos // self.eng.page_size)
+                for q in sched.running.values()))
+
+    def stop(self):
+        self.cache.reclaim = self.real
+        self.readings["pages_left_at_end"] = self.cache.ring.allocator.num_live
+
+    def check(self) -> dict:
+        from repro_torch.runtime.state_cache import ring_blocks_cap
+
+        eng, r = self.eng, self.readings
+        cap = ring_blocks_cap(eng.model.cfg.sliding_window, eng.page_size)
+        if (r["most_live_blocks"] > cap or r["pages_left_at_end"]
+                or not r["pages_reclaimed"]):
+            raise AssertionError(f"ring readings {r} (decode cap {cap} "
+                                 f"blocks a slot; want a page reclaimed and "
+                                 f"none left)")
+        # every layer of danube is windowed: all its pools are ring pools
+        page_bytes = sum(leaf.nbytes // leaf.shape[0] for pool in eng._pools
+                         for leaf in pool.values())
+        print(f"  ring: pool {eng.ring_pages} pages, most live blocks of a "
+              f"slot {r['most_live_blocks']} (cap {cap}), pages in use "
+              f"{r['most_pages_in_use']} against "
+              f"{r['most_pages_without_ring']} without a ring, reclaimed "
+              f"{r['pages_reclaimed']}")
+        return {"ring_pool_pages": eng.ring_pages,
+                "ring_pool_gb": eng.ring_pages * page_bytes / 1e9,
+                "ring_blocks_cap": cap, **r}
+
+
+def serve_danube_phase(torch, model, phase: str = "serve_danube",
+                       n_requests: int = len(DANUBE_MIX),
+                       **engine_kw) -> dict:
+    """danube's continuous mix (``DANUBE_MIX``, page 16, chunk 256; the
+    first ``n_requests``, every one added at once) through ``serve_phase``:
+    its layers keep their pages in a ring space (``RingWatch``), the paged
+    decode kernel runs once a layer a decode step (tensor cores, window
+    4096 over the ring table), and no prompt token hits a prefix index.
+    The bf16 phase scores a 6144-token prompt, held against
+    ``Model.forward`` (the windowed flash kernel) at every position."""
+    def requests(sp_cls, vocab):
+        prompts, sps = danube_requests(sp_cls, vocab)
+        return prompts[:n_requests], sps[:n_requests]
+    return serve_phase(torch, model, phase=phase, requests=requests,
+                       max_len=DANUBE_MAX_LEN, late=None,
+                       expect_prefix_hit=False, watch=RingWatch(),
+                       **engine_kw)
+
+
+def phi3_phases() -> dict:
+    """phi3-mini-3.8b's phases, in their order: continuous bf16 (with prompt
+    scoring), static, mxfp4 weights over fp8 pools, speculative (both
+    backends)."""
+    return {"serve_phi3": lambda t, m: serve_phase(t, m, phase="serve_phi3"),
+            "serve_phi3_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_phi3_static"),
+            "serve_phi3_quantized": lambda t, m: serve_phase(
+                t, m, phase="serve_phi3_quantized", weight_format="mxfp4",
+                cache_dtype="fp8"),
+            "serve_phi3_spec": lambda t, m: serve_moe_spec_phase(
+                t, m, phase="serve_phi3_spec")}
+
+
+def danube_phases() -> dict:
+    """h2o-danube-1.8b's phases, in their order: continuous bf16 (with a
+    6144-token scored prompt), static (2 x 6144 prompts: windowed flash
+    prefill, decode over the wrapped 4096-entry ring), mxfp4 weights over
+    fp8 pools (the mix's first 4 requests)."""
+    n, s = DANUBE_STATIC
+    return {"serve_danube": serve_danube_phase,
+            "serve_danube_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_danube_static", n_prompts=n,
+                prompt_len=s, max_len=s + STATIC_NEW),
+            "serve_danube_quantized": lambda t, m: serve_danube_phase(
+                t, m, phase="serve_danube_quantized",
+                n_requests=DANUBE_QUANTIZED_REQUESTS, weight_format="mxfp4",
+                cache_dtype="fp8")}
+
+
+def check_window(torch) -> dict:
+    """phi3's and danube's attention at their head dims, card against CPU
+    in f32, on narrow models (2 layers; phi3: H = KVH = 4, D 96; danube:
+    H 8, KVH 2, D 80, window 64, prompts past it): the continuous engine
+    (greedy and sampled), the static engine, and static against
+    continuous on the card, greedy.  f32 runs the kernels' CUDA-core
+    variants (the flash kernel's FMA one) at D 80 and 96; a greedy stream
+    may part at a near-tie only."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    f32 = torch.float32
+    narrow = {PHI3: dict(n_layers=2, d_model=384, n_heads=4, n_kv_heads=4,
+                         d_ff=768, vocab_size=4000, vocab_pad_multiple=512),
+              DANUBE: dict(n_layers=2, d_model=640, n_heads=8, n_kv_heads=2,
+                           d_ff=1024, vocab_size=4000, vocab_pad_multiple=512,
+                           sliding_window=64)}
+    results = []
+    for name, kw in narrow.items():
+        cfg = dataclasses.replace(get_config(name), name=f"{name}-narrow",
+                                  **kw)
+        cpu = Model(cfg, device="cpu").init(seed=6).float()
+        gpu = Model(cfg, device="cuda").float()
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (90, 150, 33,
+                                                                 120)]
+        sps = [SamplingParams(max_tokens=24),
+               SamplingParams(max_tokens=24, temperature=0.9, top_k=20,
+                              seed=4),
+               SamplingParams(max_tokens=24),
+               SamplingParams(max_tokens=24, temperature=0.7, top_p=0.9,
+                              seed=8)]
+        greedy = [SamplingParams(max_tokens=24)] * len(prompts)
+        cont = dict(backend="continuous", num_slots=4, page_size=16,
+                    max_len=256, prefill_chunk=32, cache_dtype=f32)
+        LAUNCHES.clear()
+        on_gpu = LLMEngine(gpu, device="cuda", **cont).generate(prompts, sps)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        on_cpu = LLMEngine(cpu, device="cpu", **cont).generate(prompts, sps)
+        near = divergences(torch, f"{name} continuous f32", on_gpu, on_cpu,
+                           prompts, sps, cpu, f32, True)
+        results.append({"case": f"{name} continuous f32, card vs CPU",
+                        "identical": not near, "near_ties": near,
+                        "kernel_launches": launches})
+        s_prompts = [rng.integers(0, cfg.vocab_size, 100) for _ in range(3)]
+        static = dict(backend="static", max_len=160, cache_dtype=f32)
+        LAUNCHES.clear()
+        st_gpu = LLMEngine(gpu, device="cuda", **static).generate(
+            s_prompts, sps[:3])
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        st_cpu = LLMEngine(cpu, device="cpu", **static).generate(
+            s_prompts, sps[:3])
+        near = divergences(torch, f"{name} static f32", st_gpu, st_cpu,
+                           s_prompts, sps[:3], cpu, f32, True)
+        results.append({"case": f"{name} static f32, card vs CPU",
+                        "identical": not near, "near_ties": near,
+                        "kernel_launches": launches})
+        st_greedy = LLMEngine(gpu, device="cuda", **static).generate(
+            s_prompts, greedy[:3])
+        cont_greedy = LLMEngine(gpu, device="cuda", **cont).generate(
+            s_prompts, greedy[:3])
+        near = divergences(torch, f"{name} static vs continuous, card",
+                           st_greedy, cont_greedy, s_prompts, greedy[:3], cpu,
+                           f32, True)
+        results.append({"case": f"{name} static vs continuous f32, card, "
+                        "greedy", "identical": not near, "near_ties": near})
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return {"phase": "check_window", "cases": results}
+
+
 SIM_LABEL = "modeled (paper's H100 and RPU models), not measured"
 
 
@@ -3258,20 +3990,22 @@ def sim_phase(torch, served) -> dict:
             static = "decode_step_ms" in r
             step = (r["decode_step_ms"] if static
                     else r["profiled_decode_steps"]["step_ms"])
-            ctx = (STATIC_PROMPT + STATIC_NEW / 2 if static
-                   else float(np.mean(PROMPT_LENS)) + 32)
+            ctx = r.get("sim_context", float(np.mean(PROMPT_LENS)) + 32)
+            batch = r.get("sim_batch", 8)
             wfmt, cache = r.get("weight_format"), r.get("cache_dtype")
         elif name == "serve_spec_draft":              # its plain engine
             busy, step = r["device_busy_ms_per_step"], r["step_ms_measured"]
             ctx, wfmt, cache = DRAFT_PROMPT + DRAFT_NEW / 2, None, None
+            batch = 8
         else:
             continue
         gpu = GPUSystemConfig(n_gpus=1,
                               weight_bits=4.25 if wfmt == "mxfp4" else 16.0,
                               kv_bits=8.0 if cache in ("fp8", "int8") else 16.0)
-        g = gpu_decode_latency(cfg, gpu, batch=8, seq_len=int(round(ctx)))
+        g = gpu_decode_latency(cfg, gpu, batch=batch,
+                               seq_len=int(round(ctx)))
         row = {"phase": name, "model": cfg.name, "layers": cfg.n_layers,
-               "batch": 8, "context": ctx, "weight_bits": gpu.weight_bits,
+               "batch": batch, "context": ctx, "weight_bits": gpu.weight_bits,
                "kv_bits": gpu.kv_bits, "measured_step_ms": step,
                "measured_busy_ms": busy, "modeled_ms": 1e3 * g.total_s,
                "modeled_mem_ms": 1e3 * g.mem_s,
@@ -3294,7 +4028,8 @@ def sim_phase(torch, served) -> dict:
 
 
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
-                 "kernel_dense_decode", "kernel_exact", "quantize")
+                 "kernel_dense_decode", "kernel_exact", "kernel_headdims",
+                 "quantize")
 
 
 def main() -> int:
@@ -3349,11 +4084,12 @@ def main() -> int:
               "kernel_flash": kernel_flash_phase,
               "kernel_dense_decode": kernel_dense_decode_phase,
               "kernel_exact": kernel_exact_phase,
+              "kernel_headdims": kernel_headdims_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
                                       "cases": check_mla(t)},
-              "check_moe": check_moe}
+              "check_moe": check_moe, "check_window": check_window}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
     model_phases = {"serve": (build_llama, serve_phase),
@@ -3363,7 +4099,11 @@ def main() -> int:
                     **{name: (build_scout, fn) for name, fn in
                        moe_phases().items()},
                     **{name: (build_maverick, fn) for name, fn in
-                       maverick_phases().items()}}
+                       maverick_phases().items()},
+                    **{name: (build_phi3, fn) for name, fn in
+                       phi3_phases().items()},
+                    **{name: (build_danube, fn) for name, fn in
+                       danube_phases().items()}}
     served = []             # (phase, config as served, result) for sim
     if args.only is not None:
         names = args.only.split(",")
@@ -3391,6 +4131,7 @@ def main() -> int:
     flash = timed("kernel_flash", kernel_flash_phase)
     dense = timed("kernel_dense_decode", kernel_dense_decode_phase)
     exact = timed("kernel_exact", kernel_exact_phase)
+    headdims = timed("kernel_headdims", kernel_headdims_phase)
     timed("quantize", quantize_phase)
     timed("deployment", deployment_phase)
     model = build_llama(torch)
@@ -3409,6 +4150,7 @@ def main() -> int:
     # one model on the card at a time: each is freed (and the engines'
     # reference cycles collected) before the next is built
     for build, model_phase_fns in (
+            (build_phi3, phi3_phases()), (build_danube, danube_phases()),
             (build_deepseek, mla_phases()), (build_scout, moe_phases()),
             (build_maverick, maverick_phases())):
         del model
@@ -3421,6 +4163,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("check", check_phase)
+    timed("check_window", check_window)
     timed("check_moe", check_moe)
     timed("sim", sim_phase, served)
     kernel["launches"] = serve["kernel_launches"][kernel["name"]]
@@ -3441,6 +4184,24 @@ def main() -> int:
             "kernel_launches"].get(k["name"], 0)
         if not k["launches_llama4_scout"]:
             raise AssertionError(f"{k['name']} never launched in {phase}")
+    # the D 96 and D 80 variants: their launches on phi3's and danube's
+    # paths (each serve phase's first session; counts cleared before it)
+    for entry in headdims["entries"]:
+        name, _, shape = entry["name"].partition(":")
+        model = "phi3" if shape.startswith(("D96", "phi3")) else "danube"
+        phase = {"flash_attention": "serve_{}_static",
+                 "decode_attention": "serve_{}_static",
+                 "paged_decode_attention": "serve_{}",
+                 "paged_decode_attention_scaled": "serve_{}_quantized",
+                 "paged_decode_attention_exact": "serve_{}_spec",
+                 "mxfp4_vmm": "serve_{}_quantized"}[name].format(model)
+        r = moe[phase]
+        entry["launches"] = r.get("continuous", r)["kernel_launches"].get(
+            name, 0)
+        entry["launches_in"] = phase
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']} never launched in {phase}")
+    kernels += headdims["entries"]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

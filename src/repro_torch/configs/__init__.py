@@ -6,7 +6,9 @@ the ``attn_dense`` family (plain GQA, qk-norm, qkv bias): llama3-8b,
 attention, MoE with shared experts, a first dense layer); and the
 ``attn_moe`` family (GQA attention, top-1 MoE with one shared expert):
 llama4-scout-109b-a17b (MoE every layer; the paper's simulator baseline)
-and llama4-maverick-400b-a17b (dense and MoE layers alternating).  ``get_config``
+and llama4-maverick-400b-a17b (dense and MoE layers alternating);
+phi3-mini-3.8b (full MHA at head dim 96) and h2o-danube-1.8b (GQA at
+head dim 80, every layer a 4096-token sliding window).  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -27,6 +29,8 @@ _ARCH_MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "llama4-scout-109b-a17b": "llama4_scout",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
 }
 
 

@@ -23,7 +23,8 @@
 // KVH 8, D 128, cur_len 1088 of 2048: 6.8x its bound and 2.5x slower than
 // SDPA (NVIDIA H100 80GB HBM3, 700 W).
 //
-// bf16 q over a bf16 cache at D 64 / 128 (dense_decode_tc, the serve path) now:
+// bf16 q over a bf16 cache at D 64, 80, 96 or 128 (dense_decode_tc, the serve
+// path) now:
 //   * one CTA per (split, kv head, row) of 4 warps walks the split's share
 //     of the row's valid 64-token tiles.  Warp w owns tokens 16w..16w+15 of
 //     each tile: it copies them itself with cp.async (tokens at or past
@@ -59,9 +60,18 @@
 // dim before the launch (kernel.py: variant()), so card-vs-CPU stream
 // checks are undisturbed.  So does D 256: its 211 KB ring would fit one
 // CTA an SM, a layout not yet measured on the card.  Partial kernel: one CTA per (kv head g, row b, split s), D
-// threads, 32-token tiles; warps take tokens, the rep dot products reduce
-// across the warp by shuffles; one warp per query row folds the tile's
-// scores into (m, l); thread d accumulates acc[r][d] += p[r][t] * V[t][d].
+// threads rounded up to whole warps (D 80: 96), 32-token tiles; warps take
+// tokens, the rep dot products reduce across the warp by shuffles; one warp
+// per query row folds the tile's scores into (m, l); thread d < D
+// accumulates acc[r][d] += p[r][t] * V[t][d].
+//
+// D 80 and 96 (h2o-danube's ring cache, phi3-mini): the tensor-core kernel
+// takes them as they are -- 5 or 6 k-steps of the score product, 10 or 12
+// n8 tiles of P.V (pairs of them a ldmatrix.x4), shared rows of 2D + 16 =
+// 176 or 208 bytes, whose 8-row ldmatrix reads fall on distinct banks (a
+// row is 44 or 52 words: 12 or 20 banks on each).  A windowed layer's ring
+// cache of w = window entries needs no change here: once it has wrapped it
+// holds exactly the window, and the caller passes cur_len = min(pos + 1, w).
 // The combine kernel rescales the splits to a common max, sums, divides by
 // max(l, 1e-30) and writes in q's dtype.
 
@@ -92,11 +102,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // N contiguous elements loaded as one (or, above 16 bytes, several) wide
-// shared-memory access
+// shared-memory access; aligned to the largest power of two that divides
+// their bytes (12 bytes of three floats: 4)
+__host__ __device__ constexpr size_t vec_align(size_t n) { return n >= 16 ? 16 : (n & (~n + 1)); }
 template <typename T, int N>
-struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
+struct alignas(vec_align(sizeof(T) * N)) Vec {
   T v[N];
 };
+
+// threads of a CUDA-core CTA for head dim D: whole warps (D 80: 96, the
+// last 16 idle in the P.V loop)
+__host__ __device__ constexpr int cc_threads(int D) { return (D + 31) / 32 * 32; }
+
+// this lane's kLane elements of a row of D (lane * kLane onwards; zero
+// past D), f32
+template <typename T, int D, int kLane>
+__device__ __forceinline__ void lane_row(const T* row, int lane, float (&out)[kLane]) {
+  if constexpr (D % 32 == 0) {
+    const Vec<T, kLane> x = *reinterpret_cast<const Vec<T, kLane>*>(row + lane * kLane);
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) out[i] = to_float(x.v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) {
+      const int e = lane * kLane + i;
+      out[i] = e < D ? to_float(row[e]) : 0.f;
+    }
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -136,7 +169,7 @@ __host__ __device__ inline size_t smem_bytes(int rep, int D) {
 }
 
 template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(cc_threads(D))
 dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
                      const KT* __restrict__ k_cache,    // (B, S, KVH, D)
                      const KT* __restrict__ v_cache,    // (B, S, KVH, D)
@@ -144,8 +177,9 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
                      float* __restrict__ ws_acc,        // (B, H, n_split, D)
                      float* __restrict__ ws_ml,         // (B, H, n_split, 2)
                      int S, int kvh, int rep, int n_split, float scale) {
-  constexpr int kWarps = D / 32;
-  constexpr int kLane = D / 32;                 // K-row elements per lane
+  constexpr int kThreads = cc_threads(D);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kLane = kThreads / 32;          // K-row elements per lane
   constexpr int kChunk = 16 / sizeof(KT);       // elements per 16-byte copy
   constexpr int kChunksPerRow = D / kChunk;
 
@@ -181,7 +215,7 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
   auto issue = [&](int j, int buf) {
     KT* ks = kv_s + (size_t)buf * 2 * kTileElems;
     KT* vs = ks + kTileElems;
-    for (int c = tid; c < kTile * kChunksPerRow; c += D) {
+    for (int c = tid; c < kTile * kChunksPerRow; c += kThreads) {
       const int t = c / kChunksPerRow;
       const int e = (c % kChunksPerRow) * kChunk;
       const int tok = j * kTile + t;
@@ -199,7 +233,7 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
 
   // query rows g*rep .. g*rep+rep-1 of row b are contiguous
   const QT* qg = q + ((size_t)b * h + (size_t)g * rep) * D;
-  for (int i = tid; i < rep * D; i += D) q_s[i] = to_float(qg[i]);
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(qg[i]);
   if (tid < rep) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -222,20 +256,17 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
 
     // scores s[r][t] = q_r . k_t * scale (NEG_INF past cur_len)
     for (int t = warp; t < kTile; t += kWarps) {
-      const Vec<KT, kLane> kv =
-          *reinterpret_cast<const Vec<KT, kLane>*>(k_s + t * D + lane * kLane);
       float kf[kLane];
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) kf[i] = to_float(kv.v[i]);
+      lane_row<KT, D, kLane>(k_s + t * D, lane, kf);
       const bool ok = j * kTile + t < len;
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) {
         if (r < rep) {
-          const Vec<float, kLane> qr =
-              *reinterpret_cast<const Vec<float, kLane>*>(q_s + r * D + lane * kLane);
+          float qr[kLane];
+          lane_row<float, D, kLane>(q_s + r * D, lane, qr);
           float part = 0.f;
 #pragma unroll
-          for (int i = 0; i < kLane; ++i) part += qr.v[i] * kf[i];
+          for (int i = 0; i < kLane; ++i) part += qr[i] * kf[i];
           part = warp_sum(part);
           if (lane == 0) s_s[r * kTile + t] = ok ? part * scale : kNegInf;
         }
@@ -266,11 +297,13 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r)
       if (r < rep) acc[r] *= c_s[r];
-    for (int t = 0; t < kTile; ++t) {
-      const float vv = to_float(v_s[t * D + tid]);
+    if (tid < D) {
+      for (int t = 0; t < kTile; ++t) {
+        const float vv = to_float(v_s[t * D + tid]);
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r)
-        if (r < rep) acc[r] += s_s[r * kTile + t] * vv;
+        for (int r = 0; r < kMaxRep; ++r)
+          if (r < rep) acc[r] += s_s[r * kTile + t] * vv;
+      }
     }
     __syncthreads();   // buf is refilled by the next iteration's prefetch
   }
@@ -282,7 +315,7 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
   for (int r = 0; r < kMaxRep; ++r) {
     if (r < rep) {
       const size_t row = ((size_t)b * h + (size_t)g * rep + r) * n_split + split;
-      ws_acc[row * D + tid] = acc[r];
+      if (tid < D) ws_acc[row * D + tid] = acc[r];
       if (tid == 0) {
         ws_ml[row * 2] = m_s[r];
         ws_ml[row * 2 + 1] = l_s[r];
@@ -329,7 +362,7 @@ cudaError_t launch(const Args& a) {
         partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  partial<<<dim3(a.kvh, a.B, a.n_split), D, smem, a.stream>>>(
+  partial<<<dim3(a.kvh, a.B, a.n_split), cc_threads(D), smem, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
       static_cast<const KT*>(a.v), a.cur_len, a.ws_acc, a.ws_ml, a.S, a.kvh,
       a.rep, a.n_split, a.scale);
@@ -344,6 +377,8 @@ template <typename QT, typename KT>
 cudaError_t dispatch_dim(int D, const Args& a) {
   switch (D) {
     case 64: return launch<QT, KT, 64>(a);
+    case 80: return launch<QT, KT, 80>(a);
+    case 96: return launch<QT, KT, 96>(a);
     case 128: return launch<QT, KT, 128>(a);
     case 256: return launch<QT, KT, 256>(a);
     default: return cudaErrorInvalidValue;
@@ -678,8 +713,8 @@ extern "C" {
 // and ws_ml: B H n_split 2 f32 scratch.  variant (chosen by the host):
 //   0  CUDA cores, dtype codes 0 = float32, 1 = bfloat16 for q and the cache
 //      (two launches: partial and combine);
-//   1  tensor cores, bf16 q over a bf16 cache, D 64/128 (one launch); counters: B KVH
-//      int32, zero before the call and zero again after it.
+//   1  tensor cores, bf16 q over a bf16 cache, D 64/80/96/128 (one launch); counters:
+//      B KVH int32, zero before the call and zero again after it.
 // Returns a cudaError_t (0 = ok).
 int dense_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                            const void* cur_len, void* out, void* ws_acc, void* ws_ml,
@@ -698,6 +733,8 @@ int dense_decode_attention(const void* q, const void* k_cache, const void* v_cac
     int* cnt = static_cast<int*>(counters);
     switch (D) {
       case 64: return (int)launch_tc<64>(a, cnt);
+      case 80: return (int)launch_tc<80>(a, cnt);
+      case 96: return (int)launch_tc<96>(a, cnt);
       case 128: return (int)launch_tc<128>(a, cnt);
       default: return (int)cudaErrorInvalidValue;
     }

@@ -21,8 +21,8 @@
 // 4096: 3.9x / 5.7x a plain read of the same bytes, and 2.8x / 4.9x SDPA
 // with enable_gqa (NVIDIA H100 80GB HBM3, 700 W).
 //
-// bf16 q over bf16, fp8 or int8 pools at D 64 / 128 with a page of 16 or a
-// multiple of 16 (paged_decode_tc, the serve path) now -- the dense
+// bf16 q over bf16, fp8 or int8 pools at D 64, 80, 96 or 128 with a page of
+// 16 or a multiple of 16 (paged_decode_tc, the serve path) now -- the dense
 // decode's tensor-core design (dense_decode.cu) over a page walk:
 //   * one CTA per (split, kv head, slot) of 4 warps walks the split's share
 //     of the slot's live 64-token tiles, [max(0, pos - window + 1), pos].
@@ -45,7 +45,14 @@
 //     same order).  The per-token K scale multiplies the score after the
 //     product and the V scale folds into P before the hi/lo split -- the
 //     plain version dequantizes first (float(code) * scale), so the two
-//     differ in rounding only;
+//     differ in rounding only.  D 80 and 96 (h2o-danube, phi3-mini) keep
+//     that design with the head dims in groups of 64 and a tail of 16 or 32:
+//     a thread's K codes are one 16-byte load per full group and a 4- or
+//     8-byte load for the tail (1 or 2 k-steps), its V codes 8 bytes for
+//     the first 64 dims and 2 or 4 for the tail, in 192-byte K and D + 16
+//     byte V rows (no padding of the pools; the tail loads hit two banks
+//     twice); bf16 pools take them as they are (5 or 6 k-steps, 10 or 12
+//     n8 tiles, 2D + 16 byte rows, conflict-free);
 //   * the split count is what one wave holds (two CTAs an SM), at most one
 //     split per 64-token tile of the table; a split takes an even share of
 //     its slot's live tiles, and a split with none exits at once;
@@ -105,11 +112,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // N contiguous elements loaded as one (or, above 16 bytes, several) wide
-// shared-memory access
+// shared-memory access; aligned to the largest power of two that divides
+// their bytes (12 bytes of three floats: 4)
+__host__ __device__ constexpr size_t vec_align(size_t n) { return n >= 16 ? 16 : (n & (~n + 1)); }
 template <typename T, int N>
-struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
+struct alignas(vec_align(sizeof(T) * N)) Vec {
   T v[N];
 };
+
+// threads of a CUDA-core CTA for head dim D: whole warps (D 80: 96, the
+// last 16 idle in the P.V loop)
+__host__ __device__ constexpr int cc_threads(int D) { return (D + 31) / 32 * 32; }
+
+// this lane's kLane elements of a row of D (lane * kLane onwards; zero
+// past D), f32
+template <typename T, int D, int kLane>
+__device__ __forceinline__ void lane_row(const T* row, int lane, float (&out)[kLane]) {
+  if constexpr (D % 32 == 0) {
+    const Vec<T, kLane> x = *reinterpret_cast<const Vec<T, kLane>*>(row + lane * kLane);
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) out[i] = to_float(x.v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) {
+      const int e = lane * kLane + i;
+      out[i] = e < D ? to_float(row[e]) : 0.f;
+    }
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -155,7 +185,7 @@ __host__ __device__ inline size_t smem_bytes(int rep, int D, int page) {
 }
 
 template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(cc_threads(D))
 paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
                      const KT* __restrict__ k_pages,     // (P, page, KVH, D)
                      const KT* __restrict__ v_pages,     // (P, page, KVH, D)
@@ -167,8 +197,9 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
                      float* __restrict__ ws_ml,          // (B, H, n_split, 2)
                      int kvh, int rep, int page, int n_blocks, int n_split,
                      int window, float scale) {
-  constexpr int kWarps = D / 32;
-  constexpr int kLane = D / 32;                 // K-row elements per lane
+  constexpr int kThreads = cc_threads(D);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kLane = kThreads / 32;          // K-row elements per lane
   constexpr int kChunk = 16 / sizeof(KT);       // elements per 16-byte copy
   constexpr int kChunksPerRow = D / kChunk;
 
@@ -211,7 +242,7 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
     const KT* vg = v_pages + ((size_t)phys * page * kvh + g) * D;
     KT* ks = kv_s + (size_t)buf * 2 * page_elems;
     KT* vs = ks + page_elems;
-    for (int c = tid; c < page * kChunksPerRow; c += D) {
+    for (int c = tid; c < page * kChunksPerRow; c += kThreads) {
       const int t = c / kChunksPerRow;
       const int e = (c % kChunksPerRow) * kChunk;
       cp_async16(ks + t * D + e, kg + t * tok_stride + e);
@@ -220,7 +251,7 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
     if constexpr (kQuantized<KT>) {
       float* kss = sc_s + (size_t)buf * 2 * page;
       const size_t s0 = (size_t)phys * page * kvh + g;
-      for (int t = tid; t < page; t += D) {
+      for (int t = tid; t < page; t += kThreads) {
         cp_async4(kss + t, k_scales + s0 + (size_t)t * kvh);
         cp_async4(kss + page + t, v_scales + s0 + (size_t)t * kvh);
       }
@@ -235,7 +266,7 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
 
   // query rows g*rep .. g*rep+rep-1 of slot b are contiguous
   const QT* qg = q + ((size_t)b * h + (size_t)g * rep) * D;
-  for (int i = tid; i < rep * D; i += D) q_s[i] = to_float(qg[i]);
+  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = to_float(qg[i]);
   if (tid < rep) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -261,11 +292,8 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
 
     // 2. scores s[r][t] = q_r . k_t * scale (masked to NEG_INF)
     for (int t = warp; t < page; t += kWarps) {
-      const Vec<KT, kLane> kv =
-          *reinterpret_cast<const Vec<KT, kLane>*>(k_s + t * D + lane * kLane);
       float kf[kLane];
-#pragma unroll
-      for (int i = 0; i < kLane; ++i) kf[i] = to_float(kv.v[i]);
+      lane_row<KT, D, kLane>(k_s + t * D, lane, kf);
       if constexpr (kQuantized<KT>) {
         const float sk = ksc[t];
 #pragma unroll
@@ -276,11 +304,11 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r) {
         if (r < rep) {
-          const Vec<float, kLane> qr =
-              *reinterpret_cast<const Vec<float, kLane>*>(q_s + r * D + lane * kLane);
+          float qr[kLane];
+          lane_row<float, D, kLane>(q_s + r * D, lane, qr);
           float part = 0.f;
 #pragma unroll
-          for (int i = 0; i < kLane; ++i) part += qr.v[i] * kf[i];
+          for (int i = 0; i < kLane; ++i) part += qr[i] * kf[i];
           part = warp_sum(part);
           if (lane == 0) s_s[r * page + t] = ok ? part * scale : kNegInf;
         }
@@ -316,12 +344,14 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r)
       if (r < rep) acc[r] *= c_s[r];
-    for (int t = 0; t < page; ++t) {
-      float vv = to_float(v_s[t * D + tid]);
-      if constexpr (kQuantized<KT>) vv *= vsc[t];
+    if (tid < D) {
+      for (int t = 0; t < page; ++t) {
+        float vv = to_float(v_s[t * D + tid]);
+        if constexpr (kQuantized<KT>) vv *= vsc[t];
 #pragma unroll
-      for (int r = 0; r < kMaxRep; ++r)
-        if (r < rep) acc[r] += s_s[r * page + t] * vv;
+        for (int r = 0; r < kMaxRep; ++r)
+          if (r < rep) acc[r] += s_s[r * page + t] * vv;
+      }
     }
     __syncthreads();   // buf is refilled by the next iteration's prefetch
   }
@@ -333,7 +363,7 @@ paged_decode_partial(const QT* __restrict__ q,           // (B, H, D)
   for (int r = 0; r < kMaxRep; ++r) {
     if (r < rep) {
       const size_t row = ((size_t)b * h + (size_t)g * rep + r) * n_split + split;
-      ws_acc[row * D + tid] = acc[r];
+      if (tid < D) ws_acc[row * D + tid] = acc[r];
       if (tid == 0) {
         ws_ml[row * 2] = m_s[r];
         ws_ml[row * 2 + 1] = l_s[r];
@@ -381,7 +411,7 @@ cudaError_t launch(const Args& a) {
         partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  partial<<<dim3(a.kvh, a.B, a.n_split), D, smem, a.stream>>>(
+  partial<<<dim3(a.kvh, a.B, a.n_split), cc_threads(D), smem, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
       static_cast<const KT*>(a.v), a.ks, a.vs, a.table, a.pos, a.ws_acc, a.ws_ml,
       a.kvh, a.rep, a.page, a.n_blocks, a.n_split, a.window, a.scale);
@@ -396,6 +426,8 @@ template <typename QT, typename KT>
 cudaError_t dispatch_dim(int D, const Args& a) {
   switch (D) {
     case 64: return launch<QT, KT, 64>(a);
+    case 80: return launch<QT, KT, 80>(a);
+    case 96: return launch<QT, KT, 96>(a);
     case 128: return launch<QT, KT, 128>(a);
     case 256: return launch<QT, KT, 256>(a);
     default: return cudaErrorInvalidValue;
@@ -431,8 +463,8 @@ struct Cfg {
   static constexpr int kQRow = 2 * D + 16;                // padded bf16 q row, bytes
   // a warp's K and V rows, bytes: bf16 rows padded for ldmatrix; code rows
   // padded so that the direct 16-byte (K) and D/8-byte (V) loads of a warp
-  // fall on distinct banks
-  static constexpr int kKRow = kCodes ? (D == 128 ? 192 : 64) : 2 * D + 16;
+  // fall on distinct banks (D 80 / 96: their tail loads collide two ways)
+  static constexpr int kKRow = kCodes ? (D == 64 ? 64 : 192) : 2 * D + 16;
   static constexpr int kVRow = kCodes ? D + 16 : 2 * D + 16;
   static constexpr int kKSlice = 16 * kKRow;
   static constexpr int kVSlice = 16 * kVRow;
@@ -507,33 +539,60 @@ template <> __device__ __forceinline__ uint32_t codes_bf16x2<__nv_fp8_e4m3>(uint
   const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
   return pack_exact(f.x, f.y);
 }
-// N 32-bit words from shared memory in one 8- or 16-byte load
+// N 32-bit words from shared memory in one 4-, 8- or 16-byte load
 template <int N>
 struct Words {
   uint32_t w[N];
   __device__ __forceinline__ void load(const unsigned char* p) {
-    static_assert(N == 2 || N == 4, "8 or 16 bytes");
+    static_assert(N == 1 || N == 2 || N == 4, "4, 8 or 16 bytes");
     if constexpr (N == 4) {
       const uint4 x = *reinterpret_cast<const uint4*>(p);
       w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
-    } else {
+    } else if constexpr (N == 2) {
       const uint2 x = *reinterpret_cast<const uint2*>(p);
       w[0] = x.x, w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
     }
   }
 };
+// N (2 or 4) bytes from shared memory, as the low bytes of a word
+template <int N>
+__device__ __forceinline__ uint32_t load_bytes(const unsigned char* p) {
+  static_assert(N == 2 || N == 4, "2 or 4 bytes");
+  if constexpr (N == 4) return *reinterpret_cast<const uint32_t*>(p);
+  else return *reinterpret_cast<const uint16_t*>(p);
+}
 
 // byte k of a and byte k of b, as the low 16 bits
 __device__ __forceinline__ uint32_t byte_pair(uint32_t a, uint32_t b, int k) {
   return __byte_perm(a, b, k | ((4 + k) << 4));
 }
 
-// Code pools: the physical head-dim index of logical column L of the score
-// product.  A thread's 16-byte K load at byte 64h + 16quad serves k-steps
-// 4h .. 4h+3 (4 codes each), so q is stored in shared memory in this order.
+// Code pools: the head dims fall into groups of 64 and, at D 80 / 96, a
+// tail of 16 / 32; group h holds group_steps(h) k-steps of 16.
+template <int D>
+__device__ __forceinline__ constexpr int group_steps(int h) {
+  if constexpr (D % 64 == 0) return 4;
+  else return D - 64 * h >= 64 ? 4 : (D - 64 * h) / 16;
+}
+// The physical head-dim index of logical column L of the score product.  A
+// thread's load of 4T bytes at byte 64h + 4T quad (T = group_steps(h): 16
+// bytes in a full group) serves the group's k-steps 4h .. 4h+T-1 (4 codes
+// each), so q is stored in shared memory in this order.
+template <int D>
 __device__ __forceinline__ int code_dim(int L) {
-  const int kk = L >> 4, half = (L >> 3) & 1, qd = (L >> 1) & 3;
-  return 64 * (kk >> 2) + 16 * qd + 4 * (kk & 3) + 2 * half + (L & 1);
+  const int h = L >> 6, kk = (L >> 4) & 3, half = (L >> 3) & 1, qd = (L >> 1) & 3;
+  return 64 * h + 4 * group_steps<D>(h) * qd + 4 * kk + 2 * half + (L & 1);
+}
+// Code pools: output column n of P.V's n8 block dt is head dim v_dim(dt, n):
+// thread gq's codes of a token are D/8 contiguous bytes at byte (D/8) gq (D
+// 64 / 128); at D 80 / 96, 8 bytes at 8 gq for blocks 0-7 and the tail's
+// (D - 64)/8 bytes at 64 + (D - 64)/8 gq for the rest
+template <int D>
+__device__ __forceinline__ int v_dim(int dt, int n) {
+  if constexpr (D % 64 == 0) return (D / 8) * n + dt;
+  else return dt < 8 ? 8 * n + dt : 64 + ((D - 64) / 8) * n + (dt - 8);
 }
 
 // One CTA per (split, kv head g, slot b): 4 warps walk the split's share of
@@ -638,9 +697,10 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q,  // (B, H, D)
     if (r < rep) {
       if constexpr (!kCodes) {
         val = *reinterpret_cast<const uint4*>(qg + r * D + col);
-      } else {
-        const uint32_t* pr = reinterpret_cast<const uint32_t*>(qg + r * D + code_dim(col));
-        val = make_uint4(pr[0], pr[8], pr[16], pr[24]);   // head dims +0, +16, +32, +48
+      } else {   // head dims +0, +4T, +8T, +12T (T = 4 in a full group)
+        const int T = group_steps<D>(col >> 6);
+        const uint32_t* pr = reinterpret_cast<const uint32_t*>(qg + r * D + code_dim<D>(col));
+        val = make_uint4(pr[0], pr[2 * T], pr[4 * T], pr[6 * T]);
       }
     }
     *reinterpret_cast<uint4*>(smem + r * C::kQRow + 2 * col) = val;
@@ -700,6 +760,19 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q,  // (B, H, D)
             ldmatrix_x4(a, qa_addr + (4 * h + s) * 32);
             mma_bf16(sc[0], a, codes_bf16x2<KT>(x0[s]), codes_bf16x2<KT>(x0[s] >> 16));
             mma_bf16(sc[1], a, codes_bf16x2<KT>(x1[s]), codes_bf16x2<KT>(x1[s] >> 16));
+          }
+        }
+        if constexpr (D % 64 != 0) {   // the tail group of D 80 / 96
+          constexpr int h = D / 64, T = group_steps<D>(D / 64);
+          Words<T> x0, x1;
+          x0.load(ks_p + gq * C::kKRow + 64 * h + 4 * T * quad);
+          x1.load(ks_p + (8 + gq) * C::kKRow + 64 * h + 4 * T * quad);
+#pragma unroll
+          for (int s = 0; s < T; ++s) {
+            uint32_t a[4];
+            ldmatrix_x4(a, qa_addr + (4 * h + s) * 32);
+            mma_bf16(sc[0], a, codes_bf16x2<KT>(x0.w[s]), codes_bf16x2<KT>(x0.w[s] >> 16));
+            mma_bf16(sc[1], a, codes_bf16x2<KT>(x1.w[s]), codes_bf16x2<KT>(x1.w[s] >> 16));
           }
         }
       }
@@ -782,19 +855,37 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q,  // (B, H, D)
       } else {
         // V's B fragments straight from the codes: tokens 2quad, 2quad + 1
         // (b0) and 2quad + 8, 2quad + 9 (b1); output column n of block dt is
-        // head dim (D / 8) n + dt, so thread gq's codes are the D/8 bytes of
-        // each of its 4 tokens at byte (D / 8) gq
-        const unsigned char* vrow = vs_p + (D / 8) * gq;
-        Words<D / 32> va, vb2, vc, vd;
+        // head dim v_dim(dt, n), so thread gq's codes of each of its 4 tokens
+        // are one load (D 64 / 128), or two (D 80 / 96: blocks 0-7, the tail)
+        constexpr int kMain = D % 64 == 0 ? D / 8 : 8;     // bytes of the first load
+        constexpr int kTail = D % 64 == 0 ? 0 : (D - 64) / 8;
+        const unsigned char* vrow = vs_p + kMain * gq;
+        Words<kMain / 4> va, vb2, vc, vd;
         va.load(vrow + (2 * quad) * C::kVRow);
         vb2.load(vrow + (2 * quad + 1) * C::kVRow);
         vc.load(vrow + (2 * quad + 8) * C::kVRow);
         vd.load(vrow + (2 * quad + 9) * C::kVRow);
+        uint32_t ta = 0, tb = 0, tc_ = 0, td = 0;
+        if constexpr (kTail > 0) {
+          const unsigned char* trow = vs_p + 64 + kTail * gq;
+          ta = load_bytes<kTail>(trow + (2 * quad) * C::kVRow);
+          tb = load_bytes<kTail>(trow + (2 * quad + 1) * C::kVRow);
+          tc_ = load_bytes<kTail>(trow + (2 * quad + 8) * C::kVRow);
+          td = load_bytes<kTail>(trow + (2 * quad + 9) * C::kVRow);
+        }
 #pragma unroll
         for (int dt = 0; dt < D / 8; ++dt) {
-          const int w = dt >> 2, k = dt & 3;
-          const uint32_t b0 = codes_bf16x2<KT>(byte_pair(va.w[w], vb2.w[w], k));
-          const uint32_t b1 = codes_bf16x2<KT>(byte_pair(vc.w[w], vd.w[w], k));
+          uint32_t p0, p1;
+          if (dt < kMain) {
+            const int w = (dt < kMain ? dt : kMain - 1) >> 2, k = dt & 3;
+            p0 = byte_pair(va.w[w], vb2.w[w], k);
+            p1 = byte_pair(vc.w[w], vd.w[w], k);
+          } else {
+            p0 = byte_pair(ta, tb, dt - kMain);
+            p1 = byte_pair(tc_, td, dt - kMain);
+          }
+          const uint32_t b0 = codes_bf16x2<KT>(p0);
+          const uint32_t b1 = codes_bf16x2<KT>(p1);
           mma_bf16(o[dt], ph, b0, b1);
           mma_bf16(o[dt], pl, b0, b1);
         }
@@ -824,8 +915,8 @@ paged_decode_tc(const __nv_bfloat16* __restrict__ q,  // (B, H, D)
         *reinterpret_cast<float2*>(row + dt * 8 + 2 * quad) =
             make_float2(o[dt][2 * hh], o[dt][2 * hh + 1]);
       } else {
-        row[(D / 8) * (2 * quad) + dt] = o[dt][2 * hh];
-        row[(D / 8) * (2 * quad + 1) + dt] = o[dt][2 * hh + 1];
+        row[v_dim<D>(dt, 2 * quad)] = o[dt][2 * hh];
+        row[v_dim<D>(dt, 2 * quad + 1)] = o[dt][2 * hh + 1];
       }
     }
   __syncthreads();
@@ -902,6 +993,8 @@ template <typename KT>
 cudaError_t dispatch_tc(int D, const Args& a, int* counters) {
   switch (D) {
     case 64: return launch_tc<KT, 64>(a, counters);
+    case 80: return launch_tc<KT, 80>(a, counters);
+    case 96: return launch_tc<KT, 96>(a, counters);
     case 128: return launch_tc<KT, 128>(a, counters);
     default: return cudaErrorInvalidValue;
   }
@@ -915,9 +1008,9 @@ extern "C" {
 // only; q is 0 or 1).  Code pools (2, 3) need k_scales/v_scales (P, page,
 // KVH) f32; dense pools take null there.  ws_acc: (B, H, n_split, D) f32
 // and ws_ml: (B, H, n_split, 2) f32 scratch.  variant (chosen by the host):
-//   0  CUDA cores, any of the dtypes, D 64/128/256 (two launches: partial
-//      and combine);
-//   1  tensor cores, bf16 q over bf16/fp8/int8 pools, D 64/128, page a
+//   0  CUDA cores, any of the dtypes, D 64/80/96/128/256 (two launches:
+//      partial and combine);
+//   1  tensor cores, bf16 q over bf16/fp8/int8 pools, D 64/80/96/128, page a
 //      multiple of 16 (one launch); counters: B KVH int32, zero before the
 //      call and zero again after it.
 // Returns a cudaError_t (0 = ok).

@@ -31,9 +31,10 @@
 // below the card's ~295 flop/byte ridge for C * rep <= 64, so device memory
 // bytes bound it.
 //
-// bf16 q over bf16, fp8 or int8 pools at D 64 / 128 with a page of 16 or a
-// multiple of 16 (exact_tc, the verify step) -- one launch, the online paged
-// kernel's design (paged_decode.cu) with every choice tied to absolute
+// bf16 q over bf16, fp8 or int8 pools at D 64, 80, 96 or 128 with a page of
+// 16 or a multiple of 16 (exact_tc, the verify step) -- one launch, the
+// online paged kernel's design (paged_decode.cu, D 80 / 96 as there: head
+// dims in groups of 64 and a tail) with every choice tied to absolute
 // position:
 //   * one CTA of 4 warps per (absolute 256-position split, kv head, slot)
 //     that the slot's range meets; warp w owns positions 16w..16w+15 of
@@ -59,7 +60,9 @@
 //     (the card check holds it: query j of C = 5 equals C = 1, bit for bit);
 //   * at C * rep > 32 two CTAs share a split, each with half of the output
 //     columns (each reads all of K and its half of V), so that a warp's
-//     accumulators fit in registers.
+//     accumulators fit in registers (D 64 / 128; at D 80 / 96, whose halves
+//     are no whole pairs of n8 tiles, C * rep is at most 32: phi3-mini's
+//     verify step is C 5 x rep 1).
 // There is no score workspace and no softmax kernel: a split writes and
 // reads ~10 KB of partials (C * rep 20, D 128) against 128 KB of K/V.  The
 // first version (four kernels: scores into an f32 (B, KVH, C * rep, S)
@@ -132,10 +135,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
+// aligned to the largest power of two that divides their bytes (12 bytes
+// of three floats: 4)
+__host__ __device__ constexpr size_t vec_align(size_t n) { return n >= 16 ? 16 : (n & (~n + 1)); }
 template <typename T, int N>
-struct alignas(sizeof(T) * N > 16 ? 16 : sizeof(T) * N) Vec {
+struct alignas(vec_align(sizeof(T) * N)) Vec {
   T v[N];
 };
+
+// threads of a CUDA-core CTA for head dim D: whole warps (D 80: 96, the
+// last 16 idle where a thread owns a column)
+__host__ __device__ constexpr int cc_threads(int D) { return (D + 31) / 32 * 32; }
+
+// this lane's kLane elements of a row of D (lane * kLane onwards; zero
+// past D), f32
+template <typename T, int D, int kLane>
+__device__ __forceinline__ void lane_row(const T* row, int lane, float (&out)[kLane]) {
+  if constexpr (D % 32 == 0) {
+    const Vec<T, kLane> x = *reinterpret_cast<const Vec<T, kLane>*>(row + lane * kLane);
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) out[i] = to_float(x.v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLane; ++i) {
+      const int e = lane * kLane + i;
+      out[i] = e < D ? to_float(row[e]) : 0.f;
+    }
+  }
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -187,14 +214,15 @@ __device__ __forceinline__ void issue_page(const KT* pages, const float* scales,
   const int tid = threadIdx.x;
   const size_t tok_stride = (size_t)kvh * D;
   const KT* src = pages + ((size_t)phys * page * kvh + g) * D;
-  for (int c = tid; c < page * kChunksPerRow; c += D) {
+  for (int c = tid; c < page * kChunksPerRow; c += cc_threads(D)) {
     const int t = c / kChunksPerRow;
     const int e = (c % kChunksPerRow) * kChunk;
     cp_async16(dst + t * D + e, src + t * tok_stride + e);
   }
   if constexpr (kQuantized<KT>) {
     const size_t s0 = (size_t)phys * page * kvh + g;
-    for (int t = tid; t < page; t += D) cp_async4(sc_dst + t, scales + s0 + (size_t)t * kvh);
+    for (int t = tid; t < page; t += cc_threads(D))
+      cp_async4(sc_dst + t, scales + s0 + (size_t)t * kvh);
   }
   cp_async_commit();
 }
@@ -211,7 +239,7 @@ __host__ __device__ inline size_t page_stage_bytes(int D, int page) {
 // ---------------------------------------------------------------------------
 // shared: q_s[R][D] f32 | kv_s[2][page][D] KT | sc_s[2][page] f32
 template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(cc_threads(D))
 exact_scores(const QT* __restrict__ q,              // (B, C, H, D)
              const KT* __restrict__ k_pages,        // (P, page, KVH, D)
              const float* __restrict__ k_scales,    // (P, page, KVH) or null
@@ -219,8 +247,9 @@ exact_scores(const QT* __restrict__ q,              // (B, C, H, D)
              const int* __restrict__ start_arr,     // (B,)
              float* __restrict__ ws_s,              // (B, KVH, R, S)
              int C, int kvh, int rep, int page, int n_blocks, int window, float scale) {
-  constexpr int kWarps = D / 32;
-  constexpr int kLane = D / 32;
+  constexpr int kThreads = cc_threads(D);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kLane = kThreads / 32;
   const int chunk = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int st = start_arr[b];
   int j0, j1;
@@ -239,7 +268,7 @@ exact_scores(const QT* __restrict__ q,              // (B, C, H, D)
 
   const int* row_table = page_table + (size_t)b * n_blocks;
   issue_page<KT, D>(k_pages, k_scales, row_table[j0], g, kvh, page, kv_s, sc_s);
-  for (int i = tid; i < R * D; i += D) {        // row r = c * rep + ri
+  for (int i = tid; i < R * D; i += kThreads) {   // row r = c * rep + ri
     const int r = i / D, d = i % D;
     const int c = r / rep, ri = r % rep;
     q_s[i] = to_float(q[(((size_t)b * C + c) * h + (size_t)g * rep + ri) * D + d]);
@@ -259,11 +288,8 @@ exact_scores(const QT* __restrict__ q,              // (B, C, H, D)
     const KT* k_s = kv_s + (size_t)buf * page_elems;
     const float* ksc = sc_s + buf * page;
     for (int t = warp; t < page; t += kWarps) {
-      const Vec<KT, kLane> kv =
-          *reinterpret_cast<const Vec<KT, kLane>*>(k_s + t * D + lane * kLane);
       float kf[kLane];
-#pragma unroll
-      for (int e = 0; e < kLane; ++e) kf[e] = to_float(kv.v[e]);
+      lane_row<KT, D, kLane>(k_s + t * D, lane, kf);
       if constexpr (kQuantized<KT>) {
         const float sk = ksc[t];
 #pragma unroll
@@ -276,10 +302,10 @@ exact_scores(const QT* __restrict__ q,              // (B, C, H, D)
         for (int i = 0; i < kRowGroup; ++i) {
           part[i] = 0.f;
           if (r0 + i < R) {
-            const Vec<float, kLane> qr = *reinterpret_cast<const Vec<float, kLane>*>(
-                q_s + (r0 + i) * D + lane * kLane);
+            float qr[kLane];
+            lane_row<float, D, kLane>(q_s + (r0 + i) * D, lane, qr);
 #pragma unroll
-            for (int e = 0; e < kLane; ++e) part[i] += qr.v[e] * kf[e];
+            for (int e = 0; e < kLane; ++e) part[i] += qr[e] * kf[e];
           }
         }
         // an xor butterfly over the warp, 8 rows at a time; every lane ends
@@ -355,7 +381,7 @@ exact_softmax(float* __restrict__ ws_s, const int* __restrict__ start_arr, int C
 template <int kRows> constexpr int kPStride = kRows + 4;
 
 template <typename KT, int D, int kRows>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(cc_threads(D))
 exact_pv(const KT* __restrict__ v_pages, const float* __restrict__ v_scales,
          const int* __restrict__ page_table, const int* __restrict__ start_arr,
          const float* __restrict__ ws_s,         // (B, KVH, R, S) probabilities
@@ -384,7 +410,7 @@ exact_pv(const KT* __restrict__ v_pages, const float* __restrict__ v_scales,
   const int base = j0 * page;
   const int npos = (j1 - j0 + 1) * page;
   const float* rows = ws_s + ((size_t)b * kvh + g) * R * S;
-  for (int i = tid; i < kRows * npos; i += D) {
+  for (int i = tid; i < kRows * npos; i += cc_threads(D)) {
     const int r = i / npos, tl = i % npos;
     const int idx = base + tl;
     const int p = st + r / rep;
@@ -408,7 +434,7 @@ exact_pv(const KT* __restrict__ v_pages, const float* __restrict__ v_scales,
     const KT* v_s = kv_s + (size_t)buf * page_elems;
     const float* vsc = sc_s + buf * page;
     const float* pj = p_s + (size_t)(j - j0) * page * kStride;
-    for (int t = 0; t < page; ++t) {
+    for (int t = 0; t < page && tid < D; ++t) {
       float vv = to_float(v_s[t * D + tid]);
       if constexpr (kQuantized<KT>) vv *= vsc[t];
       // a position outside a row's range has p = 0 and adds +-0, which
@@ -427,7 +453,7 @@ exact_pv(const KT* __restrict__ v_pages, const float* __restrict__ v_scales,
   float* dst = ws_pv + (((size_t)b * kvh + g) * n_chunks + chunk) * R * D;
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
-    if (r < R) dst[(size_t)r * D + tid] = acc[r];
+    if (r < R && tid < D) dst[(size_t)r * D + tid] = acc[r];
 }
 
 // ---------------------------------------------------------------------------
@@ -478,7 +504,7 @@ cudaError_t launch_pv(const Args& a) {
   const size_t smem = (size_t)kChunkPos * kPStride<kRows> * 4 + page_stage_bytes<KT>(D, a.page);
   cudaError_t e = set_smem(pv, smem);
   if (e != cudaSuccess) return e;
-  pv<<<dim3(a.n_chunks, a.kvh, a.B), D, smem, a.stream>>>(
+  pv<<<dim3(a.n_chunks, a.kvh, a.B), cc_threads(D), smem, a.stream>>>(
       static_cast<const KT*>(a.v), a.vs, a.table, a.start, a.ws_s, a.ws_pv, a.C, a.kvh,
       a.rep, a.page, a.n_blocks, a.n_chunks, a.window);
   return cudaGetLastError();
@@ -492,7 +518,7 @@ cudaError_t launch(const Args& a) {
   const size_t smem_s = align4((size_t)R * D) * 4 + page_stage_bytes<KT>(D, a.page);
   cudaError_t e = set_smem(scores, smem_s);
   if (e != cudaSuccess) return e;
-  scores<<<grid, D, smem_s, a.stream>>>(
+  scores<<<grid, cc_threads(D), smem_s, a.stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k), a.ks, a.table, a.start,
       a.ws_s, a.C, a.kvh, a.rep, a.page, a.n_blocks, a.window, a.scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -516,6 +542,8 @@ template <typename QT, typename KT>
 cudaError_t dispatch_dim(int D, const Args& a) {
   switch (D) {
     case 64: return launch<QT, KT, 64>(a);
+    case 80: return launch<QT, KT, 80>(a);
+    case 96: return launch<QT, KT, 96>(a);
     case 128: return launch<QT, KT, 128>(a);
     case 256: return launch<QT, KT, 256>(a);
     default: return cudaErrorInvalidValue;
@@ -557,9 +585,11 @@ struct Cfg {
   static constexpr int kQRow = 2 * D + 16;                // padded bf16 q row, bytes
   // a warp's K and V rows, bytes: bf16 rows padded for ldmatrix; code rows
   // padded so that the direct 16-byte (K) and kDV/8-byte (V) loads of a
-  // warp fall on distinct banks
-  static constexpr int kKRow = kCodes ? (D == 128 ? 192 : 64) : 2 * D + 16;
-  static constexpr int kVRow = kCodes ? (kDV <= 64 ? 80 : 144) : 2 * kDV + 16;
+  // warp fall on distinct banks (D 80 / 96: their tail loads collide two
+  // ways)
+  static constexpr int kKRow = kCodes ? (D == 64 ? 64 : 192) : 2 * D + 16;
+  static constexpr int kVRow =
+      kCodes ? (kDV > 64 && kDV < 128 ? kDV + 16 : kDV <= 64 ? 80 : 144) : 2 * kDV + 16;
   static constexpr int kKSlice = 16 * kKRow;
   static constexpr int kVSlice = 16 * kVRow;
   static constexpr int kScBytes = kCodes ? 2 * 16 * 4 : 0;  // K, V scales of 16 tokens
@@ -633,6 +663,13 @@ template <> __device__ __forceinline__ uint32_t codes_bf16x2<__nv_fp8_e4m3>(uint
   const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
   return pack_exact(f.x, f.y);
 }
+// N (2 or 4) bytes from shared memory, as the low bytes of a word
+template <int N>
+__device__ __forceinline__ uint32_t load_bytes(const unsigned char* p) {
+  static_assert(N == 2 || N == 4, "2 or 4 bytes");
+  if constexpr (N == 4) return *reinterpret_cast<const uint32_t*>(p);
+  else return *reinterpret_cast<const uint16_t*>(p);
+}
 // N 32-bit words from shared memory in one 4-, 8- or 16-byte load
 template <int N>
 struct Words {
@@ -654,12 +691,29 @@ struct Words {
 __device__ __forceinline__ uint32_t byte_pair(uint32_t a, uint32_t b, int k) {
   return __byte_perm(a, b, k | ((4 + k) << 4));
 }
-// Code pools: the physical head-dim index of logical column L of the score
-// product (a thread's 16-byte K load at byte 64h + 16quad serves k-steps
-// 4h .. 4h+3); q is stored in shared memory in this order.
+// Code pools: the head dims fall into groups of 64 and, at D 80 / 96, a
+// tail of 16 / 32; group h holds group_steps(h) k-steps of 16.
+template <int D>
+__device__ __forceinline__ constexpr int group_steps(int h) {
+  if constexpr (D % 64 == 0) return 4;
+  else return D - 64 * h >= 64 ? 4 : (D - 64 * h) / 16;
+}
+// The physical head-dim index of logical column L of the score product (a
+// thread's load of 4T bytes at byte 64h + 4T quad, T = group_steps(h),
+// serves k-steps 4h .. 4h+T-1); q is stored in shared memory in this order.
+template <int D>
 __device__ __forceinline__ int code_dim(int L) {
-  const int kk = L >> 4, half = (L >> 3) & 1, qd = (L >> 1) & 3;
-  return 64 * (kk >> 2) + 16 * qd + 4 * (kk & 3) + 2 * half + (L & 1);
+  const int h = L >> 6, kk = (L >> 4) & 3, half = (L >> 3) & 1, qd = (L >> 1) & 3;
+  return 64 * h + 4 * group_steps<D>(h) * qd + 4 * kk + 2 * half + (L & 1);
+}
+// Code pools: output column n of P.V's n8 block dt of a CTA's kDV columns is
+// head dim d0 + v_dim(dt, n): kDV/8 contiguous bytes of a token at byte
+// (kDV/8) gq for thread gq (kDV 64 / 128); at kDV 80 / 96, 8 bytes at 8 gq
+// for blocks 0-7 and the tail's (kDV - 64)/8 bytes at 64 + (kDV - 64)/8 gq
+template <int kDV>
+__device__ __forceinline__ int v_dim(int dt, int n) {
+  if constexpr (kDV <= 64 || kDV == 128) return (kDV / 8) * n + dt;
+  else return dt < 8 ? 8 * n + dt : 64 + ((kDV - 64) / 8) * n + (dt - 8);
 }
 
 // One CTA per (256-position split, column share, kv head g, slot b): 4
@@ -787,9 +841,10 @@ exact_tc(const __nv_bfloat16* __restrict__ q,      // (B, C, H, D)
           q + (((size_t)b * C + r / rep) * kvh * rep + (size_t)g * rep + r % rep) * D;
       if constexpr (!kCodes) {
         val = *reinterpret_cast<const uint4*>(qr + col);
-      } else {
-        const uint32_t* pr = reinterpret_cast<const uint32_t*>(qr + code_dim(col));
-        val = make_uint4(pr[0], pr[8], pr[16], pr[24]);   // head dims +0, +16, +32, +48
+      } else {   // head dims +0, +4T, +8T, +12T (T = 4 in a full group)
+        const int T = group_steps<D>(col >> 6);
+        const uint32_t* pr = reinterpret_cast<const uint32_t*>(qr + code_dim<D>(col));
+        val = make_uint4(pr[0], pr[2 * T], pr[4 * T], pr[6 * T]);
       }
     }
     *reinterpret_cast<uint4*>(smem + r * G::kQRow + 2 * col) = val;
@@ -861,6 +916,24 @@ exact_tc(const __nv_bfloat16* __restrict__ q,      // (B, C, H, D)
           for (int s = 0; s < 4; ++s) {
             const uint32_t b00 = codes_bf16x2<KT>(x0[s]), b01 = codes_bf16x2<KT>(x0[s] >> 16);
             const uint32_t b10 = codes_bf16x2<KT>(x1[s]), b11 = codes_bf16x2<KT>(x1[s] >> 16);
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              uint32_t a[4];
+              ldmatrix_x4(a, qa_addr + mt * 16 * G::kQRow + (4 * h + s) * 32);
+              mma_bf16(sc[mt][0], a, b00, b01);
+              mma_bf16(sc[mt][1], a, b10, b11);
+            }
+          }
+        }
+        if constexpr (D % 64 != 0) {   // the tail group of D 80 / 96
+          constexpr int h = D / 64, T = group_steps<D>(D / 64);
+          Words<T> x0, x1;
+          x0.load(ks_p + gq * G::kKRow + 64 * h + 4 * T * quad);
+          x1.load(ks_p + (8 + gq) * G::kKRow + 64 * h + 4 * T * quad);
+#pragma unroll
+          for (int s = 0; s < T; ++s) {
+            const uint32_t b00 = codes_bf16x2<KT>(x0.w[s]), b01 = codes_bf16x2<KT>(x0.w[s] >> 16);
+            const uint32_t b10 = codes_bf16x2<KT>(x1.w[s]), b11 = codes_bf16x2<KT>(x1.w[s] >> 16);
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt) {
               uint32_t a[4];
@@ -962,19 +1035,39 @@ exact_tc(const __nv_bfloat16* __restrict__ q,      // (B, C, H, D)
       } else {
         // V's B fragments straight from the codes: tokens 2quad, 2quad + 1
         // (b0) and 2quad + 8, 2quad + 9 (b1); output column n of block dt is
-        // head dim d0 + (kDV / 8) n + dt, so thread gq's codes are the
-        // kDV/8 bytes of each of its 4 tokens at byte (kDV / 8) gq
-        const unsigned char* vrow = vs_p + (kDV / 8) * gq;
-        Words<kDV / 32> va, vb2, vc, vd;
+        // head dim d0 + v_dim(dt, n), so thread gq's codes of each of its 4
+        // tokens are one load (kDV 64 / 128), or two (80 / 96: blocks 0-7,
+        // the tail)
+        constexpr bool kSplitV = kDV > 64 && kDV < 128;      // 80 / 96
+        constexpr int kMain = kSplitV ? 8 : kDV / 8;         // bytes of the first load
+        constexpr int kTail = kSplitV ? (kDV - 64) / 8 : 0;
+        const unsigned char* vrow = vs_p + kMain * gq;
+        Words<kMain / 4> va, vb2, vc, vd;
         va.load(vrow + (2 * quad) * G::kVRow);
         vb2.load(vrow + (2 * quad + 1) * G::kVRow);
         vc.load(vrow + (2 * quad + 8) * G::kVRow);
         vd.load(vrow + (2 * quad + 9) * G::kVRow);
+        uint32_t ta = 0, tb = 0, tc_ = 0, td = 0;
+        if constexpr (kTail > 0) {
+          const unsigned char* trow = vs_p + 64 + kTail * gq;
+          ta = load_bytes<kTail>(trow + (2 * quad) * G::kVRow);
+          tb = load_bytes<kTail>(trow + (2 * quad + 1) * G::kVRow);
+          tc_ = load_bytes<kTail>(trow + (2 * quad + 8) * G::kVRow);
+          td = load_bytes<kTail>(trow + (2 * quad + 9) * G::kVRow);
+        }
 #pragma unroll
         for (int dt = 0; dt < kDV / 8; ++dt) {
-          const int w = dt >> 2, k = dt & 3;
-          const uint32_t b0 = codes_bf16x2<KT>(byte_pair(va.w[w], vb2.w[w], k));
-          const uint32_t b1 = codes_bf16x2<KT>(byte_pair(vc.w[w], vd.w[w], k));
+          uint32_t p0, p1;
+          if (dt < kMain) {
+            const int w = (dt < kMain ? dt : kMain - 1) >> 2, k = dt & 3;
+            p0 = byte_pair(va.w[w], vb2.w[w], k);
+            p1 = byte_pair(vc.w[w], vd.w[w], k);
+          } else {
+            p0 = byte_pair(ta, tb, dt - kMain);
+            p1 = byte_pair(tc_, td, dt - kMain);
+          }
+          const uint32_t b0 = codes_bf16x2<KT>(p0);
+          const uint32_t b1 = codes_bf16x2<KT>(p1);
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             mma_bf16(o[mt][dt], ph[mt], b0, b1);
@@ -1007,8 +1100,8 @@ exact_tc(const __nv_bfloat16* __restrict__ q,      // (B, C, H, D)
           *reinterpret_cast<float2*>(row + dt * 8 + 2 * quad) =
               make_float2(o[mt][dt][2 * hh], o[mt][dt][2 * hh + 1]);
         } else {
-          row[(kDV / 8) * (2 * quad) + dt] = o[mt][dt][2 * hh];
-          row[(kDV / 8) * (2 * quad + 1) + dt] = o[mt][dt][2 * hh + 1];
+          row[v_dim<kDV>(dt, 2 * quad)] = o[mt][dt][2 * hh];
+          row[v_dim<kDV>(dt, 2 * quad + 1)] = o[mt][dt][2 * hh + 1];
         }
       }
     }
@@ -1119,15 +1212,25 @@ cudaError_t launch_tc_rows(const Args& a, int* counters) {
 template <typename KT, int D>
 cudaError_t launch_tc(const Args& a, int* counters) {
   const int R = a.C * a.rep;
-  return R <= 16 ? launch_tc_rows<KT, D, 1, 1>(a, counters)
-         : R <= 32 ? launch_tc_rows<KT, D, 2, 1>(a, counters)
-                   : launch_tc_rows<KT, D, 4, 2>(a, counters);
+  if constexpr (D % 64 != 0) {
+    // D 80 / 96: no column split (a share of 40 or 48 columns has no whole
+    // pair of n8 tiles or code words), so at most 32 rows fit the registers
+    if (R > 32) return cudaErrorInvalidValue;
+    return R <= 16 ? launch_tc_rows<KT, D, 1, 1>(a, counters)
+                   : launch_tc_rows<KT, D, 2, 1>(a, counters);
+  } else {
+    return R <= 16 ? launch_tc_rows<KT, D, 1, 1>(a, counters)
+           : R <= 32 ? launch_tc_rows<KT, D, 2, 1>(a, counters)
+                     : launch_tc_rows<KT, D, 4, 2>(a, counters);
+  }
 }
 
 template <typename KT>
 cudaError_t dispatch_tc(int D, const Args& a, int* counters) {
   switch (D) {
     case 64: return launch_tc<KT, 64>(a, counters);
+    case 80: return launch_tc<KT, 80>(a, counters);
+    case 96: return launch_tc<KT, 96>(a, counters);
     case 128: return launch_tc<KT, 128>(a, counters);
     default: return cudaErrorInvalidValue;
   }
@@ -1144,8 +1247,8 @@ extern "C" {
 //   0  CUDA cores, four launches; ws_s: (B, KVH, C * rep, n_blocks * page)
 //      f32 and ws_pv: (B, KVH, n_chunks, C * rep, D) f32 scratch; page
 //      must divide 64;
-//   1  tensor cores, one launch, bf16 q over bf16/fp8/int8 pools, D 64/128,
-//      page a multiple of 16; ws_pv: (B, KVH, n_splits, C * rep, D) f32 and
+//   1  tensor cores, one launch, bf16 q over bf16/fp8/int8 pools, D 64/80/96/128
+//      (C * rep <= 32 at D 80 / 96), page a multiple of 16; ws_pv: (B, KVH, n_splits, C * rep, D) f32 and
 //      ws_s: (B, KVH, n_splits, C * rep, 2) f32 scratch, n_splits =
 //      ceil(n_blocks * page / 256); counters: B KVH int32, zero before the
 //      call and zero again after it.

@@ -5,9 +5,9 @@ The Hopper counterpart of the Pallas kernel
 kernels are in ``csrc/dense_decode.cu``; the wrapper picks one by dtype
 and head dim before the launch (``variant``):
 
-  * ``"tensor_core"`` — bf16 q over a bf16 cache at D 64/128 (the serve
-    path): CTAs per (split, kv head, row) of 4 warps walk their share of
-    the row's valid prefix (``cur_len``) in 64-token tiles through a
+  * ``"tensor_core"`` — bf16 q over a bf16 cache at D 64, 80, 96 or 128
+    (the serve path): CTAs per (split, kv head, row) of 4 warps walk their
+    share of the row's valid prefix (``cur_len``) in 64-token tiles through a
     3-stage ``cp.async`` ring, each warp its own 16 tokens of a tile;
     scores and P.V run ``mma.sync`` (P split into bf16 hi + lo), and the
     last CTA of each (row, kv head) folds the splits in the same launch,
@@ -42,7 +42,7 @@ from repro_torch.kernels._build import build
 
 NAME = "decode_attention"
 SOURCE = Path(__file__).parent / "csrc" / "dense_decode.cu"
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 MAX_REP = 16                      # kMaxRep in the source
 TILE = 64                         # tc::kTile: tokens per tile, tensor cores
 CUDA_CORE_TILE = 32               # kTile: tokens per tile, CUDA cores
@@ -88,8 +88,8 @@ def split_count(kind: str, b: int, kvh: int, s: int, sms: int) -> int:
 
 def variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int) -> str:
     """The kernel a call launches: "tensor_core" for bf16 q over a bf16
-    cache at D 64/128, "cuda_core" for any other pairing of f32 and bf16
-    and for D 256; raises for another dtype or head dim."""
+    cache at D 64/80/96/128, "cuda_core" for any other pairing of f32 and
+    bf16 and for D 256; raises for another dtype or head dim."""
     _check(q_dtype in _DTYPE_CODES, f"q dtype {q_dtype} (want f32/bf16)")
     _check(kv_dtype in _DTYPE_CODES,
            f"cache dtype {kv_dtype} (want f32/bf16)")

@@ -18,15 +18,16 @@ scale pools, one per accumulator mode:
 Each source holds two kernels, picked by ``variant`` before the launch by
 dtype, head dim and page size, never on failure:
 
-  * ``"tensor_core"`` — bf16 q over bf16, fp8 or int8 pools at D 64/128
-    with a page that is a multiple of 16 (the serve paths): one launch,
-    scores and P.V on ``mma.sync`` (fp8/int8 codes converted to bf16 as the
-    fragments form), and the last CTA of each (slot, kv head) folds the
+  * ``"tensor_core"`` — bf16 q over bf16, fp8 or int8 pools at D 64, 80,
+    96 or 128 with a page that is a multiple of 16 (the serve paths): one
+    launch, scores and P.V on ``mma.sync`` (fp8/int8 codes converted to
+    bf16 as the fragments form), and the last CTA of each (slot, kv head) folds the
     partial states, found through a per-kernel, per-device integer counter
     array (``_counters``) that it leaves at zero;
   * ``"cuda_core"`` — f32 q or pools (the parity checks), D 256, other
     pages: the first versions' CUDA-core kernels (two launches online, four
-    exact).
+    exact); D 80 runs them on 96 threads, the last 16 idle where a thread
+    owns a column.
 
 Calls on one device share its counters, so tensor-core launches on two
 streams of one device at once are not supported (the port issues every
@@ -60,11 +61,13 @@ EXACT_MAX_ROWS = 64               # kMaxRows: C * rep per (slot, kv head)
 EXACT_CHUNK = 128                 # kChunkPos: positions per P.V chunk
 EXACT_SCORE_CHUNK = 64            # kScoreChunkPos: the page size divides it
 EXACT_SPLIT = 256                 # tc::kSplitPos: positions per partial, tensor cores
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
 MAX_REP = 16                      # kMaxRep in the source
 SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 TILE = 64                         # tc::kTile: tokens per tile, online kernel
-TC_HEAD_DIMS = (64, 128)          # head dims of the tensor-core kernels
+TC_HEAD_DIMS = (64, 80, 96, 128)  # head dims of the tensor-core kernels
+TC_SPLIT_HEAD_DIMS = (64, 128)    # ... whose exact kernel splits columns
+EXACT_TC_MAX_ROWS = 32            # C * rep of the exact kernel at other D
 TC_PAGE_MULTIPLE = 16             # their page: a multiple of 16 tokens
 VARIANTS = {"cuda_core": 0, "tensor_core": 1}   # codes of the C entry points
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -123,7 +126,7 @@ def split_count(kind: str, b: int, kvh: int, n_blocks: int, page: int,
 def variant(q_dtype: torch.dtype, pool_dtype: torch.dtype, d: int,
             page: int) -> str:
     """The kernel a call launches, online or exact: "tensor_core" for bf16
-    q over bf16, fp8 or int8 pools at D 64/128 with a page that is a
+    q over bf16, fp8 or int8 pools at D 64/80/96/128 with a page that is a
     multiple of 16; "cuda_core" for every other pairing and shape the
     wrappers take."""
     if (q_dtype == torch.bfloat16 and pool_dtype != torch.float32
@@ -292,6 +295,11 @@ def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
            f"{c} queries x {rep} heads per kv head = {c * rep} rows (at most "
            f"{EXACT_MAX_ROWS})")
     kind = variant(q.dtype, k_pages.dtype, d, page)
+    _check(kind == "cuda_core" or d in TC_SPLIT_HEAD_DIMS
+           or c * rep <= EXACT_TC_MAX_ROWS,
+           f"{c} queries x {rep} heads per kv head = {c * rep} rows at head "
+           f"dim {d} (the tensor-core exact kernel takes at most "
+           f"{EXACT_TC_MAX_ROWS} there)")
     n_blocks = page_table.shape[1]
     s_len = n_blocks * page
     if kind == "cuda_core":

@@ -8,8 +8,9 @@
 //   out[b, i, h, :] = sum_j softmax_j(q[b, i, h] . k[b, j, h / rep] * scale) v[b, j, h / rep]
 //
 // over the keys j visible from query i (all j < Skv, or j <= i when causal:
-// the mask is top-left aligned, query i sits at position i), with an f32
-// online softmax and the output in q's dtype.  q is (B, Sq, H, D), k and v
+// the mask is top-left aligned, query i sits at position i; with a sliding
+// window only j > i - window too, as blocked_attention(window=) has it), with
+// an f32 online softmax and the output in q's dtype.  q is (B, Sq, H, D), k and v
 // are (B, Skv, KVH, D) and read in place: query head h reads kv head
 // h / rep, so the reference wrapper's repeat of K/V over the group and its
 // transposes to (BH, S, D) never happen.
@@ -24,8 +25,8 @@
 // its bound and 3.3x slower than SDPA (NVIDIA H100 80GB HBM3, 700 W).
 // mma.sync cannot reach the card's rate; only wgmma can.
 //
-// The bf16 kernel for D 64 and 128 (flash_fwd_wgmma) is built the way the
-// card wants:
+// The bf16 kernel for D 64, 80, 96 and 128 (flash_fwd_wgmma) is built the
+// way the card wants:
 //   * persistent: one CTA an SM walks work items longest first (the last
 //     query block of every (kv head, batch row) first).  An item is 128 Q
 //     rows, GQA-packed: the rep query heads of kv head g at 128 / rep
@@ -52,9 +53,25 @@
 //     barriers): a turn issues Q K^T of tile j and P V of tile j-1, and one
 //     warpgroup's softmax runs while the other's products do;
 //   * the online softmax is in f32 with ex2.approx, scale * log2(e) folded
-//     into one FMA; the causal / ragged mask is computed only on tiles that
-//     straddle the diagonal or the Skv edge, and key tiles wholly above the
-//     diagonal are never loaded.
+//     into one FMA; the causal / ragged / window mask is computed only on
+//     tiles that straddle the diagonal, the Skv edge or the window's lower
+//     edge, and key tiles wholly above the diagonal or wholly before the
+//     window of an item's first query are never loaded (a window of w keys
+//     costs an item ceil(w / kBN) + 1 tiles, not its whole prefix).  A
+//     masked key weighs exactly 0 even where a row sees no key of the tile
+//     yet (the first tile of a window can hold none of a later row's keys);
+//   * D 80 and 96 (h2o-danube, phi3-mini): a 128-byte swizzle takes a box
+//     at most 128 bytes wide, so a 160- or 192-byte row is loaded as D 128's
+//     two 64-column boxes, the second reaching past the head dim, where TMA
+//     reads nothing and fills zeros: the shared-memory layout, the
+//     descriptors and the register budget are D 128's, unchanged.  Q K^T
+//     runs only D / 16 k-steps (5 or 6, exact), and P.V runs D 128's n128
+//     product whose columns past D are zero and never stored: 1.6x (D 80)
+//     or 1.33x (D 96) the P.V work, 1.3x / 1.17x of the whole.  A tail box
+//     of another swizzle (32 or 64 bytes) would make P.V exact too, with a
+//     second descriptor layout in every product; not taken while the kernel
+//     is bound by its softmax and copies rather than by the tensor cores
+//     (below).
 // A consumer waits on its tiles' barriers, so there is no block barrier in
 // the loop.  A wait that does not finish within ~2 s traps (a launch error)
 // instead of hanging the card.
@@ -70,12 +87,15 @@
 // warpgroup's products.
 //
 // D 32 in bf16 (and more than 128 query heads per kv head, more than an
-// item holds) keeps the first version's mma.sync kernel (flash_fwd_bf16),
+// item holds) keeps the first version's mma.sync kernel (flash_fwd_bf16, any
+// D of the wrapper's),
 // and f32 inputs (the parity checks run the model in f32) keep its full-f32
 // CUDA-core kernel (flash_fwd_f32), so the card-vs-CPU stream checks are
 // undisturbed.  The host picks the variant by dtype, head dim and GQA ratio
 // before the launch (kernel.py: variant()).  Ragged Sq and Skv are masked: query rows
-// past Sq are not written; keys past Skv score NEG_INF.
+// past Sq are not written; keys past Skv score NEG_INF.  Both take the window
+// too: they start at the tile holding the window's first key of the CTA's
+// first row, and a masked key weighs 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,6 +120,10 @@ constexpr int kStages = 4;         // K/V ring depth
 // consumers take 240: S, O and the previous tile's P at once
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
+
+// the shared-memory layout of a head dim: D 80 and 96 use D 128's (the
+// columns past the head dim are TMA's zero fill)
+__host__ __device__ constexpr int padded_dim(int D) { return D <= 64 ? 64 : 128; }
 
 template <int D>
 struct Cfg {
@@ -318,10 +342,13 @@ __device__ __forceinline__ void wgmma_o(float (&d)[N / 2], const uint32_t (&a)[4
   else wgmma_rs_n64(d, a, db, 1);
 }
 
-// the keys a CTA's query positions [p0, p0 + n_pos) can see: [0, kv_end)
+// the keys a CTA's query positions [p0, p0 + n_pos) can see: [kv_start, kv_end)
 __device__ __forceinline__ int kv_end_of(int p0, int n_pos, int Sq, int Skv, int causal) {
   if (!causal) return Skv;
   return min(Skv, min(Sq, p0 + n_pos));
+}
+__device__ __forceinline__ int kv_start_of(int p0, int window) {
+  return window > 0 ? max(0, p0 - window + 1) : 0;
 }
 
 // S = Q K^T over one K tile: D/16 k-steps, 32 bytes apart inside a
@@ -378,20 +405,20 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kBN / 2], uint32_t (&pa
 // pos[0] and pos[1], keys n0 + 8 nb + 2 quad + {0, 1}) into P, in place,
 // with the online-softmax state: p = 2^(s * scale * log2 e - m) over the
 // log2-domain running max m, l the running row sums in f32, corr the factor
-// the output must be scaled by.  The mask is applied only where the tile
-// straddles the diagonal (for this warpgroup's first position wg_pos0) or
-// the Skv edge.
-template <int kBN>
+// the output must be scaled by.  kMasked: the tile straddles the diagonal,
+// the Skv edge or the window's lower edge for some row of the warpgroup;
+// its masked keys score NEG_INF and weigh exactly 0.
+template <int kBN, bool kMasked>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m_r)[2],
                                              float (&l_r)[2], float (&corr)[2], int n0,
-                                             const int (&pos)[2], int wg_pos0, int quad,
-                                             int Skv, int causal, float scale_log2) {
-  if (n0 + kBN > Skv || (causal && n0 + kBN - 1 > wg_pos0)) {
+                                             const int (&pos)[2], int quad, int Skv,
+                                             int causal, int window, float scale_log2) {
+  if constexpr (kMasked) {
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) {
       const int row = pos[(i >> 1) & 1];
       const int col = n0 + (i >> 2) * 8 + 2 * quad + (i & 1);
-      const bool ok = col < Skv && (!causal || col <= row);
+      const bool ok = col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
       sc[i] = ok ? sc[i] : kNegInf;
     }
   }
@@ -428,7 +455,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m_r)[
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float& x = sc[nb * 4 + e];
-      x = fast_exp2(fmaf(x, scale_log2, neg_m[e >> 1]));
+      // a row that sees no key of the tile yet has m = NEG_INF-ish, where
+      // 2^(s - m) of a masked key would be 1: weigh it 0 instead
+      if constexpr (kMasked)
+        x = x == kNegInf ? 0.f : fast_exp2(fmaf(x, scale_log2, neg_m[e >> 1]));
+      else
+        x = fast_exp2(fmaf(x, scale_log2, neg_m[e >> 1]));
       sum[e >> 1][nb & 3] += x;
     }
 #pragma unroll
@@ -440,18 +472,44 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m_r)[
   }
 }
 
+// the mask test of a tile (keys [n0, n0 + kBN)) for a warpgroup whose
+// positions are [wg_lo, wg_hi]: warp-uniform
+template <int kBN>
+__device__ __forceinline__ bool tile_masked(int n0, int wg_lo, int wg_hi, int Skv, int causal,
+                                            int window) {
+  return n0 + kBN > Skv || (causal && n0 + kBN - 1 > wg_lo) ||
+         (window > 0 && n0 <= wg_hi - window);
+}
+
+template <int kBN>
+__device__ __forceinline__ void softmax_any(float (&sc)[kBN / 2], float (&m_r)[2],
+                                            float (&l_r)[2], float (&corr)[2], int n0,
+                                            const int (&pos)[2], int wg_lo, int wg_hi,
+                                            int quad, int Skv, int causal, int window,
+                                            float scale_log2) {
+  if (tile_masked<kBN>(n0, wg_lo, wg_hi, Skv, causal, window))
+    softmax_tile<kBN, true>(sc, m_r, l_r, corr, n0, pos, quad, Skv, causal, window,
+                            scale_log2);
+  else
+    softmax_tile<kBN, false>(sc, m_r, l_r, corr, n0, pos, quad, Skv, causal, window,
+                             scale_log2);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
                 const __grid_constant__ CUtensorMap map_k,   // (B, Skv, KVH, D)
                 const __grid_constant__ CUtensorMap map_v,   // (B, Skv, KVH, D)
                 __nv_bfloat16* __restrict__ out,              // (B, Sq, H, D)
-                int B, int Sq, int Skv, int H, int KVH, int causal, float scale_log2) {
+                int B, int Sq, int Skv, int H, int KVH, int causal, int window,
+                float scale_log2) {
   // Persistent: CTA c walks work items c, c + gridDim.x, ... of the list
   // ordered longest first (the last query block first).  An item is
   // GQA-packed: all rep query heads of kv head g at n_pos positions; Q row
-  // r is position p0 + r / rep, head g * rep + r % rep.
-  using C = Cfg<D>;
+  // r is position p0 + r / rep, head g * rep + r % rep.  Shared memory holds
+  // DP = padded_dim(D) columns a row (D 80 / 96: D 128's layout, zeros past D).
+  constexpr int DP = padded_dim(D);
+  using C = Cfg<DP>;
   constexpr int kBN = C::kBN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -470,8 +528,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
   const int n_rows = n_pos * rep;                       // <= kBM Q rows
   const int n_blocks = (Sq + n_pos - 1) / n_pos;
   const int n_items = n_blocks * KVH * B;
-  // item w: query block n_blocks - 1 - w / (KVH B), kv head, batch row
-  struct Item { int p0, g, b, n_tiles; };
+  // item w: query block n_blocks - 1 - w / (KVH B), kv head, batch row; its
+  // key tiles [j0, n_tiles): none wholly before the window of its first
+  // query or wholly above the diagonal of its last
+  struct Item { int p0, g, b, j0, n_tiles; };
   auto item_of = [&](int w) {
     Item it;
     const int rem = w % (KVH * B);
@@ -479,6 +539,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
     it.g = rem % KVH;
     it.b = rem / KVH;
     it.n_tiles = (kv_end_of(it.p0, n_pos, Sq, Skv, causal) + kBN - 1) / kBN;
+    it.j0 = min(kv_start_of(it.p0, window) / kBN, it.n_tiles - 1);
     return it;
   };
 
@@ -506,12 +567,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
       for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
         const Item it = item_of(w);
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);   // the last item's QK^T is done
-        mbar_expect_tx(q_full, n_rows * D * 2);
+        // every box counts in full, its zero fill past Sq or D included
+        mbar_expect_tx(q_full, n_rows * DP * 2);
 #pragma unroll
         for (int c = 0; c < C::kHalves; ++c)
           tma_load_4d(q_s + c * (kBM * 128), &map_q, q_full, c * 64, it.g * rep, it.p0,
                       it.b);
-        for (int j = 0; j < it.n_tiles; ++j, ++t) {
+        for (int j = it.j0; j < it.n_tiles; ++j, ++t) {
           const int s = t % kStages;
           mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);   // round 0 passes
           mbar_expect_tx(k_full(s), C::kKVBytes);
@@ -546,7 +608,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
     // sits under a branch (ptxas would serialise).
     const int my_bar = 1 + wgi;
     const int other_bar = 2 - wgi;
-    float o[D / 2];
+    float o[DP / 2];
     float sc[kBN / 2];
     uint32_t pa[kBN / 16][4];          // P of the previous tile, bf16
     float m_r[2], l_r[2], corr[2];
@@ -556,24 +618,27 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
     for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
       const Item it = item_of(w);
       const int pos[2] = {it.p0 + row_lo / rep, it.p0 + (row_lo + 8) / rep};
-      const int wg_pos0 = it.p0 + wgi * 64 / rep;
-      const int last = it.n_tiles - 1;
+      // this warpgroup's first and last positions (for the mask tests)
+      const int wg_lo = it.p0 + wgi * 64 / rep;
+      const int wg_hi = it.p0 + (wgi * 64 + 63) / rep;
+      const int last = it.n_tiles - it.j0 - 1;   // tiles of the item, less one
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
       m_r[0] = m_r[1] = kNegInf;
       l_r[0] = l_r[1] = 0.f;
 
       if (wgi == 1) named_arrive(1);
       mbar_wait(q_full, n & 1);
       mbar_wait(k_full(t % kStages), (t / kStages) & 1);
-      named_sync(my_bar);                // turn 0: QK^T of tile 0
+      named_sync(my_bar);                // turn 0: QK^T of the item's first tile
       wgmma_fence();
       qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + (t % kStages) * C::kKVBytes, 16, 1024));
       named_arrive(other_bar);
       wgmma_wait<0>();
       fence_regs(sc);
       if (last == 0) mbar_arrive(q_empty);
-      softmax_tile<kBN>(sc, m_r, l_r, corr, 0, pos, wg_pos0, quad, Skv, causal, scale_log2);
+      softmax_any<kBN>(sc, m_r, l_r, corr, it.j0 * kBN, pos, wg_lo, wg_hi, quad, Skv, causal,
+                       window, scale_log2);
       pack_p<kBN>(sc, pa);               // O is still zero: nothing to rescale
       for (int j = 1; j <= last; ++j) {  // turn j: QK^T of j, P.V of j - 1
         const int s = (t + j) % kStages;
@@ -584,17 +649,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         fence_regs(o);
         wgmma_fence();
         qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + s * C::kKVBytes, 16, 1024));
-        pv_tile<D, kBN>(o, pa, desc_v(sp));
+        pv_tile<DP, kBN>(o, pa, desc_v(sp));
         named_arrive(other_bar);
         wgmma_wait<1>();                 // S of tile j
         fence_regs(sc);
         if (j == last) mbar_arrive(q_empty);
-        softmax_tile<kBN>(sc, m_r, l_r, corr, j * kBN, pos, wg_pos0, quad, Skv, causal,
-                          scale_log2);
+        softmax_any<kBN>(sc, m_r, l_r, corr, (it.j0 + j) * kBN, pos, wg_lo, wg_hi, quad, Skv,
+                         causal, window, scale_log2);
         wgmma_wait<0>();                 // P.V of tile j - 1
         fence_regs(o);
         mbar_arrive(empty(sp));
-        rescale_o<D>(o, corr);
+        rescale_o<DP>(o, corr);
         pack_p<kBN>(sc, pa);
       }
       const int sl = (t + last) % kStages;
@@ -602,12 +667,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
       named_sync(my_bar);                // last turn: P.V of the last tile
       fence_regs(o);
       wgmma_fence();
-      pv_tile<D, kBN>(o, pa, desc_v(sl));
+      pv_tile<DP, kBN>(o, pa, desc_v(sl));
       if (wgi == 0) named_arrive(other_bar);
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(empty(sl));
-      t += it.n_tiles;
+      t += last + 1;
 
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -617,7 +682,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         __nv_bfloat16* dst =
             out + ((size_t)(it.b * Sq + pos[hh]) * H + it.g * rep + r % rep) * D + 2 * quad;
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb)
+        for (int nb = 0; nb < D / 8; ++nb)   // columns past D are zero: not stored
           *reinterpret_cast<uint32_t*>(dst + nb * 8) =
               pack_bf16x2(o[nb * 4 + 2 * hh] * inv, o[nb * 4 + 2 * hh + 1] * inv);
       }
@@ -721,7 +786,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int B, Sq, Skv, H, KVH, causal;
+  int B, Sq, Skv, H, KVH, causal, window;
   float scale;
   cudaStream_t stream;
 };
@@ -730,6 +795,11 @@ struct Args {
 __device__ __forceinline__ int visible_keys(int m0, int Sq, int Skv, int causal) {
   if (!causal) return Skv;
   return min(Skv, min(Sq, m0 + kBM));
+}
+// the first key tile of kBN keys that holds a key the CTA's first row sees
+__device__ __forceinline__ int first_tile(int m0, int window, int n_tiles) {
+  const int j = window > 0 ? max(0, m0 - window + 1) / kBN : 0;
+  return min(j, max(n_tiles - 1, 0));
 }
 
 constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
@@ -745,7 +815,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
                const __nv_bfloat16* __restrict__ k,   // (B, Skv, KVH, D)
                const __nv_bfloat16* __restrict__ v,   // (B, Skv, KVH, D)
                __nv_bfloat16* __restrict__ out,       // (B, Sq, H, D)
-               int Sq, int Skv, int H, int KVH, int causal, float scale) {
+               int Sq, int Skv, int H, int KVH, int causal, int window, float scale) {
   constexpr int kRow = D + 8;          // padded shared row (bf16 elements)
   constexpr int kChunks = D / 8;       // 16-byte chunks per row
   constexpr int kKSteps = D / 16;      // k16 steps of QK^T over the head dim
@@ -775,6 +845,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
 
   const int kv_end = visible_keys(m0, Sq, Skv, causal);
   const int n_tiles = (kv_end + kBN - 1) / kBN;
+  const int j_first = first_tile(m0, window, n_tiles);
 
   // rows [row0, row0 + 64) of a (tokens, D) view with ``stride`` between
   // tokens; rows at or past ``limit`` are zero-filled, never read
@@ -794,8 +865,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
 
   load_tile(q_s, qg, q_tok, m0, Sq);
   if (n_tiles > 0) {
-    load_tile(k_s, kg, kv_tok, 0, Skv);
-    load_tile(v_s, vg, kv_tok, 0, Skv);
+    load_tile(k_s, kg, kv_tok, j_first * kBN, Skv);
+    load_tile(v_s, vg, kv_tok, j_first * kBN, Skv);
   }
   cp_async_commit();
 
@@ -809,8 +880,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
   uint32_t qa[kKSteps][4];
   const int r0 = warp * 16 + gq;       // this thread's rows: r0 and r0 + 8
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
+  for (int j = j_first; j < n_tiles; ++j) {
+    const int buf = (j - j_first) & 1;
     if (j + 1 < n_tiles) {             // prefetch the next tile, then wait
       load_tile(k_s + (buf ^ 1) * kBN * kRow, kg, kv_tok, (j + 1) * kBN, Skv);
       load_tile(v_s + (buf ^ 1) * kBN * kRow, vg, kv_tok, (j + 1) * kBN, Skv);
@@ -820,7 +891,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if (j == j_first) {
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         const __nv_bfloat16* qr = q_s + r0 * kRow + kk * 16 + 2 * tq;
@@ -857,7 +928,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
       for (int e = 0; e < 4; ++e) {
         const int row = m0 + r0 + (e >> 1) * 8;
         const int col = n0 + nt * 8 + 2 * tq + (e & 1);
-        const bool ok = col < Skv && (!causal || col <= row);
+        const bool ok =
+            col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
         s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
       }
     }
@@ -873,10 +945,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
       const float corr = expf(m_r[hh] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        s[nt][2 * hh] = expf(s[nt][2 * hh] - m_new);
-        s[nt][2 * hh + 1] = expf(s[nt][2 * hh + 1] - m_new);
-        sum += s[nt][2 * hh] + s[nt][2 * hh + 1];
+      for (int nt = 0; nt < kNTiles; ++nt) {   // a masked key weighs 0
+        float& x0 = s[nt][2 * hh];
+        float& x1 = s[nt][2 * hh + 1];
+        x0 = x0 == kNegInf ? 0.f : expf(x0 - m_new);
+        x1 = x1 == kNegInf ? 0.f : expf(x1 - m_new);
+        sum += x0 + x1;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -937,7 +1011,7 @@ cudaError_t launch_bf16(const Args& a) {
   kernel<<<grid, kMmaThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out),
-      a.Sq, a.Skv, a.H, a.KVH, a.causal, a.scale);
+      a.Sq, a.Skv, a.H, a.KVH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -957,7 +1031,7 @@ template <int D>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
-              int Sq, int Skv, int H, int KVH, int causal, float scale) {
+              int Sq, int Skv, int H, int KVH, int causal, int window, float scale) {
   constexpr int kQK = D + 1;           // padded rows: column reads hit distinct banks
   constexpr int kP = kBN + 1;
   constexpr int kDJ = D / 16;          // accumulator columns per thread
@@ -1000,7 +1074,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int kv_end = visible_keys(m0, Sq, Skv, causal);
-  for (int n0 = 0; n0 < kv_end; n0 += kBN) {
+  for (int n0 = first_tile(m0, window, (kv_end + kBN - 1) / kBN) * kBN; n0 < kv_end;
+       n0 += kBN) {
     __syncthreads();                   // the previous tile is consumed
     for (int c = tid; c < kBN * D; c += kFmaThreads) {
       const int r = c / D, e = c % D;
@@ -1036,7 +1111,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int col = n0 + tx + 16 * jj;
-        const bool ok = col < Skv && (!causal || col <= row);
+        const bool ok =
+            col < Skv && (!causal || col <= row) && (window <= 0 || col > row - window);
         s[i][jj] = ok ? s[i][jj] * scale : kNegInf;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -1046,8 +1122,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m_r[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - m_new);
+      for (int jj = 0; jj < 4; ++jj) {   // a masked key weighs 0
+        const float p = s[i][jj] == kNegInf ? 0.f : expf(s[i][jj] - m_new);
         p_s[(ty + 16 * i) * kP + tx + 16 * jj] = p;
         sum += p;
       }
@@ -1098,18 +1174,18 @@ cudaError_t launch_f32(const Args& a) {
   kernel<<<grid, kFmaThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out),
-      a.Sq, a.Skv, a.H, a.KVH, a.causal, a.scale);
+      a.Sq, a.Skv, a.H, a.KVH, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_wgmma(const Args& a) {
-  using C = wg::Cfg<D>;
+  using C = wg::Cfg<wg::padded_dim(D)>;
   // a Q box is an item: the rep heads of one kv head at kBM / rep
   // positions; a K or V box is kBN keys of one kv head
   const int rep = a.H / a.KVH;
   if (rep > wg::kBM) return cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv;   // boxes of 64 columns: D 80 / 96 zero-filled past D
   cudaError_t e = wg::make_map(&mq, a.q, a.B, a.Sq, a.H, D, rep, wg::kBM / rep);
   if (e == cudaSuccess) e = wg::make_map(&mk, a.k, a.B, a.Skv, a.KVH, D, 1, C::kBN);
   if (e == cudaSuccess) e = wg::make_map(&mv, a.v, a.B, a.Skv, a.KVH, D, 1, C::kBN);
@@ -1127,7 +1203,7 @@ cudaError_t launch_wgmma(const Args& a) {
   const int grid = (int)(n_items < sms ? n_items : sms);   // one CTA an SM
   kernel<<<grid, wg::kThreads, C::kSmem, a.stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.out), a.B, a.Sq, a.Skv, a.H, a.KVH,
-      a.causal, a.scale * kLog2e);
+      a.causal, a.window, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1137,32 +1213,39 @@ extern "C" {
 
 // q (B, Sq, H, D), k / v (B, Skv, KVH, D), out (B, Sq, H, D), all contiguous
 // and 16-byte aligned, of one dtype; H a multiple of KVH; causal: 0 or 1
-// (top-left aligned).  variant (chosen by the host from dtype and D):
-//   0  float32, D 32/64/128: CUDA-core FMAs (flash_fwd_f32)
+// (top-left aligned); window: 0 for none, else query i sees keys j > i -
+// window only.  variant (chosen by the host from dtype and D):
+//   0  float32, D 32/64/80/96/128: CUDA-core FMAs (flash_fwd_f32)
 //   1  bfloat16, D 32 (any D when H / KVH > 128): mma.sync (flash_fwd_bf16)
-//   2  bfloat16, D 64/128 and H / KVH <= 128: wgmma + TMA (flash_fwd_wgmma)
+//   2  bfloat16, D 64/80/96/128 and H / KVH <= 128: wgmma + TMA (flash_fwd_wgmma)
 // Returns a cudaError_t (0 = ok).
 int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                    int Sq, int Skv, int H, int KVH, int D, int causal, float scale,
-                    int variant, void* stream) {
+                    int Sq, int Skv, int H, int KVH, int D, int causal, int window,
+                    float scale, int variant, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H < KVH || H % KVH != 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, B, Sq, Skv, H, KVH, causal != 0, scale,
+  const Args a{q, k, v, out, B, Sq, Skv, H, KVH, causal != 0, window, scale,
                static_cast<cudaStream_t>(stream)};
   switch (variant) {
     case 0:
       if (D == 32) return (int)launch_f32<32>(a);
       if (D == 64) return (int)launch_f32<64>(a);
+      if (D == 80) return (int)launch_f32<80>(a);
+      if (D == 96) return (int)launch_f32<96>(a);
       if (D == 128) return (int)launch_f32<128>(a);
       break;
     case 1:
       if (D == 32) return (int)launch_bf16<32>(a);
       if (D == 64) return (int)launch_bf16<64>(a);
+      if (D == 80) return (int)launch_bf16<80>(a);
+      if (D == 96) return (int)launch_bf16<96>(a);
       if (D == 128) return (int)launch_bf16<128>(a);
       break;
     case 2:
       if (D == 64) return (int)launch_wgmma<64>(a);
+      if (D == 80) return (int)launch_wgmma<80>(a);
+      if (D == 96) return (int)launch_wgmma<96>(a);
       if (D == 128) return (int)launch_wgmma<128>(a);
       break;
   }

@@ -19,14 +19,15 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
-def gqa_flash_attention(q, k, v, *, causal: bool = True,
+def gqa_flash_attention(q, k, v, *, causal: bool = True, window=None,
                         impl: str = "auto") -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) -> (B, Sq, H, Dv).
 
     ``impl``: "fused" runs the CUDA kernel (CUDA tensors only),
     "reference" the plain version (GQA heads expanded, flattened to
     (B*H, S, D) as the reference op does), "auto" the plain version for
-    CPU tensors and the kernel for CUDA tensors."""
+    CPU tensors and the kernel for CUDA tensors.  ``window``: keys
+    j > i - window only (``blocked_attention(window=)``)."""
     if impl not in ("auto", "fused", "reference"):
         raise ValueError(f"impl must be auto|fused|reference, got {impl!r}")
     if impl == "auto":
@@ -35,7 +36,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
         if not q.is_cuda:
             raise ValueError("impl='fused' runs the CUDA kernel and needs "
                              f"CUDA tensors; q is on {q.device}")
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, window=window)
     b, sq, h, d = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     rep = h // kvh
@@ -44,5 +45,5 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True,
     qt = q.transpose(1, 2).reshape(b * h, sq, d)
     kt = kf.transpose(1, 2).reshape(b * h, skv, d)
     vt = vf.transpose(1, 2).reshape(b * h, skv, dv)
-    out = flash_attention_ref(qt, kt, vt, causal=causal)
+    out = flash_attention_ref(qt, kt, vt, causal=causal, window=window)
     return out.reshape(b, h, sq, dv).transpose(1, 2)

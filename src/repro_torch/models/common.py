@@ -262,7 +262,11 @@ def blocked_attention(
                 mask = mask & (qp[:, :, None] - kp[None, None, :] < window)
             s = torch.where(mask[:, None], s, NEG_INF)     # (B, H, qb, kb)
             m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
+            # masked keys weigh exactly 0, also in a block where a row sees
+            # none yet: nothing read there (a ring's reclaimed blocks read
+            # the scratch page) reaches the row's P.V
+            p = torch.where(mask[:, None], torch.exp(s - m_new[..., None]),
+                            0.0)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(

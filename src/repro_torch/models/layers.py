@@ -9,9 +9,12 @@ into a dense ``(B, S, KVH, HD)`` cache) and ``attn_decode`` (one token
 against it).  On CPU tensors they call what the reference calls
 (``blocked_attention``; ``decode_attention_ref`` under the ``slot_pos``
 mask); on CUDA tensors the hand-written kernels' wrappers
-(``flash_attention``; the dense ``decode_attention`` over the valid prefix
-``cur_pos + 1``).  ``kernel_path`` makes that choice, once, for both.
-The cache is written in place.
+(``flash_attention``, with the layer's sliding window; the dense
+``decode_attention`` over the valid prefix ``min(cur_pos + 1, w)`` of the
+layer's ``w``-entry cache: a windowed layer's ring cache of ``w`` =
+window entries that has wrapped holds exactly the positions in the
+window).  ``kernel_path`` makes that choice, once, for both.  The cache
+is written in place.
 
 Parameters live in ``nn.Module``s whose attribute names are the reference
 pytree's keys (``wq``, ``bk``, ``q_norm``, ``w_gate`` ...), with the same
@@ -114,22 +117,15 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def kernel_path(device: torch.device, window) -> bool:
+def kernel_path(device: torch.device) -> bool:
     """True when the static attention runs the CUDA kernels (tensors on a
-    CUDA device).  A windowed layer's ring cache has no kernel yet: on
-    CUDA it raises rather than fall back to the plain version."""
-    if device.type != "cuda":
-        return False
-    if window is not None:
-        raise NotImplementedError(
-            f"sliding-window (ring cache) static attention on CUDA — "
-            f"{ITEM_STATEFUL}")
-    return True
+    CUDA device), windowed layers included."""
+    return device.type == "cuda"
 
 
 def _full_attention(q, k, v, cfg: ModelConfig, window):
-    if kernel_path(q.device, window):
-        return flash_attention(q, k, v, causal=cfg.causal)
+    if kernel_path(q.device):
+        return flash_attention(q, k, v, causal=cfg.causal, window=window)
     return blocked_attention(q, k, v, causal=cfg.causal, window=window)
 
 
@@ -179,15 +175,16 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                 cur_len: torch.Tensor | None) -> torch.Tensor:
     """One-token step; x: (B, D); cur_pos: the position index of the
     token, the same for every row, with ``positions`` (B, 1) holding it
-    and ``cur_len`` (B,) int32 = ``cur_pos + 1`` (CUDA only; None on the
-    CPU) built once per model step for all its layers.  The new k/v is
-    written at slot ``cur_pos % w`` first, then the token attends."""
+    and ``cur_len`` (B,) int32 = ``min(cur_pos + 1, w)`` for this layer's
+    ``w``-entry cache (CUDA only; None on the CPU), built once per model
+    step for all layers of one ``w``.  The new k/v is written at slot
+    ``cur_pos % w`` first, then the token attends: on the card over the
+    cache's first ``cur_len`` entries, which once a ring of ``w`` = window
+    entries has wrapped are exactly the positions in the window."""
     b, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     w = cache["k"].shape[1]
-    on_card = kernel_path(x.device, window)
-    if on_card and cur_pos >= w:        # the kernel reads a prefix
-        raise ValueError(f"position {cur_pos} is past the {w}-token cache")
+    on_card = kernel_path(x.device)
     with span("gqa_attention"):
         q, k, v = _qkv(p, x[:, None, :], cfg, positions)
         slot = cur_pos % w

@@ -23,9 +23,12 @@ token per row at a shared position.  ``forward`` scores a whole sequence
 without a cache.  Caches and pools are written in place, so these return
 only the logits.
 
-SSM and hybrid plans, ring tables
-(sliding-window page spaces) and per-slot state pools raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Sliding-window layers (h2o-danube) keep their pages in a ring space of
+their own: ``init_paged_cache(ring_pages=)`` sizes their pools, and the
+paged entries read them through ``ring_table`` (pages behind the window
+point at the scratch page and are masked), as the reference does.  SSM
+and hybrid plans and per-slot state pools raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -187,11 +190,16 @@ def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
     return x + f.to(x.dtype)
 
 
-def _no_state(states, ring_table) -> None:
+def _no_state(states) -> None:
     if states is not None:
         raise NotImplementedError(f"per-slot state pools — {ITEM_STATEFUL}")
-    if ring_table is not None:
-        raise NotImplementedError(f"ring page tables — {ITEM_STATEFUL}")
+
+
+def _table_for(window, page_table, ring_table):
+    """A layer's page table: sliding-window layers index the ring space
+    when the caller keeps one (``ring_table``), else the full space."""
+    return ring_table if (window is not None
+                          and ring_table is not None) else page_table
 
 
 def dense_cache_dtype(dtype) -> torch.dtype:
@@ -315,13 +323,20 @@ class Model(nn.Module):
         b = tokens.shape[0]
         dev = self.device
         positions = torch.full((b, 1), cur_pos, device=dev)
-        # the dense kernel's per-row valid prefix: positions 0 .. cur_pos
-        cur_len = (torch.full((b,), cur_pos + 1, dtype=torch.int32,
-                              device=dev) if dev.type == "cuda" else None)
+        # the dense kernel's per-row valid prefix of a w-entry cache:
+        # min(cur_pos + 1, w) entries, built once per distinct w (a
+        # wrapped ring of w = window entries holds exactly the window)
+        cur_lens: dict[int, torch.Tensor] = {}
+        if dev.type == "cuda":
+            for c in cache:
+                w = c["slot_pos"].shape[0]
+                if w not in cur_lens:
+                    cur_lens[w] = torch.full((b,), min(cur_pos + 1, w),
+                                             dtype=torch.int32, device=dev)
         x = self.embed[tokens.long()]                       # (B, D)
         for win, blk, c in zip(self.windows, self.layers, cache):
             x = _block_decode(blk, x, cfg, win, c, cur_pos, positions,
-                              cur_len)
+                              cur_lens.get(c["slot_pos"].shape[0]))
         return self._head(x[:, None, :])[:, 0]
 
     # ----- paged cache (continuous-batching serve) -----
@@ -333,14 +348,27 @@ class Model(nn.Module):
         layers share one logical page-id space.  ``dtype`` is
         a torch dtype or ``"fp8"``/``"int8"`` (code leaves plus per-token
         ``k_scale``/``v_scale`` leaves); another string raises
-        ``ValueError``."""
-        if ring_pages is not None:
-            raise NotImplementedError(f"ring page spaces — {ITEM_STATEFUL}")
+        ``ValueError``.
+
+        ``ring_pages``: the pool size of sliding-window layers, which live
+        in their own page-id space (``runtime.state_cache.RingPageSpace``,
+        O(window) pages per slot); None puts them in the full space, where
+        nothing is reclaimed."""
         dtype = torch.bfloat16 if dtype is None else dtype
-        return [ab.backend_for_kind(kind).init_page_pool(
-                    self.cfg, num_pages, page_size, dtype, device=self.device)
-                for seg in self.plan for _ in range(seg.reps)
-                for kind in seg.kinds]
+        pools = []
+        for seg in self.plan:
+            if seg.window is not None and any(
+                    "sliding" not in ab.backend_for_kind(k).paged_mask_families
+                    for k in seg.kinds):
+                raise NotImplementedError(
+                    "continuous batching over sliding-window segments needs "
+                    "a sliding-capable paged backend")
+            size = (ring_pages if (seg.window is not None
+                                   and ring_pages is not None) else num_pages)
+            pools += [ab.backend_for_kind(kind).init_page_pool(
+                          self.cfg, size, page_size, dtype, device=self.device)
+                      for _ in range(seg.reps) for kind in seg.kinds]
+        return pools
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens: torch.Tensor, pools: list,
@@ -353,7 +381,9 @@ class Model(nn.Module):
         tokens: (B, C) chunk tokens (rows padded past ``valid``); start:
         (B,) absolute position of tokens[:, 0]; valid: (B,) real tokens per
         row (0 for padding rows, whose table rows point at the scratch
-        page).  Returns (B, V) logits at each row's last valid position."""
+        page).  ``ring_table`` (B, n_blocks): the sliding-window layers'
+        ring space, when the pools keep one.  Returns (B, V) logits at each
+        row's last valid position."""
         x = self._prefill_chunk_body(tokens, pools, page_table, start, valid,
                                      states, ring_table)
         return self._last_logits(x, valid)
@@ -375,12 +405,13 @@ class Model(nn.Module):
 
     def _prefill_chunk_body(self, tokens, pools, page_table, start, valid,
                             states, ring_table) -> torch.Tensor:
-        _no_state(states, ring_table)
+        _no_state(states)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, C, D)
         for win, blk, pool in zip(self.windows, self.layers, pools):
-            x = _block_prefill_chunk_paged(blk, x, cfg, win, pool, page_table,
-                                           start, valid)
+            x = _block_prefill_chunk_paged(
+                blk, x, cfg, win, pool, _table_for(win, page_table,
+                                                   ring_table), start, valid)
         return x
 
     def _last_logits(self, x: torch.Tensor, valid) -> torch.Tensor:
@@ -398,22 +429,30 @@ class Model(nn.Module):
         """One continuous-batching decode step over the slot batch.
 
         tokens: (B,) (one per slot); pos: (B,) per-slot ragged positions;
-        page_table: (B, n_blocks) int32.  Inactive slots point at the
-        scratch page.  Returns (B, V) logits.
+        page_table: (B, n_blocks) int32, and ``ring_table`` for the
+        sliding-window layers when the pools keep a ring space.  Inactive
+        slots point at the scratch page.  Returns (B, V) logits.
 
         Multi-token form (speculative verify): tokens (B, C) of C already
         chosen tokens per slot starting at position ``pos`` with ``valid``
         (B,) real rows (default C; the rest scatter to the scratch page)
         returns (B, C, V) logits, one next-token distribution per fed
-        position (``_decode_multi_paged``)."""
-        _no_state(states, ring_table)
+        position (``_decode_multi_paged``; not over a ring space:
+        speculation is gated off for ring layouts, as in the reference)."""
+        _no_state(states)
         if tokens.ndim == 2:
+            if ring_table is not None:
+                raise NotImplementedError(
+                    "multi-token decode over ring pages (speculative verify)"
+                    " is unsupported: reclaimed ring pages cannot rewind")
             return self._decode_multi_paged(tokens, pools, page_table, pos,
                                             valid)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, D)
         for win, blk, pool in zip(self.windows, self.layers, pools):
-            x = _block_decode_paged(blk, x, cfg, win, pool, page_table, pos)
+            x = _block_decode_paged(blk, x, cfg, win, pool,
+                                    _table_for(win, page_table, ring_table),
+                                    pos)
         return self._head(x[:, None, :])[:, 0]
 
     def _decode_multi_paged(self, tokens: torch.Tensor, pools: list,

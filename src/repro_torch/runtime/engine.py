@@ -10,7 +10,8 @@ presence rows).  On CUDA every prefill attention is the hand-written flash
 kernel and every decode attention the dense decode kernel.
 
 ``ContinuousServeEngine`` is the port of the reference's continuous engine
-for one device and full-KV layouts.  Requests arrive raggedly;
+for one device, over full-KV and sliding-window (ring-page) layouts.
+Requests arrive raggedly;
 iteration-level batching admits each one into a freed decode slot the
 moment both a slot and KV pages are available.  Admission runs **chunked
 prefill straight into the page pools** (one fixed-size chunk per prefilling
@@ -58,10 +59,19 @@ position's logits on the device until each row's prompt-token scores are
 taken; the first token comes from the same head call as an unscored
 admission's.
 
+Sliding-window layers (``runtime/state_cache.py``): a model whose
+segments carry a window keeps their pages in a ``RingPageSpace`` of its
+own, sized by ``ring_pages_needed`` so that backing a chunk never fails;
+each prefilling slot's ring grows to its chunk's frontier before the table
+snapshot, and the pages wholly behind the window return to the ring
+allocator after every chunk and decode step, so a slot holds O(window)
+pages however long it runs.  With no full-KV segment the prefix cache is
+off.  As in the reference, a ring layout refuses ``speculative=`` and a
+disaggregated ``phase`` (ring pages cannot rewind or hand off).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``mesh=`` (tensor parallelism, also in a spec), ``phase !=
-"colocated"`` (disaggregation, also of draft pages) and sliding-window /
-stateful layouts.
+"colocated"`` (disaggregation, also of draft pages) and SSM state pools.
 """
 from __future__ import annotations
 
@@ -81,6 +91,9 @@ from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import RUNNING, Request, Scheduler
 from repro_torch.runtime.speculative import SpeculativeConfig, _check_rewindable
+from repro_torch.runtime.state_cache import (
+    RingPageSpace, model_cache_layout, ring_pages_needed,
+)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -368,12 +381,27 @@ class ContinuousServeEngine:
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh=)",
                             "Tensor parallelism")
+        # -- stateful cache layouts (runtime.state_cache): ring-page
+        # reclamation for sliding-window layers; the reference's refusals --
+        lay = model_cache_layout(model.plan)
+        self._layout = lay
+        if lay.stateful:
+            arch = model.cfg.name
+            if speculative is not None:
+                raise NotImplementedError(
+                    f"speculative decoding is unsupported for {arch!r}: "
+                    f"draft/verify rewinds token-indexed KV pages, but "
+                    f"recurrent SSM state and reclaimed ring pages cannot "
+                    f"rewind (recorded follow-on)")
+            if phase != "colocated":
+                raise NotImplementedError(
+                    f"disaggregated serving is unsupported for {arch!r}: "
+                    f"the KV handoff moves page chains only — recurrent "
+                    f"state and ring residency need their own transfer "
+                    f"(recorded follow-on)")
         if phase != "colocated":
             raise _unported(f"phase={phase!r} (disaggregated serving)",
                             "Disaggregation")
-        if any(seg.window is not None for seg in model.plan):
-            raise _unported(f"{model.cfg.name}: sliding-window ring pages",
-                            "Stateful layouts")
         # -- DeploymentSpec resolution: pool/slot knobs derived from the
         # hardware point; explicit kwargs override individual values --
         self.deployment = None
@@ -432,9 +460,19 @@ class ContinuousServeEngine:
         if int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk={prefill_chunk} must be >= 1")
         self.prefill_chunk = int(prefill_chunk)
-        self.enable_prefix_cache = enable_prefix_cache
+        # no full-KV segment: no shareable, CoW-protected chains, so the
+        # prefix index must never hand out ring "hits"
+        self.enable_prefix_cache = enable_prefix_cache and lay.has_full
         self.defrag_every = 0
         self._vocab = model.cfg.padded_vocab
+        self.ring_pages = 0
+        if lay.has_ring:
+            # every slot at its transient (mid-prefill-chunk) residency peak
+            # at once: ensure() can never fail
+            self.ring_pages = ring_pages_needed(
+                num_slots=num_slots, window=lay.ring_window,
+                page_size=page_size, max_blocks=self.max_blocks,
+                prefill_chunk=self.prefill_chunk)
         # -- speculative decoding: the draft keeps a second set of pool
         # leaves over the same page-id space (one allocator, one set of
         # page tables) --
@@ -467,10 +505,10 @@ class ContinuousServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _step_impl(self, tokens, pos, page_table, temp, topk, topp, minp,
-                   seed, rep, bias_ids, bias_vals):
+    def _step_impl(self, tokens, pos, page_table, ring_table, temp, topk,
+                   topp, minp, seed, rep, bias_ids, bias_vals):
         logits = self.model.decode_step_paged(tokens, self._pools, page_table,
-                                              pos)
+                                              pos, ring_table=ring_table)
         # the incoming token sits at index pos; the one being generated at
         # pos + 1 — its PRNG key is fold_in(seed, pos + 1)
         nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp, seed,
@@ -485,10 +523,12 @@ class ContinuousServeEngine:
                        nxt.long()] = True
         return nxt, lp
 
-    def _chunk_impl(self, presence, tokens, page_table, start, valid, temp,
-                    topk, topp, minp, seed, rep, bias_ids, bias_vals):
+    def _chunk_impl(self, presence, tokens, page_table, ring_table, start,
+                    valid, temp, topk, topp, minp, seed, rep, bias_ids,
+                    bias_vals):
         logits = self.model.prefill_chunk_paged(tokens, self._pools,
-                                                page_table, start, valid)
+                                                page_table, start, valid,
+                                                ring_table=ring_table)
         # a request's first token is generated at index prompt_len ==
         # start + valid of its final chunk (other rows' draws are ignored)
         return sampling.sample_slots(logits, temp, topk, topp, minp, seed,
@@ -496,9 +536,9 @@ class ContinuousServeEngine:
                                      rep_penalty=rep, bias_ids=bias_ids,
                                      bias_vals=bias_vals, presence=presence)
 
-    def _chunk_scored_impl(self, presence, tokens, page_table, start, valid,
-                           tgt, temp, topk, topp, minp, seed, rep, bias_ids,
-                           bias_vals):
+    def _chunk_scored_impl(self, presence, tokens, page_table, ring_table,
+                           start, valid, tgt, temp, topk, topp, minp, seed,
+                           rep, bias_ids, bias_vals):
         """The prompt-logprobs variant of ``_chunk_impl``: the chunk's full
         (B, C, V) logits also score the next prompt token at every chunk
         position (``tgt[i, j] = prompt[start + j + 1]``, host-built), on the
@@ -506,7 +546,8 @@ class ContinuousServeEngine:
         still goes through the last-position head logits, so a scored
         admission samples the same first token."""
         last_logits, full = self.model.prefill_chunk_scored_paged(
-            tokens, self._pools, page_table, start, valid)
+            tokens, self._pools, page_table, start, valid,
+            ring_table=ring_table)
         first, lp = sampling.sample_slots(
             last_logits, temp, topk, topp, minp, seed, start + valid,
             max_top_k=self.max_top_k, rep_penalty=rep, bias_ids=bias_ids,
@@ -518,11 +559,16 @@ class ContinuousServeEngine:
         return first, lp, plp
 
     def _pool_leaves(self):
-        """Every pool leaf of the target and, when speculating, the draft
-        (scale leaves of quantized pools included)."""
+        """Every full-space pool leaf of the target and, when speculating,
+        the draft (scale leaves of quantized pools included).  Ring pools
+        live in their own page-id space, where pages are never shared,
+        copied on write or defragmented."""
+        ring = self.cache.ring is not None
         sets = [self._pools] + ([self._draft_pools] if self.spec else [])
         for pools in sets:
-            for pool in pools:
+            for win, pool in zip(self.model.windows, pools):
+                if ring and win is not None:
+                    continue
                 for leaf in pool.values():
                     yield kvq.raw_view(leaf)
 
@@ -648,11 +694,20 @@ class ContinuousServeEngine:
     # -- serving state ------------------------------------------------------
     def reset(self) -> None:
         """Drop all serving state and start an empty session."""
+        lay = self._layout
+        ring = None
+        if lay.has_ring:
+            ring = RingPageSpace(num_slots=self.num_slots,
+                                 num_pages=self.ring_pages,
+                                 page_size=self.page_size,
+                                 max_blocks=self.max_blocks,
+                                 window=lay.ring_window)
         self.cache = PagedKVCache(num_slots=self.num_slots,
                                   num_pages=self.num_pages,
                                   page_size=self.page_size,
                                   max_blocks=self.max_blocks,
-                                  enable_prefix_cache=self.enable_prefix_cache)
+                                  enable_prefix_cache=self.enable_prefix_cache,
+                                  has_full=lay.has_full, ring=ring)
         self._sched = Scheduler(self.cache, on_release=self._on_release,
                                 max_running=self.max_decode_slots)
         self._slots = sampling.SlotSampling(self.num_slots, self.device)
@@ -662,7 +717,8 @@ class ContinuousServeEngine:
         self._presence_dirty = False
         self._pools = self._draft_pools = None   # free the old pools first
         self._pools = self.model.init_paged_cache(
-            self.num_pages, self.page_size, dtype=self.cache_dtype)
+            self.num_pages, self.page_size, dtype=self.cache_dtype,
+            ring_pages=self.ring_pages if lay.has_ring else None)
         if self.spec is not None:
             self._draft_pools = self._draft_model.init_paged_cache(
                 self.num_pages, self.page_size, dtype=self.cache_dtype)
@@ -778,6 +834,17 @@ class ContinuousServeEngine:
         the full ``max_blocks`` view."""
         pre = self._sched.prefilling()
         c = self.prefill_chunk
+        if self.cache.ring is not None:
+            # ring pages back lazily (admission sizes the full space only):
+            # grow each slot's ring to this chunk's frontier before the
+            # table snapshot; ring_pages_needed sizing makes it infallible
+            for r in pre:
+                n = min(c, r.prompt_len - r.pos)
+                if not self.cache.ensure(r.slot, r.pos + n - 1):
+                    raise RuntimeError(
+                        "ring page pool exhausted during prefill: the "
+                        "engine sizes it by ring_pages_needed(), so this "
+                        "is an allocator invariant violation")
         bucket = self._bucket(len(pre))
         need = max(-(-(r.pos + min(c, r.prompt_len - r.pos)) // self.page_size)
                    for r in pre)
@@ -787,10 +854,14 @@ class ContinuousServeEngine:
         start = np.zeros((bucket,), np.int32)
         valid = np.zeros((bucket,), np.int32)
         table = self.cache.table()
+        rtab = self.cache.ring_table()
+        rtables = None if rtab is None else np.zeros((bucket, nb), np.int32)
         for i, r in enumerate(pre):
             n = min(c, r.prompt_len - r.pos)
             tokens[i, :n] = r.prompt[r.pos:r.pos + n]
             tables[i] = table[r.slot, :nb]
+            if rtables is not None:
+                rtables[i] = rtab[r.slot, :nb]
             start[i] = r.pos
             valid[i] = n
         samp = sampling.stack_params([r.sampling for r in pre], bucket)
@@ -800,6 +871,7 @@ class ContinuousServeEngine:
             pres[i] = self._presence_np[r.slot]
         pres_t, tok_t, tab_t, start_t, valid_t = (
             self._tensor(a) for a in (pres, tokens, tables, start, valid))
+        rtab_t = None if rtables is None else self._tensor(rtables)
         pargs = [self._tensor(a) for a in samp + extras]
         plp = None
         if any(r.sampling.prompt_logprobs for r in pre):
@@ -811,12 +883,12 @@ class ContinuousServeEngine:
                                + 1]
                 tgt[i, :len(nxt)] = nxt
             first, lp, plp = self._chunk_scored_impl(
-                pres_t, tok_t, tab_t, start_t, valid_t, self._tensor(tgt),
-                *pargs)
+                pres_t, tok_t, tab_t, rtab_t, start_t, valid_t,
+                self._tensor(tgt), *pargs)
             plp = plp.cpu().numpy()
         else:
-            first, lp = self._chunk_impl(pres_t, tok_t, tab_t, start_t,
-                                         valid_t, *pargs)
+            first, lp = self._chunk_impl(pres_t, tok_t, tab_t, rtab_t,
+                                         start_t, valid_t, *pargs)
         if self.spec is not None:
             # the draft pools take the same chunk (logits dropped), so the
             # first draft window attends over the whole prompt
@@ -837,6 +909,9 @@ class ContinuousServeEngine:
                 keep = n - 1 if int(start[i]) + n == r.prompt_len else n
                 r.prompt_logprobs.extend(float(x) for x in plp[i, :keep])
             r.pos += int(valid[i])
+            # the window slid past whole blocks during this chunk: return
+            # their ring pages now, between calls
+            self.cache.reclaim(r.slot, r.pos)
             if r.pos == r.prompt_len:                  # prefill complete
                 r.state = RUNNING
                 r.tokens.append(int(first[i]))
@@ -896,18 +971,23 @@ class ContinuousServeEngine:
         # slots still prefilling (or free) must not touch live pages: their
         # rows are routed to the scratch page for this step
         step_table = np.zeros_like(self.cache.table())
+        rtab = self.cache.ring_table()
+        ring_step = None if rtab is None else np.zeros_like(rtab)
         for req in decoding:
             tokens[req.slot] = req.tokens[-1]
             pos[req.slot] = req.pos
             step_table[req.slot] = self.cache.table()[req.slot]
+            if ring_step is not None:
+                ring_step[req.slot] = rtab[req.slot]
         if self._presence_dirty:       # admissions/releases since last step
             self._presence = self._presence_copy()
             self._presence_dirty = False
         if self.spec is not None:
             return self._spec_window(decoding, tokens, pos, step_table, outs)
-        nxt, lp = self._step_impl(self._tensor(tokens), self._tensor(pos),
-                                  self._tensor(step_table),
-                                  *self._slots.arrays())
+        nxt, lp = self._step_impl(
+            self._tensor(tokens), self._tensor(pos), self._tensor(step_table),
+            None if ring_step is None else self._tensor(ring_step),
+            *self._slots.arrays())
         nxt = nxt.cpu().numpy()                        # device sync
         lp = lp.cpu().numpy()
         self._occ_sum += len(decoding) / self.num_slots
@@ -921,6 +1001,7 @@ class ContinuousServeEngine:
             if req.sampling.logprobs:
                 req.logprobs.append(float(lp[req.slot]))
             req.pos += 1
+            self.cache.reclaim(req.slot, req.pos)
             self._progress(req, outs)
         return outs
 

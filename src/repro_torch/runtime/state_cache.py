@@ -38,8 +38,9 @@ testable without compiles.
 A verbatim copy of ``repro/runtime/state_cache.py`` with its imports
 redirected to the port.  ``DeploymentSpec.resolve`` prices with
 ``model_cache_layout``, ``ring_pages_needed`` and ``state_bytes_per_slot``;
-the port's engine does not serve ring pages or state pools yet (ROADMAP
-Queue 1, 'Stateful layouts'), so ``RingPageSpace`` has no caller here.
+the continuous engine keeps sliding-window layers' pages in a
+``RingPageSpace``; state pools are not ported yet (ROADMAP Queue 1,
+'Stateful layouts').
 """
 from __future__ import annotations
 

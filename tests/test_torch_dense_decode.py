@@ -134,15 +134,15 @@ def test_variant_choice():
     pairing of f32 and bf16 the CUDA-core one; anything else raises."""
     v = dense_kernel.variant
     bf, f32 = torch.bfloat16, torch.float32
-    assert [v(bf, bf, d) for d in (64, 128)] == ["tensor_core"] * 2
+    assert [v(bf, bf, d) for d in (64, 80, 96, 128)] == ["tensor_core"] * 4
     assert {v(f32, f32, 128), v(f32, bf, 128), v(bf, f32, 64),
-            v(bf, bf, 256)} == {"cuda_core"}
+            v(bf, bf, 256), v(f32, f32, 80), v(f32, bf, 96)} == {"cuda_core"}
     with pytest.raises(ValueError, match="q dtype"):
         v(torch.float16, bf, 128)
     with pytest.raises(ValueError, match="cache dtype"):
         v(bf, torch.float16, 128)
     with pytest.raises(ValueError, match="head dim"):
-        v(bf, bf, 96)
+        v(bf, bf, 48)
 
 
 @pytest.mark.parametrize("b,kvh,s,want", [

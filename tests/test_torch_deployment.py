@@ -114,7 +114,8 @@ def test_hardware_and_hbmco_match_reference():
 @pytest.mark.parametrize("name", ["llama3-8b", "llama3-70b", "llama3-405b",
                                   "qwen3-14b", "qwen2.5-14b",
                                   "llama4-scout-109b-a17b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "phi3-mini-3.8b", "h2o-danube-1.8b"])
 def test_footprint_matches_reference(name):
     got = compute_footprint(tconfigs.get_config(name))
     want = j_footprint(get_config(name))
@@ -265,7 +266,8 @@ def test_resolved_deployment_matches_reference(small, case):
     _assert_same(got, want)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "llama3-70b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "llama3-70b",
+                                  "phi3-mini-3.8b", "h2o-danube-1.8b"])
 def test_full_size_pricing_matches_reference_without_weights(name):
     """Full-width configs priced from a ``meta``-device model: by the
     footprint estimate, and exactly from its parameters' shapes (the
@@ -518,3 +520,33 @@ def test_spec_streams_match_reference_through_storm_and_decode_cap(served):
     capped_want, _ = _drive(weng, RefRequest, RefSP, prompts)
     capped, cpeak = _drive(teng, Request, SamplingParams, prompts)
     assert cpeak <= 2 and capped == capped_want == want
+
+
+def test_ring_pools_equal_the_budget():
+    """h2o-danube (every layer a window): the engine sized by ``spec=``
+    allocates exactly ``pool_bytes_per_device``, all of it ring pool (its
+    scratch page excluded), and the budget is the reference's, field for
+    field (``num_ring_pages`` among them)."""
+    name = "h2o-danube-1.8b"
+    ref = build_model(reduced_config(get_config(name)))
+    params = ref.init(jax.random.PRNGKey(0))
+    port = params_from_jax(jax.tree.map(np.asarray, params),
+                           tconfigs.reduced_config(tconfigs.get_config(name)),
+                           device="cpu")
+    for cache in ("f32", "fp8"):
+        jc, tc = CACHE[cache]
+        skw = dict(sku="rpu-cu", max_len=64, page_size=4, prefill_chunk=16)
+        want = jdep.DeploymentSpec(cache_dtype=jc, **skw).resolve(
+            ref, params=params)
+        eng = ContinuousServeEngine(
+            port, device="cpu", spec=tdep.DeploymentSpec(cache_dtype=tc,
+                                                         **skw))
+        eng.reset()
+        dep = eng.deployment
+        _assert_same(dep, want)
+        assert dep.num_ring_pages > 0 and eng.ring_pages == dep.num_ring_pages
+        assert dep.kv_token_bytes == dep.ring_token_bytes
+        total = sum(leaf.nbytes for pool in eng._pools
+                    for leaf in pool.values())
+        assert total - dep.ring_token_bytes * dep.page_size == \
+            dep.pool_bytes_per_device

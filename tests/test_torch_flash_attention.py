@@ -144,7 +144,11 @@ def test_variant_choice():
     assert v(torch.float32, 128, 256) == "fma"
     with pytest.raises(ValueError, match="dtype"):
         v(torch.float16, 128)
-    for d in (16, 96, 256):
+    # D 80 / 96 (h2o-danube, phi3-mini) on D 128's shared-memory layout
+    assert [v(torch.bfloat16, d, r) for d in (80, 96) for r in (1, 4)] \
+        == ["wgmma"] * 4
+    assert [v(torch.float32, d) for d in (80, 96)] == ["fma"] * 2
+    for d in (16, 48, 256):
         with pytest.raises(ValueError, match="head dim"):
             v(torch.bfloat16, d)
 

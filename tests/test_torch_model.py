@@ -134,8 +134,11 @@ def test_unported_plans_and_options_raise():
         with pytest.raises(NotImplementedError, match="Stateful"):
             Model(dataclasses.replace(base, family=family), device="cpu")
     model = Model(base, device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="Stateful"):
-        model.init_paged_cache(4, 4, ring_pages=2)
+    # ring_pages sizes the pools of sliding-window layers only
+    assert model.init_paged_cache(4, 4, ring_pages=2)[0]["k"].shape[0] == 4
+    windowed = Model(dataclasses.replace(base, sliding_window=8),
+                     device="meta")
+    assert windowed.init_paged_cache(4, 4, ring_pages=2)[0]["k"].shape[0] == 2
     pools = model.init_paged_cache(4, 4)
     tab = torch.zeros((1, 1), dtype=torch.int32)
     one = torch.zeros((1,), dtype=torch.int32)

@@ -6,7 +6,9 @@ within the port; mxfp4 weights; and the refusals.
 
 Weights come from the reference ``Model.init`` through
 ``bridge.params_from_jax`` (reduced llama3-8b, qwen3-14b with qk-norm,
-qwen2.5-14b with qkv bias; non-trivial biases and qk-norm weights).
+qwen2.5-14b with qkv bias, phi3-mini-3.8b with full MHA, and
+h2o-danube-1.8b, whose every layer has a window of 8 that a 9-token
+prompt's ring cache wraps; non-trivial biases and qk-norm weights).
 Tolerances: in f32 (weights, activations and cache) logits within 1e-5,
 cache entries within 1e-5, and token streams identical, greedy and sampled
 (logprobs within 1e-5) — XLA:CPU and PyTorch sum in other orders.  In bf16
@@ -55,7 +57,8 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-ARCHS = ["llama3-8b", "qwen3-14b", "qwen2.5-14b"]
+ARCHS = ["llama3-8b", "qwen3-14b", "qwen2.5-14b", "phi3-mini-3.8b",
+         "h2o-danube-1.8b"]
 SAMPLING = [dict(), dict(temperature=0.8, top_k=16, seed=3, logprobs=True),
             dict(temperature=1.0, seed=9, repetition_penalty=1.3,
                  logit_bias={3: 2.0}),
@@ -167,8 +170,8 @@ def test_forward_matches_reference(name):
 
 def test_sliding_window_ring_cache_matches_reference():
     """A windowed layer on the CPU (window 5 < a 9-token prompt: the ring
-    branch of prefill, then decode steps that wrap the ring) — the path
-    that raises on CUDA."""
+    branch of prefill, then decode steps that wrap the ring) — on CUDA the
+    flash kernel's window and the dense kernel over the wrapped ring."""
     cfg, jmodel, params = _reference("llama3-8b", seed=6, window=5)
     tcfg = dataclasses.replace(
         tconfigs.reduced_config(tconfigs.get_config("llama3-8b")),
@@ -317,12 +320,11 @@ def test_refusals(llama):
                   spec=DeploymentSpec(sku="h100", cache_dtype="fp8"))
     with pytest.raises(NotImplementedError, match="quantized KV"):
         port.init_cache(1, 8, dtype="int8")
-    # a windowed layer takes the kernels on CUDA: refused there, not
-    # served by the plain version
-    with pytest.raises(NotImplementedError, match="Stateful layouts"):
-        layers.kernel_path(torch.device("cuda"), 4)
-    assert layers.kernel_path(torch.device("cuda"), None)
-    assert not layers.kernel_path(torch.device("cpu"), 4)
+    # CUDA tensors take the kernels, windowed layers included (the flash
+    # kernel's window, the dense kernel over a wrapped ring); the CPU the
+    # plain versions
+    assert layers.kernel_path(torch.device("cuda"))
+    assert not layers.kernel_path(torch.device("cpu"))
     llm = LLMEngine(port, backend="static", device="cpu", max_len=16)
     with pytest.raises(ValueError, match="one prompt length"):
         llm.generate([[1, 2, 3], [4, 5]], SamplingParams(max_tokens=2))
