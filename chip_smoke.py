@@ -15,11 +15,14 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
 ``--only kernel_exact,check`` (any of the kernel phases, quantize,
-deployment, check, check_mla, check_moe, check_window; serve and
+deployment, check, check_mla, check_moe, check_window, check_state; serve and
 serve_spec_draft on a llama3-8b built first; serve_phi3,
 serve_phi3_static, serve_phi3_quantized and serve_phi3_spec on a
 phi3-mini-3.8b built first; serve_danube, serve_danube_static and
-serve_danube_quantized on an h2o-danube-1.8b built first; serve_mla,
+serve_danube_quantized on an h2o-danube-1.8b built first;
+serve_mamba2 and serve_mamba2_static on a mamba2-370m built first;
+serve_hymba, serve_hymba_static and serve_hymba_quantized on a
+hymba-1.5b built first; serve_mla,
 serve_mla_static, serve_mla_quantized and serve_mla_spec on a
 deepseek-v2-lite-16b built first; serve_moe, serve_moe_static,
 serve_moe_quantized and serve_moe_spec on a llama4-scout built first;
@@ -103,6 +106,16 @@ Phases, each of which fails the run if it fails:
    SDPA (with an explicit window mask for the windowed flash), and
    ``mxfp4_vmm`` held and timed at their projections (M 8 and 2048).
    Returns one kernels-line entry per variant.
+6c. kernel_hymba — the kernels on hymba-1.5b's path at its shapes (D 64,
+   25 query heads over 5: rep 5): flash with its 1024-token window and
+   without (its 3 global layers), dense decode over a wrapped 1024-entry
+   ring and a ragged 3200-entry cache, the paged online kernel over bf16
+   and f32 pools with and without a ring table, bf16 and f32, at the
+   tolerances of kernel_headdims; ``mxfp4_vmm`` at its four launches
+   (q/k/v grouped at K 1600, which is not a whole number of the decode
+   schedule's 128-row K stages; gate/up to 5504; down from 5504) for M 1,
+   8 and 2048.  Each timed at hymba's serve shapes beside its bound, its
+   plain version and the library call; one kernels-line entry each.
 6. kernel_exact — the exact-accumulator paged kernel (the speculative
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
@@ -130,10 +143,10 @@ Phases, each of which fails the run if it fails:
    deepseek-v2-lite-16b on h100 with bf16 and with mxfp4 weights must
    resolve, and with an fp8 cache must raise ``DeploymentError``.
 9. serve — llama3-8b at full width, its depth cut to ``LLAMA_LAYERS``
-   (16 of 32, since the deepseek phases joined the script: it keeps the
-   whole run near 600 s; random bf16 weights from a
-   seeded generator, ~9 GB) behind ``LLMEngine(backend="continuous")``
-   answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
+   (8 of 32: the earlier models' depths are cut so that the whole run,
+   stateful models at full depth included, stays near 600 s; random bf16
+   weights from a seeded generator, ~5.6 GB) behind
+   ``LLMEngine(backend="continuous")`` answers 8 requests (prompts of 128-1024 tokens, two sharing a 512-token
    prefix, 4 greedy and 4 sampled, 64 new tokens each).  Every request must
    finish, the prefix index must be hit, the decode kernel must have run
    once per layer per decode step (bf16 and fp8: its tensor-core variant,
@@ -159,8 +172,9 @@ Phases, each of which fails the run if it fails:
    must launch the flash kernel twice per layer (prefill and
    ``Model.forward``) and give finite
    scores <= 0.  Reports tokens/s, prefill s, decode step ms and peak GB,
-   and the device time of 16 decode steps (a profiled 17-token call minus
-   a 1-token one): busy ms per step, idle share, time by kernel.
+   and the device time of ``STATIC_PROFILE_STEPS`` (4) decode steps (a
+   profiled 5-token call minus a 1-token one): busy ms per step, idle
+   share, time by kernel.
 11. serve_quantized — the continuous serve with ``weight_format="mxfp4"``
    and ``cache_dtype="fp8"``: the same checks as serve, and the MXFP4
    kernel must have run 4 x layers x (decode steps + prefill chunk calls)
@@ -191,14 +205,13 @@ Phases, each of which fails the run if it fails:
    kernel twice per layer (the two prompt prefills), and a
    second call reproduces the stream (phase serve_spec_legacy).
 13. serve_spec_draft — speculation with a cheap draft: the draft is the
-   model's first 4 of its 16 layers (``runtime/spec_pair.build_pair``: shared
+   model's first 2 of its 8 layers (``runtime/spec_pair.build_pair``: shared
    tensors; the deeper ``wo``/``w_down`` damped by 0.005 in place, so this
    runs last on the model).  Plain and speculative (gamma 4) engines, both
    sized by ``DeploymentSpec(sku="h100", max_len=512, page_size=16,
-   max_slots=8)``, serve 8 greedy requests (256-token prompts, 128 new)
-   twice each, in turns and before any trace, the faster rep kept:
-   tokens/s and the speedup (and, as a reading, one more plain session
-   after the traces); accepted per
+   max_slots=8)``, serve 8 greedy requests (256-token prompts, 64 new)
+   twice each, in turns and before any trace,
+   the faster rep kept: tokens/s and the speedup; accepted per
    window against the model at the measured per-token acceptance; the
    median window and step against ``spec_window_seconds`` and
    ``step_seconds``, and the device busy time of 8 traced ones; the pools'
@@ -210,14 +223,16 @@ Phases, each of which fails the run if it fails:
    plain ones or part where the plain stream's top-2 gap is at most
    ``NEAR_TIE_BF16_ULPS`` bf16 ulps of the top logit.
 13b. serve_phi3, serve_phi3_static, serve_phi3_quantized, serve_phi3_spec
-   — after llama3-8b is freed, phi3-mini-3.8b at full size (32 layers,
-   full MHA at head dim 96, 7.6 GB of random bf16 weights): the serve,
+   — after llama3-8b is freed, phi3-mini-3.8b at full width and
+   ``PHI3_LAYERS`` (8) of its 32 layers (full MHA at head dim 96; 2.2 GB
+   of random bf16 weights; all 32 until the stateful phases joined): the serve,
    serve_static and serve_quantized phases' mixes and checks (continuous
    bf16 with a scored prompt; static 8 x 1024; mxfp4 + fp8 KV), and
    self-draft ``speculative=`` and the legacy backend as serve_mla_spec.
 13c. serve_danube, serve_danube_static, serve_danube_quantized — after
-   phi3 is freed, h2o-danube-1.8b at full size (24 layers, GQA 32 over 8
-   at head dim 80, every layer a 4096-token window; 3.7 GB): continuous
+   phi3 is freed, h2o-danube-1.8b at full width and ``DANUBE_LAYERS`` (6)
+   of its 24 layers (GQA 32 over 8 at head dim 80, every layer a
+   4096-token window; 1.2 GB): continuous
    bf16 over ring pages (``DANUBE_MIX``: 2 prompts of 6144 tokens, 2 of
    4000 with 256 new, which cross the window while decoding, 4 of 512;
    page 16, chunk 256), the ring's pool, its most live blocks a slot
@@ -227,8 +242,29 @@ Phases, each of which fails the run if it fails:
    (windowed flash) at every position; static 2 x 6144 (windowed flash
    prefill, dense decode over the wrapped 4096-entry ring); mxfp4 + fp8
    KV on the mix's first 4 requests.
-14. serve_mla — after ``del`` of danube, deepseek-v2-lite-16b at full
-   width and ``DEEPSEEK_LAYERS`` (14) of its 27 layers (MLA attention, 1
+13d. serve_mamba2, serve_mamba2_static — after danube is freed,
+   mamba2-370m at full size (48 layers of the Mamba2 SSD mixer, d_model
+   1024, state 128, 0.74 GB): continuous bf16 on the serve phase's mix
+   (no prefix hit: a pure-state model has no full space; its per-slot
+   state pools, 50.99 MB a slot, held against ``state_bytes_per_slot``;
+   a scored prompt against ``Model.forward``) and static 8 x 1024.  The
+   reference computes the mixer in plain jnp, so no kernel may launch;
+   the traced steps split device time by the ``ssm_mixer`` range.
+13e. serve_hymba, serve_hymba_static, serve_hymba_quantized — after
+   mamba2 is freed, hymba-1.5b at full size (32 layers of GQA attention,
+   25 heads over 5 at D 64, beside a Mamba2 mixer of 50 heads, state 16;
+   global at layers 0, 16 and 31, a 1024-token window elsewhere; 3.3 GB):
+   continuous bf16 on ``HYMBA_MIX`` (2 prompts of 3072 tokens and 2 of
+   1500 with 256 new, past the window, whose rings wrap while decoding; 4
+   of 512 with 64 new, two sharing a 384-token prefix; page 16, chunk
+   256): the
+   windowed layers' ring (``RingWatch``), the prefix pages shared while
+   the prompt is recomputed (``recompute_shared``: no prompt token
+   skipped), the state pools, a 3072-token scored prompt; static 2 x
+   3072; the continuous mix with mxfp4 attention and MLP projections over
+   bf16 pools (128 ``mxfp4_vmm`` launches a call).
+14. serve_mla — after ``del`` of hymba, deepseek-v2-lite-16b at full
+   width and ``DEEPSEEK_LAYERS`` (4) of its 27 layers (MLA attention, 1
    dense layer, MoE layers of 64 routed experts, top 6, and 2 shared;
    random bf16 weights from a seeded generator) behind
    ``LLMEngine(backend="continuous")``:
@@ -246,7 +282,7 @@ Phases, each of which fails the run if it fails:
 15. serve_mla_static — the same model behind ``LLMEngine(backend=
    "static")``: 8 prompts of 1024 tokens, 64 new each, twice (every stream
    reproduces), then a ``prompt_logprobs`` call (finite scores <= 0); the
-   device time of 16 decode steps by kernel and by named range.
+   device time of 4 decode steps by kernel and by named range.
 16. serve_mla_quantized — serve_mla with ``weight_format="mxfp4"`` over
    bf16 pools: the same checks, and ``mxfp4_vmm`` must launch 2 a layer
    plus 2 for the dense layer's MLP per decode step and per prefill chunk
@@ -281,8 +317,8 @@ Phases, each of which fails the run if it fails:
 19. serve_moe, serve_moe_static, serve_moe_quantized, serve_moe_spec —
    after deepseek is freed, llama4-scout at full width (d_model 5120, 40
    query heads over 8, head dim 128, 16 experts of 8192 plus a shared one,
-   vocab 202048) and ``SCOUT_LAYERS`` (8) of its 48 layers, 39.4 GB of
-   random bf16 weights: the serve phase's requests and checks (continuous
+   vocab 202048) and ``SCOUT_LAYERS`` (4) of its 48 layers, of random
+   bf16 weights: the serve phase's requests and checks (continuous
    bf16 with a scored prompt; static 8 x 1024; mxfp4 attention
    projections over fp8 pools, 2 ``mxfp4_vmm`` launches a layer, each
    shape held on its own activations; self-draft ``speculative=`` and the
@@ -300,6 +336,11 @@ Phases, each of which fails the run if it fails:
    card against CPU: continuous (greedy and sampled), static, and static
    against continuous on the card, under the near-tie rule; f32 runs the
    kernels' CUDA-core variants at the new head dims.
+20c. check_state — narrow mamba2- and hymba-shaped models (2 and 3
+   layers; hymba global, windowed (64), global, rep 5 at D 64), f32, card
+   against CPU: the continuous engine with a forced preemption and
+   iterations that mix prefilling and decoding slots (``state_ok``), and
+   the static engine, under the near-tie rule.
 21. check_moe — two narrow llama4-shaped models (scout's period, dense
    MoE; maverick's period x 2, capacity forced), f32, card against CPU:
    continuous with a prefix hit, static, continuous and legacy
@@ -311,7 +352,8 @@ Phases, each of which fails the run if it fails:
 
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line (the six kernels at llama3-8b's shapes, then their D 96
-and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections;
+and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections,
+then the same kernels at hymba's shapes;
 ``launches`` from the serve phase that runs each, on its own model), and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -1460,6 +1502,55 @@ def ring_table(table, pos, window, page):
     return np.where(dead, 0, table).astype(np.int32)
 
 
+class KernelHolds:
+    """Holds kernels against their plain versions at the tolerances of the
+    D 64 / 128 phases (f32: 1e-5; bf16 flash: 2^-6 of each row's largest
+    value; other bf16: one bf16 ulp + 1e-4 per element), printing each
+    case, keeping each kernel's worst error by dtype, and makes the
+    kernels-line entries from those (``launches`` set later from the
+    serve phases)."""
+    ATOL_BF16, TOL_F32, FLASH_TOL = 1e-4, 1e-5, 2.0 ** -6
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.worst = {}            # "kernel:dtype" -> worst max abs err
+        self.checked = []
+
+    def hold(self, name, label, out, ref, bf16_rel=False):
+        self.torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if out.dtype == self.torch.float32:
+            ok, measure, limit = err <= self.TOL_F32, err, f"{self.TOL_F32}"
+        elif bf16_rel:
+            measure = row_rel_err(out, ref)
+            ok, limit = (measure <= self.FLASH_TOL,
+                         f"{self.FLASH_TOL:.3g} per row")
+        else:
+            measure = ulp_limit_share(out, ref, self.ATOL_BF16)
+            ok, limit = (measure <= 1.0,
+                         f"2^-7 |ref| + {self.ATOL_BF16} per element")
+        print(f"  {name} vs plain: {label}: max abs err {err:.3g}, measure "
+              f"{measure:.3g} (tolerance {limit})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: {measure} ({limit})")
+        key = (f"{name}:"
+               f"{'f32' if out.dtype == self.torch.float32 else 'bf16'}")
+        self.worst[key] = max(self.worst.get(key, 0.0), err)
+        self.checked.append(label)
+
+    def entry(self, name, source, replaces, row, label, **extra) -> dict:
+        kernel = name.split(":")[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None,
+                "max_abs_err": self.worst[f"{kernel}:bf16"],
+                "max_abs_err_f32": self.worst.get(f"{kernel}:f32"),
+                "headline": label, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"), **extra}
+
+
 def kernel_headdims_phase(torch) -> dict:
     """Every attention kernel at the head dims of phi3-mini (D 96, rep 1)
     and h2o-danube (D 80, rep 4), and the flash kernel's sliding window,
@@ -1486,29 +1577,8 @@ def kernel_headdims_phase(torch) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(23)
     rng = np.random.default_rng(23)
-    atol_bf16, tol_f32, flash_tol = 1e-4, 1e-5, 2.0 ** -6
-    worst = {}                     # kernel -> worst measure (bf16 share / f32 err)
-    checked = []
-
-    def hold(name, label, out, ref, bf16_rel=False):
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if out.dtype == torch.float32:
-            ok, measure, limit = err <= tol_f32, err, f"{tol_f32}"
-        elif bf16_rel:
-            measure = row_rel_err(out, ref)
-            ok, limit = measure <= flash_tol, f"{flash_tol:.3g} per row"
-        else:
-            measure = ulp_limit_share(out, ref, atol_bf16)
-            ok, limit = measure <= 1.0, f"2^-7 |ref| + {atol_bf16} per element"
-        print(f"  {name} vs plain: {label}: max abs err {err:.3g}, measure "
-              f"{measure:.3g} (tolerance {limit})")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at {label}: {measure} ({limit})")
-        key = f"{name}:{'f32' if out.dtype == torch.float32 else 'bf16'}"
-        worst[key] = max(worst.get(key, 0.0), err)
-        checked.append(label)
+    holds = KernelHolds(torch)
+    hold, entry, worst = holds.hold, holds.entry, holds.worst
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1631,16 +1701,6 @@ def kernel_headdims_phase(torch) -> dict:
     # -- timings at the serve shapes, the L2 flushed
     flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
     entries = []
-
-    def entry(name, source, replaces, row, label, **extra):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": None,
-                "max_abs_err": worst[f"{name.split(':')[0]}:bf16"],
-                "max_abs_err_f32": worst.get(f"{name.split(':')[0]}:f32"),
-                "headline": label, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"],
-                "library_ms": row.get("library_ms"), **extra}
 
     for name, (B, S, h, kvh, d, window, label) in (
             ("flash_attention:D96", (8, 1024, 32, 32, 96, None,
@@ -1831,7 +1891,7 @@ def kernel_headdims_phase(torch) -> dict:
             "library_ms": None, "bf16_matmul_ms": head["bf16_matmul_ms"],
             "layer_m2048": per_m[2048]})
     del flush, weights
-    return {"phase": "kernel_headdims", "checked": len(checked),
+    return {"phase": "kernel_headdims", "checked": len(holds.checked),
             "worst": worst, "mxfp4_vmm_max_rel_err": vmm_err,
             "entries": entries}
 
@@ -2030,30 +2090,87 @@ HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 
 # the model's named profiler ranges (``models.common.span``): GQA and MLA
-# attention (projections in, attention, no output projection), MoE
-# dispatch / experts / combine, and the head
-SPANS = ("gqa_attention", "mla_attention", "moe_dispatch", "moe_experts",
-         "moe_combine", "head")
+# attention (projections in, attention, no output projection), the SSM
+# mixer (in projections to out projection), MoE dispatch / experts /
+# combine, and the head
+SPANS = ("gqa_attention", "mla_attention", "ssm_mixer", "moe_dispatch",
+         "moe_experts", "moe_combine", "head")
 
 
-def span_device_ms(prof) -> dict:
-    """Device time (ms) of the kernels launched inside each of the model's
-    named ranges (``SPANS``), summed over the trace: a host-side range's
-    ``device_time_total`` counts the kernels of the ops under it.  (The
-    profiler also records each range on the device's timeline, from its
-    first kernel's start to its last one's end, idle gaps included; those
-    events are not kernel time and are left out here and of the kernel
-    sums.)"""
+def trace_summary(prof) -> dict:
+    """One pass over a ``torch.profiler`` trace's raw events
+    (``prof.profiler.kineto_results``): device time (us) by kernel name;
+    device time (ms) of the kernels launched inside each of the model's
+    named ranges (``SPANS``; a kernel counts in a range when the host op
+    or range it is linked to starts inside it on the same thread, as a
+    host-side range's ``device_time_total`` counts the kernels of the ops
+    under it); host self time (us) by op name (an event's time less its
+    direct children's on its thread; the step and named ranges left
+    out); and the count of each host wait (``HOST_WAITS``).  The
+    profiler's own ``events()`` / ``key_averages()`` build a
+    ``FunctionEvent`` tree first, ~70 us of host time an event: tens of
+    seconds for a trace of a few steps of a 32-layer stateful model.  The
+    device-side copies of the named ranges (first kernel to last, idle
+    gaps included) are not device activity and count nowhere."""
+    import bisect
+
     from torch.autograd import DeviceType
 
-    out = {}
-    for evt in prof.events():
-        if evt.name in SPANS and evt.device_type == DeviceType.CPU:
-            t = getattr(evt, "device_time_total", None)
-            if t is None:
-                t = evt.cuda_time_total
-            out[evt.name] = out.get(evt.name, 0.0) + t / 1e3
-    return out
+    device, linked, waits = {}, [], {}
+    host = {}                     # thread -> [(start, end, name, id)]
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in HOST_WAITS:
+            waits[name] = waits.get(name, 0) + 1
+        if e.device_type() == DeviceType.CUDA:
+            # device activity (kernels, copies, memsets); each step and
+            # named range is also recorded as a device-side range
+            # spanning its kernels, which is not
+            if name not in SPANS and not name.startswith("ProfilerStep"):
+                device[name] = device.get(name, 0.0) + e.duration_ns() / 1e3
+                linked.append((e.linked_correlation_id(), e.duration_ns()))
+        elif not e.is_async():
+            start = e.start_ns()
+            host.setdefault(e.start_thread_id(), []).append(
+                (start, start + e.duration_ns(), name, e.correlation_id()))
+    self_us, starts, ranges = {}, {}, {}
+    for tid, evs in host.items():
+        evs.sort(key=lambda r: (r[0], -r[1]))
+        stack = []                # open ancestors: [end, name, self ns]
+        for start, end, name, cid in evs:
+            while stack and stack[-1][0] <= start:
+                done = stack.pop()
+                self_us[done[1]] = self_us.get(done[1], 0.0) + done[2] / 1e3
+            if stack:
+                stack[-1][2] -= end - start
+            stack.append([end, name, end - start])
+            # runtime and driver calls (cuda*, cu*) carry the device's
+            # correlation ids; ops and ranges are what a kernel links to
+            if not name.startswith("cu"):
+                starts[cid] = (tid, start)
+                if name in SPANS:
+                    ranges.setdefault(tid, []).append((start, end, name))
+        for _, name, ns in stack:
+            self_us[name] = self_us.get(name, 0.0) + ns / 1e3
+    # the named ranges do not nest in one another: the last one to start
+    # at or before a launch is the only one that can hold it
+    for r in ranges.values():
+        r.sort()
+    heads = {tid: [r[0] for r in rs] for tid, rs in ranges.items()}
+    spans = {}
+    for cid, ns in linked:
+        tid, t = starts.get(cid, (None, 0))
+        if tid not in ranges:
+            continue
+        i = bisect.bisect_right(heads[tid], t) - 1
+        if i >= 0 and t < ranges[tid][i][1]:
+            name = ranges[tid][i][2]
+            spans[name] = spans.get(name, 0.0) + ns / 1e6
+    return {"device_us": device, "spans_ms": spans,
+            "host_self_us": {k: v for k, v in self_us.items()
+                             if k not in SPANS
+                             and not k.startswith("ProfilerStep")},
+            "waits": waits}
 
 
 def device_breakdown(prof, step_s: float) -> dict:
@@ -2063,23 +2180,10 @@ def device_breakdown(prof, step_s: float) -> dict:
     time; the step's wall time ``step_s`` is the median decode step of the
     untraced first session (host tracing slows every step of the traced
     one, so its own wall times would overstate idleness)."""
-    from torch.autograd import DeviceType
-
-    times, host = {}, {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", 0) or 0     # microseconds
-        host[evt.key] = getattr(evt, "self_cpu_time_total", 0) or 0
-        # device activity only (kernels, copies, memsets): the host ops
-        # carry the device time of what they launched, and each profiler
-        # step and named range is also recorded as a device-side range
-        # spanning its kernels
-        if (t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA
-                and not evt.key.startswith("ProfilerStep")
-                and evt.key not in SPANS):
-            times[evt.key] = times.get(evt.key, 0) + t
+    trace = trace_summary(prof)
+    times, host = trace["device_us"], trace["host_self_us"]
     n = PROFILE["active"]
-    waits = sum(evt.count for evt in prof.key_averages()
-                if evt.key in HOST_WAITS)
+    waits = sum(trace["waits"].values())
     busy = sum(times.values()) / 1e6
     if busy == 0:
         return {"device_time": "not measured (the profiler saw no device "
@@ -2104,21 +2208,50 @@ def device_breakdown(prof, step_s: float) -> dict:
                 sorted(host.items(), key=lambda kv: -kv[1])[:10]},
             "top_kernels_ms_per_step": {k[:70]: t / 1e3 / n for k, t in top},
             "spans_device_ms_per_step": {
-                k: t / n for k, t in span_device_ms(prof).items()}}
+                k: t / n for k, t in trace["spans_ms"].items()}}
 
 
 def vmm_launches_per_call(model) -> int:
     """MXFP4 launches of one decode step or prefill chunk call: per layer
     one for the attention's input projections (GQA: q/k/v grouped; MLA:
     wq) and one for its output projection, and for a dense MLP one for
-    gate/up (grouped) and one for down.  MoE experts are not quantized.
-    llama3-8b: 4 x 32 = 128; deepseek-v2-lite-16b: 4 + 2 x 26 = 56."""
-    return sum(2 + (0 if blk.is_moe else 2) for blk in model.layers)
+    gate/up (grouped) and one for down.  MoE experts and the SSM mixer are
+    not quantized.  llama3-8b: 4 x 32 = 128; deepseek-v2-lite-16b: 4 + 2 x
+    26 = 56; hymba-1.5b: 4 x 32 = 128; mamba2-370m: 0."""
+    return sum(0 if blk.kind == "ssm" else 2 + (0 if blk.is_moe else 2)
+               for blk in model.layers)
 
 
-# depth of the llama3-8b serve phases (its widths stay full): 16 of 32
-# layers keep the whole script, deepseek's phases included, near 600 s
-LLAMA_LAYERS = 16
+def gqa_layers(model) -> int:
+    """Layers whose attention is GQA (the port's kernels run it): the
+    ``attn_*`` kinds and the attention half of ``hybrid``."""
+    return sum(blk.kind in ("attn_dense", "attn_moe", "hybrid")
+               for blk in model.layers)
+
+
+def state_readings(llm) -> dict:
+    """A stateful engine's SSM state pools: bytes a slot, held against
+    ``state_bytes_per_slot`` (what ``DeploymentSpec`` prices), and in all;
+    empty for a stateless model."""
+    from repro_torch.runtime.state_cache import state_bytes_per_slot
+
+    eng = llm._eng
+    if getattr(eng, "_states", None) is None:
+        return {}
+    total = sum(a.nbytes for s in eng._states for a in s.values())
+    per = total // eng.num_slots
+    if per != state_bytes_per_slot(eng.model.cfg):
+        raise AssertionError(f"state pools hold {per} B a slot, "
+                             f"state_bytes_per_slot says "
+                             f"{state_bytes_per_slot(eng.model.cfg)}")
+    return {"state_pool_bytes_per_slot": per,
+            "state_pool_gb": total / 1e9}
+
+
+# depth of the llama3-8b serve phases (its widths stay full): 8 of 32
+# layers, as the other earlier models' cuts, keep the whole script near
+# 600 s on a host that is not slowed
+LLAMA_LAYERS = 8
 
 
 def build_llama(torch):
@@ -2140,12 +2273,13 @@ def build_llama(torch):
 # phases whose serve session is followed by a scored prompt (the mix's
 # second; in danube's mix 6144 tokens, scored past the window)
 SCORED_PHASES = ("serve", "serve_mla", "serve_moe", "serve_phi3",
-                 "serve_danube")
+                 "serve_danube", "serve_mamba2", "serve_hymba")
 
 
 def serve_phase(torch, model, phase: str = "serve", requests=None,
                 max_len: int = 2048, late=SHARED, expect_prefix_hit=True,
-                watch=None, **engine_kw) -> dict:
+                watch=None, min_prefix_hit: int = 512 - 16,
+                **engine_kw) -> dict:
     """Serve a request mix twice through ``LLMEngine`` (``engine_kw``:
     ``weight_format``, ``cache_dtype``) and check streams and launches:
     every request ends with its ``max_tokens``, the re-run (traced over 8
@@ -2153,10 +2287,14 @@ def serve_phase(torch, model, phase: str = "serve", requests=None,
     every kernel of the path launched as often as the steps and calls
     say.  ``requests(sp_cls, vocab)`` gives the mix (default
     ``serve_requests``, with request 7 added ``late`` so it hits the prefix
-    index; ``expect_prefix_hit=False``: no token may hit).  ``watch`` reads
-    the first session step by step (``serve_session``) and its ``check()``
-    adds its readings to the result.  Phases in ``SCORED_PHASES`` also
-    score the mix's second prompt (``serve_scoring``)."""
+    index for at least ``min_prefix_hit`` tokens; ``expect_prefix_hit=
+    False``: no token may hit).  A model with SSM state and full-context
+    layers (hymba) shares the prefix pages but recomputes the prompt
+    (``recompute_shared``): no prompt token may be skipped.  ``watch``
+    reads the first session step by step (``serve_session``) and its
+    ``check()`` adds its readings to the result.  Phases in
+    ``SCORED_PHASES`` also score the mix's second prompt
+    (``serve_scoring``)."""
     from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
     from repro_torch.kernels.decode_attention.paged_kernel import (
         NAME, NAME_SCALED,
@@ -2206,20 +2344,32 @@ def serve_phase(torch, model, phase: str = "serve", requests=None,
         if not all(0 <= t < cfg.vocab_size for t in o.token_ids):
             raise AssertionError(f"{phase} request {i}: token outside the "
                                  f"vocabulary")
-    if (stats.prefix_hit_tokens < 512 - PAGE if expect_prefix_hit
+    if (stats.prefix_hit_tokens < min_prefix_hit if expect_prefix_hit
             else stats.prefix_hit_tokens):
         raise AssertionError(f"{phase}: {stats.prefix_hit_tokens} prefix hit "
                              f"tokens (want "
-                             f"{'>= 496' if expect_prefix_hit else 0})")
+                             f"{f'>= {min_prefix_hit}' if expect_prefix_hit else 0})")
+    recompute = llm._eng.cache.recompute_shared
+    if recompute and stats.prefill_tokens != stats.prompt_tokens:
+        raise AssertionError(f"{phase}: shared prefix pages must be "
+                             f"recomputed: {stats.prefill_tokens} prompt "
+                             f"tokens computed of {stats.prompt_tokens}")
     readings = watch.check() if watch is not None else {}
+    readings.update(state_readings(llm))
+    if recompute:
+        readings["recompute_shared"] = {
+            "prefix_hit_tokens": stats.prefix_hit_tokens,
+            "shared_pages": stats.prefix_hit_tokens // llm._eng.page_size,
+            "prefill_tokens": stats.prefill_tokens,
+            "prompt_tokens": stats.prompt_tokens}
     decode_kernel = (NAME_SCALED if engine_kw.get("cache_dtype") in
                      ("fp8", "int8") else NAME)
     # GQA layers: the paged decode kernel once per layer per decode step
     # (bf16 activations over bf16 or fp8 pools: the tensor-core variant);
     # MLA layers decode by plain einsums, as in the reference: no kernel
     want, want_variants = {}, {}
-    if not cfg.mla:
-        want[decode_kernel] = cfg.n_layers * stats.steps
+    if gqa_layers(model):
+        want[decode_kernel] = gqa_layers(model) * stats.steps
         want_variants[f"{decode_kernel}:tensor_core"] = want[decode_kernel]
     if engine_kw.get("weight_format") == "mxfp4":
         # decode steps (M = the slots) on the decode schedule, prefill
@@ -2301,11 +2451,11 @@ def gqa_write_cost(torch, llm, model, prompts, sps, streams) -> dict:
     MoE: the serve session again, its GQA pool writes plain (A, as the
     port writes them there) and ``coupled`` (B: each write with the value
     of the last writer of its place, as in an MoE model), in the order
-    A B B A A B B A.  Each session must reproduce ``streams``: only the
+    A B B A.  Each session must reproduce ``streams``: only the
     scratch page, which no live row reads, can tell the two apart.
     Returns the median decode-only step of each session."""
     steps = {"plain": [], "last_writes": []}
-    for name in ("plain", "last_writes", "last_writes", "plain") * 2:
+    for name in ("plain", "last_writes", "last_writes", "plain"):
         for blk in model.layers:
             blk.attn.coupled = name == "last_writes"
         try:
@@ -2316,7 +2466,7 @@ def gqa_write_cost(torch, llm, model, prompts, sps, streams) -> dict:
         if got != streams:
             raise AssertionError(f"{name} pool writes changed a stream")
         steps[name].append(1e3 * float(np.median(decode_steps)))
-    return {"order": "A B B A A B B A", **{f"{k}_decode_step_ms": v
+    return {"order": "A B B A", **{f"{k}_decode_step_ms": v
                                            for k, v in steps.items()},
             "last_writes_over_plain": (sum(steps["last_writes"])
                                        / sum(steps["plain"]))}
@@ -2723,8 +2873,8 @@ def serve_spec_legacy_phase(torch, model) -> dict:
 # serve_spec_draft: a truncated draft (the target's first layers, deeper
 # blocks damped; ``runtime/spec_pair.py``) against plain decoding, both
 # sized by a DeploymentSpec
-DRAFT_LAYERS, DRAFT_DAMP = 4, 0.005
-DRAFT_REQUESTS, DRAFT_PROMPT, DRAFT_NEW = 8, 256, 128
+DRAFT_LAYERS, DRAFT_DAMP = 2, 0.005     # a quarter of LLAMA_LAYERS
+DRAFT_REQUESTS, DRAFT_PROMPT, DRAFT_NEW = 8, 256, 64
 DRAFT_ORDER = ("plain", "spec", "spec", "plain")     # two reps each
 
 
@@ -2766,10 +2916,11 @@ def serve_spec_draft_phase(torch, model) -> dict:
     spec=DeploymentSpec(sku="h100", max_len=512, page_size=16,
     max_slots=8))``, one plain and one with
     ``speculative=SpeculativeConfig(draft_model=draft, gamma=GAMMA)``, serve
-    8 greedy requests (distinct 256-token prompts, 128 new tokens)
-    twice each, in turns (``DRAFT_ORDER``) and before any trace; the faster rep of each gives tokens/s and the
-    speedup.  Then one traced session of each (device busy time) and, as
-    a reading, one more plain session after the traces.  The plain engine must launch the paged kernel once per
+    8 greedy requests (distinct 256-token prompts, ``DRAFT_NEW`` new
+    tokens) twice each, in turns (``DRAFT_ORDER``) and before any trace;
+    the faster rep of each gives tokens/s and the speedup.  Then one
+    traced session of each (device busy time).  The plain engine must
+    launch the paged kernel once per
     layer per step; the speculative one the paged kernel once per draft
     layer per draft or backfill step and the exact kernel once per target
     layer per window.  Greedy speculative streams must equal the plain
@@ -2889,10 +3040,6 @@ def serve_spec_draft_phase(torch, model) -> dict:
             profiled_steady_steps=device_breakdown(
                 prof, float(np.median(steady))),
             _streams=streams, _stats=stats)
-    # a reading: the plain engine once more, after the traces
-    after = rep("plain")
-    runs["plain"]["steady_step_ms_after_tracing"] = \
-        1e3 * float(np.median(after[3]))
     del engines, llm
     torch.cuda.empty_cache()
     plain, spec_run = runs["plain"], runs["spec"]
@@ -2959,26 +3106,25 @@ def serve_spec_draft_phase(torch, model) -> dict:
 # ---------------------------------------------------------------------------
 
 STATIC_PROMPT, STATIC_NEW = 1024, 64
+# decode steps of the static phases' device-time trace (16 until the
+# stateful models joined: a trace is read in time proportional to its
+# ops, ~55 small ones a layer a step for them)
+STATIC_PROFILE_STEPS = 4
 
 
 def device_time_by_kernel(torch, fn) -> tuple[dict, dict]:
     """Device time (ms) of everything ``fn`` ran on the card, by kernel
     name, and of the model's named ranges (``SPANS``), from one
-    ``torch.profiler`` trace."""
-    from torch.autograd import DeviceType
+    ``torch.profiler`` trace (``trace_summary``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    times = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", 0) or 0     # microseconds
-        if (t > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA
-                and evt.key not in SPANS):
-            times[evt.key] = times.get(evt.key, 0) + t / 1e3
-    return times, span_device_ms(prof)
+    trace = trace_summary(prof)
+    return ({k: t / 1e3 for k, t in trace["device_us"].items()},
+            trace["spans_ms"])
 
 
 def serve_static_phase(torch, model, phase: str = "serve_static",
@@ -2990,13 +3136,14 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
     must reproduce every stream), then scores two prompts
     (``prompt_logprobs``).  The flash kernel must run once per layer per
     prefill or forward call and the dense decode kernel once per layer per
-    decode step.  A profiled call of 17 new tokens minus one of 1 gives the
-    device time of 16 decode steps."""
+    decode step.  A profiled call of ``STATIC_PROFILE_STEPS`` + 1 new tokens
+    minus one of 1 gives the device time of that many decode steps."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
     from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
     from repro_torch.runtime.llm import LLMEngine
     from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.state_cache import state_bytes_per_slot
 
     cfg = model.cfg
     rng = np.random.default_rng(7)
@@ -3007,18 +3154,22 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
                           top_k=40, seed=2000 + i) for i in range(n_prompts)]
     torch.cuda.reset_peak_memory_stats()
     llm = LLMEngine(model, backend="static", device="cuda", max_len=max_len)
+    n_gqa = gqa_layers(model)
     per_token = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.mla
-                 else 2 * cfg.n_kv_heads * cfg.hd)
-    # a windowed layer's cache holds min(max_len, window) entries: a ring
-    cache_len = min(max_len, cfg.sliding_window or max_len)
-    cache_gb = cfg.n_layers * n_prompts * cache_len * per_token * 2 / 1e9
+                 else 2 * cfg.n_kv_heads * cfg.hd if n_gqa else 0)
+    # a windowed layer's cache holds min(max_len, window) entries: a ring;
+    # an ssm layer keeps only its state
+    cache_gb = sum(n_prompts * min(max_len, win or max_len) * per_token * 2
+                   for win, blk in zip(model.windows, model.layers)
+                   if blk.kind != "ssm") / 1e9
 
     def want_launches(calls, steps):
         # MLA attends by plain torch (blocked_attention and the absorbed
-        # einsums), as the reference does: no kernel on its static path
-        if cfg.mla:
+        # einsums), as the reference does, and an ssm layer has no
+        # attention: no kernel on those static paths
+        if not n_gqa:
             return {}
-        return {FLASH: cfg.n_layers * calls, DENSE: cfg.n_layers * steps}
+        return {FLASH: n_gqa * calls, DENSE: n_gqa * steps}
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3035,7 +3186,7 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
     if launches != want:
         raise AssertionError(f"static serve launched {launches}, want {want} "
                              f"(1 prefill call, {STATIC_NEW - 1} decode "
-                             f"steps, {cfg.n_layers} layers)")
+                             f"steps, {n_gqa} GQA layers)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     again = llm.generate(prompts, sps)
@@ -3061,16 +3212,18 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
             raise AssertionError(f"prompt_logprobs of request {o.rid}: shape "
                                  f"{plp.shape}, finite {np.isfinite(plp).all()}")
 
-    # device time of 16 decode steps: a 17-token call minus a 1-token one
+    # device time of the profiled decode steps: a call of
+    # STATIC_PROFILE_STEPS + 1 tokens minus a 1-token one
+    steps = STATIC_PROFILE_STEPS
     one = [dataclasses.replace(sp, max_tokens=1) for sp in sps]
-    many = [dataclasses.replace(sp, max_tokens=17) for sp in sps]
+    many = [dataclasses.replace(sp, max_tokens=steps + 1) for sp in sps]
     t_one, s_one = device_time_by_kernel(
         torch, lambda: llm.generate(prompts, one))
     t_many, s_many = device_time_by_kernel(
         torch, lambda: llm.generate(prompts, many))
-    per_step = {k: (t_many.get(k, 0.0) - t_one.get(k, 0.0)) / 16
+    per_step = {k: (t_many.get(k, 0.0) - t_one.get(k, 0.0)) / steps
                 for k in set(t_many) | set(t_one)}
-    span_step = {k: (s_many.get(k, 0.0) - s_one.get(k, 0.0)) / 16
+    span_step = {k: (s_many.get(k, 0.0) - s_one.get(k, 0.0)) / steps
                  for k in set(s_many) | set(s_one)}
     busy = sum(per_step.values())
     step_ms = 1e3 * outs[0].metrics["tpot"]
@@ -3086,9 +3239,11 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
               "kernel_launches": launches,
               "kernel_launches_scored_call": launches_scored,
               "rerun_identical": True, "dense_cache_gb": cache_gb,
+              "state_cache_gb": (n_prompts * state_bytes_per_slot(cfg) / 1e9
+                                 if model.needs_state else 0.0),
               "peak_mem_gb": peak_gb,
               "profiled_decode_steps": {
-                  "steps": 16, "device_busy_ms_per_step": busy,
+                  "steps": steps, "device_busy_ms_per_step": busy,
                   "device_idle_share": 1 - busy / step_ms,
                   "decode_attention_ms_per_step": sum(
                       t for k, t in per_step.items() if "dense_decode" in k),
@@ -3116,9 +3271,11 @@ def cpu_top2_gap(torch, model, prompt, tokens, cache_dtype) -> float:
     n_blocks = -(-n // PAGE)
     pools = model.init_paged_cache(n_blocks + 1, PAGE, dtype=cache_dtype)
     table = torch.arange(1, n_blocks + 1, dtype=torch.int32)[None]
-    logits = model.prefill_chunk_paged(toks[None], pools, table,
-                                       torch.zeros(1, dtype=torch.int32),
-                                       torch.full((1,), n, dtype=torch.int32))
+    zero = torch.zeros(1, dtype=torch.int32)
+    states = model.init_state_pools(1) if model.needs_state else None
+    logits = model.prefill_chunk_paged(toks[None], pools, table, zero,
+                                       torch.full((1,), n, dtype=torch.int32),
+                                       states=states, slot_idx=zero)
     top = logits[0].topk(2).values
     return float(top[0] - top[1])
 
@@ -3366,10 +3523,10 @@ def check_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# depth of deepseek-v2-lite-16b's serve phases (widths full): 14 of its 27
-# layers since phi3's and danube's phases joined the script, which keeps
-# the whole run well inside its 1200 s limit
-DEEPSEEK_LAYERS = 14
+# depth of deepseek-v2-lite-16b's serve phases (widths full): 4 of its 27
+# layers since the stateful phases joined the script, which keeps the
+# whole run well inside its 1200 s limit
+DEEPSEEK_LAYERS = 4
 
 
 def build_deepseek(torch):
@@ -3546,9 +3703,10 @@ def mla_phases() -> dict:
 
 SCOUT = "llama4-scout-109b-a17b"
 MAVERICK = "llama4-maverick-400b-a17b"
-# depth of llama4-scout's serve phases (widths full): 8 of its 48 layers,
-# 39.4 GB of bf16 weights; maverick runs one period (attn_dense + attn_moe)
-SCOUT_LAYERS, MAVERICK_LAYERS = 8, 2
+# depth of llama4-scout's serve phases (widths full): 4 of its 48 layers
+# since the stateful phases joined the script (8 before); maverick runs
+# one period (attn_dense + attn_moe)
+SCOUT_LAYERS, MAVERICK_LAYERS = 4, 2
 
 
 def build_llama4(torch, name: str, n_layers: int):
@@ -3746,12 +3904,15 @@ DANUBE_STATIC = (2, 6144)              # prompts of the static phase
 DANUBE_QUANTIZED_REQUESTS = 4
 
 
-def build_full(torch, name: str):
-    """A full-size config (every layer; random bf16 weights from a seed)."""
+def build_full(torch, name: str, n_layers: int | None = None):
+    """A config at full width, every layer or its first ``n_layers``
+    (random bf16 weights from a seed)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
     cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.monotonic()
     model = Model(cfg, device="cuda").init(seed=0)
     torch.cuda.synchronize()
@@ -3761,12 +3922,18 @@ def build_full(torch, name: str):
     return model
 
 
+# depths of phi3's and danube's phases (full width): a quarter of their
+# layers since the stateful phases joined the script at full depth, which
+# keeps it near 600 s
+PHI3_LAYERS, DANUBE_LAYERS = 8, 6
+
+
 def build_phi3(torch):
-    return build_full(torch, PHI3)
+    return build_full(torch, PHI3, PHI3_LAYERS)
 
 
 def build_danube(torch):
-    return build_full(torch, DANUBE)
+    return build_full(torch, DANUBE, DANUBE_LAYERS)
 
 
 def danube_requests(sp_cls, vocab: int):
@@ -3828,9 +3995,10 @@ class RingWatch:
             raise AssertionError(f"ring readings {r} (decode cap {cap} "
                                  f"blocks a slot; want a page reclaimed and "
                                  f"none left)")
-        # every layer of danube is windowed: all its pools are ring pools
-        page_bytes = sum(leaf.nbytes // leaf.shape[0] for pool in eng._pools
-                         for leaf in pool.values())
+        # the windowed layers' pools are the ring pools (all of danube's)
+        page_bytes = sum(leaf.nbytes // leaf.shape[0] for win, pool in
+                         zip(eng.model.windows, eng._pools)
+                         if win is not None for leaf in pool.values())
         print(f"  ring: pool {eng.ring_pages} pages, most live blocks of a "
               f"slot {r['most_live_blocks']} (cap {cap}), pages in use "
               f"{r['most_pages_in_use']} against "
@@ -3965,6 +4133,432 @@ def check_window(torch) -> dict:
     return {"phase": "check_window", "cases": results}
 
 
+# ---------------------------------------------------------------------------
+# stateful layouts: mamba2-370m (SSM blocks only) and hymba-1.5b (attention
+# and SSM heads side by side in every layer)
+# ---------------------------------------------------------------------------
+
+MAMBA2, HYMBA = "mamba2-370m", "hymba-1.5b"
+HYMBA_GEOM = (25, 5, 64, 16)       # H, KVH, D, page: GQA rep 5
+HYMBA_WINDOW = 1024
+# hymba's MXFP4 launches (K, Ns): q/k/v grouped, o, gate/up grouped, down
+HYMBA_LAUNCHES = {"qkv": (1600, (1600, 320, 320)), "wo": (1600, (1600,)),
+                  "gate/up": (1600, (5504, 5504)), "w_down": (5504, (1600,))}
+# (prompt, new tokens): two of 3072 and two of 1500, past the window, whose
+# rings wrap while they decode, four of 512 (5 and 7 share a 384-token
+# prefix); the second, 3072 tokens, is the scored one
+HYMBA_MIX = ((1500, 256), (3072, 256), (3072, 256), (1500, 256),
+             (512, 64), (512, 64), (512, 64), (512, 64))
+HYMBA_SHARED = (5, 7)
+HYMBA_PREFIX = 384
+HYMBA_MAX_LEN = 3072 + 256
+HYMBA_STATIC = (2, 3072)           # prompts of the static phase
+
+
+def build_mamba2(torch):
+    return build_full(torch, MAMBA2)
+
+
+def build_hymba(torch):
+    return build_full(torch, HYMBA)
+
+
+def hymba_requests(sp_cls, vocab: int):
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, vocab, HYMBA_PREFIX)
+    prompts, sps = [], []
+    for i, (n, new) in enumerate(HYMBA_MIX):
+        if i in HYMBA_SHARED:
+            prompts.append(np.concatenate(
+                [prefix, rng.integers(0, vocab, n - HYMBA_PREFIX)]))
+        else:
+            prompts.append(rng.integers(0, vocab, n))
+        sps.append(sp_cls(max_tokens=new) if i % 2 == 0 else
+                   sp_cls(max_tokens=new, temperature=0.8, top_p=0.9,
+                          top_k=40, seed=4000 + i))
+    return prompts, sps
+
+
+def serve_hymba_phase(torch, model, phase: str = "serve_hymba",
+                      **engine_kw) -> dict:
+    """hymba's continuous mix (``HYMBA_MIX``, page 16, chunk 256) through
+    ``serve_phase``: its 29 windowed layers keep their pages in a ring
+    space (``RingWatch``), its 3 global layers in the full space, where
+    request 7 shares request 5's 384-token prefix for capacity while its
+    prompt is recomputed (``recompute_shared``); every layer's SSM state
+    sits in the per-slot pools; the paged decode kernel runs once a layer
+    a decode step (tensor cores, D 64, rep 5; window 1024 over the ring
+    table on the windowed layers).  The bf16 phase scores a 3072-token
+    prompt against ``Model.forward``."""
+    return serve_phase(torch, model, phase=phase, requests=hymba_requests,
+                       max_len=HYMBA_MAX_LEN, late=HYMBA_SHARED,
+                       watch=RingWatch(), min_prefix_hit=HYMBA_PREFIX - PAGE,
+                       **engine_kw)
+
+
+def mamba2_phases() -> dict:
+    """mamba2-370m's phases: continuous bf16 on the serve phase's mix (no
+    prefix hit: a pure-state model has no full space; a scored prompt),
+    static 8 x 1024.  No kernel runs on either path: the reference
+    computes the SSD mixer in plain jnp, the port in plain torch."""
+    return {"serve_mamba2": lambda t, m: serve_phase(
+                t, m, phase="serve_mamba2", expect_prefix_hit=False),
+            "serve_mamba2_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_mamba2_static")}
+
+
+def hymba_phases() -> dict:
+    """hymba-1.5b's phases: continuous bf16 (``serve_hymba_phase``),
+    static 2 x 3072 (windowed flash prefill, dense decode over the wrapped
+    1024-entry ring on the windowed layers), and the continuous mix with
+    mxfp4 attention and MLP projections over bf16 pools (the SSM mixer
+    stays bf16; a quantized cache is refused for stateful models)."""
+    n, s = HYMBA_STATIC
+    return {"serve_hymba": serve_hymba_phase,
+            "serve_hymba_static": lambda t, m: serve_static_phase(
+                t, m, phase="serve_hymba_static", n_prompts=n,
+                prompt_len=s, max_len=s + STATIC_NEW),
+            "serve_hymba_quantized": lambda t, m: serve_hymba_phase(
+                t, m, phase="serve_hymba_quantized", weight_format="mxfp4")}
+
+
+def kernel_hymba_phase(torch) -> dict:
+    """The kernels on hymba's path at its shapes (D 64, 25 heads over 5:
+    rep 5): flash with the 1024-token window (and without, for its global
+    layers), dense decode over a wrapped 1024-entry ring and over a
+    ragged full cache, the paged online kernel over bf16 and f32 pools
+    with and without a ring table (blocks behind the window on the
+    poisoned scratch page), held against the plain versions at the
+    tolerances of ``kernel_headdims``; ``mxfp4_vmm`` at hymba's four
+    launches for M 1, 8 and 2048 (K 1600 is 12.5 of the decode schedule's
+    128-row K stages).  Each is timed at hymba's serve shapes beside its
+    bound, its plain version and the library call.  Returns one kernels
+    line entry each (``launches`` set from hymba's serve phases)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.kernels.decode_attention import paged_kernel
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_pages, paged_decode_attention_ref, paged_valid_mask,
+    )
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.kernels.mxfp4_vmm import kernel as vmm_kernel
+    from repro_torch.kernels.mxfp4_vmm.ref import mxfp4_vmm_ref
+    from repro_torch.models.common import decode_attention_ref
+    from repro_torch.quant import formats
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rng = np.random.default_rng(29)
+    h, kvh, d, page = HYMBA_GEOM
+    holds = KernelHolds(torch)
+    hold, entry, worst = holds.hold, holds.entry, holds.worst
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for B, S, window in ((2, 3072, HYMBA_WINDOW), (1, 1000, None),
+                             (2, 700, 100)):
+            for causal in (True, False):
+                q, k, v = randn(B, S, h, d, dtype=dt), \
+                    randn(B, S, kvh, d, dtype=dt), randn(B, S, kvh, d, dtype=dt)
+                kind = flash_kernel.variant(dt, d, h // kvh)
+                hold("flash_attention", f"{kind} {dtype_name} B={B} S={S} "
+                     f"H={h} KVH={kvh} D={d} causal={causal} window={window}",
+                     flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                  window=window),
+                     gqa_flash_attention(q, k, v, causal=causal,
+                                         window=window, impl="reference"),
+                     bf16_rel=True)
+                del q, k, v
+        for B, S, full in ((2, HYMBA_WINDOW, True), (8, 3200, False)):
+            cur_len = (np.full(B, S) if full
+                       else rng.integers(1, S + 1, B))
+            cur_len[0] = S
+            q, k, v, cl = dense_case(torch, gen, B, S, dt, cur_len, dev, h,
+                                     kvh, d)
+            kind = dense_kernel.variant(q.dtype, k.dtype, d)
+            hold("decode_attention", f"{kind} {dtype_name} B={B} S={S} "
+                 f"H={h} KVH={kvh} D={d}"
+                 + (" (a wrapped ring)" if full else " ragged"),
+                 dense_kernel.decode_attention(q, k, v, cl),
+                 decode_attention_ref(q, k, v, cl))
+        for B, window, ring in ((8, None, False), (8, HYMBA_WINDOW, True),
+                                (8, HYMBA_WINDOW, False)):
+            n_blocks = HYMBA_MAX_LEN // page
+            pos = rng.integers(0, HYMBA_MAX_LEN, B)
+            pos[0] = page + page // 2
+            pos[1] = HYMBA_MAX_LEN - 1
+            q, kp, vp, table, p = paged_case(torch, rng, B, n_blocks, dt, pos,
+                                             dev, HYMBA_GEOM)
+            if ring:
+                table = torch.as_tensor(ring_table(table.cpu().numpy(), pos,
+                                                   window, page), device=dev)
+            kind = paged_kernel.variant(q.dtype, kp.dtype, d, page)
+            hold(paged_kernel.NAME, f"{kind} {dtype_name} pools B={B} H, KVH, "
+                 f"D, page={HYMBA_GEOM} window={window}"
+                 f"{' ring table' if ring else ''}",
+                 paged_kernel.paged_decode_attention(q, kp, vp, table, p,
+                                                     window=window),
+                 paged_decode_attention_ref(q, kp, vp, table, p,
+                                            window=window))
+            del q, kp, vp
+
+    vmm_err = 0.0
+    weights = {}
+
+    def weight(k, n):
+        if (k, n) not in weights:
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            weights[(k, n)] = formats.quantize_mxfp4(w.to(torch.bfloat16))
+        return weights[(k, n)]
+
+    for k, ns in HYMBA_LAUNCHES.values():
+        for m in (1, 8, 2048):
+            ws = [(weight(k, n).codes, weight(k, n).scales) for n in ns]
+            err, sched, _ = hold_vmm(torch, randn(m, k), ws)
+            vmm_err = max(vmm_err, err)
+            print(f"  mxfp4_vmm vs plain: M={m} K={k} N={list(ns)} ({sched}): "
+                  f"max rel err {err:.3g} (tolerance {VMM_TOL})")
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    entries = []
+
+    B, S = HYMBA_STATIC
+    q, k, v = randn(B, S, h, d), randn(B, S, kvh, d), randn(B, S, kvh, d)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - HYMBA_WINDOW)
+    for window, lib, library in (
+            (HYMBA_WINDOW, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+             "F.scaled_dot_product_attention(attn_mask=<causal window "
+             "mask>, enable_gqa=True)"),
+            (None, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+             "F.scaled_dot_product_attention(is_causal=True, "
+             "enable_gqa=True)")):
+        row = {"ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+                   q, k, v, causal=True, window=window), flush),
+               "plain_ms": time_ms(torch, lambda: gqa_flash_attention(
+                   q, k, v, causal=True, window=window, impl="reference"),
+                   flush, iters=5),
+               "library_ms": time_ms(torch, lib, flush)}
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            B, S, S, h, kvh, True, 2, "bfloat16", d=d, window=window)
+        name = ("flash_attention:D64:rep5"
+                + (f":window{window}" if window else ""))
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(name, FLASH_SOURCE, FLASH_REPLACES, row,
+                             f"hymba prefill: B {B}, S {S}, H 25, KVH 5, D 64,"
+                             f" causal, window {window} ("
+                             + ("29 windowed layers" if window
+                                else "3 global layers") + ")",
+                             variant=flash_kernel.variant(q.dtype, d, h // kvh),
+                             library=library))
+    del q, k, v, qt, kt, vt, mask
+
+    for name, (B, S, ctx, label) in (
+            ("decode_attention:D64:rep5:ring1024",
+             (2, HYMBA_WINDOW, HYMBA_WINDOW,
+              "hymba static decode, windowed layer: B 2, rep 5, a wrapped "
+              "1024-entry ring (cur_len 1024)")),
+            ("decode_attention:D64:rep5",
+             (2, HYMBA_STATIC[1] + STATIC_NEW, HYMBA_STATIC[1] + 32,
+              "hymba static decode, global layer: B 2, rep 5, cur_len 3104 "
+              "of 3136"))):
+        cur_len = np.full(B, ctx)
+        q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
+                                 dev, h, kvh, d)
+        q4, ks_, vs_ = q[:, :, None, :], k[:, :ctx].transpose(1, 2), \
+            v[:, :ctx].transpose(1, 2)
+        row = {"ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+                   q, k, v, cl), flush),
+               "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                   q, k, v, cl), flush),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, ks_, vs_, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
+                                                       "bfloat16", h, kvh, d)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(name, DENSE_SOURCE, DENSE_REPLACES, row, label,
+                             variant=dense_kernel.variant(q.dtype, k.dtype, d),
+                             library="F.scaled_dot_product_attention("
+                                     "enable_gqa=True) on the cache sliced "
+                                     "to cur_len"))
+        del q, k, v, ks_, vs_
+
+    for name, (window, ctx, label) in (
+            ("paged_decode_attention:D64:rep5:window1024",
+             (HYMBA_WINDOW, 3072, "hymba decode, windowed layer: B 8, rep "
+              "5, ctx 3072, window 1024 over the ring table")),
+            ("paged_decode_attention:D64:rep5",
+             (None, 3072, "hymba decode, global layer: B 8, rep 5, ctx "
+              "3072"))):
+        B = 8
+        pos = np.full(B, ctx - 1)
+        q, kp, vp, table, p = paged_case(torch, rng, B, ctx // page,
+                                         torch.bfloat16, pos, dev, HYMBA_GEOM)
+        if window is not None:
+            table = torch.as_tensor(ring_table(table.cpu().numpy(), pos,
+                                               window, page), device=dev)
+        k_d, v_d = gather_pages(kp, table), gather_pages(vp, table)
+        mask = paged_valid_mask(table, page, p, window=window)[:, None, None, :]
+        sd = sdpa_ms(torch, F, q, k_d.transpose(1, 2), v_d.transpose(1, 2),
+                     mask, flush)
+        row = {"ms": time_ms(torch, lambda: paged_kernel.paged_decode_attention(
+                   q, kp, vp, table, p, window=window), flush),
+               "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
+                   q, kp, vp, table, p, window=window), flush),
+               "library_ms": min(sd.values())}
+        row["bound_ms"], row["bound_by"] = paged_bound(
+            pos, window, B, "bfloat16", 2, geom=HYMBA_GEOM)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(
+            name, KERNEL_SOURCE, REPLACES, row, label,
+            variant=paged_kernel.variant(q.dtype, kp.dtype, d, page),
+            library="the faster of SDPA(enable_gqa=True) and SDPA on K/V "
+                    "repeated to H heads, on the gathered view"))
+        del q, kp, vp, k_d, v_d
+
+    per_m = {}
+    for m in (8, 2048):
+        ms = plain = lib = bnd = 0.0
+        for k, ns in HYMBA_LAUNCHES.values():
+            ps = [weight(k, n) for n in ns]
+            ws = [(w.codes, w.scales) for w in ps]
+            x = randn(m, k)
+            ms += time_ms(torch, lambda: vmm_kernel.mxfp4_vmm_group(
+                x, ws, torch.bfloat16), flush)
+            plain += sum(time_ms(torch, lambda w=w: mxfp4_vmm_ref(
+                x, w.codes, w.scales).to(torch.bfloat16), flush, iters=10)
+                for w in ps)
+            dq = [formats.dequantize_mxfp4(w, torch.bfloat16) for w in ps]
+            lib += sum(time_ms(torch, lambda w=w: torch.matmul(x, w), flush)
+                       for w in dq)
+            bnd += vmm_bound(m, k, ns)[0]
+            del dq
+        per_m[m] = {"ms": ms, "plain_ms": plain, "bf16_matmul_ms": lib,
+                    "bound_ms": bnd}
+        print(f"  timing mxfp4_vmm:hymba layer M {m}:", json.dumps(per_m[m]))
+    head = per_m[8]
+    entries.append({
+        "name": "mxfp4_vmm:hymba", "route": "cuda", "source": VMM_SOURCE,
+        "replaces": VMM_REPLACES, "launches": None, "max_abs_err": vmm_err,
+        "max_abs_err_is": "relative to max |out|",
+        "headline": "one hymba layer at M 8 in the serve path's 4 launches "
+                    "(q/k/v grouped at K 1600, o, gate/up grouped, down)",
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "bf16_matmul_ms": head["bf16_matmul_ms"],
+        "layer_m2048": per_m[2048]})
+    del flush, weights
+    return {"phase": "kernel_hymba", "checked": len(holds.checked),
+            "worst": worst,
+            "mxfp4_vmm_max_rel_err": vmm_err, "entries": entries}
+
+
+def drive_preempting(llm, prompts, sps, preempt_at: int = 6):
+    """Serve through the incremental interface; at iteration
+    ``preempt_at`` the decoding request with the lowest rid is preempted
+    (its restart zeroes its state rows inside its first chunk).  Returns
+    the finished outputs in rid order, the preemptions, and the
+    iterations in which some slots prefilled while others decoded (the
+    decode step's ``state_ok`` then commits only the decoding ones)."""
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        llm.add_request(p, sp, rid=i)
+    eng = llm._eng
+    done, it, mixed, preempted = {}, 0, 0, False
+    while llm.has_unfinished():
+        it += 1
+        dec = sorted(eng._sched.decoding(), key=lambda r: r.rid)
+        if it >= preempt_at and not preempted and dec:
+            eng._sched.preempt(dec[0])
+            preempted = True
+        mixed += bool(eng._sched.prefilling() and eng._sched.decoding())
+        for o in llm.step():
+            if o.finished:
+                done[o.rid] = o
+    return ([done[i] for i in range(len(prompts))],
+            llm.stats().preemptions, mixed)
+
+
+def check_state(torch) -> dict:
+    """Narrow mamba2- and hymba-shaped models (2 and 3 layers; hymba
+    global, windowed (64 tokens), global, 5 query heads over 1 at D 64),
+    f32, card against CPU: the continuous engine (greedy and sampled, 4
+    slots for 6 requests, chunk 32, prompts past the window) with one
+    request preempted mid-decode and iterations that mix prefilling and
+    decoding slots, and the static engine; a greedy stream may part at a
+    near-tie only.  f32 runs the attention kernels' CUDA-core variants;
+    the SSM mixer is plain torch on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    f32 = torch.float32
+    narrow = {MAMBA2: dict(n_layers=2, d_model=256, vocab_size=4000,
+                           vocab_pad_multiple=512, ssm_state=64,
+                           ssm_chunk=64),
+              HYMBA: dict(n_layers=3, global_attn_every=3, d_model=320,
+                          n_heads=5, n_kv_heads=1, head_dim=64, d_ff=640,
+                          vocab_size=4000, vocab_pad_multiple=512,
+                          sliding_window=64, ssm_chunk=64)}
+    results = []
+    for name, kw in narrow.items():
+        cfg = dataclasses.replace(get_config(name), name=f"{name}-narrow",
+                                  **kw)
+        cpu = Model(cfg, device="cpu").init(seed=8).float()
+        gpu = Model(cfg, device="cuda").float()
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n)
+                   for n in (90, 150, 33, 120, 70, 45)]
+        sps = [SamplingParams(max_tokens=24) if i % 2 == 0 else
+               SamplingParams(max_tokens=24, temperature=0.9, top_k=20,
+                              seed=40 + i) for i in range(len(prompts))]
+        cont = dict(backend="continuous", num_slots=4, page_size=16,
+                    max_len=256, prefill_chunk=32, cache_dtype=f32)
+        LAUNCHES.clear()
+        on_gpu, pre_gpu, mixed = drive_preempting(
+            LLMEngine(gpu, device="cuda", **cont), prompts, sps)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        on_cpu, pre_cpu, _ = drive_preempting(
+            LLMEngine(cpu, device="cpu", **cont), prompts, sps)
+        if not (pre_gpu and pre_cpu and mixed):
+            raise AssertionError(f"check_state {name}: preemptions "
+                                 f"{pre_gpu}/{pre_cpu}, mixed iterations "
+                                 f"{mixed}: the case did not happen")
+        near = divergences(torch, f"{name} continuous f32", on_gpu, on_cpu,
+                           prompts, sps, cpu, f32, True)
+        results.append({"case": f"{name} continuous f32, card vs CPU, a "
+                        "forced preemption", "identical": not near,
+                        "near_ties": near, "preemptions": pre_gpu,
+                        "mixed_iterations": mixed,
+                        "kernel_launches": launches})
+        s_prompts = [rng.integers(0, cfg.vocab_size, 100) for _ in range(3)]
+        static = dict(backend="static", max_len=160, cache_dtype=f32)
+        LAUNCHES.clear()
+        st_gpu = LLMEngine(gpu, device="cuda", **static).generate(
+            s_prompts, sps[:3])
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        st_cpu = LLMEngine(cpu, device="cpu", **static).generate(
+            s_prompts, sps[:3])
+        near = divergences(torch, f"{name} static f32", st_gpu, st_cpu,
+                           s_prompts, sps[:3], cpu, f32, True)
+        results.append({"case": f"{name} static f32, card vs CPU",
+                        "identical": not near, "near_ties": near,
+                        "kernel_launches": launches})
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    return {"phase": "check_state", "cases": results}
+
+
 SIM_LABEL = "modeled (paper's H100 and RPU models), not measured"
 
 
@@ -4029,7 +4623,7 @@ def sim_phase(torch, served) -> dict:
 
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
                  "kernel_dense_decode", "kernel_exact", "kernel_headdims",
-                 "quantize")
+                 "kernel_hymba", "quantize")
 
 
 def main() -> int:
@@ -4041,10 +4635,13 @@ def main() -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
                          f"({', '.join(KERNEL_PHASES)}, deployment, check, "
-                         "check_mla, check_moe, or, on a llama3-8b built "
+                         "check_mla, check_moe, check_window, check_state, "
+                         "or, on a llama3-8b built "
                          "first, serve and serve_spec_draft, on a "
                          "deepseek-v2-lite-16b built first, "
-                         f"{', '.join(mla_phases())}, on llama4-scout at "
+                         f"{', '.join(mla_phases())}, on mamba2-370m "
+                         f"{', '.join(mamba2_phases())}, on hymba-1.5b "
+                         f"{', '.join(hymba_phases())}, on llama4-scout at "
                          f"{SCOUT_LAYERS} layers, {', '.join(moe_phases())}, "
                          "on llama4-maverick at one period, "
                          "serve_moe_maverick; then sim over the serve "
@@ -4085,11 +4682,13 @@ def main() -> int:
               "kernel_dense_decode": kernel_dense_decode_phase,
               "kernel_exact": kernel_exact_phase,
               "kernel_headdims": kernel_headdims_phase,
+              "kernel_hymba": kernel_hymba_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
                                       "cases": check_mla(t)},
-              "check_moe": check_moe, "check_window": check_window}
+              "check_moe": check_moe, "check_window": check_window,
+              "check_state": check_state}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
     model_phases = {"serve": (build_llama, serve_phase),
@@ -4103,7 +4702,11 @@ def main() -> int:
                     **{name: (build_phi3, fn) for name, fn in
                        phi3_phases().items()},
                     **{name: (build_danube, fn) for name, fn in
-                       danube_phases().items()}}
+                       danube_phases().items()},
+                    **{name: (build_mamba2, fn) for name, fn in
+                       mamba2_phases().items()},
+                    **{name: (build_hymba, fn) for name, fn in
+                       hymba_phases().items()}}
     served = []             # (phase, config as served, result) for sim
     if args.only is not None:
         names = args.only.split(",")
@@ -4132,6 +4735,7 @@ def main() -> int:
     dense = timed("kernel_dense_decode", kernel_dense_decode_phase)
     exact = timed("kernel_exact", kernel_exact_phase)
     headdims = timed("kernel_headdims", kernel_headdims_phase)
+    hymba_kernels = timed("kernel_hymba", kernel_hymba_phase)
     timed("quantize", quantize_phase)
     timed("deployment", deployment_phase)
     model = build_llama(torch)
@@ -4151,6 +4755,7 @@ def main() -> int:
     # reference cycles collected) before the next is built
     for build, model_phase_fns in (
             (build_phi3, phi3_phases()), (build_danube, danube_phases()),
+            (build_mamba2, mamba2_phases()), (build_hymba, hymba_phases()),
             (build_deepseek, mla_phases()), (build_scout, moe_phases()),
             (build_maverick, maverick_phases())):
         del model
@@ -4164,6 +4769,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("check", check_phase)
     timed("check_window", check_window)
+    timed("check_state", check_state)
     timed("check_moe", check_moe)
     timed("sim", sim_phase, served)
     kernel["launches"] = serve["kernel_launches"][kernel["name"]]
@@ -4202,6 +4808,18 @@ def main() -> int:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} never launched in {phase}")
     kernels += headdims["entries"]
+    # the same kernels at hymba's shapes: their launches on hymba's paths
+    for entry in hymba_kernels["entries"]:
+        name = entry["name"].partition(":")[0]
+        phase = {"flash_attention": "serve_hymba_static",
+                 "decode_attention": "serve_hymba_static",
+                 "paged_decode_attention": "serve_hymba",
+                 "mxfp4_vmm": "serve_hymba_quantized"}[name]
+        entry["launches"] = moe[phase]["kernel_launches"].get(name, 0)
+        entry["launches_in"] = phase
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']} never launched in {phase}")
+    kernels += hymba_kernels["entries"]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

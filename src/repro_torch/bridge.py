@@ -13,7 +13,10 @@ name); they become the port's packed classes with the same codes and
 scales, in a model whose projections are packed as
 ``quant.linear.quantize_params`` would pack them.  Multi-segment,
 multi-kind plans (deepseek's ``mla_dense`` layer, then its ``mla_moe``
-stack) map segment by segment; expert leaves ``(E, D, F)`` cross whole.
+stack; hymba's five ``hybrid`` segments of global and windowed layers)
+map segment by segment; expert leaves ``(E, D, F)`` cross whole, and an
+SSM mixer's f32 leaves (``A_log``, ``D``, ``dt_bias``, ``norm_w``) and
+bf16 ones (``conv_w``, ``conv_b``, the projections) copy like the rest.
 ``params_to_numpy`` is the reverse for dense models, for the round-trip
 test.  This module needs numpy only.
 """

@@ -7,8 +7,11 @@ attention, MoE with shared experts, a first dense layer); and the
 ``attn_moe`` family (GQA attention, top-1 MoE with one shared expert):
 llama4-scout-109b-a17b (MoE every layer; the paper's simulator baseline)
 and llama4-maverick-400b-a17b (dense and MoE layers alternating);
-phi3-mini-3.8b (full MHA at head dim 96) and h2o-danube-1.8b (GQA at
-head dim 80, every layer a 4096-token sliding window).  ``get_config``
+phi3-mini-3.8b (full MHA at head dim 96), h2o-danube-1.8b (GQA at
+head dim 80, every layer a 4096-token sliding window), mamba2-370m (the
+``ssm`` family: Mamba2 SSD blocks, no attention) and hymba-1.5b (the
+``hybrid`` family: attention and SSM heads side by side in every layer,
+a 1024-token window on all but three).  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -31,6 +34,8 @@ _ARCH_MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

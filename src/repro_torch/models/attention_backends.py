@@ -5,8 +5,9 @@ The port of ``repro/models/attention_backends.py``.  The registry
 per-kind cache layouts (``CacheLayout``, ``layout_for_kind``) are the
 reference's; ``Model``, ``runtime.state_cache.model_cache_layout`` and the
 pool pricing of ``parallel/plan.py`` walk them.  The ``gqa`` and ``mla``
-backends are registered; the SSM state layouts of ``ssm``/``hybrid`` kinds
-are declared but their pools are not ported.
+backends are registered; ``ssm``/``hybrid`` kinds keep per-slot SSM
+state pools (``ssm.init_ssm_state``: a bf16 conv tail and an f32 SSD
+state a slot).
 
 The GQA serve paths follow.  One difference in
 kind: the reference returns new pool arrays (``.at[].set``); here every
@@ -47,6 +48,7 @@ from repro_torch.kernels.decode_attention.ref import (
     gather_pages, paged_valid_mask,
 )
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ModelConfig, span
 from repro_torch.quant import kv as kvq
 from repro_torch.quant.linear import qdot
@@ -401,7 +403,7 @@ class CacheLayout:
     kind writes token-indexed pages; full-context or ring is a property of
     the segment's window, ``runtime.state_cache.SegmentCacheLayout``),
     ``state`` (constant-size recurrent state pooled per slot),
-    ``init_state_pool`` (``(cfg, num_slots) -> pools``) and
+    ``init_state_pool`` (``(cfg, num_slots, *, device) -> pools``) and
     ``state_partition_spec`` (leaf key -> sharded dim, or None)."""
     kv: bool
     state: bool
@@ -409,14 +411,9 @@ class CacheLayout:
     state_partition_spec: dict[str, int | None] | None = None
 
 
-def _unported_state_pool(cfg, num_slots):
-    raise NotImplementedError(
-        f"{cfg.name}: SSM state pools — {layers.ITEM_STATEFUL}")
-
-
 _SSM_STATE_LAYOUT = dict(
     state=True,
-    init_state_pool=_unported_state_pool,
+    init_state_pool=ssm_lib.init_ssm_state,
     state_partition_spec={"conv": None, "ssm": None},
 )
 

@@ -97,6 +97,14 @@ class ModelConfig:
     def v_hd(self) -> int:
         return self.v_head_dim or self.hd
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or (self.d_inner // self.ssm_head_dim)
+
 
 PARAM_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32
@@ -131,6 +139,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * w.float()
     return out.to(x.dtype)
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2 norm: RMSNorm(x * silu(z)), in f32, cast to x's dtype."""
+    xf = x.float() * F.silu(z.float())
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
 def span(name: str):

@@ -6,10 +6,8 @@ config — the same arithmetic the paper uses for "active parameters" and
 "KV$ fraction".
 
 A copy of ``repro/models/footprint.py`` with its imports redirected to the
-port's ``ModelConfig`` and ``build_plan``; the port's plan covers the
-``attn_dense``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` kinds, so an
-ssm or hybrid family raises the ``NotImplementedError`` that names its
-ROADMAP item.
+port's ``ModelConfig`` and ``build_plan``, which plans every kind the
+reference plans (ssm and hybrid included).
 """
 from __future__ import annotations
 

@@ -47,8 +47,6 @@ from repro_torch.models.common import (
 )
 from repro_torch.quant.linear import qdot, qdot_group
 
-ITEM_STATEFUL = "ROADMAP Queue 1, 'Stateful layouts'"
-
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),

@@ -1,5 +1,6 @@
 """Model assembly for the serve paths (the ``attn_dense``, ``attn_moe``,
-``mla_dense`` and ``mla_moe`` plans of ``repro/models/model.py``).
+``mla_dense``, ``mla_moe``, ``ssm`` and ``hybrid`` plans of
+``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` that owns its weights: an embedding table, an
 ``nn.ModuleList`` of ``Block``s, the final norm and the head.  A block is
@@ -26,9 +27,18 @@ only the logits.
 Sliding-window layers (h2o-danube) keep their pages in a ring space of
 their own: ``init_paged_cache(ring_pages=)`` sizes their pools, and the
 paged entries read them through ``ring_table`` (pages behind the window
-point at the scratch page and are masked), as the reference does.  SSM
-and hybrid plans and per-slot state pools raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+point at the scratch page and are masked), as the reference does.
+
+Stateful kinds (mamba2's ``ssm``: the Mamba2 mixer alone; hymba's
+``hybrid``: GQA attention and the mixer side by side, their normed
+outputs averaged, then the MLP) carry recurrent state (``models/ssm.py``).
+Statically it lives in the layer's cache dict and is replaced by each
+call's new state.  Continuously it lives in per-slot pools
+(``init_state_pools``) that the paged entries take as ``states=``:
+``prefill_chunk_paged`` gathers each bucket row's slot (``slot_idx``),
+zeroed where the chunk starts at 0, and scatters the rows of real rows
+back; ``decode_step_paged`` commits the rows ``state_ok`` marks.  Both
+write the pools in place.
 """
 from __future__ import annotations
 
@@ -42,14 +52,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention_backends as ab
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, embed_init, rmsnorm,
     span,
 )
 from repro_torch.quant.linear import packed_leaves
-
-ITEM_STATEFUL = layers.ITEM_STATEFUL
-
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
@@ -59,15 +67,27 @@ class Segment:
 
 
 def build_plan(cfg: ModelConfig) -> list[Segment]:
-    """The reference's segment plan.  The port runs ``attn_dense``,
-    ``attn_moe`` (GQA + MoE, llama4: every layer, or alternating with
-    ``attn_dense`` in one multi-kind segment), ``mla_dense`` and
-    ``mla_moe``; ``ssm`` and ``hybrid`` plans raise naming their ROADMAP
-    item."""
+    """The reference's segment plan: ``ssm`` (mamba2: one segment),
+    ``hybrid`` (hymba: global attention at layer 0, every
+    ``global_attn_every``-th layer and the last, a sliding window
+    elsewhere, one segment per run of equal windows), ``mla_dense`` /
+    ``mla_moe``, ``attn_moe`` (every layer, or alternating with
+    ``attn_dense`` in one multi-kind segment) and ``attn_dense``."""
     if cfg.family == "ssm":
-        raise NotImplementedError(f"{cfg.name}: ssm plans — {ITEM_STATEFUL}")
+        return [Segment(("ssm",), cfg.n_layers)]
     if cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: hybrid plans — {ITEM_STATEFUL}")
+        segs: list[Segment] = []
+        for i in range(cfg.n_layers):
+            is_global = (cfg.global_attn_every and
+                         (i % cfg.global_attn_every == 0
+                          or i == cfg.n_layers - 1))
+            w = None if is_global else cfg.sliding_window
+            if segs and segs[-1].window == w:
+                segs[-1] = dataclasses.replace(segs[-1],
+                                               reps=segs[-1].reps + 1)
+            else:
+                segs.append(Segment(("hybrid",), 1, w))
+        return segs
     w = cfg.sliding_window
     if cfg.mla:
         segs = []
@@ -91,24 +111,39 @@ def build_plan(cfg: ModelConfig) -> list[Segment]:
 
 
 class Block(nn.Module):
-    """One layer of block kind ``kind``: pre-norm attention through the
-    kind's backend (``attn``: GQA or MLA weights), then a pre-norm FFN
-    (``mlp``: SwiGLU, of ``cfg.d_ff`` for ``mla_dense``; ``moe``: routed
-    and shared experts for ``*_moe`` kinds)."""
+    """One layer of block kind ``kind``.  Attention kinds: pre-norm
+    attention through the kind's backend (``attn``: GQA or MLA weights),
+    then a pre-norm FFN (``mlp``: SwiGLU, of ``cfg.d_ff`` for
+    ``mla_dense``; ``moe``: routed and shared experts for ``*_moe``
+    kinds).  ``ssm``: pre-norm Mamba2 mixer only (``ln1``, ``ssm``).
+    ``hybrid``: attention and the SSM mixer side by side on one pre-norm
+    input, each output normed (``attn_out_norm``, ``ssm_out_norm``) and
+    averaged, then the MLP."""
 
     def __init__(self, kind: str, cfg: ModelConfig, device,
                  moe_impl: str = "auto"):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
-        self.ln1 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
-                                            device=device), requires_grad=False)
-        # every layer of an MoE model writes its pages through
-        # last_writes: the batch's rows couple through expert capacity
-        self.attn = ab.backend_for_kind(kind).module(cfg, device,
-                                                     coupled=cfg.moe)
-        self.ln2 = nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
-                                            device=device), requires_grad=False)
+
+        def norm():
+            return nn.Parameter(torch.empty((d,), dtype=NORM_DTYPE,
+                                            device=device),
+                                requires_grad=False)
+        self.ln1 = norm()
+        if kind != "ssm":
+            # every layer of an MoE model writes its pages through
+            # last_writes: the batch's rows couple through expert capacity
+            self.attn = ab.backend_for_kind(kind).module(cfg, device,
+                                                         coupled=cfg.moe)
+        if self.has_state:
+            self.ssm = ssm_lib.SSM(cfg, device)
+        if kind == "hybrid":
+            self.attn_out_norm = norm()
+            self.ssm_out_norm = norm()
+        if kind == "ssm":
+            return
+        self.ln2 = norm()
         if self.is_moe:
             self.moe = moe_lib.MoE(cfg, device, impl=moe_impl)
         else:
@@ -118,6 +153,10 @@ class Block(nn.Module):
     def is_moe(self) -> bool:
         return self.kind.endswith("_moe")
 
+    @property
+    def has_state(self) -> bool:
+        return self.kind in ("ssm", "hybrid")
+
 
 def _ffn(p: Block, x, cfg: ModelConfig):
     if p.is_moe:
@@ -125,18 +164,43 @@ def _ffn(p: Block, x, cfg: ModelConfig):
     return layers.mlp_forward(p.mlp, x)
 
 
+def _hybrid_out(p: Block, x, a, s, cfg: ModelConfig):
+    """A hybrid block's tail: the normed attention and SSM outputs
+    averaged into the residual, then the MLP."""
+    eps = cfg.norm_eps
+    x = x + 0.5 * (rmsnorm(a, p.attn_out_norm, eps)
+                   + rmsnorm(s, p.ssm_out_norm, eps))
+    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, eps))
+
+
 def _block_forward(p: Block, x, cfg: ModelConfig, window):
     """x: (B, S, D), no cache."""
-    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + be.forward(p.attn, h, cfg, window=window)
+    if p.kind == "ssm":
+        return x + ssm_lib.ssm_forward(h, p.ssm, cfg)[0]
+    be = ab.backend_for_kind(p.kind)
+    a = be.forward(p.attn, h, cfg, window=window)
+    if p.kind == "hybrid":
+        s, _ = ssm_lib.ssm_forward(h, p.ssm, cfg)
+        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
+    x = x + a
     return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
 
 def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
-    """x: (B, S, D) prompt representations; cache written in place."""
-    be = ab.backend_for_kind(p.kind)
+    """x: (B, S, D) prompt representations; cache written in place (a
+    state cache's leaves are replaced by the prompt's final state)."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    if p.kind == "ssm":
+        out, st = ssm_lib.ssm_forward(h, p.ssm, cfg)
+        cache.update(st)
+        return x + out
+    be = ab.backend_for_kind(p.kind)
+    if p.kind == "hybrid":
+        a = be.prefill(p.attn, h, cfg, cache["attn"], window=window)
+        s, st = ssm_lib.ssm_forward(h, p.ssm, cfg)
+        cache["ssm"].update(st)
+        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
     x = x + be.prefill(p.attn, h, cfg, cache, window=window)
     return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
@@ -144,32 +208,119 @@ def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
 def _block_decode(p: Block, x, cfg: ModelConfig, window, cache, cur_pos,
                   positions, cur_len):
     """x: (B, D) single-token representations; cache written in place."""
-    be = ab.backend_for_kind(p.kind)
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
-    x = x + be.decode(p.attn, h, cfg, cache, cur_pos, window=window,
-                      positions=positions, cur_len=cur_len)
+    if p.kind == "ssm":
+        out, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, cache)
+        cache.update(st)
+        return x + out
+    be = ab.backend_for_kind(p.kind)
+    attn_cache = cache["attn"] if p.kind == "hybrid" else cache
+    a = be.decode(p.attn, h, cfg, attn_cache, cur_pos, window=window,
+                  positions=positions, cur_len=cur_len)
+    if p.kind == "hybrid":
+        s, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, cache["ssm"])
+        cache["ssm"].update(st)
+        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
+    x = x + a
     return x + _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
 
 
+# -- per-slot state pools (continuous serving of ssm / hybrid kinds) --------
+
+def _gather_state_rows(state: dict, slot_idx, start) -> dict:
+    """The state rows of a prefill chunk's bucket rows (``slot_idx``);
+    rows whose chunk starts at position 0 read a zero state, inside the
+    step: admission and a preemption restart both begin at ``start ==
+    0``, so the host never resets a state row between tenants."""
+    fresh = start == 0
+    out = {}
+    for key, a in state.items():
+        rows = a[slot_idx.long()]
+        m = fresh.reshape((-1,) + (1,) * (rows.ndim - 1))
+        out[key] = torch.where(m, torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device), rows)
+    return out
+
+
+def _scatter_state_rows(state: dict, rows: dict, slot_idx, valid) -> None:
+    """Write a chunk's updated rows back into the slot-indexed pools, in
+    place; bucket padding rows (``valid == 0``) write nothing.
+
+    Without a host wait and without a scratch row: each pool slot's
+    writer is the last bucket row with ``valid > 0`` that names it (an
+    ``amax`` scatter, which does not depend on the order its elements
+    land in), and every bucket row writes its slot's value from the
+    writer's row, or the slot's own value when no real row names it.  So
+    rows that share a slot (a padding row on a real row's slot) write
+    equal values, and the ``index_copy_`` may land them in any order."""
+    idx = slot_idx.long()
+    pool0 = next(iter(state.values()))
+    b = idx.shape[0]
+    ar = torch.arange(b, device=idx.device)
+    writer = torch.full((pool0.shape[0],), -1, dtype=torch.long,
+                        device=idx.device)
+    writer.scatter_reduce_(0, idx, torch.where(valid > 0, ar, -1),
+                           reduce="amax")
+    w = writer[idx]                                  # (B,) -1: no writer
+    src = w.clamp_min(0)
+    for key, a in state.items():
+        new = rows[key].to(a.dtype)[src]
+        m = (w >= 0).reshape((-1,) + (1,) * (new.ndim - 1))
+        a.index_copy_(0, idx, torch.where(m, new, a[idx]))
+
+
+def _commit_state_rows(state: dict, new: dict, ok) -> None:
+    """Decode-step commit, in place: only rows that decode this step
+    (``ok``) take their new state; the others (mid-prefill, free) keep
+    theirs."""
+    for key, a in state.items():
+        m = ok.reshape((-1,) + (1,) * (a.ndim - 1))
+        a.copy_(torch.where(m, new[key].to(a.dtype), a))
+
+
 def _block_decode_paged(p: Block, x, cfg: ModelConfig, window, pool,
-                        page_table, pos):
-    """x: (B, D) single-token representations; pool written in place."""
-    be = ab.backend_for_kind(p.kind)
+                        page_table, pos, state=None, state_ok=None):
+    """x: (B, D) single-token representations; pool written in place.
+    Stateful kinds run the one-token recurrence over their slot-indexed
+    ``state`` rows (B == slots) and commit the rows ``state_ok`` marks."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    if p.kind == "ssm":
+        out, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, state)
+        _commit_state_rows(state, st, state_ok)
+        return x + out
+    be = ab.backend_for_kind(p.kind)
     a = be.decode_paged(p.attn, h, cfg, pool, page_table, pos, window=window)
+    if p.kind == "hybrid":
+        s, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, state)
+        _commit_state_rows(state, st, state_ok)
+        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
     x = x + a.to(x.dtype)
     f = _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
     return x + f.to(x.dtype)
 
 
 def _block_prefill_chunk_paged(p: Block, x, cfg: ModelConfig, window, pool,
-                               page_table, start, valid):
+                               page_table, start, valid, state=None,
+                               slot_idx=None):
     """x: (B, C, D); start/valid: (B,) per-slot chunk offset and real-token
-    count; pool written in place."""
-    be = ab.backend_for_kind(p.kind)
+    count; pool written in place.  Stateful kinds gather their
+    ``slot_idx`` state rows (zero where ``start == 0``), run the chunked
+    SSD with ``valid`` masking, so the carried state lands at the valid
+    boundary, and scatter the rows back."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    if p.kind == "ssm":
+        rows = _gather_state_rows(state, slot_idx, start)
+        out, st = ssm_lib.ssm_forward(h, p.ssm, cfg, rows, valid=valid)
+        _scatter_state_rows(state, st, slot_idx, valid)
+        return x + out
+    be = ab.backend_for_kind(p.kind)
     a = be.prefill_chunk_paged(p.attn, h, cfg, pool, page_table, start,
                                valid, window=window)
+    if p.kind == "hybrid":
+        rows = _gather_state_rows(state, slot_idx, start)
+        s, st = ssm_lib.ssm_forward(h, p.ssm, cfg, rows, valid=valid)
+        _scatter_state_rows(state, st, slot_idx, valid)
+        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
     x = x + a.to(x.dtype)
     f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
     return x + f.to(x.dtype)
@@ -182,6 +333,11 @@ def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
     block of ``_block_prefill_chunk_paged`` through the backend's
     multi-query decode entry; pool written in place."""
     be = ab.backend_for_kind(p.kind)
+    if be is None or be.decode_multi_paged is None or p.kind == "hybrid":
+        raise NotImplementedError(
+            f"multi-token decode (speculative verify) over block kind "
+            f"{p.kind!r}: state pools advance one token per step — the "
+            f"engine gates speculation off for stateful layouts")
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     a = be.decode_multi_paged(p.attn, h, cfg, pool, page_table, start,
                               valid, window=window)
@@ -190,9 +346,11 @@ def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
     return x + f.to(x.dtype)
 
 
-def _no_state(states) -> None:
-    if states is not None:
-        raise NotImplementedError(f"per-slot state pools — {ITEM_STATEFUL}")
+def _cache_width(cache: dict) -> int | None:
+    """Entries of a layer's dense attention cache (a hybrid layer's
+    ``attn`` half); None for a pure state cache."""
+    slot_pos = cache.get("attn", cache).get("slot_pos")
+    return None if slot_pos is None else slot_pos.shape[0]
 
 
 def _table_for(window, page_table, ring_table):
@@ -232,6 +390,8 @@ class Model(nn.Module):
         kinds = [(kind, seg.window) for seg in self.plan
                  for _ in range(seg.reps) for kind in seg.kinds]
         self.windows = [win for _, win in kinds]
+        # stateful serving: a kind carrying per-slot recurrent state
+        self.needs_state = any(ab.layout_for_kind(k).state for k, _ in kinds)
         dev = self.device
         self.embed = nn.Parameter(torch.empty(
             (cfg.padded_vocab, cfg.d_model), dtype=PARAM_DTYPE, device=dev),
@@ -254,12 +414,16 @@ class Model(nn.Module):
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         for blk in self.layers:
-            blk.ln1.fill_(1.0)
-            blk.ln2.fill_(1.0)
-            ab.backend_for_kind(blk.kind).init(blk.attn, gen, cfg)
+            for norm in ("ln1", "ln2", "attn_out_norm", "ssm_out_norm"):
+                if hasattr(blk, norm):
+                    getattr(blk, norm).fill_(1.0)
+            if blk.kind != "ssm":
+                ab.backend_for_kind(blk.kind).init(blk.attn, gen, cfg)
+            if blk.has_state:
+                ssm_lib.init_ssm(blk.ssm, gen, cfg)
             if blk.is_moe:
                 moe_lib.init_moe(blk.moe, gen)
-            else:
+            elif blk.kind != "ssm":
                 layers.init_mlp(blk.mlp, gen)
         self.final_norm.fill_(1.0)
         self.embed.copy_(embed_init(gen, cfg.padded_vocab, cfg.d_model))
@@ -296,11 +460,24 @@ class Model(nn.Module):
         """One dense cache per layer from its backend (GQA: ``(B, w, KVH,
         HD)`` k/v leaves, w = max_len or the layer's window if shorter;
         MLA: ``(B, max_len, .)`` latent and rope-key leaves) and a
-        ``slot_pos`` table.  ``dtype``: see ``dense_cache_dtype``."""
+        ``slot_pos`` table; an ``ssm`` layer's is its zero state
+        (``ssm.init_ssm_state``), a ``hybrid`` layer's ``{"attn": ...,
+        "ssm": ...}``.  ``dtype``: see ``dense_cache_dtype`` (the state
+        keeps its own dtypes)."""
         dtype = dense_cache_dtype(dtype)
-        return [ab.backend_for_kind(blk.kind).init_cache(
-                    self.cfg, batch, max_len, win, dtype, device=self.device)
-                for win, blk in zip(self.windows, self.layers)]
+        cfg, dev = self.cfg, self.device
+        caches = []
+        for win, blk in zip(self.windows, self.layers):
+            if blk.kind == "ssm":
+                caches.append(ssm_lib.init_ssm_state(cfg, batch, device=dev))
+                continue
+            c = ab.backend_for_kind(blk.kind).init_cache(
+                cfg, batch, max_len, win, dtype, device=dev)
+            if blk.kind == "hybrid":
+                c = {"attn": c,
+                     "ssm": ssm_lib.init_ssm_state(cfg, batch, device=dev)}
+            caches.append(c)
+        return caches
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: list) -> torch.Tensor:
@@ -327,16 +504,16 @@ class Model(nn.Module):
         # min(cur_pos + 1, w) entries, built once per distinct w (a
         # wrapped ring of w = window entries holds exactly the window)
         cur_lens: dict[int, torch.Tensor] = {}
+        widths = [_cache_width(c) for c in cache]
         if dev.type == "cuda":
-            for c in cache:
-                w = c["slot_pos"].shape[0]
-                if w not in cur_lens:
+            for w in widths:
+                if w is not None and w not in cur_lens:
                     cur_lens[w] = torch.full((b,), min(cur_pos + 1, w),
                                              dtype=torch.int32, device=dev)
         x = self.embed[tokens.long()]                       # (B, D)
-        for win, blk, c in zip(self.windows, self.layers, cache):
+        for win, blk, c, w in zip(self.windows, self.layers, cache, widths):
             x = _block_decode(blk, x, cfg, win, c, cur_pos, positions,
-                              cur_lens.get(c["slot_pos"].shape[0]))
+                              cur_lens.get(w))
         return self._head(x[:, None, :])[:, 0]
 
     # ----- paged cache (continuous-batching serve) -----
@@ -358,17 +535,34 @@ class Model(nn.Module):
         pools = []
         for seg in self.plan:
             if seg.window is not None and any(
-                    "sliding" not in ab.backend_for_kind(k).paged_mask_families
+                    (be := ab.backend_for_kind(k)) is None
+                    or "sliding" not in be.paged_mask_families
                     for k in seg.kinds):
                 raise NotImplementedError(
                     "continuous batching over sliding-window segments needs "
                     "a sliding-capable paged backend")
             size = (ring_pages if (seg.window is not None
                                    and ring_pages is not None) else num_pages)
-            pools += [ab.backend_for_kind(kind).init_page_pool(
-                          self.cfg, size, page_size, dtype, device=self.device)
-                      for _ in range(seg.reps) for kind in seg.kinds]
+            for _ in range(seg.reps):
+                for kind in seg.kinds:
+                    be = ab.backend_for_kind(kind)
+                    # pure-state kinds (ssm) write no token-indexed pages
+                    pools.append({} if be is None else be.init_page_pool(
+                        self.cfg, size, page_size, dtype, device=self.device))
         return pools
+
+    def init_state_pools(self, num_slots: int) -> list[dict]:
+        """Per-slot recurrent state pools, one per layer (the conv tail
+        and SSD state of ``ssm`` / ``hybrid`` layers, ``num_slots`` rows
+        each, from the kind's ``CacheLayout.init_state_pool``); ``{}`` for
+        stateless layers."""
+        out = []
+        for blk in self.layers:
+            lay = ab.layout_for_kind(blk.kind)
+            out.append(lay.init_state_pool(self.cfg, num_slots,
+                                           device=self.device)
+                       if lay.state else {})
+        return out
 
     @torch.no_grad()
     def prefill_chunk_paged(self, tokens: torch.Tensor, pools: list,
@@ -382,10 +576,13 @@ class Model(nn.Module):
         (B,) absolute position of tokens[:, 0]; valid: (B,) real tokens per
         row (0 for padding rows, whose table rows point at the scratch
         page).  ``ring_table`` (B, n_blocks): the sliding-window layers'
-        ring space, when the pools keep one.  Returns (B, V) logits at each
-        row's last valid position."""
+        ring space, when the pools keep one.  A stateful model (ssm,
+        hybrid) also takes ``states`` (``init_state_pools``) and
+        ``slot_idx`` (B,), each bucket row's slot: its rows are read (zero
+        where ``start == 0``) and written back in place, padding rows
+        not.  Returns (B, V) logits at each row's last valid position."""
         x = self._prefill_chunk_body(tokens, pools, page_table, start, valid,
-                                     states, ring_table)
+                                     states, ring_table, slot_idx)
         return self._last_logits(x, valid)
 
     @torch.no_grad()
@@ -400,18 +597,33 @@ class Model(nn.Module):
         ``prefill_chunk_paged``, so a scored admission samples the same
         first token; ``full_logits`` feed the raw prompt-token scores."""
         x = self._prefill_chunk_body(tokens, pools, page_table, start, valid,
-                                     states, ring_table)
+                                     states, ring_table, slot_idx)
         return self._last_logits(x, valid), self._head(x)
 
+    def _check_states(self, states) -> list:
+        """The per-layer state pools a call threads ({} per layer for a
+        stateless model); a stateful model without them raises, in the
+        reference's words."""
+        if states is None:
+            if self.needs_state:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: ssm/hybrid serving needs per-slot "
+                    f"state pools — pass states=init_state_pools(num_slots) "
+                    f"(the continuous engine threads them automatically)")
+            return [{}] * len(self.layers)
+        return states
+
     def _prefill_chunk_body(self, tokens, pools, page_table, start, valid,
-                            states, ring_table) -> torch.Tensor:
-        _no_state(states)
+                            states, ring_table, slot_idx) -> torch.Tensor:
+        states = self._check_states(states)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, C, D)
-        for win, blk, pool in zip(self.windows, self.layers, pools):
+        for win, blk, pool, st in zip(self.windows, self.layers, pools,
+                                      states):
             x = _block_prefill_chunk_paged(
                 blk, x, cfg, win, pool, _table_for(win, page_table,
-                                                   ring_table), start, valid)
+                                                   ring_table), start, valid,
+                state=st, slot_idx=slot_idx)
         return x
 
     def _last_logits(self, x: torch.Tensor, valid) -> torch.Tensor:
@@ -437,22 +649,32 @@ class Model(nn.Module):
         chosen tokens per slot starting at position ``pos`` with ``valid``
         (B,) real rows (default C; the rest scatter to the scratch page)
         returns (B, C, V) logits, one next-token distribution per fed
-        position (``_decode_multi_paged``; not over a ring space:
-        speculation is gated off for ring layouts, as in the reference)."""
-        _no_state(states)
+        position (``_decode_multi_paged``; not over a ring space or state
+        pools: speculation is gated off for those layouts, as in the
+        reference).
+
+        A stateful model threads ``states`` (``init_state_pools``, B ==
+        slots) and ``state_ok`` (B,) bool, the slots that decode this
+        step: only their state rows commit."""
         if tokens.ndim == 2:
+            if states is not None:
+                raise NotImplementedError(
+                    "multi-token decode over state pools (speculative "
+                    "verify) is unsupported — the engine gates it off")
             if ring_table is not None:
                 raise NotImplementedError(
                     "multi-token decode over ring pages (speculative verify)"
                     " is unsupported: reclaimed ring pages cannot rewind")
             return self._decode_multi_paged(tokens, pools, page_table, pos,
                                             valid)
+        states = self._check_states(states)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, D)
-        for win, blk, pool in zip(self.windows, self.layers, pools):
+        for win, blk, pool, st in zip(self.windows, self.layers, pools,
+                                      states):
             x = _block_decode_paged(blk, x, cfg, win, pool,
                                     _table_for(win, page_table, ring_table),
-                                    pos)
+                                    pos, state=st, state_ok=state_ok)
         return self._head(x[:, None, :])[:, 0]
 
     def _decode_multi_paged(self, tokens: torch.Tensor, pools: list,

@@ -69,9 +69,20 @@ pages however long it runs.  With no full-KV segment the prefix cache is
 off.  As in the reference, a ring layout refuses ``speculative=`` and a
 disaggregated ``phase`` (ring pages cannot rewind or hand off).
 
+SSM state (mamba2, hymba): ``reset`` builds one state row a slot in
+every stateful layer (``Model.init_state_pools``); each prefill chunk
+names its rows' slots (a row that starts at position 0, an admission or a
+preemption restart, reads a zero state inside the step), and each decode
+step commits only the slots that decode in it (``state_ok``).  With
+full-KV layers too (hymba) a prefix hit shares pages for capacity but
+the prompt is recomputed (``recompute_shared``), as the state must be
+rebuilt.  A state-carrying model refuses a quantized ``cache_dtype``,
+``mesh=``, ``speculative=`` and a disaggregated ``phase``, in the
+reference's words.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (tensor parallelism, also in a spec), ``phase !=
-"colocated"`` (disaggregation, also of draft pages) and SSM state pools.
+item): ``mesh=`` (tensor parallelism, also in a spec) and ``phase !=
+"colocated"`` (disaggregation, also of draft pages).
 """
 from __future__ import annotations
 
@@ -378,13 +389,19 @@ class ContinuousServeEngine:
             raise ValueError(f"model weights are on {wdev}, the engine was "
                              f"asked to run on {dev}")
         self.device = wdev
-        if mesh is not None:
-            raise _unported("tensor-parallel serving (mesh=)",
-                            "Tensor parallelism")
-        # -- stateful cache layouts (runtime.state_cache): ring-page
-        # reclamation for sliding-window layers; the reference's refusals --
+        # -- stateful cache layouts (runtime.state_cache): SSM/hybrid state
+        # pools and ring-page reclamation for sliding-window layers; the
+        # reference's refusals --
         lay = model_cache_layout(model.plan)
         self._layout = lay
+        if mesh is not None:
+            if lay.has_state:
+                raise NotImplementedError(
+                    f"tensor-parallel serving of the state-carrying arch "
+                    f"{model.cfg.name!r} needs sharded state pools "
+                    f"(recorded follow-on); run it single-device")
+            raise _unported("tensor-parallel serving (mesh=)",
+                            "Tensor parallelism")
         if lay.stateful:
             arch = model.cfg.name
             if speculative is not None:
@@ -399,6 +416,13 @@ class ContinuousServeEngine:
                     f"the KV handoff moves page chains only — recurrent "
                     f"state and ring residency need their own transfer "
                     f"(recorded follow-on)")
+        if lay.has_state:
+            if kvq.is_quantized_cache_dtype(cache_dtype):
+                raise NotImplementedError(
+                    f"cache_dtype={cache_dtype!r} is unsupported for the "
+                    f"state-carrying arch {model.cfg.name!r}: SSM state "
+                    f"pools stay bf16/f32 — quantized state is a recorded "
+                    f"follow-on")
         if phase != "colocated":
             raise _unported(f"phase={phase!r} (disaggregated serving)",
                             "Disaggregation")
@@ -505,10 +529,12 @@ class ContinuousServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _step_impl(self, tokens, pos, page_table, ring_table, temp, topk,
-                   topp, minp, seed, rep, bias_ids, bias_vals):
+    def _step_impl(self, tokens, pos, page_table, ring_table, state_ok, temp,
+                   topk, topp, minp, seed, rep, bias_ids, bias_vals):
         logits = self.model.decode_step_paged(tokens, self._pools, page_table,
-                                              pos, ring_table=ring_table)
+                                              pos, states=self._states,
+                                              ring_table=ring_table,
+                                              state_ok=state_ok)
         # the incoming token sits at index pos; the one being generated at
         # pos + 1 — its PRNG key is fold_in(seed, pos + 1)
         nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp, seed,
@@ -523,12 +549,14 @@ class ContinuousServeEngine:
                        nxt.long()] = True
         return nxt, lp
 
-    def _chunk_impl(self, presence, tokens, page_table, ring_table, start,
-                    valid, temp, topk, topp, minp, seed, rep, bias_ids,
+    def _chunk_impl(self, presence, tokens, page_table, ring_table, slot_idx,
+                    start, valid, temp, topk, topp, minp, seed, rep, bias_ids,
                     bias_vals):
         logits = self.model.prefill_chunk_paged(tokens, self._pools,
                                                 page_table, start, valid,
-                                                ring_table=ring_table)
+                                                states=self._states,
+                                                ring_table=ring_table,
+                                                slot_idx=slot_idx)
         # a request's first token is generated at index prompt_len ==
         # start + valid of its final chunk (other rows' draws are ignored)
         return sampling.sample_slots(logits, temp, topk, topp, minp, seed,
@@ -537,8 +565,8 @@ class ContinuousServeEngine:
                                      bias_vals=bias_vals, presence=presence)
 
     def _chunk_scored_impl(self, presence, tokens, page_table, ring_table,
-                           start, valid, tgt, temp, topk, topp, minp, seed,
-                           rep, bias_ids, bias_vals):
+                           slot_idx, start, valid, tgt, temp, topk, topp,
+                           minp, seed, rep, bias_ids, bias_vals):
         """The prompt-logprobs variant of ``_chunk_impl``: the chunk's full
         (B, C, V) logits also score the next prompt token at every chunk
         position (``tgt[i, j] = prompt[start + j + 1]``, host-built), on the
@@ -547,7 +575,7 @@ class ContinuousServeEngine:
         admission samples the same first token."""
         last_logits, full = self.model.prefill_chunk_scored_paged(
             tokens, self._pools, page_table, start, valid,
-            ring_table=ring_table)
+            states=self._states, ring_table=ring_table, slot_idx=slot_idx)
         first, lp = sampling.sample_slots(
             last_logits, temp, topk, topp, minp, seed, start + valid,
             max_top_k=self.max_top_k, rep_penalty=rep, bias_ids=bias_ids,
@@ -707,7 +735,9 @@ class ContinuousServeEngine:
                                   page_size=self.page_size,
                                   max_blocks=self.max_blocks,
                                   enable_prefix_cache=self.enable_prefix_cache,
-                                  has_full=lay.has_full, ring=ring)
+                                  has_full=lay.has_full, ring=ring,
+                                  recompute_shared=(lay.has_state
+                                                    and lay.has_full))
         self._sched = Scheduler(self.cache, on_release=self._on_release,
                                 max_running=self.max_decode_slots)
         self._slots = sampling.SlotSampling(self.num_slots, self.device)
@@ -715,10 +745,16 @@ class ContinuousServeEngine:
         self._presence_np = np.zeros((self.num_slots, self._vocab), np.bool_)
         self._presence = self._presence_copy()
         self._presence_dirty = False
-        self._pools = self._draft_pools = None   # free the old pools first
+        # free the old pools first
+        self._pools = self._draft_pools = self._states = None
         self._pools = self.model.init_paged_cache(
             self.num_pages, self.page_size, dtype=self.cache_dtype,
             ring_pages=self.ring_pages if lay.has_ring else None)
+        # per-slot SSM state rows: a restarted or newly admitted slot's
+        # rows are zeroed inside its first chunk (start == 0), so nothing
+        # here resets them between tenants
+        self._states = (self.model.init_state_pools(self.num_slots)
+                        if lay.has_state else None)
         if self.spec is not None:
             self._draft_pools = self._draft_model.init_paged_cache(
                 self.num_pages, self.page_size, dtype=self.cache_dtype)
@@ -856,12 +892,15 @@ class ContinuousServeEngine:
         table = self.cache.table()
         rtab = self.cache.ring_table()
         rtables = None if rtab is None else np.zeros((bucket, nb), np.int32)
+        # each bucket row's slot (state rows); padding rows write nothing
+        slots_ix = np.zeros((bucket,), np.int32)
         for i, r in enumerate(pre):
             n = min(c, r.prompt_len - r.pos)
             tokens[i, :n] = r.prompt[r.pos:r.pos + n]
             tables[i] = table[r.slot, :nb]
             if rtables is not None:
                 rtables[i] = rtab[r.slot, :nb]
+            slots_ix[i] = r.slot
             start[i] = r.pos
             valid[i] = n
         samp = sampling.stack_params([r.sampling for r in pre], bucket)
@@ -872,6 +911,8 @@ class ContinuousServeEngine:
         pres_t, tok_t, tab_t, start_t, valid_t = (
             self._tensor(a) for a in (pres, tokens, tables, start, valid))
         rtab_t = None if rtables is None else self._tensor(rtables)
+        slots_t = (self._tensor(slots_ix) if self._states is not None
+                   else None)
         pargs = [self._tensor(a) for a in samp + extras]
         plp = None
         if any(r.sampling.prompt_logprobs for r in pre):
@@ -883,12 +924,12 @@ class ContinuousServeEngine:
                                + 1]
                 tgt[i, :len(nxt)] = nxt
             first, lp, plp = self._chunk_scored_impl(
-                pres_t, tok_t, tab_t, rtab_t, start_t, valid_t,
+                pres_t, tok_t, tab_t, rtab_t, slots_t, start_t, valid_t,
                 self._tensor(tgt), *pargs)
             plp = plp.cpu().numpy()
         else:
             first, lp = self._chunk_impl(pres_t, tok_t, tab_t, rtab_t,
-                                         start_t, valid_t, *pargs)
+                                         slots_t, start_t, valid_t, *pargs)
         if self.spec is not None:
             # the draft pools take the same chunk (logits dropped), so the
             # first draft window attends over the whole prompt
@@ -973,12 +1014,18 @@ class ContinuousServeEngine:
         step_table = np.zeros_like(self.cache.table())
         rtab = self.cache.ring_table()
         ring_step = None if rtab is None else np.zeros_like(rtab)
+        # state rows commit only for slots that decode this step: the
+        # others may be mid-prefill in this same iteration
+        state_ok = (np.zeros((self.num_slots,), np.bool_)
+                    if self._states is not None else None)
         for req in decoding:
             tokens[req.slot] = req.tokens[-1]
             pos[req.slot] = req.pos
             step_table[req.slot] = self.cache.table()[req.slot]
             if ring_step is not None:
                 ring_step[req.slot] = rtab[req.slot]
+            if state_ok is not None:
+                state_ok[req.slot] = True
         if self._presence_dirty:       # admissions/releases since last step
             self._presence = self._presence_copy()
             self._presence_dirty = False
@@ -987,6 +1034,7 @@ class ContinuousServeEngine:
         nxt, lp = self._step_impl(
             self._tensor(tokens), self._tensor(pos), self._tensor(step_table),
             None if ring_step is None else self._tensor(ring_step),
+            None if state_ok is None else self._tensor(state_ok),
             *self._slots.arrays())
         nxt = nxt.cpu().numpy()                        # device sync
         lp = lp.cpu().numpy()

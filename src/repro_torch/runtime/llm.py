@@ -44,6 +44,9 @@ Every request carries its own ``SamplingParams`` and gets back a structured
 metrics).  All three backends are ported; the static and continuous ones
 also score prompts (``SamplingParams.prompt_logprobs``: ``Model.forward``
 on the static backend, the scored prefill chunk on the continuous one).
+Models with SSM state (mamba2-370m, hymba-1.5b) serve through the
+continuous and static backends; speculation of either kind refuses them,
+as in the reference (recurrent state cannot rewind).
 """
 from __future__ import annotations
 

@@ -39,8 +39,7 @@ A verbatim copy of ``repro/runtime/state_cache.py`` with its imports
 redirected to the port.  ``DeploymentSpec.resolve`` prices with
 ``model_cache_layout``, ``ring_pages_needed`` and ``state_bytes_per_slot``;
 the continuous engine keeps sliding-window layers' pages in a
-``RingPageSpace``; state pools are not ported yet (ROADMAP Queue 1,
-'Stateful layouts').
+``RingPageSpace`` and SSM state in ``Model.init_state_pools``.
 """
 from __future__ import annotations
 

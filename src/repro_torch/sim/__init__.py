@@ -8,9 +8,7 @@
 
 Copies of ``repro/sim/*`` with their imports redirected to the port's
 ``ModelConfig``, ``build_plan``, footprint and ``core`` modules; all
-pure Python.  A config whose plan the port still refuses
-(ssm, hybrid) raises the port's ``NotImplementedError`` naming
-"Stateful layouts".
+pure Python.
 """
 from repro_torch.sim.isa import Phase, LayerProgram, Program
 from repro_torch.sim.compiler import CompileOptions, compile_decode_step

@@ -115,7 +115,8 @@ def test_hardware_and_hbmco_match_reference():
                                   "qwen3-14b", "qwen2.5-14b",
                                   "llama4-scout-109b-a17b",
                                   "llama4-maverick-400b-a17b",
-                                  "phi3-mini-3.8b", "h2o-danube-1.8b"])
+                                  "phi3-mini-3.8b", "h2o-danube-1.8b",
+                                  "mamba2-370m", "hymba-1.5b"])
 def test_footprint_matches_reference(name):
     got = compute_footprint(tconfigs.get_config(name))
     want = j_footprint(get_config(name))
@@ -131,12 +132,17 @@ def test_footprint_matches_reference(name):
 
 
 def test_non_dense_footprint_names_its_roadmap_item():
-    """Stateful families (ssm, hybrid) are the plans the port still lacks;
-    a GQA + MoE config is priced since the ``attn_moe`` kind is ported."""
+    """Stateful families (ssm, hybrid) are priced as the reference prices
+    them since their plans are ported, as is a GQA + MoE config (the
+    ``attn_moe`` kind)."""
     base = tconfigs.get_config("llama3-8b")
     for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Stateful layouts"):
-            compute_footprint(dataclasses.replace(base, family=family))
+        got = compute_footprint(dataclasses.replace(base, family=family))
+        want = j_footprint(dataclasses.replace(get_config("llama3-8b"),
+                                               family=family))
+        for f in ("total_params", "active_params", "kv_per_token",
+                  "state_elems"):
+            assert getattr(got, f) == getattr(want, f), (family, f)
     moe = dataclasses.replace(base, moe=True, n_experts=4,
                               n_experts_per_token=2, moe_d_ff=64)
     assert compute_footprint(moe).total_params == \
@@ -267,7 +273,8 @@ def test_resolved_deployment_matches_reference(small, case):
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "llama3-70b",
-                                  "phi3-mini-3.8b", "h2o-danube-1.8b"])
+                                  "phi3-mini-3.8b", "h2o-danube-1.8b",
+                                  "mamba2-370m", "hymba-1.5b"])
 def test_full_size_pricing_matches_reference_without_weights(name):
     """Full-width configs priced from a ``meta``-device model: by the
     footprint estimate, and exactly from its parameters' shapes (the

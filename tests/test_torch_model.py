@@ -123,16 +123,21 @@ def test_paged_prefill_then_decode_matches_reference(name):
 
 
 def test_unported_plans_and_options_raise():
-    """ssm and hybrid plans raise naming their ROADMAP item; a GQA + MoE
-    config builds the ``attn_moe`` plan since that kind is ported."""
+    """ssm and hybrid plans build their blocks since those kinds are
+    ported (the stateful paged entries then need state pools); a GQA +
+    MoE config builds the ``attn_moe`` plan."""
     base = tconfigs.reduced_config(tconfigs.get_config("llama3-8b"))
     moe = dataclasses.replace(base, moe=True, n_experts=4,
                               n_experts_per_token=1, moe_d_ff=64)
     assert [blk.kind for blk in Model(moe, device="meta").layers] == \
         ["attn_moe"] * base.n_layers
     for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Stateful"):
-            Model(dataclasses.replace(base, family=family), device="cpu")
+        stateful = Model(dataclasses.replace(base, family=family,
+                                             ssm_state=8, ssm_head_dim=8),
+                         device="cpu")
+        assert [blk.kind for blk in stateful.layers] == \
+            [family] * base.n_layers
+        assert stateful.needs_state
     model = Model(base, device="cpu").init(0)
     # ring_pages sizes the pools of sliding-window layers only
     assert model.init_paged_cache(4, 4, ring_pages=2)[0]["k"].shape[0] == 4
@@ -142,8 +147,10 @@ def test_unported_plans_and_options_raise():
     pools = model.init_paged_cache(4, 4)
     tab = torch.zeros((1, 1), dtype=torch.int32)
     one = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Stateful"):
-        model.decode_step_paged(one, pools, tab, one, states=[{}])
+    # a stateless model threads the empty state of every layer unchanged
+    assert model.decode_step_paged(
+        one, pools, tab, one, states=[{}] * base.n_layers).shape == (
+        1, base.padded_vocab)
     # the 2-D (speculative verify) form is ported: logits at every position
     assert model.decode_step_paged(tab, pools, tab, one).shape == (
         1, 1, base.padded_vocab)

@@ -5,11 +5,11 @@ reference's on the same configs and inputs.
 The modules are copies with their imports redirected, so every number is
 held at 1e-12 (relative) and every program phase by phase: a difference
 would come from the port's ``build_plan`` or footprint helpers, which the
-compiler and the cost models read.  The configs are the eight that both
-packages plan (the port's registry); the reference's other configs go
-through the port's plan as the reference's own ``ModelConfig`` fields,
-and the stateful ones (mamba2, hymba) raise the port's "Stateful layouts"
-refusal.  The port's counterparts of ``tests/test_sim.py``'s paper checks
+compiler and the cost models read.  The configs are the twelve that both
+packages plan (the port's registry, the stateful mamba2 and hymba among
+them); the reference's other configs go through the port's plan as the
+reference's own ``ModelConfig`` fields, as do the configs the registry
+gained after those cases were written.  The port's counterparts of ``tests/test_sim.py``'s paper checks
 run as one parametrised test.
 """
 import dataclasses
@@ -44,10 +44,11 @@ from repro_torch.sim import scaling as tscal
 
 PLANNED = ["llama3-8b", "llama3-70b", "llama3-405b", "qwen3-14b",
            "qwen2.5-14b", "deepseek-v2-lite-16b", "llama4-scout-109b-a17b",
-           "llama4-maverick-400b-a17b", "phi3-mini-3.8b", "h2o-danube-1.8b"]
+           "llama4-maverick-400b-a17b", "phi3-mini-3.8b", "h2o-danube-1.8b",
+           "mamba2-370m", "hymba-1.5b"]
 # configs the registry gained since the outside-the-registry cases were
 # written: still held there too, through their ModelConfig fields
-ADDED = ["phi3-mini-3.8b", "h2o-danube-1.8b"]
+ADDED = ["phi3-mini-3.8b", "h2o-danube-1.8b", "mamba2-370m", "hymba-1.5b"]
 STATEFUL = ["mamba2-370m", "hymba-1.5b"]
 REL = 1e-12
 OPTIONS = [dict(), dict(n_cus=16, batch=8, seq_len=2048, kv_bytes=2.0),
@@ -220,22 +221,17 @@ def test_sku_map_matches_reference(name):
                                   if n not in PLANNED or n in ADDED])
 def test_reference_configs_outside_the_registry(name):
     """The reference's other configs, given to the port as the same
-    ``ModelConfig`` fields: mamba2 and hymba raise the port's refusal
-    naming "Stateful layouts" in every entry point that plans; the rest
-    (sliding-window danube, phi3-mini, the frontend configs, whose plans
-    are plain ``attn_dense``) compile to the reference's program and give
-    its GPU latency."""
+    ``ModelConfig`` fields (sliding-window danube, phi3-mini, the frontend
+    configs, whose plans are plain ``attn_dense``, and the stateful mamba2
+    and hymba, whose ``ssm`` and ``hybrid`` plans the port builds now),
+    compile to the reference's program and give its GPU latency; the
+    stateful ones also its ISO-TDP comparison, in every entry point that
+    plans."""
     j = get_config(name)
     t = ModelConfig(**dataclasses.asdict(j))
     opts = tcomp.CompileOptions()
     if name in STATEFUL:
-        for call in (lambda: tcomp.compile_decode_step(t, opts),
-                     lambda: tgpu.gpu_decode_latency(
-                         t, tgpu.GPUSystemConfig()),
-                     lambda: tscal.iso_tdp_comparison(t)):
-            with pytest.raises(NotImplementedError, match="Stateful layouts"):
-                call()
-        return
+        _same(tscal.iso_tdp_comparison(t), jscal.iso_tdp_comparison(j), name)
     _same(tcomp.compile_decode_step(t, opts),
           jcomp.compile_decode_step(j, jcomp.CompileOptions()), name)
     _same(tgpu.gpu_decode_latency(t, tgpu.GPUSystemConfig(), batch=4),

@@ -499,7 +499,9 @@ def test_continuous_equals_static_greedy():
 def test_refusals_and_prefix_cache(reduced):
     """As the reference: no ``speculative=`` and no disaggregated phase for
     a ring layout (its reasons), the prefix cache off with no full-KV
-    segment; mamba2 and hymba still name their ROADMAP item."""
+    segment; mamba2 and hymba, given as the reference's config fields,
+    build the reference's plans (their ``ssm`` and ``hybrid`` kinds are
+    ported)."""
     cfg, ref, params, port = reduced
     for kw, match in ((dict(speculative=SpeculativeConfig(gamma=2)),
                        "speculative decoding is unsupported"),
@@ -522,6 +524,8 @@ def test_refusals_and_prefix_cache(reduced):
     assert stats.prefix_hit_tokens == 0
     assert len({tuple(stats.results[i]) for i in range(3)}) == 1
     for name in ("mamba2-370m", "hymba-1.5b"):
-        fields = dataclasses.asdict(reduced_config(get_config(name)))
-        with pytest.raises(NotImplementedError, match="Stateful layouts"):
-            Model(ModelConfig(**fields), device="cpu")
+        jcfg = reduced_config(get_config(name))
+        model = Model(ModelConfig(**dataclasses.asdict(jcfg)), device="cpu")
+        assert [dataclasses.astuple(seg) for seg in model.plan] == \
+            [dataclasses.astuple(seg) for seg in build_model(jcfg).plan]
+        assert model.needs_state
