@@ -26,8 +26,10 @@ hymba-1.5b built first; serve_mla,
 serve_mla_static, serve_mla_quantized and serve_mla_spec on a
 deepseek-v2-lite-16b built first; serve_moe, serve_moe_static,
 serve_moe_quantized and serve_moe_spec on a llama4-scout built first;
-serve_moe_maverick on a llama4-maverick built first; sim last, over the
-serve phases of that run) builds and runs just those phases and prints no
+serve_moe_maverick on a llama4-maverick built first; serve_disagg on a
+llama3-8b built first, after the two colocated phases it is compared
+with; serve_cli, which builds its own models; sim last, over the serve
+phases of that run) builds and runs just those phases and prints no
 result line: for quick checks of one kernel or path.
 
 Phases, each of which fails the run if it fails:
@@ -116,6 +118,15 @@ Phases, each of which fails the run if it fails:
    schedule's 128-row K stages; gate/up to 5504; down from 5504) for M 1,
    8 and 2048.  Each timed at hymba's serve shapes beside its bound, its
    plain version and the library call; one kernels-line entry each.
+6d. kernel_flash_mla — the flash kernel at MLA's head dims (D 192 of q/k,
+   Dv 128 of v; deepseek-v2-lite): every variant (wgmma and mma.sync in
+   bf16, the second forced with ``kind="mma"``; fma in f32) against the
+   plain version at deepseek's static prefill (B 8, S 1024, H = KVH = 16,
+   causal and not), a ragged S 1000, GQA 4:1 and rep 136, at the flash
+   tolerances; timed at B 8, S 1024, causal beside its bound, the plain
+   version and SDPA under each backend (the fastest that takes Dv != D is
+   ``library_ms``).  Its kernels-line entry takes its launches from
+   serve_mla_static.
 6. kernel_exact — the exact-accumulator paged kernel (the speculative
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
@@ -184,6 +195,20 @@ Phases, each of which fails the run if it fails:
    (M, K, Ns) the session gave the MXFP4 kernel is then held against the
    plain version as in kernel_mxfp4, on the activations and weights of its
    first launch (``vmm_calls``; those launches are not counted).
+11b. serve_disagg — the serve phase's requests behind
+   ``LLMEngine(disaggregate=True)``: a prefill-phase and a decode-phase
+   engine on the one card, joined by the KV-page handoff (host staging),
+   in bf16 and then with mxfp4 weights over fp8 pools, each beside the
+   colocated phase of the same options (serve, serve_quantized).  Every
+   request is handed off (the later 512-token sharer through a
+   decode-side prefix hit), the handoff's bytes equal its pages times a
+   page of every leaf, the paged decode kernel (and ``mxfp4_vmm``)
+   launch as serve's checks say, and every greedy stream equals the
+   colocated one or parts at a near-tie.  Then untraced sessions of a
+   colocated engine and the disaggregated one, A B B A (a trace slows the
+   host for the sessions after it).  Reports TTFT p50, the decode step's
+   wall, busy and idle share (8 traced decode-only steps), tokens/s, and
+   the handoff's pages, bytes and ms, beside colocated's.
 12. serve_spec — the serve phase's requests behind
    ``LLMEngine(backend="continuous", speculative=SpeculativeConfig(
    gamma=4))``, a self-draft: every request finishes, a second session
@@ -274,15 +299,21 @@ Phases, each of which fails the run if it fails:
    prompt is scored in an engine of its own whose chunk is the prompt's
    length, since MoE capacity counts a call's tokens, and the mixed-batch
    check is GQA's only).  MLA
-   attention and MoE are plain torch, as the reference computes them
-   outside any Pallas kernel: no kernel may launch.  The traced steps
+   attention and MoE are plain torch on the paged path, as the reference
+   computes them outside any Pallas kernel: no kernel may launch in the
+   sessions; the scored prompt's ``Model.forward`` runs the flash kernel
+   (D 192 / Dv 128) once a layer.  The traced steps
    split device time by the model's named ranges (``SPANS``: MLA
    attention, MoE dispatch, experts and combine, the head).  Reports
    tokens/s, TTFT p50, decode step ms and peak GB.
 15. serve_mla_static — the same model behind ``LLMEngine(backend=
    "static")``: 8 prompts of 1024 tokens, 64 new each, twice (every stream
-   reproduces), then a ``prompt_logprobs`` call (finite scores <= 0); the
-   device time of 4 decode steps by kernel and by named range.
+   reproduces), then a ``prompt_logprobs`` call (finite scores <= 0).  The
+   flash kernel (D 192 / Dv 128) runs every MLA layer's prefill and
+   ``Model.forward`` (one launch a layer a call: 4 in the prefill, 8 in
+   the scored call); decoding stays in the latent space, no kernel.  The
+   device time of 4 decode steps by kernel and by named range, and of the
+   prefill by range.
 16. serve_mla_quantized — serve_mla with ``weight_format="mxfp4"`` over
    bf16 pools: the same checks, and ``mxfp4_vmm`` must launch 2 a layer
    plus 2 for the dense layer's MLP per decode step and per prefill chunk
@@ -313,7 +344,8 @@ Phases, each of which fails the run if it fails:
    deepseek-shaped model (1 mla_dense + 1 mla_moe, 8 experts, top 2, the
    capacity path forced), f32, card against CPU: continuous, static,
    continuous speculative and legacy speculative, greedy, under the same
-   near-tie rule (``check_mla``).
+   near-tie rule (``check_mla``; at deepseek's head dims, so its static
+   and legacy paths run the flash kernel's f32 variant at D 192 / Dv 128).
 19. serve_moe, serve_moe_static, serve_moe_quantized, serve_moe_spec —
    after deepseek is freed, llama4-scout at full width (d_model 5120, 40
    query heads over 8, head dim 128, 16 experts of 8192 plus a shared one,
@@ -345,6 +377,12 @@ Phases, each of which fails the run if it fails:
    MoE; maverick's period x 2, capacity forced), f32, card against CPU:
    continuous with a prefix hit, static, continuous and legacy
    speculative, greedy, under the near-tie rule.
+21b. serve_cli — ``repro_torch.launch.serve.main`` in this process:
+   ``--no-reduced --arch llama3-8b --continuous --disaggregate 1:1`` (all
+   32 layers, 4 requests of 256 tokens, 16 new) and ``--fleet --calibrate``
+   (a 2-layer llama3-8b engine timed into a latency table in a temporary
+   directory, and the simulator cross-checked against its replay); each
+   must return 0.
 22. sim — host only: the paper's H100 model (``sim.gpu_model``) for each
    serve phase's config as served, beside its measured wall and
    device-busy decode step, and ``iso_tdp_comparison`` for llama3-405b
@@ -353,7 +391,7 @@ Phases, each of which fails the run if it fails:
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line (the six kernels at llama3-8b's shapes, then their D 96
 and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections,
-then the same kernels at hymba's shapes;
+then the same kernels at hymba's shapes, then flash at D 192 / Dv 128;
 ``launches`` from the serve phase that runs each, on its own model), and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -1052,13 +1090,14 @@ def window_pairs(Sq, Skv, causal, window) -> int:
 
 
 def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d=D,
-                window=None):
-    """q, k, v read once and out written once; 4 flops (q.k and p.v) per
-    visible (query, key) pair (``window_pairs``) and head dim, at the
-    inputs' peak rate."""
-    nbytes = itemsize * d * B * (2 * Sq * h + 2 * Skv * kvh)
-    return roofline(nbytes, 4 * B * h * d * window_pairs(Sq, Skv, causal,
-                                                         window), dtype_name)
+                window=None, dv=None):
+    """q, k, v read once and out written once; 2 flops per visible (query,
+    key) pair (``window_pairs``) and head dim of q.k (D) and of p.v (Dv,
+    D unless given), at the inputs' peak rate."""
+    dv = d if dv is None else dv
+    nbytes = itemsize * B * (Sq * h * (d + dv) + Skv * kvh * (d + dv))
+    return roofline(nbytes, 2 * B * h * (d + dv) * window_pairs(
+        Sq, Skv, causal, window), dtype_name)
 
 
 def kernel_flash_phase(torch) -> dict:
@@ -1901,6 +1940,117 @@ def kernel_headdims_phase(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
+MLA_FLASH = (192, 128)     # deepseek-v2-lite: q.k over hd 128 + rope 64, v_hd 128
+DS_HEADS = 16              # its query heads (the expansion makes KVH = H)
+
+
+def sdpa_backends_ms(torch, q, k, v, causal, flush) -> dict:
+    """``F.scaled_dot_product_attention`` on (B, H, S, .) views under each
+    backend alone (``sdpa_kernel``): its time, or None where the backend
+    refuses the call.  A yardstick the port never calls."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+                torch.cuda.synchronize()
+                out[backend.name] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal), flush, iters=10)
+        except RuntimeError:
+            out[backend.name] = None
+    return out
+
+
+def kernel_flash_mla_phase(torch) -> dict:
+    """The flash kernel at MLA's head dims (D 192 of q/k, Dv 128 of v):
+    every variant (fma in f32; wgmma and mma.sync in bf16, the second
+    forced with ``kind="mma"``) held against the plain version at
+    deepseek-v2-lite's static prefill shapes (B 8, S 1024, H = KVH = 16,
+    causal and not), a ragged S 1000, a GQA 4:1 case and an MHA head count
+    past an item (rep 136), at the flash tolerances (bf16: 2^-6 of each
+    row's largest value; f32: 1e-5).  Then each variant timed at B 8, S
+    1024, causal, beside its bound, the plain version and SDPA under each
+    of its backends (the fastest that takes the call is ``library_ms``).
+    Returns one kernels-line entry (``launches`` set from
+    serve_mla_static)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    holds = KernelHolds(torch)
+    d, dv = MLA_FLASH
+
+    def inputs(B, S, h, kvh, dtype):
+        return (torch.randn((B, S, h, d), generator=gen, device=dev).to(dtype),
+                torch.randn((B, S, kvh, d), generator=gen, device=dev).to(dtype),
+                torch.randn((B, S, kvh, dv), generator=gen, device=dev).to(dtype))
+
+    cases = [(8, 1024, DS_HEADS, DS_HEADS, True),
+             (8, 1024, DS_HEADS, DS_HEADS, False),
+             (2, 1000, DS_HEADS, DS_HEADS, True),      # ragged S
+             (2, 1000, DS_HEADS, 4, False),            # GQA 4:1
+             (1, 300, 136, 1, True)]                   # past an item
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for B, S, h, kvh, causal in cases:
+            q, k, v = inputs(B, S, h, kvh, dt)
+            ref = gqa_flash_attention(q, k, v, causal=causal,
+                                      impl="reference")
+            chosen = flash_kernel.variant(dt, d, h // kvh, dv)
+            kinds = [chosen] + (["mma"] if chosen == "wgmma" else [])
+            for kind in kinds:
+                out = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                   kind=kind)
+                holds.hold("flash_attention", f"{kind} {dtype_name} B={B} "
+                           f"S={S} H={h} KVH={kvh} D={d} Dv={dv} "
+                           f"causal={causal}", out, ref, bf16_rel=True)
+                del out
+            del q, k, v, ref
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    B, S, h = 8, 1024, DS_HEADS
+    q, k, v = inputs(B, S, h, h, torch.bfloat16)
+    row = {"B": B, "S": S, "H": h, "D": d, "Dv": dv, "causal": True,
+           "dtype": "bfloat16",
+           "ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+               q, k, v, causal=True), flush),
+           "mma_ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+               q, k, v, causal=True, kind="mma"), flush, iters=10),
+           "plain_ms": time_ms(torch, lambda: gqa_flash_attention(
+               q, k, v, causal=True, impl="reference"), flush, iters=5)}
+    sdpa = sdpa_backends_ms(torch, q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True, flush)
+    ran = {name: t for name, t in sdpa.items() if t is not None}
+    library = min(ran, key=ran.get) if ran else None
+    row.update(sdpa_ms_by_backend=sdpa,
+               library_ms=ran[library] if library else None,
+               library=(f"F.scaled_dot_product_attention(is_causal=True), "
+                        f"backend {library}" if library else None))
+    row["bound_ms"], row["bound_by"] = flash_bound(
+        B, S, S, h, h, True, 2, "bfloat16", d=d, dv=dv)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    row["fma_f32_ms"] = time_ms(torch, lambda: flash_kernel.flash_attention(
+        qf, kf, vf, causal=True), flush, iters=5)
+    row["fma_f32_bound_ms"] = flash_bound(B, S, S, h, h, True, 4, "float32",
+                                          d=d, dv=dv)[0]
+    print("  timing flash D 192 / Dv 128:", json.dumps(ratios(row)))
+    del q, k, v, qf, kf, vf, flush
+    return {"phase": "kernel_flash_mla", "checked": len(holds.checked),
+            "entry": holds.entry(
+                "flash_attention:D192_Dv128", FLASH_SOURCE, FLASH_REPLACES,
+                row, "deepseek-v2-lite static prefill of one layer: B 8, "
+                     "S 1024, H = KVH = 16, D 192 / Dv 128, causal, bf16",
+                variant="wgmma", mma_ms=row["mma_ms"],
+                fma_f32_ms=row["fma_f32_ms"], library=row["library"],
+                sdpa_ms_by_backend=sdpa)}
+
+
 def quantize_phase(torch) -> dict:
     from repro_torch.quant import formats
     from repro_torch.quant import kv as kvq
@@ -2229,6 +2379,12 @@ def gqa_layers(model) -> int:
                for blk in model.layers)
 
 
+def mla_layers(model) -> int:
+    """Layers whose attention is MLA (``mla_dense``, ``mla_moe``): the
+    flash kernel runs their static prefill and ``Model.forward``."""
+    return sum(blk.kind.startswith("mla") for blk in model.layers)
+
+
 def state_readings(llm) -> dict:
     """A stateful engine's SSM state pools: bytes a slot, held against
     ``state_bytes_per_slot`` (what ``DeploymentSpec`` prices), and in all;
@@ -2446,6 +2602,226 @@ def serve_phase(torch, model, phase: str = "serve", requests=None,
     return result
 
 
+def page_bytes(eng) -> int:
+    """Bytes of one page over every pool leaf an engine's handoff moves
+    (``_pool_leaves``: k/v codes, scale leaves, the draft's pools)."""
+    return sum(raw[0].numel() * raw.element_size()
+               for raw in eng._pool_leaves())
+
+
+def serve_disagg_phase(torch, model, colocated: dict | None = None) -> dict:
+    """The serve phase's mix through ``LLMEngine(disaggregate=True)``: a
+    prefill-phase and a decode-phase engine on the one card, joined by the
+    KV-page handoff (host staging).  Twice: bf16, then mxfp4 weights over
+    fp8 pools, each beside the colocated phase of the same engine options
+    in this call (``colocated``: "serve" and "serve_quantized").  Every
+    request finishes with its 64 tokens; every request is handed off, the
+    later 512-token sharer through a decode-side prefix hit; the handoff's
+    bytes equal its pages times the bytes of a page of every leaf; the
+    paged decode kernel runs once a GQA layer a decode step (and
+    ``mxfp4_vmm`` 4 a layer a decode step or prefill call); each greedy
+    stream equals the colocated one or parts at a near-tie
+    (``divergences``, on a CPU copy of the model built only then).  Then
+    untraced sessions of a colocated engine of the same options (A) and
+    of the disaggregated one (B) in the order A B B A, each side's
+    readings the median of its two: a profiler trace slows the sessions
+    that follow it on the host, so the colocated phase's own first
+    session, which ran before any trace, is no fair yardstick.  A last
+    session traces 8 decode-only steps.  Reports TTFT p50, the decode
+    step's wall, busy and idle share, tokens/s and the handoff's pages,
+    bytes and ms a transfer beside the colocated numbers.  Without
+    ``colocated`` (``--only serve_disagg``) the two colocated phases run
+    first."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_SCALED,
+    )
+    from repro_torch.kernels.mxfp4_vmm.kernel import NAME as VMM
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cfg = model.cfg
+    if colocated is None:
+        colocated = {"serve": serve_phase(torch, model),
+                     "serve_quantized": serve_phase(
+                         torch, model, phase="serve_quantized",
+                         weight_format="mxfp4", cache_dtype="fp8")}
+    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    runs = {}
+    cpu_model = None
+    for label, base, kw in (("bf16", "serve", {}),
+                            ("mxfp4_fp8", "serve_quantized",
+                             dict(weight_format="mxfp4", cache_dtype="fp8"))):
+        co = colocated[base]
+        llm = LLMEngine(model, backend="continuous", device="cuda",
+                        num_slots=8, page_size=16, max_len=2048,
+                        prefill_chunk=256, disaggregate=True, **kw)
+        eng = llm._eng
+        LAUNCHES.clear()
+        VARIANT_LAUNCHES.clear()
+        streams, finished, stats, decode_steps = serve_session(llm, prompts,
+                                                               sps)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        for i, sp in enumerate(sps):
+            o = finished.get(i)
+            if (o is None or o.finish_reason != "length"
+                    or len(o.token_ids) != sp.max_tokens
+                    or o.token_ids != streams[i]):
+                raise AssertionError(f"serve_disagg {label} request {i}: "
+                                     f"{o}")
+        per_page = page_bytes(eng.decode)
+        if not (stats.handoffs >= len(prompts)
+                and stats.handoff_shared_tokens >= 512 - 16
+                and stats.handoff_bytes == stats.handoff_pages * per_page
+                and page_bytes(eng.prefill) == per_page):
+            raise AssertionError(
+                f"serve_disagg {label}: {stats.handoffs} handoffs, "
+                f"{stats.handoff_pages} pages, {stats.handoff_bytes} bytes "
+                f"(a page {per_page} B), {stats.handoff_shared_tokens} "
+                f"prefix-shared tokens")
+        decode_kernel = NAME_SCALED if kw else NAME
+        want = {decode_kernel: gqa_layers(model) * stats.steps}
+        if kw:
+            want[VMM] = vmm_launches_per_call(model) * (stats.steps
+                                                        + stats.prefill_calls)
+        if launches != want:
+            raise AssertionError(f"serve_disagg {label} launched {launches}, "
+                                 f"want {want}")
+        # greedy streams against the colocated engine's
+        want_streams = co["_streams"]
+        got = [finished[i] for i in range(len(prompts))]
+        ref = [dataclasses.replace(finished[i], token_ids=want_streams[i])
+               for i in range(len(prompts))]
+        greedy = [i for i, sp in enumerate(sps) if sp.is_greedy]
+        gap_model = None
+        if any(got[i].token_ids != ref[i].token_ids for i in greedy):
+            # the near-tie rule's CPU model, built only when a stream parts
+            from repro_torch.models.model import Model
+            from repro_torch.quant.linear import quantize_params
+            if cpu_model is None:
+                cpu_model = Model(cfg, device="cpu")
+                cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                           model.state_dict().items()})
+            gap_model = (quantize_params(cpu_model, kw["weight_format"])
+                         if kw else cpu_model)
+        near = divergences(
+            torch, f"serve_disagg {label} vs colocated",
+            [got[i] for i in greedy], [ref[i] for i in greedy],
+            [prompts[i] for i in greedy], [sps[i] for i in greedy],
+            gap_model, kw.get("cache_dtype"), True)
+        sampled_equal = [got[i].token_ids == ref[i].token_ids
+                         for i, sp in enumerate(sps) if not sp.is_greedy]
+        co_llm = LLMEngine(model, backend="continuous", device="cuda",
+                           num_slots=8, page_size=16, max_len=2048,
+                           prefill_chunk=256, **kw)
+        ab = {"colocated": [], "disaggregated": []}
+        for side in ("colocated", "disaggregated", "disaggregated",
+                     "colocated"):
+            _, _, st, steps = serve_session(
+                co_llm if side == "colocated" else llm, prompts, sps)
+            ab[side].append({"ttft_p50_s": st.latency_quantiles("ttft")["p50"],
+                             "decode_step_ms": 1e3 * float(np.median(steps)),
+                             "tokens_per_s": st.total_tokens / st.wall})
+        ab = {side: {k: float(np.median([r[k] for r in runs]))
+                     for k in runs[0]} | {"sessions": runs}
+              for side, runs in ab.items()}
+        del co_llm
+        # the re-run doubles as the profiled window: 8 decode-only steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(**PROFILE)) as prof:
+            serve_session(llm, prompts, sps, on_decode_step=prof.step)
+        breakdown = device_breakdown(prof, float(np.median(decode_steps)))
+        ho = eng.handoff
+        ttft = stats.latency_quantiles("ttft")
+        cob = co["profiled_decode_steps"]
+        runs[label] = {
+            "handoffs": stats.handoffs, "handoff_pages": stats.handoff_pages,
+            "handoff_bytes": stats.handoff_bytes,
+            "handoff_shared_tokens": stats.handoff_shared_tokens,
+            "page_bytes": per_page,
+            "handoff_ms_total": 1e3 * ho.seconds,
+            "handoff_ms_per_transfer": 1e3 * ho.seconds / max(ho.transfers,
+                                                              1),
+            "handoff_gb_per_s": stats.handoff_bytes / max(ho.seconds,
+                                                          1e-9) / 1e9,
+            "handoff_deferrals": ho.deferrals,
+            "prefill_engine": {"slots": eng.prefill.num_slots,
+                               "pages": eng.prefill.num_pages},
+            "decode_engine": {"slots": eng.decode.num_slots,
+                              "pages": eng.decode.num_pages},
+            "tokens_per_s": stats.total_tokens / stats.wall,
+            "wall_s": stats.wall, "ttft_p50_s": ttft["p50"],
+            "decode_step_ms_mean": 1e3 * float(np.mean(decode_steps)),
+            "decode_step_ms_median": 1e3 * float(np.median(decode_steps)),
+            "decode_steps": stats.steps, "prefill_calls": stats.prefill_calls,
+            "prefix_hit_tokens": stats.prefix_hit_tokens,
+            "kernel_launches": launches,
+            "greedy_equal_to_colocated": not near, "near_ties": near,
+            "sampled_equal_to_colocated": sampled_equal,
+            "profiled_decode_steps": breakdown,
+            "untraced_abba": ab,
+            "colocated": {
+                "tokens_per_s": co["tokens_per_s"],
+                "ttft_p50_s": co["ttft_p50_s"],
+                "decode_step_ms_mean": co["decode_step_ms_mean"],
+                "device_busy_ms_per_step": cob.get("device_busy_ms_per_step"),
+                "device_idle_share": cob.get("device_idle_share"),
+                "step_ms": cob.get("step_ms")}}
+        print(f"  serve_disagg {label}:", json.dumps(
+            {k: v for k, v in runs[label].items()
+             if k != "profiled_decode_steps"}))
+        del llm, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del cpu_model, gap_model
+    return {"phase": "serve_disagg", "layers": cfg.n_layers, **runs}
+
+
+# the launcher on the card, in process: full-width llama3-8b served
+# disaggregated, and the fleet calibration's real engine (2 of its layers)
+SERVE_CLI = ["--no-reduced", "--arch", "llama3-8b", "--continuous",
+             "--disaggregate", "1:1", "--num-requests", "4", "--batch", "4",
+             "--prompt-len", "256", "--max-new", "16"]
+FLEET_CLI = ["--fleet", "--calibrate", "--arch", "llama3-8b", "--no-reduced",
+             "--layers", "2", "--requests", "24", "--rate", "30"]
+
+
+def serve_cli_phase(torch) -> dict:
+    """``repro_torch.launch.serve.main`` on the card, in this process:
+    ``SERVE_CLI`` (llama3-8b at all 32 layers, random weights, through
+    ``LLMEngine(disaggregate=True)``) and ``FLEET_CLI`` (``--fleet
+    --calibrate``: a 2-layer llama3-8b engine timed into a latency table,
+    written to a temporary directory, and the simulator cross-checked
+    against the engine's replay).  Each must return 0; the output is
+    printed as it comes."""
+    import tempfile
+
+    from repro_torch.launch.serve import main as serve_main
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in (("serve", SERVE_CLI),
+                           ("fleet_calibrate",
+                            FLEET_CLI + ["--calibration-dir", tmp])):
+            print(f"  serve_cli: python -m repro_torch.launch.serve "
+                  f"{' '.join(argv)}")
+            t0 = time.monotonic()
+            rc = serve_main(list(argv))
+            sys.stdout.flush()
+            walls[name] = time.monotonic() - t0
+            if rc != 0:
+                raise AssertionError(f"serve_cli {name} returned {rc}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        tables = sorted(p.name for p in Path(tmp).iterdir())
+    if not tables:
+        raise AssertionError("--fleet --calibrate wrote no table")
+    return {"phase": "serve_cli", "returned": 0, "wall_s": walls,
+            "calibration_tables": tables}
+
+
 def gqa_write_cost(torch, llm, model, prompts, sps, streams) -> dict:
     """What ``attention_backends.last_writes`` would cost a model without
     MoE: the serve session again, its GQA pool writes plain (A, as the
@@ -2558,6 +2934,8 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
     one by far more than rounding: ``Model.forward`` there takes the
     scored call's expert ids (``forced_routes``), so every position is
     held."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
     from repro_torch.runtime.sampling import SamplingParams
 
     eng = llm._eng
@@ -2591,10 +2969,17 @@ def serve_scoring(torch, llm, model, prompt) -> dict:
                              f"{unscored.token_ids}, scored "
                              f"{scored.token_ids}")
     got = np.asarray(scored.prompt_logprobs)
+    LAUNCHES.clear()
     diff, share, scale, forced = scores_vs_forward(torch, model, prompt,
                                                    got, routes)
+    # Model.forward: flash once a GQA or MLA layer (MLA at D 192 / Dv 128)
+    forward_flash = LAUNCHES.get(FLASH, 0)
+    if forward_flash != gqa_layers(model) + mla_layers(model):
+        raise AssertionError(f"Model.forward launched flash {forward_flash} "
+                             f"times, want one a GQA or MLA layer")
     res = {"prompt_tokens": len(prompt), "new_tokens": SCORED_NEW,
            "held_positions": len(diff), **forced,
+           "forward_flash_launches": forward_flash,
            "first_token_equal": True,
            "chunk": eng.prefill_chunk,
            "stream_equal": scored.token_ids == unscored.token_ids,
@@ -3155,6 +3540,7 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
     torch.cuda.reset_peak_memory_stats()
     llm = LLMEngine(model, backend="static", device="cuda", max_len=max_len)
     n_gqa = gqa_layers(model)
+    n_flash = n_gqa + mla_layers(model)
     per_token = (cfg.kv_lora_rank + cfg.rope_head_dim if cfg.mla
                  else 2 * cfg.n_kv_heads * cfg.hd if n_gqa else 0)
     # a windowed layer's cache holds min(max_len, window) entries: a ring;
@@ -3164,12 +3550,13 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
                    if blk.kind != "ssm") / 1e9
 
     def want_launches(calls, steps):
-        # MLA attends by plain torch (blocked_attention and the absorbed
-        # einsums), as the reference does, and an ssm layer has no
-        # attention: no kernel on those static paths
-        if not n_gqa:
-            return {}
-        return {FLASH: n_gqa * calls, DENSE: n_gqa * steps}
+        # flash runs every GQA and MLA layer's prefill and forward (MLA's
+        # at D 192 / Dv 128); MLA decodes by the absorbed einsums, as the
+        # reference does, and an ssm layer has no attention
+        want = {FLASH: n_flash * calls} if n_flash else {}
+        if n_gqa:
+            want[DENSE] = n_gqa * steps
+        return want
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3238,6 +3625,7 @@ def serve_static_phase(torch, model, phase: str = "serve_static",
               "decode_step_ms": step_ms,
               "kernel_launches": launches,
               "kernel_launches_scored_call": launches_scored,
+              "flash_layers": n_flash,
               "rerun_identical": True, "dense_cache_gb": cache_gb,
               "state_cache_gb": (n_prompts * state_bytes_per_slot(cfg) / 1e9
                                  if model.needs_state else 0.0),
@@ -3563,7 +3951,9 @@ def serve_moe_spec_phase(torch, model, phase: str) -> dict:
     may drop other assignments, and a GQA model's draft and verify steps
     run the online and exact kernels, which round apart.  Then the legacy
     ``backend="speculative"`` on one greedy 256-token prompt, 32 new
-    tokens, twice.  MLA and MoE launch no kernel (bf16 weights); GQA
+    tokens, twice.  MLA and MoE launch no kernel on the continuous
+    backend (bf16 weights), MLA the flash kernel (D 192 / Dv 128) once a
+    layer per prompt prefill on the legacy one; GQA
     layers launch the paged decode kernel once per layer for each of the
     gamma draft steps and the backfill and the exact kernel once per layer
     a window (both tensor-core variants), and on the legacy backend the
@@ -3643,8 +4033,9 @@ def serve_moe_spec_phase(torch, model, phase: str) -> dict:
     launches = {k: v for k, v in LAUNCHES.items() if v}
     # a window: gamma draft steps + the backfill, gamma + 1 target steps
     steps = 2 * (GAMMA + 1) * out.metrics["windows"]
-    want = {} if cfg.mla else {FLASH: 2 * cfg.n_layers,
-                               DENSE: cfg.n_layers * steps}
+    # MLA: flash at D 192 / Dv 128 in both prompt prefills, no decode kernel
+    want = ({FLASH: 2 * cfg.n_layers} if cfg.mla else
+            {FLASH: 2 * cfg.n_layers, DENSE: cfg.n_layers * steps})
     if (out.finish_reason != "length" or len(out.token_ids) != LEGACY_NEW
             or not all(0 <= t < cfg.vocab_size for t in out.token_ids)
             or launches != want):
@@ -3669,15 +4060,17 @@ def serve_moe_spec_phase(torch, model, phase: str) -> dict:
 
 def check_mla(torch) -> list[dict]:
     """A narrow 2-layer deepseek-shaped model (1 mla_dense + 1 mla_moe;
-    d_model 512, 4 heads, 8 experts, top 2, the capacity path forced), f32,
-    card against CPU through ``check_narrow_moe``.  MLA and MoE launch no
-    kernel."""
+    d_model 512, 4 heads at deepseek's head dims (q.k 128 + 64, v 128), 8
+    experts, top 2, the capacity path forced), f32, card against CPU
+    through ``check_narrow_moe``.  The static and legacy speculative paths
+    run the flash kernel's f32 variant at D 192 / Dv 128; the continuous
+    paths launch no kernel."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(
         get_config("deepseek-v2-lite-16b"), name="deepseek-narrow",
-        n_layers=2, d_model=512, n_heads=4, n_kv_heads=4, head_dim=64,
-        rope_head_dim=32, v_head_dim=64, kv_lora_rank=128, d_ff=1024,
+        n_layers=2, d_model=512, n_heads=4, n_kv_heads=4, head_dim=128,
+        rope_head_dim=64, v_head_dim=128, kv_lora_rank=128, d_ff=1024,
         n_experts=8, n_experts_per_token=2, n_shared_experts=1,
         moe_d_ff=256, vocab_size=4000, vocab_pad_multiple=512)
     return check_narrow_moe(torch, "MLA+MoE", cfg, "capacity", seed=6)
@@ -3784,7 +4177,8 @@ def check_narrow_moe(torch, label, cfg, impl, seed) -> list[dict]:
     equal or part at a near-tie (``divergences``), the scores within 1e-4.
     GQA layers in f32 run the CUDA-core kernels (the paged decode kernel
     on continuous steps, the exact one on verify steps, flash and dense
-    decode on the static and legacy paths); MLA layers launch none.
+    decode on the static and legacy paths); MLA layers launch flash (D 192
+    / Dv 128) on the static and legacy paths and nothing else.
     Streams of two backends are not compared: under capacity their MoE
     counts other token batches (the capacity-drop rule)."""
     from repro_torch.kernels import LAUNCHES
@@ -3838,10 +4232,11 @@ def check_narrow_moe(torch, label, cfg, impl, seed) -> list[dict]:
                 outs = llm.generate(ps, reqs)
             runs[dev] = (outs, {k: v for k, v in LAUNCHES.items() if v})
         launches = runs["cuda"][1]
-        if set(launches) != (kernels if gqa else set()) or runs["cpu"][1]:
+        want = kernels if gqa else kernels & {FLASH}
+        if set(launches) != want or runs["cpu"][1]:
             raise AssertionError(f"{label} {case}: the card run launched "
                                  f"{launches}, want each of "
-                                 f"{sorted(kernels) if gqa else 'none'}; "
+                                 f"{sorted(want) or 'none'}; "
                                  f"the CPU run {runs['cpu'][1]}")
         near = divergences(torch, f"{label} {case}, card vs CPU",
                            runs["cuda"][0], runs["cpu"][0], ps, reqs, cpu,
@@ -4623,7 +5018,7 @@ def sim_phase(torch, served) -> dict:
 
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
                  "kernel_dense_decode", "kernel_exact", "kernel_headdims",
-                 "kernel_hymba", "quantize")
+                 "kernel_hymba", "kernel_flash_mla", "quantize")
 
 
 def main() -> int:
@@ -4636,8 +5031,9 @@ def main() -> int:
                     help="comma-separated phases to run after the build "
                          f"({', '.join(KERNEL_PHASES)}, deployment, check, "
                          "check_mla, check_moe, check_window, check_state, "
-                         "or, on a llama3-8b built "
-                         "first, serve and serve_spec_draft, on a "
+                         "serve_cli, or, on a llama3-8b built "
+                         "first, serve, serve_disagg and serve_spec_draft, "
+                         "on a "
                          "deepseek-v2-lite-16b built first, "
                          f"{', '.join(mla_phases())}, on mamba2-370m "
                          f"{', '.join(mamba2_phases())}, on hymba-1.5b "
@@ -4683,15 +5079,17 @@ def main() -> int:
               "kernel_exact": kernel_exact_phase,
               "kernel_headdims": kernel_headdims_phase,
               "kernel_hymba": kernel_hymba_phase,
+              "kernel_flash_mla": kernel_flash_mla_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
                                       "cases": check_mla(t)},
               "check_moe": check_moe, "check_window": check_window,
-              "check_state": check_state}
+              "check_state": check_state, "serve_cli": serve_cli_phase}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
     model_phases = {"serve": (build_llama, serve_phase),
+                    "serve_disagg": (build_llama, serve_disagg_phase),
                     "serve_spec_draft": (build_llama, serve_spec_draft_phase),
                     **{name: (build_deepseek, fn) for name, fn in
                        mla_phases().items()},
@@ -4736,6 +5134,7 @@ def main() -> int:
     exact = timed("kernel_exact", kernel_exact_phase)
     headdims = timed("kernel_headdims", kernel_headdims_phase)
     hymba_kernels = timed("kernel_hymba", kernel_hymba_phase)
+    flash_mla = timed("kernel_flash_mla", kernel_flash_mla_phase)
     timed("quantize", quantize_phase)
     timed("deployment", deployment_phase)
     model = build_llama(torch)
@@ -4744,6 +5143,8 @@ def main() -> int:
     serve_q = timed("serve_quantized", serve_phase, model,
                     phase="serve_quantized", weight_format="mxfp4",
                     cache_dtype="fp8")
+    timed("serve_disagg", serve_disagg_phase, model,
+          {"serve": serve, "serve_quantized": serve_q})
     spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
     timed("serve_spec_legacy", serve_spec_legacy_phase, model)
     served += [("serve", model.cfg, serve), ("serve_static", model.cfg, static),
@@ -4767,6 +5168,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    timed("serve_cli", serve_cli_phase)
     timed("check", check_phase)
     timed("check_window", check_window)
     timed("check_state", check_state)
@@ -4820,6 +5222,15 @@ def main() -> int:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} never launched in {phase}")
     kernels += hymba_kernels["entries"]
+    # flash at MLA's D 192 / Dv 128: its launches on deepseek's static path
+    entry = flash_mla["entry"]
+    entry["launches"] = moe["serve_mla_static"]["kernel_launches"].get(
+        entry["name"].partition(":")[0], 0)
+    entry["launches_in"] = "serve_mla_static"
+    if not entry["launches"]:
+        raise AssertionError(f"{entry['name']} never launched in "
+                             f"serve_mla_static")
+    kernels.append(entry)
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

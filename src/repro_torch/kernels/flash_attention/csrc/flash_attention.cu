@@ -10,10 +10,13 @@
 // over the keys j visible from query i (all j < Skv, or j <= i when causal:
 // the mask is top-left aligned, query i sits at position i; with a sliding
 // window only j > i - window too, as blocked_attention(window=) has it), with
-// an f32 online softmax and the output in q's dtype.  q is (B, Sq, H, D), k and v
-// are (B, Skv, KVH, D) and read in place: query head h reads kv head
-// h / rep, so the reference wrapper's repeat of K/V over the group and its
-// transposes to (BH, S, D) never happen.
+// an f32 online softmax and the output in q's dtype.  q is (B, Sq, H, D), k
+// is (B, Skv, KVH, D) and v (B, Skv, KVH, Dv), read in place: query head h
+// reads kv head h / rep, so the reference wrapper's repeat of K/V over the
+// group and its transposes to (BH, S, D) never happen.  Dv is D, or 128
+// where D is 192 (deepseek-v2-lite's MLA prefill: 128 + 64 rope dims of
+// q.k, 128 of v, as the reference's kernel takes a v of its own width);
+// the output is (B, Sq, H, Dv).
 //
 // What bounds it: at prefill (Sq = Skv = S in the hundreds to thousands) it
 // does 4 S^2 D / 2 flops per (b, h) (causal) on 4 S D elements, far above
@@ -71,7 +74,11 @@
 //     of another swizzle (32 or 64 bytes) would make P.V exact too, with a
 //     second descriptor layout in every product; not taken while the kernel
 //     is bound by its softmax and copies rather than by the tensor cores
-//     (below).
+//     (below);
+//   * D 192 / Dv 128 (MLA): Q and K are three 128-byte column blocks, V
+//     two.  Q K^T runs 12 k-steps, P.V D 128's n128 product, so the
+//     registers are D 128's.  Q (48 KB) and a K/V stage (36 + 24 KB) leave
+//     room for 2 stages of the ring, not 4 (Cfg::kStages): 168 KB.
 // A consumer waits on its tiles' barriers, so there is no block barrier in
 // the loop.  A wait that does not finish within ~2 s traps (a launch error)
 // instead of hanging the card.
@@ -88,7 +95,7 @@
 //
 // D 32 in bf16 (and more than 128 query heads per kv head, more than an
 // item holds) keeps the first version's mma.sync kernel (flash_fwd_bf16, any
-// D of the wrapper's),
+// (D, Dv) pair of the wrapper's),
 // and f32 inputs (the parity checks run the model in f32) keep its full-f32
 // CUDA-core kernel (flash_fwd_f32), so the card-vs-CPU stream checks are
 // undisturbed.  The host picks the variant by dtype, head dim and GQA ratio
@@ -115,28 +122,37 @@ namespace wg {
 
 constexpr int kBM = 128;           // query rows per CTA (two consumer warpgroups)
 constexpr int kThreads = 384;      // consumers: warpgroups 0 and 1; producer: 2
-constexpr int kStages = 4;         // K/V ring depth
+constexpr int kSmemMax = 232448;   // shared memory one CTA may take
 // 384 x 168 registers at launch; the producer gives back all but 24, the
 // consumers take 240: S, O and the previous tile's P at once
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // the shared-memory layout of a head dim: D 80 and 96 use D 128's (the
-// columns past the head dim are TMA's zero fill)
-__host__ __device__ constexpr int padded_dim(int D) { return D <= 64 ? 64 : 128; }
+// columns past the head dim are TMA's zero fill); D 192 is three blocks
+__host__ __device__ constexpr int padded_dim(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 192;
+}
 
-template <int D>
+// DK: the padded Q/K head dim, DV: the padded V head dim
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int kBN = D == 64 ? 128 : 96;    // keys per K/V tile
-  static constexpr int kHalves = D / 64;             // 128-byte column blocks
-  static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;       // one K or V tile
+  static constexpr int kBN = DK == 64 ? 128 : 96;   // keys per K/V tile
+  static constexpr int kHalvesK = DK / 64;           // 128-byte column blocks of Q and K
+  static constexpr int kHalvesV = DV / 64;           // and of V
+  static constexpr int kQBytes = kBM * DK * 2;
+  static constexpr int kKBytes = kBN * DK * 2;       // one K tile
+  static constexpr int kVBytes = kBN * DV * 2;       // one V tile
+  // K/V ring depth: 4 stages where they fit (D <= 128), else 2 (D 192 /
+  // Dv 128: Q 48 KB + 2 x (36 + 24) KB)
+  static constexpr int kStages =
+      kQBytes + 4 * (kKBytes + kVBytes) + 8 * (2 + 3 * 4) + 1024 <= kSmemMax ? 4 : 2;
   static constexpr int kKOff = kQBytes;              // every tile 1024-aligned
-  static constexpr int kVOff = kKOff + kStages * kKVBytes;
-  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kVBytes;
   static constexpr int kBars = 2 + 3 * kStages;      // q full, q empty; k full, v full, empty
   static constexpr int kSmem = kBarOff + 8 * kBars + 1024;   // + alignment slack
-  static_assert(kSmem <= 232448, "shared memory of one CTA");
+  static_assert(kSmem <= kSmemMax, "shared memory of one CTA");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -495,22 +511,25 @@ __device__ __forceinline__ void softmax_any(float (&sc)[kBN / 2], float (&m_r)[2
                              scale_log2);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
                 const __grid_constant__ CUtensorMap map_k,   // (B, Skv, KVH, D)
-                const __grid_constant__ CUtensorMap map_v,   // (B, Skv, KVH, D)
-                __nv_bfloat16* __restrict__ out,              // (B, Sq, H, D)
+                const __grid_constant__ CUtensorMap map_v,   // (B, Skv, KVH, DV)
+                __nv_bfloat16* __restrict__ out,              // (B, Sq, H, DV)
                 int B, int Sq, int Skv, int H, int KVH, int causal, int window,
                 float scale_log2) {
   // Persistent: CTA c walks work items c, c + gridDim.x, ... of the list
   // ordered longest first (the last query block first).  An item is
   // GQA-packed: all rep query heads of kv head g at n_pos positions; Q row
   // r is position p0 + r / rep, head g * rep + r % rep.  Shared memory holds
-  // DP = padded_dim(D) columns a row (D 80 / 96: D 128's layout, zeros past D).
+  // DP = padded_dim(D) columns a Q/K row and DVP = padded_dim(DV) a V row
+  // (D 80 / 96: D 128's layout, zeros past D).
   constexpr int DP = padded_dim(D);
-  using C = Cfg<DP>;
+  constexpr int DVP = padded_dim(DV);
+  using C = Cfg<DP, DVP>;
   constexpr int kBN = C::kBN;
+  constexpr int kStages = C::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -570,21 +589,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         // every box counts in full, its zero fill past Sq or D included
         mbar_expect_tx(q_full, n_rows * DP * 2);
 #pragma unroll
-        for (int c = 0; c < C::kHalves; ++c)
+        for (int c = 0; c < C::kHalvesK; ++c)
           tma_load_4d(q_s + c * (kBM * 128), &map_q, q_full, c * 64, it.g * rep, it.p0,
                       it.b);
         for (int j = it.j0; j < it.n_tiles; ++j, ++t) {
           const int s = t % kStages;
           mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);   // round 0 passes
-          mbar_expect_tx(k_full(s), C::kKVBytes);
+          mbar_expect_tx(k_full(s), C::kKBytes);
 #pragma unroll
-          for (int c = 0; c < C::kHalves; ++c)
-            tma_load_4d(k_s + s * C::kKVBytes + c * (kBN * 128), &map_k, k_full(s),
+          for (int c = 0; c < C::kHalvesK; ++c)
+            tma_load_4d(k_s + s * C::kKBytes + c * (kBN * 128), &map_k, k_full(s),
                         c * 64, it.g, j * kBN, it.b);
-          mbar_expect_tx(v_full(s), C::kKVBytes);
+          mbar_expect_tx(v_full(s), C::kVBytes);
 #pragma unroll
-          for (int c = 0; c < C::kHalves; ++c)
-            tma_load_4d(v_s + s * C::kKVBytes + c * (kBN * 128), &map_v, v_full(s),
+          for (int c = 0; c < C::kHalvesV; ++c)
+            tma_load_4d(v_s + s * C::kVBytes + c * (kBN * 128), &map_v, v_full(s),
                         c * 64, it.g, j * kBN, it.b);
         }
       }
@@ -599,7 +618,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
     // this warpgroup's 64 rows of Q: 64 x 128 bytes into each column block
     const uint64_t dq = desc_sw128(q_s + wgi * 64 * 128, 16, 1024);
     // V is MN-major: the next 64 head dims are kBN * 128 bytes on (LBO)
-    auto desc_v = [&](int st) { return desc_sw128(v_s + st * C::kKVBytes, kBN * 128, 1024); };
+    auto desc_v = [&](int st) { return desc_sw128(v_s + st * C::kVBytes, kBN * 128, 1024); };
     // The two warpgroups take turns on the tensor cores (named barriers 1
     // and 2): a turn issues QK^T of tile j and P.V of tile j-1; while one
     // warpgroup's products run the other does its softmax.  Warpgroup 0
@@ -608,7 +627,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
     // sits under a branch (ptxas would serialise).
     const int my_bar = 1 + wgi;
     const int other_bar = 2 - wgi;
-    float o[DP / 2];
+    float o[DVP / 2];
     float sc[kBN / 2];
     uint32_t pa[kBN / 16][4];          // P of the previous tile, bf16
     float m_r[2], l_r[2], corr[2];
@@ -623,7 +642,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
       const int wg_hi = it.p0 + (wgi * 64 + 63) / rep;
       const int last = it.n_tiles - it.j0 - 1;   // tiles of the item, less one
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
       m_r[0] = m_r[1] = kNegInf;
       l_r[0] = l_r[1] = 0.f;
 
@@ -632,7 +651,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
       mbar_wait(k_full(t % kStages), (t / kStages) & 1);
       named_sync(my_bar);                // turn 0: QK^T of the item's first tile
       wgmma_fence();
-      qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + (t % kStages) * C::kKVBytes, 16, 1024));
+      qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + (t % kStages) * C::kKBytes, 16, 1024));
       named_arrive(other_bar);
       wgmma_wait<0>();
       fence_regs(sc);
@@ -648,8 +667,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         named_sync(my_bar);
         fence_regs(o);
         wgmma_fence();
-        qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + s * C::kKVBytes, 16, 1024));
-        pv_tile<DP, kBN>(o, pa, desc_v(sp));
+        qk_tile<D, kBN>(sc, dq, desc_sw128(k_s + s * C::kKBytes, 16, 1024));
+        pv_tile<DVP, kBN>(o, pa, desc_v(sp));
         named_arrive(other_bar);
         wgmma_wait<1>();                 // S of tile j
         fence_regs(sc);
@@ -659,7 +678,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         wgmma_wait<0>();                 // P.V of tile j - 1
         fence_regs(o);
         mbar_arrive(empty(sp));
-        rescale_o<DP>(o, corr);
+        rescale_o<DVP>(o, corr);
         pack_p<kBN>(sc, pa);
       }
       const int sl = (t + last) % kStages;
@@ -667,7 +686,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
       named_sync(my_bar);                // last turn: P.V of the last tile
       fence_regs(o);
       wgmma_fence();
-      pv_tile<DP, kBN>(o, pa, desc_v(sl));
+      pv_tile<DVP, kBN>(o, pa, desc_v(sl));
       if (wgi == 0) named_arrive(other_bar);
       wgmma_wait<0>();
       fence_regs(o);
@@ -680,9 +699,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,   // (B, Sq, H, D)
         if (r >= n_rows || pos[hh] >= Sq) continue;
         const float inv = 1.f / fmaxf(l_r[hh], 1e-30f);
         __nv_bfloat16* dst =
-            out + ((size_t)(it.b * Sq + pos[hh]) * H + it.g * rep + r % rep) * D + 2 * quad;
+            out + ((size_t)(it.b * Sq + pos[hh]) * H + it.g * rep + r % rep) * DV + 2 * quad;
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb)   // columns past D are zero: not stored
+        for (int nb = 0; nb < DV / 8; ++nb)   // columns past DV are zero: not stored
           *reinterpret_cast<uint32_t*>(dst + nb * 8) =
               pack_bf16x2(o[nb * 4 + 2 * hh] * inv, o[nb * 4 + 2 * hh + 1] * inv);
       }
@@ -804,28 +823,29 @@ __device__ __forceinline__ int first_tile(int m0, int window, int n_tiles) {
 
 constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
 
-template <int D>
+template <int D, int DV>
 constexpr size_t mma_smem_bytes() {   // q tile + 2 K tiles + 2 V tiles
-  return (size_t)(kBM + 4 * kBN) * (D + 8) * sizeof(__nv_bfloat16);
+  return ((size_t)(kBM + 2 * kBN) * (D + 8) + (size_t)2 * kBN * (DV + 8)) *
+         sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
                const __nv_bfloat16* __restrict__ k,   // (B, Skv, KVH, D)
-               const __nv_bfloat16* __restrict__ v,   // (B, Skv, KVH, D)
-               __nv_bfloat16* __restrict__ out,       // (B, Sq, H, D)
+               const __nv_bfloat16* __restrict__ v,   // (B, Skv, KVH, DV)
+               __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DV)
                int Sq, int Skv, int H, int KVH, int causal, int window, float scale) {
-  constexpr int kRow = D + 8;          // padded shared row (bf16 elements)
-  constexpr int kChunks = D / 8;       // 16-byte chunks per row
+  constexpr int kRow = D + 8;          // padded shared Q/K row (bf16 elements)
+  constexpr int kRowV = DV + 8;        // padded shared V row
   constexpr int kKSteps = D / 16;      // k16 steps of QK^T over the head dim
-  constexpr int kDTiles = D / 8;       // n8 tiles of PV over the head dim
+  constexpr int kDTiles = DV / 8;      // n8 tiles of PV over the V head dim
   constexpr int kNTiles = kBN / 8;     // n8 tiles of QK^T over a key tile
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* k_s = q_s + kBM * kRow;       // [2][kBN][kRow]
-  __nv_bfloat16* v_s = k_s + 2 * kBN * kRow;   // [2][kBN][kRow]
+  __nv_bfloat16* v_s = k_s + 2 * kBN * kRow;   // [2][kBN][kRowV]
 
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kBM;   // largest blocks first
   const int h = blockIdx.y;
@@ -839,22 +859,25 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
 
   const size_t q_tok = (size_t)H * D;      // elements between tokens
   const size_t kv_tok = (size_t)KVH * D;
+  const size_t v_tok = (size_t)KVH * DV;
   const __nv_bfloat16* qg = q + ((size_t)b * Sq * H + h) * D;
   const __nv_bfloat16* kg = k + ((size_t)b * Skv * KVH + g) * D;
-  const __nv_bfloat16* vg = v + ((size_t)b * Skv * KVH + g) * D;
+  const __nv_bfloat16* vg = v + ((size_t)b * Skv * KVH + g) * DV;
 
   const int kv_end = visible_keys(m0, Sq, Skv, causal);
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   const int j_first = first_tile(m0, window, n_tiles);
 
-  // rows [row0, row0 + 64) of a (tokens, D) view with ``stride`` between
-  // tokens; rows at or past ``limit`` are zero-filled, never read
+  // rows [row0, row0 + 64) of a (tokens, width) view with ``stride``
+  // between tokens into shared rows of ``row`` elements; rows at or past
+  // ``limit`` are zero-filled, never read
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, size_t stride,
-                       int row0, int limit) {
-    for (int c = tid; c < 64 * kChunks; c += kMmaThreads) {
-      const int r = c / kChunks;
-      const int e = (c % kChunks) * 8;
-      __nv_bfloat16* d = dst + r * kRow + e;
+                       int row0, int limit, int width, int row) {
+    const int chunks = width / 8;      // 16-byte chunks per row
+    for (int c = tid; c < 64 * chunks; c += kMmaThreads) {
+      const int r = c / chunks;
+      const int e = (c % chunks) * 8;
+      __nv_bfloat16* d = dst + r * row + e;
       if (row0 + r < limit) {
         cp_async16(d, src + (size_t)(row0 + r) * stride + e);
       } else {
@@ -863,10 +886,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
     }
   };
 
-  load_tile(q_s, qg, q_tok, m0, Sq);
+  load_tile(q_s, qg, q_tok, m0, Sq, D, kRow);
   if (n_tiles > 0) {
-    load_tile(k_s, kg, kv_tok, j_first * kBN, Skv);
-    load_tile(v_s, vg, kv_tok, j_first * kBN, Skv);
+    load_tile(k_s, kg, kv_tok, j_first * kBN, Skv, D, kRow);
+    load_tile(v_s, vg, v_tok, j_first * kBN, Skv, DV, kRowV);
   }
   cp_async_commit();
 
@@ -883,8 +906,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
   for (int j = j_first; j < n_tiles; ++j) {
     const int buf = (j - j_first) & 1;
     if (j + 1 < n_tiles) {             // prefetch the next tile, then wait
-      load_tile(k_s + (buf ^ 1) * kBN * kRow, kg, kv_tok, (j + 1) * kBN, Skv);
-      load_tile(v_s + (buf ^ 1) * kBN * kRow, vg, kv_tok, (j + 1) * kBN, Skv);
+      load_tile(k_s + (buf ^ 1) * kBN * kRow, kg, kv_tok, (j + 1) * kBN, Skv, D, kRow);
+      load_tile(v_s + (buf ^ 1) * kBN * kRowV, vg, v_tok, (j + 1) * kBN, Skv, DV, kRowV);
       cp_async_commit();
       cp_async_wait<1>();              // for this one only
     } else {
@@ -902,7 +925,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
       }
     }
     const __nv_bfloat16* ks = k_s + buf * kBN * kRow;
-    const __nv_bfloat16* vs = v_s + buf * kBN * kRow;
+    const __nv_bfloat16* vs = v_s + buf * kBN * kRowV;
 
     // S = Q K^T over this tile (16 rows x 64 keys per warp)
     float s[kNTiles][4];
@@ -976,7 +999,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
 #pragma unroll
       for (int dt = 0; dt < kDTiles; dt += 2) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + key * kRow + (dt + (mat >> 1)) * 8);
+        ldmatrix_x4_trans(bv, vs + key * kRowV + (dt + (mat >> 1)) * 8);
         mma_bf16(o[dt], pa, bv[0], bv[1]);
         mma_bf16(o[dt + 1], pa, bv[2], bv[3]);
       }
@@ -990,7 +1013,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
     const int row = m0 + r0 + hh * 8;
     if (row >= Sq) continue;
     const float l = fmaxf(l_r[hh], 1e-30f);
-    __nv_bfloat16* dst = out + ((size_t)(b * Sq + row) * H + h) * D + 2 * tq;
+    __nv_bfloat16* dst = out + ((size_t)(b * Sq + row) * H + h) * DV + 2 * tq;
 #pragma unroll
     for (int dt = 0; dt < kDTiles; ++dt)
       *reinterpret_cast<uint32_t*>(dst + dt * 8) =
@@ -998,10 +1021,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, D)
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bf16(const Args& a) {
-  auto kernel = flash_fwd_bf16<D>;
-  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kernel = flash_fwd_bf16<D, DV>;
+  constexpr size_t smem = mma_smem_bytes<D, DV>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1021,26 +1044,26 @@ cudaError_t launch_bf16(const Args& a) {
 
 constexpr int kFmaThreads = 256;   // 16 x 16
 
-template <int D>
+template <int D, int DV>
 constexpr size_t fma_smem_bytes() {   // q, k (padded rows), v, p tiles
-  return ((size_t)kBM * (D + 1) + (size_t)kBN * (D + 1) + (size_t)kBN * D +
+  return ((size_t)kBM * (D + 1) + (size_t)kBN * (D + 1) + (size_t)kBN * DV +
           (size_t)kBM * (kBN + 1)) * sizeof(float);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               int Sq, int Skv, int H, int KVH, int causal, int window, float scale) {
   constexpr int kQK = D + 1;           // padded rows: column reads hit distinct banks
   constexpr int kP = kBN + 1;
-  constexpr int kDJ = D / 16;          // accumulator columns per thread
+  constexpr int kDJ = DV / 16;         // accumulator columns per thread
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);   // [kBM][kQK]
   float* k_s = q_s + kBM * kQK;                      // [kBN][kQK]
-  float* v_s = k_s + kBN * kQK;                      // [kBN][D]
-  float* p_s = v_s + kBN * D;                        // [kBM][kP]
+  float* v_s = k_s + kBN * kQK;                      // [kBN][DV]
+  float* p_s = v_s + kBN * DV;                       // [kBM][kP]
 
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kBM;
   const int h = blockIdx.y;
@@ -1052,9 +1075,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const size_t q_tok = (size_t)H * D;
   const size_t kv_tok = (size_t)KVH * D;
+  const size_t v_tok = (size_t)KVH * DV;
   const float* qg = q + ((size_t)b * Sq * H + h) * D;
   const float* kg = k + ((size_t)b * Skv * KVH + g) * D;
-  const float* vg = v + ((size_t)b * Skv * KVH + g) * D;
+  const float* vg = v + ((size_t)b * Skv * KVH + g) * DV;
 
   for (int c = tid; c < kBM * D; c += kFmaThreads) {
     const int r = c / D, e = c % D;
@@ -1079,9 +1103,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                   // the previous tile is consumed
     for (int c = tid; c < kBN * D; c += kFmaThreads) {
       const int r = c / D, e = c % D;
-      const bool live = n0 + r < Skv;
-      k_s[r * kQK + e] = live ? kg[(size_t)(n0 + r) * kv_tok + e] : 0.f;
-      v_s[r * D + e] = live ? vg[(size_t)(n0 + r) * kv_tok + e] : 0.f;
+      k_s[r * kQK + e] = n0 + r < Skv ? kg[(size_t)(n0 + r) * kv_tok + e] : 0.f;
+    }
+    for (int c = tid; c < kBN * DV; c += kFmaThreads) {
+      const int r = c / DV, e = c % DV;
+      v_s[r * DV + e] = n0 + r < Skv ? vg[(size_t)(n0 + r) * v_tok + e] : 0.f;
     }
     __syncthreads();
 
@@ -1140,7 +1166,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kBN; ++c) {
       float vv[kDJ];
 #pragma unroll
-      for (int jd = 0; jd < kDJ; ++jd) vv[jd] = v_s[c * D + tx + 16 * jd];
+      for (int jd = 0; jd < kDJ; ++jd) vv[jd] = v_s[c * DV + tx + 16 * jd];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = p_s[(ty + 16 * i) * kP + c];
@@ -1155,16 +1181,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = m0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float l = fmaxf(l_r[i], 1e-30f);
-    float* dst = out + ((size_t)(b * Sq + row) * H + h) * D;
+    float* dst = out + ((size_t)(b * Sq + row) * H + h) * DV;
 #pragma unroll
     for (int jd = 0; jd < kDJ; ++jd) dst[tx + 16 * jd] = acc[i][jd] / l;
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const Args& a) {
-  auto kernel = flash_fwd_f32<D>;
-  constexpr size_t smem = fma_smem_bytes<D>();
+  auto kernel = flash_fwd_f32<D, DV>;
+  constexpr size_t smem = fma_smem_bytes<D, DV>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1178,9 +1204,9 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_wgmma(const Args& a) {
-  using C = wg::Cfg<wg::padded_dim(D)>;
+  using C = wg::Cfg<wg::padded_dim(D), wg::padded_dim(DV)>;
   // a Q box is an item: the rep heads of one kv head at kBM / rep
   // positions; a K or V box is kBN keys of one kv head
   const int rep = a.H / a.KVH;
@@ -1188,9 +1214,9 @@ cudaError_t launch_wgmma(const Args& a) {
   CUtensorMap mq, mk, mv;   // boxes of 64 columns: D 80 / 96 zero-filled past D
   cudaError_t e = wg::make_map(&mq, a.q, a.B, a.Sq, a.H, D, rep, wg::kBM / rep);
   if (e == cudaSuccess) e = wg::make_map(&mk, a.k, a.B, a.Skv, a.KVH, D, 1, C::kBN);
-  if (e == cudaSuccess) e = wg::make_map(&mv, a.v, a.B, a.Skv, a.KVH, D, 1, C::kBN);
+  if (e == cudaSuccess) e = wg::make_map(&mv, a.v, a.B, a.Skv, a.KVH, DV, 1, C::kBN);
   if (e != cudaSuccess) return e;
-  auto kernel = wg::flash_fwd_wgmma<D>;
+  auto kernel = wg::flash_fwd_wgmma<D, DV>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return e;
   const int n_pos = wg::kBM / rep;
@@ -1211,42 +1237,50 @@ cudaError_t launch_wgmma(const Args& a) {
 
 extern "C" {
 
-// q (B, Sq, H, D), k / v (B, Skv, KVH, D), out (B, Sq, H, D), all contiguous
-// and 16-byte aligned, of one dtype; H a multiple of KVH; causal: 0 or 1
-// (top-left aligned); window: 0 for none, else query i sees keys j > i -
-// window only.  variant (chosen by the host from dtype and D):
-//   0  float32, D 32/64/80/96/128: CUDA-core FMAs (flash_fwd_f32)
-//   1  bfloat16, D 32 (any D when H / KVH > 128): mma.sync (flash_fwd_bf16)
-//   2  bfloat16, D 64/80/96/128 and H / KVH <= 128: wgmma + TMA (flash_fwd_wgmma)
+// q (B, Sq, H, D), k (B, Skv, KVH, D), v (B, Skv, KVH, Dv), out (B, Sq, H,
+// Dv), all contiguous and 16-byte aligned, of one dtype; H a multiple of
+// KVH; (D, Dv) one of (32, 32), (64, 64), (80, 80), (96, 96), (128, 128)
+// and (192, 128) (MLA); causal: 0 or 1 (top-left aligned); window: 0 for
+// none, else query i sees keys j > i - window only.  variant (chosen by the
+// host from dtype, D and the GQA ratio):
+//   0  float32, any pair: CUDA-core FMAs (flash_fwd_f32)
+//   1  bfloat16, any pair (the host's choice for D 32, or H / KVH > 128):
+//      mma.sync (flash_fwd_bf16)
+//   2  bfloat16, D >= 64 and H / KVH <= 128: wgmma + TMA (flash_fwd_wgmma)
 // Returns a cudaError_t (0 = ok).
 int flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                    int Sq, int Skv, int H, int KVH, int D, int causal, int window,
-                    float scale, int variant, void* stream) {
+                    int Sq, int Skv, int H, int KVH, int D, int Dv, int causal,
+                    int window, float scale, int variant, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H < KVH || H % KVH != 0 || B > 65535 ||
       H > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, B, Sq, Skv, H, KVH, causal != 0, window, scale,
                static_cast<cudaStream_t>(stream)};
+  const bool mla = D == 192 && Dv == 128;
+  if (Dv != D && !mla) return (int)cudaErrorInvalidValue;
   switch (variant) {
     case 0:
-      if (D == 32) return (int)launch_f32<32>(a);
-      if (D == 64) return (int)launch_f32<64>(a);
-      if (D == 80) return (int)launch_f32<80>(a);
-      if (D == 96) return (int)launch_f32<96>(a);
-      if (D == 128) return (int)launch_f32<128>(a);
+      if (mla) return (int)launch_f32<192, 128>(a);
+      if (D == 32) return (int)launch_f32<32, 32>(a);
+      if (D == 64) return (int)launch_f32<64, 64>(a);
+      if (D == 80) return (int)launch_f32<80, 80>(a);
+      if (D == 96) return (int)launch_f32<96, 96>(a);
+      if (D == 128) return (int)launch_f32<128, 128>(a);
       break;
     case 1:
-      if (D == 32) return (int)launch_bf16<32>(a);
-      if (D == 64) return (int)launch_bf16<64>(a);
-      if (D == 80) return (int)launch_bf16<80>(a);
-      if (D == 96) return (int)launch_bf16<96>(a);
-      if (D == 128) return (int)launch_bf16<128>(a);
+      if (mla) return (int)launch_bf16<192, 128>(a);
+      if (D == 32) return (int)launch_bf16<32, 32>(a);
+      if (D == 64) return (int)launch_bf16<64, 64>(a);
+      if (D == 80) return (int)launch_bf16<80, 80>(a);
+      if (D == 96) return (int)launch_bf16<96, 96>(a);
+      if (D == 128) return (int)launch_bf16<128, 128>(a);
       break;
     case 2:
-      if (D == 64) return (int)launch_wgmma<64>(a);
-      if (D == 80) return (int)launch_wgmma<80>(a);
-      if (D == 96) return (int)launch_wgmma<96>(a);
-      if (D == 128) return (int)launch_wgmma<128>(a);
+      if (mla) return (int)launch_wgmma<192, 128>(a);
+      if (D == 64) return (int)launch_wgmma<64, 64>(a);
+      if (D == 80) return (int)launch_wgmma<80, 80>(a);
+      if (D == 96) return (int)launch_wgmma<96, 96>(a);
+      if (D == 128) return (int)launch_wgmma<128, 128>(a);
       break;
   }
   return (int)cudaErrorInvalidValue;

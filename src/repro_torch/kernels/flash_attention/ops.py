@@ -21,7 +21,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True, window=None,
                         impl: str = "auto") -> torch.Tensor:
-    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D) -> (B, Sq, H, Dv).
+    """q: (B, Sq, H, D); k: (B, Skv, KVH, D); v: (B, Skv, KVH, Dv) ->
+    (B, Sq, H, Dv) (Dv = D, or 128 at D 192: MLA).
 
     ``impl``: "fused" runs the CUDA kernel (CUDA tensors only),
     "reference" the plain version (GQA heads expanded, flattened to

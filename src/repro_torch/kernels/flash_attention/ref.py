@@ -11,7 +11,8 @@ import torch
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         window: int | None = None) -> torch.Tensor:
-    """q, k, v: (BH, S, D) -> (BH, Sq, Dv) in q.dtype; f32 softmax.  The
+    """q, k: (BH, S, D), v: (BH, Skv, Dv) -> (BH, Sq, Dv) in q.dtype, with
+    the scale 1/sqrt(D); f32 softmax.  The
     causal mask is top-left aligned: query i sees keys 0..i; a ``window``
     keeps only keys j > i - window (``blocked_attention(window=)``)."""
     d = q.shape[-1]

@@ -25,11 +25,13 @@ attributes hold packed tensors instead, and every projection goes through
 ``attention_backends.py``.
 
 MLA (``MLA``, the ``mla`` backend's dense entries): ``mla_forward`` and
-``mla_prefill`` expand the latent into per-head keys and values and run
-``blocked_attention`` on every device (the flash kernel takes neither head
-dim ``hd + rope_head_dim`` = 192 nor v narrower than k); ``mla_decode``
+``mla_prefill`` expand the latent into per-head keys and values of head
+dims ``hd + rope_head_dim`` (192) and ``v_hd`` (128) and run the flash
+kernel on CUDA tensors (its (192, 128) pair), ``blocked_attention`` on the
+CPU; the paged prefill chunk, which starts at a query offset, stays on
+``blocked_attention`` on every device, as GQA's does.  ``mla_decode``
 attends in the latent space by the absorbed-matmul einsums, as the
-reference does.  No Pallas kernel carries MLA in the reference.
+reference does.
 """
 from __future__ import annotations
 
@@ -267,11 +269,12 @@ def _mla_qc(p: MLA, x: torch.Tensor, cfg: ModelConfig, positions):
 def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
                            cfg: ModelConfig, q_offset=0) -> torch.Tensor:
     """Per-head expansion of the latent keys/values (the prefill path):
-    ``blocked_attention`` over q/k of ``hd + rhd`` and v of ``v_hd``.
-    q_*: (B, Sq, H, .); c_kv (B, Skv, r), k_rope (B, Skv, rhd).  The
-    flash kernel takes neither head dim 192 nor v narrower than k, so on
-    every device this is the plain ``blocked_attention``, as in the
-    reference."""
+    attention over q/k of ``hd + rhd`` and v of ``v_hd``.  q_*: (B, Sq, H,
+    .); c_kv (B, Skv, r), k_rope (B, Skv, rhd).  With ``q_offset`` 0 on a
+    CUDA device (static prefill, ``Model.forward``) the flash kernel runs
+    it (D 192 / Dv 128, the expanded heads as H = KVH); a query offset
+    (the paged chunk) and the CPU take the plain ``blocked_attention``,
+    which is what the reference runs."""
     b, s_kv, _ = c_kv.shape
     h, hd, rhd, vhd = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_hd
     # a pool of another dtype than the weights multiplies in the wider one
@@ -282,6 +285,11 @@ def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s_kv, h, rhd)],
                   dim=-1)
+    if (kernel_path(q.device) and not torch.is_tensor(q_offset)
+            and q_offset == 0):
+        # one dtype for the kernel: the pool-wider k/v round to q's
+        return flash_attention(q, k.to(q.dtype), v.to(q.dtype),
+                               causal=cfg.causal)
     return blocked_attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
                              scale=1.0 / math.sqrt(hd + rhd))
 

@@ -80,9 +80,23 @@ rebuilt.  A state-carrying model refuses a quantized ``cache_dtype``,
 ``mesh=``, ``speculative=`` and a disaggregated ``phase``, in the
 reference's words.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (tensor parallelism, also in a spec) and ``phase !=
-"colocated"`` (disaggregation, also of draft pages).
+Disaggregated serving (``DisaggServeEngine``, ``LLMEngine(disaggregate=
+True)``): a prefill-phase and a decode-phase ``ContinuousServeEngine``
+(``phase="prefill"`` / ``"decode"``, each sized by its own
+``DeploymentSpec.resolve(phase=)``) joined by a ``KVHandoff``.  A prefill
+engine parks each finished chain in ``HANDOFF``; the handoff admits it on
+the decode side (a decode-side prefix hit skips the matching pages),
+gathers the other pages' rows of every pool leaf (scale leaves of fp8/int8
+pools, the draft's pools under ``speculative=``) into one host buffer and
+scatters them into the decode pools: device -> host -> device, one copy
+each way a chain.  On one card both engines share the device and its
+current stream.  A decode-side preemption drains back to the prefill
+engine, which recomputes the chain and hands it off again.  Stateful
+layouts refuse a phase split in the reference's words.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+``mesh=`` (tensor parallelism, also in a spec, and each phase's mesh of a
+disaggregated engine).
 """
 from __future__ import annotations
 
@@ -100,7 +114,7 @@ from repro_torch.quant.linear import quantize_params
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.sampling import SamplingParams
-from repro_torch.runtime.scheduler import RUNNING, Request, Scheduler
+from repro_torch.runtime.scheduler import HANDOFF, RUNNING, Request, Scheduler
 from repro_torch.runtime.speculative import SpeculativeConfig, _check_rewindable
 from repro_torch.runtime.state_cache import (
     RingPageSpace, model_cache_layout, ring_pages_needed,
@@ -306,6 +320,11 @@ class ContinuousStats:
     spec_windows: int = 0         # draft/verify windows across all requests
     spec_drafted: int = 0         # draft proposals made (gamma per window)
     spec_accepted: int = 0        # draft proposals accepted
+    # -- disaggregated serving (all zero on a colocated engine) --
+    handoffs: int = 0             # chains transferred prefill -> decode
+    handoff_pages: int = 0        # pages physically moved
+    handoff_bytes: int = 0        # pool bytes moved (all leaves, both sets)
+    handoff_shared_tokens: int = 0  # transfer skipped via decode-side prefix
     per_request: dict = dataclasses.field(default_factory=dict)
     # per_request[rid] = {"preemptions", "chunks", "shared_tokens", "ttft",
     #                     "tpot", "finish_time", "spec_windows",
@@ -370,6 +389,12 @@ class ContinuousServeEngine:
     scheduler's ``max_decode_slots``) derive from its hardware point;
     explicit kwargs override single values.  The resolved budget is kept
     on ``self.deployment``.
+
+    ``phase``: "colocated" (the default) serves whole requests; "prefill"
+    and "decode" are the two halves of a ``DisaggServeEngine``, which
+    drives them (their ``run()`` refuses): a prefill engine parks each
+    finished chain in ``HANDOFF``, a decode engine admits only through the
+    handoff seam (``admit_handoff`` ... ``release_handoff``).
     """
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
@@ -383,6 +408,10 @@ class ContinuousServeEngine:
                  mesh=None, max_decode_slots: int | None = None,
                  speculative: SpeculativeConfig | None = None,
                  phase: str = "colocated"):
+        if phase not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"phase={phase!r}: expected 'colocated', "
+                             f"'prefill', or 'decode'")
+        self.phase = phase
         dev = resolve_device(device)
         wdev = next(model.parameters()).device
         if wdev.type != dev.type or dev.index not in (None, wdev.index):
@@ -423,9 +452,6 @@ class ContinuousServeEngine:
                     f"state-carrying arch {model.cfg.name!r}: SSM state "
                     f"pools stay bf16/f32 — quantized state is a recorded "
                     f"follow-on")
-        if phase != "colocated":
-            raise _unported(f"phase={phase!r} (disaggregated serving)",
-                            "Disaggregation")
         # -- DeploymentSpec resolution: pool/slot knobs derived from the
         # hardware point; explicit kwargs override individual values --
         self.deployment = None
@@ -439,7 +465,7 @@ class ContinuousServeEngine:
                 draft = speculative.draft_model or model
                 rkw = dict(draft=draft, draft_params=draft,
                            gamma=speculative.gamma)
-            dep = spec.resolve(model, params=model, **rkw)
+            dep = spec.resolve(model, params=model, phase=phase, **rkw)
             self.deployment = dep
             num_slots = dep.num_slots if num_slots is None else num_slots
             page_size = dep.page_size if page_size is None else page_size
@@ -610,6 +636,12 @@ class ContinuousServeEngine:
         g = self._tensor(gather).long()
         for raw in self._pool_leaves():
             raw.copy_(raw.index_select(0, g))
+
+    def _page_rows(self, ids: list[int]) -> tuple[torch.Tensor, list]:
+        """The page ids as an index tensor, and every pool leaf the handoff
+        moves (``_pool_leaves``: the target's, then the draft's)."""
+        return (self._tensor(np.asarray(ids, np.int64)),
+                list(self._pool_leaves()))
 
     # -- speculative window (the reference's _spec_draft_impl /
     # _spec_verify_impl) -----------------------------------------------------
@@ -797,6 +829,11 @@ class ContinuousServeEngine:
                     sampling_params: SamplingParams | None = None) -> None:
         """Submit one request; it enters the slot batch on a later
         ``step()`` once a slot and pages free up (honoring arrival_time)."""
+        if self.phase == "decode":
+            raise RuntimeError(
+                "a decode-phase engine only accepts requests through the "
+                "KV handoff; submit to the prefill engine (or the "
+                "DisaggServeEngine front)")
         if self._sched is None:
             self.reset()
         if req.sampling is None:
@@ -819,6 +856,71 @@ class ContinuousServeEngine:
                 + f" exceeds max_len {self.max_blocks * self.page_size}")
         self._requests.append(req)
         self._sched.submit([req])
+
+    # -- disaggregated handoff seam (prefill phase <-> decode phase) --------
+    def handoff_ready(self) -> list[Request]:
+        """Requests whose chains are complete and parked for transfer
+        (prefill-phase engines only; rid order)."""
+        return self._sched.handoff_ready()
+
+    def admit_handoff(self, req: Request, now: float) -> int | None:
+        """Decode-phase admission of a transferred request: binds a slot
+        and allocates or shares its page chain (HANDOFF -> RUNNING).
+        Returns the shared-token count (a decode-side prefix hit shrinks
+        the transfer), or None when no slot or pages are free: the chain
+        stays parked on the prefill side."""
+        return self._sched.admit_handoff(req, now)
+
+    def extract_pages(self, ids: list[int]) -> tuple[torch.Tensor, int]:
+        """Gather the rows of pool pages ``ids`` of every leaf into one host
+        buffer: (len(ids), bytes of a page over all leaves) uint8, the
+        leaves' bytes side by side in ``_pool_leaves`` order (scale leaves
+        and the draft's pools included).  One device-to-host copy.
+        Returns (staged, the exact payload byte count)."""
+        idx, leaves = self._page_rows(ids)
+        n = len(ids)
+        rows = [raw.index_select(0, idx).reshape(n, -1).view(torch.uint8)
+                for raw in leaves]
+        staged = torch.cat(rows, dim=1).cpu()           # device sync
+        return staged, staged.numel()
+
+    def install_pages(self, staged: torch.Tensor, ids: list[int]) -> None:
+        """Scatter ``extract_pages``'s host buffer into this engine's pool
+        pages ``ids`` (one host-to-device copy).  The caller guarantees
+        that ``staged`` came from an engine of the same pool geometry
+        (``KVHandoff`` checks) and an id list of the same length."""
+        idx, leaves = self._page_rows(ids)
+        data = staged.to(self.device)
+        off = 0
+        for raw in leaves:
+            width = raw[0].numel() * raw.element_size()
+            rows = data[:, off:off + width].contiguous().view(raw.dtype)
+            raw.index_copy_(0, idx, rows.reshape((len(ids),)
+                                                 + tuple(raw.shape[1:])))
+            off += width
+        if off != data.shape[1]:
+            raise ValueError(f"staged pages hold {data.shape[1]} bytes a "
+                             f"page, this engine's leaves {off}")
+
+    def finish_handoff(self, req: Request) -> None:
+        """Complete decode-side adoption once the page bytes landed: slot
+        sampling state, the presence row (prompt + the tokens already
+        emitted, what a colocated engine holds at this point) and the
+        decode-side prefix index (transferred chains keep their hashes, so
+        they are shareable and copy-on-write protected like local ones)."""
+        slot = req.slot
+        self._slots.set(slot, req.sampling)
+        self._presence_np[slot] = False
+        self._presence_np[slot][np.asarray(req.prompt)] = True
+        for t in req.tokens:
+            self._presence_np[slot, t] = True
+        self._presence_dirty = True
+        self.cache.index_prompt(slot, req.prompt)
+
+    def release_handoff(self, slot: int) -> None:
+        """Free a transferred chain's prefill-side slot (pages shared into
+        the prefix index keep their references)."""
+        self._sched.release_handoff(slot)
 
     # -- host loop ----------------------------------------------------------
     @staticmethod
@@ -967,6 +1069,11 @@ class ContinuousServeEngine:
                     r.first_token_time = self._now()
                 self.cache.index_prompt(r.slot, r.prompt)
                 self._progress(r, outs)
+                if self.phase == "prefill" and r.state == RUNNING:
+                    # disaggregated: park the finished chain for transfer;
+                    # the slot and its pages stay held until the decode
+                    # engine adopts it
+                    r.state = HANDOFF
 
     def step(self) -> list[RequestOutput]:
         """One scheduler iteration: admit arrived requests, advance every
@@ -977,11 +1084,14 @@ class ContinuousServeEngine:
             return []
         sched = self._sched
         outs: list[RequestOutput] = []
-        for r in sched.admit(self._now()):
-            self._slots.set(r.slot, r.sampling)
-            self._presence_np[r.slot] = False
-            self._presence_np[r.slot][np.asarray(r.prompt)] = True
-            self._presence_dirty = True
+        if self.phase != "decode":
+            # a decode-phase engine admits only through admit_handoff();
+            # its preemption victims drain back to the prefill engine
+            for r in sched.admit(self._now()):
+                self._slots.set(r.slot, r.sampling)
+                self._presence_np[r.slot] = False
+                self._presence_np[r.slot][np.asarray(r.prompt)] = True
+                self._presence_dirty = True
         # -- chunked prefill, interleaved with the decode iterations --
         if sched.prefilling():
             self._run_prefill_chunks(outs)
@@ -1138,6 +1248,10 @@ class ContinuousServeEngine:
         """Serve ``requests`` to completion; honors ``arrival_time``.
         ``on_output`` streams every ``RequestOutput`` delta as it is
         produced."""
+        if self.phase != "colocated":
+            raise RuntimeError(
+                "phase-split engines are driven by DisaggServeEngine.run(), "
+                "not directly")
         if self._sched is not None and self._sched.has_work():
             raise RuntimeError(
                 "run() would reset the engine while incrementally-submitted "
@@ -1153,6 +1267,251 @@ class ContinuousServeEngine:
                 if nxt_t is None:
                     break
                 time.sleep(max(nxt_t - self._now(), 0.0))
+            for o in self.step():
+                if on_output is not None:
+                    on_output(o)
+        return self.stats()
+
+
+class KVHandoff:
+    """KV-page transfer channel between a prefill-phase and a decode-phase
+    engine.
+
+    ``transfer`` moves one finished chain: admit on the decode side (a slot
+    and fresh or shared pages in its allocator's id space), gather the
+    non-shared source pages to a host buffer, scatter them into the decode
+    pools (every pool leaf: quantized-KV scale leaves and speculative draft
+    pools travel with the chain), then release the prefill slot.
+    Decode-side prefix hits skip the matched leading pages: the same
+    chained hashes index both sides, so a transferred chain lands in the
+    decode prefix index and later requests with the same prefix transfer
+    only their tail.  The byte count is exact.
+
+    Staging goes through the host (device -> host -> device), as in the
+    reference; a device-to-device copy and transfer/decode overlap are
+    later work (ROADMAP).  Without meshes both sides hold every KV head,
+    so the reference's ``kv_repl`` check has nothing to compare here.
+    """
+
+    def __init__(self, src: ContinuousServeEngine,
+                 dst: ContinuousServeEngine):
+        for attr in ("page_size", "max_blocks", "cache_dtype"):
+            a, b = getattr(src, attr), getattr(dst, attr)
+            if a != b:
+                raise ValueError(
+                    f"handoff geometry mismatch: {attr}={a!r} on the "
+                    f"prefill side vs {b!r} on the decode side")
+        if (src.spec is None) != (dst.spec is None):
+            raise ValueError(
+                "speculative decoding must be on for both sides of a "
+                "handoff (draft pools travel with the chain) or neither")
+        self.src = src
+        self.dst = dst
+        self.reset_counters()
+
+    def reset_counters(self) -> None:
+        self.transfers = 0
+        self.pages_moved = 0
+        self.bytes_moved = 0
+        self.shared_tokens = 0
+        self.deferrals = 0
+        self.seconds = 0.0            # host wall of the page copies
+
+    def transfer(self, req: Request, now: float) -> bool:
+        """Move ``req``'s chain into the decode engine; False when the
+        decode side has no capacity yet (the chain stays parked)."""
+        src, dst = self.src, self.dst
+        src_slot = req.slot
+        src_chain = src.cache.chain(src_slot, req.prompt_len)
+        shared = dst.admit_handoff(req, now)
+        if shared is None:
+            self.deferrals += 1
+            return False
+        dst_chain = dst.cache.chain(req.slot, req.prompt_len)
+        skip = shared // src.page_size   # matched prefix pages: no copy
+        ids_src, ids_dst = src_chain[skip:], dst_chain[skip:]
+        self.shared_tokens += shared
+        if ids_src:
+            t0 = time.perf_counter()
+            staged, nbytes = src.extract_pages(ids_src)
+            dst.install_pages(staged, ids_dst)
+            self.seconds += time.perf_counter() - t0
+            self.pages_moved += len(ids_src)
+            self.bytes_moved += nbytes
+        dst.finish_handoff(req)
+        src.release_handoff(src_slot)
+        self.transfers += 1
+        return True
+
+
+class DisaggServeEngine:
+    """Disaggregated serving: a prefill-phase and a decode-phase
+    ``ContinuousServeEngine`` joined by a :class:`KVHandoff`.
+
+    Prompts are chunk-prefilled on the prefill engine (its own pool
+    budget), then the finished page chain moves through the handoff into
+    the decode engine, which runs pure decode steps: no prefill chunk
+    shares a decode iteration, so TPOT stays flat under prompt bursts (the
+    paper's compute-bound / bandwidth-bound phase split made structural).
+    Greedy outputs equal a colocated engine's token for token: seeded
+    per-request sampling streams are keyed by absolute position, the
+    transferred bytes are exact, and a decode-side preemption drains back
+    to the prefill engine for a seeded re-prefill restart.  On one card
+    both engines share the device and its current stream.
+
+    The same incremental surface as ``ContinuousServeEngine``
+    (``add_request()`` / ``step()`` / ``run()`` / ``stats()``), with one
+    merged ``ContinuousStats`` (the handoff counters filled in).
+    """
+
+    def __init__(self, model: Model, *, device: str | torch.device = "cuda",
+                 spec=None, prefill_mesh=None, decode_mesh=None,
+                 num_slots: int | None = None, page_size: int | None = None,
+                 num_pages: int | None = None, max_len: int | None = None,
+                 prefill_slots: int | None = None,
+                 prefill_pages: int | None = None,
+                 prefill_chunk: int | None = None,
+                 sampling_params: SamplingParams | None = None,
+                 cache_dtype=None, weight_format: str | None = None,
+                 enable_prefix_cache: bool = True,
+                 max_top_k: int = sampling.MAX_TOP_K,
+                 max_decode_slots: int | None = None,
+                 speculative: SpeculativeConfig | None = None):
+        common = dict(device=device, spec=spec, page_size=page_size,
+                      max_len=max_len, sampling_params=sampling_params,
+                      cache_dtype=cache_dtype, weight_format=weight_format,
+                      enable_prefix_cache=enable_prefix_cache,
+                      max_top_k=max_top_k, speculative=speculative)
+        # each phase resolves its own deployment budget (phase=): the
+        # prefill side may size fewer slots and pages than decode, as long
+        # as the pool geometry matches (KVHandoff checks)
+        self.prefill = ContinuousServeEngine(
+            model, phase="prefill", mesh=prefill_mesh,
+            num_slots=prefill_slots if prefill_slots is not None
+            else num_slots,
+            num_pages=prefill_pages if prefill_pages is not None
+            else num_pages,
+            prefill_chunk=prefill_chunk, **common)
+        self.decode = ContinuousServeEngine(
+            model, phase="decode", mesh=decode_mesh, num_slots=num_slots,
+            num_pages=num_pages, max_decode_slots=max_decode_slots, **common)
+        self.handoff = KVHandoff(self.prefill, self.decode)
+        self.model = model
+        self.device = self.decode.device
+        self.default_sampling = self.decode.default_sampling
+        self._requests: list[Request] = []
+
+    # the decode side is the steady-state resident (the LLM front's
+    # introspection points: budget, slots, per-token pool bytes)
+    @property
+    def deployment(self):
+        return self.decode.deployment
+
+    @property
+    def num_slots(self) -> int:
+        return self.decode.num_slots
+
+    def kv_token_bytes_per_device(self) -> int:
+        return self.decode.kv_token_bytes_per_device()
+
+    def reset(self) -> None:
+        self.prefill.reset()
+        self.decode.reset()
+        # one clock across both phases: TTFT stamps on the prefill side
+        # and finish stamps on the decode side share an origin
+        self.decode._t0 = self.prefill._t0
+        self.handoff.reset_counters()
+        self._requests = []
+
+    def has_unfinished(self) -> bool:
+        return self.prefill.has_unfinished() or self.decode.has_unfinished()
+
+    def add_request(self, req: Request,
+                    sampling_params: SamplingParams | None = None) -> None:
+        if self.prefill._sched is None or self.decode._sched is None:
+            self.reset()
+        self.prefill.add_request(req, sampling_params)
+        self._requests.append(req)
+
+    def step(self) -> list[RequestOutput]:
+        """One disaggregated iteration: prefill chunks, then chain
+        transfers (in rid order, stopping at decode backpressure), then
+        one decode step, then the decode side's preemption victims drained
+        back to the prefill queue."""
+        outs = self.prefill.step()
+        now = self.prefill._now()
+        for r in self.prefill.handoff_ready():
+            if not self.handoff.transfer(r, now):
+                break               # decode side full; chain stays parked
+        outs += self.decode.step()
+        for r in self.decode._sched.drain_preempted():
+            # a decode-side eviction restarts on the prefill engine: the
+            # chain is recomputed there and handed off again; seeded
+            # streams and the emitted watermark make the restart invisible
+            self.prefill._sched.requeue(r)
+        return outs
+
+    def stats(self) -> ContinuousStats:
+        """The current session's outcome across both engines: decode steps
+        and speculation from the decode side, prefill work and prefix hits
+        from the prefill side, the handoff's counters."""
+        requests = self._requests
+        pf, dc, ho = self.prefill, self.decode, self.handoff
+        results = {r.rid: np.asarray(r.tokens[:r.max_new_tokens], np.int32)
+                   for r in requests}
+        per_request = {r.rid: {"preemptions": r.preemptions,
+                               "chunks": r.chunks,
+                               "shared_tokens": r.shared_tokens,
+                               "ttft": r.ttft,
+                               "tpot": r.tpot,
+                               "finish_time": r.finish_time,
+                               "spec_windows": r.spec_windows,
+                               "spec_accepted": r.spec_accepted}
+                       for r in requests}
+        outputs = {r.rid: dc._make_output(r, [], finished=True)
+                   for r in requests}
+        return ContinuousStats(
+            results=results, steps=dc._steps,
+            occupancy=dc._occ_sum / max(dc._steps, 1),
+            wall=pf._now(),
+            preemptions=sum(r.preemptions for r in requests),
+            chunks=pf._n_chunks,
+            prefill_calls=pf._prefill_calls,
+            prefill_tokens=pf._prefill_tokens,
+            prompt_tokens=pf.cache.lookup_tokens,
+            prefix_hit_tokens=pf.cache.hit_tokens,
+            cow_events=pf.cache.cow_events + dc.cache.cow_events,
+            spec_windows=dc._spec_windows,
+            spec_drafted=dc._spec_drafted,
+            spec_accepted=dc._spec_accepted,
+            handoffs=ho.transfers,
+            handoff_pages=ho.pages_moved,
+            handoff_bytes=ho.bytes_moved,
+            handoff_shared_tokens=ho.shared_tokens,
+            per_request=per_request,
+            outputs=outputs)
+
+    def run(self, requests: Iterable[Request], *, defrag_every: int = 0,
+            on_output: Callable[[RequestOutput], None] | None = None
+            ) -> ContinuousStats:
+        """Serve ``requests`` to completion across both engines; the
+        contract of ``ContinuousServeEngine.run``."""
+        if self.has_unfinished():
+            raise RuntimeError(
+                "run() would reset the engines while incrementally-"
+                "submitted requests are unfinished; drive step() to "
+                "completion first")
+        self.reset()
+        self.decode.defrag_every = defrag_every
+        for r in requests:
+            self.add_request(r)
+        pe, de = self.prefill._sched, self.decode._sched
+        while pe.has_work() or de.has_work():
+            if not pe.running and not de.running:
+                nxt_t = pe.next_arrival()
+                if nxt_t is None:
+                    break
+                time.sleep(max(nxt_t - self.prefill._now(), 0.0))
             for o in self.step():
                 if on_output is not None:
                     on_output(o)

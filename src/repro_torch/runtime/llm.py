@@ -31,6 +31,15 @@ and the legacy batch-1 backend over the dense caches, one prompt at a time
     llm = LLMEngine(model, backend="speculative", draft_model=draft,
                     gamma=8, max_len=2048)
 
+Disaggregated serving: the continuous backend split into a prefill-phase
+and a decode-phase engine joined by a KV-page handoff (``runtime/engine.py``:
+``DisaggServeEngine``); on one card both engines share it::
+
+    llm = LLMEngine(model, backend="continuous", max_len=2048, num_slots=8,
+                    disaggregate=True, prefill_slots=4)
+    llm.generate(prompts, sps)
+    s = llm.last_stats        # handoffs, handoff_pages, handoff_bytes, ...
+
 Every backend can be sized from a hardware point instead of hand-tuned
 knobs (``runtime/deployment.py``; explicit kwargs still win)::
 
@@ -59,7 +68,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.engine import (
-    ContinuousServeEngine, ContinuousStats, RequestOutput, ServeEngine,
+    ContinuousServeEngine, ContinuousStats, DisaggServeEngine, RequestOutput,
+    ServeEngine,
 )
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Request
@@ -96,7 +106,9 @@ class LLMEngine:
                  draft_model: Model | None = None, gamma: int = 8,
                  speculative=None,
                  default_sampling: SamplingParams | None = None, mesh=None,
-                 disaggregate: bool = False):
+                 disaggregate: bool = False, prefill_mesh=None,
+                 decode_mesh=None, prefill_slots: int | None = None,
+                 prefill_pages: int | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
@@ -115,10 +127,6 @@ class LLMEngine:
                 "speculative= configures scheduler-integrated speculation "
                 "in the continuous engine; the legacy 'speculative' "
                 "backend takes draft_model=/gamma= directly")
-        if disaggregate:
-            raise NotImplementedError(
-                "disaggregate=True is not ported to PyTorch yet (ROADMAP "
-                "Queue 1, 'Disaggregation')")
         if spec is None:
             # the hand-tuned knob defaults
             max_len = 256 if max_len is None else max_len
@@ -166,6 +174,21 @@ class LLMEngine:
             return
         if spec is None and num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
+        if disaggregate:
+            self._eng = DisaggServeEngine(
+                model, device=device, num_slots=num_slots,
+                page_size=page_size, num_pages=num_pages, max_len=max_len,
+                spec=spec,
+                prefill_mesh=prefill_mesh if prefill_mesh is not None
+                else mesh,
+                decode_mesh=decode_mesh if decode_mesh is not None else mesh,
+                prefill_slots=prefill_slots, prefill_pages=prefill_pages,
+                sampling_params=self.default_sampling,
+                cache_dtype=cache_dtype, weight_format=weight_format,
+                prefill_chunk=prefill_chunk,
+                enable_prefix_cache=enable_prefix_cache,
+                max_top_k=max_top_k, speculative=speculative)
+            return
         self._eng = ContinuousServeEngine(
             model, device=device, num_slots=num_slots, page_size=page_size,
             num_pages=num_pages, max_len=max_len, spec=spec,

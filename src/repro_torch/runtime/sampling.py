@@ -7,7 +7,8 @@ per-slot sampler ``sample_slots``, the per-slot tensors the engine keeps
 filtered distribution ``slot_dist``, its inverse-CDF draw ``slot_draw``
 and the tagged uniforms ``spec_uniform`` of the continuous engine's
 draft/verify window, and the single-distribution ``dist`` / ``draw`` of
-the legacy speculative backend.  Per-slot
+the legacy speculative backend, and the single-distribution API
+(``greedy``, ``token_key``, ``sample``, ``probs``).  Per-slot
 temperature / top-k / top-p / min-p / seed are ``(num_slots,)`` tensors, so
 any mix of greedy and sampled requests shares one decode step.
 
@@ -150,6 +151,50 @@ def apply_processors(logits: torch.Tensor, rep_penalty=None, bias_ids=None,
         pen = rep_penalty[:, None]
         lg = torch.where(presence, torch.where(lg > 0, lg / pen, lg * pen), lg)
     return lg
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax token of each row: (..., V) -> (...) int32."""
+    return logits.argmax(-1).to(torch.int32)
+
+
+def token_key(seed, pos) -> torch.Tensor:
+    """The PRNG key of the token at sequence index ``pos`` of stream
+    ``seed`` (ints or integer tensors): the reference's ``fold_in(
+    PRNGKey(seed), pos)``, bit for bit (``prng.token_key``)."""
+    return prng.token_key(torch.as_tensor(seed), torch.as_tensor(pos))
+
+
+def sample(key: torch.Tensor, logits: torch.Tensor, temperature: float = 1.0,
+           top_k: int = 0, top_p: float = 1.0,
+           min_p: float = 0.0) -> torch.Tensor:
+    """One draw from one distribution with static (Python-level) params:
+    logits (..., V) -> (...) int32, ``key`` one ``prng`` key (shape (2,)).
+    Greedy at temperature 0; else the logits over ``temperature``, cut to
+    the top ``top_k``, the top-``top_p`` nucleus and the entries of at
+    least ``min_p`` times the largest probability, and drawn by the
+    reference's Gumbel-max ``categorical`` on the port's Threefry: the
+    reference's token for the same key and logits."""
+    if temperature <= 0.0:
+        return greedy(logits)
+    lg = logits.float() / temperature
+    if top_k:
+        kth = torch.topk(lg, min(top_k, lg.shape[-1]), dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, -torch.inf, lg)
+    if top_p < 1.0 or min_p > 0.0:
+        p = torch.softmax(lg, dim=-1)
+        keep = (p >= _topp_threshold(p, top_p)[..., None] if top_p < 1.0
+                else torch.ones_like(p, dtype=torch.bool))
+        if min_p > 0.0:
+            keep = keep & (p >= min_p * p.amax(-1, keepdim=True))
+        lg = torch.where(keep, lg, -torch.inf)
+    return prng.categorical(key, lg).to(torch.int32)
+
+
+def probs(logits: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """The softmax of the logits over ``temperature`` (at least 1e-6), in
+    f32: (..., V) -> (..., V)."""
+    return torch.softmax(logits.float() / max(temperature, 1e-6), dim=-1)
 
 
 def _topp_threshold(probs: torch.Tensor, top_p,

@@ -178,12 +178,36 @@ def test_stop_token_ids_match_reference(models, gamma):
                  "Tensor parallelism", id="kwargs2-DeploymentSpec"),
     (dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
      "Tensor parallelism"),
-    (dict(disaggregate=True), "Disaggregation"),
+    # disaggregation is ported; a phase engine on a mesh is not
+    (dict(disaggregate=True, mesh=object()), "Tensor parallelism"),
 ])
 def test_unported_options_name_their_roadmap_item(models, kwargs, item):
     port = models[3]
     with pytest.raises(NotImplementedError, match=item):
         LLMEngine(port, device="cpu", **{**ENGINE, **kwargs})
+
+
+def test_disaggregated_serving_matches_reference(models):
+    """``disaggregate=True`` builds the phase-split engine and serves the
+    request mix (greedy and sampled) as the reference's disaggregated
+    ``LLMEngine`` and the port's colocated one do; every request is handed
+    off (its byte and page counters in test_torch_disagg.py)."""
+    cfg, ref, ref_params, port = models
+    prompts = _prompts(cfg.vocab_size)
+    sps = [dict(), dict(temperature=0.8, top_k=16, seed=3)] * 3
+    want = RefLLM(ref, ref_params, cache_dtype=jnp.float32, disaggregate=True,
+                  **ENGINE).generate(prompts, [RefSP(max_tokens=8, **kw)
+                                               for kw in sps])
+    got = []
+    for disaggregate in (True, False):
+        llm = LLMEngine(port, device="cpu", cache_dtype=torch.float32,
+                        disaggregate=disaggregate, **ENGINE)
+        got.append(llm.generate(prompts, [SamplingParams(max_tokens=8, **kw)
+                                          for kw in sps]))
+        if disaggregate:
+            assert llm.last_stats.handoffs >= len(prompts)
+    for w, d, c in zip(want, *got):
+        assert d.token_ids == w.token_ids == c.token_ids, d.rid
 
 
 def test_prompt_scoring_and_devices(models):

@@ -46,6 +46,34 @@ def test_simulator_and_llama4_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+@pytest.mark.parametrize("module", [
+    "fleet/__init__.py", "fleet/router.py", "fleet/traffic.py",
+    "fleet/simulator.py", "fleet/autoscaler.py", "launch/__init__.py",
+    "launch/serve.py", "launch/fleet.py"])
+def test_fleet_and_launch_modules_are_checked(module):
+    """The fleet package and the launchers are among the files checked
+    above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_launchers_import_without_jax():
+    """A fresh interpreter in which jax and repro cannot be imported
+    imports the launchers, the fleet package and the disaggregated
+    engine."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "from repro_torch.launch.serve import main\n"
+            "from repro_torch.launch.fleet import main as fleet_main\n"
+            "import repro_torch.fleet\n"
+            "from repro_torch.runtime.engine import DisaggServeEngine, KVHandoff\n"
+            "from repro_torch.runtime.sampling import sample, token_key\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+
+
 def test_speculative_entry_points_import_without_jax():
     """A fresh interpreter in which jax and repro cannot be imported still
     imports the port's speculative entry points, the simulator and the
