@@ -28,7 +28,9 @@ deepseek-v2-lite-16b built first; serve_moe, serve_moe_static,
 serve_moe_quantized and serve_moe_spec on a llama4-scout built first;
 serve_moe_maverick on a llama4-maverick built first; serve_disagg on a
 llama3-8b built first, after the two colocated phases it is compared
-with; serve_cli, which builds its own models; sim last, over the serve
+with; serve_vlm on an internvl2-26b built first; serve_cli,
+train_hubert, train and train_cli, which build their own models; sim
+last, over the serve
 phases of that run) builds and runs just those phases and prints no
 result line: for quick checks of one kernel or path.
 
@@ -110,7 +112,7 @@ Phases, each of which fails the run if it fails:
    Returns one kernels-line entry per variant.
 6c. kernel_hymba — the kernels on hymba-1.5b's path at its shapes (D 64,
    25 query heads over 5: rep 5): flash with its 1024-token window and
-   without (its 3 global layers), dense decode over a wrapped 1024-entry
+   without (its global layers), dense decode over a wrapped 1024-entry
    ring and a ragged 3200-entry cache, the paged online kernel over bf16
    and f32 pools with and without a ring table, bf16 and f32, at the
    tolerances of kernel_headdims; ``mxfp4_vmm`` at its four launches
@@ -127,6 +129,12 @@ Phases, each of which fails the run if it fails:
    version and SDPA under each backend (the fastest that takes Dv != D is
    ``library_ms``).  Its kernels-line entry takes its launches from
    serve_mla_static.
+6e. kernel_frontends — flash at hubert's shape (B 4, S 1500, H = KVH =
+   16, D 80, non-causal; causal too) and at internvl2's prefill (B 4, S
+   1024, H 48, KVH 8: rep 6, causal; a ragged non-causal S 1000), the
+   dense decode at internvl2's (B 8, 1088 of 2048, rep 6; ragged
+   cur_len), bf16 and f32, against the plain versions (``KernelHolds``);
+   each timed beside its bound, the plain version and SDPA.
 6. kernel_exact — the exact-accumulator paged kernel (the speculative
    verify step's attention) against its plain multi-query version: B 1 and
    8, C 1 and 5 queries per slot, ragged starts up to 4096 with one row at
@@ -276,9 +284,10 @@ Phases, each of which fails the run if it fails:
    reference computes the mixer in plain jnp, so no kernel may launch;
    the traced steps split device time by the ``ssm_mixer`` range.
 13e. serve_hymba, serve_hymba_static, serve_hymba_quantized — after
-   mamba2 is freed, hymba-1.5b at full size (32 layers of GQA attention,
+   mamba2 is freed, hymba-1.5b at full width and ``HYMBA_LAYERS`` (16) of
+   its 32 layers (all 32 until the training phases joined; GQA attention,
    25 heads over 5 at D 64, beside a Mamba2 mixer of 50 heads, state 16;
-   global at layers 0, 16 and 31, a 1024-token window elsewhere; 3.3 GB):
+   global at layers 0 and 15, a 1024-token window elsewhere; 1.7 GB):
    continuous bf16 on ``HYMBA_MIX`` (2 prompts of 3072 tokens and 2 of
    1500 with 256 new, past the window, whose rings wrap while decoding; 4
    of 512 with 64 new, two sharing a 384-token prefix; page 16, chunk
@@ -287,7 +296,7 @@ Phases, each of which fails the run if it fails:
    the prompt is recomputed (``recompute_shared``: no prompt token
    skipped), the state pools, a 3072-token scored prompt; static 2 x
    3072; the continuous mix with mxfp4 attention and MLP projections over
-   bf16 pools (128 ``mxfp4_vmm`` launches a call).
+   bf16 pools (4 ``mxfp4_vmm`` launches a layer a call).
 14. serve_mla — after ``del`` of hymba, deepseek-v2-lite-16b at full
    width and ``DEEPSEEK_LAYERS`` (4) of its 27 layers (MLA attention, 1
    dense layer, MoE layers of 64 routed experts, top 6, and 2 shared;
@@ -346,6 +355,12 @@ Phases, each of which fails the run if it fails:
    continuous speculative and legacy speculative, greedy, under the same
    near-tie rule (``check_mla``; at deepseek's head dims, so its static
    and legacy paths run the flash kernel's f32 variant at D 192 / Dv 128).
+   Then one training step of each family's narrow f32 model
+   (``check_train``: dense with qk-norm and bias, windowed, MLA + MoE,
+   GQA + MoE, SSM, hybrid, audio, vision) on the card against the CPU
+   from the same weights: loss, every gradient leaf and every updated
+   leaf within stated tolerances, no kernel launched; and the narrow
+   vision model's static greedy stream, card against CPU.
 19. serve_moe, serve_moe_static, serve_moe_quantized, serve_moe_spec —
    after deepseek is freed, llama4-scout at full width (d_model 5120, 40
    query heads over 8, head dim 128, 16 experts of 8192 plus a shared one,
@@ -377,6 +392,35 @@ Phases, each of which fails the run if it fails:
    MoE; maverick's period x 2, capacity forced), f32, card against CPU:
    continuous with a prefix hit, static, continuous and legacy
    speculative, greedy, under the near-tie rule.
+20d. serve_vlm — after maverick is freed, internvl2-26b at full width
+   and ``VLM_LAYERS`` (8) of its 48 layers (4.26 B params, 8.55 GB)
+   behind the static ``ServeEngine``: 4 prompts of 256 random image
+   embeddings ahead of 768 text tokens (greedy and sampled rows), 64 new
+   tokens, twice (the re-run reproduces every stream; its TTFT and
+   decode step are the readings); the flash kernel once a layer in the
+   prefill (rep 6), the dense decode kernel once a layer a step; the
+   device time of 4 decode steps (as serve_static).
+20e. train_hubert — hubert-xlarge at full size (48 layers, 1.26 B
+   params): a no-grad ``Model.forward`` over B 4 x 1500 frames (48
+   non-causal flash launches at D 80; its logits against the plain
+   path's by relative L2 error, the error after layers 1, 6, 24 and 48,
+   flash's and plain's errors against an f32 plain forward, and two
+   faulty attentions that the hold must refuse), then 4
+   AdamW steps with ``remat=True`` at B 4 x 1024 frames: no kernel
+   launches in a step (attention under autograd is the plain
+   ``blocked_attention``, 2 calls a layer a step), step ms, tokens/s,
+   the model-FLOPs share of 989 TFLOP/s, peak GB, and the plain
+   attention's share of a traced step's device time (a layer's attention
+   timed alone, times 48).
+20f. train — h2o-danube-1.8b at full width and 4 of its 24 layers
+   through ``run_training`` (remat, B 4 x 2048, 12 steps, a checkpoint
+   every 5 and at the last, ~4.4 GB each): an injected failure at step 8
+   restores step 5 (the replayed steps' losses compared bit for bit with
+   the first pass's), then a second call on the same directory resumes
+   at 12 and runs to 14; step ms, save and restore seconds and bytes.
+20g. train_cli — ``repro_torch.launch.train.main`` (danube's reduced
+   config on the card, 20 steps, a temporary checkpoint directory) must
+   return 0 and print the reference's summary line.
 21b. serve_cli — ``repro_torch.launch.serve.main`` in this process:
    ``--no-reduced --arch llama3-8b --continuous --disaggregate 1:1`` (all
    32 layers, 4 requests of 256 tokens, 16 new) and ``--fleet --calibrate``
@@ -391,8 +435,10 @@ Phases, each of which fails the run if it fails:
 Output: the card's name and power limit early, one JSON line per phase,
 the kernels line (the six kernels at llama3-8b's shapes, then their D 96
 and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections,
-then the same kernels at hymba's shapes, then flash at D 192 / Dv 128;
-``launches`` from the serve phase that runs each, on its own model), and
+then the same kernels at hymba's shapes, then flash at D 192 / Dv 128,
+then flash at hubert's and internvl2's shapes and the dense decode at
+internvl2's; ``launches`` from the serve phase that runs each, on its own
+model, or hubert's no-grad forward), and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -402,6 +448,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3898,9 +3945,11 @@ def check_phase(torch) -> dict:
     del cpu, gpu
     torch.cuda.empty_cache()
     results += check_mla(torch)
+    results += check_train(torch)
     return {"phase": "check", "model": "llama3-8b widths cut to d_model 512, "
             "2 layers, f32; deepseek-v2-lite-16b cut to d_model 512, 2 "
-            "layers, 8 experts, f32", "requests": len(prompts),
+            "layers, 8 experts, f32; a training step of each family's narrow "
+            "f32 model (TRAIN_CHECKS)", "requests": len(prompts),
             "near_tie_gap": NEAR_TIE, "cases": results}
 
 
@@ -4554,8 +4603,15 @@ def build_mamba2(torch):
     return build_full(torch, MAMBA2)
 
 
+# hymba's depth: 16 of its 32 layers (global at layers 0 and 15, a
+# 1024-token window on the other 14) since the training and frontend
+# phases joined the script; its continuous phases are host-bound, ~4 ms a
+# layer a decode step
+HYMBA_LAYERS = 16
+
+
 def build_hymba(torch):
-    return build_full(torch, HYMBA)
+    return build_full(torch, HYMBA, HYMBA_LAYERS)
 
 
 def hymba_requests(sp_cls, vocab: int):
@@ -4577,8 +4633,8 @@ def hymba_requests(sp_cls, vocab: int):
 def serve_hymba_phase(torch, model, phase: str = "serve_hymba",
                       **engine_kw) -> dict:
     """hymba's continuous mix (``HYMBA_MIX``, page 16, chunk 256) through
-    ``serve_phase``: its 29 windowed layers keep their pages in a ring
-    space (``RingWatch``), its 3 global layers in the full space, where
+    ``serve_phase``: its windowed layers keep their pages in a ring
+    space (``RingWatch``), its global layers in the full space, where
     request 7 shares request 5's 384-token prefix for capacity while its
     prompt is recomputed (``recompute_shared``); every layer's SSM state
     sits in the per-slot pools; the paged decode kernel runs once a layer
@@ -4750,8 +4806,8 @@ def kernel_hymba_phase(torch) -> dict:
         entries.append(entry(name, FLASH_SOURCE, FLASH_REPLACES, row,
                              f"hymba prefill: B {B}, S {S}, H 25, KVH 5, D 64,"
                              f" causal, window {window} ("
-                             + ("29 windowed layers" if window
-                                else "3 global layers") + ")",
+                             + ("its windowed layers" if window
+                                else "its global layers") + ")",
                              variant=flash_kernel.variant(q.dtype, d, h // kvh),
                              library=library))
     del q, k, v, qt, kt, vt, mask
@@ -5016,9 +5072,826 @@ def sim_phase(torch, served) -> dict:
             "iso_tdp_comparison": {"label": SIM_LABEL, **iso}}
 
 
+# ---------------------------------------------------------------------------
+# training and the modality frontends: hubert-xlarge (an audio encoder:
+# non-causal attention at D 80, H = KVH = 16) trains at full size;
+# internvl2-26b (256 image embeddings ahead of the text, 48 query heads
+# over 8: rep 6) serves image prompts; h2o-danube-1.8b trains through the
+# fault-tolerant loop and the launcher
+# ---------------------------------------------------------------------------
+
+HUBERT, INTERNVL2 = "hubert-xlarge", "internvl2-26b"
+HUBERT_FRAMES = 1500          # a 30 s clip at 50 frames/s
+HUBERT_GEOM = (16, 16, 80)    # H, KVH, D
+VLM_GEOM = (48, 8, 128)       # H, KVH, D: rep 6
+VLM_LAYERS = 8                # of internvl2's 48, full width (~4.4 B params)
+VLM_BATCH, VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 4, 768, 64, 2048
+TRAIN_BATCH = 4
+HUBERT_TRAIN_FRAMES, HUBERT_TRAIN_STEPS = 1024, 4
+# the loop phase: danube at full width and 4 of its 24 layers (~0.44 B
+# params; a checkpoint of weights and f32 moments is ~4.4 GB)
+TRAIN_LAYERS, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_RESUME_TO = 12, 5, 8, 14
+# the launcher on the card: danube's reduced config (training runs no
+# kernel, so head dim 16 trains on the card), 20 steps
+TRAIN_CLI = ["--arch", "h2o-danube-1.8b", "--steps", "20", "--batch", "4",
+             "--seq", "256", "--ckpt-every", "10", "--device", "cuda"]
+# the no-grad forward (flash) against the plain path: the relative L2
+# error of all logits (the real vocabulary's columns).  48 bf16 layers of
+# random weights, each rounding its attention output in another order,
+# grow a last-bit difference with depth.  A second limit: flash's error
+# against an f32 plain forward of the same weights is at most
+# FORWARD_F32_RATIO times the bf16 plain path's.  Each run shows the hold
+# can see a fault: the forward with each wrong attention of HUBERT_FAULTS
+# must fail one of the two
+FORWARD_REL_TOL = 2.0 ** -4
+FORWARD_F32_RATIO = 2.0
+HUBERT_HOLD_DEPTHS = (1, 6, 24, 48)
+# the faults: a causal mask on the encoder, and the keys of the ragged
+# tail past the last 64-frame block (1500 = 23 x 64 + 28) dropped
+HUBERT_FAULTS = ("causal_mask", "tail_dropped")
+# bf16 TFLOP/s of the card, dense (the model-FLOPs share's denominator)
+PEAK_BF16 = PEAK_OPS_PER_S["bfloat16"]
+
+
+def kernel_frontends_phase(torch) -> dict:
+    """The two kernels on the frontends' paths at their shapes, held
+    against the plain versions at the tolerances of ``KernelHolds`` (bf16
+    and f32): flash non-causal at hubert's (B 4, S 1500, H = KVH = 16, D
+    80; causal too) and causal at internvl2's static prefill (B 4, S 1024
+    = 256 image + 768 text positions, H 48, KVH 8, D 128: rep 6; a ragged
+    non-causal S 1000), and the dense decode at internvl2's decode (B 8,
+    1088 of 2048, rep 6; ragged cur_len too).  Each timed at its shape
+    beside its bound, its plain version and SDPA.  Returns one kernels
+    line entry each (``launches`` set from train_hubert's no-grad forward
+    and serve_vlm)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.models.common import decode_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rng = np.random.default_rng(31)
+    holds = KernelHolds(torch)
+    hold, entry = holds.hold, holds.entry
+    hh, hkvh, hd = HUBERT_GEOM
+    vh, vkvh, vd = VLM_GEOM
+    s_vlm = VLM_TEXT + 256
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    flash_cases = [("hubert", 4, HUBERT_FRAMES, hh, hkvh, hd, False),
+                   ("hubert", 4, HUBERT_FRAMES, hh, hkvh, hd, True),
+                   ("internvl2", 4, s_vlm, vh, vkvh, vd, True),
+                   ("internvl2", 2, 1000, vh, vkvh, vd, False)]
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for label, B, S, h, kvh, d, causal in flash_cases:
+            if dt == torch.float32:          # the fma variant: a short case
+                B, S = 1, 600
+            q, k, v = (randn(B, S, h, d, dtype=dt), randn(B, S, kvh, d, dtype=dt),
+                       randn(B, S, kvh, d, dtype=dt))
+            kind = flash_kernel.variant(dt, d, h // kvh)
+            hold("flash_attention", f"{kind} {dtype_name} {label} B={B} S={S} "
+                 f"H={h} KVH={kvh} D={d} causal={causal}",
+                 flash_kernel.flash_attention(q, k, v, causal=causal),
+                 gqa_flash_attention(q, k, v, causal=causal, impl="reference"),
+                 bf16_rel=True)
+            del q, k, v
+        for B, S, cur_len in ((8, VLM_MAX_LEN, np.full(8, 1088)),
+                              (8, VLM_MAX_LEN, rng.integers(1, VLM_MAX_LEN + 1, 8)),
+                              (1, 1088, np.array([1088]))):
+            q, k, v, cl = dense_case(torch, gen, B, S, dt, cur_len, dev, vh,
+                                     vkvh, vd)
+            kind = dense_kernel.variant(q.dtype, k.dtype, vd)
+            hold("decode_attention", f"{kind} {dtype_name} internvl2 B={B} "
+                 f"S={S} H={vh} KVH={vkvh} D={vd} cur_len "
+                 f"{cur_len.tolist()[:4]}",
+                 dense_kernel.decode_attention(q, k, v, cl),
+                 decode_attention_ref(q, k, v, cl))
+            del q, k, v
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    entries = []
+    for name, (label, B, S, h, kvh, d, causal) in (
+            ("flash_attention:D80:noncausal", flash_cases[0]),
+            ("flash_attention:rep6", flash_cases[2])):
+        q, k, v = randn(B, S, h, d), randn(B, S, kvh, d), randn(B, S, kvh, d)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row = {"ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+                   q, k, v, causal=causal), flush),
+               "plain_ms": time_ms(torch, lambda: gqa_flash_attention(
+                   q, k, v, causal=causal, impl="reference"), flush, iters=5),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), flush)}
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            B, S, S, h, kvh, causal, 2, "bfloat16", d=d)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        what = ("hubert's no-grad forward: B 4, S 1500 frames, H = KVH = 16, "
+                "D 80, non-causal" if label == "hubert" else
+                "internvl2's static prefill: B 4, S 1024 (256 image + 768 "
+                "text), H 48, KVH 8 (rep 6), D 128, causal")
+        entries.append(entry(name, FLASH_SOURCE, FLASH_REPLACES, row, what,
+                             variant=flash_kernel.variant(q.dtype, d, h // kvh),
+                             library=f"F.scaled_dot_product_attention("
+                                     f"is_causal={causal}, enable_gqa=True)"))
+        del q, k, v, qt, kt, vt
+    B, S, ctx = 8, VLM_MAX_LEN, 1088
+    cur_len = np.full(B, ctx)
+    q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len, dev,
+                             vh, vkvh, vd)
+    q4, ks_, vs_ = q[:, :, None, :], k[:, :ctx].transpose(1, 2), \
+        v[:, :ctx].transpose(1, 2)
+    row = {"ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+               q, k, v, cl), flush),
+           "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+               q, k, v, cl), flush),
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q4, ks_, vs_, enable_gqa=True), flush)}
+    row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2, "bfloat16",
+                                                   vh, vkvh, vd)
+    print("  timing decode_attention:rep6:", json.dumps(ratios(row)))
+    entries.append(entry("decode_attention:rep6", DENSE_SOURCE, DENSE_REPLACES,
+                         row, "internvl2's static decode: B 8, cur_len 1088 "
+                         "of 2048, H 48, KVH 8 (rep 6), D 128",
+                         variant=dense_kernel.variant(q.dtype, k.dtype, vd),
+                         library="F.scaled_dot_product_attention("
+                                 "enable_gqa=True) on the cache sliced to "
+                                 "cur_len"))
+    del q, k, v, ks_, vs_, flush
+    return {"phase": "kernel_frontends", "checked": len(holds.checked),
+            "worst": holds.worst, "entries": entries}
+
+
+def build_vlm(torch):
+    return build_full(torch, INTERNVL2, VLM_LAYERS)
+
+
+def serve_vlm_phase(torch, model) -> dict:
+    """internvl2-26b at full width and ``VLM_LAYERS`` layers behind the
+    static ``ServeEngine``: ``VLM_BATCH`` prompts of 256 random image
+    embeddings ahead of 768 text tokens (greedy and sampled rows in turn),
+    64 new tokens each, twice (the re-run must reproduce every stream;
+    its times are the phase's readings, the first call's beside them).
+    The flash kernel must run once a layer in the prefill (rep 6, the 1024
+    positions causal) and the dense decode kernel once a layer a decode
+    step.  Reports TTFT (the prefill and the first draw), the decode
+    step's wall time, and the device time of ``STATIC_PROFILE_STEPS``
+    decode steps (a profiled call of that many + 1 new tokens minus one of
+    1): busy ms a step, idle share, time by kernel."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.runtime.engine import ServeEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    ni = cfg.n_frontend_tokens
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT)), device=dev),
+             "image_embeds": torch.randn((VLM_BATCH, ni, cfg.d_model),
+                                         generator=gen, device=dev
+                                         ).to(torch.bfloat16)}
+    sps = [SamplingParams() if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_p=0.9, top_k=40, seed=3000 + i)
+           for i in range(VLM_BATCH)]
+    layers_ = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, device="cuda", max_len=VLM_MAX_LEN)
+    _, _, plen = eng.prefill(batch)
+    if plen != ni + VLM_TEXT:
+        raise AssertionError(f"prompt length {plen}, want {ni + VLM_TEXT} "
+                             f"(image positions count)")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = eng.generate(batch, max_new_tokens=VLM_NEW, sampling_params=sps)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    want = {FLASH: layers_, DENSE: layers_ * (VLM_NEW - 1)}
+    if launches != want:
+        raise AssertionError(f"serve_vlm launched {launches}, want {want}")
+    toks = out.tokens.cpu().numpy()
+    if toks.shape != (VLM_BATCH, VLM_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve_vlm tokens {toks.shape}: out of range")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    again = eng.generate(batch, max_new_tokens=VLM_NEW, sampling_params=sps)
+    wall_again = time.perf_counter() - t0
+    if not torch.equal(again.tokens, out.tokens):
+        raise AssertionError("serve_vlm: a second call did not reproduce "
+                             "every stream")
+    steps = STATIC_PROFILE_STEPS
+    t_one, _ = device_time_by_kernel(torch, lambda: eng.generate(
+        batch, max_new_tokens=1, sampling_params=sps))
+    t_many, _ = device_time_by_kernel(torch, lambda: eng.generate(
+        batch, max_new_tokens=steps + 1, sampling_params=sps))
+    per_step = {k: (t_many.get(k, 0.0) - t_one.get(k, 0.0)) / steps
+                for k in set(t_many) | set(t_one)}
+    busy = sum(per_step.values())
+    step_ms = 1e3 * again.decode_s / (VLM_NEW - 1)
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    result = {"phase": "serve_vlm", "model": f"{cfg.name}, {layers_} of 48 "
+              f"layers, full width, bf16", "params_b": model.param_count() / 1e9,
+              "batch": VLM_BATCH, "image_positions": ni,
+              "text_tokens": VLM_TEXT, "prompt_positions": plen,
+              "new_tokens": VLM_BATCH * VLM_NEW,
+              "greedy_rows": [0, 2], "sampled_rows": [1, 3],
+              "ttft_s": again.prefill_s, "ttft_s_first_call": out.prefill_s,
+              "decode_step_ms": step_ms,
+              "decode_step_ms_first_call": 1e3 * out.decode_s / (VLM_NEW - 1),
+              "tokens_per_s": VLM_BATCH * VLM_NEW / wall_again,
+              "wall_s": wall_again, "wall_s_first_call": wall,
+              "peak_mem_gb": peak_gb, "kernel_launches": launches,
+              "rerun_identical": True,
+              "sim_context": plen + VLM_NEW / 2, "sim_batch": VLM_BATCH,
+              "profiled_decode_steps": {
+                  "steps": steps, "device_busy_ms_per_step": busy,
+                  "device_idle_share": 1 - busy / step_ms,
+                  "decode_attention_ms_per_step": sum(
+                      t for k, t in per_step.items() if "dense_decode" in k),
+                  "prefill_flash_ms": sum(t for k, t in t_one.items()
+                                          if "flash_fwd" in k),
+                  "prefill_device_ms": sum(t_one.values()),
+                  "top_kernels_ms_per_step": {k[:70]: t for k, t in top}}}
+    del eng
+    return result
+
+
+def _model_flops(model, tokens: int, seq: int, batch: int) -> tuple[int, int]:
+    """FLOPs of one training step: the model's (6 per weight of a
+    projection and token, and 3 forward passes of attention's q.k and p.v)
+    and the hardware's with ``remat`` (8 and 4: each layer's forward runs
+    again in the backward pass)."""
+    cfg = model.cfg
+    n_mm = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    pairs = seq * seq if not cfg.causal else seq * (seq + 1) // 2
+    attn = 4 * batch * pairs * cfg.n_heads * cfg.hd * cfg.n_layers
+    return 6 * n_mm * tokens + 3 * attn, 8 * n_mm * tokens + 4 * attn
+
+
+def hubert_forward_hold(torch, model, batch) -> dict:
+    """``Model.forward``'s loop run five ways on one batch, under no grad:
+    the flash path; the plain path (``layers.kernel_path`` patched off);
+    an f32 copy of the model on the plain path; and the plain path with
+    each fault of ``HUBERT_FAULTS``.  The relative L2 error of the hidden
+    state after each layer of ``HUBERT_HOLD_DEPTHS`` and of the logits
+    (the real vocabulary's columns, in f32), for each pair read."""
+    import copy
+    from unittest import mock
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import blocked_attention
+
+    cfg = model.cfg
+    tail = HUBERT_FRAMES - HUBERT_FRAMES % 64
+
+    def run(m):
+        x, kept = m._embed_inputs(batch), {}
+        for i, (win, blk) in enumerate(zip(m.windows, m.layers), 1):
+            x = model_lib._block_forward(blk, x, cfg, win)
+            if i in HUBERT_HOLD_DEPTHS:
+                kept[str(i)] = x.float()
+        kept["logits"] = m._head(x)[..., :cfg.vocab_size].float()
+        return kept
+
+    plain = mock.patch.object(layers, "kernel_path", lambda device: False)
+    faults = {
+        "causal_mask": lambda q, k, v, c, window: blocked_attention(
+            q, k, v, causal=True),
+        "tail_dropped": lambda q, k, v, c, window: blocked_attention(
+            q, k[:, :tail], v[:, :tail], causal=False)}
+    out = {"flash": run(model)}
+    with plain:
+        out["plain"] = run(model)
+        for name, attn in faults.items():
+            with mock.patch.object(layers, "_full_attention", attn):
+                out[name] = run(model)
+        m32 = copy.deepcopy(model).float()
+        out["f32"] = run(m32)
+        del m32
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in b}
+
+    pairs = {"flash_vs_plain": ("flash", "plain"),
+             "flash_vs_f32": ("flash", "f32"),
+             "plain_vs_f32": ("plain", "f32"),
+             **{f"{name}_vs_plain": (name, "plain") for name in faults},
+             **{f"{name}_vs_f32": (name, "f32") for name in faults}}
+    lf, pf = out["flash"]["logits"], out["plain"]["logits"]
+    return {"rel_l2": {k: rel(out[a], out[b]) for k, (a, b) in pairs.items()},
+            "argmax_agreement":
+                float((lf.argmax(-1) == pf.argmax(-1)).float().mean())}
+
+
+def train_hubert_phase(torch) -> dict:
+    """hubert-xlarge at full size (48 layers; its parameter count held to
+    the reference's published-size figure, 1.26 B within 30%): one
+    ``Model.forward`` under no grad over B 4 x 1500 frames (48 non-causal
+    flash launches, its logits held against the plain path's: their
+    relative L2 error within ``FORWARD_REL_TOL``, backed by the witnesses
+    of ``hubert_forward_hold``), then
+    ``HUBERT_TRAIN_STEPS`` AdamW steps with ``remat=True`` at B 4 x 1024
+    frames: no kernel may launch inside a step (attention under autograd
+    is the plain ``blocked_attention``, 2 calls a layer a step with the
+    recompute), the losses finite.  Reports step ms, tokens/s, the
+    model-FLOPs share of the card's bf16 peak, peak GB, and
+    ``blocked_attention``'s share of a step's device time: a layer's
+    attention (a forward and a forward with backward at the step's shapes,
+    timed alone) times 48 over one traced step's device busy time."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import layers
+    from repro_torch.models.common import blocked_attention
+    from repro_torch.models.footprint import compute_footprint
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.loop import batch_to
+
+    dev = torch.device("cuda")
+    cfg = get_config(HUBERT)
+    t0 = time.monotonic()
+    model = Model(cfg, device=dev).init(seed=0)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"{HUBERT}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B params "
+          f"bf16, random init {time.monotonic() - t0:.1f} s")
+    if not abs(n_params / 1e9 - 1.26) <= 0.30 * 1.26:
+        raise AssertionError(f"hubert has {n_params} parameters, the "
+                             f"published figure is 1.26 B (within 30%)")
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    feats = torch.randn((TRAIN_BATCH, HUBERT_FRAMES, cfg.d_model),
+                        generator=gen, device=dev)
+    with torch.no_grad():
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = model.forward({"features": feats})
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        if launches != {flash_kernel.NAME: cfg.n_layers}:
+            raise AssertionError(f"hubert's no-grad forward launched "
+                                 f"{launches}, want {cfg.n_layers} flash")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("hubert's forward logits are not finite")
+        del logits
+        hold = hubert_forward_hold(torch, model, {"features": feats})
+        # the hold's flash run launches as many again, its plain runs none
+        if {k: 2 * v for k, v in launches.items()} != {
+                k: v for k, v in LAUNCHES.items() if v}:
+            raise AssertionError(f"the hold launched {dict(LAUNCHES)}: a "
+                                 f"plain forward launched a kernel")
+    del feats
+    print(f"  hubert forward, relative L2 error by depth "
+          f"{list(HUBERT_HOLD_DEPTHS)} and of the logits:")
+    for key, errs in hold["rel_l2"].items():
+        print(f"    {key:>22}: " + " ".join(
+            f"{errs[str(dp)]:.4g}" for dp in HUBERT_HOLD_DEPTHS)
+            + f" | logits {errs['logits']:.4g}")
+    errs = {k: v["logits"] for k, v in hold["rel_l2"].items()}
+
+    def verdict(path):
+        """(relative L2 from the plain path, error against the f32 forward
+        over the plain path's) of a path's logits, and whether both hold."""
+        r = errs[f"{path}_vs_plain"]
+        q = errs[f"{path}_vs_f32"] / errs["plain_vs_f32"]
+        return r, q, r <= FORWARD_REL_TOL and q <= FORWARD_F32_RATIO
+
+    rel_l2, ratio, ok = verdict("flash")
+    caught = {k: not verdict(k)[2] for k in HUBERT_FAULTS}
+    print(f"  flash vs plain {rel_l2:.4g} (tolerance {FORWARD_REL_TOL:.4g}); "
+          f"flash's error against the f32 forward over plain's {ratio:.4g} "
+          f"(at most {FORWARD_F32_RATIO}); the faults read "
+          + ", ".join(f"{k} {verdict(k)[0]:.4g} / {verdict(k)[1]:.4g}"
+                      for k in HUBERT_FAULTS)
+          + f" (each must fail the hold); argmax agreement "
+          f"{hold['argmax_agreement']:.4f}")
+    if not ok:
+        raise AssertionError(f"hubert's flash forward: {rel_l2} from the "
+                             f"plain path (relative L2; tolerance "
+                             f"{FORWARD_REL_TOL}), {ratio}x the plain path's "
+                             f"error against f32 (at most "
+                             f"{FORWARD_F32_RATIO})")
+    if not all(caught.values()):
+        raise AssertionError(f"the hold passes a faulty attention: {caught}")
+    hold["faults_caught"] = caught
+
+    # training: fresh trainable weights (the model's earlier ones freed)
+    state = init_train_state(model, seed=0)
+    opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=HUBERT_TRAIN_STEPS)
+    step_fn = make_train_step(model, opt, remat=True)
+    pipe = SyntheticTokenPipeline(cfg, global_batch=TRAIN_BATCH,
+                                  seq_len=HUBERT_TRAIN_FRAMES, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    layers.AUTOGRAD_ATTENTION["gqa"] = 0
+    losses, step_ms = [], []
+    for i in range(HUBERT_TRAIN_STEPS):
+        batch = batch_to(pipe.get_batch(i), dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"kernels launched inside a training step: "
+                             f"{launched}")
+    calls = layers.AUTOGRAD_ATTENTION["gqa"]
+    if calls != 2 * cfg.n_layers * HUBERT_TRAIN_STEPS:
+        raise AssertionError(f"{calls} plain attention calls under autograd, "
+                             f"want 2 a layer a step (forward, recompute)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hubert losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = (sum(p.numel() * p.element_size() * 2
+                    for p in state.params.values())
+                + sum(t.numel() * t.element_size()
+                      for acc in ("m", "v")
+                      for t in state.opt_state[acc].values())) / 1e9
+    batch = batch_to(pipe.get_batch(HUBERT_TRAIN_STEPS), dev)
+    t_dev, _ = device_time_by_kernel(torch, lambda: step_fn(state, batch))
+    busy_ms = sum(t_dev.values())
+
+    # one layer's attention at the step's shapes, alone: a forward (the
+    # remat pass) and a forward with its backward
+    B, S, h, d = TRAIN_BATCH, HUBERT_TRAIN_FRAMES, cfg.n_heads, cfg.hd
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True) for _ in range(3))
+    g_out = torch.randn((B, S, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def fwd_bwd():
+        blocked_attention(q, k, v, causal=False).backward(g_out)
+
+    with torch.no_grad():
+        attn_fwd_ms = time_ms(torch, lambda: blocked_attention(
+            q, k, v, causal=False), flush, iters=10)
+        flash_fwd_ms = time_ms(torch, lambda: flash_kernel.flash_attention(
+            q, k, v, causal=False), flush, iters=10)
+    attn_fwd_bwd_ms = time_ms(torch, fwd_bwd, flush, iters=10)
+    attn_step_ms = cfg.n_layers * (attn_fwd_ms + attn_fwd_bwd_ms)
+    del q, k, v, g_out, flush
+    step = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * HUBERT_TRAIN_FRAMES
+    model_flops, hw_flops = _model_flops(model, tokens, HUBERT_TRAIN_FRAMES,
+                                         TRAIN_BATCH)
+    result = {"phase": "train_hubert",
+              "model": f"{cfg.name}, all {cfg.n_layers} layers, bf16 weights, "
+                       f"f32 AdamW moments, remat",
+              "params": n_params,
+              "footprint_total_params": compute_footprint(cfg).total_params,
+              "forward": {"batch": TRAIN_BATCH, "frames": HUBERT_FRAMES,
+                          "ms": fwd_ms, "flash_launches": launches,
+                          "vs_plain_rel_l2": rel_l2,
+                          "tolerance": FORWARD_REL_TOL,
+                          "vs_f32_over_plain_vs_f32": ratio,
+                          "f32_ratio_limit": FORWARD_F32_RATIO,
+                          **hold},
+              "train": {"batch": TRAIN_BATCH, "frames": HUBERT_TRAIN_FRAMES,
+                        "steps": HUBERT_TRAIN_STEPS, "losses": losses,
+                        "step_ms": step_ms, "step_ms_median_after_first": step,
+                        "tokens_per_s": tokens / step * 1e3,
+                        "model_tflop_per_step": model_flops / 1e12,
+                        "hardware_tflop_per_step_remat": hw_flops / 1e12,
+                        "model_flops_share_of_peak":
+                            model_flops / (step / 1e3) / PEAK_BF16,
+                        "kernel_launches_in_steps": launched,
+                        "plain_attention_calls": calls,
+                        "peak_mem_gb": peak_gb,
+                        "weights_grads_moments_gb": state_gb,
+                        "traced_step_device_busy_ms": busy_ms,
+                        "traced_step_device_idle_share":
+                            max(0.0, 1 - busy_ms / step),
+                        "blocked_attention": {
+                            "layer_forward_ms": attn_fwd_ms,
+                            "layer_forward_backward_ms": attn_fwd_bwd_ms,
+                            "ms_per_step": attn_step_ms,
+                            "share_of_step_device_time":
+                                attn_step_ms / busy_ms,
+                            "flash_forward_ms_same_shape": flash_fwd_ms},
+                        "top_kernels_ms": {k[:70]: t for k, t in sorted(
+                            t_dev.items(), key=lambda kv: -kv[1])[:8]}}}
+    del state, model
+    return result
+
+
+def train_phase(torch) -> dict:
+    """h2o-danube-1.8b at full width and ``TRAIN_LAYERS`` layers through
+    ``run_training`` (remat, B 4 x S 2048, ``TRAIN_STEPS`` steps, a
+    checkpoint every ``TRAIN_CKPT_EVERY`` and at the last): an injected
+    failure at step ``TRAIN_FAIL_AT`` restores the checkpoint of step 5 and
+    replays steps 5-7, then a second ``run_training`` call on the same
+    directory resumes at step 12 and runs to ``TRAIN_RESUME_TO``.  Every
+    loss finite, one rollback, the committed checkpoints as the schedule
+    says, no kernel launched.  Reports the losses, whether the replayed
+    steps reproduce the first pass's losses bit for bit, step ms, save and
+    restore seconds and bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.model import Model
+    from repro_torch.train import (
+        AdamWConfig, LoopConfig, init_train_state, list_checkpoints,
+        make_train_step, run_training,
+    )
+    import tempfile
+
+    cfg = dataclasses.replace(get_config(DANUBE), n_layers=TRAIN_LAYERS)
+    model = Model(cfg, device="cuda")
+    state = init_train_state(model, seed=0)
+    n_params = model.param_count()
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=3e-4, warmup_steps=2, total_steps=TRAIN_RESUME_TO), remat=True)
+    pipe = SyntheticTokenPipeline(cfg, global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ, seed=0)
+    fired = []
+
+    def fail_once(step):
+        if step == TRAIN_FAIL_AT and not fired:
+            fired.append(step)
+            return True
+        return False
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = run_training(step_fn, state, pipe, LoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=d),
+            failure_fn=fail_once)
+        wall = time.perf_counter() - t0
+        replay = TRAIN_FAIL_AT - TRAIN_CKPT_EVERY
+        committed = list_checkpoints(d)
+        want_ckpts = [TRAIN_CKPT_EVERY, 2 * TRAIN_CKPT_EVERY, TRAIN_STEPS]
+        if (res.rollbacks != 1 or int(res.state.step) != TRAIN_STEPS
+                or len(res.losses) != TRAIN_STEPS + replay
+                or committed != want_ckpts
+                or not all(math.isfinite(x) for x in res.losses)):
+            raise AssertionError(
+                f"train: rollbacks {res.rollbacks}, step "
+                f"{int(res.state.step)}, {len(res.losses)} losses "
+                f"{res.losses}, checkpoints {committed} (want {want_ckpts})")
+        first = res.losses[TRAIN_CKPT_EVERY:TRAIN_FAIL_AT]
+        again = res.losses[TRAIN_FAIL_AT:TRAIN_FAIL_AT + replay]
+        ckpt_bytes = os.path.getsize(os.path.join(
+            d, f"step_{TRAIN_CKPT_EVERY:08d}", "arrays.npz"))
+        del res.state, state
+        res2 = run_training(step_fn, init_train_state(model, seed=1), pipe,
+                            LoopConfig(total_steps=TRAIN_RESUME_TO,
+                                       ckpt_every=TRAIN_CKPT_EVERY,
+                                       ckpt_dir=d))
+        if (res2.resumed_from != TRAIN_STEPS
+                or len(res2.losses) != TRAIN_RESUME_TO - TRAIN_STEPS
+                or int(res2.state.step) != TRAIN_RESUME_TO
+                or not all(math.isfinite(x) for x in res2.losses)):
+            raise AssertionError(f"train: the second call resumed from "
+                                 f"{res2.resumed_from} with losses "
+                                 f"{res2.losses}")
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        if launched:
+            raise AssertionError(f"train launched kernels: {launched}")
+        resumed = (res2.resumed_from, res2.losses, res2.timings)
+        del res2
+    steps_ms = [1e3 * s for s in res.timings["step_s"]]
+    return {"phase": "train",
+            "model": f"{cfg.name}, {TRAIN_LAYERS} of 24 layers, full width, "
+                     f"remat", "params": n_params, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "losses": res.losses, "rollbacks": res.rollbacks,
+            "checkpoints": committed, "resumed_from": resumed[0],
+            "resumed_losses": resumed[1],
+            "replayed_steps_bitwise_equal": first == again,
+            "replayed_losses": {"first_pass": first, "after_restore": again},
+            "step_ms": steps_ms,
+            "step_ms_median": float(np.median(steps_ms[1:])),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+                            / float(np.median(steps_ms[1:])) * 1e3,
+            "checkpoint_bytes": ckpt_bytes,
+            "save_s": res.timings["save_s"] + resumed[2]["save_s"],
+            "restore_s": res.timings["restore_s"] + resumed[2]["restore_s"],
+            "loop_wall_s": wall}
+
+
+def train_cli_phase(torch) -> dict:
+    """``repro_torch.launch.train.main(TRAIN_CLI)`` in this process with a
+    temporary checkpoint directory: returns 0 and prints the reference's
+    summary line."""
+    import io
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d, \
+            contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = train_main(TRAIN_CLI + ["--ckpt-dir", d])
+        wall = time.perf_counter() - t0
+    out = buf.getvalue().strip().splitlines()
+    print("  " + "\n  ".join(out))
+    line = out[-1] if out else ""
+    if rc != 0 or not (line.startswith("arch=h2o-danube-1.8b-reduced ")
+                       and " steps=20 first_loss=" in line):
+        raise AssertionError(f"the training launcher returned {rc}: {line!r}")
+    return {"phase": "train_cli", "argv": TRAIN_CLI, "returncode": rc,
+            "summary": line, "wall_s": wall}
+
+
+TRAIN_CHECKS = (  # (family, config, narrow fields, MoE strategy)
+    ("dense, qk-norm and qkv bias", "qwen3-14b",
+     dict(qkv_bias=True, n_layers=2, d_model=512, n_heads=8, n_kv_heads=2,
+          head_dim=64, d_ff=1024), "auto"),
+    ("windowed", DANUBE, dict(n_layers=2, d_model=640, n_heads=8,
+                              n_kv_heads=2, d_ff=1024, sliding_window=64),
+     "auto"),
+    ("MLA + MoE", "deepseek-v2-lite-16b",
+     dict(n_layers=2, d_model=512, n_heads=4, n_kv_heads=4, head_dim=128,
+          rope_head_dim=64, v_head_dim=128, kv_lora_rank=128, d_ff=1024,
+          n_experts=8, n_experts_per_token=2, n_shared_experts=1,
+          moe_d_ff=256), "capacity"),
+    ("GQA + MoE", SCOUT, dict(n_layers=2, d_model=512, n_heads=10,
+                              n_kv_heads=2, head_dim=64, d_ff=1024,
+                              moe_d_ff=512), "auto"),
+    ("SSM", MAMBA2, dict(n_layers=2, d_model=256, ssm_state=64,
+                         ssm_chunk=64), "auto"),
+    ("hybrid", HYMBA, dict(n_layers=3, global_attn_every=3, d_model=320,
+                           n_heads=5, n_kv_heads=1, head_dim=64, d_ff=640,
+                           sliding_window=64, ssm_chunk=64), "auto"),
+    ("audio", HUBERT, dict(n_layers=2, d_model=320, n_heads=4, n_kv_heads=4,
+                           head_dim=80, d_ff=640), "auto"),
+    ("vision", INTERNVL2, dict(n_layers=2, d_model=768, n_heads=12,
+                               n_kv_heads=2, head_dim=64, d_ff=1024,
+                               n_frontend_tokens=16), "auto"))
+TRAIN_CHECK_LR = 1e-3
+
+
+def check_train(torch) -> list[dict]:
+    """One training step of each family's narrow f32 model (``TRAIN_CHECKS``:
+    2-3 layers at head dims the kernels take) on the card against the same
+    step on the CPU from the same weights and batch (B 2 x 128 positions):
+    the loss within 1e-5 (relative), each gradient leaf within 1e-4 of its
+    norm plus 1e-6 of the whole gradient's, each updated leaf within 1e-5
+    of its magnitude (+1e-6) except at most 1% of its entries, whose
+    gradient is near zero and may take the other sign on one side, moving
+    the weight by up to 2 lr more; a leaf whose gradient is rounding
+    noise (its norm under 1e-6 of the whole gradient's: top-1 routing's
+    router, whose gradient is zero in exact arithmetic) is left out of the
+    update comparison, as Adam scales that noise to steps of ~lr of either
+    sign on either side.  No kernel may launch on the card.
+    Then the narrow vision model's static greedy stream (image embeddings
+    ahead of the prompt) on the card against the CPU: equal, or parting
+    at a near-tie only."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decode_attention.kernel import NAME as DENSE
+    from repro_torch.kernels.flash_attention.kernel import NAME as FLASH
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.engine import ServeEngine
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.loop import batch_to
+    from repro_torch.train.train_step import bind_params
+
+    results = []
+    vision = None
+    for family, name, kw, impl in TRAIN_CHECKS:
+        cfg = dataclasses.replace(get_config(name), name=f"{name}-narrow",
+                                  vocab_size=4000, vocab_pad_multiple=512,
+                                  **kw)
+        cpu = Model(cfg, device="cpu", moe_impl=impl).init(seed=9).float()
+        gpu = Model(cfg, device="cuda", moe_impl=impl).float()
+        gpu.load_state_dict(cpu.state_dict())
+        batch = SyntheticTokenPipeline(cfg, global_batch=2, seq_len=128,
+                                       seed=1).get_batch(0)
+        got = {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            LAUNCHES.clear()
+            b = batch_to(batch, torch.device(dev))
+            state = init_train_state(model)
+            bind_params(model, state.params)
+            model.loss(b).backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in state.params.items()}
+            step = make_train_step(model, AdamWConfig(
+                lr=TRAIN_CHECK_LR, warmup_steps=1, total_steps=10))
+            state, met = step(state, b)
+            got[dev] = (float(met["loss"]), grads,
+                        {n: p.detach().cpu() for n, p in
+                         state.params.items()},
+                        {k: v for k, v in LAUNCHES.items() if v})
+        (lg, gg, pg, launched), (lc, gc_, pc, _) = got["cuda"], got["cpu"]
+        if launched:
+            raise AssertionError(f"{family} training step launched "
+                                 f"{launched} on the card")
+        loss_rel = abs(lg - lc) / abs(lc)
+        total = math.sqrt(sum(float(g.double().norm()) ** 2
+                              for g in gc_.values()))
+        grad_worst, upd_worst, flipped, noise = 0.0, 0.0, 0.0, []
+        for n, g in gc_.items():
+            err = float((gg[n].cpu().double() - g.double()).norm())
+            grad_worst = max(grad_worst, err / max(float(g.double().norm()),
+                                                   1e-30))
+            if not err <= 1e-4 * float(g.double().norm()) + 1e-6 * total:
+                raise AssertionError(f"{family}: gradient {n} card vs CPU "
+                                     f"differs by {err}")
+            if float(g.double().norm()) <= 1e-6 * total:
+                noise.append(n)
+                continue
+            w = pc[n].double()
+            diff = (pg[n].double() - w).abs()
+            tol = 1e-5 * float(w.abs().max()) + 1e-6
+            share = float((diff > tol).double().mean())
+            flipped = max(flipped, share)
+            upd_worst = max(upd_worst, float(diff.max()))
+            if share > 0.01 or float(diff.max()) > tol + 2 * TRAIN_CHECK_LR:
+                raise AssertionError(f"{family}: updated {n} card vs CPU: "
+                                     f"{share:.3g} of entries beyond {tol}, "
+                                     f"max {float(diff.max())}")
+        if not loss_rel <= 1e-5:
+            raise AssertionError(f"{family}: loss {lg} on the card, {lc} on "
+                                 f"the CPU")
+        row = {"case": f"train step, {family} ({name} narrow, "
+                       f"{cfg.n_layers} layers, f32), card vs CPU",
+               "loss_rel_err": loss_rel, "grad_worst_rel_err": grad_worst,
+               "updated_max_abs_err": upd_worst,
+               "updated_share_beyond_tol": flipped,
+               "noise_gradient_leaves": noise, "kernel_launches": {}}
+        print("  check:", json.dumps(row))
+        results.append(row)
+        if cfg.frontend == "vision":
+            vision = (cfg, cpu, gpu)
+        else:
+            del cpu, gpu
+    # the vision model's static greedy stream, card vs CPU
+    cfg, cpu, gpu = vision
+    rng = np.random.default_rng(13)
+    ni = cfg.n_frontend_tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 48)),
+             "image_embeds": rng.standard_normal((2, ni, cfg.d_model)
+                                                 ).astype(np.float32)}
+    streams = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        LAUNCHES.clear()
+        out = ServeEngine(model, device=dev, max_len=128,
+                          cache_dtype=torch.float32).generate(
+            batch, max_new_tokens=16)
+        streams[dev] = (out.tokens.cpu().numpy(),
+                        {k: v for k, v in LAUNCHES.items() if v})
+    launched = streams["cuda"][1]
+    want = {FLASH: cfg.n_layers, DENSE: 15 * cfg.n_layers}
+    if launched != want:
+        raise AssertionError(f"vision static card run launched {launched}, "
+                             f"want {want}")
+    near = []
+    for row, (g, c) in enumerate(zip(streams["cuda"][0], streams["cpu"][0])):
+        if (g == c).all():
+            continue
+        t = int(np.argmax(g != c))
+        with torch.no_grad():
+            toks = torch.as_tensor(np.concatenate([batch["tokens"][row],
+                                                   c[:t]]))[None]
+            img = torch.as_tensor(batch["image_embeds"][row:row + 1])
+            top = cpu.forward({"tokens": toks, "image_embeds": img})[
+                0, -1].topk(2).values
+        gap = float(top[0] - top[1])
+        if not gap < NEAR_TIE:
+            raise AssertionError(f"vision stream {row}: {g} vs {c} (token {t},"
+                                 f" CPU top-2 gap {gap})")
+        near.append({"row": row, "token": t, "cpu_gap": gap})
+    results.append({"case": "internvl2 (narrow, f32) static greedy, image "
+                            "embeddings + prompt, card vs CPU",
+                    "identical": not near, "near_ties": near,
+                    "kernel_launches": launched})
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_phases() -> dict:
+    """The training and frontend phases that build their own models, in
+    their order."""
+    return {"train_hubert": train_hubert_phase, "train": train_phase,
+            "train_cli": train_cli_phase}
+
+
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
                  "kernel_dense_decode", "kernel_exact", "kernel_headdims",
-                 "kernel_hymba", "kernel_flash_mla", "quantize")
+                 "kernel_hymba", "kernel_flash_mla", "kernel_frontends",
+                 "quantize")
 
 
 def main() -> int:
@@ -5031,7 +5904,8 @@ def main() -> int:
                     help="comma-separated phases to run after the build "
                          f"({', '.join(KERNEL_PHASES)}, deployment, check, "
                          "check_mla, check_moe, check_window, check_state, "
-                         "serve_cli, or, on a llama3-8b built "
+                         "serve_cli, train_hubert, train, train_cli, or, on a "
+                         "llama3-8b built "
                          "first, serve, serve_disagg and serve_spec_draft, "
                          "on a "
                          "deepseek-v2-lite-16b built first, "
@@ -5040,7 +5914,9 @@ def main() -> int:
                          f"{', '.join(hymba_phases())}, on llama4-scout at "
                          f"{SCOUT_LAYERS} layers, {', '.join(moe_phases())}, "
                          "on llama4-maverick at one period, "
-                         "serve_moe_maverick; then sim over the serve "
+                         f"serve_moe_maverick, on internvl2-26b at "
+                         f"{VLM_LAYERS} layers, serve_vlm; then sim over the "
+                         "serve "
                          "phases run); a partial run prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5080,12 +5956,14 @@ def main() -> int:
               "kernel_headdims": kernel_headdims_phase,
               "kernel_hymba": kernel_hymba_phase,
               "kernel_flash_mla": kernel_flash_mla_phase,
+              "kernel_frontends": kernel_frontends_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
                                       "cases": check_mla(t)},
               "check_moe": check_moe, "check_window": check_window,
-              "check_state": check_state, "serve_cli": serve_cli_phase}
+              "check_state": check_state, "serve_cli": serve_cli_phase,
+              **train_phases()}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
     model_phases = {"serve": (build_llama, serve_phase),
@@ -5104,7 +5982,8 @@ def main() -> int:
                     **{name: (build_mamba2, fn) for name, fn in
                        mamba2_phases().items()},
                     **{name: (build_hymba, fn) for name, fn in
-                       hymba_phases().items()}}
+                       hymba_phases().items()},
+                    "serve_vlm": (build_vlm, serve_vlm_phase)}
     served = []             # (phase, config as served, result) for sim
     if args.only is not None:
         names = args.only.split(",")
@@ -5135,6 +6014,7 @@ def main() -> int:
     headdims = timed("kernel_headdims", kernel_headdims_phase)
     hymba_kernels = timed("kernel_hymba", kernel_hymba_phase)
     flash_mla = timed("kernel_flash_mla", kernel_flash_mla_phase)
+    frontends = timed("kernel_frontends", kernel_frontends_phase)
     timed("quantize", quantize_phase)
     timed("deployment", deployment_phase)
     model = build_llama(torch)
@@ -5158,7 +6038,8 @@ def main() -> int:
             (build_phi3, phi3_phases()), (build_danube, danube_phases()),
             (build_mamba2, mamba2_phases()), (build_hymba, hymba_phases()),
             (build_deepseek, mla_phases()), (build_scout, moe_phases()),
-            (build_maverick, maverick_phases())):
+            (build_maverick, maverick_phases()),
+            (build_vlm, {"serve_vlm": serve_vlm_phase})):
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -5168,6 +6049,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    trained = {name: timed(name, fn) for name, fn in train_phases().items()}
     timed("serve_cli", serve_cli_phase)
     timed("check", check_phase)
     timed("check_window", check_window)
@@ -5231,6 +6113,22 @@ def main() -> int:
         raise AssertionError(f"{entry['name']} never launched in "
                              f"serve_mla_static")
     kernels.append(entry)
+    # the frontends' shapes: flash at D 80 non-causal from hubert's no-grad
+    # forward, flash at rep 6 and the dense decode at rep 6 from serve_vlm
+    for entry in frontends["entries"]:
+        name = entry["name"]
+        if name.startswith("flash_attention:D80"):
+            entry["launches"] = trained["train_hubert"]["forward"][
+                "flash_launches"].get("flash_attention", 0)
+            entry["launches_in"] = "train_hubert (no-grad forward)"
+        else:
+            entry["launches"] = moe["serve_vlm"]["kernel_launches"].get(
+                name.partition(":")[0], 0)
+            entry["launches_in"] = "serve_vlm"
+        if not entry["launches"]:
+            raise AssertionError(f"{name} never launched in "
+                                 f"{entry['launches_in']}")
+    kernels += frontends["entries"]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

@@ -99,9 +99,15 @@ def _leaf(np_params: dict, name: str, locs):
 
 
 def params_from_jax(np_params: dict, cfg: ModelConfig,
-                    device: str | torch.device = "cuda") -> Model:
-    """A ``Model`` on ``device`` holding exactly the reference's weights."""
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype | None = None) -> Model:
+    """A ``Model`` on ``device`` holding exactly the reference's weights.
+    ``dtype``: the floating dtype of every parameter, for a reference tree
+    of one dtype (an f32 cast of the weights, or their f32 gradients);
+    None keeps the model's own (bf16 projections, f32 norms)."""
     model = Model(cfg, device)
+    if dtype is not None:
+        model.to(dtype)
     if len(np_params["stacks"]) != len(model.plan) or any(
             len(st) != len(seg.kinds)
             for st, seg in zip(np_params["stacks"], model.plan)):

@@ -1,6 +1,6 @@
 """Architecture config registry of the port.
 
-A copy of ``repro.configs`` for the architectures the port serves so far:
+A copy of ``repro.configs``, all 14 of its architectures:
 the ``attn_dense`` family (plain GQA, qk-norm, qkv bias): llama3-8b,
 -70b and -405b, qwen3-14b, qwen2.5-14b; deepseek-v2-lite-16b (MLA
 attention, MoE with shared experts, a first dense layer); and the
@@ -11,7 +11,11 @@ phi3-mini-3.8b (full MHA at head dim 96), h2o-danube-1.8b (GQA at
 head dim 80, every layer a 4096-token sliding window), mamba2-370m (the
 ``ssm`` family: Mamba2 SSD blocks, no attention) and hymba-1.5b (the
 ``hybrid`` family: attention and SSM heads side by side in every layer,
-a 1024-token window on all but three).  ``get_config``
+a 1024-token window on all but three), and the two modality frontends:
+hubert-xlarge (an encoder-only, non-causal audio model at head dim 80:
+``in_proj`` of precomputed frame features, no decode step) and
+internvl2-26b (an InternLM2 backbone with 256 image embeddings ahead of
+the text tokens).  ``get_config``
 accepts the registry id (``qwen2.5-14b``) or the module name
 (``qwen2_5_14b``); ``reduced_config`` is the reference's tiny same-family
 config for CPU parity tests, field for field.
@@ -36,6 +40,8 @@ _ARCH_MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mamba2-370m": "mamba2_370m",
     "hymba-1.5b": "hymba_1_5b",
+    "hubert-xlarge": "hubert_xlarge",
+    "internvl2-26b": "internvl2_26b",
 }
 
 
@@ -47,8 +53,8 @@ def get_config(name: str) -> ModelConfig:
                 key = k
                 break
     if key is None:
-        raise KeyError(f"unknown or unported architecture {name!r}; the "
-                       f"port knows {list(_ARCH_MODULES)}")
+        raise KeyError(f"unknown architecture {name!r}; know "
+                       f"{list(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[key]}")
     return mod.CONFIG
 

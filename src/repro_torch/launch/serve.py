@@ -33,6 +33,8 @@ tensor parallelism is not ported) both phase engines share the one device.
 ``--sku`` / ``--hbmco`` / ``--weight-format`` size the engine from a
 ``DeploymentSpec``; ``--fleet`` hands every other argument to
 ``repro_torch.launch.fleet`` (simulate, ``--plan``, ``--calibrate``).
+A vision model (``--arch internvl2-26b``) serves statically through
+``ServeEngine``: each prompt behind 8 random image embeddings.
 
 The model runs on the card unless ``--device cpu`` is given; its weights
 are random, from ``--seed``, and so are the prompts (a ``torch.Generator``
@@ -63,6 +65,10 @@ from repro_torch.runtime.sampling import SamplingParams
 # narrow dtype + per-token, per-KV-head f32 scales beside them in the pool
 CACHE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
                 "f32": torch.float32, "fp8": "fp8", "int8": "int8"}
+
+# image embeddings ahead of each prompt of a vision model (random, as the
+# reference's launcher makes them; its frontend is a stub)
+VISION_IMAGES = 8
 
 
 def parse_mix(spec: str, base: SamplingParams) -> list[SamplingParams]:
@@ -331,6 +337,28 @@ def main(argv=None) -> int:
 
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen).numpy()
+    if cfg.frontend == "vision" and backend == "static":
+        # vision frontends serve batch dicts (tokens + image embeddings)
+        # through ServeEngine directly; LLMEngine fronts token-only
+        # requests
+        from repro_torch.runtime.engine import ServeEngine
+        batch = {"tokens": prompts,
+                 "image_embeds": torch.randn(
+                     (args.batch, VISION_IMAGES, cfg.d_model), generator=gen
+                 ).to(torch.bfloat16)}
+        eng = ServeEngine(model, device=device,
+                          max_len=max_len + VISION_IMAGES)
+        t0 = time.time()
+        out = eng.generate(batch, max_new_tokens=args.max_new,
+                           sampling_params=base)
+        dt = time.time() - t0
+        toks = out.tokens.cpu().numpy()
+        n_tok = toks.size
+        print(f"arch={cfg.name} backend=static(vision) "
+              f"batch={args.batch} new_tokens={toks.shape[1]} "
+              f"device={device} wall={dt:.2f}s ({n_tok / dt:.1f} tok/s)")
+        print("sample:", toks[0, :16].tolist())
+        return 0
     if backend == "speculative":
         llm = LLMEngine(model, backend="speculative", device=device,
                         max_len=max_len,

@@ -16,6 +16,15 @@ window entries that has wrapped holds exactly the positions in the
 window).  ``kernel_path`` makes that choice, once, for both.  The cache
 is written in place.
 
+Under autograd (a training step's forward, and its recompute under
+``remat``) full-sequence attention is the plain ``blocked_attention`` on
+every device, as the reference's training forward is: no Pallas kernel
+there has a backward, and neither has the flash kernel here.
+``attention_kernel_path`` is that rule, for GQA and MLA alike; each call
+it sends to the plain path for autograd counts in ``AUTOGRAD_ATTENTION``,
+so a training step's attention calls are counted beside the kernels'
+launches.
+
 Parameters live in ``nn.Module``s whose attribute names are the reference
 pytree's keys (``wq``, ``bk``, ``q_norm``, ``w_gate`` ...), with the same
 shapes and dtypes, so the weight bridge is a rename-free copy.  In a
@@ -123,8 +132,27 @@ def kernel_path(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+# full-sequence attention calls that ran the plain path because autograd
+# records through them (the training forward and its recompute), by family
+AUTOGRAD_ATTENTION = {"gqa": 0, "mla": 0}
+
+
+def attention_kernel_path(family: str, q, k, v) -> bool:
+    """The dispatch rule of full-sequence attention (``attn_forward``,
+    ``attn_prefill``, MLA's expanded form): the flash kernel on CUDA
+    tensors when no autograd graph records through q, k or v; the plain
+    ``blocked_attention`` on the CPU, and under autograd on every device
+    (counted in ``AUTOGRAD_ATTENTION[family]``), as the reference's
+    training forward runs plain attention under ``jax.value_and_grad``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        AUTOGRAD_ATTENTION[family] += 1
+        return False
+    return kernel_path(q.device)
+
+
 def _full_attention(q, k, v, cfg: ModelConfig, window):
-    if kernel_path(q.device):
+    if attention_kernel_path("gqa", q, k, v):
         return flash_attention(q, k, v, causal=cfg.causal, window=window)
     return blocked_attention(q, k, v, causal=cfg.causal, window=window)
 
@@ -273,8 +301,9 @@ def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
     .); c_kv (B, Skv, r), k_rope (B, Skv, rhd).  With ``q_offset`` 0 on a
     CUDA device (static prefill, ``Model.forward``) the flash kernel runs
     it (D 192 / Dv 128, the expanded heads as H = KVH); a query offset
-    (the paged chunk) and the CPU take the plain ``blocked_attention``,
-    which is what the reference runs."""
+    (the paged chunk), the CPU and autograd (``attention_kernel_path``)
+    take the plain ``blocked_attention``, which is what the reference
+    runs."""
     b, s_kv, _ = c_kv.shape
     h, hd, rhd, vhd = cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_hd
     # a pool of another dtype than the weights multiplies in the wider one
@@ -285,8 +314,8 @@ def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s_kv, h, rhd)],
                   dim=-1)
-    if (kernel_path(q.device) and not torch.is_tensor(q_offset)
-            and q_offset == 0):
+    if (not torch.is_tensor(q_offset) and q_offset == 0
+            and attention_kernel_path("mla", q, k, v)):
         # one dtype for the kernel: the pool-wider k/v round to q's
         return flash_attention(q, k.to(q.dtype), v.to(q.dtype),
                                causal=cfg.causal)

@@ -39,6 +39,25 @@ call's new state.  Continuously it lives in per-slot pools
 zeroed where the chunk starts at 0, and scatters the rows of real rows
 back; ``decode_step_paged`` commits the rows ``state_ok`` marks.  Both
 write the pools in place.
+
+Modality frontends (stubs, as in the reference: the features and image
+embeddings are inputs).  An ``audio`` model (hubert-xlarge, encoder-only)
+holds ``in_proj`` (d x d) and ``head`` instead of an embedding: its input
+is ``features @ in_proj``, and it has no decode step.  A ``vision`` model
+(internvl2-26b) puts a batch's ``image_embeds`` ahead of the token
+embeddings.  ``forward``, ``prefill`` and ``loss`` take the reference's
+batch dicts (``{"tokens"}``, ``{"tokens", "image_embeds"}``,
+``{"features"[, "labels"]}``; a bare (B, S) token tensor for the first
+two); the paged entries serve tokens only.
+
+Training: ``forward`` runs under autograd when the weights require
+gradients (``train.train_step`` binds trainable ones); ``remat=True``
+keeps only each layer's input and recomputes the layer in the backward
+pass (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
+a segment step).  ``loss`` is the reference's mean cross-entropy.
+Attention under autograd is the plain ``blocked_attention`` on every
+device (``layers.attention_kernel_path``), so a training step launches no
+hand-written kernel, as the reference's runs no Pallas one.
 """
 from __future__ import annotations
 
@@ -47,6 +66,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention_backends as ab
@@ -380,9 +400,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda",
                  moe_impl: str = "auto"):
         super().__init__()
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.frontend} frontends are not ported")
         self.cfg = cfg
         self.plan = build_plan(cfg)
         self.device = resolve_device(device)
@@ -393,17 +410,20 @@ class Model(nn.Module):
         # stateful serving: a kind carrying per-slot recurrent state
         self.needs_state = any(ab.layout_for_kind(k).state for k, _ in kinds)
         dev = self.device
-        self.embed = nn.Parameter(torch.empty(
-            (cfg.padded_vocab, cfg.d_model), dtype=PARAM_DTYPE, device=dev),
-            requires_grad=False)
+
+        def param(shape, dtype=PARAM_DTYPE):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
+                                requires_grad=False)
+        d, v = cfg.d_model, cfg.padded_vocab
+        if cfg.frontend == "audio":
+            self.in_proj = param((d, d))
+        else:
+            self.embed = param((v, d))
         self.layers = nn.ModuleList(Block(kind, cfg, dev, moe_impl)
                                     for kind, _ in kinds)
-        self.final_norm = nn.Parameter(torch.empty(
-            (cfg.d_model,), dtype=NORM_DTYPE, device=dev), requires_grad=False)
-        if not cfg.tie_embeddings:
-            self.head = nn.Parameter(torch.empty(
-                (cfg.d_model, cfg.padded_vocab), dtype=PARAM_DTYPE,
-                device=dev), requires_grad=False)
+        self.final_norm = param((d,), NORM_DTYPE)
+        if cfg.frontend == "audio" or not cfg.tie_embeddings:
+            self.head = param((d, v))
 
     # ----- init -----
     @torch.no_grad()
@@ -426,10 +446,43 @@ class Model(nn.Module):
             elif blk.kind != "ssm":
                 layers.init_mlp(blk.mlp, gen)
         self.final_norm.fill_(1.0)
-        self.embed.copy_(embed_init(gen, cfg.padded_vocab, cfg.d_model))
-        if not cfg.tie_embeddings:
+        if cfg.frontend == "audio":
+            self.in_proj.copy_(dense_init(gen, cfg.d_model, cfg.d_model))
+        else:
+            self.embed.copy_(embed_init(gen, cfg.padded_vocab, cfg.d_model))
+        if hasattr(self, "head"):
             self.head.copy_(dense_init(gen, cfg.d_model, cfg.padded_vocab))
         return self
+
+    # ----- inputs -----
+    def _embed_inputs(self, batch) -> torch.Tensor:
+        """(B, S, D) inputs of a batch: ``features @ in_proj`` (audio, the
+        features in bf16), the ``image_embeds`` ahead of the token
+        embeddings (vision), or the token embeddings.  ``batch``: the
+        reference's dict, or a bare (B, S) token tensor."""
+        if torch.is_tensor(batch):
+            batch = {"tokens": batch}
+        if self.cfg.frontend == "audio":
+            feats = batch["features"].to(torch.bfloat16)
+            # an f32 model multiplies the bf16 features in f32, as jnp
+            # promotes them
+            return feats.to(torch.promote_types(feats.dtype,
+                                                self.in_proj.dtype)) @ self.in_proj
+        x = self.embed[batch["tokens"].long()]
+        if self.cfg.frontend == "vision" and "image_embeds" in batch:
+            x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+        return x
+
+    def _tokens_only(self, what: str) -> None:
+        """The paged entries serve token prompts only (the reference
+        asserts it)."""
+        if self.cfg.frontend is not None:
+            raise NotImplementedError(what)
+
+    def _no_encoder_decode(self) -> None:
+        if self.cfg.frontend == "audio":
+            raise NotImplementedError(
+                "encoder-only models have no decode step")
 
     # ----- head -----
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -444,16 +497,47 @@ class Model(nn.Module):
                 logits = logits.masked_fill(pad, -1e30)
         return logits
 
-    # ----- forward (full-sequence scoring, no cache) -----
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) -> (B, S, V) logits; every layer attends causally
-        over the whole sequence (the flash kernel on CUDA)."""
+    # ----- forward (training / full-sequence scoring, no cache) -----
+    def forward(self, batch, *, remat: bool = False) -> torch.Tensor:
+        """batch (``_embed_inputs``) -> (B, S, V) logits, every layer over
+        the whole sequence (causally unless the config is an encoder).
+        Without gradients the flash kernel runs each layer's attention on
+        CUDA; under autograd the plain ``blocked_attention`` does
+        (``layers.attention_kernel_path``).  ``remat``: under autograd,
+        keep only each layer's input and recompute the layer in the
+        backward pass (``torch.utils.checkpoint``, non-reentrant)."""
         cfg = self.cfg
-        x = self.embed[tokens.long()]                       # (B, S, D)
+        x = self._embed_inputs(batch)                       # (B, S, D)
+        remat = remat and torch.is_grad_enabled()
         for win, blk in zip(self.windows, self.layers):
-            x = _block_forward(blk, x, cfg, win)
+            if remat:
+                x = checkpoint(_block_forward, blk, x, cfg, win,
+                               use_reentrant=False)
+            else:
+                x = _block_forward(blk, x, cfg, win)
         return self._head(x)
+
+    # ----- loss -----
+    @staticmethod
+    def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy, the vocab axis reduced in f32 (pad columns
+        sit at -1e30, as ``_head`` leaves them)."""
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+        return torch.mean(lse - tgt)
+
+    def loss(self, batch: dict, *, remat: bool = False) -> torch.Tensor:
+        """The reference's three branches: audio against ``labels``; vision
+        drops the image positions, then predicts each next token; tokens
+        predict each next token."""
+        logits = self.forward(batch, remat=remat)
+        if self.cfg.frontend == "audio":
+            return self._xent(logits, batch["labels"])
+        tokens = batch["tokens"]
+        if self.cfg.frontend == "vision":
+            logits = logits[:, batch["image_embeds"].shape[1]:]
+        return self._xent(logits[:, :-1], tokens[:, 1:])
 
     # ----- dense cache (static-batch serve) -----
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
@@ -480,11 +564,12 @@ class Model(nn.Module):
         return caches
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: list) -> torch.Tensor:
-        """Run the full prompt (B, S), fill the cache in place; returns the
-        (B, V) logits at the last prompt position."""
+    def prefill(self, batch, cache: list) -> torch.Tensor:
+        """Run the full prompt (a batch of ``_embed_inputs``; image
+        positions first), fill the cache in place; returns the (B, V)
+        logits at the last prompt position."""
         cfg = self.cfg
-        x = self.embed[tokens.long()]                       # (B, S, D)
+        x = self._embed_inputs(batch)                       # (B, S, D)
         for win, blk, c in zip(self.windows, self.layers, cache):
             x = _block_prefill(blk, x, cfg, win, c)
         return self._head(x[:, -1:, :])[:, 0]
@@ -495,6 +580,7 @@ class Model(nn.Module):
         """One static decode step: tokens (B,) sit at position ``cur_pos``
         (an int, shared by every row); the cache is written in place.
         Returns (B, V) logits."""
+        self._no_encoder_decode()
         cfg = self.cfg
         cur_pos = int(cur_pos)
         b = tokens.shape[0]
@@ -615,6 +701,7 @@ class Model(nn.Module):
 
     def _prefill_chunk_body(self, tokens, pools, page_table, start, valid,
                             states, ring_table, slot_idx) -> torch.Tensor:
+        self._tokens_only("chunked paged prefill serves tokens only")
         states = self._check_states(states)
         cfg = self.cfg
         x = self.embed[tokens.long()]                       # (B, C, D)
@@ -656,6 +743,8 @@ class Model(nn.Module):
         A stateful model threads ``states`` (``init_state_pools``, B ==
         slots) and ``state_ok`` (B,) bool, the slots that decode this
         step: only their state rows commit."""
+        self._no_encoder_decode()
+        self._tokens_only("continuous batching serves token frontends only")
         if tokens.ndim == 2:
             if states is not None:
                 raise NotImplementedError(

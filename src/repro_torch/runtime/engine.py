@@ -170,7 +170,12 @@ class ServeEngine:
     is left as it was).  A quantized ``cache_dtype`` raises, as in the
     reference: the dense cache stays a plain dtype.  ``spec=`` (a
     ``DeploymentSpec``) supplies ``max_len``, ``cache_dtype`` and
-    ``weight_format`` where they are not passed."""
+    ``weight_format`` where they are not passed.
+
+    A batch is the reference's dict: ``{"tokens"}``, a vision model's
+    ``{"tokens", "image_embeds"}`` (the image positions come first and
+    count in the prompt length and the cache) or an audio model's
+    ``{"features"}`` (prefill only: an encoder has no decode step)."""
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
                  max_len: int | None = None, spec=None,
@@ -206,25 +211,28 @@ class ServeEngine:
 
     # -- phase 1: prefill ---------------------------------------------------
     def prefill(self, batch: dict):
-        """Run the prompt; returns (first_token_logits, cache, prompt_len)."""
-        return self._prefill(self._tokens(batch))
+        """Run the prompt; returns (first_token_logits, cache, prompt_len),
+        the prompt length counting a vision batch's image positions."""
+        return self._prefill(self._inputs(batch))
 
-    def _prefill(self, tokens: torch.Tensor):
-        cache = self.model.init_cache(tokens.shape[0], self.max_len,
+    def _prefill(self, inputs: dict):
+        first = inputs["features" if "features" in inputs else "tokens"]
+        cache = self.model.init_cache(first.shape[0], self.max_len,
                                       dtype=self.cache_dtype)
-        logits = self.model.prefill(tokens, cache)
-        return logits, cache, tokens.shape[1]
+        logits = self.model.prefill(inputs, cache)
+        return logits, cache, _prompt_len(inputs)
 
-    def _tokens(self, batch: dict) -> torch.Tensor:
-        """The (B, S) prompt tokens of ``batch`` on the engine's device."""
-        if set(batch) != {"tokens"}:
-            raise NotImplementedError(
-                f"batch keys {sorted(batch)}: the port serves token "
-                f"prompts only (modality frontends are not ported)")
-        toks = batch["tokens"]
-        if not torch.is_tensor(toks):
-            toks = torch.as_tensor(np.asarray(toks))
-        return toks.to(self.device)
+    def _inputs(self, batch: dict) -> dict:
+        """``batch``'s arrays as tensors on the engine's device."""
+        if set(batch) not in ({"tokens"}, {"tokens", "image_embeds"},
+                              {"features"}):
+            raise ValueError(f"batch keys {sorted(batch)}: expected tokens, "
+                             f"tokens + image_embeds, or features")
+        out = {}
+        for key, a in batch.items():
+            t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+            out[key] = t.to(self.device)
+        return out
 
     def _resolve_params(self, b: int, sampling_params) -> list[SamplingParams]:
         if sampling_params is None:
@@ -248,8 +256,10 @@ class ServeEngine:
         token.  ``sampling_params``: one ``SamplingParams`` for the batch
         or a per-row list.  Stop-token truncation is the caller's concern
         (the loop has a fixed trip count); ``LLMEngine`` applies it."""
-        tokens = self._tokens(batch)
-        b, plen = tokens.shape
+        inputs = self._inputs(batch)
+        tokens = inputs.get("tokens")
+        b = inputs["features" if tokens is None else "tokens"].shape[0]
+        plen = _prompt_len(inputs)
         if plen + max_new_tokens > self.max_len:
             raise ValueError(f"{plen}-token prompts + {max_new_tokens} new "
                              f"tokens exceed max_len={self.max_len}")
@@ -269,11 +279,12 @@ class ServeEngine:
         pres = torch.zeros((b, self.model.cfg.padded_vocab), dtype=torch.bool,
                            device=dev)
         rows = torch.arange(b, device=dev)
-        pres.index_put_((rows[:, None], tokens.long()), true)
+        if tokens is not None:
+            pres.index_put_((rows[:, None], tokens.long()), true)
         kw = dict(max_top_k=self.max_top_k, rep_penalty=rep,
                   bias_ids=bias_ids, bias_vals=bias_vals, presence=pres)
         t0 = time.monotonic()
-        logits, cache, plen = self._prefill(tokens)
+        logits, cache, plen = self._prefill(inputs)
         # the first new token sits at sequence index plen
         draw_pos = torch.full((b,), plen, dtype=torch.int32, device=dev)
         nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp, seed,
@@ -300,6 +311,17 @@ class ServeEngine:
                       if any(sp.logprobs for sp in sps) else None),
             steps=max_new_tokens, prefill_s=t1 - t0,
             decode_s=time.monotonic() - t1)
+
+
+def _prompt_len(inputs: dict) -> int:
+    """Positions of a static prompt: its tokens after a vision batch's
+    image embeddings, or an audio batch's frames."""
+    if "features" in inputs:
+        return inputs["features"].shape[1]
+    n = inputs["tokens"].shape[1]
+    if "image_embeds" in inputs:
+        n += inputs["image_embeds"].shape[1]
+    return n
 
 
 @dataclasses.dataclass
@@ -408,6 +430,9 @@ class ContinuousServeEngine:
                  mesh=None, max_decode_slots: int | None = None,
                  speculative: SpeculativeConfig | None = None,
                  phase: str = "colocated"):
+        if model.cfg.frontend is not None:
+            raise NotImplementedError(
+                "continuous batching serves token frontends only")
         if phase not in ("colocated", "prefill", "decode"):
             raise ValueError(f"phase={phase!r}: expected 'colocated', "
                              f"'prefill', or 'decode'")

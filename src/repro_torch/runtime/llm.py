@@ -325,7 +325,8 @@ class LLMEngine:
             # score the prompt with one forward: position k's log-softmax
             # row scores prompt token k+1 (raw model scores — the
             # generation-side processors don't apply to the prompt)
-            logits = eng.model.forward(batch)
+            with torch.no_grad():
+                logits = eng.model.forward(batch)
             ls = torch.log_softmax(logits.float(), dim=-1)
             plps = torch.gather(ls[:, :-1], -1,
                                 batch[:, 1:, None].long())[..., 0].cpu()

@@ -94,6 +94,48 @@ def test_speculative_entry_points_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "train/__init__.py", "train/optimizer.py", "train/train_step.py",
+    "train/checkpoint.py", "train/loop.py", "data/__init__.py",
+    "data/pipeline.py", "launch/train.py", "configs/hubert_xlarge.py",
+    "configs/internvl2_26b.py"])
+def test_training_and_frontend_modules_are_checked(module):
+    """The training substrate, the data pipeline, the training launcher
+    and the frontend configs are among the files checked below."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_training_entry_points_import_without_jax():
+    """A fresh interpreter in which jax, repro and ml_dtypes cannot be
+    imported (the card's machine has no ml_dtypes) imports the training
+    substrate and launcher, and writes and restores a bf16 checkpoint."""
+    import subprocess
+    import sys
+    import tempfile
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
+            "import torch\n"
+            "from repro_torch.launch.train import main\n"
+            "from repro_torch.data import SyntheticTokenPipeline\n"
+            "from repro_torch.train import (AdamWConfig, init_train_state,\n"
+            "    make_train_step, run_training, save_checkpoint,\n"
+            "    restore_latest)\n"
+            "from repro_torch.configs import get_config, reduced_config\n"
+            "from repro_torch.models.model import Model\n"
+            "m = Model(reduced_config(get_config('hubert-xlarge')), 'cpu')\n"
+            "st = init_train_state(m, seed=0)\n"
+            "save_checkpoint(sys.argv[1], 1, st)\n"
+            "back, step = restore_latest(sys.argv[1], st)\n"
+            "assert step == 1 and torch.equal(back.params['in_proj'],\n"
+            "                                 st.params['in_proj'])\n")
+    with tempfile.TemporaryDirectory() as d:
+        res = subprocess.run([sys.executable, "-c", code, d],
+                             capture_output=True, text=True,
+                             env={"PYTHONPATH": str(ROOT / "src"),
+                                  "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_import(path):
