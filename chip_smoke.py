@@ -15,7 +15,7 @@ kernels and the TPU kernels they replace (``REPLACES``, ``VMM_REPLACES``,
     dense_decode.cu     src/repro/kernels/decode_attention/kernel.py:67
 
 ``--only kernel_exact,check`` (any of the kernel phases, quantize,
-deployment, check, check_mla, check_moe, check_window, check_state; serve and
+deployment, dryrun, check, check_mla, check_moe, check_window, check_state; serve and
 serve_spec_draft on a llama3-8b built first; serve_phi3,
 serve_phi3_static, serve_phi3_quantized and serve_phi3_spec on a
 phi3-mini-3.8b built first; serve_danube, serve_danube_static and
@@ -276,18 +276,21 @@ Phases, each of which fails the run if it fails:
    prefill, dense decode over the wrapped 4096-entry ring); mxfp4 + fp8
    KV on the mix's first 4 requests.
 13d. serve_mamba2, serve_mamba2_static — after danube is freed,
-   mamba2-370m at full size (48 layers of the Mamba2 SSD mixer, d_model
-   1024, state 128, 0.74 GB): continuous bf16 on the serve phase's mix
-   (no prefix hit: a pure-state model has no full space; its per-slot
-   state pools, 50.99 MB a slot, held against ``state_bytes_per_slot``;
+   mamba2-370m at full width and ``MAMBA2_LAYERS`` (24) of its 48 layers
+   of the Mamba2 SSD mixer (all 48 until the dryrun phase, which runs
+   the full depth, joined; d_model 1024, state 128): continuous bf16 on
+   the serve phase's mix (no prefix hit: a pure-state model has no full
+   space; its per-slot state pools, 25.5 MB a slot at 24 layers, held
+   against ``state_bytes_per_slot``;
    a scored prompt against ``Model.forward``) and static 8 x 1024.  The
    reference computes the mixer in plain jnp, so no kernel may launch;
    the traced steps split device time by the ``ssm_mixer`` range.
 13e. serve_hymba, serve_hymba_static, serve_hymba_quantized — after
-   mamba2 is freed, hymba-1.5b at full width and ``HYMBA_LAYERS`` (16) of
-   its 32 layers (all 32 until the training phases joined; GQA attention,
-   25 heads over 5 at D 64, beside a Mamba2 mixer of 50 heads, state 16;
-   global at layers 0 and 15, a 1024-token window elsewhere; 1.7 GB):
+   mamba2 is freed, hymba-1.5b at full width and ``HYMBA_LAYERS`` (8) of
+   its 32 layers (32 until the training phases joined, 16 until the
+   dryrun phase did; GQA attention, 25 heads over 5 at D 64, beside a
+   Mamba2 mixer of 50 heads, state 16; global at layers 0 and 7, a
+   1024-token window elsewhere):
    continuous bf16 on ``HYMBA_MIX`` (2 prompts of 3072 tokens and 2 of
    1500 with 256 new, past the window, whose rings wrap while decoding; 4
    of 512 with 64 new, two sharing a 384-token prefix; page 16, chunk
@@ -400,6 +403,19 @@ Phases, each of which fails the run if it fails:
    decode step are the readings); the flash kernel once a layer in the
    prefill (rep 6), the dense decode kernel once a layer a step; the
    device time of 4 decode steps (as serve_static).
+20d'. kernel_dryrun (with the kernel phases) — flash at qwen3-14b's
+   prefill_32k (B 1, S 32768, H 40, KVH 8, D 128, causal; held against
+   ``blocked_attention``) and the dense decode at qwen3-14b's decode_32k
+   (B 4 x 32768 entries, rep 5, D 128) and hymba-1.5b's long_500k global
+   layers (B 1 x 524288 entries, D 64, rep 5), each also at a ragged
+   cur_len, then timed beside its bound, plain version and SDPA.
+   dryrun — after serve_vlm, the dry-run's five card cells
+   (``DRYRUN_CELLS``) through ``launch.dryrun.run_cell(device="cuda")``:
+   each counted on meta at the card's rows (FLOPs, ``bound_bytes``,
+   ``bound_s`` from the H100's data sheet), then timed at full width and
+   depth (a warm-up step, the median wall of 2, the busy ms of a profiled
+   one, peak GB); every kernel the count saw launched 4 times as often on
+   the card and no other, and each step's output is finite.
 20e. train_hubert — hubert-xlarge at full size (48 layers, 1.26 B
    params): a no-grad ``Model.forward`` over B 4 x 1500 frames (48
    non-causal flash launches at D 80; its logits against the plain
@@ -412,9 +428,9 @@ Phases, each of which fails the run if it fails:
    the model-FLOPs share of 989 TFLOP/s, peak GB, and the plain
    attention's share of a traced step's device time (a layer's attention
    timed alone, times 48).
-20f. train — h2o-danube-1.8b at full width and 4 of its 24 layers
+20f. train — h2o-danube-1.8b at full width and 2 of its 24 layers
    through ``run_training`` (remat, B 4 x 2048, 12 steps, a checkpoint
-   every 5 and at the last, ~4.4 GB each): an injected failure at step 8
+   every 5 and at the last, ~3 GB each): an injected failure at step 8
    restores step 5 (the replayed steps' losses compared bit for bit with
    the first pass's), then a second call on the same directory resumes
    at 12 and runs to 14; step ms, save and restore seconds and bytes.
@@ -437,7 +453,8 @@ the kernels line (the six kernels at llama3-8b's shapes, then their D 96
 and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections,
 then the same kernels at hymba's shapes, then flash at D 192 / Dv 128,
 then flash at hubert's and internvl2's shapes and the dense decode at
-internvl2's; ``launches`` from the serve phase that runs each, on its own
+internvl2's, then flash at S 32768 and the dense decode at 32768 and
+524288 entries (launches from the dryrun phase's cells); ``launches`` from the serve phase that runs each, on its own
 model, or hubert's no-grad forward), and
 last ``{"ok": true, "device": {...}}``.
 """
@@ -456,9 +473,14 @@ from pathlib import Path
 
 import numpy as np
 
-PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,   # dense, no sparsity
-                  "fp8": 1979e12, "int8": 1979e12}
+# the port's package, from the checkout this script sits in (outside a
+# checkout of the repo the import fails and the script exits non-zero)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.kernels.cost import (  # noqa: E402
+    PEAK_OPS_PER_S, dense_bound, flash_bound, paged_bound,
+    vmm_bound, vmm_bytes,
+)
+
 KERNEL_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu"
 REPLACES = "src/repro/kernels/decode_attention/paged_kernel.py:150"
 VMM_SOURCE = "src/repro_torch/kernels/mxfp4_vmm/csrc/mxfp4_vmm.cu"
@@ -517,11 +539,12 @@ def paged_case(torch, rng, B, n_blocks, dtype, pos, dev, geom=GEOM):
             torch.as_tensor(pos.astype(np.int32), device=dev))
 
 
-def time_ms(torch, fn, flush, iters=30) -> float:
+def time_ms(torch, fn, flush, iters=30, warmup=3) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each after a
     512 MB memset that evicts the 50 MB L2 (the serve path meets every
-    layer's pages cold) and keeps the device busy while the host enqueues."""
-    for _ in range(3):
+    layer's pages cold) and keeps the device busy while the host enqueues;
+    ``warmup`` calls first."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
@@ -545,14 +568,6 @@ def stream_read_ms(torch, nbytes: int, flush) -> float:
     return ms
 
 
-def roofline(nbytes: int, ops: int, ops_type: str) -> tuple[float, str]:
-    """The larger of bytes over the memory rate and ops over the peak rate
-    of their type, in ms, and which of the two it is."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[ops_type] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def ratios(row: dict) -> dict:
     """The timing line's yardsticks that survive a change of card: the
     kernel's time over the library call's, and the bound over the
@@ -561,31 +576,6 @@ def ratios(row: dict) -> dict:
         row["kernel_over_library"] = row["ms"] / row["library_ms"]
     row["bound_over_kernel"] = row["bound_ms"] / row["ms"]
     return row
-
-
-def paged_bound(pos, window, B, dtype_name, itemsize, q_itemsize=None,
-                scale_itemsize=0, C=1, geom=GEOM) -> tuple[float, str]:
-    """Least time for the work of a paged decode (C 1) or verify (C > 1)
-    launch: each slot's live K/V tokens read once for all C queries (codes
-    and, for code pools, their per-token scales), q read and out written
-    once, plus the live table entries and positions; ops are q.k and p.v,
-    4 flops per visible (query, key) pair, head and head dim, at the
-    pools' peak rate."""
-    h, kvh, d, page = geom
-    q_itemsize = itemsize if q_itemsize is None else q_itemsize
-    last = pos + C - 1
-    lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
-    tokens = int(np.sum(last - lo + 1))
-    pages = int(np.sum(last // page - lo // page + 1))
-    visible = 0
-    for j in range(C):
-        p = pos + j
-        first = (np.zeros_like(p) if window is None
-                 else np.maximum(p - window + 1, 0))
-        visible += int(np.sum(p - first + 1))
-    nbytes = (2 * tokens * kvh * (d * itemsize + scale_itemsize)
-              + 2 * B * C * h * d * q_itemsize + 4 * pages + 4 * B)
-    return roofline(nbytes, 4 * visible * h * d, dtype_name)
 
 
 def build_phase() -> None:
@@ -702,7 +692,7 @@ def kernel_phase(torch) -> dict:
                **sdpa_ms(torch, F, q, k_d, v_d, mask, flush)}
         row["library_ms"] = min(row["sdpa_gqa_ms"], row["sdpa_repeat_ms"])
         row["bound_ms"], row["bound_by"] = paged_bound(pos, None, B, "bfloat16",
-                                                      2)
+                                                      2, geom=GEOM)
         row["stream_read_ms"] = stream_read_ms(
             torch, 2 * B * ctx * KVH * D * 2, flush)
         timings.append(ratios(row))
@@ -825,7 +815,8 @@ def kernel_scaled_phase(torch) -> dict:
             row["sdpa_on_dequantized_bf16_ms"] = min(row["sdpa_gqa_ms"],
                                                      row["sdpa_repeat_ms"])
             row["bound_ms"], row["bound_by"] = paged_bound(
-                pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4)
+                pos, None, B, cache_dtype, 1, q_itemsize=2, scale_itemsize=4,
+                geom=GEOM)
             # 1-byte codes and a 4-byte scale per token and kv head, K and V
             row["stream_read_ms"] = stream_read_ms(
                 torch, 2 * B * ctx * KVH * (D + 4), flush)
@@ -922,17 +913,6 @@ def vmm_calls():
         yield seen
     finally:
         ops.mxfp4_vmm_group = launch
-
-
-def vmm_bytes(m: int, k: int, ns) -> int:
-    """Codes (K/2 x N) and scales (K/32 x N) of each weight and bf16 x read
-    once, bf16 outputs written once (the serve path's output)."""
-    return sum(k * n // 2 + k * n // 32 + 2 * m * n for n in ns) + 2 * m * k
-
-
-def vmm_bound(m: int, k: int, ns) -> tuple[float, str]:
-    """``vmm_bytes`` against 2 M K N operations on bf16 tensor cores."""
-    return roofline(vmm_bytes(m, k, ns), 2 * m * k * sum(ns), "bfloat16")
 
 
 def kernel_mxfp4_phase(torch) -> dict:
@@ -1127,26 +1107,6 @@ def ulp_limit_share(out, ref, atol) -> float:
     return ((out.float() - ref).abs() / limit).max().item()
 
 
-def window_pairs(Sq, Skv, causal, window) -> int:
-    """Visible (query, key) pairs of one head: keys j <= i when causal,
-    j > i - window with a window."""
-    i = np.arange(Sq)
-    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
-    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(i - window + 1, 0)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d=D,
-                window=None, dv=None):
-    """q, k, v read once and out written once; 2 flops per visible (query,
-    key) pair (``window_pairs``) and head dim of q.k (D) and of p.v (Dv,
-    D unless given), at the inputs' peak rate."""
-    dv = d if dv is None else dv
-    nbytes = itemsize * B * (Sq * h * (d + dv) + Skv * kvh * (d + dv))
-    return roofline(nbytes, 2 * B * h * (d + dv) * window_pairs(
-        Sq, Skv, causal, window), dtype_name)
-
-
 def kernel_flash_phase(torch) -> dict:
     import torch.nn.functional as F
 
@@ -1224,7 +1184,7 @@ def kernel_flash_phase(torch) -> dict:
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = flash_bound(
-            B, S, S, H, KVH, causal, 2, "bfloat16")
+            B, S, S, H, KVH, causal, 2, "bfloat16", D)
         timings.append(ratios(row))
         print("  timing:", json.dumps(row))
         del q, k, v, qt, kt, vt
@@ -1233,7 +1193,7 @@ def kernel_flash_phase(torch) -> dict:
            "ms": time_ms(torch, lambda: flash_kernel.flash_attention(
                qf, kf, vf, causal=True), flush)}
     f32["bound_ms"], f32["bound_by"] = flash_bound(8, 1024, 1024, H, KVH,
-                                                   True, 4, "float32")
+                                                   True, 4, "float32", D)
     timings.append(ratios(f32))
     print("  timing:", json.dumps(f32))
     # a plain read of the bytes the headline must read: q, k and v
@@ -1273,14 +1233,6 @@ def dense_case(torch, gen, B, S, dtype, cur_len, dev, h=H, kvh=KVH, d=D):
     k[dead] = 1e4
     v[dead] = -1e4
     return q, k, v, cl
-
-
-def dense_bound(cur_len, B, itemsize, dtype_name, h=H, kvh=KVH, d=D):
-    """Each valid K/V token read once, q read and out written once, cur_len
-    read; 4 flops per valid token, head and head dim."""
-    tokens = int(np.sum(cur_len))
-    nbytes = 2 * tokens * kvh * d * itemsize + 2 * B * h * d * itemsize + 4 * B
-    return roofline(nbytes, 4 * tokens * h * d, dtype_name)
 
 
 def kernel_dense_decode_phase(torch) -> dict:
@@ -1359,7 +1311,7 @@ def kernel_dense_decode_phase(torch) -> dict:
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q4, ks, vs, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
-                                                       "bfloat16", h, kvh)
+                                                       "bfloat16", h, kvh, D)
         # the card's practical read rate under this timer: one contiguous
         # read (a sum) of the K/V bytes the kernel must read
         row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * kvh * D * 2,
@@ -1536,7 +1488,8 @@ def kernel_exact_phase(torch) -> dict:
                "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q_s, k_d, v_d, attn_mask=mask, enable_gqa=True), flush)}
         row["bound_ms"], row["bound_by"] = paged_bound(start, None, B,
-                                                       "bfloat16", 2, C=C)
+                                                       "bfloat16", 2, C=C,
+                                                       geom=GEOM)
         # each slot's live tokens once, for all C queries
         row["stream_read_ms"] = stream_read_ms(torch, 2 * B * ctx * KVH * D * 2,
                                                flush)
@@ -4599,15 +4552,17 @@ HYMBA_MAX_LEN = 3072 + 256
 HYMBA_STATIC = (2, 3072)           # prompts of the static phase
 
 
+# the stateful serve phases' depths: their continuous phases are
+# host-bound (~2 ms a layer a decode step for mamba2, ~4 for hymba), so
+# they were cut when the training and dryrun phases joined the script
+# (the dryrun phase runs both models at full depth): mamba2 24 of 48,
+# hymba 8 of 32 (global at layers 0 and 7, a 1024-token window on the
+# other 6)
+MAMBA2_LAYERS, HYMBA_LAYERS = 24, 8
+
+
 def build_mamba2(torch):
-    return build_full(torch, MAMBA2)
-
-
-# hymba's depth: 16 of its 32 layers (global at layers 0 and 15, a
-# 1024-token window on the other 14) since the training and frontend
-# phases joined the script; its continuous phases are host-bound, ~4 ms a
-# layer a decode step
-HYMBA_LAYERS = 16
+    return build_full(torch, MAMBA2, MAMBA2_LAYERS)
 
 
 def build_hymba(torch):
@@ -5088,9 +5043,10 @@ VLM_LAYERS = 8                # of internvl2's 48, full width (~4.4 B params)
 VLM_BATCH, VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 4, 768, 64, 2048
 TRAIN_BATCH = 4
 HUBERT_TRAIN_FRAMES, HUBERT_TRAIN_STEPS = 1024, 4
-# the loop phase: danube at full width and 4 of its 24 layers (~0.44 B
-# params; a checkpoint of weights and f32 moments is ~4.4 GB)
-TRAIN_LAYERS, TRAIN_SEQ = 4, 2048
+# the loop phase: danube at full width and 2 of its 24 layers (~0.30 B
+# params; a checkpoint of weights and f32 moments is ~3 GB; 4 layers
+# until the dryrun phase joined the script)
+TRAIN_LAYERS, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_RESUME_TO = 12, 5, 8, 14
 # the launcher on the card: danube's reduced config (training runs no
 # kernel, so head dim 16 trains on the card), 20 steps
@@ -5225,6 +5181,171 @@ def kernel_frontends_phase(torch) -> dict:
     del q, k, v, ks_, vs_, flush
     return {"phase": "kernel_frontends", "checked": len(holds.checked),
             "worst": holds.worst, "entries": entries}
+
+
+# ---------------------------------------------------------------------------
+# the dry-run: its kernels at the cells' lengths, then five cells timed
+# ---------------------------------------------------------------------------
+
+# (arch, shape, rows on the card): counted on meta at those rows, then
+# timed at full width and depth (the global batch cut where one card must)
+DRYRUN_CELLS = (("qwen3-14b", "prefill_32k", 1),
+                ("qwen3-14b", "decode_32k", 4),
+                ("mamba2-370m", "decode_32k", 128),
+                ("hymba-1.5b", "long_500k", 1),
+                ("h2o-danube-1.8b", "train_4k", 1))
+QWEN3_GEOM = (40, 8, 128)          # H, KVH, D: rep 5
+HYMBA_HEADS = HYMBA_GEOM[:3]       # 25, 5, 64
+LONG_CTX = 524288                  # long_500k's cache
+
+
+def kernel_dryrun_phase(torch) -> dict:
+    """Flash and the dense decode at the lengths the dry-run cells give
+    them, held against their plain versions at ``KernelHolds``'
+    tolerances, then timed beside their bounds, plain versions and SDPA:
+    flash at qwen3-14b's prefill_32k (B 1, S 32768, H 40, KVH 8, D 128,
+    causal; plain: ``blocked_attention``, the path's own, since the
+    reference op's full (S x S) scores would not fit), the dense decode
+    at qwen3-14b's decode_32k (B 4 x 32768 entries, rep 5, D 128) and at
+    hymba-1.5b's long_500k global layers (B 1 x 524288 entries, H 25,
+    KVH 5, D 64), each also at a ragged cur_len.  Returns one kernels
+    line entry each (``launches`` set from the dryrun phase)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models.common import blocked_attention, decode_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    holds = KernelHolds(torch)
+    hold, entry = holds.hold, holds.entry
+    qh, qkvh, qd = QWEN3_GEOM
+    yh, ykvh, yd = HYMBA_HEADS
+    S = 32768
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    q, k, v = randn(1, S, qh, qd), randn(1, S, qkvh, qd), randn(1, S, qkvh, qd)
+    out = flash_kernel.flash_attention(q, k, v, causal=True)
+    hold("flash_attention", f"wgmma bfloat16 qwen3 prefill_32k B=1 S={S} "
+         f"H={qh} KVH={qkvh} D={qd} causal", out,
+         blocked_attention(q, k, v, causal=True), bf16_rel=True)
+    del out
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    row = {"ms": time_ms(torch, lambda: flash_kernel.flash_attention(
+               q, k, v, causal=True), flush, iters=10),
+           "plain_ms": time_ms(torch, lambda: blocked_attention(
+               q, k, v, causal=True), flush, iters=1, warmup=1),
+           "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True), flush, iters=10)}
+    row["bound_ms"], row["bound_by"] = flash_bound(1, S, S, qh, qkvh, True, 2,
+                                                   "bfloat16", qd)
+    print("  timing flash_attention:S32768:rep5:", json.dumps(ratios(row)))
+    entries = [entry("flash_attention:S32768:rep5", FLASH_SOURCE,
+                     FLASH_REPLACES, row, "qwen3-14b's prefill_32k: B 1, S "
+                     "32768, H 40, KVH 8 (rep 5), D 128, causal",
+                     variant=flash_kernel.variant(q.dtype, qd, qh // qkvh),
+                     plain="models.common.blocked_attention",
+                     library="F.scaled_dot_product_attention(is_causal=True, "
+                             "enable_gqa=True)")]
+    del q, k, v, qt, kt, vt
+    for name, B, S, (h, kvh, d), ragged, label in (
+            ("decode_attention:32k:rep5", 4, 32768, QWEN3_GEOM, 20001,
+             "qwen3-14b's decode_32k: B 4, 32768 of 32768 entries, H 40, "
+             "KVH 8 (rep 5), D 128"),
+            ("decode_attention:512k:D64:rep5", 1, LONG_CTX, HYMBA_HEADS,
+             300001, "hymba-1.5b's long_500k global layers: B 1, 524288 of "
+             "524288 entries, H 25, KVH 5 (rep 5), D 64")):
+        # a ragged cur_len, then the path's own (every entry), timed after
+        for cur_len in (np.full(B, ragged), np.full(B, S)):
+            q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, cur_len,
+                                     dev, h, kvh, d)
+            hold("decode_attention", f"tensor_core bfloat16 B={B} S={S} H={h} "
+                 f"KVH={kvh} D={d} cur_len {int(cur_len[0])}",
+                 dense_kernel.decode_attention(q, k, v, cl),
+                 decode_attention_ref(q, k, v, cl))
+        q4, ks_, vs_ = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        row = {"ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+                   q, k, v, cl), flush),
+               "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                   q, k, v, cl), flush, iters=5),
+               "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, ks_, vs_, enable_gqa=True), flush, iters=10)}
+        row["bound_ms"], row["bound_by"] = dense_bound(cur_len, B, 2,
+                                                       "bfloat16", h, kvh, d)
+        row["stream_read_ms"] = stream_read_ms(torch, 2 * B * S * kvh * d * 2,
+                                               flush)
+        print(f"  timing {name}:", json.dumps(ratios(row)))
+        entries.append(entry(name, DENSE_SOURCE, DENSE_REPLACES, row, label,
+                             variant=dense_kernel.variant(q.dtype, k.dtype, d),
+                             stream_read_ms=row["stream_read_ms"],
+                             library="F.scaled_dot_product_attention("
+                                     "enable_gqa=True) on the cache sliced to "
+                                     "cur_len (all of it)"))
+        del q, k, v, cl, q4, ks_, vs_
+    del flush
+    return {"phase": "kernel_dryrun", "checked": len(holds.checked),
+            "worst": holds.worst, "entries": entries}
+
+
+def dryrun_phase(torch) -> dict:
+    """The dry-run's five card cells (``DRYRUN_CELLS``), one after
+    another, each through ``launch.dryrun.run_cell(device="cuda")``: the
+    step counted on meta at the card's rows (FLOPs, ``bound_bytes``,
+    ``bound_s`` against the H100's data sheet), then built at full width
+    and depth on the card (random weights and caches from a seed) and
+    timed: a warm-up step, the median wall of 2, one profiled step (busy
+    ms), the peak memory.  The kernel counts are set to 0 just before each
+    cell and read after it: every kernel the count saw on meta launched
+    on the card, once a step (4 steps), and no other; and the step's
+    output is finite (tokens within the vocabulary)."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+
+    cells, launches = [], {}
+    for arch, shape, batch in DRYRUN_CELLS:
+        t = time.monotonic()
+        kernels.LAUNCHES.clear()
+        rec = dryrun.run_cell(arch, shape, device="cuda", batch=batch,
+                              out_dir=None)
+        got = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        gc.collect()
+        torch.cuda.empty_cache()
+        m = rec["measured"]
+        steps = dryrun.REPS + 2
+        want = {k: steps * c["launches"] for k, c in rec["kernels"].items()}
+        if got != want:
+            raise AssertionError(f"{arch} x {shape}: launches on the card "
+                                 f"{got}, counted on meta x {steps} steps "
+                                 f"{want}")
+        if not (m["output_ok"] and all(
+                math.isfinite(m[k]) and m[k] > 0
+                for k in ("wall_ms", "busy_ms", "peak_gb"))):
+            raise AssertionError(f"{arch} x {shape}: {m}")
+        cell = {"arch": arch, "shape": shape, "batch": batch,
+                "flops": rec["flops_per_device"],
+                "bound_bytes": rec["bound_bytes_per_device"],
+                "op_bytes": rec["bytes_per_device"],
+                "argument_gb": rec["memory_analysis"][
+                    "argument_size_in_bytes"] / 1e9,
+                "bound_ms": rec["bound_s"] * 1e3, "dominant": rec["dominant"],
+                "model_flops": rec["model_flops_total"],
+                "useful_flops_ratio": rec["useful_flops_ratio"],
+                "count_s": rec["count_s"], "kernels_counted": rec["kernels"],
+                "launches": got, "seconds": time.monotonic() - t,
+                **{k: m[k] for k in ("wall_ms", "wall_ms_all", "busy_ms",
+                                     "share_wall", "share_busy", "held_gb",
+                                     "peak_gb")}}
+        cell["model_flops_share_wall"] = (rec["model_flops_total"]
+                                          / (m["wall_ms"] / 1e3)
+                                          / PEAK_OPS_PER_S["bfloat16"])
+        print("  cell:", json.dumps(cell))
+        cells.append(cell)
+        launches[f"{arch}:{shape}"] = got
+    return {"phase": "dryrun", "cells": cells, "kernel_launches": launches}
 
 
 def build_vlm(torch):
@@ -5891,7 +6012,7 @@ def train_phases() -> dict:
 KERNEL_PHASES = ("kernel", "kernel_scaled", "kernel_mxfp4", "kernel_flash",
                  "kernel_dense_decode", "kernel_exact", "kernel_headdims",
                  "kernel_hymba", "kernel_flash_mla", "kernel_frontends",
-                 "quantize")
+                 "kernel_dryrun", "quantize")
 
 
 def main() -> int:
@@ -5902,7 +6023,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the build "
-                         f"({', '.join(KERNEL_PHASES)}, deployment, check, "
+                         f"({', '.join(KERNEL_PHASES)}, deployment, dryrun, "
+                         "check, "
                          "check_mla, check_moe, check_window, check_state, "
                          "serve_cli, train_hubert, train, train_cli, or, on a "
                          "llama3-8b built "
@@ -5923,8 +6045,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5957,6 +6077,7 @@ def main() -> int:
               "kernel_hymba": kernel_hymba_phase,
               "kernel_flash_mla": kernel_flash_mla_phase,
               "kernel_frontends": kernel_frontends_phase,
+              "kernel_dryrun": kernel_dryrun_phase, "dryrun": dryrun_phase,
               "quantize": quantize_phase, "deployment": deployment_phase,
               "check": check_phase,
               "check_mla": lambda t: {"phase": "check_mla",
@@ -6015,6 +6136,7 @@ def main() -> int:
     hymba_kernels = timed("kernel_hymba", kernel_hymba_phase)
     flash_mla = timed("kernel_flash_mla", kernel_flash_mla_phase)
     frontends = timed("kernel_frontends", kernel_frontends_phase)
+    dry_kernels = timed("kernel_dryrun", kernel_dryrun_phase)
     timed("quantize", quantize_phase)
     timed("deployment", deployment_phase)
     model = build_llama(torch)
@@ -6049,6 +6171,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    dry = timed("dryrun", dryrun_phase)
     trained = {name: timed(name, fn) for name, fn in train_phases().items()}
     timed("serve_cli", serve_cli_phase)
     timed("check", check_phase)
@@ -6129,6 +6252,19 @@ def main() -> int:
             raise AssertionError(f"{name} never launched in "
                                  f"{entry['launches_in']}")
     kernels += frontends["entries"]
+    # flash at S 32768 and the dense decode at 32768 and 524288 entries:
+    # their launches in the dryrun phase's cells
+    for entry in dry_kernels["entries"]:
+        name = entry["name"].partition(":")[0]
+        cell = ("qwen3-14b:prefill_32k" if name == "flash_attention" else
+                "hymba-1.5b:long_500k" if "512k" in entry["name"] else
+                "qwen3-14b:decode_32k")
+        entry["launches"] = dry["kernel_launches"][cell].get(name, 0)
+        entry["launches_in"] = f"dryrun ({cell})"
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']} never launched in "
+                                 f"{entry['launches_in']}")
+    kernels += dry_kernels["entries"]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

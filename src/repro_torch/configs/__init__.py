@@ -44,6 +44,13 @@ _ARCH_MODULES = {
     "internvl2-26b": "internvl2_26b",
 }
 
+# the dry-run's ten (``launch/dryrun.py --all``): the reference's
+# assigned architectures, in its order (the rest are the paper's models)
+ASSIGNED_ARCHS = ["h2o-danube-1.8b", "qwen2.5-14b", "qwen3-14b",
+                  "phi3-mini-3.8b", "hubert-xlarge",
+                  "llama4-maverick-400b-a17b", "deepseek-v2-lite-16b",
+                  "hymba-1.5b", "internvl2-26b", "mamba2-370m"]
+
 
 def get_config(name: str) -> ModelConfig:
     key = name if name in _ARCH_MODULES else None

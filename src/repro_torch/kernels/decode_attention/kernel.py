@@ -37,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, cost
 from repro_torch.kernels._build import build
 
 NAME = "decode_attention"
@@ -124,8 +124,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cur_len (B,) int32, each in [1, S]: row b attends positions
     0 .. cur_len[b] - 1, and nothing at or past cur_len[b] is read.  The
     kernel is chosen by ``variant`` before the launch; a build or launch
-    failure raises."""
-    _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
+    failure raises.  On ``meta`` tensors (the dry-run) it launches
+    nothing: it reports the work of every row reading its whole cache
+    (``cost.dense_cost``; the values of cur_len are not known there) to
+    the active op counter and returns an empty ``meta`` output."""
+    _check(q.is_cuda or q.is_meta, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("cur_len", cur_len)):
@@ -146,6 +149,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
            f"{h} heads over {kvh} kv heads (at most {MAX_REP} per kv head)")
     _check(cur_len.shape == (b,), f"cur_len {tuple(cur_len.shape)}, "
            f"want ({b},)")
+    if q.is_meta:
+        cost.record(NAME, *cost.dense_cost(b * s, b, q.element_size(), h,
+                                           kvh, d))
+        return q.new_empty((b, h, d))
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), \
         v_cache.contiguous()
     cur_len = cur_len.contiguous()

@@ -33,7 +33,7 @@ def gqa_decode_attention(q, k_cache, v_cache, cur_len, *,
         impl = "reference" if q.device.type == "cpu" else "fused"
     if impl == "reference":
         return decode_attention_ref(q, k_cache, v_cache, cur_len)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError("impl='fused' runs the CUDA kernel and needs CUDA "
                          f"tensors; q is on {q.device}")
     return decode_attention(q, k_cache, v_cache, cur_len.to(torch.int32))
@@ -72,7 +72,7 @@ def paged_gqa_multi_attention(q, k_pages, v_pages, page_table, start, *,
             q, k_pages, v_pages, page_table, start, k_scales=k_scales,
             v_scales=v_scales, window=window)
     if impl == "fused":
-        if not q.is_cuda:
+        if not (q.is_cuda or q.is_meta):
             raise ValueError("impl='fused' runs the CUDA kernel and needs "
                              f"CUDA tensors; q is on {q.device}")
         return paged_decode_multi_attention(
@@ -114,7 +114,7 @@ def paged_gqa_decode_attention(q, k_pages, v_pages, page_table, pos, *,
                                           v_scales=v_scales, window=window)
     if impl != "fused":
         raise ValueError(f"impl={impl!r} (want 'auto', 'fused' or 'reference')")
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError("impl='fused' runs the CUDA kernel and needs CUDA "
                          f"tensors; q is on {q.device}")
     return paged_decode_attention(q, k_pages, v_pages,

@@ -47,9 +47,10 @@ import functools
 import math
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, cost
 from repro_torch.kernels._build import build
 
 NAME = "paged_decode_attention"
@@ -156,7 +157,7 @@ def _check_inputs(q, k_pages, v_pages, page_table, pos, k_scales, v_scales,
                   window, q_ndim: int) -> bool:
     """Device, dtype, shape and contiguity checks shared by both wrappers;
     returns whether the pools hold codes (fp8/int8)."""
-    _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
+    _check(q.is_cuda or q.is_meta, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("pos", pos)):
@@ -202,6 +203,20 @@ def _check_inputs(q, k_pages, v_pages, page_table, pos, k_scales, v_scales,
     return quantized
 
 
+def _record_meta(name, q, k_pages, quantized, window, c, page_table):
+    """A call on ``meta`` tensors (the dry-run): report the launch's work
+    (``cost.paged_cost``) to the active op counter, every block of the
+    table live (the positions' values are not known there), and return an
+    empty ``meta`` output."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    _, page, kvh, _ = k_pages.shape
+    start = np.full(b, page_table.shape[1] * page - c)
+    cost.record(name, *cost.paged_cost(
+        start, window, b, k_pages.element_size(), q.element_size(),
+        4 if quantized else 0, c, geom=(h, kvh, d, page)))
+    return q.new_empty(q.shape)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor, *,
@@ -241,6 +256,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                f"B of shared memory (limit {SMEM_LIMIT})")
 
     n_blocks = page_table.shape[1]
+    if q.is_meta:
+        return _record_meta(NAME_SCALED if quantized else NAME, q, k_pages,
+                            quantized, window, 1, page_table)
     n_split = split_count(kind, b, kvh, n_blocks, page, _num_sms(dev.index))
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     ws_acc = torch.empty((b, h, n_split, d), dtype=torch.float32, device=dev)
@@ -301,6 +319,9 @@ def paged_decode_multi_attention(q: torch.Tensor, k_pages: torch.Tensor,
            f"dim {d} (the tensor-core exact kernel takes at most "
            f"{EXACT_TC_MAX_ROWS} there)")
     n_blocks = page_table.shape[1]
+    if q.is_meta:
+        return _record_meta(NAME_EXACT, q, k_pages, quantized, window, c,
+                            page_table)
     s_len = n_blocks * page
     if kind == "cuda_core":
         n_parts = -(-s_len // EXACT_CHUNK)

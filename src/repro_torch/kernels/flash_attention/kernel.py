@@ -48,7 +48,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, cost
 from repro_torch.kernels._build import build
 
 NAME = "flash_attention"
@@ -107,8 +107,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``variant(dtype, D, H // KVH, Dv)`` before the launch; ``kind`` names
     another one that takes the call ("mma" for any bf16 call, "wgmma" for
     bf16 at D >= 64 and rep <= ``MAX_REP``), to hold every variant against
-    the plain version.  A build or launch failure raises."""
-    _check(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
+    the plain version.  A build or launch failure raises.  On ``meta``
+    tensors (the dry-run) it launches nothing: it reports the launch's
+    work (``cost.flash_cost``) to the active op counter and returns an
+    empty ``meta`` output."""
+    _check(q.is_cuda or q.is_meta, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         _check(t.device == dev, f"{name} on {t.device}, q on {dev}")
@@ -132,6 +135,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         chosen = kind
     _check(sq >= 1 and skv >= 1, f"empty sequence Sq={sq}, Skv={skv}")
     _check(window is None or window >= 1, f"window={window}")
+    if q.is_meta:
+        cost.record(NAME, *cost.flash_cost(b, sq, skv, h, kvh, causal,
+                                           q.element_size(), d, window, dv))
+        return q.new_empty((b, sq, h, dv))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")

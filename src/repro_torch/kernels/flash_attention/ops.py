@@ -34,7 +34,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True, window=None,
     if impl == "auto":
         impl = "reference" if q.device.type == "cpu" else "fused"
     if impl == "fused":
-        if not q.is_cuda:
+        if not (q.is_cuda or q.is_meta):
             raise ValueError("impl='fused' runs the CUDA kernel and needs "
                              f"CUDA tensors; q is on {q.device}")
         return flash_attention(q, k, v, causal=causal, window=window)

@@ -40,7 +40,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES, cost
 from repro_torch.kernels._build import build
 
 NAME = "mxfp4_vmm"
@@ -197,8 +197,11 @@ def mxfp4_vmm_group(x: torch.Tensor,
     u8) for each of 1..3 weights that share K, in one launch -> one (M,
     N_i) tensor each in ``out_dtype``: the f32 sums, or (bf16) those
     rounded once to nearest even.  K must be a multiple of 32; M and N_i
-    are free.  ``variant``: the schedule, by M when None (``schedule``)."""
-    _check(x.is_cuda, f"x must be a CUDA tensor, got {x.device}")
+    are free.  ``variant``: the schedule, by M when None (``schedule``).
+    On ``meta`` tensors (the dry-run) it launches nothing: it reports the
+    launch's work (``cost.vmm_cost``) to the active op counter and returns
+    empty ``meta`` outputs."""
+    _check(x.is_cuda or x.is_meta, f"x must be a CUDA tensor, got {x.device}")
     dev = x.device
     _check(1 <= len(weights) <= MAX_GROUP,
            f"{len(weights)} weights in one launch (1..{MAX_GROUP})")
@@ -224,6 +227,9 @@ def mxfp4_vmm_group(x: torch.Tensor,
                f"do not pack a ({k}, N) weight")
         ns.append(n)
         packed.append((codes.contiguous(), scales.contiguous()))
+    if x.is_meta:
+        cost.record(NAME, *cost.vmm_cost(m, k, ns))
+        return [x.new_empty((m, n), dtype=out_dtype) for n in ns]
     x = x.contiguous()
     if x.data_ptr() % 16:             # x rows stream as 16-byte copies
         x = x.clone()

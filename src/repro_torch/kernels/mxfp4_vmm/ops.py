@@ -59,7 +59,7 @@ def mxfp4_matmul_group(x: torch.Tensor, ws: Sequence[PackedMXFP4], *,
     if impl == "reference":
         outs = [mxfp4_vmm_ref(x2, w.codes, w.scales) for w in ws]
     else:
-        if not x.is_cuda:
+        if not (x.is_cuda or x.is_meta):
             raise ValueError("impl='fused' runs the CUDA kernel and needs "
                              f"CUDA tensors; x is on {x.device}")
         # the kernel rounds its f32 sums to bf16 itself: no cast launch

@@ -105,6 +105,15 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.ssm_heads or (self.d_inner // self.ssm_head_dim)
 
+    @property
+    def has_decode(self) -> bool:
+        return self.causal
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run the 500k-token long-context decode shape?"""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
 
 PARAM_DTYPE = torch.bfloat16
 NORM_DTYPE = torch.float32

@@ -128,8 +128,10 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions):
 
 def kernel_path(device: torch.device) -> bool:
     """True when the static attention runs the CUDA kernels (tensors on a
-    CUDA device), windowed layers included."""
-    return device.type == "cuda"
+    CUDA device), windowed layers included.  ``meta`` tensors (the
+    dry-run's count) take the card's path: there each kernel's wrapper
+    reports its work instead of launching."""
+    return device.type in ("cuda", "meta")
 
 
 # full-sequence attention calls that ran the plain path because autograd

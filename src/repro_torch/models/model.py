@@ -591,7 +591,7 @@ class Model(nn.Module):
         # wrapped ring of w = window entries holds exactly the window)
         cur_lens: dict[int, torch.Tensor] = {}
         widths = [_cache_width(c) for c in cache]
-        if dev.type == "cuda":
+        if layers.kernel_path(dev):
             for w in widths:
                 if w is not None and w not in cur_lens:
                     cur_lens[w] = torch.full((b,), min(cur_pos + 1, w),

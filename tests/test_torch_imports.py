@@ -136,6 +136,31 @@ def test_training_entry_points_import_without_jax():
     assert res.returncode == 0, res.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "launch/shapes.py", "launch/dryrun.py", "core/op_cost.py",
+    "core/roofline.py", "kernels/cost.py"])
+def test_dryrun_modules_are_checked(module):
+    """The dry-run's modules are among the files checked below."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_dryrun_imports_without_jax():
+    """A fresh interpreter in which jax and repro cannot be imported
+    imports the dry-run and counts a full-size cell on meta."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "from repro_torch.launch import dryrun, shapes\n"
+            "from repro_torch.core import op_cost, roofline\n"
+            "from repro_torch.kernels import cost\n"
+            "rec = dryrun.run_cell('mamba2-370m', 'long_500k', out_dir=None)\n"
+            "assert rec['status'] == 'ok' and rec['flops_per_device'] > 0\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_import(path):
