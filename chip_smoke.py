@@ -26,7 +26,8 @@ hymba-1.5b built first; serve_mla,
 serve_mla_static, serve_mla_quantized and serve_mla_spec on a
 deepseek-v2-lite-16b built first; serve_moe, serve_moe_static,
 serve_moe_quantized and serve_moe_spec on a llama4-scout built first;
-serve_moe_maverick on a llama4-maverick built first; serve_disagg on a
+serve_moe_maverick on a llama4-maverick built first; serve_tp on a
+llama3-8b built first, with its own tp=1 sessions; serve_disagg on a
 llama3-8b built first, after the two colocated phases it is compared
 with; serve_vlm on an internvl2-26b built first; serve_cli,
 train_hubert, train and train_cli, which build their own models; sim
@@ -237,6 +238,35 @@ Phases, each of which fails the run if it fails:
    counts (draft steps with the backfill, and target steps) and the flash
    kernel twice per layer (the two prompt prefills), and a
    second call reproduces the stream (phase serve_spec_legacy).
+12b. serve_tp — tensor-parallel serving: two ranks (spawned processes)
+   share ``cuda:0`` over a gloo group (NCCL refuses two ranks on one
+   device) as a (1, 2) ``DeviceMesh``; gloo takes the CUDA tensors of
+   its all-gathers and all-reduces itself (counted as ``gloo_cuda``), and
+   the ring matmuls' hops stage through pinned host memory, counted.
+   llama3-8b at ``TP_LLAMA_LAYERS`` (4) layers, full width, serves the
+   llama mix in gather, psum, MXFP4 + fp8 gather and MXFP4 + fp8 psum
+   modes (psum dequantizes its row-sharded MXFP4 shards), then
+   deepseek-v2-lite-16b at ``TP_DEEPSEEK_LAYERS`` (2: MLA, then MLA +
+   MoE) in gather mode (MLA heads 16 -> 8, latent pools and experts
+   replicated).  Per rank: the paged decode launches equal layers
+   x decode steps at local heads (16 query / 4 KV for llama), every
+   distinct ``mxfp4_vmm`` launch (N/2, and full K in the closing weights)
+   held at 1e-5 on the path's own activations, the collective bytes of a
+   decode-only step equal ``psum_bytes_per_step``, the pools' bytes a
+   token half of tp=1's (llama), the decode step's wall and device-busy
+   time.  Against tp=1 sessions of the same knobs on the card: the first
+   decode step's logits within ``SCORE_REL_TOL`` of their largest, and
+   the greedy streams under the near-tie rule; deepseek's (MoE: a decode
+   batch gives each expert one token, so its rows couple) may also part
+   at or after the session's first divergence, a routing flip that must
+   itself be a near tie or a request whose sampled stream parted
+   (``RouteLog``, ``tp_moe_divergence``).
+   Then the two ring matmuls on the group (x (8, 4096) . W (4096, 14336),
+   x (8, 14336) . W (14336, 4096), bf16) against ``torch.matmul`` in f32
+   (``RING_REL_TOL``), and which collectives gloo takes on CUDA tensors
+   directly.  Launches per rank come back through the spawn's queue; the
+   kernels line sums them (``launches_serve_tp``).  No reading is a
+   tensor-parallel speed: two processes share one card.
 13. serve_spec_draft — speculation with a cheap draft: the draft is the
    model's first 2 of its 8 layers (``runtime/spec_pair.build_pair``: shared
    tensors; the deeper ``wo``/``w_down`` damped by 0.005 in place, so this
@@ -455,7 +485,8 @@ then the same kernels at hymba's shapes, then flash at D 192 / Dv 128,
 then flash at hubert's and internvl2's shapes and the dense decode at
 internvl2's, then flash at S 32768 and the dense decode at 32768 and
 524288 entries (launches from the dryrun phase's cells); ``launches`` from the serve phase that runs each, on its own
-model, or hubert's no-grad forward), and
+model, or hubert's no-grad forward; the paged decode kernels' and
+``mxfp4_vmm``'s ``launches_serve_tp`` summed over serve_tp's ranks), and
 last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2361,14 +2392,18 @@ def device_breakdown(prof, step_s: float) -> dict:
                 k: t / n for k, t in trace["spans_ms"].items()}}
 
 
-def vmm_launches_per_call(model) -> int:
+def vmm_launches_per_call(model, psum: bool = False) -> int:
     """MXFP4 launches of one decode step or prefill chunk call: per layer
     one for the attention's input projections (GQA: q/k/v grouped; MLA:
     wq) and one for its output projection, and for a dense MLP one for
     gate/up (grouped) and one for down.  MoE experts and the SSM mixer are
     not quantized.  llama3-8b: 4 x 32 = 128; deepseek-v2-lite-16b: 4 + 2 x
-    26 = 56; hymba-1.5b: 4 x 32 = 128; mamba2-370m: 0."""
-    return sum(0 if blk.kind == "ssm" else 2 + (0 if blk.is_moe else 2)
+    26 = 56; hymba-1.5b: 4 x 32 = 128; mamba2-370m: 0.  ``psum``: a
+    tensor-parallel psum rank dequantizes its row-sharded output and down
+    projections (``parallel.hints.tp_row_dot``), so only the column half
+    launches."""
+    per = 1 if psum else 2
+    return sum(0 if blk.kind == "ssm" else per + (0 if blk.is_moe else per)
                for blk in model.layers)
 
 
@@ -2777,6 +2812,664 @@ def serve_disagg_phase(torch, model, colocated: dict | None = None) -> dict:
         torch.cuda.empty_cache()
     del cpu_model, gap_model
     return {"phase": "serve_disagg", "layers": cfg.n_layers, **runs}
+
+
+# ---------------------------------------------------------------------------
+# serve_tp: tensor-parallel serving, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_TIMEOUT_S = 60          # every collective of the ranks' process group
+TP_JOIN_S = 600            # the two ranks, joined with a deadline
+TP_ENGINE = dict(num_slots=8, page_size=16, max_len=2048, prefill_chunk=256)
+# the phase's depths, cut below the other phases' (8 and 4) to keep the
+# whole script near its budget: its steps are host-bound, one gloo meeting
+# a column pair
+TP_LLAMA_LAYERS, TP_DEEPSEEK_LAYERS = 4, 2
+# (label, reduce, engine kwargs) of the llama3-8b sessions; deepseek runs
+# gather mode only
+TP_MODES = (("gather", "gather", {}), ("psum", "psum", {}),
+            ("gather_mxfp4_fp8", "gather",
+             {"weight_format": "mxfp4", "cache_dtype": "fp8"}),
+            ("psum_mxfp4_fp8", "psum",
+             {"weight_format": "mxfp4", "cache_dtype": "fp8"}))
+# the ring matmuls at llama3-8b's MLP shapes: (M, K, N, mode)
+RING_SHAPES = ((8, 4096, 14336, "ag"), (8, 14336, 4096, "rs"))
+# bf16 output of f32 sums in another order than torch.matmul's f32
+# product: each element within one bf16 ulp of its magnitude (2^-7: the
+# rounding, which the order of the sums may tip) plus 2^-12 of the largest
+RING_REL_TOL, RING_ABS_TOL = 2.0 ** -7, 2.0 ** -12
+
+
+def tp_models(reduced: bool = False) -> dict:
+    """The phase's two models, as (config name, layers): llama3-8b and
+    deepseek-v2-lite-16b at ``TP_LLAMA_LAYERS`` / ``TP_DEEPSEEK_LAYERS``,
+    full width;
+    ``reduced`` gives their tiny configs (a CPU rehearsal of the phase)."""
+    return {"llama": ("llama3-8b", TP_LLAMA_LAYERS, reduced),
+            "deepseek": ("deepseek-v2-lite-16b", TP_DEEPSEEK_LAYERS,
+                         reduced)}
+
+
+def tp_build(torch, name: str, layers: int, reduced: bool, device: str):
+    """A model of ``name`` at ``layers`` layers (its reduced config when
+    ``reduced``), random weights from seed 0, the same on every rank."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(name)
+    cfg = (reduced_config(cfg) if reduced
+           else dataclasses.replace(cfg, n_layers=layers))
+    return Model(cfg, device=device).init(seed=0)
+
+
+def tp_paged_logits(torch, model, cache_dtype, tokens,
+                    decode_last: bool = False) -> np.ndarray:
+    """The logits ``model``'s paged path gives after ``tokens`` into fresh
+    pools of ``cache_dtype`` (fp8 codes too): one prefill chunk of them
+    all, or with ``decode_last`` of all but the last, then the last as one
+    decode step.  Collective inside a TP region the caller opened."""
+    dev = model.device
+    n = len(tokens)
+    blocks = -(-n // PAGE)
+    pools = model.init_paged_cache(blocks + 1, PAGE, dtype=cache_dtype)
+    table = torch.arange(1, blocks + 1, dtype=torch.int32, device=dev)[None]
+    toks = torch.as_tensor(np.asarray(tokens), device=dev)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    m = n - 1 if decode_last else n
+    logits = model.prefill_chunk_paged(toks[:, :m], pools, table, zero,
+                                       torch.full_like(zero, m))
+    if decode_last:
+        logits = model.decode_step_paged(toks[0, -1:], pools, table,
+                                         torch.full_like(zero, m))
+    return logits[0, :model.cfg.vocab_size].float().cpu().numpy()
+
+
+def tp_probe_logits(torch, llm, prompt) -> np.ndarray:
+    """The first decode step's logits of ``llm``'s engine model for
+    ``prompt`` (``tp_paged_logits`` with ``decode_last``; inside the
+    engine's TP region on a mesh)."""
+    eng = llm._eng
+    with eng._tp_region():
+        return tp_paged_logits(torch, eng.model, eng.cache_dtype, prompt,
+                               decode_last=True)
+
+
+class RouteLog:
+    """Every MoE routing of a serve session in call order, as
+    ``serve_session``'s ``watch``: each call's expert ids and router
+    logits (kept on the device while the session runs) and whose each
+    row is: a decode row the request id of its slot, a prefill position
+    below its row's ``valid`` -2 (a prompt token), padding -1 (computed
+    over the scratch page); the routing calls made by the end of each
+    step, and the step that emitted each token of each request.
+    ``result()`` brings them to the host."""
+
+    def start(self, llm):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe._routing
+        self.llm, self.real_step = llm, llm.step
+        self.model = model = llm._eng.model
+        real_decode = model.decode_step_paged
+        real_chunk = model.prefill_chunk_paged
+        self.calls, self.calls_at, self.emitted = [], [], {}
+        self.rows = None
+
+        def decode(tokens, pools, page_table, *args, **kw):
+            self.rows = np.full(page_table.shape[0], -1)
+            for req in llm._eng._sched.decoding():
+                self.rows[req.slot] = req.rid
+            return real_decode(tokens, pools, page_table, *args, **kw)
+
+        def chunk(tokens, pools, page_table, start, valid, *args, **kw):
+            cols = torch.arange(tokens.shape[1], device=valid.device)
+            live = (cols[None] < valid[:, None]).reshape(-1).cpu().numpy()
+            self.rows = np.where(live, -2, -1)
+            return real_chunk(tokens, pools, page_table, start, valid,
+                              *args, **kw)
+
+        def routing(x2d, router, k):
+            w, ids = self.real(x2d, router, k)
+            if self.rows is None or len(self.rows) != x2d.shape[0]:
+                raise AssertionError(f"a routing over {x2d.shape[0]} rows "
+                                     f"outside a paged call")
+            self.calls.append((ids, x2d.float() @ router.float(), self.rows))
+            return w, ids
+
+        def step():
+            outs = self.real_step()
+            n = len(self.calls_at)
+            self.calls_at.append(len(self.calls))
+            for o in outs:
+                self.emitted.setdefault(o.rid, []).extend(
+                    [n] * len(o.new_token_ids))
+            return outs
+        moe._routing = routing
+        llm.step = step
+        model.decode_step_paged = decode
+        model.prefill_chunk_paged = chunk
+
+    def step(self):
+        pass
+
+    def stop(self):
+        self.moe._routing = self.real
+        del self.llm.step                  # the class's methods again
+        del self.model.decode_step_paged
+        del self.model.prefill_chunk_paged
+
+    def result(self) -> dict:
+        return {"ids": [i.cpu().numpy() for i, _, _ in self.calls],
+                "logits": [lg.cpu().numpy() for _, lg, _ in self.calls],
+                "rows": [v for _, _, v in self.calls],
+                "calls_at": list(self.calls_at), "emitted": self.emitted}
+
+
+def tp_moe_divergence(got: dict, want: dict, got_streams: dict,
+                      want_streams: dict) -> dict | None:
+    """Where an MoE session on the TP ranks (``got``: its ``RouteLog`` and
+    streams) first diverges from tp=1's (``want``), the two having run one
+    schedule.  An MoE batch couples its rows (each expert takes
+    ``ceil(T k / E x 1.25)`` tokens: one at deepseek's decode), so after
+    the first divergence any row may change by far more than rounding.
+    The first divergence is the first routing call that either routes a
+    live row otherwise (a flip) or holds a decode row of a request whose
+    tokens parted in an earlier step (a parted request: its input
+    differs).  Returns its step and kind; for a flip, the flipped rows
+    and how near a tie each was on tp=1's own router logits: the gap
+    between tp=1's k-th choice and the lowest of the TP choice, as a share
+    of ``SCORE_REL_TOL`` x the row's largest |router logit| (at or under
+    1: a near tie of four bf16 ulps, ``forced_routes``' measure).  None
+    when nothing diverges."""
+    if got["calls_at"] != want["calls_at"]:
+        raise AssertionError("serve_tp: the TP and tp=1 sessions ran "
+                             "different schedules")
+    parted = {}                  # request -> the step of its first parting
+    for i, toks in want_streams.items():
+        j = next((j for j, (x, y) in enumerate(zip(got_streams[i], toks))
+                  if x != y), None)
+        if j is not None:
+            parted[i] = want["emitted"][i][j]
+    for c, (a, b) in enumerate(zip(got["ids"], want["ids"])):
+        rows = want["rows"][c]
+        if a.shape != b.shape or not np.array_equal(rows, got["rows"][c]):
+            raise AssertionError(f"serve_tp: routing call {c} has shape "
+                                 f"{a.shape} (tp=1 {b.shape}) or other rows")
+        step = next(s for s, n in enumerate(want["calls_at"]) if n > c)
+        stale = [int(r) for r in rows if r >= 0 and parted.get(r, step) < step]
+        if stale:
+            return {"step": step, "kind": "parted_request", "call": c,
+                    "requests": sorted(set(stale))}
+        differ = (np.sort(a, -1) != np.sort(b, -1)).any(-1) & (rows != -1)
+        if not differ.any():
+            continue
+        lg = want["logits"][c]
+        shares = [float((lg[r, b[r]].min() - lg[r, a[r]].min())
+                        / (SCORE_REL_TOL * np.abs(lg[r]).max()))
+                  for r in np.nonzero(differ)[0]]
+        return {"step": step, "kind": "route_flip", "call": c,
+                "rows": len(shares), "gap_share": max(shares)}
+    return None
+
+
+def tp_session(torch, model, mesh, reduce: str, kw: dict,
+               routes: bool = False) -> dict:
+    """One session of the llama mix on this rank: the engine over ``mesh``,
+    its kernel launches (this process's), every distinct ``mxfp4_vmm``
+    launch held on the path's own activations, the collectives of each
+    decode-only step against ``psum_bytes_per_step``, the pools' bytes a
+    token, the decode steps' wall and device time (8 traced), the streams
+    and the first decode step's logits of the mix's first prompt; with
+    ``routes`` the session's ``RouteLog`` too."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_SCALED,
+    )
+    from repro_torch.kernels.mxfp4_vmm.kernel import NAME as VMM
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    llm = LLMEngine(model, backend="continuous", device=model.device,
+                    mesh=mesh, tp_reduce=reduce, **TP_ENGINE, **kw)
+    eng, comm, plan = llm._eng, llm._eng._tp, llm.serve_plan
+    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    on_card = model.device.type == "cuda"
+    steps, last = [], [dict(comm.counts)]
+
+    def on_step():
+        if on_card:
+            prof.step()
+        cur = dict(comm.counts)
+        steps.append({k: v - last[0].get(k, 0) for k, v in cur.items()})
+        last[0] = cur
+
+    LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    log = RouteLog() if routes else None
+    with vmm_calls() as vmm_inputs, profile(
+            activities=acts, schedule=schedule(**PROFILE)) as prof:
+        streams, finished, stats, decode_steps = serve_session(
+            llm, prompts, sps, on_decode_step=on_step, watch=log)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
+    vmm_held = []
+    for (m, k, ns), (x, ws) in sorted(vmm_inputs.items() if on_card
+                                      else ()):
+        err, variant, _ = hold_vmm(torch, x, ws)
+        vmm_held.append({"M": m, "K": k, "N": list(ns), "schedule": variant,
+                         "max_rel_err": err})
+    del vmm_inputs
+    for i, sp in enumerate(sps):
+        o = finished.get(i)
+        if (o is None or o.finish_reason != "length"
+                or len(o.token_ids) != sp.max_tokens):
+            raise AssertionError(f"serve_tp {reduce}{kw}: request {i} did "
+                                 f"not finish with {sp.max_tokens} tokens")
+    # paged decode: once per GQA layer per decode step, at local heads
+    want = {}
+    if gqa_layers(model):
+        kname = NAME_SCALED if kw.get("cache_dtype") else NAME
+        want[kname] = gqa_layers(model) * stats.steps
+        if on_card and variants.get(f"{kname}:tensor_core") != want[kname]:
+            raise AssertionError(f"serve_tp: {variants}, want every "
+                                 f"{kname} launch on the tensor-core variant")
+    if kw.get("weight_format") == "mxfp4":
+        want[VMM] = vmm_launches_per_call(model, reduce == "psum") * (
+            stats.steps + stats.prefill_calls)
+    if on_card and launches != want:
+        raise AssertionError(f"serve_tp {reduce}{kw}: kernel launches "
+                             f"{launches}, want {want} ({stats.steps} "
+                             f"decode steps, {stats.prefill_calls} prefill "
+                             f"calls)")
+    # the collectives of a decode-only step (the first delta holds the
+    # session before it) against the plan's prediction
+    act_bytes = 4 if reduce == "psum" else 2      # f32 partials / bf16
+    predicted = plan.psum_bytes_per_step(eng._price_model, eng.num_slots,
+                                         dtype_bytes=act_bytes)
+    per_step = steps[1:]
+    got = sorted({s.get("bytes", 0) for s in per_step})
+    if got != [predicted]:
+        raise AssertionError(f"serve_tp {reduce}{kw}: collective bytes a "
+                             f"decode step {got}, psum_bytes_per_step "
+                             f"says {predicted}")
+    pool_bytes = sum(a.nbytes for pool in eng._pools for a in pool.values())
+    per_token = pool_bytes // ((eng.num_pages) * eng.page_size)
+    if per_token != eng.kv_token_bytes_per_device():
+        raise AssertionError(f"serve_tp: pools hold {per_token} B a token, "
+                             f"kv_token_bytes_per_device says "
+                             f"{eng.kv_token_bytes_per_device()}")
+    step_s = float(np.median(decode_steps))
+    breakdown = (device_breakdown(prof, step_s) if on_card
+                 else {"device_time": "not measured (CPU)"})
+    one = per_step[-1]
+    result = {
+        "reduce": plan.reduce, "tp": plan.tp, "kv_repl": plan.kv_repl,
+        **{k: str(v) for k, v in kw.items()},
+        "local_heads": [eng.model.cfg.n_heads, eng.model.cfg.n_kv_heads],
+        "collective_backend": comm.backend,
+        "collectives_per_decode_step": {
+            k: v for k, v in one.items() if k not in ("bytes",)},
+        "collective_bytes_per_decode_step": one.get("bytes", 0),
+        "psum_bytes_per_step": predicted,
+        "host_copies_total": comm.counts.get("host_copies", 0),
+        "host_bytes_total": comm.counts.get("host_bytes", 0),
+        "kv_token_bytes": eng.kv_token_bytes_per_device(),
+        "decode_steps": stats.steps, "prefill_calls": stats.prefill_calls,
+        "decode_step_ms_median": 1e3 * step_s,
+        "decode_only_steps": len(decode_steps),
+        "device_busy_ms_per_step": breakdown.get("device_busy_ms_per_step"),
+        "device_idle_share": breakdown.get("device_idle_share"),
+        "tokens_per_s": stats.total_tokens / stats.wall,
+        "prefix_hit_tokens": stats.prefix_hit_tokens,
+        "kernel_launches": launches, "kernel_variants": variants,
+        "mxfp4_vmm_held": vmm_held,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+        "_streams": {i: list(o.token_ids) for i, o in finished.items()},
+        "_logits": tp_probe_logits(torch, llm, prompts[0]),
+        "_routes": log.result() if routes else None}
+    del llm, eng
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
+def tp_rings(torch, mesh, device: str) -> list:
+    """The two ring matmuls on the mesh's model group at ``RING_SHAPES``,
+    bf16, each rank's fragments of one seeded x and W, held against
+    ``torch.matmul`` of the same bf16 values in f32, and timed (CUDA
+    events around the whole call, host staging of the hops included)."""
+    from repro_torch.parallel.collective_matmul import (
+        ring_allgather_matmul, ring_matmul_reducescatter,
+    )
+    from repro_torch.parallel.hints import TPComm
+
+    comm = TPComm(mesh.get_group("model"))
+    p, r = comm.size, comm.rank
+    out = []
+    for m, k, n, mode in RING_SHAPES:
+        g = torch.Generator(device=device).manual_seed(k + n)
+        x = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=device)
+             / math.sqrt(k)).to(torch.bfloat16)
+        kp, nl = k // p, n // p
+        xf = x[:, r * kp:(r + 1) * kp]
+        if mode == "ag":
+            fn = lambda: ring_allgather_matmul(      # noqa: E731
+                xf, w[:, r * nl:(r + 1) * nl], comm)
+        else:
+            fn = lambda: ring_matmul_reducescatter(  # noqa: E731
+                xf, w[r * kp:(r + 1) * kp], comm)
+        got = fn()
+        want = (x.float() @ w.float())[:, r * nl:(r + 1) * nl]
+        lim = RING_REL_TOL * want.abs() + RING_ABS_TOL * want.abs().max()
+        share = float(((got.float() - want).abs() / lim).max())
+        if not share <= 1.0:
+            raise AssertionError(f"ring {mode} at {(m, k, n)} disagrees "
+                                 f"with torch.matmul: {share} of the limit")
+        ms = None
+        if device == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 5
+        out.append({"mode": mode, "M": m, "K": k, "N": n,
+                    "max_err_share": share, "ms_with_staging": ms})
+    return out
+
+
+def tp_gloo_cuda_probe(torch) -> dict:
+    """Which collectives the installed torch's gloo group takes on CUDA
+    tensors directly (on a group of its own, after the sessions): the
+    serve path hands its all-gathers and all-reduces of CUDA tensors to
+    gloo as they are (``parallel.hints.TPComm``), so a refusal here
+    would have failed the sessions first.  The ring's point-to-point hops
+    are not probed: gloo's send and recv take a raw pointer, which on a
+    CUDA tensor would reach the host transport, so they stage."""
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    n = dist.get_world_size()
+    t = torch.ones(4, device="cuda")
+    ops = {"all_reduce": lambda: dist.all_reduce(t, group=group),
+           "broadcast": lambda: dist.broadcast(t, src=0, group=group),
+           "all_gather": lambda: dist.all_gather(
+               [torch.empty_like(t) for _ in range(n)], t, group=group),
+           "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+               torch.empty(4 * n, device="cuda"), t, group=group)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except Exception as e:          # a refusal is the finding
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def tp_rank(rank: int, rdzv: str, queue, models: dict, device: str) -> None:
+    """One rank of the phase (a spawned process): join the gloo group,
+    build the models from the same seed as every rank, serve each mode,
+    run the ring matmuls and the gloo probe, and send the readings to the
+    parent through ``queue``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, parse_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    backend = init_world(device, backend="gloo", rank=rank,
+                         world_size=TP_RANKS, init_method=rdzv,
+                         timeout_s=TP_TIMEOUT_S)
+    try:
+        mesh = parse_mesh(f"1x{TP_RANKS}", device)
+        runs = {}
+        model = tp_build(torch, *models["llama"], device)
+        for label, reduce, kw in TP_MODES:
+            runs[label] = tp_session(torch, model, mesh, reduce, kw)
+        del model
+        gc.collect()
+        model = tp_build(torch, *models["deepseek"], device)
+        runs["deepseek_gather"] = tp_session(torch, model, mesh, "gather", {},
+                                             routes=True)
+        del model
+        gc.collect()
+        rings = tp_rings(torch, mesh, device)
+        probe = tp_gloo_cuda_probe(torch) if device == "cuda" else {}
+        queue.put((rank, {"runs": runs, "rings": rings, "backend": backend,
+                          "gloo_cuda_probe": probe}))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_near_ties(torch, got, want, prompts, sps, ref) -> tuple:
+    """Where the TP streams part from tp=1's: a greedy stream may part only
+    at a near tie, a top-2 gap within ``NEAR_TIE_BF16_ULPS`` bf16 ulps of
+    the top logit (serve_spec_draft's rule), measured on tp=1's own serve
+    numerics: its engine model (the mxfp4 view too) over pools of the
+    session's cache dtype (fp8 codes too), after the prompt and the
+    tokens before the parting one.  Returns the parting points and those
+    that are not near ties."""
+    near, bad = [], []
+    for i, sp in enumerate(sps):
+        a, b = got[i], want[i]
+        if a == b or not sp.is_greedy:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        logits = tp_paged_logits(torch, ref["model"], ref["cache_dtype"],
+                                 np.concatenate([prompts[i], b[:t]]))
+        top = np.sort(logits)[-2:]
+        gap = float(top[1] - top[0])
+        ulp = 2.0 ** (math.floor(math.log2(abs(float(top[1])))) - 7)
+        near.append({"request": i, "token": t, "gap_bf16_ulps": gap / ulp})
+        if not gap <= NEAR_TIE_BF16_ULPS * ulp:
+            bad.append(near[-1])
+    return near, bad
+
+
+def serve_tp_phase(torch, models: dict | None = None,
+                   device: str = "cuda") -> dict:
+    """Tensor-parallel serving on the card: two ranks (spawned processes)
+    sharing ``cuda:0`` over a gloo group (NCCL refuses two ranks on one
+    device), a (1, 2) mesh.  llama3-8b at ``TP_LLAMA_LAYERS`` layers, full
+    width, in gather, psum and MXFP4 + fp8 gather modes, and
+    deepseek-v2-lite-16b at ``TP_DEEPSEEK_LAYERS`` in gather mode (MLA heads
+    16 -> 8, latent pools and experts replicated), each serving the llama
+    mix, and llama's MXFP4 + fp8 weights once more in psum mode; then the
+    two ring matmuls on the group.  Per rank: the paged
+    decode launches equal layers x decode steps (at 16 query / 4 KV heads
+    for llama), every distinct ``mxfp4_vmm`` launch (N/2 and full K) held
+    at 1e-5 on its own activations, the collective bytes of a decode step
+    equal ``psum_bytes_per_step``, the pools' bytes a token are half of
+    tp=1's, and the decode step's wall and device-busy time.  Against the
+    tp=1 engine on the same card (sessions of this phase, same knobs): the
+    first decode step's logits within ``SCORE_REL_TOL`` of their largest;
+    greedy streams agree under the near-tie rule, and deepseek's may also
+    part at or after the session's first divergence: a routing flip, itself
+    a near tie on tp=1's router logits, or a request whose sampled stream
+    parted, either of which reaches every row through the expert capacity
+    (``tp_moe_divergence``; both sessions run one schedule).  The tp=1
+    models are built as the ranks build theirs (``tp_build``); ``models``
+    / ``device`` let a CPU rehearsal run the phase at reduced size.  No
+    number here is a tensor-parallel speed: both ranks share one card and
+    gloo copies every collective through the host."""
+    import multiprocessing as mproc
+    import queue as queue_mod
+    import tempfile
+
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    models = models or tp_models()
+    on_card = device == "cuda"
+    model = tp_build(torch, *models["llama"], device)
+
+    def tp1(m, kw, routes=False):
+        prompts, sps = serve_requests(SamplingParams, m.cfg.vocab_size)
+        llm = LLMEngine(m, backend="continuous", device=device,
+                        **TP_ENGINE, **kw)
+        log = RouteLog() if routes else None
+        streams, _, _, steps = serve_session(llm, prompts, sps, watch=log)
+        out = {"streams": streams, "routes": log and log.result(),
+               "kv_token_bytes":
+               llm.kv_token_bytes_per_device(),
+               "decode_step_ms_median": 1e3 * float(np.median(steps)),
+               "logits": tp_probe_logits(torch, llm, prompts[0]),
+               # the near-tie rule's gaps come from these (mxfp4 view)
+               "model": llm._eng.model, "cache_dtype": llm._eng.cache_dtype}
+        del llm
+        gc.collect()
+        return out
+
+    # the tp=1 sessions first, alone on the card: one for each engine
+    # configuration (gather and psum modes share it)
+    ref, by_kw = {}, {}
+    for label, _, kw in TP_MODES:
+        key = json.dumps(kw, sort_keys=True)
+        if key not in by_kw:
+            by_kw[key] = tp1(model, kw)
+        ref[label] = by_kw[key]
+    del by_kw
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mproc.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=tp_rank,
+                             args=(r, f"file://{tmp}/rdzv", q, models,
+                                   device)) for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        ranks, deadline = {}, time.monotonic() + TP_JOIN_S
+        try:
+            while len(ranks) < TP_RANKS:
+                try:
+                    r, res = q.get(timeout=2.0)
+                    ranks[r] = res
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise AssertionError(f"serve_tp: a rank failed "
+                                             f"(exit codes {dead})")
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"serve_tp: ranks not done "
+                                             f"after {TP_JOIN_S} s")
+            for p in procs:
+                p.join(timeout=TP_TIMEOUT_S)
+                if p.exitcode != 0:
+                    raise AssertionError(f"serve_tp: rank exit code "
+                                         f"{p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    # deepseek's tp=1 session once the ranks are gone
+    ds = tp_build(torch, *models["deepseek"], device)
+    ref["deepseek_gather"] = tp1(ds, {}, routes=True)
+
+    out = {"phase": "serve_tp", "ranks": TP_RANKS, "mesh": f"1x{TP_RANKS}",
+           "card_shared_by_ranks": True,
+           "collective_backend": ranks[0]["backend"],
+           "gloo_cuda_probe": ranks[0]["gloo_cuda_probe"],
+           "rings": {r: ranks[r]["rings"] for r in ranks}}
+    summed = {}
+    for label in ranks[0]["runs"]:
+        per_rank = [ranks[r]["runs"][label] for r in range(TP_RANKS)]
+        streams = [pr.pop("_streams") for pr in per_rank]
+        logits = [pr.pop("_logits") for pr in per_rank]
+        routes = [pr.pop("_routes") for pr in per_rank][0]
+        if any(s != streams[0] for s in streams[1:]):
+            raise AssertionError(f"serve_tp {label}: ranks' streams differ")
+        if any(not np.array_equal(lg, logits[0]) for lg in logits[1:]):
+            raise AssertionError(f"serve_tp {label}: ranks' logits differ")
+        want = ref[label]
+        kv1 = want["kv_token_bytes"]
+        # GQA pools hold half the KV heads a rank; MLA's latent pools
+        # replicate
+        share = 1 if label.startswith("deepseek") else TP_RANKS
+        for pr in per_rank:
+            if pr["kv_token_bytes"] * share != kv1:
+                raise AssertionError(f"serve_tp {label}: {pr['kv_token_bytes']}"
+                                     f" B a token a rank, tp=1 {kv1}")
+            for k, v in pr["kernel_launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        prompts, sps = serve_requests(SamplingParams,
+                                      want["model"].cfg.vocab_size)
+        near, bad = tp_near_ties(torch, streams[0], want["streams"],
+                                 prompts, sps, want)
+        first = None
+        if routes is not None:
+            # MoE: a greedy parting at or after the first divergence (a
+            # routing flip, itself a near tie, or a request whose sampled
+            # stream parted) may follow from it through the batch's expert
+            # capacity; one before it must be a near tie of the logits
+            first = tp_moe_divergence(routes, want["routes"], streams[0],
+                                      want["streams"])
+            for p in near:
+                p["step"] = want["routes"]["emitted"][p["request"]][p["token"]]
+                p["after_first_divergence"] = (first is not None
+                                               and p["step"] >= first["step"])
+            bad = [p for p in bad if not p["after_first_divergence"]]
+        lg1 = want["logits"]
+        logit_share = float(np.abs(logits[0] - lg1).max()
+                            / (SCORE_REL_TOL * np.abs(lg1).max()))
+        row = {"per_rank": per_rank, "tp1_kv_token_bytes": kv1,
+               "tp1_decode_step_ms_median": want["decode_step_ms_median"],
+               "greedy_streams_equal": sum(
+                   streams[0][i] == want["streams"][i]
+                   for i, sp in enumerate(sps) if sp.is_greedy),
+               "sampled_streams_equal": sum(
+                   streams[0][i] == want["streams"][i]
+                   for i, sp in enumerate(sps) if not sp.is_greedy),
+               "greedy_near_ties": near,
+               "first_decode_logits_share_of_limit": logit_share,
+               **({"first_divergence": first} if routes is not None
+                  else {})}
+        out[label] = row
+        print(f"  serve_tp {label}:", json.dumps(
+            {k: v for k, v in row.items() if k != "per_rank"}
+            | {"ranks": [{k: pr[k] for k in (
+                "decode_step_ms_median", "device_busy_ms_per_step",
+                "device_idle_share", "collective_bytes_per_decode_step",
+                "psum_bytes_per_step", "host_copies_total", "kv_token_bytes",
+                "kernel_launches", "peak_mem_gb")} for pr in per_rank]}))
+        if first is not None and first["kind"] == "route_flip" \
+                and not first["gap_share"] <= 1.0:
+            raise AssertionError(f"serve_tp {label}: the first divergence "
+                                 f"is a routing flip and no near tie: "
+                                 f"{first}")
+        if bad:
+            raise AssertionError(f"serve_tp {label}: greedy streams part "
+                                 f"from tp=1 at gaps above "
+                                 f"{NEAR_TIE_BF16_ULPS} bf16 ulps: {bad}")
+        if not logit_share <= 1.0:
+            raise AssertionError(f"serve_tp {label}: first decode logits at "
+                                 f"{logit_share} of {SCORE_REL_TOL} x max")
+    out["kernel_launches_summed"] = summed
+    del model, ds, ref
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 # the launcher on the card, in process: full-width llama3-8b served
@@ -6028,7 +6721,8 @@ def main() -> int:
                          "check_mla, check_moe, check_window, check_state, "
                          "serve_cli, train_hubert, train, train_cli, or, on a "
                          "llama3-8b built "
-                         "first, serve, serve_disagg and serve_spec_draft, "
+                         "first, serve, serve_disagg, serve_tp (with its "
+                         "tp=1 sessions) and serve_spec_draft, "
                          "on a "
                          "deepseek-v2-lite-16b built first, "
                          f"{', '.join(mla_phases())}, on mamba2-370m "
@@ -6084,6 +6778,7 @@ def main() -> int:
                                       "cases": check_mla(t)},
               "check_moe": check_moe, "check_window": check_window,
               "check_state": check_state, "serve_cli": serve_cli_phase,
+              "serve_tp": serve_tp_phase,
               **train_phases()}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
@@ -6149,6 +6844,7 @@ def main() -> int:
           {"serve": serve, "serve_quantized": serve_q})
     spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
     timed("serve_spec_legacy", serve_spec_legacy_phase, model)
+    tp = timed("serve_tp", serve_tp_phase)
     served += [("serve", model.cfg, serve), ("serve_static", model.cfg, static),
                ("serve_quantized", model.cfg, serve_q)]
     # damps the model's deeper blocks in place: the last phase to use it
@@ -6186,6 +6882,13 @@ def main() -> int:
     dense["launches"] = static["kernel_launches"][dense["name"]]
     exact["launches"] = spec["kernel_launches"][exact["name"]]
     kernels = [kernel, scaled, vmm, flash, dense, exact]
+    # the kernels of the tensor-parallel path: their launches summed over
+    # serve_tp's two ranks (each counts its own process's)
+    for k in (kernel, scaled, vmm):
+        k["launches_serve_tp"] = tp["kernel_launches_summed"].get(k["name"],
+                                                                  0)
+        if not k["launches_serve_tp"]:
+            raise AssertionError(f"{k['name']} never launched in serve_tp")
     # the same kernels on llama4-scout's path (its first session of each
     # phase): every one of them launched there too
     moe = {name: r for name, _, r in served}

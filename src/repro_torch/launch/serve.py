@@ -27,9 +27,20 @@ prefix index (``--num-prompts`` distinct prompts over ``--num-requests``
 requests; ``--no-prefix-cache`` turns it off).  ``--spec-draft reduced
 --gamma 4`` turns on speculative decoding inside the continuous engine.
 ``--disaggregate P:D`` splits it into a prefill-phase and a decode-phase
-engine behind the KV-page handoff; without ``--mesh`` (the only way the
-port runs: ``--mesh`` and a ``--tp-reduce`` other than ``auto`` raise,
-tensor parallelism is not ported) both phase engines share the one device.
+engine behind the KV-page handoff; both phase engines share the one
+device (with ``--mesh`` it raises: disaggregation across meshes waits).
+
+``--mesh DxM`` shards the continuous engine tensor-parallel over D*M
+ranks, one process each, every rank serving the same requests on its
+shard (``--tp-reduce gather|psum``; ``auto``: gather on the CPU, psum on
+the card)::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --continuous --mesh 1x2          # two CPU ranks, gloo
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --no-reduced --arch llama3-8b --continuous --mesh 1x2   # two cards
+
+Rank 0 prints the summary.
 ``--sku`` / ``--hbmco`` / ``--weight-format`` size the engine from a
 ``DeploymentSpec``; ``--fleet`` hands every other argument to
 ``repro_torch.launch.fleet`` (simulate, ``--plan``, ``--calibrate``).
@@ -45,7 +56,9 @@ card pass ``--no-reduced`` (a full config's widths).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
 
@@ -149,14 +162,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft lookahead per speculative window")
     ap.add_argument("--disaggregate", default=None, metavar="P:D",
                     help="phase-split continuous serving behind the KV-page "
-                         "handoff; without --mesh the two phase engines "
-                         "share the one device")
+                         "handoff; the two phase engines share the one "
+                         "device (not with --mesh)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="tensor-parallel serving (not ported: raises)")
+                    help="shard the continuous serve path over a (data=D, "
+                         "model=M) mesh of D*M ranks (run under torchrun "
+                         "--nproc-per-node D*M): KV pools split per KV head "
+                         "over the model dim")
     ap.add_argument("--tp-reduce", default="auto",
                     choices=["auto", "gather", "psum"],
-                    help="how a tensor-parallel column pair closes (not "
-                         "ported: anything but auto raises)")
+                    help="how each Megatron column pair closes on the mesh: "
+                         "gather = all-gather, full closing weight (CPU "
+                         "default), psum = one f32 all-reduce per attention "
+                         "/ MLP block (CUDA default)")
     # -- hardware-aware deployment (DeploymentSpec) ----------------------
     ap.add_argument("--sku", default=None,
                     help="deployment hardware point: rpu-cu | tpu-v5e | "
@@ -195,11 +213,30 @@ def main(argv=None) -> int:
     backend = args.backend or ("continuous" if args.continuous else
                                "speculative" if args.speculative else
                                "static")
-    if args.mesh is not None or args.tp_reduce != "auto":
-        raise _unported("tensor-parallel serving (--mesh / --tp-reduce)",
-                        "Tensor parallelism")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None and backend != "continuous":
+        print("--mesh shards the continuous backend; "
+              f"ignoring it for backend={backend}")
+    elif args.mesh is not None:
+        if args.disaggregate:
+            raise _unported("--disaggregate with --mesh",
+                            "Disaggregation across meshes")
+        from repro_torch.launch.mesh import init_world, parse_mesh
+        if "WORLD_SIZE" in os.environ:         # started by torchrun
+            init_world(device)
+        mesh = parse_mesh(args.mesh, device)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            import torch.distributed as dist
+            stack.callback(dist.destroy_process_group)
+            if mesh.get_rank():         # every rank serves; rank 0 prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+        return _serve(args, backend, device, mesh)
 
+
+def _serve(args, backend: str, device, mesh) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -228,6 +265,7 @@ def main(argv=None) -> int:
     if args.sku or args.hbmco or args.weight_format:
         spec = DeploymentSpec(
             sku=args.sku or "rpu-cu", hbmco=args.hbmco,
+            mesh=mesh, tp_reduce=args.tp_reduce,
             weight_format=args.weight_format, cache_dtype=cache_dtype,
             max_len=max_len, page_size=args.page_size,
             prefill_chunk=args.prefill_chunk, max_slots=args.max_slots)
@@ -283,7 +321,7 @@ def main(argv=None) -> int:
                 num_pages=1 + slots * -(-max_len // args.page_size) * 2,
                 prefill_chunk=args.prefill_chunk, cache_dtype=cache_dtype,
                 enable_prefix_cache=args.prefix_cache, speculative=spec_cfg,
-                **dkw)
+                mesh=mesh, tp_reduce=args.tp_reduce, **dkw)
         t0 = time.time()
         outs = llm.generate([pool_prompts[picks[i]] for i in range(n_req)],
                             sps, max_new_tokens=args.max_new,
@@ -295,6 +333,14 @@ def main(argv=None) -> int:
               f"requests={n_req} rate={args.arrival_rate}/s "
               f"steps={stats.steps} occupancy={stats.occupancy:.2f} "
               f"preemptions={stats.preemptions} device={device}")
+        if mesh is not None:
+            sp = llm.serve_plan
+            print(f"mesh: data={mesh.size(0)} x model={sp.tp} "
+                  f"(reduce={sp.reduce}, kv_repl={sp.kv_repl}, "
+                  f"backend={llm._eng._tp.backend}) - "
+                  f"{llm.kv_token_bytes_per_device()} KV bytes/token per "
+                  f"rank, {sp.psum_bytes_per_step(llm._eng._price_model, slots)}"
+                  f" collective bytes/step per rank")
         if args.sampling_mix:
             print(f"sampling mix: {args.sampling_mix} "
                   f"(one decode step, per-slot data)")

@@ -12,7 +12,8 @@ The reference's flags, plus ``--device`` (``cuda``, the default, or
 ``cpu``).  ``--reduced`` (the default) takes the family's tiny config; a
 training step runs no hand-written kernel (attention under autograd is
 the plain ``blocked_attention``), so it trains on the card too.  There is
-no mesh, plan or sharding rules: tensor parallelism is not ported.  The
+no mesh, plan or sharding rules: parallel training is not ported yet
+(ROADMAP Queue 1, 'Parallel training and the dry-run's meshes').  The
 weights are random, from ``--seed``.
 """
 from __future__ import annotations

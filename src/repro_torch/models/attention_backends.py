@@ -25,7 +25,9 @@ multi-token decode of the speculative verify step
 multi-query oracle for CPU tensors, the exact-accumulator CUDA kernel for
 CUDA tensors.  fp8/int8 pools quantize on
 write (codes plus per-token scales, ``quant/kv.py``) and hand their scale
-leaves to the attention; the o projection goes through ``qdot``.
+leaves to the attention; the o projection goes through ``tp_row_dot``
+(``parallel/hints.py``: ``qdot`` outside a tensor-parallel region, the
+closure of the rank's column shard inside one).
 
 The MLA serve paths keep one latent stream per layer (``c_kv`` and the
 shared ``k_rope``, bf16 or f32 pools only), scattered in place like the
@@ -50,8 +52,8 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import ModelConfig, span
+from repro_torch.parallel.hints import tp_row_dot
 from repro_torch.quant import kv as kvq
-from repro_torch.quant.linear import qdot
 
 
 def token_slots(page_table, pos, page: int):
@@ -140,7 +142,7 @@ def attn_decode_paged(p: layers.Attention, x: torch.Tensor, cfg: ModelConfig,
             q[:, 0], pool["k"], pool["v"], page_table, pos,
             k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
             window=window)
-    return qdot(out.reshape(b, h * hd), p.wo)
+    return tp_row_dot(out.reshape(b, h * hd), p.wo)
 
 
 def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
@@ -167,7 +169,7 @@ def attn_prefill_chunk_paged(p: layers.Attention, x: torch.Tensor,
             q, pool["k"], pool["v"], page_table, start,
             k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
             causal=cfg.causal, window=window, impl="blocked")
-    return qdot(out.reshape(b, c, h * hd), p.wo)
+    return tp_row_dot(out.reshape(b, c, h * hd), p.wo)
 
 
 def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
@@ -193,7 +195,7 @@ def attn_decode_multi_paged(p: layers.Attention, x: torch.Tensor,
             q, pool["k"], pool["v"], page_table, start,
             k_scales=pool.get("k_scale"), v_scales=pool.get("v_scale"),
             window=window)
-    return qdot(out.reshape(b, c, h * hd), p.wo)
+    return tp_row_dot(out.reshape(b, c, h * hd), p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +272,7 @@ def mla_decode_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
         valid = paged_valid_mask(page_table, page, pos)        # (B, S)
         out = layers.mla_absorbed_attention(p, q_nope, q_rope, c_d, kr_d,
                                             valid[:, None, :], cfg)
-    return qdot(out[:, 0].to(x.dtype), p.wo)
+    return tp_row_dot(out[:, 0].to(x.dtype), p.wo)
 
 
 def mla_decode_multi_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
@@ -296,7 +298,7 @@ def mla_decode_multi_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
         vmask = idx[None, None, :] <= positions[:, :, None]    # (B, C, S)
         out = layers.mla_absorbed_attention(p, q_nope, q_rope, c_d, kr_d,
                                             vmask, cfg)
-    return qdot(out.to(x.dtype), p.wo)
+    return tp_row_dot(out.to(x.dtype), p.wo)
 
 
 def mla_prefill_chunk_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
@@ -319,7 +321,7 @@ def mla_prefill_chunk_paged(p: layers.MLA, x: torch.Tensor, cfg: ModelConfig,
         kr_d = gather_pages(pool["k_rope"], page_table)
         out = layers.mla_expanded_attention(p, q_nope, q_rope, c_d, kr_d, cfg,
                                             q_offset=start)
-    return qdot(out.reshape(b, c, cfg.n_heads * cfg.v_hd), p.wo)
+    return tp_row_dot(out.reshape(b, c, cfg.n_heads * cfg.v_hd), p.wo)
 
 
 # ---------------------------------------------------------------------------

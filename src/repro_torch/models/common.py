@@ -20,7 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.quant.linear import qdot, qdot_group
+from repro_torch.parallel.hints import tp_row_dot
+from repro_torch.quant.linear import qdot_group
 
 # ---------------------------------------------------------------------------
 # Config
@@ -169,9 +170,11 @@ def span(name: str):
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """SwiGLU MLP; each weight may be packed (``quant.linear.qdot``; gate
-    and up read x together through ``qdot_group``)."""
+    and up read x together through ``qdot_group``).  ``w_down`` closes the
+    Megatron pair through ``parallel.hints.tp_row_dot`` (``qdot`` outside
+    a tensor-parallel region)."""
     g, u = qdot_group(x, (w_gate, w_up))
-    return qdot(F.silu(g.float()).to(x.dtype) * u, w_down)
+    return tp_row_dot(F.silu(g.float()).to(x.dtype) * u, w_down)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,12 @@ zeroed where the chunk starts at 0, and scatters the rows of real rows
 back; ``decode_step_paged`` commits the rows ``state_ok`` marks.  Both
 write the pools in place.
 
+Tensor parallelism (``parallel/hints.py``): the paged blocks close each
+Megatron pair at the reference's marks, ``tp_row_dot`` on the ``wo`` and
+``w_down`` products and ``tp_psum`` on the residual adds (not of MoE
+outputs; the experts run with the marks off, ``no_manual_tp``).  Outside
+a ``manual_tp_axis`` region they are plain single-device code.
+
 Modality frontends (stubs, as in the reference: the features and image
 embeddings are inputs).  An ``audio`` model (hubert-xlarge, encoder-only)
 holds ``in_proj`` (d x d) and ``head`` instead of an embedding: its input
@@ -77,6 +83,7 @@ from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, embed_init, rmsnorm,
     span,
 )
+from repro_torch.parallel.hints import no_manual_tp, tp_psum
 from repro_torch.quant.linear import packed_leaves
 
 @dataclasses.dataclass(frozen=True)
@@ -180,8 +187,13 @@ class Block(nn.Module):
 
 def _ffn(p: Block, x, cfg: ModelConfig):
     if p.is_moe:
-        return moe_lib.moe_forward(x, p.moe, cfg, impl=p.moe.impl)
+        # inside a tensor-parallel region the experts are replicated: every
+        # expert matmul (shared experts too) is complete, so the subtree
+        # runs with the marks off
+        with no_manual_tp():
+            return moe_lib.moe_forward(x, p.moe, cfg, impl=p.moe.impl)
     return layers.mlp_forward(p.mlp, x)
+
 
 
 def _hybrid_out(p: Block, x, a, s, cfg: ModelConfig):
@@ -314,9 +326,9 @@ def _block_decode_paged(p: Block, x, cfg: ModelConfig, window, pool,
         s, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, state)
         _commit_state_rows(state, st, state_ok)
         return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
-    x = x + a.to(x.dtype)
+    x = x + tp_psum(a).to(x.dtype)
     f = _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
-    return x + f.to(x.dtype)
+    return x + (f if p.is_moe else tp_psum(f)).to(x.dtype)
 
 
 def _block_prefill_chunk_paged(p: Block, x, cfg: ModelConfig, window, pool,
@@ -341,9 +353,9 @@ def _block_prefill_chunk_paged(p: Block, x, cfg: ModelConfig, window, pool,
         s, st = ssm_lib.ssm_forward(h, p.ssm, cfg, rows, valid=valid)
         _scatter_state_rows(state, st, slot_idx, valid)
         return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
-    x = x + a.to(x.dtype)
+    x = x + tp_psum(a).to(x.dtype)
     f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
-    return x + f.to(x.dtype)
+    return x + (f if p.is_moe else tp_psum(f)).to(x.dtype)
 
 
 def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
@@ -361,9 +373,9 @@ def _block_decode_multi_paged(p: Block, x, cfg: ModelConfig, window, pool,
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     a = be.decode_multi_paged(p.attn, h, cfg, pool, page_table, start,
                               valid, window=window)
-    x = x + a.to(x.dtype)
+    x = x + tp_psum(a).to(x.dtype)
     f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
-    return x + f.to(x.dtype)
+    return x + (f if p.is_moe else tp_psum(f)).to(x.dtype)
 
 
 def _cache_width(cache: dict) -> int | None:
@@ -424,6 +436,11 @@ class Model(nn.Module):
         self.final_norm = param((d,), NORM_DTYPE)
         if cfg.frontend == "audio" or not cfg.tie_embeddings:
             self.head = param((d, v))
+
+    @property
+    def moe_impl(self) -> str:
+        """The MoE strategy of the ``*_moe`` layers ("auto" without any)."""
+        return next((b.moe.impl for b in self.layers if b.is_moe), "auto")
 
     # ----- init -----
     @torch.no_grad()

@@ -26,7 +26,9 @@ the reference's:
     reproduces every stream on the card.
 
 ``impl="ep"`` (expert parallelism over a mesh) belongs to ROADMAP Queue 1,
-'Tensor parallelism', and raises.
+'Parallel training and the dry-run's meshes', and raises.  Inside a
+tensor-parallel serve region the experts run replicated, whole
+(``models.model._ffn`` turns the TP marks off for them).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.models.common import (
     PARAM_DTYPE, ModelConfig, dense_init, span, swiglu,
 )
 
-ITEM_TP = "ROADMAP Queue 1, 'Tensor parallelism'"
+ITEM_TP = "ROADMAP Queue 1, 'Parallel training and the dry-run's meshes'"
 
 
 class MoE(nn.Module):

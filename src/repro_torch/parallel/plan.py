@@ -1,32 +1,242 @@
-"""Pool pricing of the paged serve plan.
+"""The tensor-parallel paged serve plan and its pool pricing (the serve
+half of ``repro/parallel/plan.py``).
 
-The port of ``paged_kv_token_bytes`` and ``paged_kv_token_bytes_split``
-from ``repro/parallel/plan.py``: the bytes one cached token costs in every
-page pool of a model, measured from a tiny pool built at the cache dtype on
-the ``meta`` device (shapes and dtypes, no storage), so quantized fp8/int8
-pools price their 1-byte codes plus f32 scale leaves, the bytes the engine
-allocates.  Tensor-parallel pricing (``tp > 1``) and the rest of the
-reference module (``PagedServePlan``) belong to ROADMAP Queue 1, 'Tensor
-parallelism'.
+``PagedServePlan`` partitions the continuous-batching serve path over a
+mesh's ``model`` dim, the paper's CU ring.  The reference runs the paged
+step inside one manual ``shard_map``; here every rank is a process (SPMD)
+that builds its own local model (``local_model``) and its own pools, and
+runs the same host loop:
+
+  * attention and dense-MLP weights Megatron column-shard (``wq``, ``wk``,
+    ``wv``, their biases, ``w_gate``, ``w_up``, MLA's ``w_uk`` / ``w_uv``)
+    in contiguous head / d_ff blocks; each block closes its pair at the
+    ``tp_row_dot`` / ``tp_psum`` marks (``parallel/hints.py``).
+    ``reduce="gather"`` keeps the closing weights (``wo``, ``w_down``)
+    whole on every rank and all-gathers the column intermediate;
+    ``reduce="psum"`` row-shards them and spends one f32 all-reduce a
+    block;
+  * GQA pools hold the rank's KV heads (``local_config``); MLA's latent
+    pools replicate; page ids, page tables, positions and sampling
+    tensors are the same on every rank (the host allocator does not know
+    the mesh);
+  * embeddings, head, norms and MoE experts replicate: logits come back
+    whole on every rank, so every rank samples the same tokens.
+
+Under ``n_kv_heads < tp`` (llama3-style GQA) each KV head is replicated on
+``kv_repl = tp // n_kv_heads`` consecutive ranks (``prepare_params``), so
+every rank holds exactly the one KV head its query heads read.
+
+A mesh is a ``DeviceMesh`` (``launch/mesh.py``) or, for pricing only, a
+``MeshShape``: the plan reads ``mesh_dim_names``, ``size(dim)`` and
+``device_type``.  ``ParallelPlan``, ``make_plan``, ``_full_tp_ok`` and
+``split_mesh`` wait for the next slices (ROADMAP Queue 1, 'Parallel
+training and the dry-run's meshes' and 'Disaggregation across meshes').
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import ModelConfig
+
+# parameter name -> kind tables (the reference's; the port's parameter
+# names are the reference pytree's keys)
+_COL_SHARD = {"wq", "wk", "wv", "w_gate", "w_up", "w_uk", "w_uv",
+              "head", "in_proj"}
+_BIAS_COL = {"bq", "bk", "bv"}
+_ROW_SHARD = {"wo", "w_down", "out_proj"}
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s dim ``axis`` (``DeviceMesh.size`` takes the
+    dim's index)."""
+    return int(mesh.size(tuple(mesh.mesh_dim_names).index(axis)))
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedServePlan:
+    """Partitioning of the continuous-batching serve path over ``mesh``'s
+    ``axis``; ``reduce`` "gather" (bit-exact on the CPU) or "psum"
+    (Megatron); ``kv_repl`` the KV-head replication factor (1 = plain
+    head sharding)."""
+
+    mesh: Any
+    axis: str = "model"
+    reduce: str = "gather"
+    kv_repl: int = 1
+
+    @property
+    def tp(self) -> int:
+        return axis_size(self.mesh, self.axis)
+
+    # ---------------- local (per-rank) model geometry ----------------
+    def local_config(self, cfg: ModelConfig) -> ModelConfig:
+        """The config a rank's model runs with: head counts and the dense
+        MLP width divide by TP; everything replicated (d_model, vocab, MoE
+        experts, latent ranks) keeps its size.  Under KV-head replication
+        a rank holds exactly one KV head (its query group's)."""
+        if self.tp == 1:
+            return cfg
+        if self.kv_repl > 1:
+            kvh = 1
+        elif cfg.n_kv_heads % self.tp == 0:
+            kvh = cfg.n_kv_heads // self.tp
+        else:
+            kvh = cfg.n_kv_heads
+        return dataclasses.replace(
+            cfg, n_heads=cfg.n_heads // self.tp, n_kv_heads=kvh,
+            d_ff=cfg.d_ff // self.tp)
+
+    def pool_config(self, cfg: ModelConfig) -> ModelConfig:
+        """The config of the global pools: under KV-head replication the
+        KV-head axis widens to ``n_kv_heads * kv_repl`` (= tp) heads, one
+        a rank.  Identity otherwise."""
+        if self.kv_repl == 1:
+            return cfg
+        return dataclasses.replace(cfg,
+                                   n_kv_heads=cfg.n_kv_heads * self.kv_repl)
+
+    def prepare_params(self, params: dict, cfg: ModelConfig) -> dict:
+        """``params`` (dotted name -> tensor) with each KV head's ``wk`` /
+        ``wv`` columns (and ``bk`` / ``bv`` entries) repeated ``kv_repl``
+        times along the head axis, so that the contiguous column shard
+        hands rank ``d`` the one head its query heads (global heads
+        ``[d*H/tp, (d+1)*H/tp)``, all in KV group ``d // kv_repl``)
+        attend to.  MoE and SSM subtrees are left alone.  The same dict
+        when ``kv_repl == 1``."""
+        if self.kv_repl == 1:
+            return params
+        r, kvh, hd = self.kv_repl, cfg.n_kv_heads, cfg.hd
+        out = {}
+        for name, leaf in params.items():
+            names = name.split(".")
+            last = names[-1]
+            if any(n in ("moe", "ssm") for n in names) or last not in (
+                    "wk", "wv", "bk", "bv"):
+                out[name] = leaf
+                continue
+            *lead, width = leaf.shape
+            x = leaf.reshape(*lead, kvh, hd)
+            out[name] = torch.repeat_interleave(x, r, dim=-2).reshape(
+                *lead, width * r)
+        return out
+
+    # ---------------- parameters ----------------
+    def param_shard_dim(self, name: str, ndim: int) -> int | None:
+        """The dim of parameter ``name`` (dotted, ``layers.0.attn.wq``;
+        ``ndim`` dims) that shards over the axis, or None (replicated):
+        the reference's ``_serve_param_spec``."""
+        names = name.split(".")
+        last = names[-1]
+        if any(n in ("moe", "ssm") for n in names):
+            return None                 # replicated, computed whole
+        if last in _BIAS_COL:
+            return ndim - 1
+        if last in _COL_SHARD and last not in ("head", "in_proj"):
+            return ndim - 1
+        if last in _ROW_SHARD and self.reduce == "psum":
+            return ndim - 2
+        return None                     # embed / head / norms / gather's wo
+
+    def local_model(self, model, rank: int | None = None):
+        """Rank ``rank``'s model (default: this process's rank on the
+        axis): a ``Model`` of ``local_config`` on ``model``'s device that
+        owns copies of the rank's slices of every sharded parameter (after
+        ``prepare_params``) and shares ``model``'s replicated tensors.  The
+        full model is left as it was; drop it and its sharded tensors are
+        freed.  ``model`` must be unquantized: the engine packs the local
+        model (per-column blocks along K, so a column or K-aligned row
+        slice packs to the slice of the packed weight).  ``model`` itself
+        when tp is 1."""
+        from repro_torch.models.model import Model
+        from repro_torch.quant.linear import packed_leaves
+
+        if self.tp == 1:
+            return model
+        if next(packed_leaves(model), None) is not None:
+            raise ValueError("local_model takes the unquantized model; the "
+                             "engine quantizes the rank's local model")
+        if rank is None:
+            rank = self.mesh.get_local_rank(self.axis)
+        cfg, n = model.cfg, self.tp
+        full = self.prepare_params(dict(model.named_parameters()), cfg)
+        local = Model(self.local_config(cfg), device="meta",
+                      moe_impl=model.moe_impl)
+        local.device = model.device
+        for prefix, mod in local.named_modules():
+            for key, p in list(mod._parameters.items()):
+                name = f"{prefix}.{key}" if prefix else key
+                src = full[name]
+                dim = self.param_shard_dim(name, src.ndim)
+                if dim is not None:
+                    size = src.shape[dim] // n
+                    src = nn.Parameter(
+                        src.detach().narrow(dim, rank * size, size).clone(
+                            memory_format=torch.contiguous_format),
+                        requires_grad=False)
+                elif not isinstance(src, nn.Parameter):
+                    src = nn.Parameter(src, requires_grad=False)
+                # a gather-mode closing weight stays whole: it multiplies
+                # the gathered activation
+                whole = dim is None and key in _ROW_SHARD
+                if src.shape != p.shape and not whole:
+                    raise ValueError(f"{name}: rank {rank}'s slice is "
+                                     f"{tuple(src.shape)}, the local model "
+                                     f"wants {tuple(p.shape)}")
+                mod._parameters[key] = src
+        return local
+
+    # ---------------- accounting ----------------
+    def psum_bytes_per_step(self, model, num_slots: int,
+                            dtype_bytes: int = 4) -> int:
+        """Bytes a device moves through the TP collectives of one decode
+        step, over the attention and dense-MLP closure of every layer.
+        ``"psum"``: ring all-reduce of the (slots, d_model) partial,
+        2(tp-1)/tp of the payload.  ``"gather"``: all-gather of the column
+        intermediate, (tp-1)/tp of its (wider) payload."""
+        if self.tp == 1:
+            return 0
+        cfg = model.cfg
+        n = self.tp
+        total = 0.0
+        for seg in model.plan:
+            for kind in seg.kinds:
+                if self.reduce == "psum":
+                    att = mlp = 2 * (n - 1) / n * num_slots * cfg.d_model
+                else:
+                    width = (cfg.n_heads * (cfg.v_hd if kind.startswith("mla")
+                                            else cfg.hd))
+                    att = (n - 1) / n * num_slots * width
+                    mlp = (n - 1) / n * num_slots * cfg.d_ff
+                total += att * seg.reps
+                if not kind.endswith("_moe"):
+                    total += mlp * seg.reps
+        return int(total * dtype_bytes)
 
 
 def paged_kv_token_bytes(model, *, tp: int = 1, dtype_bytes: int = 4,
-                         cache_dtype=None) -> int:
-    """Pool bytes one cached token costs on the device.  With
-    ``cache_dtype`` set the bytes are measured from an actual tiny pool at
-    that dtype (``dtype_bytes`` is ignored); without it every leaf element
-    counts ``dtype_bytes``."""
+                         kv_repl: int = 1, cache_dtype=None) -> int:
+    """Per-device pool bytes one cached token costs: leaves sharded by
+    their backend's ``paged_partition_spec`` divide by ``tp`` (after
+    widening by ``kv_repl``: per-device bytes bottom out at one head),
+    replicated leaves do not.  With ``cache_dtype`` set the bytes are
+    measured from a tiny pool at that dtype on the ``meta`` device
+    (``dtype_bytes`` is ignored), so fp8/int8 pools price their 1-byte
+    codes plus f32 scale leaves, the bytes the engine allocates; without
+    it every leaf element counts ``dtype_bytes``."""
     full, ring = paged_kv_token_bytes_split(model, tp=tp,
                                             dtype_bytes=dtype_bytes,
+                                            kv_repl=kv_repl,
                                             cache_dtype=cache_dtype)
     return full + ring
 
 
 def paged_kv_token_bytes_split(model, *, tp: int = 1, dtype_bytes: int = 4,
+                               kv_repl: int = 1,
                                cache_dtype=None) -> tuple[int, int]:
     """``paged_kv_token_bytes`` split into its ``(full, ring)`` residency
     halves: bytes/token in full-context segments vs sliding-window
@@ -35,10 +245,6 @@ def paged_kv_token_bytes_split(model, *, tp: int = 1, dtype_bytes: int = 4,
     neither half."""
     from repro_torch.models.attention_backends import backend_for_kind
 
-    if tp > 1:
-        from repro_torch.runtime.engine import _unported
-        raise _unported(f"tensor-parallel pool pricing (tp={tp})",
-                        "Tensor parallelism")
     full = ring = 0
     for seg in model.plan:
         seg_total = 0
@@ -46,18 +252,66 @@ def paged_kv_token_bytes_split(model, *, tp: int = 1, dtype_bytes: int = 4,
             be = backend_for_kind(kind)
             if be is None or not be.supports_paged:
                 continue
+            part = be.paged_partition_spec or {}
             if cache_dtype is not None:
                 pool = be.init_page_pool(model.cfg, 2, 1, dtype=cache_dtype,
                                          device="meta")
-                leaf_bytes = [math.prod(v.shape[2:]) * v.element_size()
-                              for v in pool.values()]
+                leaf_bytes = {k: math.prod(v.shape[2:]) * v.element_size()
+                              for k, v in pool.items()}
             else:
                 pool = be.init_page_pool(model.cfg, 2, 1, device="meta")
-                leaf_bytes = [math.prod(v.shape[2:]) * dtype_bytes
-                              for v in pool.values()]
-            seg_total += sum(leaf_bytes) * seg.reps
+                leaf_bytes = {k: math.prod(v.shape[2:]) * dtype_bytes
+                              for k, v in pool.items()}
+            for key, per_tok in leaf_bytes.items():
+                if tp > 1 and part.get(key) is not None:
+                    per_tok = per_tok * kv_repl // tp
+                seg_total += per_tok * seg.reps
         if seg.window is not None:
             ring += seg_total
         else:
             full += seg_total
     return full, ring
+
+
+def make_paged_serve_plan(cfg: ModelConfig, mesh, axis: str = "model",
+                          reduce: str = "auto") -> PagedServePlan:
+    """Validate and build the TP partitioning of the paged serve path.
+
+    ``reduce="auto"``: the bit-exact ``"gather"`` composition on a CPU
+    mesh, the one-all-reduce-a-block ``"psum"`` pairing on a CUDA one (the
+    reference's ``on_cpu()`` rule)."""
+    if reduce == "auto":
+        reduce = "gather" if mesh.device_type == "cpu" else "psum"
+    if reduce not in ("gather", "psum"):
+        raise ValueError(f"reduce={reduce!r} (want 'auto'/'gather'/'psum')")
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh {names} has no {axis!r} axis")
+    tp = axis_size(mesh, axis)
+    if tp == 1:
+        return PagedServePlan(mesh=mesh, axis=axis, reduce=reduce)
+    if cfg.family in ("ssm", "hybrid") or cfg.ssm:
+        raise NotImplementedError(
+            "sharded paged serving needs a paged state pool for SSM/hybrid "
+            "families first (see ROADMAP)")
+    kv_repl = 1
+    problems = []
+    if cfg.n_heads % tp:
+        problems.append(f"n_heads={cfg.n_heads}")
+    if not cfg.mla and cfg.n_kv_heads % tp:
+        if tp % cfg.n_kv_heads == 0:
+            # llama3-style kvh < tp: replicate each KV head on tp/kvh
+            # consecutive ranks (one local head each); see prepare_params
+            kv_repl = tp // cfg.n_kv_heads
+        else:
+            problems.append(f"n_kv_heads={cfg.n_kv_heads}")
+    if cfg.d_ff % tp:
+        problems.append(f"d_ff={cfg.d_ff}")
+    if problems:
+        raise ValueError(
+            f"{cfg.name}: {', '.join(problems)} not divisible by the "
+            f"{tp}-way {axis!r} axis; pick a mesh whose TP degree divides "
+            "the head/FFN widths (KV heads may also be an integer divisor "
+            "of TP — they replicate)")
+    return PagedServePlan(mesh=mesh, axis=axis, reduce=reduce,
+                          kv_repl=kv_repl)

@@ -82,17 +82,24 @@ def packed_leaves(model: nn.Module):
                 yield (f"{prefix}.{k}" if prefix else k), v
 
 
-def serve_weight_bytes(model: nn.Module, fmt: str | None) -> int:
-    """Total bytes ``model``'s weights occupy when served under ``fmt``
-    (None = native): exact packed bytes for quantizable leaves, native
-    bytes for the rest — the number ``quantize_params`` allocates."""
-    total = 0
+def serve_leaf_bytes(model: nn.Module, fmt: str | None):
+    """(dotted name, ndim, bytes) of every weight of ``model`` served under
+    ``fmt`` (None = native): exact packed bytes for quantizable leaves,
+    native bytes for the rest, a quantized view's packed leaves at their
+    bytes."""
     for name, p in model.named_parameters():
         if fmt is not None and quantizable_leaf(name, p, fmt):
-            total += formats.packed_nbytes(tuple(p.shape), fmt)
+            yield name, p.ndim, formats.packed_nbytes(tuple(p.shape), fmt)
         else:
-            total += p.numel() * p.element_size()
-    return total + sum(w.nbytes for _, w in packed_leaves(model))
+            yield name, p.ndim, p.numel() * p.element_size()
+    for name, w in packed_leaves(model):
+        yield name, len(w.shape), w.nbytes
+
+
+def serve_weight_bytes(model: nn.Module, fmt: str | None) -> int:
+    """Total bytes ``model``'s weights occupy when served under ``fmt``:
+    the number ``quantize_params`` allocates (``serve_leaf_bytes``)."""
+    return sum(b for _, _, b in serve_leaf_bytes(model, fmt))
 
 
 def is_packed(w) -> bool:

@@ -36,8 +36,12 @@ constants (``core/hardware.py``: the H100 is a nominal 80 GiB, decoding at
 the paper's measured 32% of its 3.35 TB/s).  Differences: dtypes are torch
 dtypes (bf16 by default) or the strings ``"fp8"``/``"int8"``; the port
 holds weights in the ``Model`` itself, so ``params=`` and ``draft_params=``
-take a ``Model`` (or its quantized view); a ``mesh`` raises naming ROADMAP
-Queue 1, 'Tensor parallelism'.
+take a ``Model`` (or its quantized view).  ``mesh`` is ``"DxM"``, ``(D, M)``
+or a ``launch.mesh.MeshShape`` (dims and sizes only: pricing makes no
+process group; ``resolve(device=)`` names the tensor type that decides
+``tp_reduce="auto"``), or a ``DeviceMesh`` (an engine serving the spec
+builds one over its ranks and passes it in); the per-device budget then
+counts the serve plan's ``tp`` and ``kv_repl`` as the reference's does.
 """
 from __future__ import annotations
 
@@ -89,7 +93,10 @@ class DeploymentSpec:
                    paper's 768 MB candidate).  When None, the SKU's native
                    HBM numbers apply (GPU decode bandwidth derated by the
                    paper's measured utilization).
-    mesh           tensor-parallel mesh: not ported (raises at resolve).
+    mesh           tensor-parallel mesh ("DxM", (D, M), a DeviceMesh or a
+                   MeshShape); None = one device.
+    tp_reduce      how the serve plan closes a column pair ("auto",
+                   "gather", "psum").
     weight_format  ``quant.formats`` name ("mxfp4", ...) for the weight
                    budget; None = native parameter dtype.
     cache_dtype    KV-pool dtype: a torch dtype, "fp8" or "int8" (None =
@@ -196,11 +203,25 @@ class DeploymentSpec:
         eff = getattr(chip, "compute_efficiency", 0.7)
         return chip.peak_flops_bf16 * eff, bw
 
+    def _resolve_mesh(self, override=None, device="cuda"):
+        """The mesh to price: ``override`` or the spec's.  A "DxM" string
+        or (D, M) pair prices as a ``MeshShape`` of ``device``'s type
+        (whose "auto" reduction that type decides); no process group is
+        made.  The engine serving the spec builds its ``DeviceMesh``
+        itself and passes it here."""
+        from repro_torch.launch.mesh import MeshShape, mesh_dims
+        mesh = override if override is not None else self.mesh
+        if mesh is None or hasattr(mesh, "mesh_dim_names"):
+            return mesh
+        return MeshShape(mesh_dims(mesh),
+                         device_type=torch.device(device).type)
+
     # ---------------- resolution ----------------
     def resolve(self, model, params=None, mesh=None, *, draft=None,
                 draft_params=None, gamma: int = 8,
                 spec_accept_rate: float = 0.7,
-                phase: str = "colocated") -> "ResolvedDeployment":
+                phase: str = "colocated",
+                device="cuda") -> "ResolvedDeployment":
         """Turn the spec into runtime numbers for ``model`` (a ``Model``;
         only its ``cfg`` and ``plan`` are read, so a ``meta``-device model
         prices without storage).
@@ -221,9 +242,13 @@ class DeploymentSpec:
         per window: gamma draft steps plus one verify step.
         ``spec_accept_rate`` is the modeled per-token acceptance alpha; a
         window emits ``alpha(1-alpha^gamma)/(1-alpha) + 1`` expected
-        tokens."""
-        from repro_torch.parallel.plan import paged_kv_token_bytes, \
-            paged_kv_token_bytes_split
+        tokens.
+
+        ``device`` is where the deployment would serve: a "DxM" mesh is
+        priced as that device type's (``tp_reduce="auto"`` is "gather" on
+        the CPU, "psum" on CUDA)."""
+        from repro_torch.parallel.plan import make_paged_serve_plan, \
+            paged_kv_token_bytes, paged_kv_token_bytes_split
         from repro_torch.runtime.state_cache import model_cache_layout, \
             ring_pages_needed, state_bytes_per_slot
 
@@ -262,11 +287,12 @@ class DeploymentSpec:
                         f"({'/'.join(sorted(kvq.KV_FORMATS))}) exists only "
                         f"for GQA page pools. Use cache_dtype=None (bf16) "
                         f"or torch.float32 for this architecture.")
-        if (mesh if mesh is not None else self.mesh) is not None:
-            from repro_torch.runtime.engine import _unported
-            raise _unported("tensor-parallel serving (mesh=)",
-                            "Tensor parallelism")
+        mesh = self._resolve_mesh(mesh, device)
+        plan = None
         tp = kv_repl = 1
+        if mesh is not None:
+            plan = make_paged_serve_plan(cfg, mesh, reduce=self.tp_reduce)
+            tp, kv_repl = plan.tp, plan.kv_repl
         dev = self.device_budget()
         fp = compute_footprint(cfg)
         wbits = (formats.bits_per_element(self.weight_format)
@@ -275,8 +301,11 @@ class DeploymentSpec:
 
         # -- weights, per device --
         if params is not None:
-            weight_bytes = self._weight_bytes_exact(params)
+            weight_bytes = self._weight_bytes_exact(params, plan)
         else:
+            # no params: every weight counted replicated (the reference's
+            # conservative estimate: overstating weights only shrinks the
+            # pool)
             weight_bytes = fp.total_params * per
 
         # -- speculative draft: weights + per-page pool bytes --
@@ -284,16 +313,21 @@ class DeploymentSpec:
             else torch.bfloat16
         draft_weight_bytes = 0.0
         draft_kv_token = 0
-        dfp = None
-        dtp = 1
+        dfp = dplan = None
+        dtp = dkv_repl = 1
         if draft is not None:
             dfp = compute_footprint(draft.cfg)
+            if mesh is not None:
+                dplan = make_paged_serve_plan(draft.cfg, mesh,
+                                              reduce=self.tp_reduce)
+                dtp, dkv_repl = dplan.tp, dplan.kv_repl
             if draft_params is not None:
-                draft_weight_bytes = self._weight_bytes_exact(draft_params)
+                draft_weight_bytes = self._weight_bytes_exact(draft_params,
+                                                              dplan)
             else:
                 draft_weight_bytes = dfp.total_params * per
-            draft_kv_token = paged_kv_token_bytes(draft,
-                                                  cache_dtype=cache_dtype)
+            draft_kv_token = paged_kv_token_bytes(
+                draft, tp=dtp, kv_repl=dkv_repl, cache_dtype=cache_dtype)
             weight_bytes += draft_weight_bytes
 
         # -- workspace + KV budget --
@@ -303,7 +337,7 @@ class DeploymentSpec:
         # codes + scale leaves; with a draft every logical page costs both
         # pool sets
         kv_full, kv_ring = paged_kv_token_bytes_split(
-            model, cache_dtype=cache_dtype)
+            model, tp=tp, kv_repl=kv_repl, cache_dtype=cache_dtype)
         kv_full += draft_kv_token      # draft pages live in the full space
         kv_token = kv_full + kv_ring
         max_blocks = -(-self.max_len // self.page_size)
@@ -452,7 +486,7 @@ class DeploymentSpec:
 
         return ResolvedDeployment(
             **spec_kwargs,
-            spec=self, device=dev, mesh=None, tp=tp, kv_repl=kv_repl,
+            spec=self, device=dev, mesh=mesh, tp=tp, kv_repl=kv_repl,
             tp_reduce=self.tp_reduce, cache_dtype=cache_dtype,
             weight_bytes_per_device=weight_bytes,
             workspace_bytes=workspace,
@@ -477,15 +511,23 @@ class DeploymentSpec:
             prefill_flops=flops_eff,
             stream_bw=stream_bw)
 
-    def _weight_bytes_exact(self, params) -> float:
-        """Weight bytes as the engine will allocate them: quantizable
-        projections at their exact packed (codes + scales) bytes for
-        ``weight_format``, every other parameter at its native dtype,
-        packed leaves of a quantized view at their bytes; each tensor once,
-        however many modules share it; no buffers
-        (``quant.linear.serve_weight_bytes``)."""
-        from repro_torch.quant.linear import serve_weight_bytes
-        return float(serve_weight_bytes(params, self.weight_format))
+    def _weight_bytes_exact(self, params, plan=None) -> float:
+        """Per-device weight bytes as the engine will allocate them
+        (``quant.linear.serve_leaf_bytes``: packed bytes for quantizable
+        projections under ``weight_format``, native bytes for the rest).
+        On a mesh (``plan``) a leaf the plan shards counts ``kv_repl / tp``
+        of its bytes (wk, wv and their biases) or ``1 / tp`` (the rest),
+        as the reference's budget does."""
+        from repro_torch.quant.linear import serve_leaf_bytes
+        total = 0.0
+        for name, ndim, b in serve_leaf_bytes(params, self.weight_format):
+            if plan is not None and plan.tp > 1 and \
+                    plan.param_shard_dim(name, ndim) is not None:
+                repl = plan.kv_repl if name.split(".")[-1] in (
+                    "wk", "wv", "bk", "bv") else 1
+                b = b * repl / plan.tp
+            total += b
+        return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -554,7 +596,10 @@ class ResolvedDeployment:
         d = self.device
         lines = [
             f"deployment: {d.name}"
-            + (f" [{self.phase}]" if self.phase != "colocated" else ""),
+            + (f" [{self.phase}]" if self.phase != "colocated" else "")
+            + (f" x tp={self.tp}" + (f" (kv_repl={self.kv_repl})"
+                                     if self.kv_repl > 1 else "")
+               if self.tp > 1 else ""),
             f"  capacity  {_fmt_bytes(d.capacity_bytes):>10}/device = "
             f"{_fmt_bytes(self.weight_bytes_per_device)} weights + "
             f"{_fmt_bytes(self.workspace_bytes)} workspace + "

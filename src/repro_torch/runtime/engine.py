@@ -94,12 +94,27 @@ current stream.  A decode-side preemption drains back to the prefill
 engine, which recomputes the chain and hands it off again.  Stateful
 layouts refuse a phase split in the reference's words.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh=`` (tensor parallelism, also in a spec, and each phase's mesh of a
-disaggregated engine).
+Tensor-parallel serving (``mesh=``, a ``DeviceMesh`` with dims ``("data",
+"model")`` from ``launch/mesh.py``, or a "DxM" spec, given or a
+``DeploymentSpec``'s, that the engine builds into one): SPMD,
+one process per rank, every rank running this same host loop.  The rank
+builds its local model (``PagedServePlan.local_model``: its heads, its
+d_ff slice, the closing weights whole in "gather" mode or row-sharded in
+"psum" mode; quantized after slicing) and its own pools at local KV heads
+(one replicated head under ``kv_repl``); each step runs inside
+``parallel.hints.manual_tp_axis``, whose marks close every column/row pair
+with one all-gather or all-reduce over the mesh's ``model`` group.  Logits
+come back whole on every rank, so every rank samples the same tokens.
+Ranks must agree on every scheduling decision: the one clock reading the
+scheduler acts on (admission, and through ``admit_time`` the choice of a
+preemption victim) is group rank 0's, broadcast at every step.  A
+separate speculative draft gets its own plan; stateful layouts refuse
+``mesh=`` in the reference's words, and a disaggregated phase on a mesh
+waits (ROADMAP Queue 1, 'Disaggregation across meshes').
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Iterable
@@ -108,7 +123,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import device_mesh
 from repro_torch.models.model import Model, dense_cache_dtype
+from repro_torch.parallel.hints import TPComm, manual_tp_axis
 from repro_torch.quant import kv as kvq
 from repro_torch.quant.linear import quantize_params
 from repro_torch.runtime import sampling
@@ -124,6 +141,14 @@ from repro_torch.runtime.state_cache import (
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, '{item}')")
+
+
+def _rank_plan(cfg, mesh, tp_reduce: str, comm: TPComm | None = None):
+    """The serve plan of ``cfg`` on ``mesh`` and this rank's collectives
+    over its ``model`` group (``comm`` when the caller has them)."""
+    from repro_torch.parallel.plan import make_paged_serve_plan
+    plan = make_paged_serve_plan(cfg, mesh, reduce=tp_reduce)
+    return plan, comm or TPComm(mesh.get_group(plan.axis))
 
 
 @dataclasses.dataclass
@@ -190,7 +215,7 @@ class ServeEngine:
         self.device = wdev
         self.deployment = None
         if spec is not None:        # DeploymentSpec (runtime.deployment)
-            dep = spec.resolve(model, params=model)
+            dep = spec.resolve(model, params=model, device=wdev)
             self.deployment = dep
             max_len = dep.max_len if max_len is None else max_len
             cache_dtype = dep.cache_dtype if cache_dtype is None \
@@ -427,7 +452,8 @@ class ContinuousServeEngine:
                  prefill_chunk: int | None = None,
                  enable_prefix_cache: bool = True,
                  max_top_k: int = sampling.MAX_TOP_K,
-                 mesh=None, max_decode_slots: int | None = None,
+                 mesh=None, tp_reduce: str = "auto",
+                 max_decode_slots: int | None = None,
                  speculative: SpeculativeConfig | None = None,
                  phase: str = "colocated"):
         if model.cfg.frontend is not None:
@@ -448,14 +474,19 @@ class ContinuousServeEngine:
         # reference's refusals --
         lay = model_cache_layout(model.plan)
         self._layout = lay
+        mesh = mesh if mesh is not None else getattr(spec, "mesh", None)
         if mesh is not None:
             if lay.has_state:
                 raise NotImplementedError(
                     f"tensor-parallel serving of the state-carrying arch "
                     f"{model.cfg.name!r} needs sharded state pools "
                     f"(recorded follow-on); run it single-device")
-            raise _unported("tensor-parallel serving (mesh=)",
-                            "Tensor parallelism")
+            if phase != "colocated":
+                raise _unported(f"a {phase}-phase engine on a mesh",
+                                "Disaggregation across meshes")
+            # a "DxM" spec becomes this engine's DeviceMesh over the
+            # initialised world
+            mesh = device_mesh(mesh, wdev)
         if lay.stateful:
             arch = model.cfg.name
             if speculative is not None:
@@ -490,8 +521,12 @@ class ContinuousServeEngine:
                 draft = speculative.draft_model or model
                 rkw = dict(draft=draft, draft_params=draft,
                            gamma=speculative.gamma)
-            dep = spec.resolve(model, params=model, phase=phase, **rkw)
+            dep = spec.resolve(model, params=model, mesh=mesh, phase=phase,
+                               device=wdev, **rkw)
             self.deployment = dep
+            mesh = dep.mesh
+            if tp_reduce == "auto":
+                tp_reduce = dep.tp_reduce
             num_slots = dep.num_slots if num_slots is None else num_slots
             page_size = dep.page_size if page_size is None else page_size
             num_pages = dep.num_pages if num_pages is None else num_pages
@@ -513,6 +548,17 @@ class ContinuousServeEngine:
                 f"pass a DeploymentSpec via spec= or the explicit knobs "
                 f"{missing}")
         prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
+        # -- tensor parallelism: this rank's local model and TP group; the
+        # pricing reads the full config (a meta model: no storage) --
+        self.serve_plan = None
+        self._tp: TPComm | None = None
+        self._price_model = model
+        if mesh is not None:
+            self.serve_plan, self._tp = _rank_plan(model.cfg, mesh,
+                                                   tp_reduce)
+            self._price_model = Model(model.cfg, device="meta",
+                                      moe_impl=model.moe_impl)
+            model = self.serve_plan.local_model(model)
         if weight_format is not None:
             # a view: packed projections, the caller's other tensors
             model = quantize_params(model, weight_format)
@@ -553,6 +599,7 @@ class ContinuousServeEngine:
         # page tables) --
         self.spec = speculative
         self._gamma = int(speculative.gamma) if speculative is not None else 0
+        self._draft_plan = self.serve_plan
         if speculative is not None:
             _check_rewindable(model)
             dm = speculative.draft_model
@@ -570,6 +617,11 @@ class ContinuousServeEngine:
                 if ddev != self.device:
                     raise ValueError(f"draft weights are on {ddev}, the "
                                      f"target's on {self.device}")
+                if mesh is not None:
+                    # a separate draft shards by a plan of its own
+                    self._draft_plan, _ = _rank_plan(dm.cfg, mesh, tp_reduce,
+                                                     self._tp)
+                    dm = self._draft_plan.local_model(dm)
                 if weight_format is not None:
                     dm = quantize_params(dm, weight_format)
             self._draft_model = dm
@@ -839,16 +891,32 @@ class ContinuousServeEngine:
     def _now(self) -> float:
         return time.monotonic() - self._t0
 
+    def _sched_now(self) -> float:
+        """The clock reading the scheduler acts on: this process's, or on a
+        mesh group rank 0's, broadcast, so that every rank admits (and so
+        preempts and defrags) on the same step."""
+        now = self._now()
+        return now if self._tp is None else self._tp.broadcast_float(now)
+
+    def _tp_region(self):
+        """The tensor-parallel region the model runs in (none off-mesh)."""
+        if self._tp is None:
+            return contextlib.nullcontext()
+        return manual_tp_axis(self._tp, self.serve_plan.reduce)
+
     def has_unfinished(self) -> bool:
         return self._sched is not None and self._sched.has_work()
 
     def kv_token_bytes_per_device(self) -> int:
         """Pool bytes one cached token costs on the device, measured from
-        the pool dtype (fp8/int8 pools: codes + scale leaves)."""
+        the pool dtype (fp8/int8 pools: codes + scale leaves); on a mesh a
+        rank's share (sharded leaves over tp, widened by kv_repl)."""
         from repro_torch.parallel.plan import paged_kv_token_bytes
-        return paged_kv_token_bytes(self.model,
-                                    cache_dtype=self.cache_dtype
-                                    or torch.bfloat16)
+        plan = self.serve_plan
+        return paged_kv_token_bytes(
+            self._price_model, tp=plan.tp if plan else 1,
+            kv_repl=plan.kv_repl if plan else 1,
+            cache_dtype=self.cache_dtype or torch.bfloat16)
 
     def add_request(self, req: Request,
                     sampling_params: SamplingParams | None = None) -> None:
@@ -1107,12 +1175,16 @@ class ContinuousServeEngine:
         iteration (may be empty).  Never sleeps."""
         if self._sched is None:
             return []
+        with self._tp_region():
+            return self._step()
+
+    def _step(self) -> list[RequestOutput]:
         sched = self._sched
         outs: list[RequestOutput] = []
         if self.phase != "decode":
             # a decode-phase engine admits only through admit_handoff();
             # its preemption victims drain back to the prefill engine
-            for r in sched.admit(self._now()):
+            for r in sched.admit(self._sched_now()):
                 self._slots.set(r.slot, r.sampling)
                 self._presence_np[r.slot] = False
                 self._presence_np[r.slot][np.asarray(r.prompt)] = True

@@ -48,6 +48,15 @@ knobs (``runtime/deployment.py``; explicit kwargs still win)::
     llm = LLMEngine(model, spec=spec)
     print(llm.deployment.describe())
 
+Tensor-parallel serving: one process per rank (``torchrun``), each
+holding its shard of the model and its share of the KV heads; every rank
+runs the same ``generate`` and returns the same outputs::
+
+    init_world("cuda")                                  # launch/mesh.py
+    llm = LLMEngine(model, backend="continuous", mesh=parse_mesh("1x2",
+                    "cuda"), tp_reduce="psum", max_len=2048, num_slots=8)
+    llm.serve_plan          # PagedServePlan: tp, kv_repl, reduce
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
 metrics).  All three backends are ported; the static and continuous ones
@@ -69,7 +78,7 @@ from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.engine import (
     ContinuousServeEngine, ContinuousStats, DisaggServeEngine, RequestOutput,
-    ServeEngine,
+    ServeEngine, _unported,
 )
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Request
@@ -106,6 +115,7 @@ class LLMEngine:
                  draft_model: Model | None = None, gamma: int = 8,
                  speculative=None,
                  default_sampling: SamplingParams | None = None, mesh=None,
+                 tp_reduce: str = "auto",
                  disaggregate: bool = False, prefill_mesh=None,
                  decode_mesh=None, prefill_slots: int | None = None,
                  prefill_pages: int | None = None):
@@ -175,6 +185,11 @@ class LLMEngine:
         if spec is None and num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
         if disaggregate:
+            if any(m is not None for m in (mesh, prefill_mesh, decode_mesh,
+                                           getattr(spec, "mesh", None))):
+                raise _unported("disaggregated serving on a mesh "
+                                "(mesh= / prefill_mesh= / decode_mesh=)",
+                                "Disaggregation across meshes")
             self._eng = DisaggServeEngine(
                 model, device=device, num_slots=num_slots,
                 page_size=page_size, num_pages=num_pages, max_len=max_len,
@@ -195,7 +210,18 @@ class LLMEngine:
             sampling_params=self.default_sampling, cache_dtype=cache_dtype,
             weight_format=weight_format, prefill_chunk=prefill_chunk,
             enable_prefix_cache=enable_prefix_cache, max_top_k=max_top_k,
-            mesh=mesh, speculative=speculative)
+            mesh=mesh, tp_reduce=tp_reduce, speculative=speculative)
+        if self._eng.serve_plan is not None:
+            # on a mesh, the rank's local model: the caller's full one is
+            # not kept alive here
+            self.model = self._eng.model
+
+    # -- mesh introspection (continuous backend) ----------------------------
+    @property
+    def serve_plan(self):
+        """The engine's ``PagedServePlan`` (None off-mesh and on the other
+        backends)."""
+        return getattr(self._eng, "serve_plan", None)
 
     @property
     def deployment(self):

@@ -17,7 +17,7 @@ card's machine lacks.  A restore puts each leaf on its template leaf's
 device, in its dtype (a template ``nn.Parameter`` gives a parameter of
 the same ``requires_grad``).  Re-sharding onto another mesh
 (``shardings=``) is a mesh feature and raises, naming ROADMAP Queue 1,
-'Tensor parallelism'.
+'Parallel training and the dry-run's meshes'.
 """
 from __future__ import annotations
 

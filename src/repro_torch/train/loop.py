@@ -78,7 +78,7 @@ def run_training(
     ``failure_fn(step) -> True`` injects a simulated node failure: the loop
     responds exactly as to a real one — restore last checkpoint, continue.
     ``shardings`` (an elastic restore onto a mesh) raises, naming ROADMAP
-    Queue 1, 'Tensor parallelism'.
+    Queue 1, 'Parallel training and the dry-run's meshes'.
     """
     timings = {"step_s": [], "save_s": [], "restore_s": []}
 

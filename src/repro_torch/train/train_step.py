@@ -29,7 +29,7 @@ from repro_torch.quant.linear import packed_leaves
 from repro_torch.runtime.engine import _unported
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
-TP_ITEM = "Tensor parallelism"
+TP_ITEM = "Parallel training and the dry-run's meshes"
 
 
 @dataclasses.dataclass

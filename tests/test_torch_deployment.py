@@ -163,8 +163,10 @@ def test_paged_kv_token_bytes_match_reference(cache):
         assert paged_kv_token_bytes_split(port, cache_dtype=tc,
                                           dtype_bytes=2) == \
             j_token_split(ref, cache_dtype=jc, dtype_bytes=2)
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
-        paged_kv_token_bytes(port, tp=2)
+    # tensor-parallel pricing (every config and degree against the
+    # reference: test_torch_parallel.py): sharded KV leaves divide by tp
+    assert paged_kv_token_bytes(port, tp=2, cache_dtype=tc) * 2 == \
+        paged_kv_token_bytes(port, cache_dtype=tc)
 
 
 # ---------------------------------------------------------------------------
@@ -348,11 +350,14 @@ def test_deployment_errors_match_reference(small):
                                      prefill_chunk=16).resolve(tw),
                  jdep.DeploymentSpec(sku="rpu-cu", max_len=64, page_size=4,
                                      prefill_chunk=16).resolve(jw))
-    # tensor parallelism is not ported: a mesh in the spec or the call
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
-        tdep.DeploymentSpec(mesh="1x2").resolve(port)
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
-        tdep.DeploymentSpec().resolve(port, mesh=(1, 2))
+    # a mesh in the spec or the call prices as its dims (no ranks, no
+    # process group); one that is not DxM is refused
+    with pytest.raises(ValueError, match="DxM"):
+        tdep.DeploymentSpec(mesh="1by2").resolve(port)
+    with pytest.raises(ValueError):
+        tdep.DeploymentSpec().resolve(port, mesh=(1, 2, 3))
+    assert tdep.DeploymentSpec(mesh="1x2").resolve(port, device="cpu").tp \
+        == tdep.DeploymentSpec().resolve(port, mesh=(1, 2)).tp == 2
 
 
 # ---------------------------------------------------------------------------

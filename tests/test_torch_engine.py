@@ -167,23 +167,31 @@ def test_stop_token_ids_match_reference(models, gamma):
         assert g.token_ids[-1] == stops[i][0]
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    # DeploymentSpec sizing is ported; a spec that shards over a mesh is not
+@pytest.mark.parametrize("kwargs,err,match", [
+    # a spec's mesh is priced and served over the initialised world: in a
+    # world of one process a 1x2 mesh names the world size
     pytest.param(dict(spec=DeploymentSpec(sku="h100", mesh="1x2")),
-                 "Tensor parallelism", id="kwargs0-DeploymentSpec"),
-    (dict(mesh=object()), "Tensor parallelism"),
-    # speculation and its pricing are ported; a sharded draft is not
+                 ValueError, "world size is 1", id="kwargs0-DeploymentSpec"),
+    # serving needs a DeviceMesh over initialised ranks
+    pytest.param(dict(mesh=object()), ValueError, "DeviceMesh",
+                 id="kwargs1-Tensor parallelism"),
     pytest.param(dict(speculative=SpeculativeConfig(gamma=2),
                       spec=DeploymentSpec(sku="h100", mesh=(1, 2))),
-                 "Tensor parallelism", id="kwargs2-DeploymentSpec"),
-    (dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
-     "Tensor parallelism"),
+                 ValueError, "world size is 1", id="kwargs2-DeploymentSpec"),
+    pytest.param(dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
+                 ValueError, "DeviceMesh", id="kwargs3-Tensor parallelism"),
     # disaggregation is ported; a phase engine on a mesh is not
-    (dict(disaggregate=True, mesh=object()), "Tensor parallelism"),
+    pytest.param(dict(disaggregate=True, mesh=object()), NotImplementedError,
+                 "Disaggregation across meshes",
+                 id="kwargs4-Tensor parallelism"),
 ])
-def test_unported_options_name_their_roadmap_item(models, kwargs, item):
+def test_unported_options_name_their_roadmap_item(models, kwargs, err, match):
+    """Tensor-parallel serving is ported (``test_torch_tp.py`` serves on
+    real ranks): a mesh the world cannot hold or that is not a DeviceMesh
+    raises ValueError; disaggregation across meshes still names its
+    ROADMAP item."""
     port = models[3]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=match):
         LLMEngine(port, device="cpu", **{**ENGINE, **kwargs})
 
 

@@ -166,3 +166,37 @@ def test_dryrun_imports_without_jax():
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("module", [
+    "launch/mesh.py", "parallel/__init__.py", "parallel/plan.py",
+    "parallel/hints.py", "parallel/collective_matmul.py"])
+def test_tensor_parallel_modules_are_checked(module):
+    """The mesh launcher, the serve plan, the TP marks and the ring
+    collective matmuls are among the files checked below."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_tensor_parallel_entry_points_import_without_jax():
+    """A fresh interpreter in which jax and repro cannot be imported
+    imports the mesh helpers, the plan and the ring matmuls, and prices a
+    4-way plan on a ``MeshShape``."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "from repro_torch.launch.mesh import MeshShape, parse_mesh, "
+            "init_world\n"
+            "from repro_torch.parallel.plan import make_paged_serve_plan\n"
+            "from repro_torch.parallel.hints import manual_tp_axis, TPComm\n"
+            "from repro_torch.parallel.collective_matmul import "
+            "ring_allgather_matmul\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.models.model import Model\n"
+            "cfg = get_config('llama3-8b')\n"
+            "plan = make_paged_serve_plan(cfg, MeshShape((1, 4)))\n"
+            "assert plan.tp == 4 and plan.reduce == 'gather'\n"
+            "assert plan.psum_bytes_per_step(Model(cfg, 'meta'), 8) > 0\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr

@@ -69,10 +69,19 @@ def test_fleet_modes_return_zero(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "1x2"],
-                                   ["--tp-reduce", "psum"]])
+                                   ["--mesh", "1x2", "--tp-reduce", "psum"]])
 def test_tensor_parallelism_raises(extra):
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    """``--mesh`` needs its ranks: outside ``torchrun`` the world is one
+    process, and the launcher says how to start D*M of them (the mesh
+    itself serves in ``test_torch_tp.py``)."""
+    with pytest.raises(ValueError, match="world size is 1.*torchrun"):
         main(SMALL + CONT + extra)
+
+
+def test_disaggregation_on_a_mesh_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError,
+                       match="Disaggregation across meshes"):
+        main(SMALL + CONT + ["--mesh", "1x2", "--disaggregate", "1:1"])
 
 
 def test_cuda_without_a_card_raises():

@@ -453,15 +453,16 @@ def test_bf16_opt_state_dtype(tiny):
 
 def test_tensor_parallel_features_raise(tiny, tmp_path):
     """Cross-pod compression and an elastic restore are mesh features:
-    each raises naming ROADMAP Queue 1, 'Tensor parallelism'."""
+    each raises naming ROADMAP Queue 1, 'Parallel training and the
+    dry-run's meshes'."""
     cfg, model = tiny
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    with pytest.raises(NotImplementedError, match="Parallel training"):
         make_train_step(model, AdamWConfig(), compress_pods=True)
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    with pytest.raises(NotImplementedError, match="Parallel training"):
         init_train_state(model, seed=0, n_pods=1)
     state = init_train_state(model)
     ckpt_lib.save_checkpoint(str(tmp_path), 1, state)
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    with pytest.raises(NotImplementedError, match="Parallel training"):
         ckpt_lib.restore_latest(str(tmp_path), state, shardings=object())
     assert isinstance(state, TrainState)
 
