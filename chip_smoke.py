@@ -30,7 +30,8 @@ serve_moe_maverick on a llama4-maverick built first; serve_tp on a
 llama3-8b built first, with its own tp=1 sessions; serve_disagg on a
 llama3-8b built first, after the two colocated phases it is compared
 with; serve_vlm on an internvl2-26b built first; serve_cli,
-train_hubert, train and train_cli, which build their own models; sim
+train_hubert, train, train_cli and train_tp, which build their own
+models; sim
 last, over the serve
 phases of that run) builds and runs just those phases and prints no
 result line: for quick checks of one kernel or path.
@@ -467,6 +468,20 @@ Phases, each of which fails the run if it fails:
 20g. train_cli — ``repro_torch.launch.train.main`` (danube's reduced
    config on the card, 20 steps, a temporary checkpoint directory) must
    return 0 and print the reference's summary line.
+20h. train_tp — parallel training: two ranks (spawned processes) share
+   ``cuda:0`` over gloo.  qwen3-14b at full width (2 of 40 layers, B 4 x
+   1024) on (1, 2) (TP + sequence parallelism, 2 steps), (2, 1) (DP +
+   FSDP) and (2 pods, 1, 1) (the int8 cross-pod mean), 1 step each, and
+   deepseek-v2-lite (2 of 27 layers, capacity path, 32 experts a rank)
+   on (1, 2), 2 steps, each against a tp=1 session of the same
+   seed-built weights run first; then a reduced checkpoint written on
+   (1, 2) and restored on (2, 1).  Holds: each rank stores the plan's
+   bytes, each kind of collective bytes equals ``predict_step_bytes``,
+   losses within ``TRAIN_TP_LOSS_ABS`` of tp=1's, every session's sampled
+   gradients (with pods their exact cross-pod mean) by an f32 witness,
+   routing flips within the f32 witness's gaps, the
+   compressed mean within half a code step, the checkpoint bitwise; no
+   hand-written kernel launches (training runs none).
 21b. serve_cli — ``repro_torch.launch.serve.main`` in this process:
    ``--no-reduced --arch llama3-8b --continuous --disaggregate 1:1`` (all
    32 layers, 4 requests of 256 tokens, 16 new) and ``--fleet --calibrate``
@@ -3469,6 +3484,676 @@ def serve_tp_phase(torch, models: dict | None = None,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_tp: parallel training, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+TRAIN_TP_RANKS = 2
+TRAIN_TP_JOIN_S = 600
+TRAIN_TP_LAYERS = 2            # qwen3-14b: 2 of 40; deepseek: 2 of 27
+TRAIN_TP_BATCH, TRAIN_TP_SEQ = 4, 1024
+TRAIN_TP_STEPS = 2
+TRAIN_TP_LR = 1e-4
+# (label, model, mesh, pods, steps, traced): qwen3 on (1, 2) is TP with
+# sequence parallelism, on (2, 1) DP with FSDP, on (2 pods, 1, 1) DP over
+# two pods with the int8 cross-pod mean; deepseek on (1, 2), on the
+# capacity path with 32 of its 64 experts a rank.  The FSDP sessions move
+# the whole weights and gradients through gloo's host copies every step
+# (~4.4 GB a rank): one step each; the last step of a traced session is
+# traced (busy ms)
+TRAIN_TP_SESSIONS = (("qwen_1x2", "qwen", "1x2", 0, 2, False),
+                     ("qwen_2x1", "qwen", "2x1", 0, 1, False),
+                     ("deepseek_1x2", "deepseek", "1x2", 0, 2, True),
+                     ("qwen_pods_2x1x1", "qwen", "2x1x1", 2, 1, False))
+# gloo's rate on one card's CUDA tensors, both ways of moving them: its own
+# copies (all-gather) and ours through pinned memory (reduce-scatter)
+TRAIN_TP_PROBE_BYTES = 1 << 26
+# one leaf of each kind whose gradient, gathered whole, is held / read:
+# vocabulary rows, vocabulary columns, a replicated norm, column- and
+# row-parallel projections, a per-head norm, KV columns (qwen3's 8 KV
+# heads, 4 a rank); MLA's up-projection and its replicated latent
+# projection, the router, the experts, a shared expert
+TRAIN_TP_LEAVES = {
+    "qwen": ("embed", "head", "final_norm", "layers.0.ln1",
+             "layers.0.attn.wq", "layers.0.attn.wk", "layers.0.attn.q_norm",
+             "layers.0.attn.wo", "layers.1.mlp.w_gate", "layers.1.mlp.w_down"),
+    "deepseek": ("embed", "layers.0.attn.w_uk", "layers.0.attn.w_dkv",
+                 "layers.1.moe.router", "layers.1.moe.w_gate",
+                 "layers.1.moe.shared.w_down"),
+    # the pods session keeps its in-pod gradients too: no vocabulary leaf
+    # (1.6 GB each), for the memory of two ranks holding residuals
+    "qwen_pods": ("final_norm", "layers.0.ln1", "layers.0.attn.wq",
+                  "layers.0.attn.wk", "layers.0.attn.q_norm",
+                  "layers.0.attn.wo", "layers.1.mlp.w_gate",
+                  "layers.1.mlp.w_down")}
+# a bf16 gradient of the sharded step against tp=1's: the same step in f32
+# on the card is the witness; the sharded step must be as close to it as
+# tp=1 is, to within this factor, plus 2^-8 of the witness's largest
+# magnitude (bf16's half ulp: where tp=1 is already exact)
+TRAIN_TP_GRAD_FACTOR = 2.0
+TRAIN_TP_GRAD_FLOOR = 2.0 ** -8
+# |loss - tp=1's loss|, absolute: a bf16 model's reduction order (partial
+# sums over ranks) at a loss near ln(152064) = 11.9
+TRAIN_TP_LOSS_ABS = 2e-2
+# a token whose experts differ between the sharded step and tp=1 must be a
+# near tie of tp=1's router: the gap between its k-th and (k+1)-th
+# probabilities within this factor of the largest gap at which tp=1's own
+# bf16 routing flips against the same forward in f32 (the witness; a
+# first limit of 2^-10, from an estimate of the rounding, missed: a flip
+# at 1.08e-3, measured on one H100)
+TRAIN_TP_ROUTE_FACTOR = 2.0
+
+
+def train_tp_models(reduced: bool = False) -> dict:
+    """The phase's models as (config name, layers, reduced); ``reduced``
+    gives their tiny configs (the CPU rehearsal)."""
+    return {"qwen": ("qwen3-14b", TRAIN_TP_LAYERS, reduced),
+            "deepseek": ("deepseek-v2-lite-16b", TRAIN_TP_LAYERS, reduced)}
+
+
+def train_tp_cfg(name: str, layers: int, reduced: bool):
+    from repro_torch.configs import get_config, reduced_config
+    cfg = get_config(name)
+    return (reduced_config(cfg) if reduced
+            else dataclasses.replace(cfg, n_layers=layers))
+
+
+def train_tp_batches(cfg, batch: int, seq: int) -> list:
+    """The sessions' global batches, from a seed (numpy tokens)."""
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+            for _ in range(TRAIN_TP_STEPS)]
+
+
+class RouteRecorder:
+    """The MoE layers' routing (probabilities and expert ids) of the
+    forwards run while it is on (``moe._routing`` wrapped)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe._routing
+
+        def routing(x2d, router, k):
+            w, ids = self._orig(x2d, router, k)
+            probs = torch_softmax(x2d, router)
+            self.calls.append((probs.detach().cpu(), ids.detach().cpu()))
+            return w, ids
+        moe._routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._routing = self._orig
+        return False
+
+
+def torch_softmax(x2d, router):
+    import torch
+    return torch.softmax(x2d.float() @ router.float(), dim=-1)
+
+
+def routing_divergence(got, want, k: int) -> dict:
+    """Tokens whose top-k experts differ between two recorded forwards of
+    one MoE layer, and at each such token the gap between the k-th and
+    the (k+1)-th probability of ``want``'s router (a flip must be a near
+    tie of its probabilities)."""
+    pg, ig = got
+    pw, iw = want
+    diff = ~(ig.sort(dim=-1).values == iw.sort(dim=-1).values).all(dim=-1)
+    rows = diff.nonzero()[:, 0]
+    top = pw.sort(dim=-1, descending=True).values
+    gaps = (top[rows, k - 1] - top[rows, k]).tolist()
+    return {"tokens": int(iw.shape[0]), "flipped": int(rows.numel()),
+            "first": int(rows[0]) if rows.numel() else None,
+            "max_gap_at_flip": max(gaps) if gaps else None}
+
+
+# the elements of a held gradient that are compared: every column of the
+# first rows the batch's tokens look up (an embedding's gradient lives
+# there), or a seeded sample of the leaf
+TRAIN_TP_SAMPLE = 1 << 18
+TRAIN_TP_EMBED_ROWS = 64
+
+
+def grad_sample_index(torch, name: str, shape, tokens: np.ndarray):
+    """Flat indices of the compared elements of leaf ``name`` (CPU int64):
+    the same in the parent and on every rank."""
+    n = math.prod(shape)
+    if name == "embed":
+        rows = torch.from_numpy(np.unique(tokens)[:TRAIN_TP_EMBED_ROWS])
+        cols = torch.arange(shape[1])
+        return (rows[:, None] * shape[1] + cols[None, :]).reshape(-1)
+    if n <= TRAIN_TP_SAMPLE:
+        return torch.arange(n)
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    return torch.randint(n, (TRAIN_TP_SAMPLE,), generator=gen)
+
+
+def grad_sample(torch, lay, name: str, shard, idx):
+    """The elements ``idx`` of a sharded leaf's whole gradient, on every
+    rank: each rank adds those in its stored block (a block several ranks
+    hold, only the first: ``TrainLayout.owner``) into a zero vector, then
+    one all-reduce over the world.  No rank gathers the leaf."""
+    leaf = lay.leaves[name]
+    coords = torch.unravel_index(idx, leaf.shape)
+    mine = torch.ones(idx.shape, dtype=torch.bool)
+    local = []
+    for c, b in zip(coords, leaf.block):
+        mine &= (c >= b.start) & (c < b.stop)
+        local.append((c - b.start).clamp(0, b.stop - b.start - 1))
+    vals = torch.zeros(idx.shape, dtype=torch.float32, device=shard.device)
+    if lay.owner(name):
+        got = shard.float()[tuple(t.to(shard.device) for t in local)]
+        vals = torch.where(mine.to(shard.device), got, vals)
+    return lay.groups.comms["world"].all_reduce_op(vals).cpu()
+
+
+def train_tp_one(torch, key: str, spec: tuple, device: str) -> dict:
+    """tp=1 on the card: ``TRAIN_TP_STEPS`` steps of the seed-built model,
+    the losses, the held leaves' gradients of the first step (f32, on
+    the host), the routing of deepseek's MoE layer, and the f32 witness
+    (the first step's loss, gradients and routing in f32)."""
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = train_tp_cfg(*spec)
+    dev = torch.device(device)
+    batches = train_tp_batches(cfg, TRAIN_TP_BATCH, TRAIN_TP_SEQ
+                               if not spec[2] else 32)
+    model = Model(cfg, device=dev, moe_impl="capacity" if cfg.moe else "auto")
+    state = init_train_state(model, seed=0)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_TP_LR),
+                           keep_grads=TRAIN_TP_LEAVES[key])
+    out = {"losses": [], "step_ms": []}
+    if on_cuda(dev):
+        torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with RouteRecorder() as rec:
+            state, met = step(state, {"tokens": torch.from_numpy(b).to(dev)})
+            loss = float(met["loss"])
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss)
+        if i == 0:
+            out["grads"] = {n: step.grads[n].float().reshape(-1)[
+                grad_sample_index(torch, n, step.grads[n].shape,
+                                  batches[0]).to(dev)].cpu()
+                            for n in TRAIN_TP_LEAVES[key]}
+            out["routes"] = rec.calls
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if on_cuda(dev) else None)
+    del state, step, model
+    gc.collect()
+    # the witness: the first step's loss and gradients in f32 (and its
+    # routing, for the MoE)
+    model = Model(cfg, device=dev, moe_impl="capacity" if cfg.moe
+                  else "auto").init(0).float()
+    model.requires_grad_(True)
+    with RouteRecorder() as rec:
+        loss = model.loss({"tokens": torch.from_numpy(batches[0]).to(dev)})
+    loss.backward()
+    named = dict(model.named_parameters())
+    out["f32"] = {"loss": float(loss.detach()),
+                  "grads": {n: named[n].grad.float().reshape(-1)[
+                      grad_sample_index(torch, n, named[n].shape,
+                                        batches[0]).to(dev)].cpu()
+                            for n in TRAIN_TP_LEAVES[key]}}
+    out["f32_routes"] = rec.calls
+    del model, named, loss
+    gc.collect()
+    if on_cuda(dev):
+        torch.cuda.empty_cache()
+    return out
+
+
+def on_cuda(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_tp_session(torch, key, spec, mesh_spec: str, pods: int,
+                     device: str, steps: int = TRAIN_TP_STEPS,
+                     traced: bool = False) -> dict:
+    """One session on this rank: the sharded state of the seed-built
+    model, ``steps`` steps (with ``traced`` the last under the
+    profiler), and the readings: losses, stored bytes against the plan's,
+    the last step's collective calls and bytes by kind against
+    ``predict_step_bytes``,
+    step wall / busy ms, peak GB, the held leaves' gradients gathered
+    whole, deepseek's routing, and with pods the compression's bound."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.train import predict_step_bytes, state_bytes
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = train_tp_cfg(*spec)
+    dev = torch.device(device)
+    batches = train_tp_batches(cfg, TRAIN_TP_BATCH, TRAIN_TP_SEQ
+                               if not spec[2] else 32)[:steps]
+    leaves = TRAIN_TP_LEAVES["qwen_pods" if pods else key]
+    mesh = parse_mesh(mesh_spec, device)
+    model = Model(cfg, device=dev, moe_impl="capacity" if cfg.moe else "auto")
+    plan = make_plan(cfg, mesh, global_batch=TRAIN_TP_BATCH,
+                     shape_kind="train")
+    state = init_train_state(model, seed=0, plan=plan, n_pods=pods)
+    model.to("meta")                  # the whole weights: the shards stay
+    gc.collect()
+    if on_cuda(dev):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lay = state.layout
+    dtypes = {n: p.dtype for n, p in state.params.items()}
+    held = sum(t.nbytes for tree in (state.params, state.opt_state["m"],
+                                     state.opt_state["v"])
+               for t in tree.values())
+    plan_bytes = state_bytes(lay, dtypes, 4)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_TP_LR), plan=plan,
+                           compress_pods=bool(pods), keep_grads=leaves)
+    out = {"losses": [], "step_ms": []}
+    LAUNCHES.clear()
+    for i, b in enumerate(batches):
+        local = lay.local_rows({"tokens": torch.from_numpy(b).to(dev)})
+        last = i == len(batches) - 1
+        if last:
+            lay.groups.reset_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        prof = None
+        with RouteRecorder() as rec:
+            if last and traced and on_cuda(dev):
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    state, met = step(state, local)
+                    loss = float(met["loss"])
+            else:
+                state, met = step(state, local)
+                loss = float(met["loss"])
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["losses"].append(loss)
+        if last:
+            counts = lay.groups.counts()
+            out["counts"] = {k: v for k, v in counts.items()
+                             if not k.startswith("step:") and v}
+            out["step_counts"] = {k: v for k, v in counts.items()
+                                  if k.startswith("step:") and v}
+            out["predicted"] = predict_step_bytes(lay, local, dtypes)
+        if i == 0:
+            out["grads"] = {n: grad_sample(
+                torch, lay, n, step.grads[n],
+                grad_sample_index(torch, n, lay.leaves[n].shape, b))
+                for n in leaves}
+            out["routes"] = rec.calls
+            if pods:
+                # |mean - the pods' exact mean| <= half a code step of the
+                # pods' scales, plus the cast of the mean to bf16; the
+                # exact mean (the step's gradient) is held as tp=1's
+                bound, pod_mean = {}, {}
+                for n in leaves:
+                    g = lay.gather_pod_regions(n, step.pod_grads[n]).float()
+                    scales = g.flatten(1).abs().amax(dim=1) / 127.0
+                    exact = g.mean(dim=0)
+                    idx = grad_sample_index(torch, n, lay.leaves[n].shape, b)
+                    pod_mean[n] = exact.reshape(-1)[idx.to(dev)].cpu()
+                    synced = lay.gather_full(n, step.grads[n]).float()
+                    err = (synced - exact).abs().max()
+                    limit = 0.5 * scales.mean() + 2.0 ** -8 * exact.abs().max()
+                    resid = lay.gather_pod_regions(n, state.err[n]).abs().max()
+                    bound[n] = {"err": float(err), "limit": float(limit),
+                                "residual_max": float(resid),
+                                "half_code_step": float(0.5 * scales.max())}
+                out["compression"] = bound
+                out["pod_mean_grads"] = pod_mean
+    if prof is not None:
+        busy = sum(trace_summary(prof)["device_us"].values()) / 1e3
+        out["busy_ms"] = busy
+    else:
+        out["busy_ms"] = None
+    out.update({
+        "mesh": mesh_spec, "stored_bytes": held,
+        "plan_bytes": plan_bytes["params"] + plan_bytes["moments"],
+        "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                    if on_cuda(dev) else None),
+        "kernel_launches": {k: v for k, v in LAUNCHES.items() if v},
+        "host_copies": out["counts"].get("host_copies", 0),
+        "host_bytes": out["counts"].get("host_bytes", 0)})
+    del state, step
+    gc.collect()
+    dist.barrier()
+    if on_cuda(dev):
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_checkpoint(torch, device: str, tmp: str) -> dict:
+    """A checkpoint written by (1, 2) and restored by (2, 1): every leaf
+    bitwise, and a step on each mesh after it agrees.  The reduced qwen3
+    (a full-width state is ~22 GB of files: minutes of disk, past the
+    phase's budget)."""
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.train import (
+        AdamWConfig, init_train_state, make_train_step, restore_latest,
+        save_checkpoint,
+    )
+
+    cfg = train_tp_cfg("qwen3-14b", 2, True)
+    dev = torch.device(device)
+    tokens = torch.from_numpy(train_tp_batches(cfg, 8, 32)[0]).to(dev)
+    out = {}
+    states = {}
+    for spec in ("1x2", "2x1"):
+        mesh = parse_mesh(spec, device)
+        plan = make_plan(cfg, mesh, global_batch=8, shape_kind="train")
+        states[spec] = (init_train_state(Model(cfg, device=dev), seed=0,
+                                         plan=plan), plan)
+    state, plan = states["1x2"]
+    step12 = make_train_step(Model(cfg, device="meta"),
+                             AdamWConfig(lr=TRAIN_TP_LR), plan=plan)
+    state, _ = step12(state, state.layout.local_rows({"tokens": tokens}))
+    t0 = time.perf_counter()
+    save_checkpoint(tmp, 1, state)
+    out["save_s"] = time.perf_counter() - t0
+    template, plan21 = states["2x1"]
+    t0 = time.perf_counter()
+    back, at = restore_latest(tmp, template)
+    out["restore_s"] = time.perf_counter() - t0
+    whole = {n: state.layout.gather_full(n, p.detach())
+             for n, p in state.params.items()}
+    again = {n: back.layout.gather_full(n, p.detach())
+             for n, p in back.params.items()}
+    out["restored_step"] = at
+    out["bitwise"] = all(torch.equal(whole[n], again[n]) for n in whole)
+    step21 = make_train_step(Model(cfg, device="meta"),
+                             AdamWConfig(lr=TRAIN_TP_LR), plan=plan21)
+    _, m21 = step21(back, back.layout.local_rows({"tokens": tokens}))
+    _, m12 = step12(state, state.layout.local_rows({"tokens": tokens}))
+    out["next_loss"] = {"restored_2x1": float(m21["loss"]),
+                        "saved_1x2": float(m12["loss"])}
+    return out
+
+
+def train_tp_gloo_probe(torch, device: str) -> dict:
+    """GB/s of a ``TRAIN_TP_PROBE_BYTES`` bf16 all-gather (gloo's own
+    copies of the CUDA tensor) and reduce-scatter (staged through pinned
+    host memory by ``TPComm``) between the two ranks: what the sessions'
+    collectives cost a byte."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.hints import TPComm
+
+    comm = TPComm(None)
+    x = torch.ones(TRAIN_TP_PROBE_BYTES // 2, dtype=torch.bfloat16,
+                   device=device)
+    out = {}
+    for name, op in (("all_gather", lambda: comm.all_gather_dim(x, 0)),
+                     ("reduce_scatter",
+                      lambda: comm.reduce_scatter_dim(x, 0))):
+        op()                                  # warm
+        dist.barrier()
+        sync(torch, torch.device(device))
+        t0 = time.perf_counter()
+        op()
+        sync(torch, torch.device(device))
+        out[f"{name}_gb_per_s"] = x.nbytes / (time.perf_counter() - t0) / 1e9
+    return out
+
+
+def train_tp_rank(rank: int, rdzv: str, queue, models: dict, device: str,
+                  tmp: str) -> None:
+    """One rank of the phase (a spawned process): every session on its
+    mesh, then the checkpoint; the readings to the parent through
+    ``queue``."""
+    # two ranks share the card with a few GB to spare: no fragmentation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    t_rank = time.perf_counter()
+    init_world(device, backend="gloo", rank=rank, world_size=TRAIN_TP_RANKS,
+               init_method=rdzv, timeout_s=TP_TIMEOUT_S)
+    try:
+        runs = {}
+        probe = train_tp_gloo_probe(torch, device)
+        for label, key, spec, pods, steps, traced in TRAIN_TP_SESSIONS:
+            t0 = time.perf_counter()
+            runs[label] = train_tp_session(torch, key, models[key], spec,
+                                           pods, device, steps, traced)
+            runs[label]["session_s"] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"  train_tp rank 0: {label} done in "
+                      f"{runs[label]['session_s']:.1f} s, steps "
+                      f"{[round(x) for x in runs[label]['step_ms']]} ms, "
+                      f"peak {runs[label]['peak_gb']} GB", flush=True)
+        t0 = time.perf_counter()
+        ckpt = train_tp_checkpoint(torch, device, os.path.join(tmp, "ckpt"))
+        ckpt["session_s"] = time.perf_counter() - t0
+        ckpt["rank_seconds"] = time.perf_counter() - t_rank
+        # through a file: a queue would pass the tensors as shared memory,
+        # gone once this process exits
+        path = os.path.join(tmp, f"rank{rank}.pt")
+        torch.save({"runs": runs, "checkpoint": ckpt, "gloo_probe": probe},
+                   path)
+        queue.put((rank, path))
+    finally:
+        dist.destroy_process_group()
+
+
+def grad_hold(got: dict, tp1: dict, witness: dict) -> dict:
+    """Per leaf: max |sharded - tp=1|, and the sharded step's and tp=1's
+    max distance from the f32 witness; ok when the sharded step is within
+    ``TRAIN_TP_GRAD_FACTOR`` of tp=1's distance plus the floor."""
+    out = {}
+    for n, w in witness.items():
+        top = float(w.abs().max())
+        d_tp = float((got[n] - w).abs().max())
+        d_one = float((tp1[n] - w).abs().max())
+        limit = TRAIN_TP_GRAD_FACTOR * d_one + TRAIN_TP_GRAD_FLOOR * top
+        out[n] = {"vs_tp1": float((got[n] - tp1[n]).abs().max()),
+                  "tp_vs_f32": d_tp, "tp1_vs_f32": d_one, "limit": limit,
+                  "ok": d_tp <= limit}
+    return out
+
+
+def train_tp_phase(torch, models: dict | None = None,
+                   device: str = "cuda") -> dict:
+    """Parallel training on the card: two ranks (spawned processes) sharing
+    ``cuda:0`` over a gloo group.  qwen3-14b at full width (``TRAIN_TP_LAYERS``
+    of 40 layers), B ``TRAIN_TP_BATCH`` x ``TRAIN_TP_SEQ``, ``TRAIN_TP_STEPS``
+    steps on (1, 2) (TP with sequence parallelism) and (2, 1) (DP with
+    FSDP), on (2 pods, 1, 1) with the int8 cross-pod mean, and
+    deepseek-v2-lite at full width (2 of 27 layers: one dense, one MoE) on
+    (1, 2) on the capacity path; then a checkpoint of the reduced qwen3
+    written on (1, 2) and restored on (2, 1).  Each session against a tp=1
+    session of the same seed-built weights and batches, run first here
+    (and freed before the ranks start).  Holds: every rank stores the
+    plan's bytes; each second step's collective bytes by kind equal the
+    prediction; every loss within ``TRAIN_TP_LOSS_ABS`` of tp=1's; every
+    session's held gradients (with pods the exact cross-pod mean of the
+    in-pod ones) by the f32 witness (``grad_hold``); deepseek's routing
+    flips are near ties (``TRAIN_TP_ROUTE_FACTOR`` of tp=1's own flips
+    against f32); the compressed mean within half a code step of
+    the pods' exact mean; the checkpoint bitwise.  Training launches no
+    hand-written kernel (attention under autograd is plain): the count is
+    printed.  No number here is a parallel speed: both ranks share one
+    card and gloo copies every collective through the host."""
+    import multiprocessing as mproc
+    import queue as queue_mod
+    import tempfile
+
+    models = models or train_tp_models()
+    t_phase = time.monotonic()
+    ref = {}
+    for key in models:
+        ref[key] = train_tp_one(torch, key, models[key], device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.monotonic() - t_phase
+    print(f"  train_tp tp=1 ({t_ref:.1f} s): " + json.dumps(
+        {k: {"losses": v["losses"], "step_ms": v["step_ms"],
+             "peak_gb": v["peak_gb"]} for k, v in ref.items()}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_tp_") as tmp:
+        ctx = mproc.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=train_tp_rank,
+                             args=(r, f"file://{tmp}/rdzv", q, models,
+                                   device, tmp))
+                 for r in range(TRAIN_TP_RANKS)]
+        for p in procs:
+            p.start()
+        ranks, deadline = {}, time.monotonic() + TRAIN_TP_JOIN_S
+        try:
+            while len(ranks) < TRAIN_TP_RANKS:
+                try:
+                    r, path = q.get(timeout=2.0)
+                    ranks[r] = torch.load(path, weights_only=False)
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise AssertionError(f"train_tp: a rank failed "
+                                             f"(exit codes {dead})")
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"train_tp: ranks not done "
+                                             f"after {TRAIN_TP_JOIN_S} s")
+            for p in procs:
+                p.join(timeout=TP_TIMEOUT_S)
+                if p.exitcode != 0:
+                    raise AssertionError(f"train_tp: rank exit code "
+                                         f"{p.exitcode}")
+            t_ranks = time.monotonic() - t_phase - t_ref
+            print(f"  train_tp: the ranks took {t_ranks:.1f} s (spawn to "
+                  f"exit)", flush=True)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    out = {"phase": "train_tp", "ranks": TRAIN_TP_RANKS,
+           "card_shared_by_ranks": True, "collective_backend": "gloo",
+           "tp1_seconds": t_ref, "ranks_seconds": t_ranks, "sessions": {}}
+    problems = []
+    launched = {}
+    out["gloo_probe"] = ranks[0]["gloo_probe"]
+    for label, key, spec, pods, _, _ in TRAIN_TP_SESSIONS:
+        per = [ranks[r]["runs"][label] for r in range(TRAIN_TP_RANKS)]
+        one = ref[key]
+        first = per[0]
+        row = {"model": key, "mesh": spec, "pods": pods,
+               "tp1_losses": one["losses"], "tp1_step_ms": one["step_ms"],
+               "tp1_peak_gb": one["peak_gb"], "ranks": []}
+        for r, pr in enumerate(per):
+            if pr["losses"] != first["losses"]:
+                problems.append(f"{label}: rank {r}'s losses differ")
+            if pr["stored_bytes"] != pr["plan_bytes"]:
+                problems.append(f"{label}: rank {r} stores "
+                                f"{pr['stored_bytes']} B, the plan "
+                                f"{pr['plan_bytes']}")
+            got = {k: v for k, v in pr["counts"].items()
+                   if k.endswith("_bytes") and k not in ("host_bytes",)}
+            if got != pr["predicted"]:
+                problems.append(f"{label}: rank {r} collective bytes "
+                                f"{got} != predicted {pr['predicted']}")
+            for k, v in pr["kernel_launches"].items():
+                launched[k] = launched.get(k, 0) + v
+            row["ranks"].append({
+                "stored_gb": pr["stored_bytes"] / 1e9,
+                "plan_gb": pr["plan_bytes"] / 1e9,
+                "collective_bytes_by_kind": got,
+                "collective_calls_by_kind": {
+                    k: v for k, v in pr["counts"].items()
+                    if not k.endswith("_bytes") and ":" in k},
+                "step_phase_bytes": {k: v for k, v in
+                                     pr["step_counts"].items()
+                                     if k.endswith("_bytes")},
+                "host_copies": pr["host_copies"],
+                "host_gb": pr["host_bytes"] / 1e9,
+                "step_ms": pr["step_ms"], "busy_ms": pr["busy_ms"],
+                "peak_gb": pr["peak_gb"], "session_s": pr["session_s"]})
+        row["losses"] = first["losses"]
+        row["loss_minus_tp1"] = [a - b for a, b in zip(first["losses"],
+                                                       one["losses"])]
+        one_grads = {n: one["grads"][n] for n in first["grads"]}
+        if not all(abs(d) <= TRAIN_TP_LOSS_ABS
+                   for d in row["loss_minus_tp1"]):
+            problems.append(f"{label}: losses {first['losses']} vs tp=1 "
+                            f"{one['losses']}")
+        # the step's gradients (with pods their exact cross-pod mean, which
+        # the compression then rounds: held below) by the f32 witness
+        got = first["pod_mean_grads"] if pods else first["grads"]
+        held = grad_hold(got, one_grads, {n: one["f32"]["grads"][n]
+                                          for n in got})
+        row["grads"] = held
+        row["f32_loss"] = one["f32"]["loss"]
+        bad = [n for n, h in held.items() if not h["ok"]]
+        if bad:
+            problems.append(f"{label}: gradients past the witness's "
+                            f"limit: {bad}")
+        if key == "deepseek":
+            k = train_tp_cfg(*models[key]).n_experts_per_token
+            div = [routing_divergence(g, w, k) for g, w in
+                   zip(first["routes"], one["routes"])]
+            wit = [routing_divergence(g, w, k) for g, w in
+                   zip(one["routes"], one["f32_routes"])]
+            row["routing_divergence"] = div
+            row["tp1_vs_f32_routing"] = wit
+            for d, w in zip(div, wit):
+                limit = TRAIN_TP_ROUTE_FACTOR * (w["max_gap_at_flip"] or 0.0)
+                if d["flipped"] and not d["max_gap_at_flip"] <= limit:
+                    problems.append(f"{label}: a routing flip at a gap of "
+                                    f"{d['max_gap_at_flip']}, past "
+                                    f"{limit} (tp=1 against f32: {w})")
+        if pods:
+            row["compression"] = first["compression"]
+            for n, c in first["compression"].items():
+                if not c["err"] <= c["limit"] or not (
+                        c["residual_max"] <= c["half_code_step"] * 1.0001):
+                    problems.append(f"{label}: compression of {n}: {c}")
+        out["sessions"][label] = row
+        print(f"  train_tp {label}:", json.dumps(
+            {k: v for k, v in row.items() if k != "grads"}
+            | ({"grads": {n: {k: h[k] for k in ("vs_tp1", "tp_vs_f32",
+                                                 "tp1_vs_f32", "limit")}
+                          for n, h in row["grads"].items()}}
+               if "grads" in row else {})))
+    ck = [ranks[r]["checkpoint"] for r in range(TRAIN_TP_RANKS)]
+    out["checkpoint"] = ck[0]
+    for c in ck:
+        if not c["bitwise"] or c["restored_step"] != 1 or abs(
+                c["next_loss"]["restored_2x1"]
+                - c["next_loss"]["saved_1x2"]) > TRAIN_TP_LOSS_ABS:
+            problems.append(f"train_tp checkpoint: {c}")
+    out["kernel_launches"] = launched
+    print(f"  train_tp: hand-written kernel launches in the sessions: "
+          f"{sum(launched.values())} ({launched})")
+    if launched:
+        problems.append(f"train_tp launched kernels: {launched}")
+    out["phase_s"] = time.monotonic() - t_phase
+    if problems:
+        raise AssertionError("train_tp: " + "; ".join(problems))
     return out
 
 
@@ -6719,7 +7404,8 @@ def main() -> int:
                          f"({', '.join(KERNEL_PHASES)}, deployment, dryrun, "
                          "check, "
                          "check_mla, check_moe, check_window, check_state, "
-                         "serve_cli, train_hubert, train, train_cli, or, on a "
+                         "serve_cli, train_hubert, train, train_cli, "
+                         "train_tp, or, on a "
                          "llama3-8b built "
                          "first, serve, serve_disagg, serve_tp (with its "
                          "tp=1 sessions) and serve_spec_draft, "
@@ -6778,7 +7464,7 @@ def main() -> int:
                                       "cases": check_mla(t)},
               "check_moe": check_moe, "check_window": check_window,
               "check_state": check_state, "serve_cli": serve_cli_phase,
-              "serve_tp": serve_tp_phase,
+              "serve_tp": serve_tp_phase, "train_tp": train_tp_phase,
               **train_phases()}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
@@ -6869,6 +7555,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry = timed("dryrun", dryrun_phase)
     trained = {name: timed(name, fn) for name, fn in train_phases().items()}
+    timed("train_tp", train_tp_phase)
     timed("serve_cli", serve_cli_phase)
     timed("check", check_phase)
     timed("check_window", check_window)

@@ -17,7 +17,8 @@ are reported beside it, and ``op_memory_s`` is their term.
 The reference's third term prices the collectives parsed from the
 compiled HLO.  One device runs none: ``collective_s`` is 0 and
 ``collective_detail`` empty.  Pricing collectives counted on a mesh
-belongs to ROADMAP Queue 1, 'Parallel training and the dry-run's meshes'.
+belongs to ROADMAP Queue 1, 'Sharded static serving and the dry-run's
+meshes'.
 """
 from __future__ import annotations
 

@@ -54,8 +54,8 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.engine import _unported
 from repro_torch.runtime.sampling import greedy
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.train_step import (TP_ITEM, init_train_state,
-                                          make_train_step)
+from repro_torch.parallel.plan import SHARDED_SERVING_ITEM
+from repro_torch.train.train_step import init_train_state, make_train_step
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1xh100"
@@ -327,7 +327,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.multi_pod or args.single_pod:
         raise _unported("the pod meshes of the dry-run (--multi-pod / "
-                        "--single-pod)", TP_ITEM)
+                        "--single-pod)", SHARDED_SERVING_ITEM)
     kw = dict(device=args.device, batch=args.batch,
               out_dir=pathlib.Path(args.out))
 

@@ -1,25 +1,28 @@
 """Meshes over ``torch.distributed`` ranks (the port of
 ``repro/launch/mesh.py``).
 
-The port serves SPMD: one process per rank, every rank running the same
-host loop on its own shard.  ``init_world`` joins this process to the
-world's process group; ``parse_mesh`` lays the initialised world out as a
-``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
-"model")``, whose ``"model"`` dim carries the tensor-parallel ring of the
-paged serve path (``parallel/plan.py``).  An engine builds its mesh from
-a "DxM" spec itself (``device_mesh``).
+The port serves and trains SPMD: one process per rank, every rank running
+the same host loop on its own shard.  ``init_world`` joins this process to
+the world's process group; ``parse_mesh`` lays the initialised world out as
+a ``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
+"model")`` ("DxM") or ``("pod", "data", "model")`` ("PxDxM").  The
+``"model"`` dim carries the tensor-parallel ring (the paged serve path's
+and the training step's), ``"data"`` data parallelism and the FSDP shard
+of the training state, ``"pod"`` the slow cross-pod data-parallel axis
+(its gradient mean is int8-compressed).  An engine builds its mesh from a
+"DxM" spec itself (``device_mesh``).
 
 A launcher starts the ranks (``torchrun --nproc-per-node D*M`` sets
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous address), or a
 caller passes ``rank`` / ``world_size`` / ``init_method`` itself (the
 tests' spawned ranks, the smoke's two ranks on one card).
 
-``MeshShape`` is a mesh's dims and sizes without processes: the serve
-plan and the deployment pricing read only those, so a 4- or 8-way plan
-can be priced in one process (``DeploymentSpec.resolve`` prices a "DxM"
-spec as one, making no process group).  ``make_production_mesh`` (256 / 512 chips)
-belongs to the dry-run's meshes and waits (ROADMAP Queue 1, 'Parallel
-training and the dry-run's meshes').
+``MeshShape`` is a mesh's dims and sizes without processes: the plans
+and the deployment pricing read only those, so a 4- or 8-way plan can be
+priced in one process (``DeploymentSpec.resolve`` prices a "DxM" spec as
+one, making no process group).  ``make_production_mesh`` is the
+reference's 256 / 512-chip mesh as a ``MeshShape`` ((16, 16) or (2, 16,
+16)), for pricing and plan checks.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
 TIMEOUT_S = 60          # a rank that diverges fails instead of hanging
 
 
@@ -80,39 +84,66 @@ def init_world(device: str | torch.device = "cuda", backend: str | None = None,
     return backend
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> MeshShape:
+    """The reference's production mesh as a ``MeshShape``: (data=16,
+    model=16), or (pod=2, data=16, model=16) with ``multi_pod``.  It
+    prices and checks plans; no process group stands behind it."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), POD_AXES, device_type)
+    return MeshShape((16, 16), AXES, device_type)
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _device_mesh(device_type: str, data: int, model: int):
+def _device_mesh(device_type: str, *dims: int):
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (data, model), mesh_dim_names=AXES)
+    names = AXES if len(dims) == 2 else POD_AXES
+    return init_device_mesh(device_type, tuple(dims), mesh_dim_names=names)
+
+
+def mesh_shape(spec) -> tuple[int, ...]:
+    """``"DxM"`` / ``"PxDxM"`` or a tuple of 2 or 3 sizes -> the sizes."""
+    if isinstance(spec, str):
+        try:
+            dims = tuple(int(x) for x in spec.lower().split("x"))
+        except ValueError:
+            dims = ()
+        if len(dims) not in (2, 3):
+            raise ValueError(f"a mesh spec wants DxM or PxDxM (e.g. 2x4, "
+                             f"2x1x2), got {spec!r}")
+        return dims
+    dims = tuple(int(x) for x in spec)
+    if len(dims) not in (2, 3):
+        raise ValueError(f"a mesh has 2 (data, model) or 3 (pod, data, "
+                         f"model) dims, got {spec!r}")
+    return dims
 
 
 def mesh_dims(spec) -> tuple[int, int]:
     """``"DxM"`` or ``(D, M)`` -> ``(D, M)``."""
-    if isinstance(spec, str):
-        try:
-            d, m = (int(x) for x in spec.lower().split("x"))
-        except ValueError:
-            raise ValueError(f"a mesh spec wants DxM (e.g. 2x4), got "
-                             f"{spec!r}") from None
-        return d, m
-    d, m = spec
-    return int(d), int(m)
+    dims = mesh_shape(spec)
+    if len(dims) != 2:
+        raise ValueError(f"a serving mesh wants DxM (e.g. 2x4), got {spec!r}")
+    return dims
 
 
 def parse_mesh(spec: str, device: str | torch.device = "cpu"):
     """``"DxM"`` -> a (data=D, model=M) ``DeviceMesh`` over the initialised
-    world, its tensors on ``device``'s type.  ``D * M`` must equal the
-    world size: launch that many ranks (``torchrun --nproc-per-node D*M``)."""
-    d, m = mesh_dims(spec)
+    world, ``"PxDxM"`` -> a (pod=P, data=D, model=M) one, its tensors on
+    ``device``'s type.  The product must equal the world size: launch that
+    many ranks (``torchrun --nproc-per-node D*M``)."""
+    dims = mesh_shape(spec)
     n = world_size()
-    if d * m != n:
-        raise ValueError(f"mesh {d}x{m} needs {d * m} ranks, the world size "
+    need = math.prod(dims)
+    if need != n:
+        label = "x".join(str(d) for d in dims)
+        raise ValueError(f"mesh {label} needs {need} ranks, the world size "
                          f"is {n} (launch them with torchrun "
-                         f"--nproc-per-node {d * m})")
-    return _device_mesh(torch.device(device).type, d, m)
+                         f"--nproc-per-node {need})")
+    return _device_mesh(torch.device(device).type, *dims)
 
 
 def device_mesh(mesh, device: str | torch.device):

@@ -20,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.hints import tp_row_dot
+from repro_torch.parallel.hints import all_reduce_sum, tp_row_dot
 from repro_torch.quant.linear import qdot_group
 
 # ---------------------------------------------------------------------------
@@ -152,10 +152,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """Mamba2 norm: RMSNorm(x * silu(z)), in f32, cast to x's dtype."""
+                  eps: float = 1e-5, comm=None) -> torch.Tensor:
+    """Mamba2 norm: RMSNorm(x * silu(z)), in f32, cast to x's dtype.
+    ``comm``: the ranks holding the other channels of the last dim (a
+    training rank's SSM heads), over which the sum of squares is
+    all-reduced."""
     xf = x.float() * F.silu(z.float())
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if comm is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True), comm)
+        var = ss / (xf.shape[-1] * comm.size)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 

@@ -60,7 +60,13 @@ Training: ``forward`` runs under autograd when the weights require
 gradients (``train.train_step`` binds trainable ones); ``remat=True``
 keeps only each layer's input and recomputes the layer in the backward
 pass (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of
-a segment step).  ``loss`` is the reference's mean cross-entropy.
+a segment step).  ``loss`` is the reference's mean cross-entropy.  On a
+training mesh the same ``loss`` runs under ``parallel.hints.train_layout``
+(``parallel/train.py``): each layer computes with the rank's weights
+(``TrainLayout.block``) and local head counts (``TrainLayout.local_cfg``),
+the residual stream holds the rank's positions, each sub-layer's entry
+and exit are the ``seq_enter`` / ``seq_leave`` marks, and the embedding,
+head and cross-entropy are vocabulary-parallel.
 Attention under autograd is the plain ``blocked_attention`` on every
 device (``layers.attention_kernel_path``), so a training step launches no
 hand-written kernel, as the reference's runs no Pallas one.
@@ -83,7 +89,9 @@ from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, embed_init, rmsnorm,
     span,
 )
-from repro_torch.parallel.hints import no_manual_tp, tp_psum
+from repro_torch.parallel.hints import (
+    active_layout, no_manual_tp, seq_enter, seq_leave, tp_psum, train_layout,
+)
 from repro_torch.quant.linear import packed_leaves
 
 @dataclasses.dataclass(frozen=True)
@@ -202,21 +210,36 @@ def _hybrid_out(p: Block, x, a, s, cfg: ModelConfig):
     eps = cfg.norm_eps
     x = x + 0.5 * (rmsnorm(a, p.attn_out_norm, eps)
                    + rmsnorm(s, p.ssm_out_norm, eps))
-    return x + layers.mlp_forward(p.mlp, rmsnorm(x, p.ln2, eps))
+    h = seq_enter(rmsnorm(x, p.ln2, eps))
+    return x + seq_leave(layers.mlp_forward(p.mlp, h), "mlp")
 
 
 def _block_forward(p: Block, x, cfg: ModelConfig, window):
-    """x: (B, S, D), no cache."""
-    h = rmsnorm(x, p.ln1, cfg.norm_eps)
+    """x: (B, S, D), no cache (on a training mesh the rank's positions:
+    each sub-layer runs between the ``seq_enter`` and ``seq_leave``
+    marks)."""
+    h = seq_enter(rmsnorm(x, p.ln1, cfg.norm_eps))
     if p.kind == "ssm":
-        return x + ssm_lib.ssm_forward(h, p.ssm, cfg)[0]
+        return x + seq_leave(ssm_lib.ssm_forward(h, p.ssm, cfg)[0], "ssm")
     be = ab.backend_for_kind(p.kind)
     a = be.forward(p.attn, h, cfg, window=window)
     if p.kind == "hybrid":
         s, _ = ssm_lib.ssm_forward(h, p.ssm, cfg)
-        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
-    x = x + a
-    return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+        return _hybrid_out(p, x, seq_leave(a.to(x.dtype), "attn"),
+                           seq_leave(s, "ssm"), cfg)
+    x = x + seq_leave(a, "attn")
+    h = seq_enter(rmsnorm(x, p.ln2, cfg.norm_eps))
+    return x + seq_leave(_ffn(p, h, cfg), "moe" if p.is_moe else "mlp")
+
+
+def _layer_forward(lay, i: int, p: Block, x, cfg: ModelConfig, window):
+    """``_block_forward`` of layer ``i``; under the training layout
+    ``lay`` (set again here: remat recomputes the layer in the backward
+    pass) with the rank's weights and local widths."""
+    if lay is None:
+        return _block_forward(p, x, cfg, window)
+    with train_layout(lay):
+        return _block_forward(lay.block(i, p), x, lay.local_cfg, window)
 
 
 def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
@@ -472,23 +495,41 @@ class Model(nn.Module):
         return self
 
     # ----- inputs -----
+    def _weight(self, name: str) -> torch.Tensor:
+        """A top-level weight; on a training mesh the rank's compute
+        region of it (``TrainLayout.weight``)."""
+        lay = active_layout()
+        return getattr(self, name) if lay is None else lay.weight(name)
+
     def _embed_inputs(self, batch) -> torch.Tensor:
         """(B, S, D) inputs of a batch: ``features @ in_proj`` (audio, the
         features in bf16), the ``image_embeds`` ahead of the token
         embeddings (vision), or the token embeddings.  ``batch``: the
-        reference's dict, or a bare (B, S) token tensor."""
+        reference's dict, or a bare (B, S) token tensor.  On a training
+        mesh the rank's positions: its features, or the ranks' parts of
+        the vocabulary-parallel lookup summed onto them (the image rows
+        are the first model rank's part)."""
         if torch.is_tensor(batch):
             batch = {"tokens": batch}
+        lay = active_layout()
         if self.cfg.frontend == "audio":
             feats = batch["features"].to(torch.bfloat16)
+            w = self._weight("in_proj")
+            if lay is not None:
+                feats = lay.own_positions(feats)
             # an f32 model multiplies the bf16 features in f32, as jnp
             # promotes them
-            return feats.to(torch.promote_types(feats.dtype,
-                                                self.in_proj.dtype)) @ self.in_proj
-        x = self.embed[batch["tokens"].long()]
+            return feats.to(torch.promote_types(feats.dtype, w.dtype)) @ w
+        if lay is None:
+            x = self.embed[batch["tokens"].long()]
+        else:
+            x = lay.lookup(self._weight("embed"), batch["tokens"])
         if self.cfg.frontend == "vision" and "image_embeds" in batch:
-            x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
-        return x
+            img = batch["image_embeds"].to(x.dtype)
+            if lay is not None and lay.r:
+                img = torch.zeros_like(img)
+            x = torch.cat([img, x], dim=1)
+        return x if lay is None else lay.scatter_positions(x)
 
     def _tokens_only(self, what: str) -> None:
         """The paged entries serve token prompts only (the reference
@@ -503,13 +544,19 @@ class Model(nn.Module):
 
     # ----- head -----
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of every position; on a training mesh the rank's
+        vocabulary columns of the gathered sequence."""
         cfg = self.cfg
         with span("head"):
-            x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-            w = self.embed.T if cfg.tie_embeddings else self.head
+            x = seq_enter(rmsnorm(x, self._weight("final_norm"),
+                                  cfg.norm_eps))
+            w = (self._weight("embed").T if cfg.tie_embeddings
+                 else self._weight("head"))
             logits = x @ w
             if cfg.padded_vocab != cfg.vocab_size:   # mask pad columns
-                pad = (torch.arange(cfg.padded_vocab, device=x.device)
+                lay, v = active_layout(), logits.shape[-1]
+                v0 = 0 if lay is None else lay.r * v
+                pad = (torch.arange(v0, v0 + v, device=x.device)
                        >= cfg.vocab_size)
                 logits = logits.masked_fill(pad, -1e30)
         return logits
@@ -523,22 +570,26 @@ class Model(nn.Module):
         (``layers.attention_kernel_path``).  ``remat``: under autograd,
         keep only each layer's input and recompute the layer in the
         backward pass (``torch.utils.checkpoint``, non-reentrant)."""
-        cfg = self.cfg
+        cfg, lay = self.cfg, active_layout()
         x = self._embed_inputs(batch)                       # (B, S, D)
         remat = remat and torch.is_grad_enabled()
-        for win, blk in zip(self.windows, self.layers):
+        for i, (win, blk) in enumerate(zip(self.windows, self.layers)):
             if remat:
-                x = checkpoint(_block_forward, blk, x, cfg, win,
+                x = checkpoint(_layer_forward, lay, i, blk, x, cfg, win,
                                use_reentrant=False)
             else:
-                x = _block_forward(blk, x, cfg, win)
+                x = _layer_forward(lay, i, blk, x, cfg, win)
         return self._head(x)
 
     # ----- loss -----
     @staticmethod
     def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy, the vocab axis reduced in f32 (pad columns
-        sit at -1e30, as ``_head`` leaves them)."""
+        sit at -1e30, as ``_head`` leaves them); on a training mesh over
+        the ranks' vocabulary columns (``TrainLayout.xent``)."""
+        lay = active_layout()
+        if lay is not None:
+            return lay.xent(logits, targets)
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)
         tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]

@@ -25,10 +25,16 @@ the reference's:
     activation dtype, and uses no atomics: a second identical session
     reproduces every stream on the card.
 
-``impl="ep"`` (expert parallelism over a mesh) belongs to ROADMAP Queue 1,
-'Parallel training and the dry-run's meshes', and raises.  Inside a
-tensor-parallel serve region the experts run replicated, whole
-(``models.model._ffn`` turns the TP marks off for them).
+``impl="ep"`` (expert parallelism in a ``shard_map`` over a mesh) belongs
+to ROADMAP Queue 1, 'Sharded static serving and the dry-run's meshes', and
+raises.  On a training mesh (``parallel/train.py``) a rank holds a block
+of the experts (``_expert_range``) and the rows of one DP rank: the
+strategy, the chunks and the capacity are the whole batch's
+(``parallel.hints.batch_comm``), and each expert's slots go first to the
+assignments of the lower DP ranks, whose tokens precede this rank's
+(``_lower_rank_counts``).  Inside a tensor-parallel serve region the
+experts run replicated, whole (``models.model._ffn`` turns the TP marks
+off for them).
 """
 from __future__ import annotations
 
@@ -42,8 +48,9 @@ from repro_torch.models import layers
 from repro_torch.models.common import (
     PARAM_DTYPE, ModelConfig, dense_init, span, swiglu,
 )
+from repro_torch.parallel.hints import batch_comm, split_comm
 
-ITEM_TP = "ROADMAP Queue 1, 'Parallel training and the dry-run's meshes'"
+ITEM_TP = "ROADMAP Queue 1, 'Sharded static serving and the dry-run's meshes'"
 
 
 class MoE(nn.Module):
@@ -88,6 +95,21 @@ def _routing(x2d: torch.Tensor, router: torch.Tensor, k: int):
     return w, ids
 
 
+def _expert_range(p) -> tuple[int, int]:
+    """(first, count) of the experts ``p`` holds: all of them, or on a
+    training mesh whose model axis splits them the rank's block."""
+    n = p.w_gate.shape[0]
+    comm = split_comm("moe")
+    return (0 if comm is None else comm.rank * n), n
+
+
+def _lower_rank_counts(ids: torch.Tensor, e: int, comm) -> torch.Tensor:
+    """(E,) the assignments per expert of the DP ranks before this one in
+    ``comm`` (their counts all-gathered)."""
+    counts = torch.bincount(ids.reshape(-1), minlength=e)
+    return comm.all_gather_stack(counts)[:comm.rank].sum(dim=0)
+
+
 def _expert_ffn(xe: torch.Tensor, p) -> torch.Tensor:
     """(E, C, D) -> (E, C, D) batched SwiGLU over the expert axis."""
     g = torch.bmm(xe, p.w_gate)
@@ -114,16 +136,22 @@ def moe_dense(x: torch.Tensor, p: MoE, cfg: ModelConfig) -> torch.Tensor:
     with span("moe_combine"):
         onehot = F.one_hot(ids, cfg.n_experts).float()           # (T, k, E)
         comb = torch.einsum("tk,tke->te", w, onehot)             # (T, E)
+        e0, n = _expert_range(p)
+        if n != cfg.n_experts:
+            comb = comb[:, e0:e0 + n]
         y = torch.einsum("te,etd->td", comb.to(x.dtype), y_all)
     return y.reshape(b, s, d)
 
 
-def _dispatch(ids: torch.Tensor, n_buckets: int, cap: int):
+def _dispatch(ids: torch.Tensor, n_buckets: int, cap: int, *,
+              offset=None, first: int = 0, n_local: int | None = None):
     """The reference's drop policy over (T, k) expert ids: returns
     ``order`` (the stable argsort of the token-major flat ids), and in
     that sorted order each assignment's token ``stok``, its capacity
-    buffer row ``cell`` (expert * cap + rank, clipped) and ``keep`` (rank
-    < cap and a real expert; ids >= n_buckets are drop buckets)."""
+    buffer row ``cell`` ((expert - first) * cap + rank, clipped) and
+    ``keep`` (rank < cap and one of the ``n_local`` experts from
+    ``first``; ids >= n_buckets are drop buckets).  ``offset`` (E,): the
+    ranks each expert's slots start at (earlier tokens of the batch)."""
     t, k = ids.shape
     dev = ids.device
     flat_ids = ids.reshape(-1)                                   # (T*k,)
@@ -131,33 +159,42 @@ def _dispatch(ids: torch.Tensor, n_buckets: int, cap: int):
     sid = flat_ids[order]
     stok = torch.arange(t, device=dev).repeat_interleave(k)[order]
     # rank within expert = index among same-expert entries (sorted order)
-    first = torch.searchsorted(
+    starts = torch.searchsorted(
         sid, torch.arange(n_buckets, device=dev, dtype=sid.dtype),
         side="left")
     sid_c = sid.clamp(0, n_buckets - 1)
-    slot = torch.arange(t * k, device=dev) - first[sid_c]
-    keep = (slot < cap) & (sid < n_buckets)
-    return order, stok, sid_c * cap + slot.clamp(0, cap - 1), keep
+    slot = torch.arange(t * k, device=dev) - starts[sid_c]
+    if offset is not None:
+        slot = slot + offset[sid_c]
+    n = n_buckets if n_local is None else n_local
+    keep = (slot < cap) & (sid >= first) & (sid < min(first + n, n_buckets))
+    cell = (sid - first).clamp(0, n - 1) * cap + slot.clamp(0, cap - 1)
+    return order, stok, cell, keep
 
 
 def _capacity_core(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
-                   n_buckets: int, cap: int, wp) -> torch.Tensor:
-    """Sort-by-expert + capacity buffer + batched products over
-    ``n_buckets`` experts.  Returns (T, D).  Per expert, the
-    earliest-sorted assignments win a slot (``_dispatch``)."""
+                   n_buckets: int, cap: int, wp, *, offset=None,
+                   first: int = 0) -> torch.Tensor:
+    """Sort-by-expert + capacity buffer + batched products over the
+    experts ``wp`` holds (``first`` on, of ``n_buckets``).  Returns (T,
+    D): the contributions of those experts.  Per expert, the
+    earliest-sorted assignments win a slot (``_dispatch``, after
+    ``offset``)."""
     t, d = x2d.shape
     k = ids.shape[1]
+    n = wp.w_gate.shape[0]
     dev = x2d.device
     with span("moe_dispatch"):
-        order, stok, cell, keep = _dispatch(ids, n_buckets, cap)
+        order, stok, cell, keep = _dispatch(ids, n_buckets, cap,
+                                            offset=offset, first=first,
+                                            n_local=n)
         sw = w.reshape(-1)[order]
         # each kept assignment owns one buffer row; the dropped ones all
         # write a spare last row, which is discarded
-        dest = torch.where(keep, cell, n_buckets * cap)
-        buf = torch.zeros((n_buckets * cap + 1, d), dtype=x2d.dtype,
-                          device=dev)
+        dest = torch.where(keep, cell, n * cap)
+        buf = torch.zeros((n * cap + 1, d), dtype=x2d.dtype, device=dev)
         buf[dest] = x2d[stok]
-        xe = buf[:-1].view(n_buckets, cap, d)
+        xe = buf[:-1].view(n, cap, d)
     with span("moe_experts"):
         ye = _expert_ffn(xe, wp)                                 # (E, C, D)
     with span("moe_combine"):
@@ -177,15 +214,21 @@ def _capacity_core(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 def moe_capacity(x: torch.Tensor, p: MoE, cfg: ModelConfig,
                  capacity_factor: float = 1.25) -> torch.Tensor:
     """Sort-by-expert dispatch into (E, C, D) buffers, with C =
-    ceil(T k / E x capacity_factor) and at least 1."""
+    ceil(T k / E x capacity_factor) and at least 1, T the batch's tokens
+    (on a training mesh every DP rank's)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_token
     t = b * s
     x2d = x.reshape(t, d)
     with span("moe_dispatch"):
         w, ids = _routing(x2d, p.router, k)
-    cap = max(int(math.ceil(t * k / e * capacity_factor)), 1)
-    return _capacity_core(x2d, w, ids, e, cap, p).reshape(b, s, d)
+    comm = batch_comm()
+    n = 1 if comm is None else comm.size
+    cap = max(int(math.ceil(t * n * k / e * capacity_factor)), 1)
+    offset = None if comm is None else _lower_rank_counts(ids, e, comm)
+    y = _capacity_core(x2d, w, ids, e, cap, p, offset=offset,
+                       first=_expert_range(p)[0])
+    return y.reshape(b, s, d)
 
 
 def moe_ep(*args, **kwargs):
@@ -199,9 +242,11 @@ def moe_ep(*args, **kwargs):
 MOE_CHUNK_TOKENS = 65536
 
 
-def _chunked(fn, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``fn`` over sequence chunks of ~MOE_CHUNK_TOKENS tokens."""
+def _chunked(fn, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """Apply ``fn`` over sequence chunks of ~MOE_CHUNK_TOKENS tokens of
+    the batch's ``rows`` (``x``'s by default)."""
     b, s, d = x.shape
+    b = rows or b
     if b * s <= MOE_CHUNK_TOKENS:
         return fn(x)
     per_chunk = max(1, MOE_CHUNK_TOKENS // b)
@@ -218,17 +263,20 @@ def _chunked(fn, x: torch.Tensor) -> torch.Tensor:
 def moe_forward(x: torch.Tensor, p: MoE, cfg: ModelConfig,
                 impl: str = "auto") -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  ``impl="auto"``: ``dense`` at B*S <=
-    4096 tokens and at most 16 experts, ``capacity`` otherwise."""
+    4096 tokens and at most 16 experts, ``capacity`` otherwise (B the
+    batch's rows: on a training mesh every DP rank's)."""
     b, s, _ = x.shape
+    comm = batch_comm()
+    rows = b * (1 if comm is None else comm.size)
     if impl == "auto":
-        impl = ("dense" if b * s <= 4096 and cfg.n_experts <= 16
+        impl = ("dense" if rows * s <= 4096 and cfg.n_experts <= 16
                 else "capacity")
     if impl == "ep":
         moe_ep()
     if impl == "dense":
         y = moe_dense(x, p, cfg)
     elif impl == "capacity":
-        y = _chunked(lambda xc: moe_capacity(xc, p, cfg), x)
+        y = _chunked(lambda xc: moe_capacity(xc, p, cfg), x, rows)
     else:
         raise ValueError(f"moe impl {impl!r}: expected 'auto', 'dense', "
                          f"'capacity' or 'ep'")

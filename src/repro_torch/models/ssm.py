@@ -22,6 +22,11 @@ the decode conv sums in f32; softplus is the reference's
 ``logaddexp(x, 0)``.  Parameters live in an ``nn.Module`` whose attribute
 names are the reference pytree's keys, so the weight bridge copies them
 by name.
+
+On a training mesh (``parallel/train.py``) ``ssm_forward`` runs a rank's
+heads: its config counts them, its weights hold their channels, and the
+gated norm's sum of squares is all-reduced over the ranks
+(``parallel.hints.split_comm``).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from torch import nn
 from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, gated_rmsnorm, span,
 )
+from repro_torch.parallel.hints import split_comm
 
 
 class SSM(nn.Module):
@@ -192,7 +198,7 @@ def ssm_forward(x: torch.Tensor, p: SSM, cfg: ModelConfig,
         conv_out, new_conv = _causal_conv(
             conv_in, p.conv_w, p.conv_b,
             None if state is None else state["conv"], valid=valid)
-        di = cfg.d_inner
+        di = nh * hp                   # a training rank's heads: its channels
         xh = conv_out[..., :di].reshape(bsz, s, nh, hp)
         bg = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
         cg = conv_out[..., di + g * n:].reshape(bsz, s, g, n)
@@ -206,7 +212,8 @@ def ssm_forward(x: torch.Tensor, p: SSM, cfg: ModelConfig,
                                   None if state is None else state["ssm"])
         y = y + xh.float() * p.D[None, None, :, None]
         y = y.reshape(bsz, s, di).to(x.dtype)
-        out = gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps) @ p.out_proj
+        out = gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps,
+                            comm=split_comm("ssm")) @ p.out_proj
     return out, {"conv": new_conv, "ssm": h_final}
 
 

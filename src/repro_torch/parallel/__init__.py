@@ -1,6 +1,9 @@
-"""Distribution layer of the port: the tensor-parallel paged serve plan
-and its pool pricing (``plan.py``), the TP marks and counted collectives
-(``hints.py``) and the ring collective matmuls (``collective_matmul.py``),
-over ``torch.distributed``.  Cross-pod gradient compression and the GSPMD
-training plans wait (ROADMAP Queue 1, 'Parallel training and the dry-run's
-meshes')."""
+"""Distribution layer of the port, over ``torch.distributed``: the
+partitioning plans (``plan.py``: ``ParallelPlan`` / ``make_plan`` and the
+tensor-parallel paged serve plan with its pool pricing), the TP marks and
+the counted collectives with their autograd forms (``hints.py``), the
+``train`` plan executed (``train.py``), cross-pod int8 gradient
+compression (``compression.py``) and the ring collective matmuls
+(``collective_matmul.py``).  The serving kinds of ``make_plan`` price and
+specify; executing them waits (ROADMAP Queue 1, 'Sharded static serving
+and the dry-run's meshes')."""

@@ -1,5 +1,6 @@
 """Tensor-parallel marks of the paged serve path (the manual-TP half of
-``repro/parallel/hints.py``) and the collectives they issue.
+``repro/parallel/hints.py``), the training step's autograd collectives,
+and the counted collectives they issue.
 
 The sharded serve path runs every projection on the rank's local
 head / d_ff slice (``parallel.plan.PagedServePlan.local_model``); the model
@@ -29,9 +30,27 @@ do not, so a ring hop of a CUDA tensor stages through pinned host memory
 here, each copy counted (``host_copies``, ``host_bytes``).  An NCCL group
 and CPU tensors take neither path.
 
+The training step (``parallel/train.py``) runs ``Model.loss`` under a
+``train_layout``: the model code marks a block's entry (``seq_enter``)
+and exit (``seq_leave``), and asks which group splits a part
+(``split_comm``: the gated norm's sum, the MoE experts) and which DP ranks
+form the batch (``batch_comm``: the MoE capacity); off a training mesh
+each mark is the identity and each question answers None.  The marks are
+autograd functions whose backward is the matching collective: with
+sequence parallelism a block's entry all-gathers the sequence
+(``gather_dim``; its backward reduce-scatters), its exit reduce-scatters
+the row-parallel partial sums (``scatter_sum_dim``; its backward
+all-gathers), and a sum every rank needs (the SSM's gated norm) is an
+all-reduce both ways (``all_reduce_sum``).  ``TPComm.phase`` labels the
+counts of a training step: ``fwd``, ``bwd`` (a forward collective issued
+in the backward pass is a remat recompute: ``remat``), and ``step`` (the
+optimizer's and the compression's).  A ``gloo`` reduce-scatter of a CUDA
+tensor stages through pinned host memory (counted), as the ring hops do;
+a ``gloo`` all-gather goes round the ring by send / recv.
+
 The GSPMD hints (``shard_hint``, ``sharding_rules``, ``suspend_hints``,
-``ep_context``) wait for the training half (ROADMAP Queue 1, 'Parallel
-training and the dry-run's meshes').
+``ep_context``) have no counterpart: the port places every shard and
+issues every collective itself.
 """
 from __future__ import annotations
 
@@ -70,6 +89,21 @@ class TPComm:
         self.rank = dist.get_rank(group)
         self.backend = str(dist.get_backend(group))
         self.counts: Counter = Counter()
+        self.phase: str | None = None       # a training step's label
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        """One call of ``kind`` moving ``nbytes`` a device, labelled by
+        the step's phase (a forward collective in the backward pass is a
+        remat recompute)."""
+        phase = self.phase
+        if phase == "bwd" and kind in ("all_gather", "all_gather_dim",
+                                       "reduce_scatter_fwd", "all_reduce_fwd",
+                                       "param_gather"):
+            phase = "remat"
+        key = kind if phase is None else f"{phase}:{kind}"
+        self.counts[key] += 1
+        self.counts[key + "_bytes"] += int(nbytes)
+        self.counts["bytes"] += int(nbytes)
 
     def _global(self, group_rank: int) -> int:
         if self.group is None:
@@ -121,6 +155,84 @@ class TPComm:
         dist.all_reduce(out, group=self.group)
         return out
 
+    def all_gather_dim(self, x: torch.Tensor, dim: int,
+                       kind: str = "all_gather_dim") -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim``, in rank order.
+        A gloo group moves the blocks round the ring by send / recv (a
+        CUDA tensor staged through pinned host memory, each copy
+        counted): gloo's own all-gather runs at a third of its
+        point-to-point rate on one host."""
+        n = self.size
+        self._count(kind, x.nbytes * (n - 1))
+        if n == 1:
+            return x
+        if self.backend == "gloo":
+            return torch.cat(self._ring_gather(x), dim=dim)
+        src = x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def _ring_gather(self, x: torch.Tensor) -> list:
+        """Every rank's ``x`` (rank order) by n - 1 ring hops: each passes
+        on the block it received last."""
+        n, r = self.size, self.rank
+        cur = self._to_host(x) if self._gloo_cuda(x) else x.contiguous()
+        parts = [None] * n
+        parts[r] = x
+        nxt, prev = self._global((r + 1) % n), self._global((r - 1) % n)
+        for hop in range(n - 1):
+            buf = torch.empty_like(cur)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, cur, nxt, self.group),
+                    dist.P2POp(dist.irecv, buf, prev, self.group)]):
+                req.wait()
+            src = (r - 1 - hop) % n
+            parts[src] = (buf if buf.device == x.device
+                          else self._to_device(buf, x.device))
+            cur = buf
+        return parts
+
+    def all_gather_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked along a new leading dim (rank
+        order)."""
+        return self.all_gather_dim(x[None], 0, kind="all_gather")
+
+    def reduce_scatter_dim(self, x: torch.Tensor, dim: int,
+                           kind: str = "reduce_scatter") -> torch.Tensor:
+        """The sum of every rank's ``x``, this rank's ``1/n`` block of it
+        along ``dim`` (rank order).  A gloo group stages a CUDA tensor
+        through pinned host memory, each copy counted."""
+        n = self.size
+        self._count(kind, x.nbytes * (n - 1) // n)
+        if n == 1:
+            return x
+        moved = x.movedim(dim, 0).contiguous()
+        if self._gloo_cuda(x):
+            src = self._to_host(moved)
+        else:
+            src = moved
+        out = torch.empty((src.shape[0] // n,) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        _reduce_scatter(out, src, group=self.group)
+        if out.device != x.device:
+            out = self._to_device(out, x.device)
+        return out.movedim(0, dim)
+
+    def all_reduce_op(self, x: torch.Tensor, op: str = "sum",
+                      kind: str = "all_reduce") -> torch.Tensor:
+        """``all_reduce`` with ``op`` "sum" or "max" (a new tensor)."""
+        n = self.size
+        self._count(kind, 2 * (n - 1) * x.nbytes // n)
+        if n == 1:
+            return x
+        if self._gloo_cuda(x):
+            self.counts["gloo_cuda"] += 1
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+        return out
+
     def broadcast_float(self, value: float) -> float:
         """Group rank 0's ``value`` on every rank (host scalars: a CPU
         tensor for gloo, a CUDA one for NCCL)."""
@@ -147,6 +259,11 @@ class TPComm:
                           self.group)]
         return _Pending(self, dist.batch_isend_irecv(ops), buf, x)
 
+
+# ``reduce_scatter_single`` where torch has it (``reduce_scatter_tensor``,
+# the same call, is deprecated there)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
 
 _TP: contextvars.ContextVar[TPComm | None] = contextvars.ContextVar(
     "manual_tp_comm", default=None)
@@ -212,3 +329,124 @@ def tp_row_dot(x: torch.Tensor, w) -> torch.Tensor:
     if is_packed(w):
         w = formats.dequantize_any(w, torch.float32)
     return x.float() @ w.float()
+
+
+# -- the training step's autograd collectives --------------------------------
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather along ``dim`` (a sequence-parallel block's entry); the
+    backward reduce-scatters the gradient back to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter_dim(g, ctx.dim), None, None
+
+
+class _ScatterSumDim(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim`` (a row-parallel block's exit
+    under sequence parallelism); the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter_dim(x, dim, kind="reduce_scatter_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather_dim(g, ctx.dim,
+                                       kind="all_gather_bwd"), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum every rank needs (each rank's part enters every rank's
+    result): all-reduce both ways."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce_op(x, kind="all_reduce_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_op(g, kind="all_reduce_bwd"), None
+
+
+def gather_dim(x: torch.Tensor, comm: TPComm | None, dim: int) -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over ``comm`` under autograd (x
+    itself without a group or on one rank)."""
+    if comm is None or comm.size == 1:
+        return x
+    return _GatherDim.apply(x, comm, dim)
+
+
+def scatter_sum_dim(x: torch.Tensor, comm: TPComm | None,
+                    dim: int) -> torch.Tensor:
+    """The ranks' ``x`` summed, this rank's block along ``dim``, under
+    autograd."""
+    if comm is None or comm.size == 1:
+        return x
+    return _ScatterSumDim.apply(x, comm, dim)
+
+
+def all_reduce_sum(x: torch.Tensor, comm: TPComm | None) -> torch.Tensor:
+    """The ranks' ``x`` summed, on every rank, under autograd."""
+    if comm is None or comm.size == 1:
+        return x
+    return _AllReduceSum.apply(x, comm)
+
+
+# -- the training layout's marks in the model code -----------------------------
+
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar("train_layout",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def train_layout(layout):
+    """Run the enclosed model code as one rank of ``layout`` (a
+    ``parallel.train.TrainLayout``): the model reads its weights, local
+    widths and marks from it."""
+    token = _LAYOUT.set(layout)
+    try:
+        yield layout
+    finally:
+        _LAYOUT.reset(token)
+
+
+def active_layout():
+    """The training layout the model code runs under, or None."""
+    return _LAYOUT.get()
+
+
+def seq_enter(h: torch.Tensor) -> torch.Tensor:
+    """A block's entry: the rank's positions all-gathered over the model
+    axis (sequence parallelism); ``h`` off a training mesh."""
+    lay = _LAYOUT.get()
+    return h if lay is None else gather_dim(h, lay.model_comm, 1)
+
+
+def seq_leave(out: torch.Tensor, part: str) -> torch.Tensor:
+    """A block's exit from ``part`` ("attn", "mlp", "moe", "ssm") back to
+    the rank's positions; ``out`` off a training mesh."""
+    lay = _LAYOUT.get()
+    return out if lay is None else lay.leave(out, part)
+
+
+def split_comm(part: str) -> TPComm | None:
+    """The group over which ``part``'s heads, channels or experts are
+    split on a training mesh, or None (whole on this rank)."""
+    lay = _LAYOUT.get()
+    return None if lay is None else lay.split_comm(part)
+
+
+def batch_comm() -> TPComm | None:
+    """The DP ranks whose rows form the batch the model sees on a training
+    mesh (their order is the batch's), or None."""
+    lay = _LAYOUT.get()
+    return None if lay is None else lay.batch_comm

@@ -1,5 +1,21 @@
-"""The tensor-parallel paged serve plan and its pool pricing (the serve
-half of ``repro/parallel/plan.py``).
+"""Partitioning plans: ``ParallelPlan`` / ``make_plan`` (the reference's
+plan of every (arch x shape x mesh) cell) and the tensor-parallel paged
+serve plan with its pool pricing; the port of ``repro/parallel/plan.py``.
+
+``ParallelPlan`` maps each parameter and batch leaf onto a ``(pod, data,
+model)`` mesh as the reference does (a KV cache's placement,
+``cache_shardings``, comes with the sharded serving item below): DP over
+``(pod, data)``, Megatron TP of weight columns / rows and heads over
+``model``, MoE
+experts over ``model``, the SSM's inner dim over ``model``, the vocab of
+the embedding and head over ``model``, and FSDP of every matrix's other dim
+over the DP axes; an axis whose size does not divide a dim is dropped
+(``_drop_uneven``).  A spec is a tuple with one entry a dim: None, an axis
+name, or a tuple of axis names (major first, as a ``PartitionSpec``).  The
+``train`` kind is executed (``parallel/train.py``: each rank stores
+exactly ``shard_shape`` of every parameter and moment); the other kinds
+price and specify, and executing them raises, naming ROADMAP Queue 1,
+'Sharded static serving and the dry-run's meshes'.
 
 ``PagedServePlan`` partitions the continuous-batching serve path over a
 mesh's ``model`` dim, the paper's CU ring.  The reference runs the paged
@@ -28,9 +44,8 @@ every rank holds exactly the one KV head its query heads read.
 
 A mesh is a ``DeviceMesh`` (``launch/mesh.py``) or, for pricing only, a
 ``MeshShape``: the plan reads ``mesh_dim_names``, ``size(dim)`` and
-``device_type``.  ``ParallelPlan``, ``make_plan``, ``_full_tp_ok`` and
-``split_mesh`` wait for the next slices (ROADMAP Queue 1, 'Parallel
-training and the dry-run's meshes' and 'Disaggregation across meshes').
+``device_type``.  ``split_mesh`` waits (ROADMAP Queue 1, 'Disaggregation
+across meshes').
 """
 from __future__ import annotations
 
@@ -49,12 +64,207 @@ _COL_SHARD = {"wq", "wk", "wv", "w_gate", "w_up", "w_uk", "w_uv",
               "head", "in_proj"}
 _BIAS_COL = {"bq", "bk", "bv"}
 _ROW_SHARD = {"wo", "w_down", "out_proj"}
+_VOCAB_SHARD = {"embed"}
+
+# Per-device bytes the serve/prefill plans are willing to spend on weights
+# before turning on FSDP weight sharding (the reference's budget).
+_WEIGHT_FIT_BYTES = 8 * 2**30
+
+SHARDED_SERVING_ITEM = "Sharded static serving and the dry-run's meshes"
 
 
 def axis_size(mesh, axis: str) -> int:
     """The size of ``mesh``'s dim ``axis`` (``DeviceMesh.size`` takes the
     dim's index)."""
     return int(mesh.size(tuple(mesh.mesh_dim_names).index(axis)))
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """{dim name: size} of ``mesh``, in its order."""
+    names = tuple(mesh.mesh_dim_names)
+    return {a: int(mesh.size(i)) for i, a in enumerate(names)}
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name, or a tuple)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def entry_size(mesh, entry) -> int:
+    return math.prod(axis_size(mesh, a) for a in entry_axes(entry))
+
+
+def _drop_uneven(spec: tuple, shape, mesh) -> tuple:
+    """Drop the sharded axes of the dims whose size they do not divide
+    (e.g. 25 heads over a 16-way model axis): the reference's rule for
+    ``in_shardings``, which need even shards."""
+    out = []
+    for dim in range(len(shape)):
+        entry = spec[dim] if dim < len(spec) else None
+        if entry is not None and shape[dim] % entry_size(mesh, entry):
+            entry = None
+        out.append(entry)
+    return tuple(out)
+
+
+def shard_shape(spec: tuple, shape, mesh) -> tuple[int, ...]:
+    """The local shape of a ``shape`` leaf laid out by ``spec`` (an even
+    shard: ``_drop_uneven`` first), as ``NamedSharding.shard_shape``."""
+    return tuple(n // entry_size(mesh, spec[i]) if i < len(spec) else n
+                 for i, n in enumerate(shape))
+
+
+def _tree_specs(tree, assign, names=()):
+    """``tree`` (nested dicts / lists / tuples of tensors or shapes) with
+    each leaf replaced by ``assign(names, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _tree_specs(v, assign, names + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not (
+            tree and all(isinstance(x, int) for x in tree)):
+        return type(tree)(_tree_specs(v, assign, names + (f"[{i}]",))
+                          for i, v in enumerate(tree))
+    return assign(names, tree)
+
+
+def _leaf_shape(leaf) -> tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """Sharding plan of one (config x shape) cell: the reference's fields.
+    ``dp`` the axes of the batch, ``tp`` of weights and heads, ``fsdp`` of
+    the non-TP weight dim, ``cache_seq`` of a KV cache's sequence,
+    ``seq_parallel`` the training activations' sequence over ``tp``,
+    ``ep`` expert parallelism advertised to MoE (read by the sharded
+    serving plans, not ported yet), ``shard_ssm`` the SSM inner dim over
+    ``tp``."""
+
+    mesh: Any
+    dp: tuple[str, ...]
+    tp: tuple[str, ...] | str
+    fsdp: tuple[str, ...] = ()
+    cache_seq: tuple[str, ...] | str | None = None
+    seq_parallel: bool = False
+    ep: bool = True
+    shard_ssm: bool = True
+
+    # ---------------- parameters ----------------
+    def _param_spec(self, names, ndim: int) -> tuple:
+        """The reference's spec of a leaf named by ``names`` (its path; a
+        port parameter's dotted name split) with ``ndim`` dims.  The port
+        keeps no layer axis, and the reference's rules place every axis
+        relative to the last dims, so they give the trailing part of the
+        reference's spec of the stacked leaf."""
+        name = names[-1]
+        in_moe = "moe" in names and "shared" not in names
+        in_ssm = "ssm" in names
+        fsdp = self.fsdp if self.fsdp else None
+        lead = max(0, ndim - 2)
+        none = [None] * max(ndim - 2, 0)
+        if in_moe and name in ("w_gate", "w_up", "w_down"):
+            # experts (E, D, F): experts over tp, FSDP the D dim
+            spec: list = [None] * ndim
+            spec[lead - 1 if lead >= 1 else 0] = self.tp
+            if fsdp:
+                spec[ndim - 2] = fsdp
+            return tuple(spec)
+        if in_ssm:
+            if name in ("w_z", "w_x"):
+                return (*none, fsdp, self.tp if self.shard_ssm else None)
+            if name == "out_proj":
+                return (*none, self.tp if self.shard_ssm else fsdp,
+                        fsdp if self.shard_ssm else None)
+            if name in ("w_bc", "w_dt") and fsdp:
+                return (*none, fsdp, None)
+            return (None,) * ndim
+        if name in _BIAS_COL:
+            return (*([None] * (ndim - 1)), self.tp)
+        if name in _VOCAB_SHARD:
+            return (*none, self.tp, fsdp)
+        if name in _COL_SHARD:
+            if ndim >= 2:
+                return (*none, fsdp, self.tp)
+            return (*([None] * (ndim - 1)), self.tp)
+        if name in _ROW_SHARD:
+            return (*none, self.tp, fsdp)
+        return (None,) * ndim
+
+    def param_spec(self, name, shape) -> tuple:
+        """The spec of parameter ``name`` (dotted, or its path as a
+        tuple) of ``shape``, uneven axes dropped."""
+        if isinstance(name, str):
+            name = (name,)
+        names = tuple(part for n in name for part in n.split("."))
+        shape = tuple(shape)
+        return _drop_uneven(self._param_spec(names, len(shape)), shape,
+                            self.mesh)
+
+    def param_shardings(self, params) -> Any:
+        """``params`` (a dict of tensors or shapes, nested dicts too: an
+        optimizer state) with each leaf replaced by its spec; a scalar
+        (the step counter) is replicated."""
+        return _tree_specs(params, lambda names, leaf: self.param_spec(
+            names, _leaf_shape(leaf)))
+
+    def shard_shape(self, name, shape) -> tuple[int, ...]:
+        """The local shape a rank stores of parameter ``name``."""
+        return shard_shape(self.param_spec(name, shape), tuple(shape),
+                           self.mesh)
+
+    # ---------------- batches ----------------
+    def batch_shardings(self, batch: dict) -> dict:
+        def assign(leaf):
+            nd = len(_leaf_shape(leaf))
+            if nd == 0 or not self.dp:
+                return (None,) * nd
+            return (self.dp, *([None] * (nd - 1)))
+        return {k: assign(v) for k, v in batch.items()}
+
+
+def _full_tp_ok(cfg: ModelConfig, mesh) -> bool:
+    """Dense archs whose projection widths divide the WHOLE mesh can run
+    decode fully tensor-parallel (MoE/SSM/hybrid/MLA keep the DP plan)."""
+    if cfg.moe or cfg.ssm or cfg.family in ("ssm", "hybrid") or cfg.mla:
+        return False
+    total = math.prod(mesh_axes(mesh).values())
+    dims = (cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd, cfg.d_ff,
+            cfg.padded_vocab)
+    return all(d % total == 0 for d in dims)
+
+
+def make_plan(cfg: ModelConfig, mesh, *, global_batch: int, shape_kind: str,
+              param_bytes: float | None = None) -> ParallelPlan:
+    """The reference's plan of an (arch x shape x mesh) cell.
+    ``shape_kind``: train | prefill | decode | long_decode;
+    ``param_bytes``: total bf16 weight bytes (the FSDP fit decision), from
+    the footprint when omitted.  ``mesh``: a ``DeviceMesh`` or a
+    ``MeshShape``."""
+    axes = tuple(mesh.mesh_dim_names)
+    sizes = mesh_axes(mesh)
+    dp_axes = tuple(a for a in axes if a in ("pod", "data"))
+    model_size = sizes.get("model", 1)
+    dp_size = math.prod(sizes[a] for a in dp_axes)
+    if param_bytes is None:
+        from repro_torch.models.footprint import compute_footprint
+        param_bytes = compute_footprint(cfg).total_params * 2.0
+    needs_fsdp = param_bytes / max(model_size, 1) > _WEIGHT_FIT_BYTES
+
+    if shape_kind == "train":
+        # FSDP always on for training: params + AdamW state shard over DP
+        return ParallelPlan(mesh, dp=dp_axes, tp="model", fsdp=dp_axes,
+                            cache_seq=None, seq_parallel=True, ep=False)
+    if shape_kind == "long_decode" or global_batch < dp_size:
+        return ParallelPlan(mesh, dp=(), tp="model", cache_seq=axes)
+    if shape_kind == "decode" and _full_tp_ok(cfg, mesh):
+        return ParallelPlan(mesh, dp=(), tp=axes, cache_seq=axes)
+    fsdp = dp_axes if needs_fsdp else ()
+    cache_seq = "model" if shape_kind in ("decode", "prefill") else None
+    return ParallelPlan(mesh, dp=dp_axes, tp="model", fsdp=fsdp,
+                        cache_seq=cache_seq)
 
 
 @dataclasses.dataclass(frozen=True)

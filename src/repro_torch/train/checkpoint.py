@@ -1,5 +1,5 @@
-"""Checkpointing with atomic commit and async save: the port of
-``repro/train/checkpoint.py`` for one device.
+"""Checkpointing with atomic commit, async save and elastic restore: the
+port of ``repro/train/checkpoint.py``.
 
 Layout::
 
@@ -15,9 +15,18 @@ A bf16 leaf is stored as its raw 16-bit words (uint16) with its dtype
 named in ``tree.json``: numpy has no bf16 without ``ml_dtypes``, which the
 card's machine lacks.  A restore puts each leaf on its template leaf's
 device, in its dtype (a template ``nn.Parameter`` gives a parameter of
-the same ``requires_grad``).  Re-sharding onto another mesh
-(``shardings=``) is a mesh feature and raises, naming ROADMAP Queue 1,
-'Parallel training and the dry-run's meshes'.
+the same ``requires_grad``).
+
+A sharded state (``init_train_state(plan=)``) saves its whole leaves:
+every rank takes part in gathering each leaf (``TrainLayout.gather_full``;
+a residual's pods stacked on a leading axis, the reference's layout), rank
+0 writes the files, and the others wait at a barrier (an async save: rank
+0's writer thread; the loop waits for it before reading).  So a one-device
+checkpoint and a mesh checkpoint of one state are the same bytes.  A
+restore onto a mesh (``shardings=``: a plan, or the ``TrainLayout`` of a
+template made on the current mesh; a sharded template's own by default)
+has each rank read each leaf and keep its shard, so a state saved on one
+mesh restores onto another, onto one device and off it.
 """
 from __future__ import annotations
 
@@ -30,8 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.runtime.engine import _unported
-from repro_torch.train.train_step import TP_ITEM, TrainState
+from repro_torch.train.train_step import TrainState
 
 _SEP = "/"
 
@@ -74,7 +82,7 @@ def _unflatten(template, leaves: dict, prefix: str = ""):
                        f"{prefix}{_SEP}{key}" if prefix else key)
             for key, child in items]
     if isinstance(template, TrainState):
-        return TrainState(*kids)
+        return TrainState(*kids, layout=template.layout)
     if isinstance(template, dict):
         return dict(zip(template.keys(), kids))
     return type(template)(kids)
@@ -100,12 +108,46 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+def _whole_leaves(state: TrainState) -> dict[str, torch.Tensor]:
+    """{path: whole leaf} of a sharded state, gathered from every rank
+    (each rank calls this; the residual's pods on a leading axis)."""
+    lay = state.layout
+    out = {}
+    for key, tree in (("params", state.params),
+                      ("opt_state/m", state.opt_state["m"]),
+                      ("opt_state/v", state.opt_state["v"])):
+        for name, t in tree.items():
+            out[f"{key}{_SEP}{name}"] = lay.gather_full(name, t.detach())
+    out[f"opt_state{_SEP}step"] = state.opt_state["step"]
+    if state.err is not None:
+        for name, t in state.err.items():
+            out[f"err{_SEP}{name}"] = lay.gather_pod_regions(name, t)
+    return out
+
+
+def is_writer(state) -> bool:
+    """Whether this process writes ``state``'s checkpoints (rank 0 of a
+    sharded state; the only process otherwise)."""
+    lay = getattr(state, "layout", None)
+    return lay is None or torch.distributed.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state, *,
-                    async_save: bool = False) -> str | threading.Thread:
+                    async_save: bool = False) -> str | threading.Thread | None:
     """Save ``state`` (a ``TrainState`` or a tree of dicts, lists and
     tensors).  The leaves come to the host here; with ``async_save`` the
-    files are written by a thread, which is returned (else the path)."""
-    tensors = _flatten_with_paths(state)
+    files are written by a thread, which is returned (else the path).  A
+    sharded state: every rank calls this; rank 0 writes (and returns as
+    above), the others return the path after the barrier (None after an
+    async save, whose thread only rank 0 holds)."""
+    lay = getattr(state, "layout", None)
+    tensors = (_whole_leaves(state) if lay is not None
+               else _flatten_with_paths(state))
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not is_writer(state):
+        if not async_save:
+            torch.distributed.barrier()
+        return None if async_save else path
     flat = {k: _to_numpy(t) for k, t in tensors.items()}   # device->host
     meta = {"step": int(step), "treedef": sorted(flat),
             "leaves": {k: {"shape": list(t.shape), "dtype": _dtype_name(t)}
@@ -129,7 +171,9 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *,
         t.start()
         return t
     _write()
-    return os.path.join(ckpt_dir, f"step_{step:08d}")
+    if lay is not None:
+        torch.distributed.barrier()
+    return path
 
 
 def list_checkpoints(ckpt_dir: str) -> list[int]:
@@ -143,13 +187,42 @@ def list_checkpoints(ckpt_dir: str) -> list[int]:
     return sorted(steps)
 
 
+def _layout_of(template, shardings):
+    """The ``TrainLayout`` a restore slices by: ``shardings`` (a layout, or
+    a plan that is the template's), else a sharded template's own."""
+    lay = getattr(template, "layout", None)
+    if shardings is None:
+        return lay
+    if hasattr(shardings, "leaves") and hasattr(shardings, "plan"):
+        return shardings
+    if lay is None or shardings is not lay.plan:
+        raise ValueError(
+            "shardings=: a restore onto a mesh takes the TrainLayout (or "
+            "the plan) of a template made by init_train_state(plan=) on "
+            "the current mesh")
+    return lay
+
+
+def _shard_of(lay, key: str, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a checkpoint leaf at ``key``."""
+    head, _, name = key.partition(_SEP)
+    if head == "opt_state":
+        sub, _, name = name.partition(_SEP)
+        if sub == "step":
+            return whole
+    if head == "err":
+        pod = lay.groups.coord["pod"]
+        return whole[pod][lay.pod_region(name)].clone()
+    return lay.shard(name, whole)
+
+
 def restore_checkpoint(ckpt_dir: str, step: int, template, *,
                        shardings=None):
     """Restore into the structure of ``template``: each leaf on its
-    template leaf's device and in its dtype."""
-    if shardings is not None:
-        raise _unported("an elastic restore onto a mesh (shardings=)",
-                        TP_ITEM)
+    template leaf's device and in its dtype.  On a mesh (a sharded
+    template, or ``shardings=``) each rank keeps its shard of each leaf,
+    whatever mesh wrote it."""
+    lay = _layout_of(template, shardings)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "tree.json")) as f:
         meta = json.load(f)["leaves"]
@@ -157,11 +230,13 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *,
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for k, t in _flatten_with_paths(template).items():
             arr = data[k]
-            if list(arr.shape) != list(t.shape):
+            x = _from_numpy(arr, meta[k]["dtype"])
+            if lay is not None:
+                x = _shard_of(lay, k, x)
+            if list(x.shape) != list(t.shape):
                 raise ValueError(f"checkpoint leaf {k} shape {arr.shape} "
                                  f"!= template {tuple(t.shape)}")
-            x = _from_numpy(arr, meta[k]["dtype"]).to(device=t.device,
-                                                       dtype=t.dtype)
+            x = x.to(device=t.device, dtype=t.dtype)
             leaves[k] = (nn.Parameter(x, requires_grad=t.requires_grad)
                          if isinstance(t, nn.Parameter) else x)
     return _unflatten(template, leaves)

@@ -11,6 +11,16 @@ here.  The step updates the state in place (the reference donates it to
 its jitted step), so a rollback always restores from a checkpoint.
 ``LoopResult.timings`` keeps the host wall seconds of each step, save and
 restore (beyond the reference's result).
+
+A sharded state (``init_train_state(plan=)``) runs the same loop on every
+rank, and every decision is made together: the resume step is rank 0's
+reading of the directory, broadcast; an injected failure on any rank
+restores on every rank; the NaN rollback reads the step's loss, which is
+already the mean over the DP ranks; every rank takes part in a save's
+gathers and rank 0 alone writes (an async save is rank 0's snapshot,
+written by its thread, which rank 0 joins, then a barrier, before anyone
+reads the directory).  The pipeline gives the rank's rows (its ``shard``
+is the DP rank, ``n_shards`` the DP size).
 """
 from __future__ import annotations
 
@@ -77,18 +87,45 @@ def run_training(
 
     ``failure_fn(step) -> True`` injects a simulated node failure: the loop
     responds exactly as to a real one — restore last checkpoint, continue.
-    ``shardings`` (an elastic restore onto a mesh) raises, naming ROADMAP
-    Queue 1, 'Parallel training and the dry-run's meshes'.
+    ``shardings``: the restore's placement on the current mesh (a sharded
+    state's own by default; ``checkpoint.restore_checkpoint``).
     """
     timings = {"step_s": [], "save_s": [], "restore_s": []}
+    lay = state.layout
+    world = lay.groups.comms["world"] if lay is not None else None
+    pending_save = None
+
+    def settle():
+        """On a mesh: rank 0's async writer done, then every rank met."""
+        if isinstance(pending_save, threading.Thread):
+            pending_save.join()
+        if world is not None:
+            torch.distributed.barrier()
 
     def restore_latest(template):
+        settle()
         t0 = time.perf_counter()
-        out = ckpt_lib.restore_latest(loop_cfg.ckpt_dir, template,
-                                      shardings=shardings)
+        if world is None:
+            out = ckpt_lib.restore_latest(loop_cfg.ckpt_dir, template,
+                                          shardings=shardings)
+        else:
+            steps = ckpt_lib.list_checkpoints(loop_cfg.ckpt_dir)
+            step = int(world.broadcast_float(float(steps[-1]) if steps
+                                             else -1.0))
+            out = (None, -1) if step < 0 else (ckpt_lib.restore_checkpoint(
+                loop_cfg.ckpt_dir, step, template, shardings=shardings), step)
         if out[0] is not None:
             timings["restore_s"].append(time.perf_counter() - t0)
         return out
+
+    def failing(step: int) -> bool:
+        hit = failure_fn is not None and failure_fn(step)
+        if world is None:
+            return hit
+        flag = torch.tensor([1.0 if hit else 0.0])
+        if world.backend == "nccl":
+            flag = flag.cuda()
+        return bool(world.all_reduce_op(flag, "max", kind="decision")[0] > 0)
 
     # ---- resume if a committed checkpoint exists
     restored, from_step = restore_latest(state)
@@ -100,10 +137,9 @@ def run_training(
 
     losses: list[float] = []
     rollbacks = 0
-    pending_save = None
     step = start
     while step < loop_cfg.total_steps:
-        if failure_fn is not None and failure_fn(step):
+        if failing(step):
             # simulated node failure: abandon in-flight state, restore.
             log.warning("injected failure at step %d; restoring", step)
             restored, from_step = restore_latest(state)
@@ -149,8 +185,7 @@ def run_training(
         if step % loop_cfg.log_every == 0:
             log.info("step %d loss %.4f", step, loss)
 
-    if isinstance(pending_save, threading.Thread):
-        pending_save.join()
+    settle()
     return LoopResult(state=state, losses=losses, rollbacks=rollbacks,
                       resumed_from=from_step,
                       straggler_fallbacks=pipeline.stats.straggler_fallbacks,

@@ -35,6 +35,10 @@ class AdamWConfig:
     state_dtype: str = "float32"
 
 
+# elements of a tensor the update handles at once
+CHUNK_ELEMS = 1 << 26
+
+
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -69,16 +73,22 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt_state: dict,
-                 *, decay: dict | None = None):
+                 *, decay: dict | None = None,
+                 grad_norm: torch.Tensor | None = None):
     """Writes the new values into ``params`` and the accumulators, one
-    tensor at a time (no second copy of the model), and returns
+    tensor (and ``CHUNK_ELEMS`` elements) at a time (no second copy of
+    the model), and returns
     (params, new_opt_state, metrics): the same tensors, and a new step.
 
     ``decay``: {name: bool}, the tensors weight decay applies to; None
     decays those of ndim >= 2, the reference's rule on its own layout
-    (``train_step.decay_mask`` maps a model's parameters onto it)."""
+    (``train_step.decay_mask`` maps a model's parameters onto it).
+
+    ``grad_norm``: the whole gradient's global norm when ``grads`` are a
+    rank's shards (``parallel.train.global_norm``: every leaf counted
+    once); the update itself is elementwise, so it runs on the shards."""
     step = opt_state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gn, 1e-12), 1.0)
     lr = lr_schedule(cfg, step)
     sf = step.to(torch.float32)
@@ -86,19 +96,25 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, opt_state: dict,
     b2c = 1 - cfg.b2 ** sf
 
     for name, p in params.items():
-        g = grads[name].float() * clip
-        m = opt_state["m"][name]
-        v = opt_state["v"][name]
-        m_n = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v_n = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        mhat = m_n / b1c
-        vhat = v_n / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        # decoupled weight decay on matrices only
-        if (p.ndim >= 2) if decay is None else decay[name]:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)     # cast to p's dtype
-        m.copy_(m_n)                        # and to state_dtype
-        v.copy_(v_n)
+        decays = (p.ndim >= 2) if decay is None else decay[name]
+        flat = [t.view(-1) for t in (p.data, grads[name].contiguous(),
+                                      opt_state["m"][name],
+                                      opt_state["v"][name])]
+        # elementwise, so a chunk at a time: the f32 temporaries stay
+        # CHUNK_ELEMS long whatever the tensor (the same numbers)
+        for i in range(0, p.numel(), CHUNK_ELEMS):
+            p_c, g_c, m, v = (t[i:i + CHUNK_ELEMS] for t in flat)
+            g = g_c.float() * clip
+            m_n = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            v_n = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+            mhat = m_n / b1c
+            vhat = v_n / b2c
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+            # decoupled weight decay on matrices only
+            if decays:
+                delta = delta + cfg.weight_decay * p_c.float()
+            p_c.copy_(p_c.float() - lr * delta)     # cast to p's dtype
+            m.copy_(m_n)                            # and to state_dtype
+            v.copy_(v_n)
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, {"grad_norm": gn, "lr": lr}

@@ -456,6 +456,7 @@ def test_cli_skips_an_encoder_decode(tmp_path, capsys):
 
 
 def test_pod_meshes_raise_naming_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="Parallel training and the dry-run"):
+    with pytest.raises(NotImplementedError,
+                       match="Sharded static serving and the dry-run"):
         dryrun.main(["--arch", "qwen3-14b", "--shape", "train_4k",
                      "--single-pod"])

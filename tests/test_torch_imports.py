@@ -200,3 +200,37 @@ def test_tensor_parallel_entry_points_import_without_jax():
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
                                          "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/train.py", "parallel/compression.py"])
+def test_parallel_training_modules_are_checked(module):
+    """The training plan's execution and the cross-pod compression are
+    among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_parallel_training_entry_points_import_without_jax():
+    """A fresh interpreter in which jax and repro cannot be imported
+    imports the training plan, its execution and the compression, plans a
+    train cell on the production mesh, and compresses a tensor."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "import torch\n"
+            "from repro_torch.launch.mesh import make_production_mesh\n"
+            "from repro_torch.parallel.plan import make_plan, ParallelPlan\n"
+            "from repro_torch.parallel.train import (TrainLayout,\n"
+            "    global_norm, predict_step_bytes)\n"
+            "from repro_torch.parallel import compression\n"
+            "from repro_torch.configs import get_config\n"
+            "plan = make_plan(get_config('qwen3-14b'),\n"
+            "                 make_production_mesh(multi_pod=True),\n"
+            "                 global_batch=256, shape_kind='train')\n"
+            "assert plan.fsdp == ('pod', 'data') and plan.seq_parallel\n"
+            "q, s = compression.int8_quantize(torch.ones(4))\n"
+            "assert q.dtype == torch.int8 and abs(float(s) - 1 / 127) < 1e-9\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr

@@ -260,7 +260,7 @@ def test_moe_forward_refusals():
     cfg, tcfg = _configs()
     _, mod = _layer(cfg, tcfg)
     x = torch.zeros((1, 2, tcfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Parallel training"):
+    with pytest.raises(NotImplementedError, match="Sharded static serving"):
         tmoe.moe_forward(x, mod, tcfg, impl="ep")
     with pytest.raises(ValueError, match="moe impl"):
         tmoe.moe_forward(x, mod, tcfg, impl="sparse")

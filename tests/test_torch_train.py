@@ -452,17 +452,23 @@ def test_bf16_opt_state_dtype(tiny):
 
 
 def test_tensor_parallel_features_raise(tiny, tmp_path):
-    """Cross-pod compression and an elastic restore are mesh features:
-    each raises naming ROADMAP Queue 1, 'Parallel training and the
-    dry-run's meshes'."""
+    """The mesh features without ranks refuse in the launcher's words:
+    compression needs a mesh with a pod axis, a residual needs a plan, a
+    ``MeshShape`` (or a "DxM" spec wider than the world) has no ranks to
+    train on, and a sharded restore needs a template made on the mesh."""
     cfg, model = tiny
-    with pytest.raises(NotImplementedError, match="Parallel training"):
+    with pytest.raises(ValueError, match="compress_pods=True needs a mesh"):
         make_train_step(model, AdamWConfig(), compress_pods=True)
-    with pytest.raises(NotImplementedError, match="Parallel training"):
+    with pytest.raises(ValueError, match="n_pods= .* needs a plan="):
         init_train_state(model, seed=0, n_pods=1)
+    from repro_torch.launch.mesh import MeshShape
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        make_train_step(model, AdamWConfig(), mesh=MeshShape((1, 4)))
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        make_train_step(model, AdamWConfig(), mesh="2x2")
     state = init_train_state(model)
     ckpt_lib.save_checkpoint(str(tmp_path), 1, state)
-    with pytest.raises(NotImplementedError, match="Parallel training"):
+    with pytest.raises(ValueError, match="init_train_state\\(plan=\\)"):
         ckpt_lib.restore_latest(str(tmp_path), state, shardings=object())
     assert isinstance(state, TrainState)
 
