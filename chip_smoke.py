@@ -30,8 +30,8 @@ serve_moe_maverick on a llama4-maverick built first; serve_tp on a
 llama3-8b built first, with its own tp=1 sessions; serve_disagg on a
 llama3-8b built first, after the two colocated phases it is compared
 with; serve_vlm on an internvl2-26b built first; serve_cli,
-train_hubert, train, train_cli and train_tp, which build their own
-models; sim
+train_hubert, train, train_cli, train_tp and serve_static_tp, which build
+their own models; sim
 last, over the serve
 phases of that run) builds and runs just those phases and prints no
 result line: for quick checks of one kernel or path.
@@ -482,6 +482,24 @@ Phases, each of which fails the run if it fails:
    routing flips within the f32 witness's gaps, the
    compressed mean within half a code step, the checkpoint bitwise; no
    hand-written kernel launches (training runs none).
+20i. serve_static_tp — sharded static serving: two ranks share
+   ``cuda:0`` over gloo on a (1, 2) mesh, ``make_plan``'s plans run by
+   ``ServeEngine``: qwen3-14b (2 of 40 layers, B 4 x 1024-token prompts,
+   32 new) on the decode plan (full TP, the KV cache split by sequence),
+   deepseek-v2-lite (2 of 27 layers) expert parallel on the decode plan,
+   hymba-1.5b (4 of 32 layers, its global layers 0 and 3) on the
+   long_decode plan (B 1, a 12288-token prompt into 16384 entries, 64
+   new), each beside a tp=1 session first.  Holds: each rank stores the
+   plan's weight and KV bytes, its collective bytes by kind equal
+   ``predict_serve_bytes``, flash once a layer and the dense decode's
+   partial mode once a GQA layer a step, the first token's logits within
+   ``SCORE_REL_TOL`` of tp=1's, greedy streams part only at near ties
+   (the MoE model at or after a routing flip that is a near tie).  Then
+   the partial mode against its plain version at B 8 (1024 valid of a
+   2048-entry cache) and at qwen3 decode_32k's shape (B 128, 16384 valid
+   of 32768), each split in two with the second half empty, timed beside
+   the whole-cache kernel, its bound and the memory-efficient SDPA with
+   its log-sum-exp.
 21b. serve_cli — ``repro_torch.launch.serve.main`` in this process:
    ``--no-reduced --arch llama3-8b --continuous --disaggregate 1:1`` (all
    32 layers, 4 requests of 256 tokens, 16 new) and ``--fleet --calibrate``
@@ -499,7 +517,9 @@ and D 80 variants and ``mxfp4_vmm`` at phi3's and danube's projections,
 then the same kernels at hymba's shapes, then flash at D 192 / Dv 128,
 then flash at hubert's and internvl2's shapes and the dense decode at
 internvl2's, then flash at S 32768 and the dense decode at 32768 and
-524288 entries (launches from the dryrun phase's cells); ``launches`` from the serve phase that runs each, on its own
+524288 entries (launches from the dryrun phase's cells), then the dense
+decode's partial mode (launches from serve_static_tp's two ranks);
+``launches`` from the serve phase that runs each, on its own
 model, or hubert's no-grad forward; the paged decode kernels' and
 ``mxfp4_vmm``'s ``launches_serve_tp`` summed over serve_tp's ranks), and
 last ``{"ok": true, "device": {...}}``.
@@ -4157,6 +4177,644 @@ def train_tp_phase(torch, models: dict | None = None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_static_tp: sharded static serving, two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+STATIC_TP_RANKS = 2
+STATIC_TP_JOIN_S = 600
+# (label, config, layers, plan kind, rows, prompt tokens, cache entries,
+# new tokens) of the phase's sessions on a (1, 2) mesh, each beside a tp=1
+# session of the same seed-built weights: qwen3-14b on the decode plan
+# (full tensor parallelism, the cache split by sequence: the prompt fills
+# rank 0's half and part of rank 1's), deepseek-v2-lite expert parallel
+# (32 experts a rank), hymba-1.5b on the long_decode plan over a 16384-entry
+# cache (its global layers 0 and 3; 1 and 2 a 1024-entry ring).  Depths
+# cut to keep the phase near its budget (qwen 4 and hymba 8 layers took
+# 114 s on a slow host: each decode step meets the other rank ~7 times a
+# layer through gloo)
+STATIC_TP_SESSIONS = (
+    ("qwen3_decode", "qwen3-14b", 2, "decode", 4, 1024, 1056, 32),
+    ("deepseek_decode", "deepseek-v2-lite-16b", 2, "decode", 4, 1024, 1056,
+     32),
+    ("hymba_long_decode", "hymba-1.5b", 4, "long_decode", 1, 12288, 16384,
+     64),
+)
+STATIC_TP_PROFILE_STEPS = 2
+# the partial mode's holds and timings: (label, B, cache entries, valid
+# entries of the rows in turn, H, KVH, D), each cache split in two as the
+# (1, 2) mesh splits a session's: an empty second shard (B 8), the
+# sessions' own shards (qwen3's first decode step, 528 + 497 valid;
+# hymba's global cache, 8192 + 4097, and its full 1024-entry ring at D 64,
+# rep 5) and qwen3 decode_32k's (rows of 16384 + 0 and 16384 + 8193)
+STATIC_TP_PARTIAL_SHAPES = (
+    ("empty_shard", 8, 2048, (1024,), H, KVH, D),
+    ("qwen3_session", 4, 1056, (1025,), 40, 8, 128),
+    ("hymba_global", 1, 16384, (12289,), 25, 5, 64),
+    ("hymba_ring", 1, 1024, (1024,), 25, 5, 64),
+    ("decode_32k", 128, 32768, (16384, 24577), 40, 8, 128),
+)
+
+
+def static_tp_sessions(reduced: bool = False) -> tuple:
+    """The sessions; ``reduced`` cuts them to the tiny configs (a CPU
+    rehearsal: 10-token prompts into 24-entry caches, hymba at 3 layers:
+    global, windowed, global)."""
+    if not reduced:
+        return STATIC_TP_SESSIONS
+    return tuple((label, name, 3 if "hymba" in name else 2, kind, rows, 10,
+                  24, 6) for label, name, _, kind, rows, *_ in
+                 STATIC_TP_SESSIONS)
+
+
+def static_tp_build(torch, session: tuple, reduced: bool, device: str):
+    """The session's model: full width at its layers (the reduced config
+    at its layers), random weights from seed 0, the same on every rank."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import Model
+
+    _, name, layers, *_ = session
+    cfg = get_config(name)
+    cfg = reduced_config(cfg) if reduced else cfg
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = Model(cfg, device=device).init(seed=0)
+    return model.float() if reduced else model
+
+
+def static_tp_inputs(torch, cfg, session: tuple):
+    """(prompt tokens (rows, prompt), SamplingParams per row): greedy and
+    sampled rows in turn."""
+    from repro_torch.runtime.sampling import SamplingParams
+
+    _, _, _, _, rows, prompt, _, _ = session
+    rng = np.random.default_rng(29)
+    toks = rng.integers(0, cfg.vocab_size, (rows, prompt))
+    sps = [SamplingParams() if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_p=0.9, top_k=40, seed=3000 + i)
+           for i in range(rows)]
+    return toks, sps
+
+
+class StaticRouteLog:
+    """Every MoE routing of a static session in call order, as
+    ``tp_moe_divergence`` reads them: each call's expert ids and router
+    logits, its rows (a prefill's prompt tokens -2, a decode step's its
+    rows' request ids), the calls made by the end of each step (the
+    prefill's with the first token), and the step that emitted each
+    token."""
+
+    def __init__(self, rows: int, new: int):
+        self.rows_n, self.new = rows, new
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe._routing
+
+        def routing(x2d, router, k):
+            w, ids = self.real(x2d, router, k)
+            self.calls.append((ids, x2d.float() @ router.float()))
+            return w, ids
+        moe._routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._routing = self.real
+
+    def result(self) -> dict:
+        t = self.rows_n
+        n_moe = next(i for i, (ids, _) in enumerate(self.calls)
+                     if ids.shape[0] == t)         # the prefill's calls
+        rows = [np.full(ids.shape[0], -2) if i < n_moe else np.arange(t)
+                for i, (ids, _) in enumerate(self.calls)]
+        return {"ids": [i.cpu().numpy() for i, _ in self.calls],
+                "logits": [lg.cpu().numpy() for _, lg in self.calls],
+                "rows": rows,
+                "calls_at": [n_moe * (j + 1) for j in range(self.new)],
+                "emitted": {i: list(range(self.new)) for i in range(t)}}
+
+
+def static_tp_probe(torch, eng, tokens, steps: int, on_card: bool) -> dict:
+    """The first token's logits (the engine's prefill, this rank's rows)
+    and, on the card, the device busy time of ``steps`` decode steps from
+    that prefill (``device_time_by_kernel``)."""
+    inputs = eng._inputs({"tokens": tokens})
+    if eng.layout is not None:
+        inputs = eng.layout.local_rows(inputs)
+    logits, cache, plen = eng._prefill(inputs)
+    # the vocabulary's columns (the padding ones sit at -1e30)
+    first = logits[:, :eng.model.cfg.vocab_size].float().cpu().numpy()
+    if not on_card:
+        return {"logits": first, "busy_ms": None}
+    state = {"nxt": logits.argmax(-1).to(torch.int32)}
+
+    def run():
+        for j in range(steps):
+            with eng._region():
+                lg = eng.model.decode_step(state["nxt"], cache, plen + j)
+            state["nxt"] = lg.argmax(-1).to(torch.int32)
+    per_kernel, _ = device_time_by_kernel(torch, run)
+    return {"logits": first, "busy_ms": sum(per_kernel.values()) / steps}
+
+
+def static_tp_session(torch, model, session: tuple, device: str,
+                      mesh=None) -> dict:
+    """One session: ``ServeEngine`` (on ``mesh`` under the session's plan,
+    or tp=1) generates the session's rows; the launches of flash and the
+    dense decode, the step's wall, the first token's logits and the busy
+    ms of ``STATIC_TP_PROFILE_STEPS`` decode steps; on the mesh also the
+    weight and cache bytes the rank stores against the plan's shard
+    shapes, and the collective calls and bytes of the session against
+    ``predict_serve_bytes`` (one prefill and ``new - 1`` decode steps)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.parallel.plan import make_plan, shard_shape
+    from repro_torch.parallel.serve import predict_serve_bytes
+    from repro_torch.runtime.engine import ServeEngine
+
+    label, _, _, kind, rows, prompt, cache_len, new = session
+    t_session = time.monotonic()
+    cfg = model.cfg
+    on_card = device == "cuda"
+    tokens, sps = static_tp_inputs(torch, cfg, session)
+    plan = None if mesh is None else make_plan(cfg, mesh, global_batch=rows,
+                                               shape_kind=kind)
+    whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = ServeEngine(model, device=device, max_len=cache_len, plan=plan)
+    dtype = next(model.parameters()).dtype
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    lay = eng.layout
+    if lay is not None:
+        lay.groups.reset_counts()
+    log = StaticRouteLog(rows, new) if cfg.moe else None
+    LAUNCHES.clear()
+    with log or contextlib.nullcontext():
+        res = eng.generate({"tokens": tokens}, max_new_tokens=new,
+                           sampling_params=sps)
+    sync(torch, torch.device(device))
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    out = {"label": label, "kernel_launches": launches,
+           "decode_step_ms": 1e3 * res.decode_s / max(new - 1, 1),
+           "prefill_s": res.prefill_s,
+           "_streams": res.tokens.cpu().numpy().tolist(),
+           "_routes": log and log.result()}
+    if on_card:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if lay is not None:
+        counts = lay.groups.counts()
+        local = rows // lay.batch_comm.size
+        kw = dict(rows=local, seq=prompt, max_len=cache_len, act_dtype=dtype)
+        pre = predict_serve_bytes(lay, eng.model, step="prefill", **kw)
+        dec = predict_serve_bytes(lay, eng.model, step="decode", **kw)
+        want = {k: pre.get(k, 0) + (new - 1) * dec.get(k, 0)
+                for k in set(pre) | set(dec)}
+        # the collectives' bytes (gloo's staging through the host,
+        # ``host_bytes``, is no collective of the plan)
+        got = {k: v for k, v in counts.items() if k.endswith("_bytes") and v
+               and k != "host_bytes"}
+        meta = eng.model
+        plan_w = sum(math.prod(plan.shard_shape(n, p.shape))
+                     * lay.params[n].element_size()
+                     for n, p in meta.named_parameters())
+        glob = meta.init_cache(rows, cache_len)
+        specs = plan.cache_shardings(glob)
+        mine = lay.init_cache(meta, local, cache_len, device="meta")
+
+        def kv_bytes(tree, spec=None):
+            n = 0
+            for layer, sp in zip(tree, spec or tree):
+                parts = [(layer, sp)] if "attn" not in layer else [
+                    (layer["attn"], sp["attn"])]
+                for c, s in parts:
+                    for key in ("k", "v", "c_kv", "k_rope"):
+                        if key in c:
+                            shape = (tuple(c[key].shape) if spec is None else
+                                     shard_shape(s[key], tuple(c[key].shape),
+                                                 plan.mesh))
+                            n += math.prod(shape) * c[key].element_size()
+            return n
+        out.update({
+            "plan": {"dp": list(plan.dp), "tp": plan.tp,
+                     "cache_seq": plan.cache_seq,
+                     "ep": lay.ep_comm is not None},
+            "weight_bytes": lay.stored_bytes(), "plan_weight_bytes": plan_w,
+            "whole_weight_bytes": whole,
+            "cache_kv_bytes": kv_bytes(mine),
+            "plan_cache_kv_bytes": kv_bytes(glob, specs),
+            "collective_calls": {k: v for k, v in counts.items()
+                                 if not k.endswith("bytes") and v
+                                 and k not in ("host_copies", "gloo_cuda")},
+            "collective_bytes": got, "predicted_bytes": {
+                k: v for k, v in want.items() if v},
+            "collective_bytes_per_decode_step": sum(dec.values()),
+            "host_copies": counts.get("host_copies", 0)})
+    probe = static_tp_probe(torch, eng, tokens, STATIC_TP_PROFILE_STEPS,
+                            on_card)
+    out["_logits"] = probe["logits"]
+    out["device_busy_ms_per_step"] = probe["busy_ms"]
+    if probe["busy_ms"] is not None:
+        out["device_idle_share"] = 1 - probe["busy_ms"] / out["decode_step_ms"]
+    out["session_s"] = time.monotonic() - t_session
+    del eng
+    gc.collect()
+    return out
+
+
+def static_tp_rank(rank: int, rdzv: str, queue, sessions: tuple,
+                   reduced: bool, device: str) -> None:
+    """One rank of the phase (a spawned process): join the gloo group,
+    build each session's model from the same seed as every rank, serve
+    it on the (1, 2) mesh, and send the readings to the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, parse_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    backend = init_world(device, backend="gloo", rank=rank,
+                         world_size=STATIC_TP_RANKS, init_method=rdzv,
+                         timeout_s=TP_TIMEOUT_S)
+    try:
+        mesh = parse_mesh(f"1x{STATIC_TP_RANKS}", device)
+        runs = {}
+        for s in sessions:
+            model = static_tp_build(torch, s, reduced, device)
+            runs[s[0]] = static_tp_session(torch, model, s, device, mesh)
+            del model
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        queue.put((rank, {"runs": runs, "backend": backend}))
+    finally:
+        dist.destroy_process_group()
+
+
+def stacked_comm(n: int):
+    """A stand-in group of ``n`` ranks whose tensors are stacked along dim
+    0 of one tensor on one process: its all-reduce reduces over that dim
+    and gives every rank the result, so ``combine_partials`` runs its own
+    collectives on the card without a second process."""
+    from repro_torch.parallel.train import _SoloComm
+
+    class Stacked(_SoloComm):
+        def _reduce_(self, out, op):
+            red = (out.amax(0, keepdim=True) if op == "max"
+                   else out.sum(0, keepdim=True))
+            out.copy_(red.expand_as(out))
+    comm = Stacked()
+    comm.size = n
+    return comm
+
+
+def partial_library(torch, q, k, v, c: int, h: int, kvh: int) -> tuple:
+    """The library's one call with a log-sum-exp at the partial mode's
+    K/V bytes: ``aten._scaled_dot_product_efficient_attention(
+    compute_log_sumexp=True)`` with the ``rep`` query heads of each KV head
+    as ``rep`` query rows over that head's first ``c`` entries, K/V not
+    repeated.  Returns (fn, layout): the K/V a strided view of the cache,
+    or a contiguous copy where the call refuses the view."""
+    B, _, d = q.shape
+    q4 = q.view(B, kvh, h // kvh, d)
+    kt, vt = k[:, :c].transpose(1, 2), v[:, :c].transpose(1, 2)
+
+    def call(kk, vv):
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, kk, vv, None, True)
+    try:
+        call(kt, vt)
+        return (lambda: call(kt, vt)), "strided view"
+    except RuntimeError:
+        kc, vc = kt.contiguous(), vt.contiguous()
+        call(kc, vc)
+        return (lambda: call(kc, vc)), "contiguous copy"
+
+
+def static_tp_partial_kernel(torch) -> dict:
+    """The dense decode kernel's partial mode on the card: each shape of
+    ``STATIC_TP_PARTIAL_SHAPES`` split in two (rank 0's half and rank 1's,
+    its tail past the valid entries poisoned), each half held against the
+    plain partial version (out within one bf16 ulp plus 1e-4, lse within
+    1e-3; an empty shard's rows exactly 0 and -inf), the two halves merged
+    by ``parallel.hints.combine_partials`` (on a ``stacked_comm``) against
+    the whole-cache kernel (within one bf16 ulp of the whole plus half one
+    of each weighted half, plus 1e-4: each half is rounded to bf16 before
+    the merge), then each half timed beside the whole-cache kernel, its
+    bound (``kernels/cost.py``, with the lse write), the plain version and
+    the library's call (``partial_library``), whose output and lse are
+    held to the kernel's as well."""
+    from repro_torch.kernels.decode_attention import kernel as dense_kernel
+    from repro_torch.models.common import decode_attention_ref
+    from repro_torch.parallel.hints import combine_partials
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = torch.empty(512 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timings, errs, shares, merges = [], [], [], []
+    for label, B, S, ctx, h, kvh, d in STATIC_TP_PARTIAL_SHAPES:
+        half = S // 2
+        ctx = np.resize(np.asarray(ctx), B)
+        valid = [np.minimum(ctx, half), np.clip(ctx - half, 0, half)]
+        q, k, v, cl = dense_case(torch, gen, B, S, torch.bfloat16, ctx, dev,
+                                 h, kvh, d)
+        shards = []
+        for j in range(2):
+            kj = k[:, j * half:(j + 1) * half].contiguous()
+            vj = v[:, j * half:(j + 1) * half].contiguous()
+            cj = torch.clamp(cl - j * half, 0, half).to(torch.int32)
+            shards.append((kj, vj, cj))
+        parts = [dense_kernel.decode_attention(q, kj, vj, cj,
+                                               return_lse=True)
+                 for kj, vj, cj in shards]
+        whole = dense_kernel.decode_attention(q, k, v, cl)
+        torch.cuda.synchronize()
+        for (kj, vj, cj), (out, lse) in zip(shards, parts):
+            for r0 in range(0, B, 16):          # the plain side by rows
+                rs = slice(r0, r0 + 16)
+                ro, rl = decode_attention_ref(q[rs], kj[rs], vj[rs], cj[rs],
+                                              return_lse=True)
+                live = cj[rs] > 0
+                if bool(live.any()):
+                    shares.append(ulp_limit_share(out[rs][live],
+                                                  ro[live], 1e-4))
+                    errs.append((lse[rs][live] - rl[live]).abs().max().item())
+                if bool((~live).any()):
+                    dead_o, dead_l = out[rs][~live], lse[rs][~live]
+                    if not (bool((dead_o == 0).all())
+                            and bool(torch.isneginf(dead_l).all())):
+                        raise AssertionError("partial mode: an empty shard's "
+                                             "rows are not 0 and -inf")
+        outs = torch.stack([p[0] for p in parts])
+        lses = torch.stack([p[1] for p in parts])
+        merged = combine_partials(outs, lses, stacked_comm(2))[0]
+        wgt = torch.softmax(lses, 0)[..., None]
+        limit = (2.0 ** -7 * whole.float().abs()
+                 + 2.0 ** -8 * (wgt * outs.float().abs()).sum(0) + 1e-4)
+        merge_share = ((merged - whole.float()).abs() / limit).max().item()
+        merges.append(merge_share)
+        k0, v0, c0 = shards[0]
+        k1, v1, c1 = shards[1]
+        row = {"label": label, "B": B, "S": S, "shard": half,
+               "cur_len": sorted(set(ctx.tolist())),
+               "shard_valid": [sorted(set(c.tolist())) for c in valid],
+               "H": h, "KVH": kvh,
+               "D": d, "cache": "bfloat16",
+               "ms": time_ms(torch, lambda: dense_kernel.decode_attention(
+                   q, k0, v0, c0, return_lse=True), flush),
+               "shard1_ms": time_ms(
+                   torch, lambda: dense_kernel.decode_attention(
+                       q, k1, v1, c1, return_lse=True), flush),
+               "whole_cache_ms": time_ms(
+                   torch, lambda: dense_kernel.decode_attention(q, k, v, cl),
+                   flush, iters=10),
+               "plain_ms": time_ms(torch, lambda: decode_attention_ref(
+                   q, k0, v0, c0, return_lse=True), flush, iters=5,
+                   warmup=1),
+               "merge_share_of_limit": merge_share}
+        row["bound_ms"], row["bound_by"] = dense_bound(
+            valid[0], B, 2, "bfloat16", h, kvh, d, True)
+        # the library's call over rank 0's half (as many valid entries in
+        # every row), at the kernel's K/V bytes
+        lib, row["library_layout"] = partial_library(
+            torch, q, k0, v0, int(valid[0][0]), h, kvh)
+        lo, ll = lib()[:2]
+        o0, l0 = parts[0]
+        row["library_bf16_limit_share"] = ulp_limit_share(
+            lo.reshape(B, h, d), o0, 1e-4)
+        row["library_lse_err"] = (ll[..., :h // kvh].reshape(B, h)
+                                  - l0).abs().max().item()
+        row["library_ms"] = time_ms(torch, lib, flush)
+        timings.append(ratios(row))
+        print("  partial mode:", json.dumps(row))
+        del q, k, v, cl, shards, parts, whole, merged, outs, lses, lib, lo
+        torch.cuda.empty_cache()
+    if max(shares) > 1.0 or max(errs) > 1e-3 or max(merges) > 1.0:
+        raise AssertionError(f"partial mode disagrees: bf16 share "
+                             f"{max(shares)}, lse err {max(errs)}, "
+                             f"merge share {max(merges)}")
+    del flush
+    head = timings[0]
+    return {"name": f"{dense_kernel.NAME}:partial", "route": "cuda",
+            "source": DENSE_SOURCE, "replaces": DENSE_REPLACES,
+            "launches": None, "max_abs_err": max(errs),
+            "max_abs_err_of": "lse",
+            "max_bf16_limit_share": max(shares),
+            "max_merge_share_of_limit": max(merges),
+            "headline": "B 8, 1024 valid entries in the first 1024-entry "
+                        "half of a 2048-entry bf16 cache (return_lse)",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "aten._scaled_dot_product_efficient_attention("
+                       "compute_log_sumexp=True), each KV head's rep query "
+                       "heads as rep query rows, K/V not repeated",
+            "timings": timings}
+
+
+def static_top2_gap(torch, model, tokens) -> float:
+    """The top-2 gap, in bf16 ulps of the top logit, of ``model``'s
+    next-token logits after ``tokens`` (one static prefill)."""
+    cache = model.init_cache(1, len(tokens) + 1)
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        lg = model.prefill(torch.as_tensor(np.asarray(tokens)[None],
+                                           device=dev), cache)
+    top = np.sort(lg[0, :model.cfg.vocab_size].float().cpu().numpy())[-2:]
+    ulp = 2.0 ** (math.floor(math.log2(abs(float(top[1])))) - 7)
+    return float(top[1] - top[0]) / ulp
+
+
+def serve_static_tp_phase(torch, reduced: bool = False,
+                          device: str = "cuda") -> dict:
+    """Sharded static serving on the card: two ranks (spawned processes)
+    sharing ``cuda:0`` over gloo, a (1, 2) mesh, ``make_plan``'s plans run
+    by ``ServeEngine`` (``parallel/serve.py``) for the sessions of
+    ``STATIC_TP_SESSIONS``, each beside a tp=1 session of the same
+    seed-built weights run first in this process.  Per rank and session:
+    the weight and KV bytes it stores equal the plan's shard shapes, the
+    collective bytes by kind equal ``predict_serve_bytes``, flash launches
+    once a layer and the dense decode (its partial mode) once a GQA layer
+    a decode step; the step's wall and busy ms.  Against tp=1: the first
+    token's logits within ``SCORE_REL_TOL`` of their largest, and a greedy
+    stream parts only at a near tie (``NEAR_TIE_BF16_ULPS``), or for the
+    MoE model at or after the session's first divergence, a routing flip
+    that is itself a near tie (``tp_moe_divergence``).  Then the partial
+    mode's kernel check and timings (``static_tp_partial_kernel``).
+    ``reduced`` / ``device`` rehearse it on the CPU at the tiny configs.
+    No number here is a tensor-parallel speed: both ranks share one card
+    and gloo copies every collective through the host."""
+    import multiprocessing as mproc
+    import queue as queue_mod
+    import tempfile
+
+    t_phase = time.monotonic()
+    on_card = device == "cuda"
+    sessions = static_tp_sessions(reduced)
+    out = {"phase": "serve_static_tp", "ranks": STATIC_TP_RANKS,
+           "mesh": f"1x{STATIC_TP_RANKS}", "card_shared_by_ranks": on_card}
+    if on_card:
+        out["partial_kernel"] = static_tp_partial_kernel(torch)
+    ref = {}
+    for s in sessions:
+        model = static_tp_build(torch, s, reduced, device)
+        ref[s[0]] = static_tp_session(torch, model, s, device)
+        del model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mproc.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=static_tp_rank,
+                             args=(r, f"file://{tmp}/rdzv", q, sessions,
+                                   reduced, device))
+                 for r in range(STATIC_TP_RANKS)]
+        for p in procs:
+            p.start()
+        ranks, deadline = {}, time.monotonic() + STATIC_TP_JOIN_S
+        try:
+            while len(ranks) < STATIC_TP_RANKS:
+                try:
+                    r, res = q.get(timeout=2.0)
+                    ranks[r] = res
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise AssertionError(f"serve_static_tp: a rank "
+                                             f"failed (exit codes {dead})")
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"serve_static_tp: ranks not "
+                                             f"done after {STATIC_TP_JOIN_S} s")
+            for p in procs:
+                p.join(timeout=TP_TIMEOUT_S)
+                if p.exitcode != 0:
+                    raise AssertionError(f"serve_static_tp: rank exit code "
+                                         f"{p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    out["collective_backend"] = ranks[0]["backend"]
+    problems, summed = [], {}
+    for s in sessions:
+        label, name, layers, kind, rows, prompt, cache_len, new = s
+        per_rank = [ranks[r]["runs"][label] for r in range(STATIC_TP_RANKS)]
+        streams = [pr.pop("_streams") for pr in per_rank]
+        logits = [pr.pop("_logits") for pr in per_rank]
+        routes = [pr.pop("_routes") for pr in per_rank][0]
+        want = ref[label]
+        want_streams = want.pop("_streams")
+        want_logits = want.pop("_logits")
+        want_routes = want.pop("_routes")
+        if any(st != streams[0] for st in streams[1:]):
+            problems.append(f"{label}: the ranks' streams differ")
+        n_attn = layers                # every layer attends here
+        mla = name.startswith("deepseek")
+        for pr in per_rank:
+            for k, v in pr["kernel_launches"].items():
+                summed[k] = summed.get(k, 0) + v
+            if pr["weight_bytes"] != pr["plan_weight_bytes"]:
+                problems.append(f"{label}: a rank stores "
+                                f"{pr['weight_bytes']} weight bytes, the "
+                                f"plan {pr['plan_weight_bytes']}")
+            if pr["cache_kv_bytes"] != pr["plan_cache_kv_bytes"]:
+                problems.append(f"{label}: a rank's KV cache is "
+                                f"{pr['cache_kv_bytes']} bytes, the plan's "
+                                f"{pr['plan_cache_kv_bytes']}")
+            if pr["collective_bytes"] != pr["predicted_bytes"]:
+                problems.append(f"{label}: collective bytes "
+                                f"{pr['collective_bytes']}, predicted "
+                                f"{pr['predicted_bytes']}")
+            if on_card:
+                want_l = {"flash_attention": n_attn}
+                if not mla:
+                    want_l["decode_attention"] = n_attn * (new - 1)
+                if pr["kernel_launches"] != want_l:
+                    problems.append(f"{label}: launches "
+                                    f"{pr['kernel_launches']}, want {want_l}")
+        greedy = [i for i in range(rows) if i % 2 == 0]
+        first = None
+        if routes is not None:
+            first = tp_moe_divergence(routes, want_routes,
+                                      dict(enumerate(streams[0])),
+                                      dict(enumerate(want_streams)))
+        partings, bad = [], []
+        for i in greedy:
+            a, b = streams[0][i], want_streams[i]
+            if a == b:
+                continue
+            t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            p = {"row": i, "token": t}
+            if first is not None and t >= first["step"]:
+                p["after_first_divergence"] = True
+            else:
+                model = static_tp_build(torch, s, reduced, device)
+                prompt_toks = static_tp_inputs(torch, model.cfg, s)[0][i]
+                p["gap_bf16_ulps"] = static_top2_gap(
+                    torch, model, np.concatenate([prompt_toks, b[:t]]))
+                del model
+                gc.collect()
+                if not p["gap_bf16_ulps"] <= NEAR_TIE_BF16_ULPS:
+                    bad.append(p)
+            partings.append(p)
+        lg0 = np.concatenate(logits[:1])   # rank 0's rows: every row here
+        share = float(np.abs(lg0 - want_logits).max()
+                      / (SCORE_REL_TOL * np.abs(want_logits).max()))
+        waived = first is not None and first["step"] == 0
+        row = {"tp1_decode_step_ms": want["decode_step_ms"],
+               "tp1_device_busy_ms_per_step": want["device_busy_ms_per_step"],
+               "tp1_kernel_launches": want["kernel_launches"],
+               "tp1_session_s": want["session_s"],
+               "greedy_streams_equal": sum(streams[0][i] == want_streams[i]
+                                           for i in greedy),
+               "sampled_streams_equal": sum(
+                   streams[0][i] == want_streams[i]
+                   for i in range(rows) if i not in greedy),
+               "rows": rows, "greedy_partings": partings,
+               "first_token_logits_share_of_limit": share,
+               **({"first_divergence": first} if routes is not None else {}),
+               "per_rank": per_rank}
+        out[label] = row
+        print(f"  serve_static_tp {label}:", json.dumps(
+            {k: v for k, v in row.items() if k != "per_rank"}
+            | {"ranks": [{k: pr.get(k) for k in (
+                "decode_step_ms", "device_busy_ms_per_step",
+                "device_idle_share", "weight_bytes", "plan_weight_bytes",
+                "cache_kv_bytes", "plan_cache_kv_bytes",
+                "collective_calls", "collective_bytes_per_decode_step",
+                "kernel_launches", "peak_mem_gb", "plan", "session_s",
+                "prefill_s")}
+                for pr in per_rank]}, default=str))
+        if first is not None and first["kind"] == "route_flip" \
+                and not first["gap_share"] <= 1.0:
+            problems.append(f"{label}: the first divergence is a routing "
+                            f"flip and no near tie: {first}")
+        if bad:
+            problems.append(f"{label}: greedy streams part from tp=1 above "
+                            f"{NEAR_TIE_BF16_ULPS} bf16 ulps: {bad}")
+        if not share <= 1.0 and not waived:
+            problems.append(f"{label}: first-token logits at {share} of "
+                            f"{SCORE_REL_TOL} x max")
+    out["kernel_launches_summed"] = summed
+    if on_card:
+        out["partial_kernel"]["launches"] = summed.get("decode_attention", 0)
+        if not out["partial_kernel"]["launches"]:
+            problems.append("the dense decode's partial mode never "
+                            "launched on the mesh")
+    out["phase_s"] = time.monotonic() - t_phase
+    if problems:
+        raise AssertionError("serve_static_tp: " + "; ".join(problems))
+    return out
+
+
 # the launcher on the card, in process: full-width llama3-8b served
 # disaggregated, and the fleet calibration's real engine (2 of its layers)
 SERVE_CLI = ["--no-reduced", "--arch", "llama3-8b", "--continuous",
@@ -7405,7 +8063,7 @@ def main() -> int:
                          "check, "
                          "check_mla, check_moe, check_window, check_state, "
                          "serve_cli, train_hubert, train, train_cli, "
-                         "train_tp, or, on a "
+                         "train_tp, serve_static_tp, or, on a "
                          "llama3-8b built "
                          "first, serve, serve_disagg, serve_tp (with its "
                          "tp=1 sessions) and serve_spec_draft, "
@@ -7465,6 +8123,7 @@ def main() -> int:
               "check_moe": check_moe, "check_window": check_window,
               "check_state": check_state, "serve_cli": serve_cli_phase,
               "serve_tp": serve_tp_phase, "train_tp": train_tp_phase,
+              "serve_static_tp": serve_static_tp_phase,
               **train_phases()}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
     # is built for them first
@@ -7553,6 +8212,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    static_tp = timed("serve_static_tp", serve_static_tp_phase)
     dry = timed("dryrun", dryrun_phase)
     trained = {name: timed(name, fn) for name, fn in train_phases().items()}
     timed("train_tp", train_tp_phase)
@@ -7655,6 +8315,11 @@ def main() -> int:
             raise AssertionError(f"{entry['name']} never launched in "
                                  f"{entry['launches_in']}")
     kernels += dry_kernels["entries"]
+    # the dense decode's partial mode: its launches on the two ranks of
+    # serve_static_tp (every static decode layer on the mesh runs it)
+    entry = static_tp["partial_kernel"]
+    entry["launches_in"] = "serve_static_tp (both ranks)"
+    kernels.append(entry)
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):

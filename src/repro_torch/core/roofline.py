@@ -1,7 +1,7 @@
 """Roofline terms of one counted step, the port of
-``repro/core/roofline.py`` for one device.
+``repro/core/roofline.py``: one device, or one rank of a mesh.
 
-For every (architecture x input shape) dry-run cell:
+For every (architecture x input shape x mesh) dry-run cell, per device:
 
     compute term = FLOPs       / peak bf16 FLOP/s of the chip
     memory term  = bound bytes / HBM bytes/s of the chip
@@ -14,11 +14,17 @@ write once), so ``bound_s`` is a lower bound on the step's time on the
 card; the op-level bytes (``bytes_per_device``, the reference's proxy)
 are reported beside it, and ``op_memory_s`` is their term.
 
-The reference's third term prices the collectives parsed from the
-compiled HLO.  One device runs none: ``collective_s`` is 0 and
-``collective_detail`` empty.  Pricing collectives counted on a mesh
-belongs to ROADMAP Queue 1, 'Sharded static serving and the dry-run's
-meshes'.
+    collective term = collective bytes / (links x link bytes/s)
+
+The reference parses its collectives from the compiled HLO; here one
+rank of the mesh counts them as it issues them (``hints.CountComm``, the
+dry-run's pod meshes): per kind the calls, the operand bytes (the
+result's size, the reference's spec metric, which the term divides) and
+the ring-algorithm wire bytes (reported beside it).  The H100's link is
+NVLink at 450 GB/s (``hardware.H100``: one link of ``ici_link_bw``),
+priced as if every card of the mesh shared one NVLink domain; past 8
+cards a real cluster crosses slower links.  One device runs none:
+``collective_s`` is 0 and ``collective_detail`` empty.
 """
 from __future__ import annotations
 
@@ -95,21 +101,29 @@ class RooflineReport:
 
 def analyze_counted(cost: Cost, *, name: str = "",
                     chip: hardware.ChipSpec = hardware.H100, n_chips: int = 1,
-                    model_flops_total: float | None = None) -> RooflineReport:
+                    model_flops_total: float | None = None,
+                    collectives: dict | None = None) -> RooflineReport:
     """A ``RooflineReport`` from the ``Cost`` of one counted run of a step
-    (the counterpart of the reference's ``analyze_compiled``)."""
+    (the counterpart of the reference's ``analyze_compiled``);
+    ``collectives``: kind -> {"count", "operand_bytes", "wire_bytes"} of
+    one rank (``hints.CountComm.ops``), priced over ``links x
+    ici_link_bw``."""
+    colls = dict(collectives or {})
+    coll_bytes = float(sum(c["operand_bytes"] for c in colls.values()))
+    wire_bytes = float(sum(c["wire_bytes"] for c in colls.values()))
+    link_bw = chip.ici_link_bw * chip.ici_links
     return RooflineReport(
         name=name,
         chip=chip.name,
         n_chips=n_chips,
         flops_per_device=cost.flops,
         bytes_per_device=cost.bytes,
-        collective_bytes_per_device=0.0,
-        collective_wire_bytes_per_device=0.0,
-        collective_detail={},
+        collective_bytes_per_device=coll_bytes,
+        collective_wire_bytes_per_device=wire_bytes,
+        collective_detail=colls,
         compute_s=cost.flops / chip.peak_flops_bf16,
         memory_s=cost.bound_bytes / chip.hbm_bw,
-        collective_s=0.0,
+        collective_s=coll_bytes / link_bw,
         model_flops_total=model_flops_total,
         bound_bytes_per_device=cost.bound_bytes,
         op_memory_s=cost.bytes / chip.hbm_bw,

@@ -69,18 +69,22 @@ def flash_bound(B, Sq, Skv, h, kvh, causal, itemsize, dtype_name, d,
     return roofline(nbytes, flops, dtype_name)
 
 
-def dense_cost(cur_len, B, itemsize, h, kvh, d) -> tuple[int, int]:
+def dense_cost(cur_len, B, itemsize, h, kvh, d,
+               lse: bool = False) -> tuple[int, int]:
     """(flops, bytes) of a dense-cache decode: each valid K/V token read
-    once, q read and out written once, cur_len read; 4 flops per valid
+    once, q read and out written once (with ``lse``, the partial mode,
+    the f32 log-sum-exp written too), cur_len read; 4 flops per valid
     token, head and head dim."""
     tokens = int(np.sum(cur_len))
-    nbytes = 2 * tokens * kvh * d * itemsize + 2 * B * h * d * itemsize + 4 * B
+    nbytes = (2 * tokens * kvh * d * itemsize + 2 * B * h * d * itemsize
+              + 4 * B + (4 * B * h if lse else 0))
     return 4 * tokens * h * d, nbytes
 
 
-def dense_bound(cur_len, B, itemsize, dtype_name, h, kvh, d):
+def dense_bound(cur_len, B, itemsize, dtype_name, h, kvh, d,
+                lse: bool = False):
     """``dense_cost`` at the inputs' peak rate."""
-    flops, nbytes = dense_cost(cur_len, B, itemsize, h, kvh, d)
+    flops, nbytes = dense_cost(cur_len, B, itemsize, h, kvh, d, lse)
     return roofline(nbytes, flops, dtype_name)
 
 

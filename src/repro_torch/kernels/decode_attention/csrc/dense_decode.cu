@@ -74,6 +74,13 @@
 // holds exactly the window, and the caller passes cur_len = min(pos + 1, w).
 // The combine kernel rescales the splits to a common max, sums, divides by
 // max(l, 1e-30) and writes in q's dtype.
+//
+// Partial mode (a non-null lse): both kernels also write each query row's
+// log-sum-exp of its scaled scores, f32, from the (m, l) their final fold
+// already forms -- the context-parallel static path's per-shard partial,
+// which the ranks merge (parallel.hints.combine_partials).  A row whose
+// cur_len is 0 (a rank whose sequence shard holds no valid entry yet)
+// reads no K/V tile, and gives out 0 and lse -inf.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -324,11 +331,13 @@ dense_decode_partial(const QT* __restrict__ q,          // (B, H, D)
   }
 }
 
-// out[bh, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-30)
+// out[bh, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-30);
+// with lse, lse[bh] = M + log(sum_s l_s * exp(m_s - M)), -inf for a row
+// with no valid key (its out is 0)
 template <typename QT, int D>
 __global__ void __launch_bounds__(D)
 dense_decode_combine(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-                     QT* __restrict__ out, int n_split) {
+                     QT* __restrict__ out, float* __restrict__ lse, int n_split) {
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const float* ml = ws_ml + bh * n_split * 2;
@@ -341,12 +350,14 @@ dense_decode_combine(const float* __restrict__ ws_acc, const float* __restrict__
     a += ws_acc[(bh * n_split + s) * D + d] * w;
   }
   out[bh * D + d] = from_float<QT>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[bh] = l > 0.f ? mx + logf(l) : __int_as_float(0xff800000);
 }
 
 struct Args {
   const void *q, *k, *v;
   const int* cur_len;
   void* out;
+  float* lse;                      // (B, H) f32, or null (no partial mode)
   float *ws_acc, *ws_ml;
   int B, S, kvh, rep, n_split;
   float scale;
@@ -369,7 +380,7 @@ cudaError_t launch(const Args& a) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   dense_decode_combine<QT, D><<<a.B * a.kvh * a.rep, D, 0, a.stream>>>(
-      a.ws_acc, a.ws_ml, static_cast<QT*>(a.out), a.n_split);
+      a.ws_acc, a.ws_ml, static_cast<QT*>(a.out), a.lse, a.n_split);
   return cudaGetLastError();
 }
 
@@ -466,6 +477,7 @@ dense_decode_tc(const __nv_bfloat16* __restrict__ q,        // (B, H, D)
                 const __nv_bfloat16* __restrict__ v_cache,  // (B, S, KVH, D)
                 const int* __restrict__ cur_len,            // (B,)
                 __nv_bfloat16* __restrict__ out,            // (B, H, D)
+                float* __restrict__ lse,                    // (B, H) or null
                 float* __restrict__ ws_acc,   // (B * KVH, n_split, rep, D)
                 float* __restrict__ ws_ml,    // (B * KVH, n_split, rep, 2)
                 int* __restrict__ counters,   // (>= B * KVH,), zero between calls
@@ -684,6 +696,11 @@ dense_decode_tc(const __nv_bfloat16* __restrict__ q,        // (B, H, D)
     }
     out[((size_t)b * kvh * rep + (size_t)g * rep + r) * D + d] =
         __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
+    // the log-sum-exp of the row's scaled scores: m and l are in the log2
+    // domain of score * scale
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * kvh * rep + (size_t)g * rep + r] =
+          l > 0.f ? (mx + log2f(l)) * 0.6931471805599453f : __int_as_float(0xff800000);
   }
   if (tid == 0) counters[bg] = 0;    // ready for the next call
 }
@@ -700,7 +717,7 @@ cudaError_t launch_tc(const Args& a, int* counters) {
   kernel<<<dim3(a.n_split, a.kvh, a.B), tc::kThreads, C::kSmem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.cur_len, static_cast<__nv_bfloat16*>(a.out),
-      a.ws_acc, a.ws_ml, counters, a.S, a.kvh, a.rep, a.scale * 1.4426950408889634f);
+      a.lse, a.ws_acc, a.ws_ml, counters, a.S, a.kvh, a.rep, a.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -708,16 +725,20 @@ cudaError_t launch_tc(const Args& a, int* counters) {
 
 extern "C" {
 
-// q (B, H, D), caches (B, S, KVH, D), cur_len (B,) int32 (each in [1, S];
-// larger values are clamped to S), out (B, H, D); ws_acc: B H n_split D f32
-// and ws_ml: B H n_split 2 f32 scratch.  variant (chosen by the host):
+// q (B, H, D), caches (B, S, KVH, D), cur_len (B,) int32 (each in [0, S];
+// values outside are clamped; a row of 0 reads no K/V and gives out 0),
+// out (B, H, D); lse: null, or (B, H) f32 for the partial mode (each row's
+// log-sum-exp of its scaled scores over its cur_len entries, -inf for an
+// empty row); ws_acc: B H n_split D f32 and ws_ml: B H n_split 2 f32
+// scratch.  variant (chosen by the host):
 //   0  CUDA cores, dtype codes 0 = float32, 1 = bfloat16 for q and the cache
 //      (two launches: partial and combine);
 //   1  tensor cores, bf16 q over a bf16 cache, D 64/80/96/128 (one launch); counters:
 //      B KVH int32, zero before the call and zero again after it.
 // Returns a cudaError_t (0 = ok).
 int dense_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                           const void* cur_len, void* out, void* ws_acc, void* ws_ml,
+                           const void* cur_len, void* out, void* lse, void* ws_acc,
+                           void* ws_ml,
                            void* counters, int B, int S, int kvh, int rep, int D,
                            int n_split, float scale, int q_dtype, int kv_dtype,
                            int variant, void* stream) {
@@ -725,7 +746,8 @@ int dense_decode_attention(const void* q, const void* k_cache, const void* v_cac
       B > 65535 || n_split > 65535 || kvh > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_cache, v_cache, static_cast<const int*>(cur_len), out,
-               static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
+               static_cast<float*>(lse), static_cast<float*>(ws_acc),
+               static_cast<float*>(ws_ml),
                B, S, kvh, rep, n_split, scale, static_cast<cudaStream_t>(stream)};
   if (variant == 1) {
     if (q_dtype != 1 || kv_dtype != 1 || counters == nullptr)

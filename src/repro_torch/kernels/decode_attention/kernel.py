@@ -17,6 +17,12 @@ and head dim before the launch (``variant``):
     checks) and D 256: the first version's CUDA-core kernel over 32-token
     tiles and a second kernel that folds the splits.
 
+``return_lse=True`` is the partial mode of the context-parallel static
+path: both kernels also write each query row's f32 log-sum-exp from the
+(m, l) of their final fold, and a row with ``cur_len`` 0 (a rank whose
+sequence shard holds no valid entry yet) reads nothing and gives out 0
+and lse -inf.
+
 Calls on one device share its counters, so tensor-core launches on two
 streams of one device at once are not supported (the port issues every
 launch on the current stream).  The source's header says what bounds each
@@ -55,7 +61,7 @@ _COUNTERS: dict[int, torch.Tensor] = {}
 def _lib() -> ctypes.CDLL:
     lib = build("dense_decode", [SOURCE])
     fn = lib.dense_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.dense_decode_error_string.argtypes = [ctypes.c_int]
@@ -115,19 +121,23 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_len: torch.Tensor
-                     ) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_len: torch.Tensor, *,
+                     return_lse: bool = False):
     """Single-token GQA decode attention over a dense cache; returns
-    (B, H, D) in q.dtype.
+    (B, H, D) in q.dtype, and with ``return_lse`` also the (B, H) f32
+    log-sum-exp of each query row's scaled scores (the partial mode: the
+    output normalised over this cache, a rank's sequence shard, which
+    ``parallel.hints.combine_partials`` merges across the shards).
 
     q (B, H, D) bf16 or f32; k_cache / v_cache (B, S, KVH, D) bf16 or f32;
-    cur_len (B,) int32, each in [1, S]: row b attends positions
-    0 .. cur_len[b] - 1, and nothing at or past cur_len[b] is read.  The
+    cur_len (B,) int32, each in [0, S]: row b attends positions
+    0 .. cur_len[b] - 1, and nothing at or past cur_len[b] is read; a row
+    of 0 reads no K/V and gives out 0 (lse -inf).  The
     kernel is chosen by ``variant`` before the launch; a build or launch
     failure raises.  On ``meta`` tensors (the dry-run) it launches
     nothing: it reports the work of every row reading its whole cache
     (``cost.dense_cost``; the values of cur_len are not known there) to
-    the active op counter and returns an empty ``meta`` output."""
+    the active op counter and returns empty ``meta`` outputs."""
     _check(q.is_cuda or q.is_meta, f"q must be a CUDA tensor, got {q.device}")
     dev = q.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
@@ -151,8 +161,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
            f"want ({b},)")
     if q.is_meta:
         cost.record(NAME, *cost.dense_cost(b * s, b, q.element_size(), h,
-                                           kvh, d))
-        return q.new_empty((b, h, d))
+                                           kvh, d, return_lse))
+        out = q.new_empty((b, h, d))
+        return (out, q.new_empty((b, h), dtype=torch.float32)) \
+            if return_lse else out
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), \
         v_cache.contiguous()
     cur_len = cur_len.contiguous()
@@ -161,6 +173,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     n_split = split_count(kind, b, kvh, s, _num_sms(dev.index))
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
     ws_acc = torch.empty((b, h, n_split, d), dtype=torch.float32, device=dev)
     ws_ml = torch.empty((b, h, n_split, 2), dtype=torch.float32, device=dev)
     counters = (_counters(dev, b * kvh).data_ptr()
@@ -170,7 +184,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.dense_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cur_len.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
+            cur_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), ws_acc.data_ptr(),
             ws_ml.data_ptr(), counters, b, s, kvh, h // kvh, d, n_split,
             1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_cache.dtype], VARIANTS[kind], stream)
@@ -178,4 +193,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         msg = lib.dense_decode_error_string(err).decode()
         raise RuntimeError(f"{NAME} launch failed: {msg} (cudaError {err})")
     LAUNCHES[NAME] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -17,6 +17,17 @@ and records:
 A cell allocates nothing and takes seconds.  Records land in
 ``experiments/dryrun_torch/<arch>__<shape>__1xh100.json``.
 
+``--single-pod`` / ``--multi-pod`` count one rank (rank 0) of the
+reference's production mesh, 16x16 or 2x16x16 (``make_production_mesh``,
+a ``MeshShape``), at full size on ``meta`` in one process: the cell's
+``make_plan`` plan executed by its layout (the training step's, or the
+static engine's ``ServeLayout``) over the rank's rows, every collective
+counted as the rank would issue it (``hints.CountComm``: calls, operand
+and wire bytes by kind), priced over NVLink as the collective term
+(``core/roofline.py``; as if all 256 or 512 cards shared one NVLink
+domain).  Records: ``experiments/dryrun_torch/<arch>__<shape>__16x16.json``
+/ ``__2x16x16.json``; the reference's skips.
+
 ``--device cuda --batch N`` also times the cell on the card at N rows
 (the count is taken at the same N): random weights and caches from a
 seed, one warm-up step, the median wall time of a few more, the device's
@@ -27,6 +38,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--subprocess]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-370m \
+      --shape decode_32k --single-pod          # one rank of 16x16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
       --shape decode_32k --device cuda --batch 4
 """
@@ -51,10 +64,9 @@ from repro_torch.core.op_cost import count, storage_key, tensors
 from repro_torch.launch import shapes as shp
 from repro_torch.models.footprint import compute_footprint
 from repro_torch.models.model import Model
-from repro_torch.runtime.engine import _unported
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.runtime.sampling import greedy
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.parallel.plan import SHARDED_SERVING_ITEM
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
@@ -146,6 +158,149 @@ def _lower_cell(cfg, shape: shp.ShapeSpec, device="meta",
     def serve_step(tokens, cache, cur_pos):
         return greedy(model.decode_step(tokens, cache, cur_pos)), cache
     return serve_step, (tokens, cache, cur_pos), (params,)
+
+
+def _lower_pod_cell(cfg, shape: shp.ShapeSpec, mesh):
+    """(step, args, inputs, plan, groups) of rank 0 of ``mesh`` (a
+    ``MeshShape``: no processes) at full size on ``meta``: the cell's plan
+    (``make_plan``) executed by its layout, the training step's
+    (``parallel/train.py``) or the static engine's (``parallel/serve.py``),
+    over the rank's rows, with every collective counted, not issued
+    (``CountComm``)."""
+    from repro_torch.parallel.hints import serve_layout
+    from repro_torch.parallel.plan import axis_size, make_plan
+    from repro_torch.parallel.serve import ServeLayout
+    fp = compute_footprint(cfg)
+    plan = make_plan(cfg, mesh, global_batch=shape.global_batch,
+                     shape_kind=shape.kind)
+    dp = 1
+    for a in plan.dp:
+        dp *= axis_size(mesh, a)
+    b = max(shape.global_batch // dp, 1)
+    if shape.kind == "train":
+        opt_cfg = AdamWConfig(
+            state_dtype=("bfloat16" if fp.total_params > _BF16_OPT_THRESHOLD_PARAMS
+                         else "float32"))
+        model = Model(cfg, device="meta", moe_impl="capacity")
+        state = init_train_state(model, None, plan=plan,
+                                 state_dtype=opt_cfg.state_dtype)
+        step = make_train_step(model, opt_cfg, remat=True, plan=plan)
+        batch_t = shp.batch_specs(cfg, shape, b, "meta")
+
+        def train(batch_t):
+            return step(state, batch_t)[1]["loss"], None
+        return (train, (batch_t,), (state.params, state.opt_state), plan,
+                state.layout.groups)
+
+    model = Model(cfg, device="meta")
+    lay = ServeLayout(model, plan)
+    if shape.kind == "prefill":
+        batch_t = shp.batch_specs(cfg, shape, b, "meta")
+        if not cfg.has_decode:
+            @torch.no_grad()
+            def forward(batch_t):
+                with serve_layout(lay):
+                    return model.forward(batch_t), None
+            return forward, (batch_t,), (lay.params,), plan, lay.groups
+        cache = lay.init_cache(model, b, shape.seq_len)
+
+        def prefill(batch_t, cache):
+            with serve_layout(lay):
+                return model.prefill(batch_t, cache), cache
+        return prefill, (batch_t, cache), (lay.params,), plan, lay.groups
+
+    tokens = torch.empty((b,), dtype=torch.int32, device="meta")
+    cache = lay.init_cache(model, b, shape.seq_len)
+
+    def serve_step(tokens, cache, cur_pos):
+        with serve_layout(lay):
+            return greedy(model.decode_step(tokens, cache, cur_pos)), cache
+    return (serve_step, (tokens, cache, shape.seq_len - 1), (lay.params,),
+            plan, lay.groups)
+
+
+def _collectives(groups) -> dict:
+    """Kind -> {"count", "operand_bytes", "wire_bytes"} over every counted
+    group of the rank (``CountComm.ops``)."""
+    out: dict = {}
+    for c in groups._unique():
+        for kind, rec in getattr(c, "ops", {}).items():
+            agg = out.setdefault(kind, {"count": 0, "operand_bytes": 0,
+                                        "wire_bytes": 0})
+            for k, v in rec.items():
+                agg[k] += v
+    return out
+
+
+def run_pod_cell(arch: str, shape_name: str, multi_pod: bool, *,
+                 out_dir: pathlib.Path | None = OUT_DIR) -> dict:
+    """Count one rank of the reference's production mesh (16x16, or
+    2x16x16 with ``multi_pod``) at full size on ``meta`` in this process;
+    write the record under ``out_dir`` (None: do not)."""
+    cfg = get_config(arch)
+    shape = shp.SHAPES[shape_name]
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    ok, reason = shp.cell_supported(cfg, shape)
+    record: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                    "status": "skip", "reason": reason}
+    if not ok:
+        return record
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n_chips = mesh.size()
+    cell = f"{arch}__{shape_name}__{mesh_name}"
+    fp = compute_footprint(cfg)
+    t0 = time.time()
+    step, args, inputs, plan, groups = _lower_pod_cell(cfg, shape, mesh)
+    arg_bytes = argument_bytes(args, inputs)
+    cost = count(step, *args, inputs=inputs)[1]
+    seconds = time.time() - t0
+    colls = _collectives(groups)
+    report = roofline.analyze_counted(
+        cost, name=cell, chip=CHIP, n_chips=n_chips,
+        model_flops_total=_model_flops(cfg, fp, shape), collectives=colls)
+
+    def axes(x):
+        return list(x) if isinstance(x, tuple) else x
+    record.update({
+        "status": "ok",
+        "device": "meta",
+        "chip": dataclasses.asdict(CHIP),
+        "batch": shape.global_batch,
+        "seq_len": shape.seq_len,
+        "count_s": round(seconds, 2),
+        "chips": n_chips,
+        "rank": 0,
+        "plan": {"dp": list(plan.dp), "tp": axes(plan.tp),
+                 "fsdp": list(plan.fsdp), "cache_seq": axes(plan.cache_seq),
+                 "seq_parallel": plan.seq_parallel},
+        "memory_analysis": {"argument_size_in_bytes": arg_bytes},
+        "fits_hbm": arg_bytes <= CHIP.hbm_capacity,
+        "flops_per_device": report.flops_per_device,
+        "bytes_per_device": report.bytes_per_device,
+        "bound_bytes_per_device": report.bound_bytes_per_device,
+        "collective_bytes_per_device": report.collective_bytes_per_device,
+        "collective_wire_bytes_per_device":
+            report.collective_wire_bytes_per_device,
+        "collectives": colls,
+        "collective_link": ("NVLink at the H100's ici_link_bw, priced as if "
+                            f"all {n_chips} cards shared one NVLink domain"),
+        "compute_s": report.compute_s,
+        "memory_s": report.memory_s,
+        "op_memory_s": report.op_memory_s,
+        "collective_s": report.collective_s,
+        "dominant": report.dominant,
+        "bound_s": report.bound_s,
+        "model_flops_total": report.model_flops_total,
+        "useful_flops_ratio": report.useful_flops_ratio,
+        "unknown_trip_loops": cost.unknown_trip_loops,
+        "aten_ops": cost.ops,
+        "kernels": cost.kernels,
+    })
+    if out_dir is not None:
+        out_dir = pathlib.Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{cell}.json").write_text(json.dumps(record, indent=1))
+    return record
 
 
 def argument_bytes(*trees) -> int:
@@ -307,6 +462,55 @@ def all_cells():
             yield arch, shape_name
 
 
+def _main_pods(args, ap) -> int:
+    """``--single-pod`` / ``--multi-pod`` (both: each): count rank 0 of the
+    production mesh, one cell or ``--all`` of them (the reference's
+    skips)."""
+    if args.device != "meta" or args.batch:
+        ap.error("a pod mesh is counted on meta at the shape's batch "
+                 "(no --device / --batch)")
+    pods = [mp for mp, on in ((False, args.single_pod),
+                              (True, args.multi_pod)) if on]
+    out = pathlib.Path(args.out)
+    if args.list or args.all:
+        cells = [(a, s, mp) for a, s in all_cells() for mp in pods]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape (or --all / --list)")
+        cells = [(args.arch, args.shape, mp) for mp in pods]
+    if args.list:
+        for arch, shape_name, mp in cells:
+            ok, reason = shp.cell_supported(get_config(arch),
+                                            shp.SHAPES[shape_name])
+            print(f"{arch:28s} {shape_name:12s} "
+                  f"{'2x16x16' if mp else '16x16':8s} "
+                  f"{'RUN' if ok else 'SKIP: ' + reason}")
+        return 0
+    failures = []
+    t0 = time.time()
+    for arch, shape_name, mp in cells:
+        if args.subprocess:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape_name, "--out", args.out,
+                   "--multi-pod" if mp else "--single-pod"]
+            if subprocess.run(cmd, env={**os.environ}).returncode != 0:
+                failures.append((arch, shape_name, mp))
+            continue
+        try:
+            _print_record(run_pod_cell(arch, shape_name, mp, out_dir=out))
+        except Exception:
+            traceback.print_exc()
+            failures.append((arch, shape_name, mp))
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for f in failures:
+            print("  ", f)
+        return 1
+    if len(cells) > 1:
+        print(f"\nall cells green ({time.time() - t0:.1f} s)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -326,8 +530,7 @@ def main(argv=None) -> int:
                     help="directory of the records")
     args = ap.parse_args(argv)
     if args.multi_pod or args.single_pod:
-        raise _unported("the pod meshes of the dry-run (--multi-pod / "
-                        "--single-pod)", SHARDED_SERVING_ITEM)
+        return _main_pods(args, ap)
     kw = dict(device=args.device, batch=args.batch,
               out_dir=pathlib.Path(args.out))
 

@@ -6,11 +6,12 @@ the same host loop on its own shard.  ``init_world`` joins this process to
 the world's process group; ``parse_mesh`` lays the initialised world out as
 a ``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
 "model")`` ("DxM") or ``("pod", "data", "model")`` ("PxDxM").  The
-``"model"`` dim carries the tensor-parallel ring (the paged serve path's
-and the training step's), ``"data"`` data parallelism and the FSDP shard
+``"model"`` dim carries the tensor-parallel ring (the paged serve path's,
+the static one's and the training step's), ``"data"`` data parallelism and the FSDP shard
 of the training state, ``"pod"`` the slow cross-pod data-parallel axis
 (its gradient mean is int8-compressed).  An engine builds its mesh from a
-"DxM" spec itself (``device_mesh``).
+"DxM" spec itself (``device_mesh``); ``make_small_mesh`` lays the world out
+on data, (world, 1), as the reference's does by default.
 
 A launcher starts the ranks (``torchrun --nproc-per-node D*M`` sets
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous address), or a
@@ -130,10 +131,11 @@ def mesh_dims(spec) -> tuple[int, int]:
     return dims
 
 
-def parse_mesh(spec: str, device: str | torch.device = "cpu"):
+def parse_mesh(spec: str, device: str | torch.device = "cuda"):
     """``"DxM"`` -> a (data=D, model=M) ``DeviceMesh`` over the initialised
     world, ``"PxDxM"`` -> a (pod=P, data=D, model=M) one, its tensors on
-    ``device``'s type.  The product must equal the world size: launch that
+    ``device``'s type (the card unless the caller passes the CPU, as
+    ``init_world``).  The product must equal the world size: launch that
     many ranks (``torchrun --nproc-per-node D*M``)."""
     dims = mesh_shape(spec)
     n = world_size()
@@ -144,6 +146,12 @@ def parse_mesh(spec: str, device: str | torch.device = "cpu"):
                          f"is {n} (launch them with torchrun "
                          f"--nproc-per-node {need})")
     return _device_mesh(torch.device(device).type, *dims)
+
+
+def make_small_mesh(device: str | torch.device = "cuda"):
+    """A (data, model) ``DeviceMesh`` laying the initialised world out on
+    data, (world, 1): the reference's ``make_small_mesh()``."""
+    return parse_mesh(f"{world_size()}x1", device)
 
 
 def device_mesh(mesh, device: str | torch.device):

@@ -40,7 +40,16 @@ the card)::
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
         --no-reduced --arch llama3-8b --continuous --mesh 1x2   # two cards
 
-Rank 0 prints the summary.
+Rank 0 prints the summary.  The static backend under ``torchrun`` runs
+``make_plan``'s decode plan over a (data, model) mesh of every rank (the
+reference's ``make_small_mesh()``: all ranks on data; a model whose
+widths divide the world runs fully tensor-parallel with its KV caches
+split by sequence); rank 0 prints the plan, the weight bytes a rank
+stores and the collective bytes of a decode step::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --device cpu --batch 4                       # four CPU ranks, gloo
+
 ``--sku`` / ``--hbmco`` / ``--weight-format`` size the engine from a
 ``DeploymentSpec``; ``--fleet`` hands every other argument to
 ``repro_torch.launch.fleet`` (simulate, ``--plan``, ``--calibrate``).
@@ -107,6 +116,30 @@ def _draft(cfg, device, seed: int) -> Model:
     draft_cfg = dataclasses.replace(cfg, name=cfg.name + "-draft",
                                     n_layers=max(2, cfg.n_layers // 4))
     return Model(draft_cfg, device=device).init(seed=seed + 3)
+
+
+def _print_static_mesh(llm, model, args) -> None:
+    """The static mesh run's plan, the bytes a rank stores and the
+    collective bytes of one decode step (predicted) beside the run's
+    (measured)."""
+    from repro_torch.parallel.serve import predict_serve_bytes
+    eng = llm._eng
+    lay = eng.layout
+    plan = lay.plan
+    rows = args.batch // lay.batch_comm.size
+    pred = predict_serve_bytes(lay, eng.model, rows=rows, seq=args.prompt_len,
+                               max_len=eng.max_len,
+                               act_dtype=next(iter(lay.params.values())).dtype)
+    counts = lay.groups.counts()
+    print(f"plan: dp={plan.dp} tp={plan.tp} fsdp={plan.fsdp} "
+          f"cache_seq={plan.cache_seq} ep={lay.ep_comm is not None} "
+          f"(mesh {dict(zip(plan.mesh.mesh_dim_names, plan.mesh.shape))}, "
+          f"backend={lay.tp_comm.backend})")
+    print(f"rank stores {lay.stored_bytes()} weight bytes "
+          f"(the whole model: {sum(p.numel() * p.element_size() for p in model.parameters())}); "
+          f"a decode step moves {sum(pred.values())} collective bytes a "
+          f"rank (predicted; the run: {counts.get('bytes', 0)} in "
+          f"{args.max_new - 1} steps, the prefill and the row gathers)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -215,6 +248,12 @@ def main(argv=None) -> int:
                                "static")
     device = resolve_device(args.device)
     mesh = None
+    if backend == "static" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # started by torchrun: the decode plan over a (data, model) mesh of
+        # the world, as the reference's make_small_mesh()
+        from repro_torch.launch.mesh import init_world, make_small_mesh
+        init_world(device)
+        mesh = make_small_mesh(device=device)
     if args.mesh is not None and backend != "continuous":
         print("--mesh shards the continuous backend; "
               f"ignoring it for backend={backend}")
@@ -417,12 +456,15 @@ def _serve(args, backend: str, device, mesh) -> int:
               f"{m['accepted_per_window']:.2f} over {m['windows']} windows")
     else:
         llm = LLMEngine(model, backend="static", device=device,
-                        max_len=max_len, spec=spec, cache_dtype=cache_dtype)
+                        max_len=max_len, spec=spec, cache_dtype=cache_dtype,
+                        mesh=mesh)
         if spec is not None:
             print(llm.deployment.describe())
         t0 = time.time()
         outs = llm.generate(prompts, base, max_new_tokens=args.max_new)
         dt = time.time() - t0
+        if mesh is not None:
+            _print_static_mesh(llm, model, args)
 
     n_tok = sum(len(o.token_ids) for o in outs)
     print(f"arch={cfg.name} backend={backend} batch={len(outs)} "

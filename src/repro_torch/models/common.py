@@ -334,10 +334,14 @@ def decode_attention_ref(
     *,
     valid: torch.Tensor | None = None,     # (S,) or (B, S) bool mask
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-token decode attention (the plain version of the decode
     kernels).  Pass either ``cur_len`` (prefix-valid cache) or an explicit
-    ``valid`` mask."""
+    ``valid`` mask.  ``return_lse``: the partial mode of the dense kernel,
+    (out, lse) with out normalised over this cache's valid keys and lse
+    (B, H) f32 the log-sum-exp of their scaled scores; a row with no
+    valid key gives out 0 and lse -inf."""
     b, h, d = q.shape
     kvh = k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -351,7 +355,29 @@ def decode_attention_ref(
                  < cur_len[:, None])
     if valid.ndim == 1:
         valid = valid[None, :]
+    if return_lse:
+        out, lse = softmax_partial(s, valid[:, None, None, :], vf,
+                                   "bgrs,bsgd->bgrd")
+        return (out.reshape(b, h, vf.shape[-1]).to(q.dtype),
+                lse.reshape(b, h))
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", p, vf)
     return out.reshape(b, h, vf.shape[-1]).to(q.dtype)
+
+
+def softmax_partial(s: torch.Tensor, valid: torch.Tensor, v: torch.Tensor,
+                    eq: str):
+    """Attention over one shard of the keys, f32: scores ``s`` (..., S),
+    ``valid`` broadcastable to them, values ``v`` contracted by ``eq``
+    (``einsum(eq, p, v)``).  Returns (out normalised over the shard's valid
+    keys, lse (...) the log-sum-exp of their scores); a row with no valid
+    key gives out 0 and lse -inf."""
+    s = torch.where(valid, s.float(), float("-inf"))
+    m = torch.amax(s, dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum(eq, p, v.float())
+    out = out / torch.clamp_min(l, 1e-30)[..., None]
+    return out, m + torch.log(l)

@@ -16,6 +16,19 @@ window entries that has wrapped holds exactly the positions in the
 window).  ``kernel_path`` makes that choice, once, for both.  The cache
 is written in place.
 
+On a serving mesh (``parallel/serve.py``) the same functions run a
+rank's part, through marks that are the identity off it: a layer's cache
+holds the rank's block of the sequence (``cache_seq``) with every KV head
+and the whole ``slot_pos``; prefill writes the block of the gathered k / v
+(``heads_gather``; ``_write_prefill``, a ring's slots by their
+positions); decode gathers the new k / v and the query heads, the owner
+of the slot writes, the dense kernel's partial mode (``return_lse``)
+attends over the block (``cur_len`` clamped to it, 0 for an empty one),
+``combine_partials`` merges the blocks in f32 and ``own_heads`` keeps the
+rank's heads; the closing ``wo`` product is ``tp_row_dot`` (the rank's f32
+partial of a row-split weight).  MLA's latent caches split the same way
+(``mla_absorbed_attention(comm=)``).
+
 Under autograd (a training step's forward, and its recompute under
 ``remat``) full-sequence attention is the plain ``blocked_attention`` on
 every device, as the reference's training forward is: no Pallas kernel
@@ -54,7 +67,10 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.common import (
     NEG_INF, NORM_DTYPE, PARAM_DTYPE, ModelConfig, apply_rope,
     blocked_attention, cache_update_at, decode_attention_ref, dense_init,
-    rmsnorm, span, swiglu,
+    rmsnorm, softmax_partial, span, swiglu,
+)
+from repro_torch.parallel.hints import (
+    cache_seq, combine_partials, heads_gather, own_heads, tp_row_dot,
 )
 from repro_torch.quant.linear import qdot, qdot_group
 
@@ -168,7 +184,38 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     with span("gqa_attention"):
         q, k, v = _qkv(p, x, cfg, positions)
         out = _full_attention(q, k, v, cfg, window)
-    return qdot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
+    return tp_row_dot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
+
+
+def _write_prefill(cache: dict, new: dict, s: int) -> None:
+    """Write a prompt's ``new`` entries ((B, s, ...) per cache key) into a
+    dense cache in place: entry j holds position j (j < s), or, where the
+    cache's ``w`` entries are fewer than the prompt (a sliding-window
+    ring), the tail position congruent to j mod w.  ``slot_pos`` (w,)
+    records every entry's position (-1 empty); on a serving mesh the
+    rank's block of the entries (``cache_seq``) is all it writes of the
+    rest."""
+    slot_pos = cache["slot_pos"]
+    w, dev = slot_pos.shape[0], slot_pos.device
+    j = torch.arange(w, device=dev)
+    if w >= s:
+        pos = torch.where(j < s, j, -1)
+    else:
+        pos = (s - w) + torch.remainder(j - (s - w), w)
+    slot_pos.copy_(pos.to(slot_pos.dtype))
+    sh = cache_seq(w)
+    if sh is not None:
+        pos = pos[sh.start:sh.start + sh.size]
+    elif w >= s:                        # one device: the prompt's prefix
+        for key, val in new.items():
+            cache[key][:, :s] = val.to(cache[key].dtype)
+        return
+    ok = pos >= 0
+    for key, val in new.items():
+        got = val.index_select(1, pos.clamp_min(0))
+        ok_b = ok.reshape((1, -1) + (1,) * (got.ndim - 2))
+        cache[key].copy_(torch.where(ok_b, got, torch.zeros(
+            (), dtype=got.dtype, device=got.device)).to(cache[key].dtype))
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -181,22 +228,10 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     with span("gqa_attention"):
         q, k, v = _qkv(p, x, cfg, torch.arange(s, device=dev)[None, :])
         out = _full_attention(q, k, v, cfg, window)
-    out = qdot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
-    w = cache["k"].shape[1]
-    if w >= s:
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
-        pos = torch.arange(w, device=dev)
-        cache["slot_pos"].copy_(torch.where(pos < s, pos, -1))
-    else:  # sliding-window cache smaller than the prompt: keep the tail
-        # ring layout: slot j holds absolute position t = j (mod w)
-        tail = torch.arange(s - w, s, device=dev)
-        slot = tail % w
-        for key, new in (("k", k), ("v", v)):
-            cache[key].zero_()
-            cache[key][:, slot] = new[:, s - w:].to(cache[key].dtype)
-        cache["slot_pos"].zero_()
-        cache["slot_pos"][slot] = tail.to(torch.int32)
+    out = tp_row_dot(out.reshape(b, s, cfg.n_heads * cfg.hd), p.wo)
+    # on a serving mesh every KV head of the rank's block of positions
+    _write_prefill(cache, {"k": heads_gather(k, 2, kv=True),
+                           "v": heads_gather(v, 2, kv=True)}, s)
     return out
 
 
@@ -213,26 +248,37 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     entries has wrapped are exactly the positions in the window."""
     b, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    w = cache["k"].shape[1]
+    w = cache["slot_pos"].shape[0]
+    sh = cache_seq(w)                    # the rank's block on a mesh
+    start, size = (0, w) if sh is None else (sh.start, sh.size)
     on_card = kernel_path(x.device)
     with span("gqa_attention"):
         q, k, v = _qkv(p, x[:, None, :], cfg, positions)
         slot = cur_pos % w
-        cache_update_at(cache["k"], k, slot)
-        cache_update_at(cache["v"], v, slot)
+        k, v = heads_gather(k, 2, kv=True), heads_gather(v, 2, kv=True)
+        if start <= slot < start + size:          # the slot's owner writes
+            cache_update_at(cache["k"], k, slot - start)
+            cache_update_at(cache["v"], v, slot - start)
         # fill_ takes the scalar as a kernel argument; an indexed
         # assignment would copy it from host memory and wait for the device
         cache["slot_pos"][slot:slot + 1].fill_(cur_pos)
+        qa = heads_gather(q[:, 0], 1)
+        partial = sh is not None
         if on_card:
-            out = decode_attention(q[:, 0], cache["k"], cache["v"], cur_len)
+            res = decode_attention(qa, cache["k"], cache["v"], cur_len,
+                                   return_lse=partial)
         else:
-            slot_pos = cache["slot_pos"]
+            slot_pos = cache["slot_pos"][start:start + size]
             valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
             if window is not None:
                 valid = valid & (slot_pos > cur_pos - window)
-            out = decode_attention_ref(q[:, 0], cache["k"], cache["v"], None,
-                                       valid=valid[None, :].expand(b, -1))
-    return qdot(out.reshape(b, h * hd), p.wo)
+            res = decode_attention_ref(qa, cache["k"], cache["v"], None,
+                                       valid=valid[None, :].expand(b, -1),
+                                       return_lse=partial)
+        # the shards' partials merged, then the rank's heads again
+        out = own_heads(combine_partials(*res, sh.comm).to(q.dtype), 1) \
+            if partial else res
+    return tp_row_dot(out.reshape(b, h * hd), p.wo)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -326,7 +372,7 @@ def mla_expanded_attention(p: MLA, q_nope, q_rope, c_kv, k_rope,
 
 
 def mla_absorbed_attention(p: MLA, q_nope, q_rope, c_d, kr_d, valid,
-                           cfg: ModelConfig) -> torch.Tensor:
+                           cfg: ModelConfig, comm=None) -> torch.Tensor:
     """Absorbed-matmul attention in the latent space, f32 throughout:
 
         score_h(t) = q_nope_h . (W_uk^T)_h c_t + q_rope_h . k_rope_t
@@ -334,7 +380,9 @@ def mla_absorbed_attention(p: MLA, q_nope, q_rope, c_d, kr_d, valid,
 
     q_*: (B, C, H, .) queries; c_d (B, S, r), kr_d (B, S, rhd) the
     latent stream; valid (B, C, S) the visible positions.  Returns
-    (B, C, H * v_hd) f32."""
+    (B, C, H * v_hd) f32.  ``comm``: on a serving mesh, the
+    ``cache_seq`` group whose ranks hold the other blocks of the
+    stream."""
     b, c = q_nope.shape[:2]
     h, hd, rhd, vhd, r = (cfg.n_heads, cfg.hd, cfg.rope_head_dim, cfg.v_hd,
                           cfg.kv_lora_rank)
@@ -343,11 +391,20 @@ def mla_absorbed_attention(p: MLA, q_nope, q_rope, c_d, kr_d, valid,
     q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)
     c_f = c_d.float()
     k_eff = torch.cat([c_f, kr_d.float()], dim=-1)                # (B,S,r+rhd)
-    s_ = torch.einsum("bchr,bsr->bchs", q_eff, k_eff) * (
-        1.0 / math.sqrt(hd + rhd))
-    s_ = torch.where(valid[:, :, None, :], s_, NEG_INF)
-    pattn = torch.softmax(s_, dim=-1)
-    ctx = torch.einsum("bchs,bsr->bchr", pattn, c_f)               # latent ctx
+    if comm is not None:
+        # a serving rank's block of the latents: every head's scores over
+        # it, the shards' partials merged, then the rank's heads again
+        s_ = torch.einsum("bchr,bsr->bchs", heads_gather(q_eff, 2),
+                          k_eff) * (1.0 / math.sqrt(hd + rhd))
+        ctx, lse = softmax_partial(s_, valid[:, :, None, :], c_f,
+                                   "bchs,bsr->bchr")
+        ctx = own_heads(combine_partials(ctx, lse, comm), 2)
+    else:
+        s_ = torch.einsum("bchr,bsr->bchs", q_eff, k_eff) * (
+            1.0 / math.sqrt(hd + rhd))
+        s_ = torch.where(valid[:, :, None, :], s_, NEG_INF)
+        pattn = torch.softmax(s_, dim=-1)
+        ctx = torch.einsum("bchs,bsr->bchr", pattn, c_f)           # latent ctx
     w_uv = p.w_uv.reshape(r, h, vhd).float()
     out = torch.einsum("bchr,rhv->bchv", ctx, w_uv)
     return out.reshape(b, c, h * vhd)
@@ -362,7 +419,7 @@ def mla_forward(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
     with span("mla_attention"):
         q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
         out = mla_expanded_attention(p, q_nope, q_rope, c_kv, k_rope, cfg)
-    return qdot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
+    return tp_row_dot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
 
 
 def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
@@ -375,12 +432,8 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     with span("mla_attention"):
         q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x, cfg, positions)
         out = mla_expanded_attention(p, q_nope, q_rope, c_kv, k_rope, cfg)
-    out = qdot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
-    cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
-    w = cache["c_kv"].shape[1]
-    pos = torch.arange(w, device=dev)
-    cache["slot_pos"].copy_(torch.where(pos < s, pos, -1))
+    out = tp_row_dot(out.reshape(b, s, cfg.n_heads * cfg.v_hd), p.wo)
+    _write_prefill(cache, {"c_kv": c_kv, "k_rope": k_rope}, s)
     return out
 
 
@@ -391,22 +444,25 @@ def mla_decode(p: MLA, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     cache, written first at slot ``cur_pos`` (MLA layers attend over the
     full context: no ring)."""
     b, _ = x.shape
-    w = cache["c_kv"].shape[1]
+    w = cache["slot_pos"].shape[0]
     if cur_pos >= w:
         raise ValueError(f"position {cur_pos} is past the {w}-token cache")
+    sh = cache_seq(w)                    # the rank's block on a mesh
+    start, size = (0, w) if sh is None else (sh.start, sh.size)
     with span("mla_attention"):
         q_nope, q_rope, c_kv, k_rope = _mla_qc(p, x[:, None, :], cfg,
                                                positions)
-        cache_update_at(cache["c_kv"], c_kv, cur_pos)
-        cache_update_at(cache["k_rope"], k_rope, cur_pos)
+        if start <= cur_pos < start + size:       # the slot's owner writes
+            cache_update_at(cache["c_kv"], c_kv, cur_pos - start)
+            cache_update_at(cache["k_rope"], k_rope, cur_pos - start)
         cache["slot_pos"][cur_pos:cur_pos + 1].fill_(cur_pos)
-        slot_pos = cache["slot_pos"]
+        slot_pos = cache["slot_pos"][start:start + size]
         valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
         out = mla_absorbed_attention(p, q_nope, q_rope, cache["c_kv"],
                                      cache["k_rope"],
                                      valid[None, None, :].expand(b, 1, -1),
-                                     cfg)
-    return qdot(out[:, 0].to(x.dtype), p.wo)
+                                     cfg, None if sh is None else sh.comm)
+    return tp_row_dot(out[:, 0].to(x.dtype), p.wo)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

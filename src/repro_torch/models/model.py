@@ -70,6 +70,14 @@ head and cross-entropy are vocabulary-parallel.
 Attention under autograd is the plain ``blocked_attention`` on every
 device (``layers.attention_kernel_path``), so a training step launches no
 hand-written kernel, as the reference's runs no Pallas one.
+
+Static serving on a mesh (``parallel/serve.py``): ``prefill`` and
+``decode_step`` run under ``parallel.hints.serve_layout``, each layer with
+the rank's weights and local widths; a sub-layer's exit all-reduces a
+split part's f32 partial sums (``seq_leave``), the embedding sums the
+ranks' vocabulary blocks, the logits are gathered whole
+(``vocab_gather``), and a layer's dense-kernel ``cur_len`` is clamped to
+the rank's block of its cache (``cache_seq``).
 """
 from __future__ import annotations
 
@@ -90,7 +98,8 @@ from repro_torch.models.common import (
     span,
 )
 from repro_torch.parallel.hints import (
-    active_layout, no_manual_tp, seq_enter, seq_leave, tp_psum, train_layout,
+    active_layout, cache_seq, no_manual_tp, seq_enter, seq_leave, tp_psum,
+    train_layout, vocab_gather,
 )
 from repro_torch.quant.linear import packed_leaves
 
@@ -211,7 +220,7 @@ def _hybrid_out(p: Block, x, a, s, cfg: ModelConfig):
     x = x + 0.5 * (rmsnorm(a, p.attn_out_norm, eps)
                    + rmsnorm(s, p.ssm_out_norm, eps))
     h = seq_enter(rmsnorm(x, p.ln2, eps))
-    return x + seq_leave(layers.mlp_forward(p.mlp, h), "mlp")
+    return x + seq_leave(layers.mlp_forward(p.mlp, h), "mlp").to(x.dtype)
 
 
 def _block_forward(p: Block, x, cfg: ModelConfig, window):
@@ -227,9 +236,10 @@ def _block_forward(p: Block, x, cfg: ModelConfig, window):
         s, _ = ssm_lib.ssm_forward(h, p.ssm, cfg)
         return _hybrid_out(p, x, seq_leave(a.to(x.dtype), "attn"),
                            seq_leave(s, "ssm"), cfg)
-    x = x + seq_leave(a, "attn")
+    x = x + seq_leave(a, "attn").to(x.dtype)
     h = seq_enter(rmsnorm(x, p.ln2, cfg.norm_eps))
-    return x + seq_leave(_ffn(p, h, cfg), "moe" if p.is_moe else "mlp")
+    return x + seq_leave(_ffn(p, h, cfg),
+                         "moe" if p.is_moe else "mlp").to(x.dtype)
 
 
 def _layer_forward(lay, i: int, p: Block, x, cfg: ModelConfig, window):
@@ -242,32 +252,44 @@ def _layer_forward(lay, i: int, p: Block, x, cfg: ModelConfig, window):
         return _block_forward(lay.block(i, p), x, lay.local_cfg, window)
 
 
+def _rank_block(lay, i: int, p: Block, cfg: ModelConfig):
+    """Layer ``i``'s weights and config: ``p`` and ``cfg`` off a mesh,
+    the rank's regions and local widths under a layout."""
+    return (p, cfg) if lay is None else (lay.block(i, p), lay.local_cfg)
+
+
 def _block_prefill(p: Block, x, cfg: ModelConfig, window, cache):
     """x: (B, S, D) prompt representations; cache written in place (a
-    state cache's leaves are replaced by the prompt's final state)."""
+    state cache's leaves are replaced by the prompt's final state).  On a
+    serving mesh each sub-layer's exit sums the ranks' partials
+    (``seq_leave``)."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if p.kind == "ssm":
         out, st = ssm_lib.ssm_forward(h, p.ssm, cfg)
         cache.update(st)
-        return x + out
+        return x + seq_leave(out, "ssm").to(x.dtype)
     be = ab.backend_for_kind(p.kind)
     if p.kind == "hybrid":
         a = be.prefill(p.attn, h, cfg, cache["attn"], window=window)
         s, st = ssm_lib.ssm_forward(h, p.ssm, cfg)
         cache["ssm"].update(st)
-        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
-    x = x + be.prefill(p.attn, h, cfg, cache, window=window)
-    return x + _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+        return _hybrid_out(p, x, seq_leave(a, "attn").to(x.dtype),
+                           seq_leave(s, "ssm").to(x.dtype), cfg)
+    x = x + seq_leave(be.prefill(p.attn, h, cfg, cache, window=window),
+                      "attn").to(x.dtype)
+    f = _ffn(p, rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+    return x + seq_leave(f, "moe" if p.is_moe else "mlp").to(x.dtype)
 
 
 def _block_decode(p: Block, x, cfg: ModelConfig, window, cache, cur_pos,
                   positions, cur_len):
-    """x: (B, D) single-token representations; cache written in place."""
+    """x: (B, D) single-token representations; cache written in place
+    (exits as ``_block_prefill``'s)."""
     h = rmsnorm(x, p.ln1, cfg.norm_eps)
     if p.kind == "ssm":
         out, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, cache)
         cache.update(st)
-        return x + out
+        return x + seq_leave(out, "ssm").to(x.dtype)
     be = ab.backend_for_kind(p.kind)
     attn_cache = cache["attn"] if p.kind == "hybrid" else cache
     a = be.decode(p.attn, h, cfg, attn_cache, cur_pos, window=window,
@@ -275,9 +297,11 @@ def _block_decode(p: Block, x, cfg: ModelConfig, window, cache, cur_pos,
     if p.kind == "hybrid":
         s, st = ssm_lib.ssm_decode_step(h, p.ssm, cfg, cache["ssm"])
         cache["ssm"].update(st)
-        return _hybrid_out(p, x, a.to(x.dtype), s, cfg)
-    x = x + a
-    return x + _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
+        return _hybrid_out(p, x, seq_leave(a, "attn").to(x.dtype),
+                           seq_leave(s, "ssm").to(x.dtype), cfg)
+    x = x + seq_leave(a, "attn").to(x.dtype)
+    f = _ffn(p, rmsnorm(x[:, None, :], p.ln2, cfg.norm_eps), cfg)[:, 0]
+    return x + seq_leave(f, "moe" if p.is_moe else "mlp").to(x.dtype)
 
 
 # -- per-slot state pools (continuous serving of ssm / hybrid kinds) --------
@@ -526,7 +550,7 @@ class Model(nn.Module):
             x = lay.lookup(self._weight("embed"), batch["tokens"])
         if self.cfg.frontend == "vision" and "image_embeds" in batch:
             img = batch["image_embeds"].to(x.dtype)
-            if lay is not None and lay.r:
+            if lay is not None and not lay.image_rank():
                 img = torch.zeros_like(img)
             x = torch.cat([img, x], dim=1)
         return x if lay is None else lay.scatter_positions(x)
@@ -555,7 +579,7 @@ class Model(nn.Module):
             logits = x @ w
             if cfg.padded_vocab != cfg.vocab_size:   # mask pad columns
                 lay, v = active_layout(), logits.shape[-1]
-                v0 = 0 if lay is None else lay.r * v
+                v0 = 0 if lay is None else lay.vocab_offset(v)
                 pad = (torch.arange(v0, v0 + v, device=x.device)
                        >= cfg.vocab_size)
                 logits = logits.masked_fill(pad, -1e30)
@@ -636,11 +660,13 @@ class Model(nn.Module):
         """Run the full prompt (a batch of ``_embed_inputs``; image
         positions first), fill the cache in place; returns the (B, V)
         logits at the last prompt position."""
-        cfg = self.cfg
+        lay = active_layout()
         x = self._embed_inputs(batch)                       # (B, S, D)
-        for win, blk, c in zip(self.windows, self.layers, cache):
-            x = _block_prefill(blk, x, cfg, win, c)
-        return self._head(x[:, -1:, :])[:, 0]
+        for i, (win, blk, c) in enumerate(zip(self.windows, self.layers,
+                                              cache)):
+            p, cfg = _rank_block(lay, i, blk, self.cfg)
+            x = _block_prefill(p, x, cfg, win, c)
+        return vocab_gather(self._head(x[:, -1:, :])[:, 0])
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: list,
@@ -649,26 +675,33 @@ class Model(nn.Module):
         (an int, shared by every row); the cache is written in place.
         Returns (B, V) logits."""
         self._no_encoder_decode()
-        cfg = self.cfg
+        lay = active_layout()
         cur_pos = int(cur_pos)
         b = tokens.shape[0]
         dev = self.device
         positions = torch.full((b, 1), cur_pos, device=dev)
         # the dense kernel's per-row valid prefix of a w-entry cache:
         # min(cur_pos + 1, w) entries, built once per distinct w (a
-        # wrapped ring of w = window entries holds exactly the window)
+        # wrapped ring of w = window entries holds exactly the window); on
+        # a serving mesh clamped to the rank's block of the entries
         cur_lens: dict[int, torch.Tensor] = {}
         widths = [_cache_width(c) for c in cache]
         if layers.kernel_path(dev):
             for w in widths:
                 if w is not None and w not in cur_lens:
-                    cur_lens[w] = torch.full((b,), min(cur_pos + 1, w),
-                                             dtype=torch.int32, device=dev)
-        x = self.embed[tokens.long()]                       # (B, D)
-        for win, blk, c, w in zip(self.windows, self.layers, cache, widths):
-            x = _block_decode(blk, x, cfg, win, c, cur_pos, positions,
+                    n = min(cur_pos + 1, w)
+                    sh = cache_seq(w)
+                    if sh is not None:
+                        n = min(max(n - sh.start, 0), sh.size)
+                    cur_lens[w] = torch.full((b,), n, dtype=torch.int32,
+                                             device=dev)
+        x = self._embed_inputs(tokens[:, None])[:, 0]       # (B, D)
+        for i, (win, blk, c, w) in enumerate(zip(self.windows, self.layers,
+                                                 cache, widths)):
+            p, cfg = _rank_block(lay, i, blk, self.cfg)
+            x = _block_decode(p, x, cfg, win, c, cur_pos, positions,
                               cur_lens.get(w))
-        return self._head(x[:, None, :])[:, 0]
+        return vocab_gather(self._head(x[:, None, :])[:, 0])
 
     # ----- paged cache (continuous-batching serve) -----
     def init_paged_cache(self, num_pages: int, page_size: int, dtype=None, *,

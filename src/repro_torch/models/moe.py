@@ -25,9 +25,10 @@ the reference's:
     activation dtype, and uses no atomics: a second identical session
     reproduces every stream on the card.
 
-``impl="ep"`` (expert parallelism in a ``shard_map`` over a mesh) belongs
-to ROADMAP Queue 1, 'Sharded static serving and the dry-run's meshes', and
-raises.  On a training mesh (``parallel/train.py``) a rank holds a block
+``impl="ep"`` is expert parallelism on a serving mesh (``moe_ep``; the
+reference's ``shard_map`` over the model axis), which ``impl="auto"``
+picks under the mesh's expert-parallel context
+(``parallel.hints.ep_context``) as the reference does.  On a training mesh (``parallel/train.py``) a rank holds a block
 of the experts (``_expert_range``) and the rows of one DP rank: the
 strategy, the chunks and the capacity are the whole batch's
 (``parallel.hints.batch_comm``), and each expert's slots go first to the
@@ -48,9 +49,7 @@ from repro_torch.models import layers
 from repro_torch.models.common import (
     PARAM_DTYPE, ModelConfig, dense_init, span, swiglu,
 )
-from repro_torch.parallel.hints import batch_comm, split_comm
-
-ITEM_TP = "ROADMAP Queue 1, 'Sharded static serving and the dry-run's meshes'"
+from repro_torch.parallel.hints import batch_comm, ep_context, split_comm
 
 
 class MoE(nn.Module):
@@ -106,7 +105,9 @@ def _expert_range(p) -> tuple[int, int]:
 def _lower_rank_counts(ids: torch.Tensor, e: int, comm) -> torch.Tensor:
     """(E,) the assignments per expert of the DP ranks before this one in
     ``comm`` (their counts all-gathered)."""
-    counts = torch.bincount(ids.reshape(-1), minlength=e)
+    flat = ids.reshape(-1)
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device
+                         ).scatter_add_(0, flat, torch.ones_like(flat))
     return comm.all_gather_stack(counts)[:comm.rank].sum(dim=0)
 
 
@@ -231,9 +232,27 @@ def moe_capacity(x: torch.Tensor, p: MoE, cfg: ModelConfig,
     return y.reshape(b, s, d)
 
 
-def moe_ep(*args, **kwargs):
-    raise NotImplementedError(
-        f"expert-parallel MoE (impl='ep') — {ITEM_TP}")
+def moe_ep(x: torch.Tensor, p: MoE, cfg: ModelConfig,
+           capacity_factor: float = 1.25) -> torch.Tensor:
+    """Expert-parallel MoE (the reference's ``moe_ep``): under the serving
+    mesh's expert-parallel context (``parallel.hints.ep_context``) this
+    rank holds ``E / n`` experts, ``p``'s block (``_expert_range``), routes
+    the batch's whole token set against the full router, keeps the
+    assignments that land on its experts (the others fall in the drop
+    bucket) and runs the capacity path with the batch's capacity ``ceil(T
+    k / E x capacity_factor)`` (T every DP rank's tokens, each expert's
+    slots first to the lower DP ranks' rows).  Returns the rank's (B, S,
+    D) contribution; the block's exit sums the ranks' over the group
+    (``parallel.hints.seq_leave``), as the reference sums its stacked
+    partials.  The assignments that survive are ``moe_capacity``'s: a
+    stable sort keeps each expert's order whether or not the other
+    experts' assignments are in it."""
+    if ep_context() is None:
+        raise ValueError(
+            "moe_impl='ep' needs an expert-parallel context (a serving "
+            "plan with ep over a model axis of more than one rank that "
+            "splits the experts); use impl='auto'")
+    return moe_capacity(x, p, cfg, capacity_factor)
 
 
 # Token budget per dispatch chunk: bounds the (T*k, D) gather streams and
@@ -242,44 +261,64 @@ def moe_ep(*args, **kwargs):
 MOE_CHUNK_TOKENS = 65536
 
 
-def _chunked(fn, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
-    """Apply ``fn`` over sequence chunks of ~MOE_CHUNK_TOKENS tokens of
-    the batch's ``rows`` (``x``'s by default)."""
-    b, s, d = x.shape
-    b = rows or b
-    if b * s <= MOE_CHUNK_TOKENS:
-        return fn(x)
-    per_chunk = max(1, MOE_CHUNK_TOKENS // b)
-    n = max(1, s // per_chunk)
+def moe_chunks(rows: int, s: int) -> int:
+    """The dispatch chunks of a batch of ``rows`` (every DP rank's) x
+    ``s`` tokens: ~MOE_CHUNK_TOKENS tokens each, a divisor of ``s``."""
+    if rows * s <= MOE_CHUNK_TOKENS:
+        return 1
+    n = max(1, s // max(1, MOE_CHUNK_TOKENS // rows))
     while s % n:
         n -= 1
+    return n
+
+
+def moe_plan(cfg: ModelConfig, rows: int, s: int, impl: str = "auto",
+             ep=None) -> tuple[str, int]:
+    """(strategy, dispatch chunks) of ``moe_forward`` on a batch of
+    ``rows`` (every DP rank's) x ``s`` tokens under the expert-parallel
+    group ``ep`` (or None).  ``impl="auto"``: ``ep`` where that group's
+    ranks divide the experts, else ``dense`` at rows*s <= 4096 tokens and
+    at most 16 experts, ``capacity`` otherwise."""
+    if impl == "auto":
+        if (ep is not None and ep.size > 1 and cfg.n_experts % ep.size == 0
+                and cfg.n_experts >= ep.size):
+            impl = "ep"
+        elif rows * s <= 4096 and cfg.n_experts <= 16:
+            impl = "dense"
+        else:
+            impl = "capacity"
+    if impl not in ("dense", "capacity", "ep"):
+        raise ValueError(f"moe impl {impl!r}: expected 'auto', 'dense', "
+                         f"'capacity' or 'ep'")
+    return impl, 1 if impl == "dense" else moe_chunks(rows, s)
+
+
+def _chunked(fn, x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+    """Apply ``fn`` over ``n`` equal sequence chunks of ``x`` (by default
+    ``moe_chunks``' count for ``x``'s own rows)."""
+    if n is None:
+        n = moe_chunks(x.shape[0], x.shape[1])
     if n <= 1:
         return fn(x)
-    cl = s // n
+    cl = x.shape[1] // n
     return torch.cat([fn(x[:, i * cl:(i + 1) * cl]) for i in range(n)],
                      dim=1)
 
 
 def moe_forward(x: torch.Tensor, p: MoE, cfg: ModelConfig,
                 impl: str = "auto") -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D).  ``impl="auto"``: ``dense`` at B*S <=
-    4096 tokens and at most 16 experts, ``capacity`` otherwise (B the
-    batch's rows: on a training mesh every DP rank's)."""
+    """x: (B, S, D) -> (B, S, D), by ``moe_plan``'s strategy and chunks
+    (B the batch's rows: on a mesh every DP rank's)."""
     b, s, _ = x.shape
     comm = batch_comm()
     rows = b * (1 if comm is None else comm.size)
-    if impl == "auto":
-        impl = ("dense" if rows * s <= 4096 and cfg.n_experts <= 16
-                else "capacity")
-    if impl == "ep":
-        moe_ep()
+    impl, n = moe_plan(cfg, rows, s, impl, ep_context())
     if impl == "dense":
         y = moe_dense(x, p, cfg)
     elif impl == "capacity":
-        y = _chunked(lambda xc: moe_capacity(xc, p, cfg), x, rows)
+        y = _chunked(lambda xc: moe_capacity(xc, p, cfg), x, n)
     else:
-        raise ValueError(f"moe impl {impl!r}: expected 'auto', 'dense', "
-                         f"'capacity' or 'ep'")
+        y = _chunked(lambda xc: moe_ep(xc, p, cfg), x, n)
     if cfg.n_shared_experts:
         sh = p.shared
         y = y + swiglu(x, sh.w_gate, sh.w_up, sh.w_down)

@@ -26,7 +26,11 @@ by name.
 On a training mesh (``parallel/train.py``) ``ssm_forward`` runs a rank's
 heads: its config counts them, its weights hold their channels, and the
 gated norm's sum of squares is all-reduced over the ranks
-(``parallel.hints.split_comm``).
+(``parallel.hints.split_comm``).  A serving mesh (``parallel/serve.py``)
+splits the heads so in prefill and decode alike, ``out_proj``'s product is
+the rank's f32 partial (``tp_row_dot``), and the B / C projection is a
+column block gathered over the ranks (``col_gather``); off a mesh both
+marks are the plain product.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from torch import nn
 from repro_torch.models.common import (
     NORM_DTYPE, PARAM_DTYPE, ModelConfig, dense_init, gated_rmsnorm, span,
 )
-from repro_torch.parallel.hints import split_comm
+from repro_torch.parallel.hints import col_gather, split_comm, tp_row_dot
 
 
 class SSM(nn.Module):
@@ -97,7 +101,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _in_proj(x: torch.Tensor, p: SSM, cfg: ModelConfig):
     """The split input projections -> (z, x_in, b, c, dt)."""
     gn = cfg.ssm_groups * cfg.ssm_state
-    bc = x @ p.w_bc
+    # a serving rank computes a column block of B / C and gathers the rest
+    bc = col_gather(x @ p.w_bc, "ssm_bc")
     return x @ p.w_z, x @ p.w_x, bc[..., :gn], bc[..., gn:], x @ p.w_dt
 
 
@@ -212,8 +217,8 @@ def ssm_forward(x: torch.Tensor, p: SSM, cfg: ModelConfig,
                                   None if state is None else state["ssm"])
         y = y + xh.float() * p.D[None, None, :, None]
         y = y.reshape(bsz, s, di).to(x.dtype)
-        out = gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps,
-                            comm=split_comm("ssm")) @ p.out_proj
+        out = tp_row_dot(gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps,
+                                       comm=split_comm("ssm")), p.out_proj)
     return out, {"conv": new_conv, "ssm": h_final}
 
 
@@ -235,7 +240,7 @@ def ssm_decode_step(x: torch.Tensor, p: SSM, cfg: ModelConfig, state: dict):
         conv_out = ((window.float() * p.conv_w.float()).sum(1)
                     + p.conv_b.float())
         conv_out = F.silu(conv_out).to(x.dtype)
-        di = cfg.d_inner
+        di = nh * hp                   # a rank's heads: its channels
         xh = conv_out[:, :di].reshape(bsz, nh, hp).float()
         bg = torch.repeat_interleave(
             conv_out[:, di:di + g * n].reshape(bsz, g, n), nh // g,
@@ -251,14 +256,17 @@ def ssm_decode_step(x: torch.Tensor, p: SSM, cfg: ModelConfig, state: dict):
         y = torch.matmul(h_new, cg[..., None])[..., 0]       # C . h'
         y = y + xh * p.D[None, :, None]
         y = y.reshape(bsz, di).to(x.dtype)
-        out = gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps) @ p.out_proj
+        out = tp_row_dot(gated_rmsnorm(y, z, p.norm_w, cfg.norm_eps,
+                                       comm=split_comm("ssm")), p.out_proj)
     return out, {"conv": window[:, 1:], "ssm": h_new}
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, *, device) -> dict:
-    """Zero state of ``batch`` rows: the conv tail ``(B, K-1, d_inner +
-    2GN)`` bf16 and the SSD state ``(B, H, P, N)`` f32."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    """Zero state of ``batch`` rows: the conv tail ``(B, K-1, H P + 2GN)``
+    bf16 and the SSD state ``(B, H, P, N)`` f32 (H the config's heads: a
+    serving rank's local config counts its own)."""
+    conv_dim = (cfg.n_ssm_heads * cfg.ssm_head_dim
+                + 2 * cfg.ssm_groups * cfg.ssm_state)
     return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
                                 dtype=torch.bfloat16, device=device),
             "ssm": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_head_dim,

@@ -48,9 +48,23 @@ optimizer's and the compression's).  A ``gloo`` reduce-scatter of a CUDA
 tensor stages through pinned host memory (counted), as the ring hops do;
 a ``gloo`` all-gather goes round the ring by send / recv.
 
-The GSPMD hints (``shard_hint``, ``sharding_rules``, ``suspend_hints``,
-``ep_context``) have no counterpart: the port places every shard and
-issues every collective itself.
+Static serving on a mesh (``parallel/serve.py``) runs ``Model.prefill``
+/ ``decode_step`` under a ``serve_layout``: the same entry and exit marks
+(an exit all-reduces a split part's f32 partial sums, ``tp_row_dot``
+giving the partial), and the serving marks below, each the identity off a
+serving mesh: ``cache_seq`` (a layer's context-parallel cache shard),
+``combine_partials`` (per-shard attention partials merged in f32),
+``heads_gather`` / ``own_heads`` (every head for the attention over a
+sequence shard, then the rank's heads again), ``vocab_gather`` (whole
+logits before the sampler), ``col_gather`` (the SSM's column-split B/C
+projection) and ``ep_context`` (the expert-parallel group, the
+counterpart of the reference's ``ep_context`` and ``__ep__`` rule).
+``CountComm`` counts a group's collectives with no process group (one
+rank of the dry-run's 256- and 512-card meshes).
+
+The GSPMD hints (``shard_hint``, ``sharding_rules``, ``suspend_hints``)
+have no counterpart: the port places every shard and issues every
+collective itself.
 """
 from __future__ import annotations
 
@@ -137,10 +151,7 @@ class TPComm:
             return x
         if self._gloo_cuda(x):
             self.counts["gloo_cuda"] += 1
-        src = x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim=-1)
+        return torch.cat(self._gather_list(x.contiguous()), dim=-1)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x`` (a new tensor)."""
@@ -152,7 +163,7 @@ class TPComm:
         if self._gloo_cuda(x):
             self.counts["gloo_cuda"] += 1
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=self.group)
+        self._reduce_(out, "sum")
         return out
 
     def all_gather_dim(self, x: torch.Tensor, dim: int,
@@ -168,10 +179,20 @@ class TPComm:
             return x
         if self.backend == "gloo":
             return torch.cat(self._ring_gather(x), dim=dim)
-        src = x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
+        return torch.cat(self._gather_list(x.contiguous()), dim=dim)
+
+    # -- the transport (``CountComm`` moves nothing) --
+    def _gather_list(self, src: torch.Tensor) -> list:
+        parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim=dim)
+        return parts
+
+    def _reduce_(self, out: torch.Tensor, op: str) -> None:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+
+    def _reduce_scatter_(self, out: torch.Tensor, src: torch.Tensor) -> None:
+        _reduce_scatter(out, src, group=self.group)
 
     def _ring_gather(self, x: torch.Tensor) -> list:
         """Every rank's ``x`` (rank order) by n - 1 ring hops: each passes
@@ -214,7 +235,7 @@ class TPComm:
             src = moved
         out = torch.empty((src.shape[0] // n,) + src.shape[1:],
                           dtype=src.dtype, device=src.device)
-        _reduce_scatter(out, src, group=self.group)
+        self._reduce_scatter_(out, src)
         if out.device != x.device:
             out = self._to_device(out, x.device)
         return out.movedim(0, dim)
@@ -229,8 +250,7 @@ class TPComm:
         if self._gloo_cuda(x):
             self.counts["gloo_cuda"] += 1
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM, group=self.group)
+        self._reduce_(out, op)
         return out
 
     def broadcast_float(self, value: float) -> float:
@@ -258,6 +278,73 @@ class TPComm:
                dist.P2POp(dist.irecv, buf, self._global((self.rank - 1) % n),
                           self.group)]
         return _Pending(self, dist.batch_isend_irecv(ops), buf, x)
+
+
+class CountComm(TPComm):
+    """A group of ``size`` ranks with no process group behind it: one rank
+    of a mesh counted in one process (the dry-run's pod meshes).  Every
+    collective is counted as ``TPComm`` counts it and moves nothing: it
+    returns a tensor of the right shape on the input's device (``meta``
+    in a count), each other rank's part taken equal to this rank's."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.group = None
+        self.size, self.rank, self.backend = int(size), int(rank), "count"
+        self.counts = Counter()
+        self.phase = None
+        # by the reference's collective kinds: calls, operand bytes (the
+        # result's, its spec metric) and wire bytes (ring terms)
+        self.ops: dict = {}
+
+    def _op(self, kind: str, operand: int, wire: int) -> None:
+        rec = self.ops.setdefault(kind, {"count": 0, "operand_bytes": 0,
+                                         "wire_bytes": 0})
+        rec["count"] += 1
+        rec["operand_bytes"] += int(operand)
+        rec["wire_bytes"] += int(wire)
+
+    def all_gather_last(self, x):
+        self._op("all-gather", x.nbytes * self.size,
+                 x.nbytes * (self.size - 1))
+        return super().all_gather_last(x)
+
+    def all_gather_dim(self, x, dim, kind="all_gather_dim"):
+        self._op("all-gather", x.nbytes * self.size,
+                 x.nbytes * (self.size - 1))
+        return super().all_gather_dim(x, dim, kind)
+
+    def all_reduce(self, x):
+        self._op("all-reduce", x.nbytes,
+                 2 * (self.size - 1) * x.nbytes // self.size)
+        return super().all_reduce(x)
+
+    def all_reduce_op(self, x, op="sum", kind="all_reduce"):
+        self._op("all-reduce", x.nbytes,
+                 2 * (self.size - 1) * x.nbytes // self.size)
+        return super().all_reduce_op(x, op, kind)
+
+    def reduce_scatter_dim(self, x, dim, kind="reduce_scatter"):
+        self._op("reduce-scatter", x.nbytes // self.size,
+                 x.nbytes * (self.size - 1) // self.size)
+        return super().reduce_scatter_dim(x, dim, kind)
+
+    def _gather_list(self, src: torch.Tensor) -> list:
+        return [src.clone() for _ in range(self.size)]
+
+    def _reduce_(self, out: torch.Tensor, op: str) -> None:
+        if op == "sum":
+            out.mul_(self.size)
+
+    def _reduce_scatter_(self, out: torch.Tensor, src: torch.Tensor) -> None:
+        k = out.shape[0]
+        out.copy_(src[self.rank * k:(self.rank + 1) * k] * self.size)
+
+    def broadcast_float(self, value: float) -> float:
+        self.counts["broadcast"] += 1
+        return value
+
+    def ring_shift(self, x: torch.Tensor):
+        raise NotImplementedError("a counted group moves no ring hops")
 
 
 # ``reduce_scatter_single`` where torch has it (``reduce_scatter_tensor``,
@@ -312,14 +399,16 @@ def tp_psum(x: torch.Tensor) -> torch.Tensor:
 
 def tp_row_dot(x: torch.Tensor, w) -> torch.Tensor:
     """The K-contracted matmul closing a Megatron pair: ``qdot(x, w)``
-    outside a TP region; in ``"gather"`` mode ``qdot`` of the all-gathered
-    ``x`` with the full replicated ``w``; in ``"psum"`` mode the f32
+    outside a TP region (under a layout, its ``row_dot``: a serving
+    rank's f32 partial of a row-split weight); in ``"gather"`` mode
+    ``qdot`` of the all-gathered ``x`` with the full replicated ``w``; in ``"psum"`` mode the f32
     partial ``x @ w_rows`` (a packed ``w`` dequantized to f32 first; an
     MXFP4 one takes ``x`` rounded to bf16, as ``qdot``'s MXFP4 product
     does), for ``tp_psum`` to reduce before the caller casts."""
     comm = _TP.get()
     if comm is None:
-        return qdot(x, w)
+        lay = _LAYOUT.get()
+        return qdot(x, w) if lay is None else lay.row_dot(x, w)
     if _TP_MODE.get() == "gather":
         return qdot(comm.all_gather_last(x), w)
     if isinstance(w, formats.PackedMXFP4):
@@ -410,8 +499,8 @@ _LAYOUT: contextvars.ContextVar = contextvars.ContextVar("train_layout",
 @contextlib.contextmanager
 def train_layout(layout):
     """Run the enclosed model code as one rank of ``layout`` (a
-    ``parallel.train.TrainLayout``): the model reads its weights, local
-    widths and marks from it."""
+    ``parallel.train.TrainLayout``, or a ``parallel.serve.ServeLayout``):
+    the model reads its weights, local widths and marks from it."""
     token = _LAYOUT.set(layout)
     try:
         yield layout
@@ -419,21 +508,34 @@ def train_layout(layout):
         _LAYOUT.reset(token)
 
 
+serve_layout = train_layout
+
+
 def active_layout():
-    """The training layout the model code runs under, or None."""
+    """The layout the model code runs under (training or serving), or
+    None."""
     return _LAYOUT.get()
+
+
+def _serving():
+    """The serving layout the model code runs under, or None."""
+    lay = _LAYOUT.get()
+    return lay if getattr(lay, "serving", False) else None
 
 
 def seq_enter(h: torch.Tensor) -> torch.Tensor:
     """A block's entry: the rank's positions all-gathered over the model
-    axis (sequence parallelism); ``h`` off a training mesh."""
+    axis (sequence parallelism); ``h`` off a training mesh and on a
+    serving one (its residual stream is whole)."""
     lay = _LAYOUT.get()
-    return h if lay is None else gather_dim(h, lay.model_comm, 1)
+    return h if lay is None else lay.enter(h)
 
 
 def seq_leave(out: torch.Tensor, part: str) -> torch.Tensor:
-    """A block's exit from ``part`` ("attn", "mlp", "moe", "ssm") back to
-    the rank's positions; ``out`` off a training mesh."""
+    """A block's exit from ``part`` ("attn", "mlp", "moe", "ssm"): on a
+    training mesh back to the rank's positions, on a serving mesh the
+    ranks' partial sums all-reduced where ``part`` is split (the caller
+    casts to the residual's dtype); ``out`` off a mesh."""
     lay = _LAYOUT.get()
     return out if lay is None else lay.leave(out, part)
 
@@ -450,3 +552,72 @@ def batch_comm() -> TPComm | None:
     mesh (their order is the batch's), or None."""
     lay = _LAYOUT.get()
     return None if lay is None else lay.batch_comm
+
+
+# -- the serving layout's marks (identities off a serving mesh) ---------------
+
+
+def cache_seq(width: int):
+    """The context-parallel shard of a layer's dense cache of ``width``
+    entries on a serving mesh (``parallel.serve.SeqShard``: the
+    ``cache_seq`` group, the first entry this rank holds and how many),
+    or None."""
+    lay = _serving()
+    return None if lay is None else lay.seq_shard(width)
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor,
+                     comm: TPComm) -> torch.Tensor:
+    """The whole attention output from each rank's partial over its
+    shard of the keys: ``out`` (..., D) normalised over the shard, ``lse``
+    (...) its f32 log-sum-exp (-inf where the shard held no valid key).
+    In f32: an all-reduce of the max, then one of the rescaled outputs and
+    sums together."""
+    lse = lse.float()
+    if comm.size == 1:
+        return out.float()
+    m = comm.all_reduce_op(lse, "max", kind="attn_max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    wgt = torch.exp(lse - m)[..., None]
+    tot = comm.all_reduce_op(torch.cat([out.float() * wgt, wgt], dim=-1),
+                             kind="attn_sum")
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def heads_gather(x: torch.Tensor, dim: int, kv: bool = False) -> torch.Tensor:
+    """Every head of ``x`` (a rank's query heads, or with ``kv`` its KV
+    heads, along ``dim``) on a serving mesh whose ``tp`` group splits the
+    heads; ``x`` otherwise."""
+    lay = _serving()
+    return x if lay is None else lay.heads_gather(x, dim, kv)
+
+
+def own_heads(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's query heads of ``x`` (every head along ``dim``) on a
+    serving mesh that splits them; ``x`` otherwise."""
+    lay = _serving()
+    return x if lay is None else lay.own_heads(x, dim)
+
+
+def vocab_gather(logits: torch.Tensor) -> torch.Tensor:
+    """Whole-vocabulary logits from a serving rank's vocabulary columns
+    (the reference's ``logits`` rule), before the sampler."""
+    lay = _serving()
+    return logits if lay is None else lay.vocab_gather(logits)
+
+
+def col_gather(y: torch.Tensor, part: str) -> torch.Tensor:
+    """The whole last dim of a product whose weight a serving rank holds
+    as a column block (``part``: "ssm_bc", the SSM's B/C projection);
+    ``y`` otherwise."""
+    lay = _serving()
+    return y if lay is None else lay.col_gather(y, part)
+
+
+def ep_context() -> TPComm | None:
+    """The expert-parallel group of the MoE layers (the reference's
+    ``ep_context`` / ``__ep__`` rule: a serving plan with ``ep`` whose
+    ``tp`` is the ``model`` axis, of more than one rank, that splits the
+    experts), or None."""
+    lay = _serving()
+    return None if lay is None else lay.ep_comm

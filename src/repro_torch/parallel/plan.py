@@ -2,9 +2,8 @@
 plan of every (arch x shape x mesh) cell) and the tensor-parallel paged
 serve plan with its pool pricing; the port of ``repro/parallel/plan.py``.
 
-``ParallelPlan`` maps each parameter and batch leaf onto a ``(pod, data,
-model)`` mesh as the reference does (a KV cache's placement,
-``cache_shardings``, comes with the sharded serving item below): DP over
+``ParallelPlan`` maps each parameter, batch and dense-cache leaf onto a
+``(pod, data, model)`` mesh as the reference does: DP over
 ``(pod, data)``, Megatron TP of weight columns / rows and heads over
 ``model``, MoE
 experts over ``model``, the SSM's inner dim over ``model``, the vocab of
@@ -12,10 +11,14 @@ the embedding and head over ``model``, and FSDP of every matrix's other dim
 over the DP axes; an axis whose size does not divide a dim is dropped
 (``_drop_uneven``).  A spec is a tuple with one entry a dim: None, an axis
 name, or a tuple of axis names (major first, as a ``PartitionSpec``).  The
-``train`` kind is executed (``parallel/train.py``: each rank stores
-exactly ``shard_shape`` of every parameter and moment); the other kinds
-price and specify, and executing them raises, naming ROADMAP Queue 1,
-'Sharded static serving and the dry-run's meshes'.
+``train`` kind is executed by the training step (``parallel/train.py``:
+each rank stores exactly ``shard_shape`` of every parameter and moment),
+the ``decode``, ``prefill`` and ``long_decode`` kinds by the static serve
+engine (``parallel/serve.py``: the rank's weight shards and its
+``cache_shardings`` shard of every dense cache leaf).  ``rules()`` (the
+reference's GSPMD activation rules) has no counterpart: the serve layout
+places every activation itself; its ``__ep__`` entry is
+``parallel.hints.ep_context``.
 
 ``PagedServePlan`` partitions the continuous-batching serve path over a
 mesh's ``model`` dim, the paper's CU ring.  The reference runs the paged
@@ -69,8 +72,6 @@ _VOCAB_SHARD = {"embed"}
 # Per-device bytes the serve/prefill plans are willing to spend on weights
 # before turning on FSDP weight sharding (the reference's budget).
 _WEIGHT_FIT_BYTES = 8 * 2**30
-
-SHARDED_SERVING_ITEM = "Sharded static serving and the dry-run's meshes"
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -139,8 +140,8 @@ class ParallelPlan:
     ``dp`` the axes of the batch, ``tp`` of weights and heads, ``fsdp`` of
     the non-TP weight dim, ``cache_seq`` of a KV cache's sequence,
     ``seq_parallel`` the training activations' sequence over ``tp``,
-    ``ep`` expert parallelism advertised to MoE (read by the sharded
-    serving plans, not ported yet), ``shard_ssm`` the SSM inner dim over
+    ``ep`` expert parallelism advertised to MoE (the serving plans'
+    ``parallel.hints.ep_context``), ``shard_ssm`` the SSM inner dim over
     ``tp``."""
 
     mesh: Any
@@ -223,6 +224,31 @@ class ParallelPlan:
                 return (None,) * nd
             return (self.dp, *([None] * (nd - 1)))
         return {k: assign(v) for k, v in batch.items()}
+
+    # ---------------- caches ----------------
+    def cache_spec(self, name: str, ndim: int) -> tuple:
+        """The spec of a dense-cache leaf ``name`` of ``ndim`` dims (the
+        port's layer caches are unstacked: the batch is dim 0): the batch
+        over ``dp``; the sequence (dim 1) of attention ``k`` / ``v`` and
+        MLA ``c_kv`` / ``k_rope`` over ``cache_seq`` (context
+        parallelism, the paper's KV$ across CUs); ``slot_pos`` replicated,
+        the SSM and conv states replicated apart from their batch dim."""
+        if name == "slot_pos" or ndim == 0:
+            return (None,) * ndim
+        spec: list = [None] * ndim
+        if self.dp:
+            spec[0] = self.dp
+        if self.cache_seq and name in ("k", "v", "c_kv", "k_rope"):
+            spec[1] = self.cache_seq
+        return tuple(spec)
+
+    def cache_shardings(self, cache) -> Any:
+        """``cache`` (``Model.init_cache``'s list of per-layer dicts, a
+        hybrid layer's ``{"attn", "ssm"}`` nested) with each leaf replaced
+        by its spec (``cache_spec``), uneven axes dropped."""
+        return _tree_specs(cache, lambda names, leaf: _drop_uneven(
+            self.cache_spec(names[-1], len(_leaf_shape(leaf))),
+            _leaf_shape(leaf), self.mesh))
 
 
 def _full_tp_ok(cfg: ModelConfig, mesh) -> bool:

@@ -54,6 +54,13 @@ Under cross-pod compression the backward reduces over the data axis
 only (to the whole DP dim: the pod's gradient of the rank's ``model``
 block), and ``train_step`` takes the cross-pod mean through
 ``parallel.compression`` before slicing the rank's shard.
+
+``RankGroups`` and ``TrainLayout`` serve the serving plans too
+(``parallel/serve.py``'s ``ServeLayout``): the layout's ``tp`` group is
+the plan's ``tp`` axes (``model`` here, every axis under a fully
+tensor-parallel decode plan), and a ``RankGroups`` made on a
+``MeshShape`` counts rank 0's collectives with ``CountComm``s (the
+dry-run's pod meshes; the training step runs there too, on ``meta``).
 """
 from __future__ import annotations
 
@@ -66,10 +73,11 @@ import torch.distributed as dist
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ModelConfig
-from repro_torch.parallel.hints import TPComm, scatter_sum_dim, train_layout
-from repro_torch.parallel.plan import (
-    SHARDED_SERVING_ITEM, ParallelPlan, entry_axes, mesh_axes,
+from repro_torch.parallel.hints import (
+    CountComm, TPComm, gather_dim, scatter_sum_dim, train_layout,
 )
+from repro_torch.parallel.plan import ParallelPlan, entry_axes, mesh_axes
+from repro_torch.quant.linear import qdot
 
 DP_AXES = ("pod", "data")
 
@@ -87,13 +95,15 @@ class _View:
 
 
 def refuse_non_train(plan: ParallelPlan) -> None:
-    """Only the ``train`` plan (sequence-parallel, TP over ``model``)
-    executes; the others price and specify."""
+    """A training step runs the ``train`` plan (sequence-parallel, TP over
+    ``model``); a serving plan runs in the static engine
+    (``parallel/serve.py``)."""
     if not plan.seq_parallel or plan.tp != "model":
-        raise NotImplementedError(
-            f"executing a serving plan (dp={plan.dp}, "
-            f"tp={plan.tp}) is not ported to PyTorch yet (ROADMAP Queue 1, "
-            f"'{SHARDED_SERVING_ITEM}')")
+        raise ValueError(
+            f"a training step takes the train plan; this one (dp={plan.dp}, "
+            f"tp={plan.tp}, cache_seq={plan.cache_seq}) is a serving plan: "
+            f"run it with ServeEngine(plan=) or LLMEngine(backend='static', "
+            f"mesh=)")
 
 
 # ---------------------------------------------------------------------------
@@ -104,45 +114,65 @@ def refuse_non_train(plan: ParallelPlan) -> None:
 class RankGroups:
     """This rank's coordinates on the mesh and its groups, each a counted
     ``TPComm``: ``model``, ``dp`` (pod x data, pod-major: the batch order),
-    ``data``, ``pod`` and ``world``.  Made collectively: every rank builds
-    its groups in the same order."""
+    ``data``, ``pod``, ``world``, and ``extra`` ones (name -> the axes they
+    span; a serving plan's ``tp``, ``cs`` and ``batch``).  Made
+    collectively: every rank builds its groups in the same order.  On a
+    ``MeshShape`` (no processes) the groups are ``CountComm``s of rank 0
+    of the mesh: its collectives are counted, none is issued."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, extra: dict | None = None):
         sizes = mesh_axes(mesh)
         names = tuple(mesh.mesh_dim_names)
+        self.names = names
         self.sizes = {a: sizes.get(a, 1) for a in ("pod", "data", "model")}
-        coord = mesh.get_coordinate()
+        self.counting = not hasattr(mesh, "get_coordinate")
+        if self.counting:
+            coord = [0] * len(names)
+            grid = torch.arange(math.prod(sizes.values()))
+            self._me = 0
+        else:
+            coord = mesh.get_coordinate()
+            grid = mesh.mesh
+            self._me = dist.get_rank()
         self.coord = {a: (coord[names.index(a)] if a in names else 0)
                       for a in ("pod", "data", "model")}
-        # the ranks as a (pod, data, model) grid
-        grid = mesh.mesh.reshape([sizes[a] for a in names])
-        for i, a in enumerate(("pod", "data", "model")):
-            if a not in names:
-                grid = grid.unsqueeze(i)
-        me = dist.get_rank()
-
-        def group_of(lists) -> TPComm:
-            """A group for every rank list (each rank makes all of them,
-            in one order); this rank's, counted."""
-            out = _SoloComm()
-            for rl in lists:
-                rl = [int(x) for x in rl.reshape(-1)]
-                g = dist.new_group(ranks=rl) if len(rl) > 1 else None
-                if me in rl and g is not None:
-                    out = TPComm(g)
-            return out
-
-        P, D, M = grid.shape
+        self._grid = grid.reshape([sizes[a] for a in names])
+        self._over: dict = {}
         self.comms = {
-            "model": group_of([grid[i, j] for i in range(P)
-                               for j in range(D)]),
-            "dp": group_of([grid[:, :, k] for k in range(M)]),
-            "data": group_of([grid[i, :, k] for i in range(P)
-                              for k in range(M)]),
-            "pod": group_of([grid[:, j, k] for j in range(D)
-                             for k in range(M)]),
-            "world": TPComm(None),
+            "model": self.over(("model",)),
+            "dp": self.over(DP_AXES),
+            "data": self.over(("data",)),
+            "pod": self.over(("pod",)),
+            "world": self.over(names),
         }
+        for key, axes in (extra or {}).items():
+            self.comms[key] = self.over(axes)
+
+    def over(self, axes) -> TPComm:
+        """The group of the ranks that differ from this one only on
+        ``axes`` (their order is the mesh's, major first), made once."""
+        axes = tuple(a for a in self.names if a in tuple(axes))
+        if axes in self._over:
+            return self._over[axes]
+        n = math.prod(self._grid.shape[self.names.index(a)] for a in axes)
+        if n == 1:
+            comm = _SoloComm()
+        elif self.counting:
+            comm = CountComm(n, 0)
+        elif axes == self.names:
+            comm = TPComm(None)
+        else:
+            rest = [i for i, a in enumerate(self.names) if a not in axes]
+            span = [self.names.index(a) for a in axes]
+            rows = self._grid.permute(rest + span).reshape(-1, n)
+            comm = None
+            for row in rows:
+                rl = [int(x) for x in row]
+                g = dist.new_group(ranks=rl)
+                if self._me in rl:
+                    comm = TPComm(g)
+        self._over[axes] = comm
+        return comm
 
     @property
     def dp_index(self) -> int:
@@ -152,20 +182,27 @@ class RankGroups:
     def dp_size(self) -> int:
         return self.sizes["pod"] * self.sizes["data"]
 
-    def set_phase(self, phase: str | None) -> None:
+    def _unique(self) -> list:
+        out = []
         for c in self.comms.values():
+            if all(c is not o for o in out):
+                out.append(c)
+        return out
+
+    def set_phase(self, phase: str | None) -> None:
+        for c in self._unique():
             c.phase = phase
 
     def counts(self) -> dict:
         """The collectives' counts of every group, summed by key."""
         out: dict = {}
-        for c in self.comms.values():
+        for c in self._unique():
             for k, v in c.counts.items():
                 out[k] = out.get(k, 0) + v
         return out
 
     def reset_counts(self) -> None:
-        for c in self.comms.values():
+        for c in self._unique():
             c.counts.clear()
 
 
@@ -214,15 +251,18 @@ class TrainLayout:
     storage and compute, and the step's gradient stash.  ``compress``
     (set by the step): the backward reduces over the data axis only."""
 
-    def __init__(self, model, plan: ParallelPlan):
-        refuse_non_train(plan)
+    serving = False
+
+    def __init__(self, model, plan: ParallelPlan, groups=None):
         self.plan = plan
         self.cfg: ModelConfig = model.cfg
         self.kinds = [blk.kind for blk in model.layers]
         self.moe_impl = model.moe_impl
-        self.groups = RankGroups(plan.mesh)
-        self.m = self.groups.sizes["model"]
-        self.r = self.groups.coord["model"]
+        self.groups = groups or RankGroups(plan.mesh)
+        self.tp_axes = entry_axes(plan.tp)
+        self.tp_comm = self.groups.over(self.tp_axes)
+        self.m = self.tp_comm.size
+        self.r = self.tp_comm.rank
         self.compress = False
         self.grads: dict[str, torch.Tensor] = {}
         self.params, self._top = None, {}
@@ -234,7 +274,9 @@ class TrainLayout:
     # ----- groups -----
     @property
     def model_comm(self) -> TPComm:
-        return self.groups.comms["model"]
+        """The ``tp`` group: the ranks that split heads, columns, experts
+        and the vocabulary (the ``model`` axis of the train plan)."""
+        return self.tp_comm
 
     @property
     def batch_comm(self) -> TPComm:
@@ -260,7 +302,8 @@ class TrainLayout:
             nh = cfg.n_ssm_heads
             out["ssm"] = (self.plan.shard_ssm and nh % m == 0
                           and (nh // m) % cfg.ssm_groups == 0)
-        if cfg.padded_vocab % m:
+        out["vocab"] = cfg.padded_vocab % m == 0
+        if not out["vocab"] and not self.serving:
             raise NotImplementedError(
                 f"{cfg.name}: a vocabulary of {cfg.padded_vocab} does not "
                 f"split over a {m}-way model axis (vocabulary-parallel "
@@ -276,9 +319,9 @@ class TrainLayout:
         if m == 1:
             return None
         if last == "embed":
-            return (0, sl(shape[0], m))
+            return (0, sl(shape[0], m)) if self._split["vocab"] else None
         if last == "head" and parts[0] == "head":
-            return (1, sl(shape[1], m))
+            return (1, sl(shape[1], m)) if self._split["vocab"] else None
         if parts[0] != "layers":
             return None                       # final_norm, in_proj
         if "ssm" in parts:
@@ -360,18 +403,18 @@ class TrainLayout:
             if not axes:
                 block.append(slice(0, shape[dim]))
                 continue
-            if set(axes) <= set(DP_AXES):
+            if axes == self.tp_axes:
+                tp_dim, idx, size = dim, self.r, self.m
+            elif set(axes) <= set(DP_AXES):
                 fs_dim = dim
                 idx, size = 0, 1
                 for a in axes:                   # major first
                     idx = idx * g.sizes[a] + g.coord[a]
                     size *= g.sizes[a]
-            elif axes == ("model",):
-                tp_dim, idx, size = dim, g.coord["model"], g.sizes["model"]
             else:
                 raise NotImplementedError(
-                    f"{name}: spec {spec} (the train plan shards a dim over "
-                    f"the DP axes or over 'model')")
+                    f"{name}: spec {spec} (a plan shards a dim over the DP "
+                    f"axes or over its tp axes {self.tp_axes})")
             block.append(_block(shape[dim], size, idx))
         return Leaf(name, shape, fs_dim, tp_dim, tuple(block),
                     self._region(name, shape))
@@ -476,7 +519,8 @@ class TrainLayout:
         """The config a rank's layers run with: the query / KV heads and
         SSM heads of its region where they split, head widths pinned."""
         cfg, m, sp = self.cfg, self.m, self._split
-        kw = {"head_dim": cfg.hd, "v_head_dim": cfg.v_hd}
+        kw = ({"head_dim": cfg.hd, "v_head_dim": cfg.v_hd} if cfg.n_heads
+              else {})                   # an SSM-only model has no heads
         if sp["attn"]:
             kw["n_heads"] = cfg.n_heads // m
             if not cfg.mla:
@@ -485,6 +529,24 @@ class TrainLayout:
         if sp["ssm"]:
             kw["ssm_heads"] = cfg.n_ssm_heads // m
         return dataclasses.replace(cfg, **kw)
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """A block's entry: the sequence gathered over the model axis."""
+        return gather_dim(h, self.model_comm, 1)
+
+    def row_dot(self, x: torch.Tensor, w) -> torch.Tensor:
+        """A row-parallel product: the rank's rows in the activation dtype
+        (its reduce-scatter sums them)."""
+        return qdot(x, w)
+
+    def image_rank(self) -> bool:
+        """Whether this rank's lookup part carries a vision batch's image
+        rows (the first model rank's; the others add zeros)."""
+        return self.r == 0
+
+    def vocab_offset(self, v_local: int) -> int:
+        """The first vocabulary column of the rank's ``v_local``."""
+        return self.r * v_local
 
     def split_comm(self, part: str) -> TPComm | None:
         """The model axis when it splits ``part``, else None."""
@@ -632,9 +694,12 @@ class _VocabXent(torch.autograd.Function):
     def backward(ctx, g):
         ex, se, loc, mine = ctx.saved_tensors
         grad = ex / se[:, None]
-        rows = torch.nonzero(mine)[:, 0]
-        grad[rows, loc[rows]] -= 1.0
-        grad = grad * (g / ctx.n)
+        # 1 off each target column this rank holds (no data-dependent
+        # shapes: a meta count runs it too)
+        hit = torch.zeros_like(grad).scatter_(
+            1, loc.clamp(0, grad.shape[1] - 1)[:, None],
+            mine[:, None].to(grad.dtype))
+        grad = (grad - hit) * (g / ctx.n)
         return grad.to(ctx.dtype), None, None, None
 
 
@@ -786,17 +851,8 @@ def predict_step_bytes(lay: TrainLayout, batch: dict, param_dtypes: dict, *,
         if kind.endswith("_moe"):
             exit_(i, lay._split["moe"])
             nb = lay.batch_comm.size
-            impl = lay.moe_impl
-            if impl == "auto":
-                impl = ("dense" if b * nb * s <= 4096
-                        and cfg.n_experts <= 16 else "capacity")
+            impl, chunks = moe_lib.moe_plan(cfg, b * nb, s, lay.moe_impl)
             if impl == "capacity":
-                chunks = 1
-                if b * nb * s > moe_lib.MOE_CHUNK_TOKENS:
-                    per = max(1, moe_lib.MOE_CHUNK_TOKENS // (b * nb))
-                    chunks = max(1, s // per)
-                    while s % chunks:
-                        chunks -= 1
                 add_layer(i, "fwd:all_gather",
                           chunks * _ag(cfg.n_experts * 8, nb))
         else:

@@ -9,6 +9,12 @@ and the per-row sampler here (same ``pos + 1`` sampling positions, same
 presence rows).  On CUDA every prefill attention is the hand-written flash
 kernel and every decode attention the dense decode kernel.
 
+On a mesh (``mesh=`` / ``plan=``) the static engine runs ``make_plan``'s
+decode, prefill and long_decode plans (``parallel/serve.py``): each rank
+stores its shards of the weights and of the dense caches (context
+parallel, the sequence split), MoE runs expert-parallel, and every rank
+returns the whole batch's tokens.
+
 ``ContinuousServeEngine`` is the port of the reference's continuous engine
 for one device, over full-KV and sliding-window (ring-page) layouts.
 Requests arrive raggedly;
@@ -116,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Iterable
 
@@ -125,9 +132,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import device_mesh
 from repro_torch.models.model import Model, dense_cache_dtype
-from repro_torch.parallel.hints import TPComm, manual_tp_axis
+from repro_torch.parallel.hints import (
+    TPComm, manual_tp_axis, serve_layout, vocab_gather,
+)
 from repro_torch.quant import kv as kvq
-from repro_torch.quant.linear import quantize_params
+from repro_torch.quant.linear import packed_leaves, quantize_params
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kv_cache import PagedKVCache
 from repro_torch.runtime.sampling import SamplingParams
@@ -200,13 +209,26 @@ class ServeEngine:
     A batch is the reference's dict: ``{"tokens"}``, a vision model's
     ``{"tokens", "image_embeds"}`` (the image positions come first and
     count in the prompt length and the cache) or an audio model's
-    ``{"features"}`` (prefill only: an encoder has no decode step)."""
+    ``{"features"}`` (prefill only: an encoder has no decode step).
+
+    On a mesh (``mesh=``: a ``DeviceMesh`` over the initialised world, or
+    a "DxM" spec to build one; or ``plan=``, a serving ``ParallelPlan`` of
+    one): SPMD, every rank calls ``generate`` with the same batch.
+    ``make_plan(cfg, mesh, shape_kind=)`` chooses the plan (``shape_kind``
+    "decode", "prefill" or "long_decode"; for a batch the mesh's DP axes
+    split: ``plan=`` gives another), and
+    ``parallel.serve.ServeLayout`` executes it: the rank keeps its shards
+    of the weights (sliced from ``model``, which the caller may then free;
+    ``self.model`` is its ``meta`` skeleton) and of every cache, and
+    ``generate`` returns the whole batch's tokens and log-probs on every
+    rank."""
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
                  max_len: int | None = None, spec=None,
                  sampling_params: SamplingParams | None = None,
                  cache_dtype=None, weight_format: str | None = None,
-                 max_top_k: int = sampling.MAX_TOP_K):
+                 max_top_k: int = sampling.MAX_TOP_K, mesh=None, plan=None,
+                 shape_kind: str = "decode"):
         dev = resolve_device(device)
         wdev = next(model.parameters()).device
         if wdev.type != dev.type or dev.index not in (None, wdev.index):
@@ -226,7 +248,15 @@ class ServeEngine:
             raise ValueError("pass max_len= or a DeploymentSpec via spec=")
         cache_dtype = dense_cache_dtype(cache_dtype)     # refuses fp8/int8
         self.weight_format = weight_format
-        if weight_format is not None:
+        self.layout = None
+        if mesh is not None or plan is not None:
+            self.layout = _serve_layout(model, mesh, plan, shape_kind,
+                                        weight_format)
+            skeleton = Model(model.cfg, device="meta",
+                             moe_impl=model.moe_impl)
+            skeleton.device = wdev
+            model = skeleton
+        elif weight_format is not None:
             model = quantize_params(model, weight_format)
         self.model = model
         self.max_len = int(max_len)
@@ -242,10 +272,32 @@ class ServeEngine:
 
     def _prefill(self, inputs: dict):
         first = inputs["features" if "features" in inputs else "tokens"]
-        cache = self.model.init_cache(first.shape[0], self.max_len,
-                                      dtype=self.cache_dtype)
-        logits = self.model.prefill(inputs, cache)
+        if self.layout is None:
+            cache = self.model.init_cache(first.shape[0], self.max_len,
+                                          dtype=self.cache_dtype)
+        else:
+            cache = self.layout.init_cache(self.model, first.shape[0],
+                                           self.max_len, self.cache_dtype)
+        with self._region():
+            logits = self.model.prefill(inputs, cache)
         return logits, cache, _prompt_len(inputs)
+
+    def _region(self):
+        """The serving layout's scope (nothing off a mesh)."""
+        if self.layout is None:
+            return contextlib.nullcontext()
+        return serve_layout(self.layout)
+
+    def forward(self, batch) -> torch.Tensor:
+        """``Model.forward``'s (B, S, V) logits of ``batch`` (a token
+        tensor: prompt scoring); on a mesh each rank runs its rows, and
+        every rank gets every row's logits."""
+        lay = self.layout
+        if lay is not None:
+            batch = lay.local_rows({"tokens": batch})["tokens"]
+        with torch.no_grad(), self._region():
+            logits = vocab_gather(self.model.forward(batch))
+        return logits if lay is None else lay.gather_rows(logits)
 
     def _inputs(self, batch: dict) -> dict:
         """``batch``'s arrays as tensors on the engine's device."""
@@ -289,6 +341,13 @@ class ServeEngine:
             raise ValueError(f"{plen}-token prompts + {max_new_tokens} new "
                              f"tokens exceed max_len={self.max_len}")
         sps = self._resolve_params(b, sampling_params)
+        lay = self.layout
+        if lay is not None:              # the rank's rows of the batch
+            inputs = lay.local_rows(inputs)
+            tokens = inputs.get("tokens")
+            n, i = lay.batch_comm.size, lay.batch_comm.rank
+            b //= n
+            sps = sps[i * b:(i + 1) * b]
         dev = self.device
         temp, topk, topp, minp, seed = (
             torch.as_tensor(a, device=dev)
@@ -321,7 +380,8 @@ class ServeEngine:
             # the incoming token joins the stream before the next draw —
             # the repetition penalty sees prompt + every generated token
             pres.index_put_((rows, nxt.long()), true)
-            logits = self.model.decode_step(nxt, cache, pos)
+            with self._region():
+                logits = self.model.decode_step(nxt, cache, pos)
             # the token being generated sits at sequence index pos + 1
             draw_pos.add_(1)
             nxt, lp = sampling.sample_slots(logits, temp, topk, topp, minp,
@@ -329,13 +389,38 @@ class ServeEngine:
             toks.append(nxt)
             lps.append(lp)
         all_toks = torch.stack(toks, dim=1)
+        all_lps = torch.stack(lps, dim=1)
+        if lay is not None:              # every row, on every rank
+            all_toks, all_lps = (lay.gather_rows(all_toks),
+                                 lay.gather_rows(all_lps))
+            sps = self._resolve_params(all_toks.shape[0], sampling_params)
         _sync(dev)
         return GenerationResult(
             tokens=all_toks,
-            logprobs=(torch.stack(lps, dim=1)
-                      if any(sp.logprobs for sp in sps) else None),
+            logprobs=(all_lps if any(sp.logprobs for sp in sps) else None),
             steps=max_new_tokens, prefill_s=t1 - t0,
             decode_s=time.monotonic() - t1)
+
+
+def _serve_layout(model, mesh, plan, shape_kind: str, weight_format):
+    """The ``ServeLayout`` of ``model`` on ``mesh`` (``make_plan``'s plan of
+    ``shape_kind`` for a batch the mesh's DP axes split), or of ``plan``."""
+    from repro_torch.parallel.plan import axis_size, make_plan
+    from repro_torch.parallel.serve import ServeLayout
+    if plan is None:
+        mesh = device_mesh(mesh, model.device)
+        if shape_kind not in ("decode", "prefill", "long_decode"):
+            raise ValueError(f"shape_kind={shape_kind!r}: a serving plan is "
+                             f"'decode', 'prefill' or 'long_decode'")
+        names = tuple(mesh.mesh_dim_names)
+        global_batch = math.prod(axis_size(mesh, a) for a in names
+                                 if a in ("pod", "data"))
+        plan = make_plan(model.cfg, mesh, global_batch=global_batch,
+                         shape_kind=shape_kind)
+    if next(packed_leaves(model), None) is not None:
+        raise ValueError("a mesh engine takes the unquantized model; "
+                         "weight_format= packs each rank's regions")
+    return ServeLayout(model, plan, weight_format=weight_format)
 
 
 def _prompt_len(inputs: dict) -> int:

@@ -57,6 +57,16 @@ runs the same ``generate`` and returns the same outputs::
                     "cuda"), tp_reduce="psum", max_len=2048, num_slots=8)
     llm.serve_plan          # PagedServePlan: tp, kv_repl, reduce
 
+The static backend on a mesh runs ``make_plan``'s decode plan (full
+tensor parallelism over every axis where the widths divide the world,
+else DP x TP; the KV caches context-parallel, MoE expert-parallel; the
+reference's ambient ``with mesh, sharding_rules(plan.rules())``)::
+
+    init_world("cpu", rank=r, world_size=4, init_method=...)
+    llm = LLMEngine(model, backend="static", max_len=64,
+                    mesh=parse_mesh("2x2", "cpu"))
+    llm._eng.layout         # parallel.serve.ServeLayout: plan, groups
+
 Every request carries its own ``SamplingParams`` and gets back a structured
 ``RequestOutput`` (token ids, finish_reason, optional logprobs, timing
 metrics).  All three backends are ported; the static and continuous ones
@@ -126,9 +136,9 @@ class LLMEngine:
             raise ValueError("disaggregate=True splits the continuous "
                              "backend into phase engines; other backends "
                              "have no prefill/decode split to make")
-        if mesh is not None and backend != "continuous":
+        if mesh is not None and backend == "speculative":
             raise ValueError("mesh= shards the continuous paged serve path "
-                             "only")
+                             "and the static one")
         if spec is not None and spec.mesh is not None \
                 and backend != "continuous":
             raise ValueError("spec.mesh shards the continuous backend only")
@@ -176,11 +186,12 @@ class LLMEngine:
             self._eng = None
             return
         if backend == "static":
+            # on a mesh: make_plan's decode plan, each rank its shards
             self._eng = ServeEngine(
                 model, device=device, max_len=max_len, spec=spec,
                 sampling_params=self.default_sampling,
                 cache_dtype=cache_dtype, weight_format=weight_format,
-                max_top_k=max_top_k)
+                max_top_k=max_top_k, mesh=mesh)
             return
         if spec is None and num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
@@ -351,8 +362,7 @@ class LLMEngine:
             # score the prompt with one forward: position k's log-softmax
             # row scores prompt token k+1 (raw model scores — the
             # generation-side processors don't apply to the prompt)
-            with torch.no_grad():
-                logits = eng.model.forward(batch)
+            logits = eng.forward(batch)
             ls = torch.log_softmax(logits.float(), dim=-1)
             plps = torch.gather(ls[:, :-1], -1,
                                 batch[:, 1:, None].long())[..., 0].cpu()

@@ -126,7 +126,8 @@ def init_train_state(model: Model, seed: int | None = None, *,
                       for n, p in model.named_parameters()}
         return TrainState(params=params,
                           opt_state=init_opt_state(params, state_dtype))
-    from repro_torch.parallel.train import TrainLayout
+    from repro_torch.parallel.train import TrainLayout, refuse_non_train
+    refuse_non_train(plan)
     lay = TrainLayout(model, plan)
     pods = lay.groups.sizes["pod"]
     if n_pods and n_pods != pods:
@@ -240,10 +241,11 @@ def _make_sharded_step(model: Model, opt_cfg: AdamWConfig, plan, *,
         lay.grads = {}
         shape = tuple(next(iter(batch.values())).shape[:2])
         groups.set_phase("step")
-        if shape not in checked:
+        dev = next(iter(batch.values())).device
+        if shape not in checked and dev.type != "meta":
             # the mean of the rank means is the global mean only when
-            # every rank holds as many tokens
-            dev = next(iter(batch.values())).device
+            # every rank holds as many tokens (a batch on meta, as counted
+            # without ranks, holds no values to compare)
             if dpc.backend == "gloo":
                 dev = torch.device("cpu")
             every = dpc.all_gather_stack(torch.tensor(shape, device=dev))

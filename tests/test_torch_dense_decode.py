@@ -2,8 +2,11 @@
 tensors: the plain ``decode_attention_ref``) against the reference's op,
 which runs its Pallas kernel in interpret mode on these shapes exactly as
 ``tests/test_kernels.py`` does; garbage beyond ``cur_len`` must not leak
-in; the op's dispatch rules.  One test holds the CUDA kernel against the
-plain version and runs only where there is a card.
+in; the op's dispatch rules; the partial mode (``return_lse``, the
+context-parallel static path's: N blocks' partials merge to the
+whole-cache result, a block with no valid entry gives 0 and -inf).  The
+tests marked ``cuda`` hold the CUDA kernel against the plain version and
+run only where there is a card.
 
 Inputs come from a seeded numpy generator.  Tolerances: f32 1e-5 absolute
 (both sides sum in f32, in other orders); bf16 a relative error
@@ -303,3 +306,127 @@ def test_cuda_kernel_short_prefix(d, h, kvh):
         g = out.float().cpu().numpy()
         assert (np.abs(g - w) <= 2.0 ** -7 * np.abs(w) + 1e-4).all()
         assert int(dense_kernel._COUNTERS[qc.device.index].abs().sum()) == 0
+
+
+# -- the partial mode (context-parallel static decode) --------------------
+
+
+def _shard_partials(q, k, v, cur, n):
+    """The plain partial mode over ``n`` equal sequence blocks of the
+    cache, each with its rows' cur_len clamped to the block."""
+    s = k.shape[1]
+    size = s // n
+    outs, lses = [], []
+    for j in range(n):
+        local = torch.clamp(cur - j * size, 0, size)
+        out, lse = decode_attention_ref(
+            q, k[:, j * size:(j + 1) * size], v[:, j * size:(j + 1) * size],
+            local, return_lse=True)
+        outs.append(out)
+        lses.append(lse)
+    return outs, lses
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("b,h,kvh,d,s,block_s", CASES)
+def test_partial_mode_combines_to_the_whole_cache(n, b, h, kvh, d, s,
+                                                  block_s):
+    """N blocks' partials (out normalised over the block, f32 lse) merged
+    by ``combine_partials``' rule equal the whole-cache result at 1e-6 in
+    f32; row 0's cur_len leaves every block but its first empty."""
+    from repro_torch.parallel.hints import combine_partials
+    from repro_torch.parallel.train import _SoloComm
+    q, k, v, cur = (_torch(a) for a in _inputs(s + n, b, h, kvh, d, s,
+                                                "float32"))
+    cur[0] = s // (2 * n)         # row 0: its first block partial, no more
+    whole = decode_attention_ref(q, k, v, cur)
+    outs, lses = _shard_partials(q, k, v, cur, n)
+    assert any(bool(torch.isinf(x).any()) for x in lses)    # an empty block
+    lse = torch.stack(lses)
+    m = lse.amax(0)
+    wgt = torch.exp(lse - m)[..., None]
+    merged = (torch.stack(outs) * wgt).sum(0) / wgt.sum(0)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-6)
+    # one block of the whole cache: the whole output and its lse
+    out1, lse1 = decode_attention_ref(q, k, v, cur, return_lse=True)
+    np.testing.assert_allclose(out1.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        combine_partials(out1, lse1, _SoloComm()).numpy(), whole.numpy(),
+        rtol=0, atol=1e-6)
+    sc = torch.einsum("bgrd,bsgd->bgrs", q.reshape(b, kvh, h // kvh, d), k)
+    sc = sc / np.sqrt(d)
+    valid = torch.arange(s)[None, :] < cur[:, None]
+    want_lse = torch.logsumexp(torch.where(valid[:, None, None], sc,
+                                           float("-inf")), -1)
+    np.testing.assert_allclose(lse1.numpy(), want_lse.reshape(b, h).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_partial_mode_empty_rows_give_zero_and_minus_inf():
+    """A row whose block holds no valid entry (cur_len 0) gives out 0 and
+    lse -inf, whatever the cache holds."""
+    q, k, v, _ = (_torch(a) for a in _inputs(5, 3, 8, 2, 64, 128,
+                                             "float32"))
+    k[:] = 1e4
+    cur = torch.tensor([0, 5, 0], dtype=torch.int32)
+    out, lse = decode_attention_ref(q, k, v, cur, return_lse=True)
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    assert lse.shape == (3, 8)
+    assert bool((out[[0, 2]] == 0).all())
+    assert bool(torch.isneginf(lse[[0, 2]]).all())
+    assert bool(torch.isfinite(lse[1]).all())
+
+
+def test_partial_mode_on_meta_reports_the_lse_write():
+    """On ``meta`` the wrapper returns (out, lse) stand-ins and reports the
+    lse bytes beside the whole-cache read."""
+    from repro_torch.core.op_cost import count
+    q = torch.empty((2, 8, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 128, 2, 64), dtype=torch.bfloat16, device="meta")
+    cur = torch.empty((2,), dtype=torch.int32, device="meta")
+    (out, lse), cost = count(lambda: dense_kernel.decode_attention(
+        q, k, k, cur, return_lse=True))
+    assert out.shape == (2, 8, 64) and lse.shape == (2, 8)
+    assert lse.dtype == torch.float32
+    flops, nbytes = dense_kernel.cost.dense_cost(2 * 128, 2, 2, 8, 2, 64,
+                                                 True)
+    assert cost.kernels["decode_attention"]["bytes"] == nbytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,kvh,s", [(128, 32, 8, 1024), (64, 16, 4, 512)])
+def test_cuda_kernel_partial_mode(d, h, kvh, s):
+    """The kernel's partial mode on the card against the plain version
+    over two blocks, the second empty for some rows (cur_len 0 there, the
+    block poisoned): out within one bf16 ulp plus 1e-4, lse within 1e-3
+    (f32 over bf16 scores), empty rows exactly 0 and -inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for dtype in DTYPES:
+        q, k, v, _ = _inputs(s, 4, h, kvh, d, s, dtype)
+        cur = np.asarray([s // 4, s // 2, s, 3 * s // 4], np.int32)
+        half = s // 2
+        for j in range(2):
+            local = np.clip(cur - j * half, 0, half).astype(np.int32)
+            kb, vb = k[:, j * half:(j + 1) * half].copy(), \
+                v[:, j * half:(j + 1) * half].copy()
+            ref_out, ref_lse = decode_attention_ref(
+                *(_torch(a) for a in (q, kb, vb, local)), return_lse=True)
+            for row, n in enumerate(local):
+                kb[row, n:] = 1e4
+                vb[row, n:] = -1e4
+            before = LAUNCHES["decode_attention"]
+            out, lse = dense_kernel.decode_attention(
+                *(_torch(a).cuda() for a in (q, kb, vb, local)),
+                return_lse=True)
+            torch.cuda.synchronize()
+            assert LAUNCHES["decode_attention"] == before + 1
+            g, w = out.float().cpu().numpy(), ref_out.float().numpy()
+            assert (np.abs(g - w) <= 2.0 ** -7 * np.abs(w) + 1e-4).all()
+            gl, wl = lse.cpu().numpy(), ref_lse.numpy()
+            empty = local == 0
+            assert np.isneginf(gl[empty]).all() and (g[empty] == 0).all()
+            np.testing.assert_allclose(gl[~empty], wl[~empty], rtol=0,
+                                       atol=1e-3)

@@ -29,6 +29,10 @@
 * The CLI: ``python -m repro_torch.launch.dryrun`` on the full-size
   mamba2-370m ``decode_32k`` cell (within 5% of the committed reference
   record's FLOPs x 256 chips) and a skipped encoder cell.
+* The pod meshes (``--single-pod`` / ``--multi-pod``): one rank of 16x16
+  counted at full size on ``meta``: mamba2-370m ``decode_32k``'s FLOPs x
+  256 within 10% of the one-device count, qwen3-14b ``decode_32k``'s
+  counted collectives priced over NVLink, and the reference's skips.
 """
 import dataclasses
 import json
@@ -455,8 +459,74 @@ def test_cli_skips_an_encoder_decode(tmp_path, capsys):
     assert not list(tmp_path.iterdir())
 
 
-def test_pod_meshes_raise_naming_tensor_parallelism():
-    with pytest.raises(NotImplementedError,
-                       match="Sharded static serving and the dry-run"):
-        dryrun.main(["--arch", "qwen3-14b", "--shape", "train_4k",
-                     "--single-pod"])
+def test_pod_meshes_raise_naming_tensor_parallelism(tmp_path):
+    """The pod meshes count one rank; what they refuse is a device or a
+    batch of their own (a 256-card cell is counted on ``meta`` at the
+    shape's batch)."""
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k",
+                     "--single-pod", "--device", "cuda"])
+    assert dryrun.main(["--arch", "hubert-xlarge", "--shape", "decode_32k",
+                        "--multi-pod", "--out", str(tmp_path)]) == 0
+    assert not list(tmp_path.iterdir())          # the reference's skip
+
+
+# ---------------------------------------------------------------------------
+# the pod meshes: one rank of 16x16 / 2x16x16 counted on meta
+# ---------------------------------------------------------------------------
+
+
+def test_pod_mamba2_decode_per_rank_flops():
+    """mamba2-370m ``decode_32k`` on 16x16, one rank counted: 256 x its
+    FLOPs within 10% of the port's one-device count of the cell (no rank
+    repeats another's work: the B / C projection is a column block), and
+    beside the reference's per-device record (``flops_per_device``
+    3.81e8)."""
+    one = dryrun.count_cell(get_config("mamba2-370m"),
+                            shp.SHAPES["decode_32k"])[0].flops
+    rec = dryrun.run_pod_cell("mamba2-370m", "decode_32k", False,
+                              out_dir=None)
+    ref = json.loads(REF_RECORD.read_text())
+    print(f"mamba2-370m decode_32k 16x16 flops/device: port "
+          f"{rec['flops_per_device']:.4g}, reference "
+          f"{ref['flops_per_device']:.4g}")
+    assert rec["chips"] == ref["chips"] == 256
+    assert rec["plan"] == ref["plan"]
+    assert rec["flops_per_device"] * 256 == pytest.approx(one, rel=0.10)
+    assert rec["collective_s"] > 0 and rec["dominant"] == "memory"
+    assert rec["model_flops_total"] == pytest.approx(ref["model_flops_total"])
+
+
+def test_pod_qwen3_decode_prices_its_collectives(tmp_path):
+    """qwen3-14b ``decode_32k`` on 16x16 (full tensor parallelism over
+    all 256 cards, the KV cache split by sequence over them): a positive
+    collective term from the counted collectives over NVLink, each kind's
+    operand bytes beside its wire bytes, and the record on disk."""
+    assert dryrun.main(["--arch", "qwen3-14b", "--shape", "decode_32k",
+                        "--single-pod", "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "qwen3-14b__decode_32k__16x16.json")
+                     .read_text())
+    assert rec["plan"]["tp"] == ["data", "model"]
+    assert rec["plan"]["cache_seq"] == ["data", "model"]
+    assert rec["collective_s"] > 0
+    colls = rec["collectives"]
+    assert {"all-gather", "all-reduce"} <= set(colls)
+    total = sum(c["operand_bytes"] for c in colls.values())
+    assert rec["collective_bytes_per_device"] == total
+    assert rec["collective_s"] == pytest.approx(total / 450e9)
+    assert "NVLink" in rec["collective_link"]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+def test_pod_skips_are_the_references(multi, capsys):
+    """``--list`` on a pod mesh: every cell, the reference's verdicts."""
+    flag = "--multi-pod" if multi else "--single-pod"
+    assert dryrun.main(["--list", flag]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(ASSIGNED_ARCHS) * len(shp.SHAPES)
+    mesh = "2x16x16" if multi else "16x16"
+    for line, (arch, shape) in zip(lines, dryrun.all_cells()):
+        ok, reason = ref_shapes.cell_supported(ref_get_config(arch),
+                                               ref_shapes.SHAPES[shape])
+        assert line.split()[:3] == [arch, shape, mesh]
+        assert line.endswith("RUN") if ok else reason in line

@@ -256,11 +256,33 @@ def test_moe_forward_auto_and_shared_experts(n_experts, impl, f32,
     assert not torch.equal(routed, ty)
 
 
+@pytest.mark.parametrize("n_experts,shape,want", [
+    (4, (2, 5), ("dense", 1)), (32, (2, 12), ("capacity", 3)),
+    (32, (3, 7), ("capacity", 1))])
+def test_moe_plan_is_what_moe_forward_runs(n_experts, shape, want,
+                                           monkeypatch):
+    """``moe_plan`` (which the collective-byte predictors read) names the
+    strategy ``moe_forward`` runs and the number of dispatch chunks it
+    makes, with the chunk budget cut to 8 tokens."""
+    cfg, tcfg = _configs(n_experts=n_experts)
+    _, mod = _cast(*_layer(cfg, tcfg, seed=7), True)
+    _, tx = _x((*shape, cfg.d_model), True, seed=8)
+    monkeypatch.setattr(tmoe, "MOE_CHUNK_TOKENS", 8)
+    taken = []
+    for name in ("moe_dense", "moe_capacity"):
+        fn = getattr(tmoe, name)
+        monkeypatch.setattr(tmoe, name, lambda *a, _f=fn, _n=name, **kw: (
+            taken.append(_n), _f(*a, **kw))[1])
+    tmoe.moe_forward(tx, mod, tcfg)
+    assert tmoe.moe_plan(tcfg, *shape) == want
+    assert taken == [f"moe_{want[0]}"] * want[1]
+
+
 def test_moe_forward_refusals():
     cfg, tcfg = _configs()
     _, mod = _layer(cfg, tcfg)
     x = torch.zeros((1, 2, tcfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Sharded static serving"):
+    with pytest.raises(ValueError, match="expert-parallel context"):
         tmoe.moe_forward(x, mod, tcfg, impl="ep")
     with pytest.raises(ValueError, match="moe impl"):
         tmoe.moe_forward(x, mod, tcfg, impl="sparse")

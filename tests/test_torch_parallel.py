@@ -437,7 +437,7 @@ def test_one_rank_mesh_serves_with_tp_one(one_rank):
     from repro_torch.runtime.sampling import SamplingParams
     _, tcfg, _, _, port = _bridged("qwen3-14b")
     port = port.float()
-    mesh = parse_mesh("1x1")
+    mesh = parse_mesh("1x1", "cpu")
     kw = dict(backend="continuous", device="cpu", max_len=32, num_slots=2,
               page_size=4, num_pages=24, prefill_chunk=8)
     prompts = [np.arange(1, 10), np.arange(20, 31)]

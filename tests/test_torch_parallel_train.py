@@ -10,8 +10,9 @@ shard shape equals the reference's ``NamedSharding(...).shard_shape`` of
 the stacked leaf (its layer axis dropped, through ``bridge.py``'s layer
 locations), for every assigned config at full size on both production
 meshes and for the reduced training families on the test meshes;
-``_drop_uneven`` and the batch specs equal the reference's; a plan of a serving kind refuses to execute, naming its
-ROADMAP item; and ``int8_quantize`` / the compressed mean equal the
+``_drop_uneven`` and the batch specs equal the reference's; a plan of a
+serving kind refuses to run a training step, naming the static engine
+that runs it; and ``int8_quantize`` / the compressed mean equal the
 reference's functions bit for bit on the same numpy inputs, with the error
 feedback carried over 20 steps on two and three pods (the reference's
 pods as a ``vmap`` axis, run eagerly: under ``jit`` XLA rewrites its
@@ -93,8 +94,7 @@ def test_make_plan_matches_reference(arch):
             assert tplan._full_tp_ok(tcfg, mesh) == jplan._full_tp_ok(cfg,
                                                                       jmesh)
             if sh.kind != "train":
-                with pytest.raises(NotImplementedError,
-                                   match="Sharded static serving"):
+                with pytest.raises(ValueError, match="serving plan"):
                     refuse_non_train(tp)
         # a given param_bytes decides FSDP as the reference's does
         jp = jplan.make_plan(cfg, jmesh, global_batch=512,

@@ -336,7 +336,8 @@ def test_refusals(llama):
         llm.generate([[1, 2]], SamplingParams(max_tokens=2),
                      arrival_times=[0.0])
     assert not llm.has_unfinished()
-    with pytest.raises(ValueError, match="continuous"):
+    # the static backend takes a mesh (a DeviceMesh or a "DxM" spec)
+    with pytest.raises(ValueError, match="DeviceMesh"):
         LLMEngine(port, backend="static", device="cpu", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

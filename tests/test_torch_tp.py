@@ -196,7 +196,7 @@ def _rank_main(rank: int, world: int, rdzv: str, job_path: str,
     job = torch.load(job_path, weights_only=False)
     prompts, sps = job["prompts"], job["sps"]
     out = {}
-    mesh = parse_mesh("1x4")
+    mesh = parse_mesh("1x4", "cpu")
     group = mesh.get_group("model")
     # -- qwen3 reduced, gather: roomy (prefix hits) and tight (preemptions)
     eng, st = _serve(job, "qwen", mesh, prompts, sps)
@@ -263,7 +263,7 @@ def _rank_main(rank: int, world: int, rdzv: str, job_path: str,
     out["linear_ag"] = float((lin - (x @ w)[:, rank * 8:(rank + 1) * 8])
                              .abs().max())
     # -- a (2, 2) mesh: 2-way model groups, replicated over data
-    mesh22 = parse_mesh("2x2")
+    mesh22 = parse_mesh("2x2", "cpu")
     _, st = _serve(job, "qwen", mesh22, prompts, sps)
     out["qwen22"] = {"results": _results(st)}
     _, st = _serve(job, "qwen", mesh22, prompts, sps, num_pages=TIGHT_PAGES)
