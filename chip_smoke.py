@@ -30,8 +30,8 @@ serve_moe_maverick on a llama4-maverick built first; serve_tp on a
 llama3-8b built first, with its own tp=1 sessions; serve_disagg on a
 llama3-8b built first, after the two colocated phases it is compared
 with; serve_vlm on an internvl2-26b built first; serve_cli,
-train_hubert, train, train_cli, train_tp and serve_static_tp, which build
-their own models; sim
+train_hubert, train, train_cli, train_tp, serve_static_tp,
+serve_disagg_tp and examples, which build their own models; sim
 last, over the serve
 phases of that run) builds and runs just those phases and prints no
 result line: for quick checks of one kernel or path.
@@ -268,6 +268,23 @@ Phases, each of which fails the run if it fails:
    directly.  Launches per rank come back through the spawn's queue; the
    kernels line sums them (``launches_serve_tp``).  No reading is a
    tensor-parallel speed: two processes share one card.
+12c. serve_disagg_tp — disaggregated serving across rank groups: three
+   ranks (spawned processes) share ``cuda:0`` over gloo as a (1, 3) mesh
+   that ``split_mesh`` cuts 1:2, the prefill engine tp 1 on rank 0 and
+   the decode engine tp 2 on ranks 1-2, each rank mirroring the other
+   phase's schedule and the KV pages handed off by head, each decode rank
+   receiving the half its heads hold.  llama3-8b at ``TP_LLAMA_LAYERS``
+   layers serves the serve phase's mix over bf16 pools, then fp8 pools,
+   beside one-card colocated and disaggregated sessions of the same
+   options run first.  Holds: every request finishes, the same on every
+   rank; every chain is handed off, its chains, pages and bytes (summed
+   over the decode ranks, each receiving half) the one-card session's;
+   the paged decode kernel once a layer a decode step on each decode
+   rank (tensor-core variant); greedy streams equal the one-card
+   colocated ones or part at a near tie (``tp_near_ties``).  Reports TTFT
+   p50, the decode step's wall, busy and idle share on a decode rank, and
+   the handoff's pages, bytes, ms a transfer and GB/s.  The kernels line
+   sums the decode ranks' launches (``launches_serve_disagg_tp``).
 13. serve_spec_draft — speculation with a cheap draft: the draft is the
    model's first 2 of its 8 layers (``runtime/spec_pair.build_pair``: shared
    tensors; the deeper ``wo``/``w_down`` damped by 0.005 in place, so this
@@ -506,6 +523,13 @@ Phases, each of which fails the run if it fails:
    (a 2-layer llama3-8b engine timed into a latency table in a temporary
    directory, and the simulator cross-checked against its replay); each
    must return 0.
+21c. examples — the four ``examples/torch_*.py`` as subprocesses at short
+   settings: quickstart (qwen3-14b at full width, 2 layers), serve_decode
+   (``--layers 2 --batch 4 --new 16``), train_small (``--steps 20
+   --no-failure``, checkpoints in a temporary directory) and
+   design_space; each must exit 0 and print its summary lines, and the
+   quickstart's static section must launch the flash and dense decode
+   kernels once a layer a prefill and a decode step.
 22. sim — host only: the paper's H100 model (``sim.gpu_model``) for each
    serve phase's config as served, beside its measured wall and
    device-busy decode step, and ``iso_tdp_comparison`` for llama3-405b
@@ -521,8 +545,9 @@ internvl2's, then flash at S 32768 and the dense decode at 32768 and
 decode's partial mode (launches from serve_static_tp's two ranks);
 ``launches`` from the serve phase that runs each, on its own
 model, or hubert's no-grad forward; the paged decode kernels' and
-``mxfp4_vmm``'s ``launches_serve_tp`` summed over serve_tp's ranks), and
-last ``{"ok": true, "device": {...}}``.
+``mxfp4_vmm``'s ``launches_serve_tp`` summed over serve_tp's ranks, the
+paged kernels' ``launches_serve_disagg_tp`` over serve_disagg_tp's
+decode ranks), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3504,6 +3529,411 @@ def serve_tp_phase(torch, models: dict | None = None,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve_disagg_tp: disaggregated serving across rank groups on the one card
+# ---------------------------------------------------------------------------
+
+DISAGG_TP_RANKS = 3
+DISAGG_TP_MESH, DISAGG_TP_SPLIT = "1x3", (1, 2)     # prefill tp 1, decode tp 2
+DISAGG_TP_SESSIONS = (("bf16", {}), ("fp8", {"cache_dtype": "fp8"}))
+
+
+def disagg_tp_session(torch, model, pm, dm, kw: dict) -> dict:
+    """One session of the llama mix on this rank of a disaggregated engine
+    over ``split_mesh``'s slices ``pm`` (prefill) and ``dm`` (decode): the
+    rank's phase, its kernel launches, the merged stats (the same on every
+    serving rank), its own handoff share and wall, the decode-only steps'
+    wall and (8 traced) device time, and the streams."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    from repro_torch.kernels.decode_attention.paged_kernel import (
+        NAME, NAME_SCALED,
+    )
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    cfg = model.cfg
+    on_card = model.device.type == "cuda"
+    llm = LLMEngine(model, backend="continuous", device=model.device,
+                    disaggregate=True, prefill_mesh=pm, decode_mesh=dm,
+                    **TP_ENGINE, **kw)
+    eng = llm._eng
+    role = "decode" if eng.decode.member else "prefill"
+    prompts, sps = serve_requests(SamplingParams, cfg.vocab_size)
+    LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with profile(activities=acts, schedule=schedule(**PROFILE)) as prof:
+        streams, finished, stats, decode_steps = serve_session(
+            llm, prompts, sps, on_decode_step=prof.step if on_card else None)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    variants = {k: v for k, v in VARIANT_LAUNCHES.items() if v}
+    for i, sp in enumerate(sps):
+        o = finished.get(i)
+        if (o is None or o.finish_reason != "length"
+                or len(o.token_ids) != sp.max_tokens
+                or o.token_ids != streams[i]):
+            raise AssertionError(f"serve_disagg_tp {kw}: request {i} did "
+                                 f"not finish with {sp.max_tokens} tokens")
+    if stats.handoffs < len(prompts):
+        raise AssertionError(f"serve_disagg_tp {kw}: {stats.handoffs} "
+                             f"handoffs for {len(prompts)} requests")
+    # the paged decode kernel: once a GQA layer a decode step on each
+    # decode rank (at its local heads), never on the prefill rank
+    kname = NAME_SCALED if kw.get("cache_dtype") else NAME
+    want = {kname: gqa_layers(model) * stats.steps} if role == "decode" \
+        else {}
+    if on_card and launches != want:
+        raise AssertionError(f"serve_disagg_tp {kw} ({role} rank): kernel "
+                             f"launches {launches}, want {want}")
+    if on_card and role == "decode" \
+            and variants.get(f"{kname}:tensor_core") != want[kname]:
+        raise AssertionError(f"serve_disagg_tp: {variants}, want every "
+                             f"{kname} launch on the tensor-core variant")
+    step_s = float(np.median(decode_steps))
+    breakdown = (device_breakdown(prof, step_s) if on_card
+                 else {"device_time": "not measured (CPU)"})
+    ho = eng.handoff
+    own = eng.decode if role == "decode" else eng.prefill
+    result = {
+        "role": role, "tp": own.serve_plan.tp,
+        "local_heads": ([own.model.cfg.n_heads, own.model.cfg.n_kv_heads]),
+        "kv_token_bytes": own.kv_token_bytes_per_device(),
+        "handoffs": stats.handoffs, "handoff_pages": stats.handoff_pages,
+        "handoff_bytes": stats.handoff_bytes,
+        "handoff_shared_tokens": stats.handoff_shared_tokens,
+        "handoff_deferrals": ho.deferrals,
+        "own_handoff_bytes": ho.bytes_moved,
+        "own_handoff_ms_total": 1e3 * ho.seconds,
+        "own_handoff_ms_per_transfer": 1e3 * ho.seconds / max(ho.transfers,
+                                                              1),
+        "own_handoff_gb_per_s": ho.bytes_moved / max(ho.seconds, 1e-9) / 1e9,
+        "phase_broadcasts": eng.link.broadcasts,
+        "ttft_p50_s": stats.latency_quantiles("ttft")["p50"],
+        "tokens_per_s": stats.total_tokens / stats.wall,
+        "wall_s": stats.wall, "decode_steps": stats.steps,
+        "prefill_calls": stats.prefill_calls,
+        "decode_step_ms_median": 1e3 * step_s,
+        "decode_only_steps": len(decode_steps),
+        "device_busy_ms_per_step": breakdown.get("device_busy_ms_per_step"),
+        "device_idle_share": breakdown.get("device_idle_share"),
+        "kernel_launches": launches, "kernel_variants": variants,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+        "_streams": {i: list(o.token_ids) for i, o in finished.items()}}
+    del llm, eng, ho, own
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
+def disagg_tp_warmup(model, meshes: dict) -> None:
+    """Two short requests through a disaggregated engine (on ``meshes``,
+    or one card without them), so that the first session's readings hold
+    no first use (CUDA, kernel loads, gloo's first meetings, pinned
+    staging)."""
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    llm = LLMEngine(model, backend="continuous", device=model.device,
+                    disaggregate=True, **meshes, **TP_ENGINE)
+    gen = np.random.default_rng(0)
+    llm.generate([gen.integers(0, model.cfg.vocab_size, 300)
+                  for _ in range(2)], SamplingParams(max_tokens=4))
+    del llm
+    gc.collect()
+
+
+def disagg_tp_rank(rank: int, rdzv: str, queue, model_spec: tuple,
+                   device: str) -> None:
+    """One rank of the phase (a spawned process): join the gloo group, cut
+    the (1, 3) mesh into its 1:2 phase slices (every rank calls
+    ``split_mesh``), build the model from the same seed as every rank,
+    serve each session, and send the readings through ``queue``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, parse_mesh
+    from repro_torch.parallel.plan import split_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    init_world(device, backend="gloo", rank=rank,
+               world_size=DISAGG_TP_RANKS, init_method=rdzv,
+               timeout_s=TP_TIMEOUT_S)
+    try:
+        pm, dm = split_mesh(parse_mesh(DISAGG_TP_MESH, device),
+                            *DISAGG_TP_SPLIT)
+        model = tp_build(torch, *model_spec, device)
+        disagg_tp_warmup(model, dict(prefill_mesh=pm, decode_mesh=dm))
+        runs = {label: disagg_tp_session(torch, model, pm, dm, kw)
+                for label, kw in DISAGG_TP_SESSIONS}
+        queue.put((rank, runs))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_disagg_tp_phase(torch, reduced: bool = False,
+                          device: str = "cuda") -> dict:
+    """Disaggregated serving across rank groups on the card: three ranks
+    (spawned processes) share ``cuda:0`` over a gloo group as a (1, 3)
+    mesh that ``split_mesh`` cuts 1:2: the prefill engine is tp 1 on rank
+    0, the decode engine tp 2 on ranks 1-2 (16 query / 4 KV heads a
+    rank), each rank mirroring the other phase's schedule, the KV pages
+    handed from rank 0 to ranks 1 and 2 by head (each the half its heads
+    hold) through the host over gloo.  llama3-8b at ``TP_LLAMA_LAYERS``
+    layers, full width, serves the serve phase's mix over bf16 pools,
+    then fp8 pools.  Holds: every request finishes with its 64 tokens,
+    the same on every rank; every chain is handed off; the handoff's
+    chains and pages equal the one-card ``DisaggServeEngine``'s on the
+    same model and mix (this phase's own session), and its bytes summed
+    over the decode ranks equal that session's, each decode rank
+    receiving half and the prefill rank sending all; the paged decode
+    kernel (``_scaled`` over fp8) launches once a layer a decode step on
+    each decode rank, on its tensor-core variant, and never on the
+    prefill rank; each greedy stream equals the one-card colocated
+    engine's of the same options, or parts at a near tie
+    (``tp_near_ties``: a top-2 gap within ``NEAR_TIE_BF16_ULPS`` bf16
+    ulps on the one-card engine's own paged path, measured on the card:
+    the decode group runs psum TP, whose sums differ from one card's in
+    order).  Reports TTFT p50, the decode step's wall, busy and idle
+    share on decode rank 1, and the handoff's pages, bytes, ms a
+    transfer and GB/s on each rank, beside the one-card session's.  No
+    reading is a disaggregated speed: three processes share one card
+    and gloo stages every byte through the host.  ``reduced`` / ``device``
+    let a CPU rehearsal run the phase at the reduced config."""
+    import multiprocessing as mproc
+    import queue as queue_mod
+    import tempfile
+
+    from repro_torch.runtime.llm import LLMEngine
+    from repro_torch.runtime.sampling import SamplingParams
+
+    on_card = device == "cuda"
+    model_spec = tp_models(reduced)["llama"]
+    model = tp_build(torch, *model_spec, device)
+    prompts, sps = serve_requests(SamplingParams, model.cfg.vocab_size)
+    # the one-card sessions first, alone on the card: colocated (streams
+    # and the near-tie rule's model) and disaggregated (the handoff)
+    disagg_tp_warmup(model, {})
+    ref = {}
+    for label, kw in DISAGG_TP_SESSIONS:
+        co = LLMEngine(model, backend="continuous", device=device,
+                       **TP_ENGINE, **kw)
+        streams, _, _, _ = serve_session(co, prompts, sps)
+        one = LLMEngine(model, backend="continuous", device=device,
+                        disaggregate=True, **TP_ENGINE, **kw)
+        _, _, st, steps = serve_session(one, prompts, sps)
+        ho = one._eng.handoff
+        ref[label] = {
+            "streams": streams, "model": co._eng.model,
+            "cache_dtype": co._eng.cache_dtype,
+            "handoffs": st.handoffs, "handoff_pages": st.handoff_pages,
+            "handoff_bytes": st.handoff_bytes,
+            "handoff_ms_per_transfer": 1e3 * ho.seconds / max(ho.transfers,
+                                                              1),
+            "handoff_gb_per_s": st.handoff_bytes / max(ho.seconds, 1e-9)
+            / 1e9,
+            "ttft_p50_s": st.latency_quantiles("ttft")["p50"],
+            "decode_step_ms_median": 1e3 * float(np.median(steps))}
+        del co, one, ho
+        gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mproc.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=disagg_tp_rank,
+                             args=(r, f"file://{tmp}/rdzv", q, model_spec,
+                                   device))
+                 for r in range(DISAGG_TP_RANKS)]
+        for p in procs:
+            p.start()
+        ranks, deadline = {}, time.monotonic() + TP_JOIN_S
+        try:
+            while len(ranks) < DISAGG_TP_RANKS:
+                try:
+                    r, res = q.get(timeout=2.0)
+                    ranks[r] = res
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)]
+                    if dead:
+                        raise AssertionError(f"serve_disagg_tp: a rank "
+                                             f"failed (exit codes {dead})")
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"serve_disagg_tp: ranks not "
+                                             f"done after {TP_JOIN_S} s")
+            for p in procs:
+                p.join(timeout=TP_TIMEOUT_S)
+                if p.exitcode != 0:
+                    raise AssertionError(f"serve_disagg_tp: rank exit code "
+                                         f"{p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    out = {"phase": "serve_disagg_tp", "ranks": DISAGG_TP_RANKS,
+           "mesh": DISAGG_TP_MESH, "split": list(DISAGG_TP_SPLIT),
+           "layers": model.cfg.n_layers, "card_shared_by_ranks": True}
+    summed = {}
+    for label, _ in DISAGG_TP_SESSIONS:
+        per_rank = [ranks[r][label] for r in range(DISAGG_TP_RANKS)]
+        streams = [pr.pop("_streams") for pr in per_rank]
+        if any(s != streams[0] for s in streams[1:]):
+            raise AssertionError(f"serve_disagg_tp {label}: ranks' streams "
+                                 f"differ")
+        merged = {k: per_rank[0][k] for k in (
+            "handoffs", "handoff_pages", "handoff_bytes",
+            "handoff_shared_tokens")}
+        if any({k: pr[k] for k in merged} != merged for pr in per_rank):
+            raise AssertionError(f"serve_disagg_tp {label}: ranks' merged "
+                                 f"stats differ")
+        want = ref[label]
+        roles = [pr["role"] for pr in per_rank]
+        dec = [pr for pr in per_rank if pr["role"] == "decode"]
+        pre = [pr for pr in per_rank if pr["role"] == "prefill"]
+        if roles != ["prefill", "decode", "decode"] \
+                or [pr["tp"] for pr in per_rank] != [1, 2, 2]:
+            raise AssertionError(f"serve_disagg_tp {label}: roles {roles}")
+        if (merged["handoffs"], merged["handoff_pages"],
+                merged["handoff_bytes"]) != (
+                want["handoffs"], want["handoff_pages"],
+                want["handoff_bytes"]):
+            raise AssertionError(f"serve_disagg_tp {label}: handoff {merged}"
+                                 f", one card {want}")
+        if [pr["own_handoff_bytes"] for pr in dec] != \
+                [want["handoff_bytes"] // 2] * 2 \
+                or pre[0]["own_handoff_bytes"] != want["handoff_bytes"]:
+            raise AssertionError(
+                f"serve_disagg_tp {label}: decode ranks received "
+                f"{[pr['own_handoff_bytes'] for pr in dec]}, the prefill "
+                f"rank sent {pre[0]['own_handoff_bytes']}, one card moved "
+                f"{want['handoff_bytes']}")
+        for pr in dec:
+            for k, v in pr["kernel_launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        near, bad = tp_near_ties(torch, streams[0], want["streams"],
+                                 prompts, sps, want)
+        row = {"per_rank": per_rank, **merged,
+               "one_card": {k: v for k, v in want.items()
+                            if k not in ("streams", "model",
+                                         "cache_dtype")},
+               "greedy_streams_equal": sum(
+                   streams[0][i] == want["streams"][i]
+                   for i, sp in enumerate(sps) if sp.is_greedy),
+               "sampled_streams_equal": sum(
+                   streams[0][i] == want["streams"][i]
+                   for i, sp in enumerate(sps) if not sp.is_greedy),
+               "greedy_near_ties": near}
+        out[label] = row
+        print(f"  serve_disagg_tp {label}:", json.dumps(
+            {k: v for k, v in row.items() if k != "per_rank"}
+            | {"ranks": [{k: pr[k] for k in (
+                "role", "tp", "local_heads", "ttft_p50_s",
+                "decode_step_ms_median", "device_busy_ms_per_step",
+                "device_idle_share", "own_handoff_bytes",
+                "own_handoff_ms_per_transfer", "own_handoff_gb_per_s",
+                "kernel_launches", "peak_mem_gb")} for pr in per_rank]}))
+        if bad:
+            raise AssertionError(f"serve_disagg_tp {label}: greedy streams "
+                                 f"part from one card's at gaps above "
+                                 f"{NEAR_TIE_BF16_ULPS} bf16 ulps: {bad}")
+    out["kernel_launches_summed"] = summed
+    del model, ref
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# examples: the port's four examples as a user runs them
+# ---------------------------------------------------------------------------
+
+# (example, its flags on the card, lines its output must hold)
+EXAMPLES = (
+    ("torch_quickstart.py", ["--arch", "qwen3-14b", "--layers", "2"],
+     ("== HBM-CO (paper §III) ==", "energy ratio: 2.43x",
+      "== PyTorch framework: qwen3-14b at 2 layers", "step 4: loss",
+      "generated:", "== DeploymentSpec", "deployment: h100")),
+    ("torch_serve_decode.py", ["--layers", "2", "--batch", "4", "--new",
+                               "16"],
+     ("[static decode] 4 requests x 16 tokens", "greedy row:",
+      "sampled row:", "deployment: rpu-cu",
+      "[continuous] streamed deltas per request: {0: 8, 1: 8, 2: 8, 3: 8}")),
+    ("torch_train_small.py", ["--steps", "20", "--no-failure"],
+     ("model: lm-100m", "done: 20 steps")),
+    ("torch_design_space.py", [],
+     ("model llama3-70b:", "frontier SKUs:", "   CUs")),
+)
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples_phase(torch) -> dict:
+    """The four ``examples/torch_*.py`` as subprocesses on the card, at
+    short settings (``EXAMPLES``): quickstart with qwen3-14b at full width
+    cut to 2 layers, serve_decode at 2 layers (danube's widths, 4 requests
+    of 16 tokens), train_small 20 steps of lm-100m with its checkpoints in
+    a temporary directory, design_space as it is.  Each must exit 0 and
+    print its summary lines, and the quickstart's static section must
+    launch the flash kernel (once a layer a prefill) and the dense decode
+    kernel (once a layer a decode step), as its ``kernel launches`` line
+    reports; section 4 serves MXFP4 weights through ``mxfp4_vmm`` over
+    bf16 pages through the paged decode kernel."""
+    import tempfile
+
+    out = {"phase": "examples"}
+    env = {**os.environ, "PYTHONPATH": os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags, lines in EXAMPLES:
+            extra = (["--ckpt-dir", os.path.join(tmp, "ckpt")]
+                     if name == "torch_train_small.py" else [])
+            t = time.monotonic()
+            r = subprocess.run(
+                [sys.executable, os.path.join(
+                    os.path.dirname(os.path.abspath(__file__)), "examples",
+                    name), *flags, *extra],
+                env=env, cwd=tmp, capture_output=True, text=True,
+                timeout=EXAMPLE_TIMEOUT_S)
+            seconds = time.monotonic() - t
+            if r.returncode != 0:
+                raise AssertionError(f"examples: {name} exited "
+                                     f"{r.returncode}: {r.stdout[-2000:]}"
+                                     f"{r.stderr[-4000:]}")
+            missing = [ln for ln in lines if ln not in r.stdout]
+            if missing:
+                raise AssertionError(f"examples: {name} printed no "
+                                     f"{missing}: {r.stdout[-3000:]}")
+            launches = [json.loads(ln.split(": ", 1)[1].replace("'", '"'))
+                        for ln in r.stdout.splitlines()
+                        if ln.strip().startswith("kernel launches:")]
+            out[name] = {"seconds": seconds, "kernel_launches": launches,
+                         "tail": r.stdout.splitlines()[-3:]}
+            print(f"  examples {name}: {seconds:.1f} s, launches "
+                  f"{launches}")
+    cfg_layers = 2
+    static, cont = out["torch_quickstart.py"]["kernel_launches"]
+    # two 16-token prompts: one prefill (flash once a layer) and 7 decode
+    # steps (the dense decode once a layer each)
+    want = {"flash_attention": cfg_layers,
+            "decode_attention": cfg_layers * 7}
+    if {k: static.get(k, 0) for k in want} != want:
+        raise AssertionError(f"examples: the quickstart's static section "
+                             f"launched {static}, want {want}")
+    if not cont.get("mxfp4_vmm") or not cont.get("paged_decode_attention"):
+        raise AssertionError(f"examples: the quickstart's continuous "
+                             f"section launched {cont}")
     return out
 
 
@@ -8063,7 +8493,8 @@ def main() -> int:
                          "check, "
                          "check_mla, check_moe, check_window, check_state, "
                          "serve_cli, train_hubert, train, train_cli, "
-                         "train_tp, serve_static_tp, or, on a "
+                         "train_tp, serve_static_tp, serve_disagg_tp, "
+                         "examples, or, on a "
                          "llama3-8b built "
                          "first, serve, serve_disagg, serve_tp (with its "
                          "tp=1 sessions) and serve_spec_draft, "
@@ -8123,6 +8554,8 @@ def main() -> int:
               "check_moe": check_moe, "check_window": check_window,
               "check_state": check_state, "serve_cli": serve_cli_phase,
               "serve_tp": serve_tp_phase, "train_tp": train_tp_phase,
+              "serve_disagg_tp": serve_disagg_tp_phase,
+              "examples": examples_phase,
               "serve_static_tp": serve_static_tp_phase,
               **train_phases()}
     # the model phases that run alone: llama3-8b or deepseek-v2-lite-16b
@@ -8190,6 +8623,7 @@ def main() -> int:
     spec = timed("serve_spec", serve_spec_phase, model, serve["_streams"])
     timed("serve_spec_legacy", serve_spec_legacy_phase, model)
     tp = timed("serve_tp", serve_tp_phase)
+    disagg_tp = timed("serve_disagg_tp", serve_disagg_tp_phase)
     served += [("serve", model.cfg, serve), ("serve_static", model.cfg, static),
                ("serve_quantized", model.cfg, serve_q)]
     # damps the model's deeper blocks in place: the last phase to use it
@@ -8217,6 +8651,7 @@ def main() -> int:
     trained = {name: timed(name, fn) for name, fn in train_phases().items()}
     timed("train_tp", train_tp_phase)
     timed("serve_cli", serve_cli_phase)
+    timed("examples", examples_phase)
     timed("check", check_phase)
     timed("check_window", check_window)
     timed("check_state", check_state)
@@ -8236,6 +8671,14 @@ def main() -> int:
                                                                   0)
         if not k["launches_serve_tp"]:
             raise AssertionError(f"{k['name']} never launched in serve_tp")
+    # the paged decode kernels on the disaggregated path across rank
+    # groups: their launches summed over serve_disagg_tp's decode ranks
+    for k in (kernel, scaled):
+        k["launches_serve_disagg_tp"] = disagg_tp[
+            "kernel_launches_summed"].get(k["name"], 0)
+        if not k["launches_serve_disagg_tp"]:
+            raise AssertionError(f"{k['name']} never launched in "
+                                 f"serve_disagg_tp")
     # the same kernels on llama4-scout's path (its first session of each
     # phase): every one of them launched there too
     moe = {name: r for name, _, r in served}

@@ -52,6 +52,10 @@ ASSIGNED_ARCHS = ["h2o-danube-1.8b", "qwen2.5-14b", "qwen3-14b",
                   "hymba-1.5b", "internvl2-26b", "mamba2-370m"]
 
 
+def list_configs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
 def get_config(name: str) -> ModelConfig:
     key = name if name in _ARCH_MODULES else None
     if key is None:

@@ -27,8 +27,16 @@ prefix index (``--num-prompts`` distinct prompts over ``--num-requests``
 requests; ``--no-prefix-cache`` turns it off).  ``--spec-draft reduced
 --gamma 4`` turns on speculative decoding inside the continuous engine.
 ``--disaggregate P:D`` splits it into a prefill-phase and a decode-phase
-engine behind the KV-page handoff; both phase engines share the one
-device (with ``--mesh`` it raises: disaggregation across meshes waits).
+engine behind the KV-page handoff; alone, both phase engines share the one
+device.  With ``--mesh DxM`` the mesh's ``model`` dim splits into a
+P-rank prefill slice and a D-rank decode slice (``split_mesh``), each
+phase tensor-parallel over its own ranks, the KV heads regrouped on the
+way from one to the other::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --continuous --mesh 1x2 --disaggregate 1:1
+    torchrun --standalone --nproc-per-node 3 -m repro_torch.launch.serve \
+        --device cpu --continuous --mesh 1x3 --disaggregate 1:2
 
 ``--mesh DxM`` shards the continuous engine tensor-parallel over D*M
 ranks, one process each, every rank serving the same requests on its
@@ -79,7 +87,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.quant import formats
 from repro_torch.runtime.deployment import DeploymentSpec
-from repro_torch.runtime.engine import _unported
 from repro_torch.runtime.llm import LLMEngine
 from repro_torch.runtime.sampling import SamplingParams
 
@@ -258,9 +265,6 @@ def main(argv=None) -> int:
         print("--mesh shards the continuous backend; "
               f"ignoring it for backend={backend}")
     elif args.mesh is not None:
-        if args.disaggregate:
-            raise _unported("--disaggregate with --mesh",
-                            "Disaggregation across meshes")
         from repro_torch.launch.mesh import init_world, parse_mesh
         if "WORLD_SIZE" in os.environ:         # started by torchrun
             init_world(device)
@@ -294,6 +298,12 @@ def _serve(args, backend: str, device, mesh) -> int:
                       f"{args.disaggregate!r}")
                 return 1
             disagg = (p_dev, d_dev)
+    pmesh = dmesh = mesh
+    if disagg is not None and mesh is not None:
+        # every rank splits (the slices' groups are made here); each
+        # serves its own phase
+        from repro_torch.parallel.plan import split_mesh
+        pmesh, dmesh = split_mesh(mesh, disagg[0], disagg[1])
     max_len = args.prompt_len + args.max_new + 1
     if args.spec_draft is not None and backend == "continuous":
         # verify windows may overshoot by up to gamma draft positions
@@ -343,6 +353,8 @@ def _serve(args, backend: str, device, mesh) -> int:
             else [base]
         sps = [mix[i % len(mix)] for i in range(n_req)]
         dkw = dict(disaggregate=disagg is not None)
+        if disagg is not None:
+            dkw.update(prefill_mesh=pmesh, decode_mesh=dmesh)
         if spec is not None:
             # hardware-derived pool and slots: no manual num_pages knob
             llm = LLMEngine(model, backend="continuous", device=device,
@@ -367,12 +379,22 @@ def _serve(args, backend: str, device, mesh) -> int:
                             arrival_times=arrivals)
         dt = time.time() - t0
         stats = llm.last_stats
+        if stats is None:
+            return 0            # a rank in neither phase slice served none
         n_tok = sum(len(o.token_ids) for o in outs)
         print(f"arch={cfg.name} continuous slots={slots} "
               f"requests={n_req} rate={args.arrival_rate}/s "
               f"steps={stats.steps} occupancy={stats.occupancy:.2f} "
               f"preemptions={stats.preemptions} device={device}")
-        if mesh is not None:
+        if mesh is not None and disagg is not None:
+            pf, dc = llm._eng.prefill, llm._eng.decode
+            print(f"mesh: data={mesh.size(0)} x model={mesh.size(1)} split "
+                  f"{disagg[0]}:{disagg[1]} - prefill tp={pf.serve_plan.tp}"
+                  f", decode tp={dc.serve_plan.tp} (reduce="
+                  f"{dc.serve_plan.reduce}, kv_repl={dc.serve_plan.kv_repl})"
+                  f" - {llm.kv_token_bytes_per_device()} KV bytes/token per "
+                  f"decode rank")
+        elif mesh is not None:
             sp = llm.serve_plan
             print(f"mesh: data={mesh.size(0)} x model={sp.tp} "
                   f"(reduce={sp.reduce}, kv_repl={sp.kv_repl}, "

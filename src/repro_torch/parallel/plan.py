@@ -47,8 +47,16 @@ every rank holds exactly the one KV head its query heads read.
 
 A mesh is a ``DeviceMesh`` (``launch/mesh.py``) or, for pricing only, a
 ``MeshShape``: the plan reads ``mesh_dim_names``, ``size(dim)`` and
-``device_type``.  ``split_mesh`` waits (ROADMAP Queue 1, 'Disaggregation
-across meshes').
+``device_type``.
+
+``split_mesh`` cuts a mesh into the two disjoint phase slices of a
+disaggregated deployment along its ``model`` dim (the reference's
+contract): a prefill engine and a decode engine then build their own
+serve plans, each with its own TP degree.  On a ``DeviceMesh`` it is
+collective over the whole world (every rank calls it, a rank in neither
+slice too): it builds both slices' process groups and ``phase_group``, the
+gloo group of the two slices' ranks over which a ``DisaggServeEngine``
+coordinates its phases and hands KV pages from one to the other.
 """
 from __future__ import annotations
 
@@ -507,6 +515,74 @@ def paged_kv_token_bytes_split(model, *, tp: int = 1, dtype_bytes: int = 4,
         else:
             full += seg_total
     return full, ring
+
+
+def split_mesh(mesh, n_first: int, n_second: int | None = None,
+               axis: str = "model") -> tuple:
+    """Split ``mesh`` into two disjoint slices along ``axis``: the phase
+    slices of a disaggregated deployment (prefill takes the first
+    ``n_first`` positions, decode the next ``n_second``, by default the
+    rest; an explicit ``n_second`` may leave positions unused).  Each slice
+    keeps every other axis whole and the order of its positions, so the
+    two phase engines build independent serve plans with different TP
+    degrees over one set of devices.
+
+    A ``MeshShape`` splits into two ``MeshShape``s (for pricing).  A
+    ``DeviceMesh`` splits into two ``DeviceMesh``es over the sliced rank
+    tensor (``mesh.mesh``).  That is collective over the whole world: every
+    rank must call it, a rank in neither slice too, since each slice's
+    process groups and the slices' ``phase_group`` are made here.  A rank
+    gets both slices back; in one it is not a member
+    (``get_coordinate()`` is None), and an engine on such a slice only
+    mirrors that phase's schedule (``ContinuousServeEngine.member``)."""
+    from repro_torch.launch.mesh import MeshShape
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh {names} has no {axis!r} axis")
+    ai = names.index(axis)
+    size = axis_size(mesh, axis)
+    if n_second is None:
+        n_second = size - n_first
+    if n_first < 1 or n_second < 1 or n_first + n_second > size:
+        raise ValueError(
+            f"cannot split a {size}-way {axis!r} axis into "
+            f"{n_first}+{n_second} device slices")
+    if isinstance(mesh, MeshShape):
+        shape = list(mesh.shape)
+        return tuple(dataclasses.replace(mesh, shape=tuple(
+            shape[:ai] + [n] + shape[ai + 1:])) for n in (n_first, n_second))
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = mesh.mesh
+    first, second = (DeviceMesh(mesh.device_type,
+                                ranks.narrow(ai, lo, n).contiguous(),
+                                mesh_dim_names=names)
+                     for lo, n in ((0, n_first), (n_first, n_second)))
+    phase_group(first, second)
+    return first, second
+
+
+def mesh_ranks(mesh) -> list[int]:
+    """The world ranks of a ``DeviceMesh``, in its order."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+# (world ranks of both slices) -> their gloo group; made by split_mesh (or
+# by the first engine over the two slices), in the same order on every rank
+_PHASE_GROUPS: dict[tuple[int, ...], Any] = {}
+
+
+def phase_group(first, second):
+    """The gloo process group of the ranks of two ``DeviceMesh`` slices
+    (``split_mesh``'s): a ``DisaggServeEngine`` broadcasts each step's
+    schedule over it, and its ``KVHandoff`` sends page bytes between the
+    slices over it (staged through the host, as the reference stages).
+    Made once per set of ranks; ``new_group`` is collective over the whole
+    world, so the first call must be made on every rank."""
+    import torch.distributed as dist
+    key = tuple(sorted(set(mesh_ranks(first)) | set(mesh_ranks(second))))
+    if key not in _PHASE_GROUPS:
+        _PHASE_GROUPS[key] = dist.new_group(list(key), backend="gloo")
+    return _PHASE_GROUPS[key]
 
 
 def make_paged_serve_plan(cfg: ModelConfig, mesh, axis: str = "model",

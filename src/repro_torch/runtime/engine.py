@@ -100,6 +100,21 @@ current stream.  A decode-side preemption drains back to the prefill
 engine, which recomputes the chain and hands it off again.  Stateful
 layouts refuse a phase split in the reference's words.
 
+Disaggregation across meshes: each phase engine may run on a mesh, one
+mesh for both (every rank runs both engines on its shards) or two disjoint
+slices of one (``parallel.plan.split_mesh``), each with its own TP degree.
+On slices a rank builds its own phase's local model and pools only; the
+other phase's engine on that rank is a mirror (``member`` False: no model,
+no pools) that books the same schedule from the results the phase's first
+rank broadcasts after every device call (``PhaseLink``, over the gloo
+group of both slices), so every decision that crosses the groups (the
+chains handed off each step, the decode side's admissions, preemptions
+drained back, the clock) is the same on every serving rank.  The handoff
+then moves pages between the groups: each prefill rank sends each decode
+rank of its data row the KV heads their two shards share (GQA codes and
+scales split by head, MLA's latents whole), staged through the host over
+that group (``KVHandoff``).
+
 Tensor-parallel serving (``mesh=``, a ``DeviceMesh`` with dims ``("data",
 "model")`` from ``launch/mesh.py``, or a "DxM" spec, given or a
 ``DeploymentSpec``'s, that the engine builds into one): SPMD,
@@ -115,8 +130,7 @@ Ranks must agree on every scheduling decision: the one clock reading the
 scheduler acts on (admission, and through ``admit_time`` the choice of a
 preemption victim) is group rank 0's, broadcast at every step.  A
 separate speculative draft gets its own plan; stateful layouts refuse
-``mesh=`` in the reference's words, and a disaggregated phase on a mesh
-waits (ROADMAP Queue 1, 'Disaggregation across meshes').
+``mesh=`` in the reference's words.
 """
 from __future__ import annotations
 
@@ -128,6 +142,7 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import device_mesh
@@ -147,16 +162,15 @@ from repro_torch.runtime.state_cache import (
 )
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, '{item}')")
-
-
-def _rank_plan(cfg, mesh, tp_reduce: str, comm: TPComm | None = None):
+def _rank_plan(cfg, mesh, tp_reduce: str, comm: TPComm | None = None,
+               member: bool = True):
     """The serve plan of ``cfg`` on ``mesh`` and this rank's collectives
-    over its ``model`` group (``comm`` when the caller has them)."""
+    over its ``model`` group (``comm`` when the caller has them; None on a
+    rank outside the mesh)."""
     from repro_torch.parallel.plan import make_paged_serve_plan
     plan = make_paged_serve_plan(cfg, mesh, reduce=tp_reduce)
+    if not member:
+        return plan, None
     return plan, comm or TPComm(mesh.get_group(plan.axis))
 
 
@@ -526,7 +540,10 @@ class ContinuousServeEngine:
     and "decode" are the two halves of a ``DisaggServeEngine``, which
     drives them (their ``run()`` refuses): a prefill engine parks each
     finished chain in ``HANDOFF``, a decode engine admits only through the
-    handoff seam (``admit_handoff`` ... ``release_handoff``).
+    handoff seam (``admit_handoff`` ... ``release_handoff``).  A phase
+    engine on a mesh slice this rank is not in (``member`` False) is that
+    phase's mirror: it keeps the schedule, and the tokens come from the
+    phase's ranks (``PhaseLink``).
     """
 
     def __init__(self, model: Model, *, device: str | torch.device = "cuda",
@@ -559,19 +576,6 @@ class ContinuousServeEngine:
         # reference's refusals --
         lay = model_cache_layout(model.plan)
         self._layout = lay
-        mesh = mesh if mesh is not None else getattr(spec, "mesh", None)
-        if mesh is not None:
-            if lay.has_state:
-                raise NotImplementedError(
-                    f"tensor-parallel serving of the state-carrying arch "
-                    f"{model.cfg.name!r} needs sharded state pools "
-                    f"(recorded follow-on); run it single-device")
-            if phase != "colocated":
-                raise _unported(f"a {phase}-phase engine on a mesh",
-                                "Disaggregation across meshes")
-            # a "DxM" spec becomes this engine's DeviceMesh over the
-            # initialised world
-            mesh = device_mesh(mesh, wdev)
         if lay.stateful:
             arch = model.cfg.name
             if speculative is not None:
@@ -593,6 +597,16 @@ class ContinuousServeEngine:
                     f"state-carrying arch {model.cfg.name!r}: SSM state "
                     f"pools stay bf16/f32 — quantized state is a recorded "
                     f"follow-on")
+        mesh = mesh if mesh is not None else getattr(spec, "mesh", None)
+        if mesh is not None:
+            if lay.has_state:
+                raise NotImplementedError(
+                    f"tensor-parallel serving of the state-carrying arch "
+                    f"{model.cfg.name!r} needs sharded state pools "
+                    f"(recorded follow-on); run it single-device")
+            # a "DxM" spec becomes this engine's DeviceMesh over the
+            # initialised world
+            mesh = device_mesh(mesh, wdev)
         # -- DeploymentSpec resolution: pool/slot knobs derived from the
         # hardware point; explicit kwargs override individual values --
         self.deployment = None
@@ -634,17 +648,32 @@ class ContinuousServeEngine:
                 f"{missing}")
         prefill_chunk = 64 if prefill_chunk is None else prefill_chunk
         # -- tensor parallelism: this rank's local model and TP group; the
-        # pricing reads the full config (a meta model: no storage) --
+        # pricing reads the full config (a meta model: no storage).  A
+        # rank outside the mesh (a phase slice of split_mesh it is not in)
+        # is no member: it builds no model and no pools, and only mirrors
+        # the phase's schedule for a DisaggServeEngine --
+        self.mesh = mesh
+        self.member = mesh is None or mesh.get_coordinate() is not None
+        if not self.member and phase == "colocated":
+            raise ValueError("this rank is not in the engine's mesh: a "
+                             "colocated engine serves on its own ranks")
         self.serve_plan = None
         self._tp: TPComm | None = None
+        self._link: PhaseLink | None = None     # set by DisaggServeEngine
+        self._stamp = 0.0       # the clock after the last device call
         self._price_model = model
         if mesh is not None:
-            self.serve_plan, self._tp = _rank_plan(model.cfg, mesh,
-                                                   tp_reduce)
             self._price_model = Model(model.cfg, device="meta",
                                       moe_impl=model.moe_impl)
-            model = self.serve_plan.local_model(model)
-        if weight_format is not None:
+            if self.member:
+                self.serve_plan, self._tp = _rank_plan(model.cfg, mesh,
+                                                       tp_reduce)
+                model = self.serve_plan.local_model(model)
+            else:
+                self.serve_plan = _rank_plan(model.cfg, mesh, tp_reduce,
+                                             member=False)[0]
+                model = self._price_model
+        if weight_format is not None and self.member:
             # a view: packed projections, the caller's other tensors
             model = quantize_params(model, weight_format)
         self.model = model
@@ -704,14 +733,17 @@ class ContinuousServeEngine:
                                      f"target's on {self.device}")
                 if mesh is not None:
                     # a separate draft shards by a plan of its own
-                    self._draft_plan, _ = _rank_plan(dm.cfg, mesh, tp_reduce,
-                                                     self._tp)
-                    dm = self._draft_plan.local_model(dm)
-                if weight_format is not None:
+                    self._draft_plan, _ = _rank_plan(
+                        dm.cfg, mesh, tp_reduce, self._tp,
+                        member=self.member)
+                    dm = (self._draft_plan.local_model(dm) if self.member
+                          else Model(dm.cfg, device="meta"))
+                if weight_format is not None and self.member:
                     dm = quantize_params(dm, weight_format)
             self._draft_model = dm
         self._true = torch.ones((), dtype=torch.bool, device=self.device)
         self._sched: Scheduler | None = None
+        self._pools = self._draft_pools = self._states = None
 
     # -- device pieces (the reference's jitted functions) -------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -779,14 +811,26 @@ class ContinuousServeEngine:
         the draft (scale leaves of quantized pools included).  Ring pools
         live in their own page-id space, where pages are never shared,
         copied on write or defragmented."""
+        for _, raw in self._split_pool_leaves():
+            yield raw
+
+    def _split_pool_leaves(self):
+        """``_pool_leaves`` with the dim each leaf shards on a mesh (its
+        backend's ``paged_partition_spec``: GQA's KV-head dim 2 of codes
+        and scales; None for MLA's latent leaves, whole on every rank)."""
+        from repro_torch.models.attention_backends import backend_for_kind
         ring = self.cache.ring is not None
-        sets = [self._pools] + ([self._draft_pools] if self.spec else [])
-        for pools in sets:
-            for win, pool in zip(self.model.windows, pools):
+        sets = [(self.model, self._pools)] + (
+            [(self._draft_model, self._draft_pools)] if self.spec else [])
+        for model, pools in sets:
+            kinds = [kind for seg in model.plan for _ in range(seg.reps)
+                     for kind in seg.kinds]
+            for kind, win, pool in zip(kinds, model.windows, pools):
                 if ring and win is not None:
                     continue
-                for leaf in pool.values():
-                    yield kvq.raw_view(leaf)
+                part = backend_for_kind(kind).paged_partition_spec or {}
+                for key, leaf in pool.items():
+                    yield part.get(key), kvq.raw_view(leaf)
 
     def _copy_page(self, dst: int, src: int) -> None:
         """pools[dst] = pools[src] on every leaf (copy-on-write)."""
@@ -937,10 +981,21 @@ class ContinuousServeEngine:
         self._slots = sampling.SlotSampling(self.num_slots, self.device)
         # token-presence rows (repetition penalty): host mirror + device copy
         self._presence_np = np.zeros((self.num_slots, self._vocab), np.bool_)
+        self._presence_dirty = True
+        # free the old pools first
+        self._presence = self._pools = self._draft_pools = None
+        self._states = None
+        self._t0 = time.monotonic()
+        self._steps, self._occ_sum = 0, 0.0
+        self._n_chunks, self._prefill_tokens = 0, 0
+        self._prefill_calls = 0
+        self._spec_windows, self._spec_drafted, self._spec_accepted = 0, 0, 0
+        self._requests: list[Request] = []
+        self.defrag_every = 0      # run-scoped; run() re-applies its arg
+        if not self.member:
+            return                 # a mirror holds no device state
         self._presence = self._presence_copy()
         self._presence_dirty = False
-        # free the old pools first
-        self._pools = self._draft_pools = self._states = None
         self._pools = self.model.init_paged_cache(
             self.num_pages, self.page_size, dtype=self.cache_dtype,
             ring_pages=self.ring_pages if lay.has_ring else None)
@@ -952,13 +1007,6 @@ class ContinuousServeEngine:
         if self.spec is not None:
             self._draft_pools = self._draft_model.init_paged_cache(
                 self.num_pages, self.page_size, dtype=self.cache_dtype)
-        self._t0 = time.monotonic()
-        self._steps, self._occ_sum = 0, 0.0
-        self._n_chunks, self._prefill_tokens = 0, 0
-        self._prefill_calls = 0
-        self._spec_windows, self._spec_drafted, self._spec_accepted = 0, 0, 0
-        self._requests: list[Request] = []
-        self.defrag_every = 0      # run-scoped; run() re-applies its arg
 
     def _presence_copy(self) -> torch.Tensor:
         """The device copy of the host presence mirror.  A copy on the CPU
@@ -981,7 +1029,25 @@ class ContinuousServeEngine:
         mesh group rank 0's, broadcast, so that every rank admits (and so
         preempts and defrags) on the same step."""
         now = self._now()
+        if self._link is not None:
+            return self._link.clock(now)
         return now if self._tp is None else self._tp.broadcast_float(now)
+
+    def _shared(self, *arrays):
+        """The host results of this step's device call.  A disaggregated
+        engine on rank groups runs every phase's schedule on every serving
+        rank (``PhaseLink``): the phase group's first rank broadcasts its
+        results and its clock reading after the call (``_stamp``), and
+        every rank, the phase's own and the mirrors, books the same tokens
+        at the same times."""
+        if self._link is None:
+            if not self.member:
+                raise RuntimeError("this rank is not in the engine's mesh: "
+                                   "a DisaggServeEngine drives it")
+            return arrays
+        *arrays, self._stamp = self._link.share(
+            self.phase, (*arrays, self._stamp) if self.member else None)
+        return arrays
 
     def _tp_region(self):
         """The tensor-parallel region the model runs in (none off-mesh)."""
@@ -1135,7 +1201,7 @@ class ContinuousServeEngine:
         reason = req.check_finish()
         if reason is not None:
             req.finish_reason = reason
-            self._sched.finish(req, self._now())
+            self._sched.finish(req, self._stamp)
         if len(req.tokens) > req.emitted or reason is not None:
             new = req.tokens[req.emitted:]
             req.emitted = len(req.tokens)
@@ -1149,75 +1215,23 @@ class ContinuousServeEngine:
         resident after this chunk, so a short prompt's chunk never gathers
         the full ``max_blocks`` view."""
         pre = self._sched.prefilling()
-        c = self.prefill_chunk
+        valid = [min(self.prefill_chunk, r.prompt_len - r.pos) for r in pre]
         if self.cache.ring is not None:
             # ring pages back lazily (admission sizes the full space only):
             # grow each slot's ring to this chunk's frontier before the
             # table snapshot; ring_pages_needed sizing makes it infallible
-            for r in pre:
-                n = min(c, r.prompt_len - r.pos)
+            for r, n in zip(pre, valid):
                 if not self.cache.ensure(r.slot, r.pos + n - 1):
                     raise RuntimeError(
                         "ring page pool exhausted during prefill: the "
                         "engine sizes it by ring_pages_needed(), so this "
                         "is an allocator invariant violation")
-        bucket = self._bucket(len(pre))
-        need = max(-(-(r.pos + min(c, r.prompt_len - r.pos)) // self.page_size)
-                   for r in pre)
-        nb = min(self._bucket(need), self.max_blocks)
-        tokens = np.zeros((bucket, c), np.int32)
-        tables = np.zeros((bucket, nb), np.int32)      # pad rows -> scratch
-        start = np.zeros((bucket,), np.int32)
-        valid = np.zeros((bucket,), np.int32)
-        table = self.cache.table()
-        rtab = self.cache.ring_table()
-        rtables = None if rtab is None else np.zeros((bucket, nb), np.int32)
-        # each bucket row's slot (state rows); padding rows write nothing
-        slots_ix = np.zeros((bucket,), np.int32)
-        for i, r in enumerate(pre):
-            n = min(c, r.prompt_len - r.pos)
-            tokens[i, :n] = r.prompt[r.pos:r.pos + n]
-            tables[i] = table[r.slot, :nb]
-            if rtables is not None:
-                rtables[i] = rtab[r.slot, :nb]
-            slots_ix[i] = r.slot
-            start[i] = r.pos
-            valid[i] = n
-        samp = sampling.stack_params([r.sampling for r in pre], bucket)
-        extras = sampling.stack_extras([r.sampling for r in pre], bucket)
-        pres = np.zeros((bucket, self._vocab), np.bool_)
-        for i, r in enumerate(pre):
-            pres[i] = self._presence_np[r.slot]
-        pres_t, tok_t, tab_t, start_t, valid_t = (
-            self._tensor(a) for a in (pres, tokens, tables, start, valid))
-        rtab_t = None if rtables is None else self._tensor(rtables)
-        slots_t = (self._tensor(slots_ix) if self._states is not None
-                   else None)
-        pargs = [self._tensor(a) for a in samp + extras]
-        plp = None
-        if any(r.sampling.prompt_logprobs for r in pre):
-            # tgt[i, j] = the prompt token position start+j predicts (0-pad
-            # past the prompt: those scores are dropped below)
-            tgt = np.zeros((bucket, c), np.int32)
-            for i, r in enumerate(pre):
-                nxt = r.prompt[int(start[i]) + 1:int(start[i]) + int(valid[i])
-                               + 1]
-                tgt[i, :len(nxt)] = nxt
-            first, lp, plp = self._chunk_scored_impl(
-                pres_t, tok_t, tab_t, rtab_t, slots_t, start_t, valid_t,
-                self._tensor(tgt), *pargs)
-            plp = plp.cpu().numpy()
-        else:
-            first, lp = self._chunk_impl(pres_t, tok_t, tab_t, rtab_t,
-                                         slots_t, start_t, valid_t, *pargs)
-        if self.spec is not None:
-            # the draft pools take the same chunk (logits dropped), so the
-            # first draft window attends over the whole prompt
-            self._draft_model.prefill_chunk_paged(tok_t, self._draft_pools,
-                                                  tab_t, start_t, valid_t)
+        first = lp = plp = None
+        if self.member:
+            first, lp, plp = self._prefill_call(pre, valid)
+            self._stamp = self._now()
+        first, lp, plp = self._shared(first, lp, plp)
         self._prefill_calls += 1
-        first = first.cpu().numpy()                    # device sync
-        lp = lp.cpu().numpy()
         for i, r in enumerate(pre):
             r.chunks += 1
             self._n_chunks += 1
@@ -1227,7 +1241,7 @@ class ContinuousServeEngine:
                 # chunk's last position predicts the first generated token,
                 # which is not a prompt logprob: drop it
                 n = int(valid[i])
-                keep = n - 1 if int(start[i]) + n == r.prompt_len else n
+                keep = n - 1 if r.pos + n == r.prompt_len else n
                 r.prompt_logprobs.extend(float(x) for x in plp[i, :keep])
             r.pos += int(valid[i])
             # the window slid past whole blocks during this chunk: return
@@ -1244,7 +1258,7 @@ class ContinuousServeEngine:
                     # a restart re-emits the tokens the client already has
                     # (seeded streams), so a preempted request keeps its
                     # original TTFT
-                    r.first_token_time = self._now()
+                    r.first_token_time = self._stamp
                 self.cache.index_prompt(r.slot, r.prompt)
                 self._progress(r, outs)
                 if self.phase == "prefill" and r.state == RUNNING:
@@ -1252,6 +1266,67 @@ class ContinuousServeEngine:
                     # the slot and its pages stay held until the decode
                     # engine adopts it
                     r.state = HANDOFF
+
+    def _prefill_call(self, pre: list[Request], valid: list[int]):
+        """The device part of one batched prefill chunk: ``valid[i]``
+        tokens of ``pre[i]``'s prompt from its position.  Returns the
+        first-token draws, their log-probs and, when a row asked for them,
+        the chunk positions' prompt scores, on the host."""
+        c = self.prefill_chunk
+        bucket = self._bucket(len(pre))
+        need = max(-(-(r.pos + n) // self.page_size)
+                   for r, n in zip(pre, valid))
+        nb = min(self._bucket(need), self.max_blocks)
+        tokens = np.zeros((bucket, c), np.int32)
+        tables = np.zeros((bucket, nb), np.int32)      # pad rows -> scratch
+        start = np.zeros((bucket,), np.int32)
+        valid_a = np.zeros((bucket,), np.int32)
+        table = self.cache.table()
+        rtab = self.cache.ring_table()
+        rtables = None if rtab is None else np.zeros((bucket, nb), np.int32)
+        # each bucket row's slot (state rows); padding rows write nothing
+        slots_ix = np.zeros((bucket,), np.int32)
+        for i, (r, n) in enumerate(zip(pre, valid)):
+            tokens[i, :n] = r.prompt[r.pos:r.pos + n]
+            tables[i] = table[r.slot, :nb]
+            if rtables is not None:
+                rtables[i] = rtab[r.slot, :nb]
+            slots_ix[i] = r.slot
+            start[i] = r.pos
+            valid_a[i] = n
+        samp = sampling.stack_params([r.sampling for r in pre], bucket)
+        extras = sampling.stack_extras([r.sampling for r in pre], bucket)
+        pres = np.zeros((bucket, self._vocab), np.bool_)
+        for i, r in enumerate(pre):
+            pres[i] = self._presence_np[r.slot]
+        pres_t, tok_t, tab_t, start_t, valid_t = (
+            self._tensor(a) for a in (pres, tokens, tables, start, valid_a))
+        rtab_t = None if rtables is None else self._tensor(rtables)
+        slots_t = (self._tensor(slots_ix) if self._states is not None
+                   else None)
+        pargs = [self._tensor(a) for a in samp + extras]
+        plp = None
+        if any(r.sampling.prompt_logprobs for r in pre):
+            # tgt[i, j] = the prompt token position start+j predicts (0-pad
+            # past the prompt: those scores are dropped by the caller)
+            tgt = np.zeros((bucket, c), np.int32)
+            for i, (r, n) in enumerate(zip(pre, valid)):
+                nxt = r.prompt[r.pos + 1:r.pos + n + 1]
+                tgt[i, :len(nxt)] = nxt
+            first, lp, plp = self._chunk_scored_impl(
+                pres_t, tok_t, tab_t, rtab_t, slots_t, start_t, valid_t,
+                self._tensor(tgt), *pargs)
+            plp = plp.cpu().numpy()
+        else:
+            first, lp = self._chunk_impl(pres_t, tok_t, tab_t, rtab_t,
+                                         slots_t, start_t, valid_t, *pargs)
+        if self.spec is not None:
+            # the draft pools take the same chunk (logits dropped), so the
+            # first draft window attends over the whole prompt
+            self._draft_model.prefill_chunk_paged(tok_t, self._draft_pools,
+                                                  tab_t, start_t, valid_t)
+        first = first.cpu().numpy()                    # device sync
+        return first, lp.cpu().numpy(), plp
 
     def step(self) -> list[RequestOutput]:
         """One scheduler iteration: admit arrived requests, advance every
@@ -1289,14 +1364,14 @@ class ContinuousServeEngine:
                     for blk in range(req.pos // self.page_size,
                                      (req.pos + g) // self.page_size + 1):
                         moved = self.cache.cow(req.slot, blk)
-                        if moved is not None:
+                        if moved is not None and self.member:
                             self._copy_page(moved[1], moved[0])
         decoding = sched.decoding()
         if not decoding:
             return outs
         if self.defrag_every and (self._steps + 1) % self.defrag_every == 0:
             gather = self.cache.defrag()
-            if gather is not None:
+            if gather is not None and self.member:
                 self._permute_pools(gather)
 
         tokens = np.zeros((self.num_slots,), np.int32)
@@ -1318,18 +1393,24 @@ class ContinuousServeEngine:
                 ring_step[req.slot] = rtab[req.slot]
             if state_ok is not None:
                 state_ok[req.slot] = True
-        if self._presence_dirty:       # admissions/releases since last step
+        if self._presence_dirty and self.member:
+            # admissions/releases since the last step
             self._presence = self._presence_copy()
             self._presence_dirty = False
         if self.spec is not None:
             return self._spec_window(decoding, tokens, pos, step_table, outs)
-        nxt, lp = self._step_impl(
-            self._tensor(tokens), self._tensor(pos), self._tensor(step_table),
-            None if ring_step is None else self._tensor(ring_step),
-            None if state_ok is None else self._tensor(state_ok),
-            *self._slots.arrays())
-        nxt = nxt.cpu().numpy()                        # device sync
-        lp = lp.cpu().numpy()
+        nxt = lp = None
+        if self.member:
+            nxt, lp = self._step_impl(
+                self._tensor(tokens), self._tensor(pos),
+                self._tensor(step_table),
+                None if ring_step is None else self._tensor(ring_step),
+                None if state_ok is None else self._tensor(state_ok),
+                *self._slots.arrays())
+            nxt = nxt.cpu().numpy()                    # device sync
+            lp = lp.cpu().numpy()
+            self._stamp = self._now()
+        nxt, lp = self._shared(nxt, lp)
         self._occ_sum += len(decoding) / self.num_slots
         self._steps += 1
         for req in decoding:
@@ -1351,17 +1432,22 @@ class ContinuousServeEngine:
         1..gamma+1 tokens per slot; the emitted tokens and their counts
         come to the host in one copy."""
         sched = self._sched
-        tok_t, pos_t, tab_t = (self._tensor(a)
-                               for a in (tokens, pos, step_table))
-        sargs = self._slots.arrays()
-        prop, q_dists = self._spec_draft_impl(tok_t, pos_t, tab_t, *sargs)
-        out, n_emit, lp = self._spec_verify_impl(tok_t, prop, q_dists, pos_t,
-                                                 tab_t, *sargs)
-        host = torch.cat([out, n_emit[:, None].to(out.dtype)], dim=1)
-        host = host.cpu().numpy()                       # device sync
-        out, n_emit = host[:, :-1], host[:, -1]
-        if any(r.sampling.logprobs for r in decoding):
-            lp = lp.cpu().numpy()
+        out = n_emit = lp = None
+        if self.member:
+            tok_t, pos_t, tab_t = (self._tensor(a)
+                                   for a in (tokens, pos, step_table))
+            sargs = self._slots.arrays()
+            prop, q_dists = self._spec_draft_impl(tok_t, pos_t, tab_t,
+                                                  *sargs)
+            out, n_emit, lp = self._spec_verify_impl(tok_t, prop, q_dists,
+                                                     pos_t, tab_t, *sargs)
+            host = torch.cat([out, n_emit[:, None].to(out.dtype)], dim=1)
+            host = host.cpu().numpy()                   # device sync
+            out, n_emit = host[:, :-1], host[:, -1]
+            lp = (lp.cpu().numpy()
+                  if any(r.sampling.logprobs for r in decoding) else None)
+            self._stamp = self._now()
+        out, n_emit, lp = self._shared(out, n_emit, lp)
         self._occ_sum += len(decoding) / self.num_slots
         self._steps += 1
         for req in decoding:
@@ -1455,6 +1541,70 @@ class ContinuousServeEngine:
         return self.stats()
 
 
+class PhaseLink:
+    """How the two phase engines of a ``DisaggServeEngine`` on disjoint
+    rank groups (``parallel.plan.split_mesh``'s slices) stay one engine.
+
+    Every serving rank runs both phases' host schedules: its own phase's
+    engine computes, the other phase's engine is a mirror
+    (``ContinuousServeEngine.member`` False) that holds no model and no
+    pools.  Each device call's host results (the sampled tokens, their
+    log-probs, prompt scores, and the clock reading after the call) are
+    broadcast from the phase group's first rank over ``group``
+    (``phase_group``: gloo, the ranks of both slices), and every rank books
+    them alike, so every decision that crosses the groups is the same on
+    both sides: the chains ready for handoff each step, the decode side's
+    admission of each (a slot, a page chain, a prefix hit) or its deferral,
+    the request state a chain carries (prompt, emitted tokens, TTFT stamp,
+    sampling parameters, all on the shared ``Request``), decode-side
+    preemptions draining back to the prefill queue, and the scheduler's
+    clock (the prefill group's first rank's, ``clock``).  The same group
+    carries the handoff's page bytes (``KVHandoff``)."""
+
+    def __init__(self, group, prefill_mesh, decode_mesh):
+        from repro_torch.parallel.plan import mesh_ranks
+        self.group = group
+        self.src = {"prefill": mesh_ranks(prefill_mesh)[0],
+                    "decode": mesh_ranks(decode_mesh)[0]}
+        self.broadcasts = 0
+
+    def share(self, phase: str, payload):
+        """``phase``'s first rank's ``payload`` (any picklable value) on
+        every rank of the group."""
+        box = [payload]
+        dist.broadcast_object_list(box, src=self.src[phase], group=self.group)
+        self.broadcasts += 1
+        return box[0]
+
+    def clock(self, now: float) -> float:
+        """The scheduler's clock: the prefill group's first rank's
+        reading."""
+        return self.share("prefill", now)
+
+    def total(self, value: int) -> int:
+        """The sum of every rank's ``value``."""
+        t = torch.tensor([value], dtype=torch.int64)
+        dist.all_reduce(t, group=self.group)
+        return int(t.item())
+
+
+def _model_rows(mesh) -> list[list[int]]:
+    """A ``DeviceMesh``'s world ranks as rows along its ``model`` dim: one
+    row a position of the other dims, in order."""
+    names = tuple(mesh.mesh_dim_names)
+    t = mesh.mesh.movedim(names.index("model"), -1)
+    return t.reshape(-1, t.shape[-1]).tolist()
+
+
+def _part_shape(n: int, axis, lo: int, hi: int, raw) -> list[int]:
+    """The shape of ``n`` pages of a pool leaf's part: heads ``[lo, hi)``
+    of dim ``axis``, or the whole leaf when ``axis`` is None."""
+    shape = [n, *raw.shape[1:]]
+    if axis is not None:
+        shape[axis] = hi - lo
+    return shape
+
+
 class KVHandoff:
     """KV-page transfer channel between a prefill-phase and a decode-phase
     engine.
@@ -1471,12 +1621,26 @@ class KVHandoff:
 
     Staging goes through the host (device -> host -> device), as in the
     reference; a device-to-device copy and transfer/decode overlap are
-    later work (ROADMAP).  Without meshes both sides hold every KV head,
-    so the reference's ``kv_repl`` check has nothing to compare here.
+    later work (ROADMAP).  Both sides in one process (no mesh, or one mesh
+    for both phases): each rank copies its own shard of every leaf.
+
+    Across rank groups (``link``, a ``PhaseLink``): prefill rank ``r`` of
+    ``tp_p`` holds the KV heads ``[r H/tp_p, (r+1) H/tp_p)`` of each
+    GQA leaf (codes and scales; dim 2, ``paged_partition_spec``) and
+    decode rank ``s`` of ``tp_d`` needs ``[s H/tp_d, (s+1) H/tp_d)``; over
+    the link's gloo group each prefill rank sends every decode rank of its
+    data row one host buffer holding, for the chain's pages, the heads of
+    every leaf where their two ranges overlap, and a leaf that replicates
+    (MLA's latents) whole from prefill rank ``s % tp_p`` to decode rank
+    ``s``.  ``bytes_moved`` is then this rank's share: the bytes it sent
+    (a prefill rank) or received (a decode rank); the decode ranks' shares
+    of one data row add up to the one-device count, a replicated leaf
+    counting once for each decode rank.  The two plans must replicate KV
+    heads alike (``kv_repl``), as the reference requires.
     """
 
     def __init__(self, src: ContinuousServeEngine,
-                 dst: ContinuousServeEngine):
+                 dst: ContinuousServeEngine, link: PhaseLink | None = None):
         for attr in ("page_size", "max_blocks", "cache_dtype"):
             a, b = getattr(src, attr), getattr(dst, attr)
             if a != b:
@@ -1487,8 +1651,18 @@ class KVHandoff:
             raise ValueError(
                 "speculative decoding must be on for both sides of a "
                 "handoff (draft pools travel with the chain) or neither")
+        for a, b in ((src.serve_plan, dst.serve_plan),
+                     (src._draft_plan, dst._draft_plan)):
+            src_repl = a.kv_repl if a else 1
+            dst_repl = b.kv_repl if b else 1
+            if src_repl != dst_repl:
+                raise ValueError(
+                    f"handoff across kv_repl {src_repl} vs {dst_repl} "
+                    f"meshes needs a head-regrouping repack (recorded "
+                    f"follow-on)")
         self.src = src
         self.dst = dst
+        self.link = link
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -1498,6 +1672,7 @@ class KVHandoff:
         self.shared_tokens = 0
         self.deferrals = 0
         self.seconds = 0.0            # host wall of the page copies
+        self._routes = None           # the pools may be new: re-route
 
     def transfer(self, req: Request, now: float) -> bool:
         """Move ``req``'s chain into the decode engine; False when the
@@ -1515,8 +1690,11 @@ class KVHandoff:
         self.shared_tokens += shared
         if ids_src:
             t0 = time.perf_counter()
-            staged, nbytes = src.extract_pages(ids_src)
-            dst.install_pages(staged, ids_dst)
+            if self.link is None:
+                staged, nbytes = src.extract_pages(ids_src)
+                dst.install_pages(staged, ids_dst)
+            else:
+                nbytes = self._exchange(ids_src, ids_dst)
             self.seconds += time.perf_counter() - t0
             self.pages_moved += len(ids_src)
             self.bytes_moved += nbytes
@@ -1524,6 +1702,95 @@ class KVHandoff:
         src.release_handoff(src_slot)
         self.transfers += 1
         return True
+
+    def _exchange(self, ids_src: list[int], ids_dst: list[int]) -> int:
+        """This rank's part of moving pages ``ids_src`` (prefill side) into
+        ``ids_dst`` (decode side) across the groups: a prefill rank sends
+        one host buffer to each decode peer, a decode rank receives one
+        from each prefill peer and scatters it.  Returns the bytes this
+        rank sent or received."""
+        send = self.src.member
+        eng = self.src if send else self.dst
+        idx = eng._tensor(np.asarray(ids_src if send else ids_dst, np.int64))
+        n = len(idx)
+        posted, nbytes = [], 0
+        for peer, parts in self._peer_parts(eng):
+            if send:
+                rows = [raw.index_select(0, idx).narrow(axis, lo, hi - lo)
+                        if axis is not None else raw.index_select(0, idx)
+                        for axis, lo, hi, raw in parts]
+                buf = torch.cat([r.contiguous().reshape(n, -1).view(
+                    torch.uint8) for r in rows], dim=1).cpu()
+                posted.append((dist.isend(buf, peer, group=self.link.group),
+                               buf, parts))
+            else:
+                width = sum(math.prod(_part_shape(n, *part)[1:])
+                            * part[3].element_size() for part in parts)
+                buf = torch.empty((n, width), dtype=torch.uint8)
+                posted.append((dist.irecv(buf, peer, group=self.link.group),
+                               buf, parts))
+            nbytes += buf.numel()
+        for work, buf, parts in posted:
+            work.wait()
+            if send:
+                continue
+            data, off = buf.to(eng.device), 0
+            for axis, lo, hi, raw in parts:
+                at = [idx] + [slice(None)] * (raw.ndim - 1)
+                if axis is not None:
+                    at[axis] = slice(lo, hi)
+                shape = _part_shape(n, axis, lo, hi, raw)
+                width = math.prod(shape[1:]) * raw.element_size()
+                raw[tuple(at)] = data[:, off:off + width].contiguous().view(
+                    raw.dtype).reshape(shape)
+                off += width
+        return nbytes
+
+    def _peer_parts(self, eng: ContinuousServeEngine) -> list:
+        """[(peer world rank, [(split dim or None, lo, hi, leaf)])]: what
+        this rank of ``eng``'s group moves with each rank of the other
+        group in its data row, each leaf's local head range ``[lo, hi)``
+        (the whole leaf when it replicates).  Fixed for the engines' pools:
+        made at the first transfer."""
+        if self._routes is not None:
+            return self._routes
+        send = eng is self.src
+        rows_me, rows_peer = (_model_rows(self.src.mesh),
+                              _model_rows(self.dst.mesh))
+        if not send:
+            rows_me, rows_peer = rows_peer, rows_me
+        if len(rows_me) != len(rows_peer):
+            raise ValueError("the phase slices must share every mesh dim "
+                             "but 'model' (split_mesh's slices do)")
+        me = dist.get_rank()
+        row = next(i for i, r in enumerate(rows_me) if me in r)
+        pos, n_me = rows_me[row].index(me), len(rows_me[row])
+        n_peer = len(rows_peer[row])
+        tp_p = n_me if send else n_peer
+        routes = []
+        for q, peer in enumerate(rows_peer[row]):
+            parts = []
+            for axis, raw in eng._split_pool_leaves():
+                if axis is None:
+                    # a replicated leaf: decode rank s takes it whole from
+                    # prefill rank s % tp_p
+                    p_pos, d_pos = (pos, q) if send else (q, pos)
+                    if d_pos % tp_p == p_pos:
+                        parts.append((None, 0, 0, raw))
+                    continue
+                h = raw.shape[axis]
+                heads = h * n_me
+                if heads % n_peer:
+                    raise ValueError(f"{heads} KV heads do not split over "
+                                     f"{n_peer} ranks of the other phase")
+                hq = heads // n_peer
+                lo, hi = max(pos * h, q * hq), min((pos + 1) * h, (q + 1) * hq)
+                if lo < hi:
+                    parts.append((axis, lo - pos * h, hi - pos * h, raw))
+            if parts:
+                routes.append((peer, parts))
+        self._routes = routes
+        return routes
 
 
 class DisaggServeEngine:
@@ -1541,6 +1808,19 @@ class DisaggServeEngine:
     to the prefill engine for a seeded re-prefill restart.  On one card
     both engines share the device and its current stream.
 
+    Meshes: ``prefill_mesh`` and ``decode_mesh`` (``DeviceMesh``es, or
+    "DxM" specs) may be one mesh, whose ranks then run both phases on
+    their shards, or two disjoint slices of one (``parallel.plan.
+    split_mesh``), each phase with its own TP degree.  On slices every
+    rank of either builds only its own phase's model and pools and mirrors
+    the other phase's schedule (``PhaseLink``); the handoff regroups KV
+    head shards between the groups (``KVHandoff``); and ``run()`` /
+    ``stats()`` give every serving rank the same merged
+    ``ContinuousStats`` (``handoff_bytes``: the decode ranks' received
+    bytes, summed over one data row; ``self.handoff`` keeps this rank's
+    own share).  A rank in neither slice serves nothing: ``run()``
+    returns None and ``step()`` nothing, and no collective waits for it.
+
     The same incremental surface as ``ContinuousServeEngine``
     (``add_request()`` / ``step()`` / ``run()`` / ``stats()``), with one
     merged ``ContinuousStats`` (the handoff counters filled in).
@@ -1557,13 +1837,15 @@ class DisaggServeEngine:
                  cache_dtype=None, weight_format: str | None = None,
                  enable_prefix_cache: bool = True,
                  max_top_k: int = sampling.MAX_TOP_K,
+                 tp_reduce: str = "auto",
                  max_decode_slots: int | None = None,
                  speculative: SpeculativeConfig | None = None):
         common = dict(device=device, spec=spec, page_size=page_size,
                       max_len=max_len, sampling_params=sampling_params,
                       cache_dtype=cache_dtype, weight_format=weight_format,
                       enable_prefix_cache=enable_prefix_cache,
-                      max_top_k=max_top_k, speculative=speculative)
+                      max_top_k=max_top_k, tp_reduce=tp_reduce,
+                      speculative=speculative)
         # each phase resolves its own deployment budget (phase=): the
         # prefill side may size fewer slots and pages than decode, as long
         # as the pool geometry matches (KVHandoff checks)
@@ -1577,17 +1859,24 @@ class DisaggServeEngine:
         self.decode = ContinuousServeEngine(
             model, phase="decode", mesh=decode_mesh, num_slots=num_slots,
             num_pages=num_pages, max_decode_slots=max_decode_slots, **common)
-        self.handoff = KVHandoff(self.prefill, self.decode)
+        self.link = _phase_link(self.prefill.mesh, self.decode.mesh)
+        self.serving = self.prefill.member or self.decode.member
+        self.prefill._link = self.decode._link = self.link
+        self.handoff = KVHandoff(self.prefill, self.decode, link=self.link)
         self.model = model
         self.device = self.decode.device
         self.default_sampling = self.decode.default_sampling
         self._requests: list[Request] = []
 
     # the decode side is the steady-state resident (the LLM front's
-    # introspection points: budget, slots, per-token pool bytes)
+    # introspection points: budget, slots, plan, per-token pool bytes)
     @property
     def deployment(self):
         return self.decode.deployment
+
+    @property
+    def serve_plan(self):
+        return self.decode.serve_plan
 
     @property
     def num_slots(self) -> int:
@@ -1599,14 +1888,17 @@ class DisaggServeEngine:
     def reset(self) -> None:
         self.prefill.reset()
         self.decode.reset()
+        if self.link is not None and self.serving:
+            self.link.share("prefill", None)   # every rank starts here
         # one clock across both phases: TTFT stamps on the prefill side
         # and finish stamps on the decode side share an origin
-        self.decode._t0 = self.prefill._t0
+        self.prefill._t0 = self.decode._t0 = time.monotonic()
         self.handoff.reset_counters()
         self._requests = []
 
     def has_unfinished(self) -> bool:
-        return self.prefill.has_unfinished() or self.decode.has_unfinished()
+        return self.serving and (self.prefill.has_unfinished()
+                                 or self.decode.has_unfinished())
 
     def add_request(self, req: Request,
                     sampling_params: SamplingParams | None = None) -> None:
@@ -1620,8 +1912,10 @@ class DisaggServeEngine:
         transfers (in rid order, stopping at decode backpressure), then
         one decode step, then the decode side's preemption victims drained
         back to the prefill queue."""
+        if not self.serving:
+            return []
         outs = self.prefill.step()
-        now = self.prefill._now()
+        now = self.prefill._sched_now()
         for r in self.prefill.handoff_ready():
             if not self.handoff.transfer(r, now):
                 break               # decode side full; chain stays parked
@@ -1633,12 +1927,21 @@ class DisaggServeEngine:
             self.prefill._sched.requeue(r)
         return outs
 
-    def stats(self) -> ContinuousStats:
+    def stats(self) -> ContinuousStats | None:
         """The current session's outcome across both engines: decode steps
         and speculation from the decode side, prefill work and prefix hits
-        from the prefill side, the handoff's counters."""
+        from the prefill side, the handoff's counters (on rank groups the
+        same on every serving rank; None on a rank in neither group)."""
+        if not self.serving:
+            return None
         requests = self._requests
         pf, dc, ho = self.prefill, self.decode, self.handoff
+        wall, handoff_bytes = pf._now(), ho.bytes_moved
+        if self.link is not None:
+            wall = self.link.share("prefill", wall)
+            # the decode side's received bytes, of one data row
+            row0 = dist.get_rank() in _model_rows(dc.mesh)[0]
+            handoff_bytes = self.link.total(ho.bytes_moved if row0 else 0)
         results = {r.rid: np.asarray(r.tokens[:r.max_new_tokens], np.int32)
                    for r in requests}
         per_request = {r.rid: {"preemptions": r.preemptions,
@@ -1655,7 +1958,7 @@ class DisaggServeEngine:
         return ContinuousStats(
             results=results, steps=dc._steps,
             occupancy=dc._occ_sum / max(dc._steps, 1),
-            wall=pf._now(),
+            wall=wall,
             preemptions=sum(r.preemptions for r in requests),
             chunks=pf._n_chunks,
             prefill_calls=pf._prefill_calls,
@@ -1668,16 +1971,19 @@ class DisaggServeEngine:
             spec_accepted=dc._spec_accepted,
             handoffs=ho.transfers,
             handoff_pages=ho.pages_moved,
-            handoff_bytes=ho.bytes_moved,
+            handoff_bytes=handoff_bytes,
             handoff_shared_tokens=ho.shared_tokens,
             per_request=per_request,
             outputs=outputs)
 
     def run(self, requests: Iterable[Request], *, defrag_every: int = 0,
             on_output: Callable[[RequestOutput], None] | None = None
-            ) -> ContinuousStats:
+            ) -> ContinuousStats | None:
         """Serve ``requests`` to completion across both engines; the
-        contract of ``ContinuousServeEngine.run``."""
+        contract of ``ContinuousServeEngine.run``.  None, serving nothing,
+        on a rank in neither phase group."""
+        if not self.serving:
+            return None
         if self.has_unfinished():
             raise RuntimeError(
                 "run() would reset the engines while incrementally-"
@@ -1698,3 +2004,29 @@ class DisaggServeEngine:
                 if on_output is not None:
                     on_output(o)
         return self.stats()
+
+
+def _phase_link(prefill_mesh, decode_mesh) -> PhaseLink | None:
+    """The ``PhaseLink`` of phase engines on ``prefill_mesh`` and
+    ``decode_mesh``: None without meshes or on one mesh for both phases
+    (every rank runs both engines on its shards); over their
+    ``phase_group`` when they are disjoint slices."""
+    from repro_torch.parallel.plan import mesh_ranks, phase_group
+    if prefill_mesh is None and decode_mesh is None:
+        return None
+    if prefill_mesh is None or decode_mesh is None:
+        raise ValueError("pass both prefill_mesh= and decode_mesh= (one "
+                         "mesh, or split_mesh's two slices) or neither")
+    a, b = mesh_ranks(prefill_mesh), mesh_ranks(decode_mesh)
+    if (tuple(prefill_mesh.mesh.shape) == tuple(decode_mesh.mesh.shape)
+            and a == b):
+        return None
+    if set(a) & set(b):
+        raise ValueError(f"the prefill mesh's ranks {a} and the decode "
+                         f"mesh's {b} overlap: pass one mesh for both "
+                         f"phases or two disjoint slices (split_mesh)")
+    group = phase_group(prefill_mesh, decode_mesh)
+    if prefill_mesh.get_coordinate() is None \
+            and decode_mesh.get_coordinate() is None:
+        return None                    # a rank in neither group
+    return PhaseLink(group, prefill_mesh, decode_mesh)

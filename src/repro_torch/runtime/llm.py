@@ -40,6 +40,18 @@ and a decode-phase engine joined by a KV-page handoff (``runtime/engine.py``:
     llm.generate(prompts, sps)
     s = llm.last_stats        # handoffs, handoff_pages, handoff_bytes, ...
 
+Across meshes each phase runs on its own rank group with its own TP
+degree: ``split_mesh`` (``parallel/plan.py``; every rank calls it) cuts a
+mesh along ``model``, and every rank builds the same engine; a rank
+serves its own phase, mirrors the other's schedule, and returns the same
+outputs (a rank in neither slice returns none)::
+
+    pm, dm = split_mesh(parse_mesh("1x3", "cuda"), 1, 2)  # tp 1 | tp 2
+    llm = LLMEngine(model, backend="continuous", disaggregate=True,
+                    prefill_mesh=pm, decode_mesh=dm, max_len=2048)
+
+``mesh=`` instead serves both phases on one mesh's ranks.
+
 Every backend can be sized from a hardware point instead of hand-tuned
 knobs (``runtime/deployment.py``; explicit kwargs still win)::
 
@@ -88,7 +100,7 @@ from repro_torch.models.model import Model
 from repro_torch.runtime import sampling
 from repro_torch.runtime.engine import (
     ContinuousServeEngine, ContinuousStats, DisaggServeEngine, RequestOutput,
-    ServeEngine, _unported,
+    ServeEngine,
 )
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Request
@@ -196,11 +208,9 @@ class LLMEngine:
         if spec is None and num_pages is None:
             num_pages = 1 + 2 * num_slots * -(-max_len // page_size)
         if disaggregate:
-            if any(m is not None for m in (mesh, prefill_mesh, decode_mesh,
-                                           getattr(spec, "mesh", None))):
-                raise _unported("disaggregated serving on a mesh "
-                                "(mesh= / prefill_mesh= / decode_mesh=)",
-                                "Disaggregation across meshes")
+            # mesh= (or the spec's) serves both phases on its ranks;
+            # prefill_mesh= / decode_mesh= (split_mesh's slices) put each
+            # phase on its own rank group
             self._eng = DisaggServeEngine(
                 model, device=device, num_slots=num_slots,
                 page_size=page_size, num_pages=num_pages, max_len=max_len,
@@ -213,7 +223,8 @@ class LLMEngine:
                 cache_dtype=cache_dtype, weight_format=weight_format,
                 prefill_chunk=prefill_chunk,
                 enable_prefix_cache=enable_prefix_cache,
-                max_top_k=max_top_k, speculative=speculative)
+                max_top_k=max_top_k, tp_reduce=tp_reduce,
+                speculative=speculative)
             return
         self._eng = ContinuousServeEngine(
             model, device=device, num_slots=num_slots, page_size=page_size,
@@ -344,6 +355,8 @@ class LLMEngine:
                 for i in range(len(prompts))]
         stats = self._eng.run(reqs, on_output=on_output)
         self.last_stats = stats
+        if stats is None:       # a rank in neither phase group serves none
+            return []
         return [stats.outputs[i] for i in range(len(prompts))]
 
     def _generate_static(self, prompts, sps, budgets, on_output):

@@ -180,16 +180,16 @@ def test_stop_token_ids_match_reference(models, gamma):
                  ValueError, "world size is 1", id="kwargs2-DeploymentSpec"),
     pytest.param(dict(speculative=SpeculativeConfig(gamma=2), mesh=object()),
                  ValueError, "DeviceMesh", id="kwargs3-Tensor parallelism"),
-    # disaggregation is ported; a phase engine on a mesh is not
-    pytest.param(dict(disaggregate=True, mesh=object()), NotImplementedError,
-                 "Disaggregation across meshes",
-                 id="kwargs4-Tensor parallelism"),
+    # disaggregation on a mesh serves too (test_torch_disagg_tp.py): its
+    # phase engines need a DeviceMesh as well
+    pytest.param(dict(disaggregate=True, mesh=object()), ValueError,
+                 "DeviceMesh", id="kwargs4-Tensor parallelism"),
 ])
 def test_unported_options_name_their_roadmap_item(models, kwargs, err, match):
     """Tensor-parallel serving is ported (``test_torch_tp.py`` serves on
-    real ranks): a mesh the world cannot hold or that is not a DeviceMesh
-    raises ValueError; disaggregation across meshes still names its
-    ROADMAP item."""
+    real ranks), and so is disaggregation across meshes
+    (``test_torch_disagg_tp.py``): a mesh the world cannot hold or that is
+    not a DeviceMesh raises ValueError, for a phase engine too."""
     port = models[3]
     with pytest.raises(err, match=match):
         LLMEngine(port, device="cpu", **{**ENGINE, **kwargs})

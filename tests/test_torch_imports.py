@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX reference package ``repro``."""
+"""The PyTorch port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/torch_*.py``)
+imports ``jax`` or the JAX reference package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -234,3 +235,10 @@ def test_parallel_training_entry_points_import_without_jax():
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
                                          "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_decode",
+                                  "train_small", "design_space"])
+def test_examples_are_checked(name):
+    """The port's four examples are among the files checked above."""
+    assert ROOT / "examples" / f"torch_{name}.py" in PORT_FILES

@@ -79,8 +79,10 @@ def test_tensor_parallelism_raises(extra):
 
 
 def test_disaggregation_on_a_mesh_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError,
-                       match="Disaggregation across meshes"):
+    """``--disaggregate`` with ``--mesh`` is ported: like ``--mesh`` alone
+    it needs its ranks, and outside ``torchrun`` says how to start them
+    (it serves under ``torchrun`` in ``test_torch_disagg_tp.py``)."""
+    with pytest.raises(ValueError, match="world size is 1.*torchrun"):
         main(SMALL + CONT + ["--mesh", "1x2", "--disaggregate", "1:1"])
 
 
